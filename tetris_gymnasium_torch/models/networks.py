@@ -1,0 +1,104 @@
+"""Board networks: the conv trunk and the PPO actor-critic.
+
+Port of ``tetris_gymnasium_tpu/models/networks.py`` (``BoardEncoder :25``,
+``ActorCriticCNN :146``).  As in the JAX package, parameters are float32
+and the trunk computes in ``dtype`` (bfloat16 by default) while both heads
+compute in float32.  Two details keep the outputs equal to Flax's:
+
+* Flax ``padding="SAME"`` pads a stride-2 convolution asymmetrically (the
+  extra row or column goes at the end), so each convolution pads
+  explicitly with ``F.pad`` and then runs with ``padding=0``;
+* the dense layer after the trunk reads the features in NHWC order
+  ``(h, w, c)``, as Flax flattens them.
+
+The convolutions and dense layers are PyTorch's own operators; the JAX
+package leaves them to XLA outside any kernel.  Weights from a Flax
+checkpoint come in through :mod:`tetris_gymnasium_torch.models.convert`.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int, int]:
+    """Flax/XLA ``SAME`` padding ``(before, after)`` and the output size."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2, out
+
+
+class BoardEncoder(nn.Module):
+    """Conv trunk over a ``[B, H, W]`` board (values -1/0/1) or a ``[B, K, H, W]`` stack.
+
+    Three 3x3 convolutions (strides (2,1), (2,2), (2,2) by default), each
+    followed by ReLU, then a 512-wide dense layer with ReLU.
+    """
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        features: Sequence[int] = (32, 64, 128),
+        strides=None,
+        board_shape: Tuple[int, int] = (20, 10),
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        h, w = board_shape
+        c = in_channels
+        convs, pads = [], []
+        for i, feat in enumerate(features):
+            if strides is None:
+                stride = (2, 1) if i == 0 else (2, 2)
+            else:
+                stride = tuple(strides[i])
+            top, bottom, h = same_pads(h, 3, stride[0])
+            left, right, w = same_pads(w, 3, stride[1])
+            convs.append(nn.Conv2d(c, feat, 3, stride=stride))
+            pads.append((left, right, top, bottom))
+            c = feat
+        self.convs = nn.ModuleList(convs)
+        self.pads = pads
+        self.dense = nn.Linear(c * h * w, 512)
+
+    def forward(self, boards: torch.Tensor) -> torch.Tensor:
+        x = boards.to(self.dtype)
+        if x.ndim == 3:
+            x = x[:, None]  # [B, 1, H, W]; a [B, K, H, W] stack is K channels already
+        for conv, pad in zip(self.convs, self.pads):
+            x = F.conv2d(
+                F.pad(x, pad), conv.weight.to(self.dtype), conv.bias.to(self.dtype), conv.stride
+            )
+            x = F.relu(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten, as Flax
+        x = F.linear(x, self.dense.weight.to(self.dtype), self.dense.bias.to(self.dtype))
+        return F.relu(x)
+
+
+class ActorCriticCNN(nn.Module):
+    """PPO actor-critic: shared conv trunk, float32 policy and value heads.
+
+    ``forward(boards) -> (logits f32[B, n_actions], value f32[B])``.
+    """
+
+    def __init__(
+        self,
+        n_actions: int = 8,
+        features: Sequence[int] = (32, 64, 128),
+        strides=None,
+        in_channels: int = 1,
+        board_shape: Tuple[int, int] = (20, 10),
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.encoder = BoardEncoder(in_channels, features, strides, board_shape, dtype)
+        self.policy = nn.Linear(512, n_actions)
+        self.value = nn.Linear(512, 1)
+
+    def forward(self, boards: torch.Tensor):
+        h = self.encoder(boards).to(torch.float32)
+        return self.policy(h), self.value(h).squeeze(-1)

@@ -1,0 +1,136 @@
+"""Greedy evaluation of a policy: N fresh episodes stepped in lockstep.
+
+Port of ``tetris_gymnasium_tpu/rl/evaluate.py`` (``_stats :30``,
+``evaluate_policy :56``, ``greedy_logits :132``).  Episodes run with
+``auto_reset=False``, so a finished game freezes and the engine state's own
+accumulators (``score``, ``steps``, ``lines``) give the statistics at the
+end.  Where JAX scans ``max_steps`` iterations, this loop also stops once
+every game is over: frozen games do not change, so the statistics are the
+same.
+
+Run as a script it evaluates an exported actor-critic checkpoint, the twin
+of ``examples/evaluate_checkpoint.py --net actor-critic``::
+
+    python -m tetris_gymnasium_torch.rl.evaluate \\
+        --checkpoint results/ppo_lines_params.npz --episodes 512 --seed 0 --max-steps 2000
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable
+
+import torch
+
+from tetris_gymnasium_torch.config import EngineConfig
+from tetris_gymnasium_torch.ops.threefry import prng_key
+from tetris_gymnasium_torch.parallel.mesh import batch_keys
+from tetris_gymnasium_torch.rl.engines import env_fns
+from tetris_gymnasium_torch.utils.device import resolve_device
+
+# How many iterations run between two checks that every game is over; each
+# check waits for the card.
+DONE_CHECK_EVERY = 32
+
+
+def _stats(states, max_steps: int) -> dict:
+    """Episodic statistics of frozen final states, as Python numbers."""
+    done = states.game_over
+    n_done = int(done.sum())
+    safe = torch.tensor(float(max(n_done, 1)), dtype=torch.float32, device=done.device)
+
+    def masked_mean(x):  # float32 throughout, as the JAX version
+        return float(torch.where(done, x.to(torch.float32), 0.0).sum() / safe)
+
+    def masked(x, fn):
+        return float(fn(x[done])) if n_done else 0.0
+
+    return {
+        "episodes_completed": n_done,
+        "completed_frac": n_done / done.shape[0],
+        "return_mean": masked_mean(states.score),
+        "return_min": masked(states.score, torch.min),
+        "return_max": masked(states.score, torch.max),
+        "length_mean": masked_mean(states.steps),
+        "lines_mean": masked_mean(states.lines),
+        # per-episode spread of the lines, so a caller can size its margins
+        "lines_std": masked(states.lines.to(torch.float32), lambda v: v.std(unbiased=False)),
+        "truncated": int((~done).sum()),
+        "max_steps": int(max_steps),
+    }
+
+
+def evaluate_policy(
+    act: Callable[[torch.Tensor], torch.Tensor],
+    n_episodes: int,
+    env_config: EngineConfig,
+    key,
+    impl: str = "turbo",
+    max_steps: int = 2000,
+    frame_stack: int = 1,
+    obs: str = "board",
+    device="cuda",
+) -> dict:
+    """Greedy-rollout statistics of ``act`` over ``n_episodes`` fresh games.
+
+    ``act(obs int8[B, H, W]) -> int32[B]`` is the policy; ``key`` is a
+    ``uint32[2]`` base key (``threefry.prng_key(seed)``), folded into one key
+    per episode exactly as the JAX package does.  The returned dict also
+    holds ``iterations``, the number of steps the loop ran.
+    """
+    if frame_stack != 1:
+        raise NotImplementedError("frame stacking is not ported yet")
+    cfg = env_config._replace(auto_reset=False)
+    init, step, observe = env_fns(cfg, impl, obs=obs, device=device)
+    states = init(batch_keys(key, n_episodes, device=device))
+    it = 0
+    while it < max_steps:
+        action = act(observe(states))
+        states, *_ = step(states, action)
+        it += 1
+        if it % DONE_CHECK_EVERY == 0 and bool(states.game_over.all()):
+            break
+    out = _stats(states, max_steps)
+    out["iterations"] = it
+    return out
+
+
+def greedy_logits(net) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Policy from an actor-critic: argmax over the policy logits."""
+
+    def act(obs):
+        with torch.inference_mode():
+            logits, _ = net(obs)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    return act
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--checkpoint", required=True, help="exported .npz (tools/export_torch_params.py)")
+    p.add_argument("--episodes", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-steps", type=int, default=2000)
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                   help="compute type of the conv trunk (the heads are float32)")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    net = load_actor_critic(args.checkpoint, device=device, dtype=getattr(torch, args.dtype))
+    stats = evaluate_policy(
+        greedy_logits(net), args.episodes, EngineConfig(), prng_key(args.seed),
+        max_steps=args.max_steps, device=device,
+    )
+    print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()}))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,45 @@
+"""Load an exported actor-critic checkpoint into the PyTorch network.
+
+The JAX package saves parameters as an orbax directory, which this port
+cannot read without JAX.  ``tools/export_torch_params.py`` turns one into a
+plain ``.npz`` of the flat Flax parameter paths
+(``results/ppo_lines_params.npz`` for the committed PPO policy); this module
+reads that file.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tetris_gymnasium_torch.models.convert import from_flax_params
+from tetris_gymnasium_torch.models.networks import ActorCriticCNN
+from tetris_gymnasium_torch.utils.device import resolve_device
+
+
+def load_flat(path: str) -> Dict[str, np.ndarray]:
+    """The flat ``{flax/path: array}`` dict of an exported ``.npz``."""
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def load_actor_critic(
+    path: str, device="cuda", dtype: torch.dtype = torch.bfloat16
+) -> ActorCriticCNN:
+    """An :class:`ActorCriticCNN` with the exported weights, in eval mode on ``device``.
+
+    The trunk's widths and input channels are read from the weights.
+    """
+    device = resolve_device(device)
+    sd = from_flax_params(load_flat(path))
+    n = sum(1 for k in sd if k.startswith("encoder.convs.") and k.endswith(".weight"))
+    features = [sd[f"encoder.convs.{i}.weight"].shape[0] for i in range(n)]
+    net = ActorCriticCNN(
+        n_actions=sd["policy.weight"].shape[0],
+        features=features,
+        in_channels=sd["encoder.convs.0.weight"].shape[1],
+        dtype=dtype,
+    )
+    net.load_state_dict(sd)
+    return net.to(device).eval()
