@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, and the dispatch.
 
 Tests marked ``cuda`` need a card and skip without one; on a machine with
-one they run with ``python -m pytest tests/test_torch_kernels.py -m cuda``.
+one they run with ``python -m pytest --noconftest tests/test_torch_kernels.py
+-m cuda`` (``tests/conftest.py`` imports JAX, which this file does not need).
 The dispatch tests run anywhere: a CPU tensor never reaches a kernel and a
 kernel wrapper refuses a CPU tensor.
 """
@@ -14,6 +15,9 @@ from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.core import turbo
 from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
+from tetris_gymnasium_torch.rl import ppo
+
+NO_LAUNCHES = {"turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0}
 
 
 @pytest.fixture
@@ -64,7 +68,7 @@ def test_launch_counts(cuda):
         turbo.observe_board(s, config)
         s = turbo.step(s, torch.zeros(64, dtype=torch.int32, device=cuda), config)[0]
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"turbo_step": 3, "turbo_init": 1, "observe_board": 3}
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "turbo_step": 3, "turbo_init": 1, "observe_board": 3}
 
 
 def test_cpu_tensors_run_the_plain_versions():
@@ -73,7 +77,7 @@ def test_cpu_tensors_run_the_plain_versions():
     s = turbo.init(batch_keys(prng_key(0), 8, device="cpu"), config, device="cpu")
     turbo.observe_board(s, config)
     s, _, r, d, _ = turbo.step(s, torch.full((8,), 5, dtype=torch.int32), config)
-    assert kernels.LAUNCHES == {"turbo_step": 0, "turbo_init": 0, "observe_board": 0}
+    assert kernels.LAUNCHES == NO_LAUNCHES
     assert s.rows.device.type == "cpu" and r.dtype == torch.float32 and d.dtype == torch.bool
 
 
@@ -87,6 +91,55 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.turbo_init(torch.from_numpy(np.zeros((4, 2), np.uint32)), config, turbo.PIECES)
     with pytest.raises(ValueError):
         kernels.observe_board(s, config, turbo.PIECES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, B, p_done", [(128, 8192, 1 / 200), (16, 1, 0.5), (7, 1000, 1.0)])
+def test_gae_kernel_bit_equal_to_plain(cuda, T, B, p_done):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(T + B)
+    reward = torch.randn((T, B), generator=g, device=cuda)
+    value = torch.randn((T, B), generator=g, device=cuda)
+    done = torch.rand((T, B), generator=g, device=cuda) < p_done
+    last = torch.randn((B,), generator=g, device=cuda)
+    got = kernels.gae(reward, value, done, last, 0.999, 0.95)
+    want = ppo.gae_plain(reward, value, done, last, 0.999, 0.95)
+    for a, b in zip(got, want):
+        _assert_equal(a, b, "gae")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1001, 8192])
+def test_sample_kernel_matches_plain(cuda, B):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(B)
+    for scale in (0.01, 1.0, 30.0):
+        logits = torch.randn((B, 8), generator=g, device=cuda) * scale
+        for seed in range(4):
+            key = prng_key(seed)
+            a, lp = kernels.sample_actions(logits, key)
+            pa, plp = ppo.sample_actions_plain(logits, key)
+            _assert_equal(a, pa, "action")
+            torch.testing.assert_close(lp, plp, rtol=0, atol=1e-6)
+
+
+def test_ppo_dispatch_runs_plain_versions_on_cpu():
+    kernels.reset_launches()
+    reward = torch.zeros((4, 3))
+    adv, tgt = ppo.gae(ppo.PPOConfig(), ppo.Transition(None, None, None, reward, reward,
+                                                        reward.bool()), torch.zeros(3))
+    a, lp = ppo.sample_actions(torch.zeros((3, 8)), prng_key(0))
+    assert kernels.LAUNCHES == NO_LAUNCHES and adv.shape == (4, 3) and a.shape == (3,)
+
+
+def test_ppo_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gae(x, x, x.bool(), torch.zeros(3), 0.99, 0.95)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.sample_actions(torch.zeros((3, 8)), prng_key(0))
+    with pytest.raises(NotImplementedError):
+        kernels.sample_actions(torch.zeros((3, 5)), prng_key(0))
 
 
 def test_step_kernel_refuses_other_geometry():

@@ -12,13 +12,17 @@ Kernels, with the JAX function each replaces:
 * ``turbo_step`` (``csrc/turbo_step.cu``): ``core/turbo.py:step :639``;
 * ``turbo_init`` (``csrc/turbo_step.cu``): ``core/turbo.py:_init_from_key :440``,
   reached through ``init :497``;
-* ``observe_board`` (``csrc/observe_board.cu``): ``core/turbo.py:observe_board :738``.
+* ``observe_board`` (``csrc/observe_board.cu``): ``core/turbo.py:observe_board :738``;
+* ``gae`` (``csrc/gae.cu``): ``rl/ppo.py:_gae :147``;
+* ``ppo_sample`` (``csrc/ppo_sample.cu``): the sampling tail of
+  ``rl/ppo.py:policy_step :184-187``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
 synchronising, and adds one to ``LAUNCHES[name]`` per launch.  Wrappers
 take CUDA tensors only; the plain versions for CPU tensors are in
-:mod:`tetris_gymnasium_torch.core.turbo`, which dispatches.
+:mod:`tetris_gymnasium_torch.core.turbo` and
+:mod:`tetris_gymnasium_torch.rl.ppo`, which dispatch.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "turbo_step": PACKAGE_DIR / "csrc" / "turbo_step.cu",
     "observe_board": PACKAGE_DIR / "csrc" / "observe_board.cu",
+    "gae": PACKAGE_DIR / "csrc" / "gae.cu",
+    "ppo_sample": PACKAGE_DIR / "csrc" / "ppo_sample.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +57,7 @@ NVCC_FLAGS = [
 ]
 
 # Launch counts, one per kernel: added to where a wrapper launches, nowhere else.
-LAUNCHES = {"turbo_step": 0, "turbo_init": 0, "observe_board": 0}
+LAUNCHES = {"turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0}
 
 _LIBS: dict = {}
 
@@ -126,6 +132,26 @@ class _ObsGeometry(ctypes.Structure):
 
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C entry points of each source: name -> argtypes (every one returns cudaGetLastError()).
+_ENTRY_POINTS = {
+    "turbo_step": {
+        "turbo_step_launch": [ctypes.POINTER(_StatePtrs), ctypes.POINTER(_StatePtrs),
+                              _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_StepParams), _P],
+        "turbo_init_launch": [_P, ctypes.POINTER(_StatePtrs), _P, _I, _I, _P],
+    },
+    "observe_board": {
+        "observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 ctypes.POINTER(_ObsGeometry), _P],
+    },
+    "gae": {
+        "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P],
+    },
+    "ppo_sample": {
+        "ppo_sample_launch": [_P, _P, _P, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _P],
+    },
+}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -133,21 +159,9 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         _compile(name)
         lib = ctypes.CDLL(str(_lib_path(SOURCES[name])))
-        if name == "turbo_step":
-            lib.turbo_step_launch.argtypes = [
-                ctypes.POINTER(_StatePtrs), ctypes.POINTER(_StatePtrs), _P, _P, _P, _P, _P, _P,
-                ctypes.c_int, ctypes.POINTER(_StepParams), _P,
-            ]
-            lib.turbo_step_launch.restype = ctypes.c_int
-            lib.turbo_init_launch.argtypes = [
-                _P, ctypes.POINTER(_StatePtrs), _P, ctypes.c_int, ctypes.c_int, _P,
-            ]
-            lib.turbo_init_launch.restype = ctypes.c_int
-        else:
-            lib.observe_board_launch.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.POINTER(_ObsGeometry), _P,
-            ]
-            lib.observe_board_launch.restype = ctypes.c_int
+        for fn, argtypes in _ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -306,4 +320,76 @@ def observe_board(state: turbo.TurboState, config: EngineConfig, pieces: PieceSe
     )
     _check(rc, "observe_board")
     LAUNCHES["observe_board"] += 1
+    return out
+
+
+def _check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if not t.is_cuda or t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous CUDA {dtype} tensor of shape {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def gae(reward: torch.Tensor, value: torch.Tensor, done: torch.Tensor, last_value: torch.Tensor,
+        gamma: float, gae_lambda: float):
+    """Launch ``gae``: returns ``(advantages f32[T, B], targets f32[T, B])``.
+
+    ``reward`` and ``value`` are ``f32[T, B]``, ``done`` is ``bool[T, B]``,
+    ``last_value`` is ``f32[B]``.  ``gamma`` and ``gamma * gae_lambda`` (the
+    product formed in double) are rounded to float32 once, as JAX does.
+    """
+    device = reward.device
+    if reward.ndim != 2:
+        raise ValueError(f"reward: want [T, B], got {tuple(reward.shape)}")
+    T, B = reward.shape
+    _check_tensor(reward, "reward", torch.float32, (T, B), device)
+    _check_tensor(value, "value", torch.float32, (T, B), device)
+    _check_tensor(done, "done", torch.bool, (T, B), device)
+    _check_tensor(last_value, "last_value", torch.float32, (B,), device)
+    advantages = torch.empty((T, B), dtype=torch.float32, device=device)
+    targets = torch.empty((T, B), dtype=torch.float32, device=device)
+    if T * B == 0:
+        return advantages, targets
+    rc = _lib("gae").gae_launch(
+        reward.data_ptr(), value.data_ptr(), done.data_ptr(), last_value.data_ptr(),
+        advantages.data_ptr(), targets.data_ptr(), T, B,
+        float(np.float32(gamma)), float(np.float32(gamma * gae_lambda)), _stream(device),
+    )
+    _check(rc, "gae")
+    LAUNCHES["gae"] += 1
+    return advantages, targets
+
+
+def sample_actions(logits: torch.Tensor, act_key, return_uniforms: bool = False):
+    """Launch ``ppo_sample``: returns ``(action int32[B], log_prob f32[B])``.
+
+    ``logits`` is ``f32[B, 8]``; ``act_key`` is the step's ``uint32[2]``
+    key on the host (``jax.random.categorical``'s key).  With
+    ``return_uniforms`` the kernel also writes the uniforms ``f32[B, 8]``
+    behind its Gumbel noise, returned third, so that a check can hold them
+    against JAX's bits.
+    """
+    device = logits.device
+    if logits.ndim != 2 or logits.shape[1] != 8:
+        raise NotImplementedError(f"ppo_sample is built for [B, 8] logits, got {tuple(logits.shape)}")
+    B = logits.shape[0]
+    _check_tensor(logits, "logits", torch.float32, (B, 8), device)
+    if B * 8 >= 2**31:
+        raise ValueError(f"batch {B} too large for 32-bit counters")
+    key = np.asarray(act_key, dtype=np.uint32)
+    action = torch.empty((B,), dtype=torch.int32, device=device)
+    log_prob = torch.empty((B,), dtype=torch.float32, device=device)
+    uniforms = torch.empty((B, 8), dtype=torch.float32, device=device) if return_uniforms else None
+    out = (action, log_prob, uniforms) if return_uniforms else (action, log_prob)
+    if B == 0:
+        return out
+    rc = _lib("ppo_sample").ppo_sample_launch(
+        logits.data_ptr(), action.data_ptr(), log_prob.data_ptr(),
+        uniforms.data_ptr() if return_uniforms else None, B, int(key[0]), int(key[1]),
+        _stream(device),
+    )
+    _check(rc, "ppo_sample")
+    LAUNCHES["ppo_sample"] += 1
     return out

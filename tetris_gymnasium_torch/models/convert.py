@@ -1,4 +1,4 @@
-"""Carry Flax ``ActorCriticCNN`` parameters across to the PyTorch module.
+"""Carry ``ActorCriticCNN`` parameters between Flax and the PyTorch module.
 
 Flax stores a convolution kernel as HWIO and a dense kernel as
 ``[in, out]``; PyTorch wants OIHW and ``[out, in]``.  The flat keys are
@@ -46,4 +46,21 @@ def from_flax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if fk.endswith("/kernel"):
             v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T  # HWIO -> OIHW, [in, out] -> [out, in]
         out[tk] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def to_flax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`from_flax_params`: a ``state_dict`` -> flat float32 Flax parameters."""
+    n_convs = sum(1 for k in state_dict if k.startswith("encoder.convs.") and k.endswith(".weight"))
+    key_map = _key_map(n_convs)
+    unexpected = sorted(set(state_dict) - set(key_map.values()))
+    missing = sorted(set(key_map.values()) - set(state_dict))
+    if unexpected or missing:
+        raise KeyError(f"state_dict does not match: missing {missing}, unexpected {unexpected}")
+    out = {}
+    for fk, tk in key_map.items():
+        v = state_dict[tk].detach().to("cpu", torch.float32).numpy()
+        if fk.endswith("/kernel"):
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T  # OIHW -> HWIO, [out, in] -> [in, out]
+        out[fk] = np.ascontiguousarray(v)
     return out

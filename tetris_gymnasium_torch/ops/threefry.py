@@ -1,21 +1,36 @@
-"""Threefry-2x32 in numpy: the per-env keys that JAX derives from a seed.
+"""Threefry-2x32 and the ``jax.random`` draws built on it, bit-equal to JAX.
 
 The engine seeds every env from ``fold_in(PRNGKey(seed), env_index)``
-(``tetris_gymnasium_tpu/parallel/mesh.py:47``).  With JAX's default
-``threefry2x32`` implementation:
+(``tetris_gymnasium_tpu/parallel/mesh.py:47``), and PPO draws its actions
+and minibatch shuffles from ``jax.random`` (``tetris_gymnasium_tpu/rl/
+ppo.py:132-133, :184-186, :262-263``).  With JAX's default ``threefry2x32``
+implementation and ``jax_threefry_partitionable = True``:
 
 * ``PRNGKey(s)`` for a 32-bit seed ``0 <= s < 2**32`` is ``[0, s]``;
-* ``fold_in(k, i)`` is one threefry block ``threefry_2x32(k, [0, i])``.
+* ``fold_in(k, i)`` is one threefry block ``threefry_2x32(k, [0, i])``;
+* ``split(k, n)`` is block ``i`` of ``threefry_2x32(k, [0, i])`` for
+  ``i < n``, the same words as ``fold_in(k, i)``;
+* ``random_bits(k, 32, shape)`` is ``y0 ^ y1`` of ``threefry_2x32(k, [0, i])``
+  over the row-major flat index ``i``;
+* ``uniform`` puts the top 23 bits into the mantissa of a float in
+  ``[1, 2)``, subtracts 1, scales to ``[minval, maxval)`` and clamps at
+  ``minval``; ``gumbel`` (mode ``"low"``) is ``-log(-log(uniform(tiny, 1)))``;
+* ``permutation(k, n)`` sorts ``arange(n)`` stably by fresh 32-bit keys,
+  ``ceil(3 ln n / ln(2**32 - 1))`` rounds, splitting the key each round.
 
-This module computes the same words in numpy so that the port's envs play
-the same games as the JAX package's from the same seed.
+Host functions work on numpy ``uint32``; the ``*_lanes`` functions are their
+PyTorch twins on int64 lanes holding 32-bit values (PyTorch has no
+``uint32`` arithmetic on the CPU), for tensors on any device.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = np.uint32(0x1BD11BDA)
+_PARITY = 0x1BD11BDA
+_MASK32 = 0xFFFFFFFF
+TINY = float(np.finfo(np.float32).tiny)  # gumbel's lower bound, a float32 value
 
 
 def _rotl(x: np.ndarray, r: int) -> np.ndarray:
@@ -29,17 +44,18 @@ def threefry_2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
     shape (the two counter words).
     """
     k0, k1 = np.uint32(key[0]), np.uint32(key[1])
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = np.asarray(x0, dtype=np.uint32) + ks[0]
-    x1 = np.asarray(x1, dtype=np.uint32) + ks[1]
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, r)
-            x1 = x1 ^ x0
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3]  # array + scalar: wraps without a warning
-        x1 = x1 + np.uint32(i + 1)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
+    with np.errstate(over="ignore"):  # uint32 adds wrap, as intended
+        x0 = np.asarray(x0, dtype=np.uint32) + ks[0]
+        x1 = np.asarray(x1, dtype=np.uint32) + ks[1]
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r)
+                x1 = x1 ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3]
+            x1 = x1 + np.uint32(i + 1)
     return x0, x1
 
 
@@ -57,3 +73,107 @@ def fold_in(key: np.ndarray, data) -> np.ndarray:
     data = np.asarray(data, dtype=np.uint32)
     y0, y1 = threefry_2x32(key, np.zeros_like(data), data)
     return np.stack([y0, y1], axis=-1)
+
+
+def split(key: np.ndarray, n: int = 2) -> np.ndarray:
+    """``jax.random.split(key, n)``: ``uint32[n, 2]``."""
+    return fold_in(key, np.arange(n, dtype=np.uint32))
+
+
+def random_bits32(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.bits(key, (n,), uint32)``: ``uint32[n]``."""
+    y0, y1 = threefry_2x32(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    return y0 ^ y1
+
+
+def bits_to_uniform(bits: np.ndarray, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """JAX's float32 mapping of 32 random bits into ``[minval, maxval)``."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    return np.maximum(lo, f * (hi - lo) + lo)
+
+
+def uniform(key: np.ndarray, n: int, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, (n,), float32, minval, maxval)``."""
+    return bits_to_uniform(random_bits32(key, n), minval, maxval)
+
+
+def gumbel(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.gumbel(key, (n,), float32)`` (mode ``"low"``)."""
+    return -np.log(-np.log(uniform(key, n, TINY, 1.0)))
+
+
+def shuffle_rounds(n: int) -> int:
+    """Sort rounds of ``jax.random.permutation`` over ``n`` items (2 once n > 1625)."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: ``int64[n]``."""
+    x = np.arange(n, dtype=np.int64)
+    for _ in range(shuffle_rounds(n)):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits32(sub, n), kind="stable")]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# PyTorch twins on int64 lanes
+# ---------------------------------------------------------------------------
+
+
+def _rotl_lanes(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _MASK32) | (x >> (32 - r))
+
+
+def threefry_2x32_lanes(key, x0: torch.Tensor, x1: torch.Tensor):
+    """:func:`threefry_2x32` on int64 lanes of 32-bit counter words.
+
+    ``key`` is a host ``uint32[2]``; returns ``(y0, y1)`` as int64 lanes.
+    """
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl_lanes(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def random_bits32_lanes(key, counters: torch.Tensor) -> torch.Tensor:
+    """``y0 ^ y1`` of block ``[0, counter]`` for int64 ``counters < 2**32``."""
+    y0, y1 = threefry_2x32_lanes(key, torch.zeros_like(counters), counters)
+    return y0 ^ y1
+
+
+def bits_to_uniform_lanes(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """:func:`bits_to_uniform` on int64 lanes: float32 of ``bits``' shape."""
+    lo = float(np.float32(minval))
+    scale = float(np.float32(maxval) - np.float32(minval))
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f * scale + lo, lo)
+
+
+def gumbel_lanes(key, counters: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise (mode ``"low"``) at the flat indices ``counters``."""
+    u = bits_to_uniform_lanes(random_bits32_lanes(key, counters), TINY, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def permutation_lanes(key, n: int, device) -> torch.Tensor:
+    """:func:`permutation` computed on ``device``: ``int64[n]``.
+
+    The round keys come from the host; the sort keys and the stable sorts
+    run where ``device`` says, so a caller on the card waits for nothing.
+    """
+    counters = torch.arange(n, dtype=torch.int64, device=device)
+    x = counters
+    for _ in range(shuffle_rounds(n)):
+        key, sub = split(key)
+        order = torch.sort(random_bits32_lanes(sub, counters), stable=True).indices
+        x = x[order]
+    return x

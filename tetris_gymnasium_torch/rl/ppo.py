@@ -1,0 +1,445 @@
+"""PPO on the turbo engine: envs, rollout buffer, policy and learner on one card.
+
+Port of ``tetris_gymnasium_tpu/rl/ppo.py`` for its default path (turbo
+engine, board observations, no frame stack).  The algorithm, the
+hyperparameters and the random draws are the JAX package's; what changes is
+the execution.  JAX traces a whole rollout-plus-update iteration into one
+XLA program; here the host runs the loops and enqueues work on the card
+without waiting for it:
+
+* the rollout steps ``rollout_len`` times under ``torch.no_grad()``: the
+  policy network (PyTorch operators), the ``ppo_sample`` kernel for the
+  action and its log-prob, the ``turbo_step`` kernel with auto-reset, the
+  ``observe_board`` kernel;
+* GAE is the ``gae`` kernel, one launch per train step;
+* the update is ``update_epochs`` passes over block-shuffled minibatches:
+  the loss, its backward pass and Adam are PyTorch operators, as the JAX
+  package leaves them to XLA and optax.
+
+Every key of the JAX chain (``init_train_state``'s three-way split, the
+per-step ``split`` for the action key, the per-epoch ``split`` for the
+permutation key) is computed on the host in numpy
+(:mod:`tetris_gymnasium_torch.ops.threefry`), so drawing a key never waits
+for the card.  Each kernel's plain PyTorch version is in this module
+(:func:`gae_plain`, :func:`sample_actions_plain`) or in ``core.turbo``; a
+CPU tensor runs the plain version and a CUDA tensor launches the kernel.
+
+Unlike the pure JAX ``train_step``, the port's updates the network and the
+optimizer of the :class:`TrainState` it is given in place (no second copy
+of the parameters and Adam moments); the returned state shares them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tetris_gymnasium_torch.config import EngineConfig
+from tetris_gymnasium_torch.core import turbo
+from tetris_gymnasium_torch.models.convert import from_flax_params
+from tetris_gymnasium_torch.models.init import init_actor_critic_
+from tetris_gymnasium_torch.models.networks import ActorCriticCNN
+from tetris_gymnasium_torch.ops import threefry
+from tetris_gymnasium_torch.parallel.mesh import batch_keys
+from tetris_gymnasium_torch.rl.engines import env_fns
+from tetris_gymnasium_torch.utils.device import resolve_device
+
+FRAME_STACK_TODO = "frame stacking (frame_stack > 1) is not ported yet: ROADMAP.md queue 1 item 7"
+
+
+class PPOConfig(NamedTuple):
+    """Static PPO hyperparameters, the JAX package's fields and defaults
+    (``tetris_gymnasium_tpu/rl/ppo.py:34-71``)."""
+
+    rollout_len: int = 128
+    update_epochs: int = 6
+    n_minibatches: int = 8
+    gamma: float = 0.999
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    ent_coef: float = 0.1
+    vf_coef: float = 0.5
+    max_grad_norm: float = 0.5
+    learning_rate: float = 2.5e-4
+    # samples move in blocks of this many adjacent envs at one timestep
+    shuffle_block: int = 64
+    # annealing horizon in train steps; 0 disables both schedules
+    total_iterations: int = 0
+    ent_coef_final: float = 0.0
+    frame_stack: int = 1
+
+
+class Transition(NamedTuple):
+    """One rollout, every field ``[T, B, ...]`` (``obs`` is ``int8[T, B, H, W]``)."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    log_prob: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+
+
+class ClippedAdam:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=1e-5))``
+    (``tetris_gymnasium_tpu/rl/ppo.py:97-116``) over ``params``.
+
+    :meth:`step` reads every parameter's ``.grad`` and
+
+    * clips in optax's form: with ``norm`` the global L2 norm of all
+      gradients, each becomes ``g / norm * max_norm`` when
+      ``norm >= max_norm`` and stays as it is otherwise (no epsilon, unlike
+      ``torch.nn.utils.clip_grad_norm_``);
+    * sets the learning rate of update ``count`` (0, 1, ...) from optax's
+      linear schedule: ``lr * (1 - min(count, N) / N)`` in float32 with
+      ``N = total_iterations * update_epochs * n_minibatches``, or ``lr``
+      when ``total_iterations`` is 0;
+    * takes one ``torch.optim.Adam(eps=1e-5)`` step, the same update as
+      ``optax.adam``.
+
+    No step reads a value back from the card.
+    """
+
+    def __init__(self, params, ppo: PPOConfig):
+        self.params = list(params)
+        self.adam = torch.optim.Adam(self.params, lr=ppo.learning_rate, eps=1e-5)
+        self.max_norm = ppo.max_grad_norm
+        self.learning_rate = ppo.learning_rate
+        self.transition_steps = ppo.total_iterations * ppo.update_epochs * ppo.n_minibatches
+        self.count = 0
+
+    def lr(self, count: int) -> float:
+        if self.transition_steps <= 0:
+            return self.learning_rate
+        n = np.float32(self.transition_steps)
+        frac = np.float32(1) - np.float32(min(max(count, 0), self.transition_steps)) / n
+        return float(np.float32(self.learning_rate) * frac)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params:  # a parameter the loss does not reach has a zero gradient in JAX
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = norm < self.max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        self.adam.param_groups[0]["lr"] = self.lr(self.count)
+        self.adam.step()
+        self.count += 1
+
+
+def make_optimizer(ppo: PPOConfig, params) -> ClippedAdam:
+    """Adam with global-norm clipping and the optional linear decay of the learning rate."""
+    return ClippedAdam(params, ppo)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a PPO iteration carries."""
+
+    net: ActorCriticCNN
+    optimizer: ClippedAdam
+    env_states: turbo.TurboState
+    last_obs: torch.Tensor  # int8 [B, H, W]
+    key: np.ndarray  # uint32[2], on the host
+    update_i: int = 0  # train steps taken; drives the annealing schedules
+
+    def replace(self, **kw) -> "TrainState":
+        return dataclasses.replace(self, **kw)
+
+
+def init_train_state(
+    key,
+    n_envs: int,
+    env_config: EngineConfig,
+    ppo: PPOConfig,
+    net: Optional[ActorCriticCNN] = None,
+    impl: str = "turbo",
+    obs: str = "board",
+    device="cuda",
+    params: Optional[Dict[str, np.ndarray]] = None,
+) -> TrainState:
+    """Parameters, optimizer and a fresh env batch, from a ``uint32[2]`` key.
+
+    As in JAX, the key splits three ways into the carried key, the network's
+    key and the env key, and env ``i`` starts from ``fold_in(env_key, i)``.
+    ``net`` gives the architecture (default :class:`ActorCriticCNN`, bf16
+    trunk).  Its weights are drawn with Flax's initialisers from a
+    ``torch.Generator`` seeded with the network key, unless ``params``, flat
+    Flax parameters (``{flax/path: array}``, e.g. from a JAX state or an
+    ``.npz``), are given.
+    """
+    if ppo.frame_stack != 1:
+        raise NotImplementedError(FRAME_STACK_TODO)
+    device = resolve_device(device)
+    env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
+    key, net_key, env_key = threefry.split(np.asarray(key, dtype=np.uint32), 3)
+    env_states = env_init(batch_keys(env_key, n_envs, device=device))
+    obs_0 = env_observe(env_states)
+    net = (ActorCriticCNN() if net is None else net).cpu()
+    if params is None:
+        gen = torch.Generator()
+        gen.manual_seed((int(net_key[0]) << 32) | int(net_key[1]))
+        init_actor_critic_(net, gen)
+    else:
+        net.load_state_dict(from_flax_params(params))
+    net = net.to(device)
+    return TrainState(
+        net=net, optimizer=make_optimizer(ppo, net.parameters()), env_states=env_states,
+        last_obs=obs_0, key=key, update_i=0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# GAE
+# ---------------------------------------------------------------------------
+
+
+def gae_plain(reward, value, done, last_value, gamma: float, gae_lambda: float):
+    """Plain version of the ``gae`` kernel: ``(advantages, targets)``, ``f32[T, B]`` each.
+
+    The reverse recursion of ``tetris_gymnasium_tpu/rl/ppo.py:_gae`` (:147)
+    in JAX's order of operations, with ``gamma`` and ``gamma * gae_lambda``
+    rounded to float32 once; on the card it is bit-equal to the kernel.
+    """
+    g = float(np.float32(gamma))
+    gl = float(np.float32(gamma * gae_lambda))
+    not_done = 1.0 - done.to(torch.float32)
+    adv = torch.empty_like(reward)
+    gae = torch.zeros_like(last_value)
+    next_value = last_value
+    for t in range(reward.shape[0] - 1, -1, -1):
+        delta = reward[t] + g * next_value * not_done[t] - value[t]
+        gae = delta + gl * not_done[t] * gae
+        adv[t] = gae
+        next_value = value[t]
+    return adv, adv + value
+
+
+def gae(ppo: PPOConfig, traj: Transition, last_value: torch.Tensor):
+    """Advantages and value targets of a rollout (``ppo.py:_gae``): the
+    ``gae`` kernel on CUDA tensors, :func:`gae_plain` on CPU tensors."""
+    args = (traj.reward, traj.value, traj.done, last_value, ppo.gamma, ppo.gae_lambda)
+    if traj.reward.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        return kernels.gae(*args)
+    return gae_plain(*args)
+
+
+# ---------------------------------------------------------------------------
+# Sampling tail of the policy step
+# ---------------------------------------------------------------------------
+
+
+def sample_actions_plain(logits: torch.Tensor, act_key):
+    """Plain version of the ``ppo_sample`` kernel: ``(action int32[B], log_prob f32[B])``.
+
+    ``jax.random.categorical(act_key, logits)`` (Gumbel-max, JAX's bits) and
+    ``log_softmax(logits)[b, action]`` (``ppo.py:186-187``).  The sum of the
+    log-softmax is taken pairwise (halves added, as the kernel's butterfly
+    adds), so that on the card the two agree bit for bit.
+    """
+    B, A = logits.shape
+    counters = torch.arange(B * A, dtype=torch.int64, device=logits.device).reshape(B, A)
+    action = torch.argmax(threefry.gumbel_lanes(act_key, counters) + logits, dim=-1)
+    m = logits.max(dim=-1, keepdim=True).values
+    z = logits - m
+    s = torch.exp(z)
+    width = 1 << max(A - 1, 0).bit_length()  # pad with exact zeros to a power of two
+    s = F.pad(s, (0, width - A))
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[:, :h] + s[:, h:]
+    log_prob = z.gather(1, action[:, None]).squeeze(1) - torch.log(s[:, 0])
+    return action.to(torch.int32), log_prob
+
+
+def sample_actions(logits: torch.Tensor, act_key):
+    """Sampled actions and their log-probs: the ``ppo_sample`` kernel on CUDA
+    tensors, :func:`sample_actions_plain` on CPU tensors."""
+    if logits.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        return kernels.sample_actions(logits, act_key)
+    return sample_actions_plain(logits, act_key)
+
+
+# ---------------------------------------------------------------------------
+# Rollout, loss and minibatches
+# ---------------------------------------------------------------------------
+
+
+def rollout(ts: TrainState, ppo: PPOConfig, env_step: Callable, observe: Callable):
+    """``rollout_len`` policy steps from ``ts``, with no gradient.
+
+    Returns ``(traj, env_states, last_obs, key)``: the :class:`Transition`
+    stacked over time, the env batch and observation after the last step,
+    and the carried key after one ``split`` per step.
+    """
+    key = ts.key
+    act_keys = []
+    for _ in range(ppo.rollout_len):
+        key, act_key = threefry.split(key)
+        act_keys.append(act_key)
+    env_states, window = ts.env_states, ts.last_obs
+    steps: List[Tuple] = []
+    with torch.no_grad():
+        for act_key in act_keys:
+            logits, value = ts.net(window)
+            action, log_prob = sample_actions(logits, act_key)
+            env_states, _, reward, done, _ = env_step(env_states, action)
+            steps.append((window, action, log_prob, value, reward, done))
+            window = observe(env_states)
+    traj = Transition(*(torch.stack(field) for field in zip(*steps)))
+    return traj, env_states, window, key
+
+
+def loss_fn(net, ppo: PPOConfig, batch: Transition, advantages, targets, ent_coef: float):
+    """Clipped surrogate, clipped value loss and entropy bonus (``ppo.py:194-214``).
+
+    Returns ``(total, (pg_loss, v_loss, entropy))``.  Advantages are
+    normalised with the population std (``jnp.std`` is ddof=0).
+    """
+    logits, value = net(batch.obs)
+    log_probs = F.log_softmax(logits, dim=-1)
+    log_prob = log_probs.gather(1, batch.action.long()[:, None]).squeeze(1)
+    ratio = torch.exp(log_prob - batch.log_prob)
+
+    adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    pg1 = -adv * ratio
+    pg2 = -adv * torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps)
+    pg_loss = torch.maximum(pg1, pg2).mean()
+
+    v_clipped = batch.value + torch.clamp(value - batch.value, -ppo.clip_eps, ppo.clip_eps)
+    v_loss = 0.5 * torch.maximum((value - targets) ** 2, (v_clipped - targets) ** 2).mean()
+
+    entropy = -torch.sum(torch.exp(log_probs) * log_probs, dim=-1).mean()
+    total = pg_loss + ppo.vf_coef * v_loss - ent_coef * entropy
+    return total, (pg_loss, v_loss, entropy)
+
+
+def shuffle_block(ppo: PPOConfig, n: int) -> int:
+    """Samples per shuffle block for ``n`` rollout samples (``ppo.py:242-252``)."""
+    if n % ppo.n_minibatches:
+        raise ValueError(
+            f"rollout samples ({n}) must divide into n_minibatches ({ppo.n_minibatches})"
+        )
+    return math.gcd(max(1, ppo.shuffle_block), n // ppo.n_minibatches)
+
+
+def epoch_keys(key, n_epochs: int):
+    """The carried key after ``n_epochs`` splits, and each epoch's permutation key."""
+    perm_keys = []
+    for _ in range(n_epochs):
+        key, perm_key = threefry.split(key)
+        perm_keys.append(perm_key)
+    return key, perm_keys
+
+
+def minibatches(traj: Transition, advantages, targets, ppo: PPOConfig,
+                perm_keys) -> Iterator[Tuple[Transition, torch.Tensor, torch.Tensor]]:
+    """Every minibatch of the update, in order: ``(batch, advantages, targets)``.
+
+    Sample ``t * B + b`` lies in block ``(t * B + b) // block``, so a block
+    is ``block`` adjacent envs at one timestep.  Epoch ``e`` permutes the
+    blocks with ``jax.random.permutation(perm_keys[e], n_blocks)`` (computed
+    where the rollout lies) and minibatch ``j`` takes the blocks
+    ``perm.reshape(n_minibatches, -1)[j]``.
+    """
+    n = traj.reward.numel()
+    block = shuffle_block(ppo, n)
+    n_blocks = n // block
+    flat = Transition(*(x.reshape((n_blocks, block) + x.shape[2:]) for x in traj))
+    adv_f = advantages.reshape(n_blocks, block)
+    tgt_f = targets.reshape(n_blocks, block)
+
+    def merge(x):
+        return x.reshape((-1,) + x.shape[2:])
+
+    for perm_key in perm_keys:
+        perm = threefry.permutation_lanes(perm_key, n_blocks, traj.reward.device)
+        for bidx in perm.reshape(ppo.n_minibatches, -1):
+            yield (Transition(*(merge(x[bidx]) for x in flat)), merge(adv_f[bidx]),
+                   merge(tgt_f[bidx]))
+
+
+def ent_coef_at(ppo: PPOConfig, update_i: int) -> float:
+    """The entropy coefficient of train step ``update_i``, in float32 (``ppo.py:220-226``)."""
+    if ppo.total_iterations <= 0:
+        return float(np.float32(ppo.ent_coef))
+    frac = np.clip(np.float32(update_i) / np.float32(ppo.total_iterations), 0.0, 1.0)
+    frac = np.float32(frac)
+    return float(np.float32(ppo.ent_coef) + np.float32(ppo.ent_coef_final - ppo.ent_coef) * frac)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(
+    env_config: EngineConfig,
+    ppo: PPOConfig,
+    impl: str = "turbo",
+    rewards=None,
+    obs: str = "board",
+    marks: Optional[Callable[[str], None]] = None,
+):
+    """The PPO iteration: rollout ``rollout_len`` steps, GAE, then the update.
+
+    ``env_config.auto_reset`` should be True so episodes restart on the
+    card.  ``rewards`` is an optional :class:`RewardsMapping` override.
+    ``train_step(ts) -> (ts, metrics)``; ``metrics`` holds 0-dim tensors on
+    the rollout's device with the JAX package's keys, and reading them is
+    the only thing that waits for the card.  ``marks``, if given, is called
+    with ``"start"``, ``"rollout"``, ``"gae"`` and ``"update"`` as each phase
+    has been enqueued (a caller can record CUDA events there).
+    """
+    if ppo.frame_stack != 1:
+        raise NotImplementedError(FRAME_STACK_TODO)
+    # step and observe run where the state lies; the device only binds init
+    _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu")
+    mark = marks or (lambda _name: None)
+
+    def train_step(ts: TrainState):
+        mark("start")
+        ent_coef = ent_coef_at(ppo, ts.update_i)
+        traj, env_states, last_obs, key = rollout(ts, ppo, env_step, observe)
+        with torch.no_grad():
+            _, last_value = ts.net(last_obs)
+        mark("rollout")
+        advantages, targets = gae(ppo, traj, last_value)
+        mark("gae")
+        key, perm_keys = epoch_keys(key, ppo.update_epochs)
+        for batch, adv, tgt in minibatches(traj, advantages, targets, ppo, perm_keys):
+            total, aux = loss_fn(ts.net, ppo, batch, adv, tgt, ent_coef)
+            ts.optimizer.zero_grad()
+            total.backward()
+            ts.optimizer.step()
+        mark("update")
+        pg_loss, v_loss, entropy = (x.detach() for x in aux)  # the last minibatch's
+        device = traj.reward.device
+        metrics = {
+            "pg_loss": pg_loss,
+            "v_loss": v_loss,
+            "entropy": entropy,
+            "ent_coef": torch.full((), ent_coef, dtype=torch.float32, device=device),
+            "mean_reward": traj.reward.mean(),
+            "episodes_done": traj.done.sum(),
+            "mean_score": ts.env_states.score.mean(),
+        }
+        new_ts = ts.replace(env_states=env_states, last_obs=last_obs, key=key,
+                            update_i=ts.update_i + 1)
+        return new_ts, metrics
+
+    return train_step

@@ -1,10 +1,10 @@
-"""Load an exported actor-critic checkpoint into the PyTorch network.
+"""Load and save actor-critic checkpoints as flat ``.npz`` files.
 
 The JAX package saves parameters as an orbax directory, which this port
 cannot read without JAX.  ``tools/export_torch_params.py`` turns one into a
 plain ``.npz`` of the flat Flax parameter paths
 (``results/ppo_lines_params.npz`` for the committed PPO policy); this module
-reads that file.
+reads that file, and writes the same format for a network the port trained.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from tetris_gymnasium_torch.models.convert import from_flax_params
+from tetris_gymnasium_torch.models.convert import from_flax_params, to_flax_params
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN
 from tetris_gymnasium_torch.utils.device import resolve_device
 
@@ -43,3 +43,8 @@ def load_actor_critic(
     )
     net.load_state_dict(sd)
     return net.to(device).eval()
+
+
+def save_actor_critic(path: str, net: ActorCriticCNN) -> None:
+    """Write ``net``'s parameters as the flat float32 ``.npz`` that :func:`load_flat` reads."""
+    np.savez(path, **to_flax_params(net.state_dict()))
