@@ -19,8 +19,8 @@ Phases, each printing one JSON line:
    small fp32 evaluation on the card must equal the same evaluation run by
    the plain versions on the CPU.
 6. Times with CUDA events at the evaluation's shape (B = 512), the
-   training's (B = 8192) and B = 65536, beside each kernel's byte bound at
-   3.35 TB/s.
+   training's (B = 8192), the grouped training's (B = 1024, gravity off) and
+   B = 65536, beside each kernel's byte bound at 3.35 TB/s.
 7. ``gae`` against ``rl.ppo.gae_plain`` (bit-equal) and ``ppo_sample``
    against ``rl.ppo.sample_actions_plain`` (uniforms bit-equal, actions
    equal, log-probs within ``LOG_PROB_TOL``) at the training's shapes and at
@@ -42,9 +42,47 @@ Phases, each printing one JSON line:
 10. ``gae`` and ``ppo_sample`` times at B = 8192 and 65536 beside their
     bounds.
 
-Then the kernels line (launch counts of the training path, times at its
-B = 8192) and, last, the device line.  Any failed check raises, so the exit
-code is not 0.  The script imports nothing of JAX.
+11. ``grouped_placements`` against its plain versions, features and boards,
+    bit for bit: random-placement grouped trajectories (one action in ten
+    uniform over all candidates, so some are illegal) at B = 4096 with
+    auto-reset under both ``terminate_on_illegal`` settings and at B = 512
+    without auto-reset, and hand-built boards with up to six full rows at
+    ``max_clear`` 4 and 20.
+12. ``grouped_act`` against ``rl.grouped_dqn.act_plain`` (actions equal; the
+    uniforms behind the noise and the exploration draw bit-equal to JAX's
+    mapping) at B = 1024, 4096, 1 and 1001 with envs that have no legal
+    candidate, and ``replay_sample``'s offsets against JAX's ``randint``
+    (card and host) for spans 1 .. 2**31 - 1.
+13. ``replay_add`` and ``replay_sample`` against the plain buffer, bit for
+    bit, across the buffer's wrap-around.
+14. A small fp32 grouped DQN (64 envs, the micro-gate configuration of
+    ``tests/test_learning.py`` on the 10x20 board, 70 steps: learning from
+    step 64 and a target sync) on the card and on the CPU from the same
+    weights: replay contents and env states bit-equal, parameter changes
+    within ``SMALL_GROUPED_PARAM_TOL``; a 64-episode ``evaluate_grouped`` of
+    the card's weights gives equal statistics on both.
+15. The grouped training path: ``examples/train_lin_grouped.py``'s code at
+    the committed run's shape (1024 envs, ``QMLP``, buffer 131,072, batch
+    256, features) for 2000 steps; exact launch counts, finite metrics,
+    weights that move, the learning gate of ``tests/test_learning.py:136-141``
+    over 50-step chunks, the step split into act, env step, replay add,
+    sample + update and target sync with CUDA events, a 512-episode greedy
+    ``evaluate_grouped`` of the trained and the untrained net, and the card's
+    busy share over 20 more steps traced by ``torch.profiler``.  Then the
+    kernels at the shapes this path gives them, on the trained state, bit
+    for bit: ``grouped_placements`` on its 1024 envs in both modes, one
+    grouped step (some pieces teleported into the bedrock) against the same
+    step on a CPU copy, and ``replay_add`` and ``replay_sample`` on the full
+    131,072-entry buffer against their plain versions.
+16. The grouped kernels' times beside their bounds (``grouped_placements``
+    in both modes at B = 512, 1024, 4096 and 65536; ``grouped_act`` at 1024
+    and 4096; ``replay_add`` at 1024; ``replay_sample`` at 256 samples of the
+    full buffer) and the grouped step's placements per second.
+
+Then the kernels line (nine kernels; launch counts of the grouped training
+path, else the PPO one; times at the shape of that path) and, last, the
+device line.  Any failed check raises, so the exit code is not 0.  The
+script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -84,6 +122,39 @@ LOG_PROB_ULPS = 2
 OPS_PER_S = 33.5e12
 SAMPLE_OPS_PER_ELEMENT = 100  # threefry 75, uniform 6, gumbel 4, argmax 9, softmax 6
 GAE_OPS_PER_ELEMENT = 8
+# grouped_act: per candidate threefry 75, uniform 6, gumbel 4, mask test, two
+# selects and two argmax steps 10; per env the exploration draw (threefry 75,
+# uniform 6) and the final select
+ACT_OPS_PER_CANDIDATE = 95
+ACT_OPS_PER_ENV = 82
+SAMPLE_INDEX_OPS = 160  # replay_sample: two threefry blocks and the modular index per sample
+
+# The grouped DQN slice.  Phase 11 steps random placements at these lengths.
+GROUPED_CHECK_STEPS = 40
+# Phase 14: the 6x8 micro-gate configuration of tests/test_learning.py:113-116
+# on the default 10x20 board, run past learning_starts and one target sync
+# (step 64).  Parameter changes on the card and the CPU agree within 1e-3 of
+# the largest: float32 sums in another order, magnified by Adam's division
+# by sqrt(v) + 1e-8 where a gradient is near zero.
+SMALL_GROUPED_CFG = dict(buffer_size=4096, batch_size=128, exploration_steps=250,
+                         learning_starts=64, target_update_every=64)
+SMALL_GROUPED_STEPS = 70
+SMALL_GROUPED_PARAM_TOL = 1e-3
+# Phase 15: examples/train_lin_grouped.py at the committed run's shape
+# (results/grouped_dqn.jsonl: 1024 envs, QMLP, default GroupedDQNConfig:
+# buffer 131,072, batch 256), with the schedule that passed the learning gate
+# in the JAX package on the CPU (PERF.md, grouped findings), from the JAX run's own
+# initial weights (tools/export_grouped_init_params.py --seed 1).
+GROUPED_ENVS, GROUPED_STEPS, GROUPED_LEARNING_STARTS = 1024, 2000, 250
+GROUPED_INIT = os.path.join(REPO, "results", "grouped_qmlp_init_seed1.npz")
+GROUPED_ARGV = [
+    "--n-envs", str(GROUPED_ENVS), "--steps", str(GROUPED_STEPS), "--chunk", "50",
+    "--exploration-steps", "1500", "--learning-starts", str(GROUPED_LEARNING_STARTS), "--seed", "1",
+    "--init-params", GROUPED_INIT,
+]
+GROUPED_EVAL_EPISODES, GROUPED_EVAL_MAX_STEPS = 512, 512
+PROFILED_STEPS = 20  # learning steps traced by torch.profiler after the run
+GROUPED_TIME_B = (512, 1024, 4096, 65536)
 
 
 def emit(obj) -> None:
@@ -92,7 +163,8 @@ def emit(obj) -> None:
 
 # Largest |kernel - plain version| seen, by kernel.
 MAX_ERR = {"turbo_step": 0.0, "turbo_init": 0.0, "observe_board": 0.0, "gae": 0.0,
-           "ppo_sample": 0.0}
+           "ppo_sample": 0.0, "grouped_placements": 0.0, "grouped_act": 0.0, "replay_add": 0.0,
+           "replay_sample": 0.0}
 
 
 def bits(t):
@@ -315,8 +387,8 @@ def main() -> None:
           "ms_per_iteration": 1e3 * wall / max(stats["iterations"], 1),
           "small_fp32_equal_cpu": small["cuda"], "jax_reference_lines": JAX_LINES})
     it = stats["iterations"]
-    if launches != {"turbo_step": it, "observe_board": it, "turbo_init": 1, "gae": 0,
-                    "ppo_sample": 0}:
+    if launches != {**{k: 0 for k in launches}, "turbo_step": it, "observe_board": it,
+                    "turbo_init": 1}:
         raise AssertionError(f"launch counts {launches} do not match {it} iterations")
     if not stats["lines_mean"] >= MIN_LINES or stats["episodes_completed"] < 500:
         raise AssertionError(f"the policy played below the gate: {stats}")
@@ -363,9 +435,11 @@ def main() -> None:
 
     times = {}
     for B, cfg in ((EVAL_EPISODES, EngineConfig()), (TRAIN_ENVS, EngineConfig(auto_reset=True)),
+                   (GROUPED_ENVS, EngineConfig(gravity_enabled=False, auto_reset=True)),
                    (65536, EngineConfig(auto_reset=True))):
         times[B] = time_kernels(B, cfg, n_kernel=200, n_plain=10)
-        emit({"phase": "times", "B": B, "auto_reset": cfg.auto_reset, "kernels": times[B],
+        emit({"phase": "times", "B": B, "auto_reset": cfg.auto_reset,
+              "gravity": cfg.gravity_enabled, "kernels": times[B],
               "env_steps_per_s": B / (times[B]["turbo_step"]["ms"] * 1e-3),
               "nvidia_smi": smi})
 
@@ -393,6 +467,14 @@ def main() -> None:
     train = train_full_width(dev, smi)
     ppo_times = time_ppo_kernels(dev, smi)
 
+    # -- 11.-16. the grouped DQN slice ---------------------------------------------
+    check_grouped_placements(dev)
+    check_act_and_randint(dev)
+    check_replay(dev)
+    check_small_grouped()
+    grouped = train_grouped_full_width(dev, smi)
+    grouped_times = time_grouped_kernels(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -403,14 +485,40 @@ def main() -> None:
         "gae": ("tetris_gymnasium_torch/csrc/gae.cu", "tetris_gymnasium_tpu/rl/ppo.py:147"),
         "ppo_sample": ("tetris_gymnasium_torch/csrc/ppo_sample.cu",
                        "tetris_gymnasium_tpu/rl/ppo.py:184"),
+        "grouped_placements": ("tetris_gymnasium_torch/csrc/grouped_placements.cu",
+                               "tetris_gymnasium_tpu/core/turbo_grouped.py:103"),
+        "grouped_act": ("tetris_gymnasium_torch/csrc/grouped_act.cu",
+                        "tetris_gymnasium_tpu/rl/grouped_dqn.py:165"),
+        "replay_add": ("tetris_gymnasium_torch/csrc/replay.cu",
+                       "tetris_gymnasium_tpu/rl/buffers.py:46"),
+        "replay_sample": ("tetris_gymnasium_torch/csrc/replay.cu",
+                          "tetris_gymnasium_tpu/rl/buffers.py:70"),
     }
-    at_train = {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS]}
+    # Each kernel's time at the shape of the training path whose launches
+    # the line gives: the grouped step's 1024 envs (gravity off, and 256
+    # samples) for turbo_step, turbo_init and the four grouped kernels, the
+    # PPO step's B = 8192 for observe_board, gae and ppo_sample.
+    at_path = {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS],
+               "turbo_step": times[GROUPED_ENVS]["turbo_step"],
+               "turbo_init": times[GROUPED_ENVS]["turbo_init"],
+               "grouped_placements": grouped_times["grouped_placements"][f"features@{GROUPED_ENVS}"],
+               "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS],
+               "replay_add": grouped_times["replay_add"][GROUPED_ENVS],
+               "replay_sample": grouped_times["replay_sample"][256]}
+    per_grouped_step = {k: v / GROUPED_STEPS for k, v in grouped["launches"].items()}
+    per_ppo_step = {k: v / TRAIN_STEPS for k, v in train["launches"].items()}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": train["launches"][name], "launches_eval": launches[name],
-         "max_abs_err": MAX_ERR[name], "ms": at_train[name]["ms"],
-         "plain_ms": at_train[name]["plain_ms"], "bound_ms": at_train[name]["bound_ms"],
-         "bound_by": at_train[name].get("bound_by", "bytes"), "library_ms": None}
+         # launches in the newest path that runs the kernel: the grouped
+         # training run (phase 15), else the PPO training run (phase 9)
+         "launches": grouped["launches"][name] or train["launches"][name],
+         "launches_grouped_train": grouped["launches"][name],
+         "launches_ppo_train": train["launches"][name], "launches_eval": launches[name],
+         "launches_per_grouped_step": per_grouped_step[name],
+         "launches_per_ppo_step": per_ppo_step[name],
+         "max_abs_err": MAX_ERR[name], "ms": at_path[name]["ms"],
+         "plain_ms": at_path[name]["plain_ms"], "bound_ms": at_path[name]["bound_ms"],
+         "bound_by": at_path[name].get("bound_by", "bytes"), "library_ms": None}
         for name, (src, rep) in sources.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -545,7 +653,7 @@ def train_full_width(dev, smi) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    want = {"turbo_init": 1, "turbo_step": TRAIN_STEPS * TRAIN_T,
+    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": TRAIN_STEPS * TRAIN_T,
             "observe_board": TRAIN_STEPS * TRAIN_T + 1, "gae": TRAIN_STEPS,
             "ppo_sample": TRAIN_STEPS * TRAIN_T}
     if launches != want:
@@ -714,6 +822,519 @@ def time_ppo_kernels(dev, smi) -> dict:
             }
         emit({"phase": "ppo_times", "B": B, "T": TRAIN_T, "kernels": out[B], "nvidia_smi": smi})
     return out
+
+
+# ---------------------------------------------------------------------------
+# 11.-16. the grouped DQN slice
+# ---------------------------------------------------------------------------
+
+
+def _grouped_actions(gs, g, dev, wild=0.1):
+    """Random placements: a random legal candidate, or with probability
+    ``wild`` any of the A candidates (so some are illegal)."""
+    from tetris_gymnasium_torch.rl.grouped_dqn import act_plain
+
+    A, B = gs.mask.shape
+    a = act_plain(torch.randn((B, A), generator=g, device=dev), gs.mask.T)
+    anything = torch.randint(0, A, (B,), generator=g, device=dev, dtype=torch.int32)
+    return torch.where(torch.rand((B,), generator=g, device=dev) < wild, anything, a)
+
+
+def check_grouped_placements(dev) -> None:
+    """Phase 11: ``grouped_placements`` against its plain versions, both modes."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    t0 = time.perf_counter()
+    comparisons = 0
+
+    def compare(s, cfg, what, max_clears=(4,)):
+        nonlocal comparisons
+        for mode, plain in (("features", tg.placements_plain), ("boards", tg.placement_boards_plain)):
+            for mc in max_clears:
+                got = kernels.grouped_placements(s, cfg, turbo.PIECES, mc, mode)
+                want = plain(s, cfg, max_clear=mc)
+                for a, b, name in zip(got, want, ("obs", "mask", "game_over", "lines")):
+                    diff("grouped_placements", a, b, f"{what} {mode} max_clear={mc} {name}")
+                comparisons += 1
+
+    runs = [
+        ("autoreset-terminate", 4096, GROUPED_CHECK_STEPS,
+         EngineConfig(gravity_enabled=False, auto_reset=True), True),
+        ("autoreset-noop", 4096, GROUPED_CHECK_STEPS,
+         EngineConfig(gravity_enabled=False, auto_reset=True), False),
+        ("no-autoreset", 512, GROUPED_CHECK_STEPS, EngineConfig(gravity_enabled=False), True),
+    ]
+    summary = []
+    for name, B, T, cfg, terminate in runs:
+        gs, _ = tg.reset(batch_keys(prng_key(21), B, device=dev), cfg, device=dev)
+        n_illegal = n_done = n_lines = 0
+        for i in range(T):
+            compare(gs.env, cfg, f"{name} @ {i}")
+            a = _grouped_actions(gs, g, dev)
+            n_illegal += int((gs.mask.gather(0, a.long()[None])[0] == 0).sum())
+            gs, _, _, done, info = tg.step(gs, a, cfg, terminate_on_illegal=terminate)
+            n_done += int(done.sum())
+            n_lines += int(info["lines_cleared"].sum())
+        summary.append({"run": name, "B": B, "steps": T, "illegal_actions": n_illegal,
+                        "episodes_ended": n_done, "lines": n_lines})
+
+    # hand-built boards: random stacks with 0..6 full rows and random pieces
+    B = 4096
+    cfg = EngineConfig(gravity_enabled=False)
+    pad, height, width = cfg.padding, cfg.height, cfg.width
+    s = kernels.turbo_init(batch_keys(prng_key(5), B, device=dev), cfg, turbo.PIECES)
+    rows = turbo.u32_to_lanes(s.rows)
+    garbage = torch.randint(0, 1 << width, (height - 8, B), generator=g, device=dev) << pad
+    keep = torch.rand((height - 8, B), generator=g, device=dev) < 0.6
+    rows[8:height] |= torch.where(keep, garbage, 0)
+    n_full = torch.randint(0, 7, (B,), generator=g, device=dev)
+    full = torch.arange(height, device=dev)[:, None] >= height - n_full
+    rows[:height] |= torch.where(full, ((1 << width) - 1) << pad, 0)
+    s = s.replace(rows=turbo.lanes_to_u32(rows).contiguous(),
+                  piece=torch.randint(0, 7, (B,), generator=g, device=dev, dtype=torch.int32),
+                  rotation=torch.randint(0, 4, (B,), generator=g, device=dev, dtype=torch.int32))
+    compare(s, cfg, "surgery", max_clears=(4, height))
+    _, _, over4, _ = kernels.grouped_placements(s, cfg, turbo.PIECES, 4, "features")
+    _, _, _, lines20 = kernels.grouped_placements(s, cfg, turbo.PIECES, height, "features")
+    if not bool(over4[:, n_full >= 5].all()):
+        raise AssertionError("a board with five full rows has a placement that is no game over "
+                             "under max_clear=4")
+    if int(lines20.max()) < 5:
+        raise AssertionError("max_clear=20 cleared no 5-row stack")
+    torch.cuda.synchronize()
+    emit({"phase": "grouped_placements", "bit_equal": True, "runs": summary,
+          "surgery_max_lines_max_clear_20": int(lines20.max()), "comparisons": comparisons,
+          "max_abs_err": MAX_ERR["grouped_placements"], "seconds": time.perf_counter() - t0})
+
+
+def check_act_and_randint(dev) -> None:
+    """Phase 12: ``grouped_act`` and ``replay_sample``'s randint against their
+    plain versions and JAX's bit mapping (the uniforms and offsets)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.rl.grouped_dqn import act_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    t0 = time.perf_counter()
+    A = 40
+    act_runs = []
+    for B in (1024, 4096, 1, 1001):
+        for trial, scale in enumerate(("near-ties", 1.0, 30.0)):
+            if scale == "near-ties":  # many Q values equal, the rest 2**-20 apart
+                q = torch.randint(0, 3, (B, A), generator=g, device=dev).float() * 2**-20
+            else:
+                q = torch.randn((B, A), generator=g, device=dev) * scale
+            mask_ab = (torch.rand((A, B), generator=g, device=dev) < 0.5).float()
+            mask_ab[:, :: 7] = 0.0  # every seventh env has no legal candidate
+            counters = torch.arange(B * A, dtype=torch.int64, device=dev).reshape(B, A)
+            for eps in (0.0, 0.3, 1.0):
+                act_key, eps_key = threefry.split(threefry.fold_in(threefry.prng_key(B), trial))
+                a, nu, eu = kernels.grouped_act(q, mask_ab.T, act_key, eps_key, eps,
+                                                return_uniforms=True)
+                what = f"B={B} q={scale} eps={eps}"
+                diff("grouped_act", a, act_plain(q, mask_ab.T, act_key, eps_key, eps), f"{what} actions")
+                diff("grouped_act", nu, threefry.bits_to_uniform_lanes(
+                    threefry.random_bits32_lanes(act_key, counters), threefry.TINY, 1.0),
+                    f"{what} noise uniforms")
+                diff("grouped_act", eu, threefry.bits_to_uniform_lanes(threefry.random_bits32_lanes(
+                    eps_key, torch.arange(B, dtype=torch.int64, device=dev))), f"{what} draw uniforms")
+            diff("grouped_act", kernels.grouped_act(q, mask_ab.T, fill=float("-inf")),
+                 act_plain(q, mask_ab.T, fill=float("-inf")), f"B={B} greedy")
+        act_runs.append({"B": B, "q_scales": 3, "epsilons": 3})
+
+    spans = (1, 7, 1000, 65536, 65537, 130_048, 2**31 - 1)
+    store = {"x": torch.zeros((8,), dtype=torch.int32, device=dev)}
+    for span in spans:
+        for n in (4096, 4093):
+            key = threefry.fold_in(threefry.prng_key(13), span % 1000 + n)
+            _, _, off = kernels.replay_sample(store, key, n, span, return_offsets=True)
+            diff("replay_sample", off.long(), threefry.randint_lanes(key, n, span, dev),
+                 f"randint span={span} n={n}")
+            if not np.array_equal(off.cpu().numpy(), threefry.randint(key, n, span)):
+                raise AssertionError(f"randint span={span} n={n}: card and host draws differ")
+    torch.cuda.synchronize()
+    emit({"phase": "grouped_act_randint", "actions_equal": True, "uniforms_bit_equal": True,
+          "act_runs": act_runs, "randint_spans": list(spans), "randint_equal": True,
+          "seconds": time.perf_counter() - t0})
+
+
+def _replay_block(B, obs_shape, g, dev):
+    A = 40
+    return {"obs": torch.randn((B,) + obs_shape, generator=g, device=dev),
+            "mask": (torch.rand((A, B), generator=g, device=dev) < 0.5).float().T,
+            "action": torch.randint(0, A, (B,), generator=g, device=dev, dtype=torch.int32),
+            "reward": torch.randn((B,), generator=g, device=dev),
+            "done": torch.rand((B,), generator=g, device=dev) < 0.05}
+
+
+def check_replay(dev) -> None:
+    """Phase 13: ``replay_add`` and ``replay_sample`` against their plain versions
+    across the buffer's wrap-around."""
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.rl import buffers
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    t0 = time.perf_counter()
+    runs = []
+    for B, blocks, obs_shape in ((1024, 8, (40, 13)), (64, 4, (40, 20, 10)), (1000, 3, (40, 13))):
+        example = _replay_block(B, obs_shape, g, dev)
+        kbuf = buffers.create(example, blocks * B, B)
+        pbuf = buffers.create(example, blocks * B, B)
+        for t in range(blocks + 4):  # wraps after `blocks` adds
+            block = _replay_block(B, obs_shape, g, dev)
+            kbuf = buffers.add(kbuf, block)
+            pbuf = buffers.add_plain(pbuf, block)
+            for k in example:
+                diff("replay_add", kbuf.data[k], pbuf.data[k], f"B={B} add {t} {k}")
+            if t:
+                key = threefry.fold_in(threefry.prng_key(31), t)
+                kc, kn = buffers.sample_with_next(kbuf, key, 256, B)
+                pc, pn = buffers.sample_with_next_plain(pbuf, key, 256, B)
+                ks, ps = buffers.sample(kbuf, key, 255), buffers.sample_plain(pbuf, key, 255)
+                for k in example:
+                    diff("replay_sample", kc[k], pc[k], f"B={B} sample {t} {k}")
+                    diff("replay_sample", kn[k], pn[k], f"B={B} successor {t} {k}")
+                    diff("replay_sample", ks[k], ps[k], f"B={B} plain sample {t} {k}")
+        runs.append({"B": B, "capacity": blocks * B, "obs": list(obs_shape), "adds": blocks + 4})
+    torch.cuda.synchronize()
+    emit({"phase": "replay", "bit_equal": True, "runs": runs, "seconds": time.perf_counter() - t0})
+
+
+def check_small_grouped() -> None:
+    """Phase 14: a small fp32 grouped DQN on the card against the same run on
+    the CPU, then a 64-episode evaluation of its weights on both."""
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.models.init import init_lecun_
+    from tetris_gymnasium_torch.models.networks import QMLP
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.rl import grouped_dqn
+    from tetris_gymnasium_torch.rl.evaluate import evaluate_grouped, greedy_masked_q
+
+    t0 = time.perf_counter()
+    env_config = EngineConfig(gravity_enabled=False, auto_reset=True)
+    cfg = grouped_dqn.GroupedDQNConfig(**SMALL_GROUPED_CFG)
+    start = to_flax_params(init_lecun_(QMLP(), torch.Generator().manual_seed(5)).state_dict(), "qmlp")
+    runs = {}
+    for where in ("cuda", "cpu"):
+        ts = grouped_dqn.init_grouped_dqn_state(prng_key(3), 64, env_config, cfg, device=where,
+                                                params=start)
+        step = grouped_dqn.make_train_step(env_config, cfg)
+        losses = []
+        for _ in range(SMALL_GROUPED_STEPS):
+            ts, m = step(ts)
+            losses.append(float(m["loss"]))
+        runs[where] = (ts, losses)
+    (tc, lc), (tp, lp) = runs["cuda"], runs["cpu"]
+    for k, v in tc.buffer.data.items():
+        if not torch.equal(bits(v.cpu()), bits(tp.buffer.data[k])):
+            raise AssertionError(f"small grouped DQN: replay {k} differs between card and CPU")
+    for k in turbo.FIELDS:
+        if not torch.equal(bits(getattr(tc.env_states.env, k).cpu()), bits(getattr(tp.env_states.env, k))):
+            raise AssertionError(f"small grouped DQN: env {k} differs between card and CPU")
+    worst = 0.0
+    pc, pp = to_flax_params(tc.net.state_dict(), "qmlp"), to_flax_params(tp.net.state_dict(), "qmlp")
+    for k, p0 in start.items():
+        dc, dp = pc[k] - p0, pp[k] - p0
+        scale = float(np.abs(dp).max())
+        rel = float(np.abs(dc - dp).max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if scale == 0 or rel > SMALL_GROUPED_PARAM_TOL:
+            raise AssertionError(f"small grouped DQN: {k} changed by {rel} of its largest change "
+                                 f"({scale}) between card and CPU")
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
+    stats = {}
+    for where, net in (("cuda", tc.net), ("cpu", copy.deepcopy(tc.net).cpu())):
+        stats[where] = evaluate_grouped(greedy_masked_q(net), 64, EngineConfig(gravity_enabled=False),
+                                        prng_key(7), max_steps=512, device=where)
+    for k, v in stats["cuda"].items():
+        if v != stats["cpu"][k]:
+            raise AssertionError(f"small grouped evaluation: {k} {v} on the card, "
+                                 f"{stats['cpu'][k]} on the CPU")
+    emit({"phase": "small_grouped", "replay_bit_equal": True, "env_bit_equal": True,
+          "steps": SMALL_GROUPED_STEPS, "param_change_max_rel_diff": worst,
+          "loss_max_rel_diff": loss_rel, "loss_last": [lc[-1], lp[-1]],
+          "eval_equal": stats["cuda"], "seconds": time.perf_counter() - t0})
+
+
+def train_grouped_full_width(dev, smi) -> dict:
+    """Phase 15: ``examples/train_lin_grouped.py`` at the committed run's shape."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.examples import train_lin_grouped
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.rl.evaluate import evaluate_grouped, greedy_masked_q
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat, load_q_net
+
+    args = train_lin_grouped.parse_args(GROUPED_ARGV)
+    events = []  # one dict of CUDA events per train step
+
+    def mark(name):
+        if name == "start":
+            events.append({})
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1][name] = ev
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, records = train_lin_grouped.train(args, marks=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = GROUPED_STEPS
+    learn = n - GROUPED_LEARNING_STARTS
+    want = {**{k: 0 for k in launches}, "grouped_act": n, "turbo_step": n, "turbo_init": n + 1,
+            "grouped_placements": n + 1, "replay_add": n, "replay_sample": learn}
+    if launches != want:
+        raise AssertionError(f"grouped training launch counts {launches}, want {want}")
+    for rec in records:
+        for k, v in rec.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"grouped training metric {k} is not finite: {rec}")
+    start = load_flat(GROUPED_INIT)
+    untrained = load_q_net(GROUPED_INIT, "qmlp", device=dev)
+    trained = to_flax_params(ts.net.state_dict(), "qmlp")
+    moved = {k: float(np.abs(trained[k] - start[k]).max()) for k in start}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"some parameters did not move: {moved}")
+    chunk_lines = [r["lines"] for r in records]
+    first, last = sum(chunk_lines[:3]) / 3, sum(chunk_lines[-3:]) / 3
+    if not last > 3 * max(first, 1.0):
+        raise AssertionError(f"no learning: {first} -> {last} lines per chunk ({chunk_lines})")
+
+    def split_ms(steps):
+        parts = ("act", "env", "add", "update", "sync")
+        out = {p: 0.0 for p in parts}
+        for e in steps:
+            for a, b in zip(("start",) + parts, parts):
+                out[b] += e[a].elapsed_time(e[b]) / len(steps)
+        out["step"] = sum(out[p] for p in parts)
+        return out
+
+    split = {"before_learning": split_ms(events[10:GROUPED_LEARNING_STARTS]),
+             "learning": split_ms(events[GROUPED_LEARNING_STARTS + 10 :])}
+    emit({"phase": "grouped_train", "n_envs": GROUPED_ENVS, "steps": n, "wall_s_with_setup": wall,
+          "launches": launches, "lines_per_chunk": chunk_lines,
+          "lines_per_step": [r["lines_per_step"] for r in records],
+          "first3_mean": first, "last3_mean": last, "records_last": records[-1],
+          "step_split_ms": split, "env_steps_per_s_learning": GROUPED_ENVS / (split["learning"]["step"] * 1e-3),
+          "param_max_change": moved, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    evals = {}
+    for name, net in (("untrained", untrained), ("trained", ts.net)):
+        evals[name] = evaluate_grouped(greedy_masked_q(net), GROUPED_EVAL_EPISODES,
+                                       EngineConfig(gravity_enabled=False), prng_key(EVAL_SEED),
+                                       max_steps=GROUPED_EVAL_MAX_STEPS, device=dev)
+    emit({"phase": "grouped_eval", "episodes": GROUPED_EVAL_EPISODES,
+          "max_steps": GROUPED_EVAL_MAX_STEPS, **evals, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
+    # the card's busy share: 20 more learning steps under torch.profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tetris_gymnasium_torch.rl import grouped_dqn
+
+    cfg = grouped_dqn.GroupedDQNConfig(exploration_steps=args.exploration_steps,
+                                       learning_starts=args.learning_starts)
+    step = grouped_dqn.make_train_step(EngineConfig(gravity_enabled=False, auto_reset=True), cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            ts, _ = step(ts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels_us = {}  # device activity by name; annotations (Optimizer.step) span kernels, so skip them
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)]
+    for e in device_events:
+        kernels_us[e.name] = kernels_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "grouped_profile", "steps": PROFILED_STEPS,
+          "wall_ms_per_step_profiled": wall_ms / PROFILED_STEPS,
+          "device_busy_ms_per_step": busy_ms / PROFILED_STEPS, "device_idle_share": 1 - busy_ms / wall_ms,
+          "device_launches_per_step": len(device_events) / PROFILED_STEPS,
+          "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}, "nvidia_smi": smi})
+    check_grouped_path_shapes(dev, ts, cfg)
+    return {"launches": launches, "split": split}
+
+
+def check_grouped_path_shapes(dev, ts, cfg) -> None:
+    """The end of phase 15: the kernels against their plain versions at the
+    shapes the grouped training path gives them, on its trained state."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.rl import buffers
+
+    t0 = time.perf_counter()
+    env_config = EngineConfig(gravity_enabled=False, auto_reset=True)
+    gs = ts.env_states
+    for mode, plain in (("features", tg.placements_plain), ("boards", tg.placement_boards_plain)):
+        got = kernels.grouped_placements(gs.env, env_config, turbo.PIECES, 4, mode)
+        for a, b, name in zip(got, plain(gs.env, env_config), ("obs", "mask", "game_over", "lines")):
+            diff("grouped_placements", a, b, f"trained state {mode} {name}")
+
+    # one grouped step on the card and on a CPU copy; one action in ten is
+    # uniform over all candidates, so some pieces teleport into the bedrock
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    a = _grouped_actions(gs, g, dev)
+    n_illegal = int((gs.mask.gather(0, a.long()[None])[0] == 0).sum())
+    if n_illegal == 0:
+        raise AssertionError("the grouped step check drew no illegal action")
+    on_cpu = tg.TurboGroupedState(
+        env=gs.env.replace(**{k: getattr(gs.env, k).cpu() for k in turbo.FIELDS}), mask=gs.mask.cpu())
+    kgs, kobs, kr, kd, kinfo = tg.step(gs, a, env_config)
+    pgs, pobs, pr, pd, pinfo = tg.step(on_cpu, a.cpu(), env_config)
+    for k in turbo.FIELDS:
+        diff("turbo_step", getattr(kgs.env, k).cpu(), getattr(pgs.env, k), f"trained step {k}")
+    diff("turbo_step", kr.cpu(), pr, "trained step reward")
+    diff("turbo_step", kd.cpu(), pd, "trained step done")
+    diff("turbo_step", kinfo["lines_cleared"].cpu(), pinfo["lines_cleared"], "trained step lines")
+    diff("grouped_placements", kgs.mask.cpu(), pgs.mask, "trained step mask")
+    diff("grouped_placements", kobs.cpu(), pobs, "trained step obs")
+
+    # that step's transition into copies of the full buffer, then a sample
+    buf = ts.buffer
+    if buf.size != buf.capacity or buf.pos == 0:
+        raise AssertionError(f"the buffer is not full and wrapped: pos {buf.pos}, size {buf.size}")
+    block = {"obs": ts.obs, "mask": gs.mask.T, "action": a, "reward": kr, "done": kd}
+    kbuf, pbuf = (buffers.ReplayBuffer({k: v.clone() for k, v in buf.data.items()}, buf.pos, buf.size)
+                  for _ in range(2))
+    kbuf, pbuf = buffers.add(kbuf, block), buffers.add_plain(pbuf, block)
+    for k in buf.data:
+        diff("replay_add", kbuf.data[k], pbuf.data[k], f"full buffer add {k}")
+    key = threefry.fold_in(threefry.prng_key(17), ts.step)
+    kc, kn = buffers.sample_with_next(kbuf, key, cfg.batch_size, GROUPED_ENVS)
+    pc, pn = buffers.sample_with_next_plain(pbuf, key, cfg.batch_size, GROUPED_ENVS)
+    for k in buf.data:
+        diff("replay_sample", kc[k], pc[k], f"full buffer sample {k}")
+        diff("replay_sample", kn[k], pn[k], f"full buffer successor {k}")
+    torch.cuda.synchronize()
+    emit({"phase": "grouped_path_shapes", "bit_equal": True, "B": GROUPED_ENVS,
+          "illegal_actions": n_illegal, "buffer_capacity": buf.capacity, "buffer_pos": buf.pos,
+          "samples": cfg.batch_size, "seconds": time.perf_counter() - t0})
+
+
+def _bound(io_bytes, ops):
+    bytes_ms, ops_ms = 1e3 * io_bytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
+    return {"bytes": io_bytes, "operations": ops, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def placement_ops(cfg, mode) -> int:
+    """32-bit operations of one candidate in ``grouped_placements`` (the
+    kernel's own count: 8 per hit-map window, 6 per full-row test, 20 per
+    row of the compaction and counters or 2 per cell of a board, 18 per
+    column of the counter read-out, 40 of geometry and legality)."""
+    H = cfg.padded_height
+    per_row = 20 if mode == "features" else 2 * cfg.width
+    tail = 18 * cfg.width if mode == "features" else 0
+    return 8 * (H - 3) + 6 * cfg.height + per_row * cfg.height + tail + 40
+
+
+def time_grouped_kernels(dev, smi) -> dict:
+    """Phase 16: the grouped kernels' device times beside their bounds, and
+    the engine's placements per second."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.rl import buffers, grouped_dqn
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    cfg = EngineConfig(gravity_enabled=False, auto_reset=True)
+    A = cfg.width * 4
+    out = {"grouped_placements": {}, "grouped_act": {}, "replay_add": {}, "replay_sample": {},
+           "grouped_step": {}}
+
+    def timed(kernel_fn, plain_fn, n_kernel, n_plain, io, ops):
+        return {"ms": device_ms(kernel_fn, n_kernel), "plain_ms": device_ms(plain_fn, n_plain),
+                "call_ms": call_ms(kernel_fn, n_kernel), **_bound(io, ops)}
+
+    for B in GROUPED_TIME_B:
+        gs, _ = tg.reset(batch_keys(prng_key(1), B, device=dev), cfg, device=dev)
+        for _ in range(20):  # mid-game boards
+            gs = tg.step(gs, _grouped_actions(gs, g, dev, wild=0.0), cfg)[0]
+        s = gs.env
+        big = B >= 65536
+        for mode in ("features", "boards"):
+            obs_bytes = B * A * (cfg.width + 3 if mode == "features" else cfg.height * cfg.width) * 4
+            io = nbytes(s.rows, s.piece, s.rotation) + obs_bytes + B * A * (4 + 1 + 4)
+            plain = tg.placements_plain if mode == "features" else tg.placement_boards_plain
+            out["grouped_placements"][f"{mode}@{B}"] = timed(
+                lambda: kernels.grouped_placements(s, cfg, turbo.PIECES, 4, mode),
+                lambda: plain(s, cfg), 20 if big else 100, 1 if big else 3, io,
+                B * A * placement_ops(cfg, mode))
+            a = _grouped_actions(gs, g, dev, wild=0.0)
+            mode_gs = tg.TurboGroupedState(env=s, mask=gs.mask)
+            step_ms = device_ms(lambda: tg.step(mode_gs, a, cfg, mode=mode), 5 if big else 20)
+            out["grouped_step"][f"{mode}@{B}"] = {
+                "ms": step_ms, "call_ms": call_ms(lambda: tg.step(mode_gs, a, cfg, mode=mode), 20),
+                "placements_per_s": B * A / (step_ms * 1e-3),
+                "kernel_placements_per_s": B * A / (out["grouped_placements"][f"{mode}@{B}"]["ms"] * 1e-3),
+            }
+        emit({"phase": "grouped_times", "B": B, "grouped_placements": {
+            k: v for k, v in out["grouped_placements"].items() if k.endswith(f"@{B}")},
+            "grouped_step": {k: v for k, v in out["grouped_step"].items() if k.endswith(f"@{B}")},
+            "nvidia_smi": smi})
+
+    for B in (GROUPED_ENVS, 4096):
+        q = torch.randn((B, A), generator=g, device=dev)
+        mask = (torch.rand((A, B), generator=g, device=dev) < 0.5).float().T
+        act_key, eps_key = threefry.split(prng_key(B))
+        io = nbytes(q) + B * A * 4 + B * 4
+        ops = B * (A * ACT_OPS_PER_CANDIDATE + ACT_OPS_PER_ENV)
+        out["grouped_act"][B] = timed(
+            lambda: kernels.grouped_act(q, mask, act_key, eps_key, 0.3),
+            lambda: grouped_dqn.act_plain(q, mask, act_key, eps_key, 0.3), 100, 10, io, ops)
+
+    # the replay at the committed run's shape: 1024 envs, 131,072 entries
+    B = GROUPED_ENVS
+    example = _replay_block(B, (A, cfg.width + 3), g, dev)
+    buf = buffers.create(example, grouped_dqn.GroupedDQNConfig().buffer_size, B)
+    for _ in range(buf.capacity // B):
+        buf = buffers.add(buf, _replay_block(B, (A, cfg.width + 3), g, dev))
+    block = _replay_block(B, (A, cfg.width + 3), g, dev)
+    entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
+    out["replay_add"][B] = timed(lambda: buffers.add(buf, block), lambda: buffers.add_plain(buf, block),
+                                 100, 20, 2 * B * entry, 0)
+    key = prng_key(3)
+    out["replay_sample"][256] = timed(
+        lambda: buffers.sample_with_next(buf, key, 256, B),
+        lambda: buffers.sample_with_next_plain(buf, key, 256, B), 100, 20, 4 * 256 * entry,
+        2 * 256 * SAMPLE_INDEX_OPS)
+    emit({"phase": "grouped_times", "grouped_act": out["grouped_act"], "replay_add": out["replay_add"],
+          "replay_sample": out["replay_sample"], "buffer_capacity": buf.capacity,
+          "buffer_mib": sum(nbytes(x) for x in buf.data.values()) / 2**20, "nvidia_smi": smi})
+    return out
+
 
 
 if __name__ == "__main__":

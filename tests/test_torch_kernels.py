@@ -6,6 +6,8 @@ one they run with ``python -m pytest --noconftest tests/test_torch_kernels.py
 The dispatch tests run anywhere: a CPU tensor never reaches a kernel and a
 kernel wrapper refuses a CPU tensor.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -13,11 +15,13 @@ import torch
 from tetris_gymnasium_torch import kernels
 from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.core import turbo
+from tetris_gymnasium_torch.core import turbo_grouped as tg
+from tetris_gymnasium_torch.ops import threefry
 from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
-from tetris_gymnasium_torch.rl import ppo
+from tetris_gymnasium_torch.rl import buffers, grouped_dqn, ppo
 
-NO_LAUNCHES = {"turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0}
+NO_LAUNCHES = {name: 0 for name in kernels.LAUNCHES}
 
 
 @pytest.fixture
@@ -155,3 +159,134 @@ def test_library_names_follow_the_sources():
     assert len(set(paths.values())) == len(paths)
     for name, p in paths.items():
         assert p.parent == kernels.BUILD_DIR and p.name.startswith(kernels.SOURCES[name].stem)
+
+
+def test_library_names_cover_included_headers(tmp_path):
+    """An edit to a header that a source includes gives the source a new library."""
+    for name in ("ppo_sample.cu", "threefry.cuh"):
+        shutil.copy(kernels.PACKAGE_DIR / "csrc" / name, tmp_path / name)
+    source, header = tmp_path / "ppo_sample.cu", tmp_path / "threefry.cuh"
+    assert kernels._sources_of(source) == [source, header]
+    before = kernels._lib_path(source)
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = kernels._lib_path(source)
+    assert after != before and after.name.startswith("ppo_sample_")
+    assert [p.name for p in kernels._sources_of(kernels.SOURCES["replay"])] == \
+        ["replay.cu", "threefry.cuh"]
+
+
+# ---------------------------------------------------------------------------
+# Grouped placements, masked epsilon-greedy, replay
+# ---------------------------------------------------------------------------
+
+GROUPED = EngineConfig(gravity_enabled=False, auto_reset=True)
+
+
+def _grouped_states(device, B, steps, config=GROUPED, seed=0):
+    """States of a random-legal-placement trajectory (plain versions on the CPU)."""
+    gs, _ = tg.reset(batch_keys(prng_key(seed), B, device="cpu"), config, device="cpu")
+    rng = np.random.default_rng(seed)
+    out = [gs.env]
+    for _ in range(steps):
+        q = torch.from_numpy(rng.standard_normal((B, config.width * 4)).astype(np.float32))
+        gs, *_ = tg.step(gs, grouped_dqn.act_plain(q, gs.mask.T), config)
+        out.append(gs.env)
+    return [turbo.TurboState(**{k: getattr(s, k).to(device) for k in turbo.FIELDS}) for s in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [GROUPED, EngineConfig(width=6, height=8, gravity_enabled=False)],
+                         ids=["10x20", "6x8"])
+def test_grouped_placements_kernel_matches_plain(cuda, config):
+    for s in _grouped_states(cuda, 300, 12, config):
+        for mode, plain in (("features", tg.placements_plain), ("boards", tg.placement_boards_plain)):
+            for max_clear in (4, config.height):
+                got = kernels.grouped_placements(s, config, turbo.PIECES, max_clear, mode)
+                want = plain(s, config, max_clear=max_clear)
+                for a, b, name in zip(got, want, ("obs", "mask", "game_over", "lines")):
+                    _assert_equal(a, b, f"{mode} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1001, 4096])
+def test_grouped_act_kernel_matches_plain(cuda, B):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(B)
+    q = torch.randn((B, 40), generator=g, device=cuda)
+    mask_ab = (torch.rand((40, B), generator=g, device=cuda) < 0.5).float()
+    mask_ab[:, : min(B, 3)] = 0.0  # envs with every candidate illegal
+    for eps in (0.0, 0.4, 1.0):
+        keys = threefry.split(prng_key(B), 2)
+        got = kernels.grouped_act(q, mask_ab.T, keys[0], keys[1], eps)
+        _assert_equal(got, grouped_dqn.act_plain(q, mask_ab.T, keys[0], keys[1], eps), f"eps {eps}")
+    _assert_equal(kernels.grouped_act(q, mask_ab.T, fill=float("-inf")),
+                  grouped_dqn.act_plain(q, mask_ab.T, fill=float("-inf")), "greedy")
+
+
+@pytest.mark.cuda
+def test_replay_kernels_match_plain(cuda):
+    B, capacity = 64, 256
+    example = {"obs": torch.zeros((B, 40, 13), device=cuda), "mask": torch.zeros((B, 40), device=cuda),
+               "action": torch.zeros(B, dtype=torch.int32, device=cuda),
+               "done": torch.zeros(B, dtype=torch.bool, device=cuda)}
+    kbuf = buffers.create(example, capacity, B)
+    pbuf = buffers.create(example, capacity, B)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    for t in range(7):  # wraps after 4 blocks
+        mask_ab = (torch.rand((40, B), generator=g, device=cuda) < 0.5).float()
+        block = {"obs": torch.randn((B, 40, 13), generator=g, device=cuda), "mask": mask_ab.T,
+                 "action": torch.randint(0, 40, (B,), generator=g, device=cuda, dtype=torch.int32),
+                 "done": torch.rand(B, generator=g, device=cuda) < 0.1}
+        kbuf = buffers.add(kbuf, block)
+        pbuf = buffers.add_plain(pbuf, block)
+        for k in example:
+            _assert_equal(kbuf.data[k], pbuf.data[k], f"add {k} @ {t}")
+        if t:
+            key = threefry.fold_in(prng_key(9), t)
+            kc, kn = buffers.sample_with_next(kbuf, key, 256, B)
+            pc, pn = buffers.sample_with_next_plain(pbuf, key, 256, B)
+            for k in example:
+                _assert_equal(kc[k], pc[k], f"sample {k} @ {t}")
+                _assert_equal(kn[k], pn[k], f"next {k} @ {t}")
+    ks, ps = buffers.sample(kbuf, prng_key(1), 100), buffers.sample_plain(pbuf, prng_key(1), 100)
+    for k in example:
+        _assert_equal(ks[k], ps[k], f"sample {k}")
+
+
+@pytest.mark.cuda
+def test_grouped_train_step_launch_counts(cuda):
+    cfg = grouped_dqn.GroupedDQNConfig(buffer_size=256, batch_size=16, learning_starts=2)
+    ts = grouped_dqn.init_grouped_dqn_state(prng_key(0), 64, GROUPED, cfg, device=cuda)
+    step = grouped_dqn.make_train_step(GROUPED, cfg)
+    kernels.reset_launches()
+    for _ in range(3):
+        ts, _ = step(ts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "grouped_act": 3, "turbo_step": 3, "turbo_init": 3,
+                                "grouped_placements": 3, "replay_add": 3, "replay_sample": 1}
+
+
+def test_grouped_dispatch_runs_plain_versions_on_cpu():
+    kernels.reset_launches()
+    cfg = grouped_dqn.GroupedDQNConfig(buffer_size=16, batch_size=4, learning_starts=1)
+    ts = grouped_dqn.init_grouped_dqn_state(prng_key(0), 4, GROUPED, cfg, device="cpu")
+    step = grouped_dqn.make_train_step(GROUPED, cfg)
+    for _ in range(2):
+        ts, _ = step(ts)
+    assert kernels.LAUNCHES == NO_LAUNCHES and ts.buffer.size == 8
+
+
+def test_grouped_kernel_wrappers_refuse_cpu_tensors():
+    s = turbo.init(batch_keys(prng_key(0), 4, device="cpu"), GROUPED, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.grouped_placements(s, GROUPED, turbo.PIECES)
+    with pytest.raises(NotImplementedError):
+        kernels.grouped_placements(s, EngineConfig(height=70), turbo.PIECES)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.grouped_act(torch.zeros((4, 40)), torch.ones((4, 40)))
+    data = {"x": torch.zeros((8, 3))}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.replay_add(data, {"x": torch.ones((4, 3))}, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.replay_sample(data, prng_key(0), 4, 8)

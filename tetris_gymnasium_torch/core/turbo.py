@@ -72,8 +72,17 @@ FIELDS = tuple(f.name for f in dataclasses.fields(TurboState))
 
 
 def select_tree(cond: torch.Tensor, a: TurboState, b: TurboState) -> TurboState:
-    """Per-env select of every field; ``cond [B]`` broadcasts on the minor axis."""
-    return TurboState(**{k: torch.where(cond, getattr(a, k), getattr(b, k)) for k in FIELDS})
+    """Per-env select of every field; ``cond [B]`` broadcasts on the minor axis.
+
+    ``uint32`` fields are selected through an int32 view (same bits).
+    """
+
+    def pick(x, y):
+        if x.dtype == torch.uint32:
+            return torch.where(cond, x.view(torch.int32), y.view(torch.int32)).view(torch.uint32)
+        return torch.where(cond, x, y)
+
+    return TurboState(**{k: pick(getattr(a, k), getattr(b, k)) for k in FIELDS})
 
 
 def check_geometry(config: EngineConfig) -> None:
@@ -320,6 +329,20 @@ def init_plain(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet = PIEC
     return _from_lanes(_init_from_lanes(u32_to_lanes(keys).T.contiguous(), config, pieces))
 
 
+def init_from_key(key2b: torch.Tensor, config: EngineConfig, pieces: PieceSet = PIECES) -> TurboState:
+    """Fresh episodes from per-env RNG states ``uint32[2, B]`` (``_init_from_key :440``).
+
+    On a CUDA tensor the ``turbo_init`` kernel makes them (it reads keys as
+    ``[B, 2]``, so the state's key goes in transposed); on a CPU tensor the
+    plain version does.
+    """
+    if key2b.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        return kernels.turbo_init(key2b.T.contiguous(), config, pieces)
+    return init_plain(key2b.T, config, pieces)
+
+
 def init(keys, config: EngineConfig, pieces: PieceSet = PIECES, device="cuda") -> TurboState:
     """Fresh batch from per-env keys ``uint32[B, 2]`` (e.g. ``mesh.batch_keys``).
 
@@ -558,6 +581,12 @@ def observe_board(state: TurboState, config: EngineConfig, pieces: PieceSet = PI
     return observe_board_plain(state, config, pieces)
 
 
+def col_bits(rows: torch.Tensor, col: int) -> torch.Tensor:
+    """``bool[H, *batch]`` occupancy of padded column ``col`` from single-word
+    rows in int64 lanes (``_col_bits :730``)."""
+    return ((rows >> col) & 1) != 0
+
+
 def heights(state: TurboState, config: EngineConfig) -> torch.Tensor:
     """Per-column stack heights ``int32[W, B]`` (plain version on any device)."""
     check_geometry(config)
@@ -566,7 +595,6 @@ def heights(state: TurboState, config: EngineConfig) -> torch.Tensor:
     h = torch.arange(H, dtype=torch.int32, device=rows.device)[:, None]
     out = []
     for w in range(config.padding, config.padding + config.width):
-        occ = ((rows >> w) & 1) != 0
-        top = torch.where(occ, h, H).amin(dim=0)
+        top = torch.where(col_bits(rows, w), h, H).amin(dim=0)
         out.append(H - top)
     return torch.stack(out).to(torch.int32)

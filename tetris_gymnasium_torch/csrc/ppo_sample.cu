@@ -12,8 +12,8 @@
 //
 // The noise is JAX's, bit for bit: element (b, a) takes threefry-2x32 of
 // the step's key at counter [0, b*8 + a] (jax_threefry_partitionable),
-// bits = y0 ^ y1, JAX's float32 uniform in [tiny, 1), and -log(-log(u)).
-// The argmax keeps the lowest index on ties, as jnp.argmax.  The
+// bits = y0 ^ y1, JAX's float32 uniform in [tiny, 1), and -log(-log(u))
+// (threefry.cuh).  The argmax keeps the lowest index on ties, as jnp.argmax.  The
 // log-softmax is (x - max) - log(sum exp(x - max)) with the sum taken as the
 // butterfly over the 8 lanes gives it, ((e0+e4)+(e2+e6)) + ((e1+e5)+(e3+e7)),
 // and the plain version adds in that order too.  Every add and multiply is
@@ -27,39 +27,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kActions = 8;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kTiny = 1.17549435e-38f;  // float32 tiny: gumbel's minval
-constexpr float kScale = 1.0f;            // float32(1 - tiny), i.e. maxval - minval
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
-
-// y0 ^ y1 of one 20-round threefry-2x32 block of key (k0, k1) at counter (c0, c1).
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t c0,
-                                                  uint32_t c1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r); \
-  x1 ^= x0;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-#undef TF_ROUND
-  return x0 ^ x1;
-}
 
 __global__ void __launch_bounds__(kThreads) ppo_sample_kernel(
     const float* __restrict__ logits, int32_t* __restrict__ action, float* __restrict__ log_prob,
@@ -73,11 +47,9 @@ __global__ void __launch_bounds__(kThreads) ppo_sample_kernel(
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const float x = valid ? logits[t] : 0.0f;
 
-  const uint32_t bits = threefry_bits(k0, k1, static_cast<uint32_t>(t >> 32),
-                                      static_cast<uint32_t>(t));
-  const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-  const float u = fmaxf(kTiny, __fadd_rn(__fmul_rn(f, kScale), kTiny));
-  const float g = -logf(-logf(u));
+  const float u = tf::gumbel_uniform(
+      tf::bits(k0, k1, static_cast<uint32_t>(t >> 32), static_cast<uint32_t>(t)));
+  const float g = tf::gumbel(u);
   if (uniform_out != nullptr && valid) uniform_out[t] = u;  // for checks against JAX's bits
 
   // argmax of g + x over the env's 8 lanes, the lower index winning a tie

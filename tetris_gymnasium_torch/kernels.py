@@ -15,20 +15,33 @@ Kernels, with the JAX function each replaces:
 * ``observe_board`` (``csrc/observe_board.cu``): ``core/turbo.py:observe_board :738``;
 * ``gae`` (``csrc/gae.cu``): ``rl/ppo.py:_gae :147``;
 * ``ppo_sample`` (``csrc/ppo_sample.cu``): the sampling tail of
-  ``rl/ppo.py:policy_step :184-187``.
+  ``rl/ppo.py:policy_step :184-187``;
+* ``grouped_placements`` (``csrc/grouped_placements.cu``):
+  ``core/turbo_grouped.py:_candidate_rows :103`` with ``_features_from_rows
+  :65``, ``placements :152`` and ``placement_boards :177``;
+* ``grouped_act`` (``csrc/grouped_act.cu``): the masked epsilon-greedy of
+  ``rl/grouped_dqn.py:train_step :165-174`` and ``_masked_random :78``, and
+  ``rl/evaluate.py:greedy_masked_q :141``;
+* ``replay_add`` and ``replay_sample`` (``csrc/replay.cu``):
+  ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``.
+
+``csrc/threefry.cuh`` holds JAX's random bits for ``ppo_sample``,
+``grouped_act`` and ``replay_sample``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
 synchronising, and adds one to ``LAUNCHES[name]`` per launch.  Wrappers
 take CUDA tensors only; the plain versions for CPU tensors are in
-:mod:`tetris_gymnasium_torch.core.turbo` and
-:mod:`tetris_gymnasium_torch.rl.ppo`, which dispatch.
+:mod:`tetris_gymnasium_torch.core.turbo`, :mod:`~tetris_gymnasium_torch.core.turbo_grouped`,
+:mod:`~tetris_gymnasium_torch.rl.ppo`, :mod:`~tetris_gymnasium_torch.rl.grouped_dqn` and
+:mod:`~tetris_gymnasium_torch.rl.buffers`, which dispatch.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,6 +63,9 @@ SOURCES = {
     "observe_board": PACKAGE_DIR / "csrc" / "observe_board.cu",
     "gae": PACKAGE_DIR / "csrc" / "gae.cu",
     "ppo_sample": PACKAGE_DIR / "csrc" / "ppo_sample.cu",
+    "grouped_placements": PACKAGE_DIR / "csrc" / "grouped_placements.cu",
+    "grouped_act": PACKAGE_DIR / "csrc" / "grouped_act.cu",
+    "replay": PACKAGE_DIR / "csrc" / "replay.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,7 +73,10 @@ NVCC_FLAGS = [
 ]
 
 # Launch counts, one per kernel: added to where a wrapper launches, nowhere else.
-LAUNCHES = {"turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0}
+LAUNCHES = {
+    "turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0,
+    "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
+}
 
 _LIBS: dict = {}
 
@@ -74,9 +93,28 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(source: Path) -> list:
+    """``source`` and every local header it includes, recursively, in include order."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [path.parent / name for name in _LOCAL_INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    """The library of ``source``, named by the hash of the source, the local
+    headers it includes and the flags, so that an edit to any of them rebuilds."""
+    digest = hashlib.sha256()
+    for path in _sources_of(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> dict:
@@ -131,6 +169,48 @@ class _ObsGeometry(ctypes.Structure):
     ]
 
 
+class _GroupedGeometry(ctypes.Structure):
+    _fields_ = [
+        (name, ctypes.c_int)
+        for name in ("height", "width", "padding", "rows_h", "padded_width", "n_entries",
+                     "n_pieces", "n_actions", "max_clear", "mode")
+    ]
+
+
+class _ActParams(ctypes.Structure):
+    _fields_ = [
+        ("A", ctypes.c_int), ("mask_sb", ctypes.c_longlong), ("mask_sa", ctypes.c_longlong),
+        ("fill", ctypes.c_float), ("explore", ctypes.c_int),
+        ("act_k0", ctypes.c_uint32), ("act_k1", ctypes.c_uint32),
+        ("eps_k0", ctypes.c_uint32), ("eps_k1", ctypes.c_uint32), ("epsilon", ctypes.c_float),
+    ]
+
+
+_MAX_REPLAY_FIELDS = 8  # csrc/replay.cu:kMaxFields
+
+
+class _ReplayField(ctypes.Structure):
+    _fields_ = [
+        ("store", ctypes.c_void_p), ("src", ctypes.c_void_p), ("out_cur", ctypes.c_void_p),
+        ("out_nxt", ctypes.c_void_p), ("row_bytes", ctypes.c_longlong), ("word", ctypes.c_int),
+        ("transposed", ctypes.c_int),
+    ]
+
+
+class _ReplayFields(ctypes.Structure):
+    _fields_ = [("f", _ReplayField * _MAX_REPLAY_FIELDS), ("n", ctypes.c_int)]
+
+
+class _SampleParams(ctypes.Structure):
+    _fields_ = [
+        ("hi_k0", ctypes.c_uint32), ("hi_k1", ctypes.c_uint32),
+        ("lo_k0", ctypes.c_uint32), ("lo_k1", ctypes.c_uint32),
+        ("span", ctypes.c_uint32), ("multiplier", ctypes.c_uint32),
+        ("start", ctypes.c_longlong), ("capacity", ctypes.c_longlong),
+        ("batch", ctypes.c_longlong), ("n", ctypes.c_int),
+    ]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -150,6 +230,18 @@ _ENTRY_POINTS = {
     },
     "ppo_sample": {
         "ppo_sample_launch": [_P, _P, _P, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _P],
+    },
+    "grouped_placements": {
+        "grouped_placements_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      ctypes.POINTER(_GroupedGeometry), _P],
+    },
+    "grouped_act": {
+        "grouped_act_launch": [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_ActParams), _P],
+    },
+    "replay": {
+        "replay_add_launch": [ctypes.POINTER(_ReplayFields), ctypes.c_longlong, _I, _P],
+        "replay_sample_launch": [ctypes.POINTER(_ReplayFields), ctypes.POINTER(_SampleParams),
+                                 _P, _P],
     },
 }
 
@@ -392,4 +484,212 @@ def sample_actions(logits: torch.Tensor, act_key, return_uniforms: bool = False)
     )
     _check(rc, "ppo_sample")
     LAUNCHES["ppo_sample"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grouped placements, masked epsilon-greedy, replay
+# ---------------------------------------------------------------------------
+
+_GROUPED_MODES = {"features": 0, "boards": 1}
+
+
+def grouped_placements(state: turbo.TurboState, config: EngineConfig, pieces: PieceSet,
+                       max_clear: int = 4, mode: str = "features"):
+    """Launch ``grouped_placements``: ``(obs, mask f32[A, B], game_over bool[A, B],
+    lines int32[A, B])``, ``obs`` ``f32[B, A, width + 3]`` (features) or
+    ``f32[B, A, height, width]`` (boards)."""
+    turbo.check_geometry(config)
+    if mode not in _GROUPED_MODES:
+        raise ValueError(f"unknown turbo grouped observation mode: {mode}")
+    device = state.rows.device
+    t, packed, box = turbo.tables_for(pieces, device)
+    if t.size != 4 or config.padded_height > 64 or config.height > 63:
+        raise NotImplementedError(
+            f"grouped_placements is built for 4x4 piece boxes and at most 64 padded rows; got "
+            f"side {t.size}, {config.padded_height} rows"
+        )
+    if max_clear < 0:
+        raise ValueError(f"max_clear must be >= 0, got {max_clear}")
+    B = state.piece.shape[0]
+    A = config.width * 4
+    _check_tensor(state.rows, "state.rows", torch.uint32, (config.padded_height, B), device)
+    _check_tensor(state.piece, "state.piece", torch.int32, (B,), device)
+    _check_tensor(state.rotation, "state.rotation", torch.int32, (B,), device)
+    obs_shape = (B, A, config.width + 3) if mode == "features" else (B, A, config.height, config.width)
+    obs = torch.empty(obs_shape, dtype=torch.float32, device=device)
+    mask = torch.empty((A, B), dtype=torch.float32, device=device)
+    game_over = torch.empty((A, B), dtype=torch.bool, device=device)
+    lines = torch.empty((A, B), dtype=torch.int32, device=device)
+    if B == 0:
+        return obs, mask, game_over, lines
+    geom = _GroupedGeometry(
+        config.height, config.width, config.padding, config.padded_height, config.padded_width,
+        t.n_pieces * 4, t.n_pieces, A, int(max_clear), _GROUPED_MODES[mode],
+    )
+    rc = _lib("grouped_placements").grouped_placements_launch(
+        state.rows.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(),
+        packed.data_ptr(), box.data_ptr(), obs.data_ptr(), mask.data_ptr(), game_over.data_ptr(),
+        lines.data_ptr(), B, ctypes.byref(geom), _stream(device),
+    )
+    _check(rc, "grouped_placements")
+    LAUNCHES["grouped_placements"] += 1
+    return obs, mask, game_over, lines
+
+
+def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
+                epsilon: float = 0.0, fill: float = -1e9, return_uniforms: bool = False):
+    """Launch ``grouped_act``: masked epsilon-greedy actions ``int32[B]``.
+
+    ``q`` is ``f32[B, A]``, contiguous; ``mask`` is ``f32[B, A]`` with any
+    strides (the engine's ``[A, B]`` mask transposed is a view).  With
+    ``act_key`` and ``eps_key`` (host ``uint32[2]`` keys) an env explores
+    where its uniform is below ``epsilon`` (a float32 value) and then takes
+    the Gumbel-max of the legal candidates; without them the action is the
+    greedy one.  ``fill`` is the value of an illegal candidate.  With
+    ``return_uniforms`` the uniforms behind the noise ``f32[B, A]`` and the
+    exploration draw ``f32[B]`` come back too.
+    """
+    device = q.device
+    if q.ndim != 2:
+        raise ValueError(f"q: want [B, A], got {tuple(q.shape)}")
+    B, A = q.shape
+    _check_tensor(q, "q", torch.float32, (B, A), device)
+    if not mask.is_cuda or mask.device != device or mask.dtype != torch.float32 \
+            or tuple(mask.shape) != (B, A):
+        raise ValueError(f"mask: want a CUDA float32 tensor of shape {(B, A)} on {device}")
+    explore = act_key is not None
+    if explore != (eps_key is not None):
+        raise ValueError("act_key and eps_key go together")
+    if return_uniforms and not explore:
+        raise ValueError("return_uniforms needs the random keys")
+    if B * A >= 2**31:
+        raise ValueError(f"{B} x {A} candidates too many for 32-bit counters")
+    ak = np.asarray(act_key if explore else (0, 0), dtype=np.uint32)
+    ek = np.asarray(eps_key if explore else (0, 0), dtype=np.uint32)
+    action = torch.empty((B,), dtype=torch.int32, device=device)
+    noise_u = torch.empty((B, A), dtype=torch.float32, device=device) if return_uniforms else None
+    eps_u = torch.empty((B,), dtype=torch.float32, device=device) if return_uniforms else None
+    out = (action, noise_u, eps_u) if return_uniforms else action
+    if B == 0:
+        return out
+    params = _ActParams(
+        A, mask.stride(0), mask.stride(1), float(np.float32(fill)), int(explore),
+        int(ak[0]), int(ak[1]), int(ek[0]), int(ek[1]), float(np.float32(epsilon)),
+    )
+    rc = _lib("grouped_act").grouped_act_launch(
+        q.data_ptr(), mask.data_ptr(), action.data_ptr(),
+        noise_u.data_ptr() if return_uniforms else None,
+        eps_u.data_ptr() if return_uniforms else None, B, ctypes.byref(params), _stream(device),
+    )
+    _check(rc, "grouped_act")
+    LAUNCHES["grouped_act"] += 1
+    return out
+
+
+def _copy_word(row_bytes: int, *tensors) -> int:
+    """The widest copy granule (16, 4 or 1 bytes) that the entry size and every pointer allow."""
+    for word in (16, 4):
+        if row_bytes % word == 0 and all(t.data_ptr() % word == 0 for t in tensors):
+            return word
+    return 1
+
+
+def _replay_fields(fields) -> _ReplayFields:
+    if len(fields) > _MAX_REPLAY_FIELDS:
+        raise NotImplementedError(f"the replay kernels take at most {_MAX_REPLAY_FIELDS} fields")
+    out = _ReplayFields()
+    out.n = len(fields)
+    for i, f in enumerate(fields):
+        out.f[i] = f
+    return out
+
+
+def replay_add(data: dict, transitions: dict, pos: int) -> None:
+    """Launch ``replay_add``: write one env batch into every store of ``data`` at entry ``pos``.
+
+    Each transition is ``[B, ...]`` with its store's dtype and trailing
+    shape, contiguous, or a 2-D ``[B, n]`` view of a contiguous batch-minor
+    ``[n, B]`` tensor of 4-byte elements (written transposed).  ``pos + B``
+    must not pass the capacity.  Writes in place.
+    """
+    if set(transitions) != set(data):
+        raise ValueError(f"transition fields {sorted(transitions)} differ from {sorted(data)}")
+    B = next(iter(transitions.values())).shape[0]
+    fields = []
+    for name, store in data.items():
+        x = transitions[name]
+        device = store.device
+        capacity = store.shape[0]
+        if not x.is_cuda or x.device != device or x.dtype != store.dtype \
+                or tuple(x.shape) != (B,) + tuple(store.shape[1:]):
+            raise ValueError(f"{name}: want a CUDA {store.dtype} tensor of shape "
+                             f"{(B,) + tuple(store.shape[1:])} on {device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if not 0 <= pos <= capacity - B:
+            raise ValueError(f"block [{pos}, {pos + B}) outside capacity {capacity}")
+        _check_tensor(store, f"store {name}", store.dtype, store.shape, device)
+        row_bytes = store[0].numel() * store.element_size()
+        transposed = not x.is_contiguous()
+        if transposed and not (x.ndim == 2 and x.element_size() == 4 and x.stride() == (1, B)):
+            raise ValueError(f"{name}: want a contiguous tensor or the transpose of a "
+                             f"contiguous [n, B] tensor of 4-byte elements")
+        word = 4 if transposed else _copy_word(row_bytes, store, x)
+        fields.append(_ReplayField(store.data_ptr(), x.data_ptr(), None, None, row_bytes, word,
+                                   int(transposed)))
+    if B == 0:
+        return
+    device = next(iter(data.values())).device
+    rc = _lib("replay").replay_add_launch(ctypes.byref(_replay_fields(fields)), int(pos), B,
+                                          _stream(device))
+    _check(rc, "replay_add")
+    LAUNCHES["replay_add"] += 1
+
+
+def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: int = 0,
+                  return_offsets: bool = False):
+    """Launch ``replay_sample``: ``n`` entries of every store, drawn on the card.
+
+    The offsets are ``jax.random.randint(key, (n,), 0, maxval)``, from the
+    host ``uint32[2]`` key; entry ``i`` is ``(start + off) % capacity``.
+    With ``batch > 0`` the successors ``(i + batch) % capacity`` come too.
+    Returns ``(cur, nxt)`` dicts (``nxt`` None without successors), and the
+    offsets ``int32[n]`` third with ``return_offsets``.
+    """
+    from tetris_gymnasium_torch.ops import threefry
+
+    stores = list(data.items())
+    device = stores[0][1].device
+    capacity = stores[0][1].shape[0]
+    if n >= 2**31 or capacity >= 2**31:
+        raise ValueError(f"{n} samples or capacity {capacity} too large for 32-bit counters")
+    span, multiplier = threefry.randint_span(maxval)
+    k_hi, k_lo = threefry.split(np.asarray(key, dtype=np.uint32))
+    cur, nxt, fields = {}, ({} if batch > 0 else None), []
+    for name, store in stores:
+        if store.shape[0] != capacity:
+            raise ValueError(f"store {name} has {store.shape[0]} entries, not {capacity}")
+        _check_tensor(store, f"store {name}", store.dtype, store.shape, device)
+        row_bytes = store[0].numel() * store.element_size()
+        cur[name] = torch.empty((n,) + tuple(store.shape[1:]), dtype=store.dtype, device=device)
+        outs = [cur[name]]
+        if nxt is not None:
+            nxt[name] = torch.empty_like(cur[name])
+            outs.append(nxt[name])
+        word = _copy_word(row_bytes, store, *outs)
+        fields.append(_ReplayField(store.data_ptr(), None, cur[name].data_ptr(),
+                                   nxt[name].data_ptr() if nxt is not None else None,
+                                   row_bytes, word, 0))
+    offsets = torch.empty((n,), dtype=torch.int32, device=device) if return_offsets else None
+    out = (cur, nxt, offsets) if return_offsets else (cur, nxt)
+    if n == 0:
+        return out
+    params = _SampleParams(int(k_hi[0]), int(k_hi[1]), int(k_lo[0]), int(k_lo[1]), span,
+                           multiplier, int(start), capacity, int(batch), n)
+    rc = _lib("replay").replay_sample_launch(
+        ctypes.byref(_replay_fields(fields)), ctypes.byref(params),
+        offsets.data_ptr() if return_offsets else None, _stream(device),
+    )
+    _check(rc, "replay_sample")
+    LAUNCHES["replay_sample"] += 1
     return out

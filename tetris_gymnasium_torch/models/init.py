@@ -1,13 +1,17 @@
 """Flax's default initialisers for the PyTorch networks.
 
-Port of the initialisers ``ActorCriticCNN`` gets in the JAX package
-(``tetris_gymnasium_tpu/models/networks.py:146-171``):
+Port of the initialisers the networks get in the JAX package
+(``tetris_gymnasium_tpu/models/networks.py``):
 
-* every convolution and dense kernel of the trunk: Flax's default
-  ``lecun_normal``, a normal truncated at two standard deviations and
-  rescaled so that its variance is ``1 / fan_in``;
-* every bias: zero;
-* the policy head: ``orthogonal(0.01)``; the value head: ``orthogonal(1.0)``.
+* every convolution and dense kernel: Flax's default ``lecun_normal``, a
+  normal truncated at two standard deviations and rescaled so that its
+  variance is ``1 / fan_in``, except
+* ``ActorCriticCNN``'s policy head, ``orthogonal(0.01)``, and value head,
+  ``orthogonal(1.0)`` (``:146-171``);
+* every bias: zero.
+
+``QMLP`` (``:174``) and ``QGroupedBoardsCNN`` (``:193``) take the defaults
+throughout.
 
 The draws come from an explicit ``torch.Generator``, so they match Flax's
 in distribution, not bit for bit; parameters carried across from JAX go in
@@ -42,4 +46,14 @@ def init_actor_critic_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     nn.init.orthogonal_(net.value.weight, 1.0, generator=generator)
     for layer in (*net.encoder.convs, net.encoder.dense, net.policy, net.value):
         nn.init.zeros_(layer.bias)
+    return net
+
+
+def init_lecun_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's defaults for every layer of ``net`` (a :class:`QMLP` or a
+    :class:`QGroupedBoardsCNN`): ``lecun_normal`` weights, zero biases; returns it."""
+    for layer in net.modules():
+        if isinstance(layer, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
     return net

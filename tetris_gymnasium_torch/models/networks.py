@@ -1,7 +1,7 @@
-"""Board networks: the conv trunk and the PPO actor-critic.
+"""Networks: the conv trunk, the PPO actor-critic and the grouped Q-nets.
 
 Port of ``tetris_gymnasium_tpu/models/networks.py`` (``BoardEncoder :25``,
-``ActorCriticCNN :146``).  As in the JAX package, parameters are float32
+``ActorCriticCNN :146``, ``QMLP :174``, ``QGroupedBoardsCNN :193``).  As in the JAX package, parameters are float32
 and the trunk computes in ``dtype`` (bfloat16 by default) while both heads
 compute in float32.  Two details keep the outputs equal to Flax's:
 
@@ -102,3 +102,42 @@ class ActorCriticCNN(nn.Module):
     def forward(self, boards: torch.Tensor):
         h = self.encoder(boards).to(torch.float32)
         return self.policy(h), self.value(h).squeeze(-1)
+
+
+class QMLP(nn.Module):
+    """Per-candidate Q-net over placement features: ``[..., F] -> [...]``.
+
+    Dense layers of widths ``hidden`` with ReLU, then a scalar head, all in
+    float32; applied to ``[B, A, F]`` it scores every candidate, ``[B, A]``.
+    """
+
+    def __init__(self, n_features: int = 13, hidden: Sequence[int] = (64, 64)):
+        super().__init__()
+        widths = [n_features, *hidden]
+        self.hidden = nn.ModuleList(nn.Linear(i, o) for i, o in zip(widths, widths[1:]))
+        self.head = nn.Linear(widths[-1], 1)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = features.to(torch.float32)
+        for layer in self.hidden:
+            x = F.relu(layer(x))
+        return self.head(x).squeeze(-1)
+
+
+class QGroupedBoardsCNN(nn.Module):
+    """Per-candidate board-image Q-net: ``[B, A, H, W] -> [B, A]``.
+
+    The candidate axis folds into the conv batch, so all ``B * A`` boards
+    go through one :class:`BoardEncoder` (``dtype`` trunk), then a float32
+    scalar head.
+    """
+
+    def __init__(self, board_shape: Tuple[int, int] = (20, 10), dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.encoder = BoardEncoder(board_shape=board_shape, dtype=dtype)
+        self.head = nn.Linear(512, 1)
+
+    def forward(self, boards: torch.Tensor) -> torch.Tensor:
+        lead = boards.shape[:-2]
+        h = self.encoder(boards.reshape((-1,) + tuple(boards.shape[-2:]))).to(torch.float32)
+        return self.head(h).reshape(lead)

@@ -16,7 +16,12 @@ implementation and ``jax_threefry_partitionable = True``:
   ``[1, 2)``, subtracts 1, scales to ``[minval, maxval)`` and clamps at
   ``minval``; ``gumbel`` (mode ``"low"``) is ``-log(-log(uniform(tiny, 1)))``;
 * ``permutation(k, n)`` sorts ``arange(n)`` stably by fresh 32-bit keys,
-  ``ceil(3 ln n / ln(2**32 - 1))`` rounds, splitting the key each round.
+  ``ceil(3 ln n / ln(2**32 - 1))`` rounds, splitting the key each round;
+* ``randint(k, (n,), 0, maxval)`` (int32) splits ``k`` in two, draws 32
+  bits ``hi`` from the first half and ``lo`` from the second, and returns
+  ``(hi % span * m + lo % span) % span`` in wrapping uint32 arithmetic,
+  with ``span = maxval`` (1 when ``maxval <= 0``) and
+  ``m = (2**16 % span)**2 % span``, the square wrapping in uint32 too.
 
 Host functions work on numpy ``uint32``; the ``*_lanes`` functions are their
 PyTorch twins on int64 lanes holding 32-bit values (PyTorch has no
@@ -117,6 +122,24 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
     return x
 
 
+def randint_span(maxval: int):
+    """``(span, multiplier)`` of ``randint(.., 0, maxval)`` for an int32 ``maxval``."""
+    span = int(maxval) if int(maxval) > 0 else 1
+    m = (2**16 % span) ** 2 % 2**32 % span  # the square wraps in uint32, as in JAX
+    return span, m
+
+
+def randint(key: np.ndarray, n: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, (n,), 0, maxval)`` (int32): ``int32[n]``."""
+    span, m = randint_span(maxval)
+    k_hi, k_lo = split(key)
+    hi, lo = random_bits32(k_hi, n), random_bits32(k_lo, n)
+    span32, m32 = np.uint32(span), np.uint32(m)
+    with np.errstate(over="ignore"):  # uint32 products and sums wrap, as in JAX
+        off = (hi % span32) * m32 + lo % span32
+    return (off % span32).astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # PyTorch twins on int64 lanes
 # ---------------------------------------------------------------------------
@@ -162,6 +185,22 @@ def gumbel_lanes(key, counters: torch.Tensor) -> torch.Tensor:
     """Gumbel noise (mode ``"low"``) at the flat indices ``counters``."""
     u = bits_to_uniform_lanes(random_bits32_lanes(key, counters), TINY, 1.0)
     return -torch.log(-torch.log(u))
+
+
+def randint_lanes(key, n: int, maxval: int, device) -> torch.Tensor:
+    """:func:`randint` computed on ``device``: ``int64[n]`` in ``[0, maxval)``.
+
+    The two halves of the key come from the host.  The products stay below
+    ``2**62`` (both factors are below ``span <= 2**31``), so int64 lanes
+    masked to 32 bits wrap as uint32 does.
+    """
+    span, m = randint_span(maxval)
+    k_hi, k_lo = split(key)
+    counters = torch.arange(n, dtype=torch.int64, device=device)
+    hi = random_bits32_lanes(k_hi, counters)
+    lo = random_bits32_lanes(k_lo, counters)
+    off = ((hi % span) * m + lo % span) & _MASK32
+    return off % span
 
 
 def permutation_lanes(key, n: int, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Greedy evaluation of a policy: N fresh episodes stepped in lockstep.
 
 Port of ``tetris_gymnasium_tpu/rl/evaluate.py`` (``_stats :30``,
-``evaluate_policy :56``, ``greedy_logits :132``).  Episodes run with
+``evaluate_policy :56``, ``evaluate_grouped :96``, ``greedy_logits :132``,
+``greedy_masked_q :141``).  Episodes run with
 ``auto_reset=False``, so a finished game freezes and the engine state's own
 accumulators (``score``, ``steps``, ``lines``) give the statistics at the
 end.  Where JAX scans ``max_steps`` iterations, this loop also stops once
@@ -93,6 +94,53 @@ def evaluate_policy(
     out = _stats(states, max_steps)
     out["iterations"] = it
     return out
+
+
+def evaluate_grouped(
+    act: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    n_episodes: int,
+    env_config: EngineConfig,
+    key,
+    mode: str = "features",
+    max_steps: int = 512,
+    device="cuda",
+) -> dict:
+    """Greedy placement-policy statistics on the turbo grouped engine.
+
+    ``act(obs, mask f32[B, A]) -> int32[B]`` scores every candidate; an
+    illegal choice ends its episode (``terminate_on_illegal``).  Like
+    :func:`evaluate_policy`, the loop stops early once every game is over.
+    """
+    from tetris_gymnasium_torch.core import turbo_grouped
+
+    cfg = env_config._replace(auto_reset=False)
+    gstates, obs = turbo_grouped.reset(batch_keys(key, n_episodes, device=device), cfg, mode=mode,
+                                       device=device)
+    it = 0
+    while it < max_steps:
+        action = act(obs, gstates.mask.T)
+        gstates, obs, *_ = turbo_grouped.step(gstates, action, cfg, mode=mode)
+        it += 1
+        if it % DONE_CHECK_EVERY == 0 and bool(gstates.env.game_over.all()):
+            break
+    out = _stats(gstates.env, max_steps)
+    out["iterations"] = it
+    return out
+
+
+def greedy_masked_q(net) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Grouped policy: argmax of the candidates' Q over the legal ones (illegal at -inf).
+
+    On the card the ``grouped_act`` kernel takes the masked argmax.
+    """
+    from tetris_gymnasium_torch.rl.grouped_dqn import act as masked_act
+
+    def act(obs, mask):
+        with torch.inference_mode():
+            q = net(obs)
+        return masked_act(q, mask, fill=float("-inf"))
+
+    return act
 
 
 def greedy_logits(net) -> Callable[[torch.Tensor], torch.Tensor]:

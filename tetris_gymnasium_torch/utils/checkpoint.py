@@ -1,10 +1,12 @@
-"""Load and save actor-critic checkpoints as flat ``.npz`` files.
+"""Load and save network checkpoints as flat ``.npz`` files.
 
 The JAX package saves parameters as an orbax directory, which this port
 cannot read without JAX.  ``tools/export_torch_params.py`` turns one into a
 plain ``.npz`` of the flat Flax parameter paths
 (``results/ppo_lines_params.npz`` for the committed PPO policy); this module
-reads that file, and writes the same format for a network the port trained.
+reads that file, and writes the same format for a network the port trained:
+the actor-critic, and the grouped DQN's :class:`QMLP` and
+:class:`QGroupedBoardsCNN`.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from tetris_gymnasium_torch.models.convert import from_flax_params, to_flax_params
-from tetris_gymnasium_torch.models.networks import ActorCriticCNN
+from tetris_gymnasium_torch.models.networks import ActorCriticCNN, QGroupedBoardsCNN, QMLP
 from tetris_gymnasium_torch.utils.device import resolve_device
 
 
@@ -48,3 +50,29 @@ def load_actor_critic(
 def save_actor_critic(path: str, net: ActorCriticCNN) -> None:
     """Write ``net``'s parameters as the flat float32 ``.npz`` that :func:`load_flat` reads."""
     np.savez(path, **to_flax_params(net.state_dict()))
+
+
+def load_q_net(path: str, kind: str, device="cuda", dtype: torch.dtype = torch.bfloat16,
+               board_shape=(20, 10)):
+    """A grouped Q-net with the exported weights, in eval mode on ``device``.
+
+    ``kind`` is ``"qmlp"`` (widths read from the weights) or
+    ``"grouped_cnn"`` (for boards of ``board_shape``, with a ``dtype`` trunk).
+    """
+    device = resolve_device(device)
+    sd = from_flax_params(load_flat(path), kind)
+    if kind == "qmlp":
+        n_hidden = sum(1 for k in sd if k.startswith("hidden.") and k.endswith(".weight"))
+        net = QMLP(n_features=sd["hidden.0.weight"].shape[1],
+                   hidden=[sd[f"hidden.{i}.weight"].shape[0] for i in range(n_hidden)])
+    elif kind == "grouped_cnn":
+        net = QGroupedBoardsCNN(board_shape=tuple(board_shape), dtype=dtype)
+    else:
+        raise ValueError(f"unknown Q-net kind {kind!r}")
+    net.load_state_dict(sd)
+    return net.to(device).eval()
+
+
+def save_q_net(path: str, net, kind: str) -> None:
+    """Write a grouped Q-net's parameters as the flat float32 ``.npz`` that :func:`load_flat` reads."""
+    np.savez(path, **to_flax_params(net.state_dict(), kind))
