@@ -79,8 +79,40 @@ Phases, each printing one JSON line:
     and 4096; ``replay_add`` at 1024; ``replay_sample`` at 256 samples of the
     full buffer) and the grouped step's placements per second.
 
-Then the kernels line (nine kernels; launch counts of the grouped training
-path, else the PPO one; times at the shape of that path) and, last, the
+17. ``framestack_push`` against ``ops.framestack.push_plain`` (random
+    windows, ~15% ``done``, B = 1024 and 512 with K = 4, B = 1 and 1001 with
+    K = 2), ``replay_sample_stacked`` against
+    ``rl.buffers.sample_with_next_stacked_plain`` on buffers that wrap
+    twice, filled through the strided newest-frame view of a window (so
+    ``replay_add`` reads strided rows), with its offsets equal to JAX's
+    ``randint`` (card and host), and ``dqn_act`` against
+    ``rl.dqn.act_plain`` at B = 1024, 1 and 1001: actions equal, the randint
+    and uniform draws bit-equal.
+18. A small fp32 CNN DQN (64 envs, K = 4, buffer 64 x 16, batch 32, learning
+    from step 8, a target sync every 16, 40 steps) on the card and on the
+    CPU from the same weights: replay contents, env states and the window
+    bit-equal, parameter changes within ``SMALL_DQN_PARAM_TOL``.
+19. The CNN DQN path: ``examples/train_cnn.py``'s code at the committed runs'
+    shape (1024 envs, buffer 262,144, batch 512, lr 1e-4, target sync every
+    500, ``QNetworkCNN`` with a bf16 trunk) and schedule (epsilon over
+    10,000 steps, learning from step 1000) for 2000 steps, K = 4 and then
+    K = 1, from the JAX runs' initial weights
+    (``results/qcnn*_init_seed1.npz``).  Each: exact launch
+    counts, finite metrics, weights that move, the learning gate (mean
+    reward per env step over steps 1751-2000 at least ``DQN_GATE`` times the
+    mean over steps 1-500) beside the committed JAX curve, the step split
+    (act, env step with observe and push, replay add, sample + update, sync)
+    with CUDA events, a 512-episode greedy ``evaluate_q_checkpoint`` (at most
+    2000 steps, seed 0) of the trained and the untrained net, the card's
+    busy share over 20 more steps, and then every kernel of the path against
+    its plain version on the trained state at the path's shapes (B = 1024,
+    the full wrapped 262,144-entry buffer).
+20. The new kernels' times beside their bounds, at the path's shapes and at
+    B = 65536, and the DQN path's replay kernels at its shapes.
+
+Then the kernels line (twelve kernels; each with the launch counts of the
+newest path that runs it: the K = 4 DQN, else the K = 1 DQN, else the
+grouped DQN, else PPO; times at the shape of that path) and, last, the
 device line.  Any failed check raises, so the exit code is not 0.  The
 script imports nothing of JAX.
 """
@@ -156,6 +188,37 @@ GROUPED_EVAL_EPISODES, GROUPED_EVAL_MAX_STEPS = 512, 512
 PROFILED_STEPS = 20  # learning steps traced by torch.profiler after the run
 GROUPED_TIME_B = (512, 1024, 4096, 65536)
 
+# The CNN DQN slice.  Phase 19: examples/train_cnn.py at the committed runs'
+# shape (results/dqn.jsonl and results/dqn_k4.jsonl: 1024 envs, default
+# DQNConfig: buffer 262,144, batch 512, lr 1e-4, sync every 500) and schedule,
+# cut to 2000 of 30,000 steps, from the JAX runs' initial weights
+# (tools/export_grouped_init_params.py --net q_cnn --seed 1 [--frame-stack 4]).
+# The committed runs' records fix their schedule: epsilon 0.9753 at step 250
+# and 0.8021 at step 2000 is an anneal over 10,000 steps, and a loss of 0
+# through step 1000 that is non-zero from step 1250 is learning from step
+# 1000 (the script's defaults today are 6000 and 500).
+DQN_ENVS, DQN_STEPS, DQN_CHUNK, DQN_BATCH = 1024, 2000, 250, 512
+DQN_EXPLORATION, DQN_LEARNING_STARTS = 10_000, 1000
+DQN_INIT = {1: os.path.join(REPO, "results", "qcnn_init_seed1.npz"),
+            4: os.path.join(REPO, "results", "qcnn_k4_init_seed1.npz")}
+DQN_JAX_CURVE = {1: os.path.join(REPO, "results", "dqn.jsonl"),
+                 4: os.path.join(REPO, "results", "dqn_k4.jsonl")}
+# reward per env step over steps 1751-2000 against steps 1-500; the committed
+# JAX curves give 1.82x for both K
+DQN_GATE = 1.4
+# Phase 18.  Parameter changes on the card and the CPU agree within 1e-3 of
+# the largest: float32 sums in another order, magnified by Adam's division by
+# sqrt(v) + 1e-8 where a gradient is near zero.
+SMALL_DQN_CFG = dict(buffer_size=64 * 16, batch_size=32, learning_starts=8, target_update_every=16,
+                     exploration_steps=6000, frame_stack=4)
+SMALL_DQN_STEPS = 40
+SMALL_DQN_PARAM_TOL = 1e-3
+# dqn_act: three threefry blocks (~75 each), the argmax over 8 (~16) and the select
+DQN_ACT_OPS_PER_ENV = 250
+# replay_sample_stacked: per anchor and frame, the lookback's index and flag test
+STACK_OPS_PER_FRAME = 10
+DQN_TIME_B = (512, 1024, 65536)
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -164,7 +227,8 @@ def emit(obj) -> None:
 # Largest |kernel - plain version| seen, by kernel.
 MAX_ERR = {"turbo_step": 0.0, "turbo_init": 0.0, "observe_board": 0.0, "gae": 0.0,
            "ppo_sample": 0.0, "grouped_placements": 0.0, "grouped_act": 0.0, "replay_add": 0.0,
-           "replay_sample": 0.0}
+           "replay_sample": 0.0, "replay_sample_stacked": 0.0, "framestack_push": 0.0,
+           "dqn_act": 0.0}
 
 
 def bits(t):
@@ -234,6 +298,54 @@ def device_ms(fn, n, replays=7):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def timed_pair(kernel_fn, plain_fn, n_kernel, n_plain, io, ops) -> dict:
+    """Device ms of a kernel and of its plain version, beside the bound."""
+    return {"ms": device_ms(kernel_fn, n_kernel), "plain_ms": device_ms(plain_fn, n_plain),
+            "call_ms": call_ms(kernel_fn, n_kernel), **_bound(io, ops)}
+
+
+STEP_PARTS = ("act", "env", "add", "update", "sync")  # the DQN steps' marks after "start"
+
+
+def split_ms(steps) -> dict:
+    """Mean ms between the marks of a DQN step, from one dict of CUDA events a step."""
+    out = {p: 0.0 for p in STEP_PARTS}
+    for e in steps:
+        for a, b in zip(("start",) + STEP_PARTS, STEP_PARTS):
+            out[b] += e[a].elapsed_time(e[b]) / len(steps)
+    out["step"] = sum(out[p] for p in STEP_PARTS)
+    return out
+
+
+def profile_steps(step, ts):
+    """``PROFILED_STEPS`` more steps under ``torch.profiler``: ``(ts, the
+    card's busy and idle share and its top kernels per step)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            ts, _ = step(ts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels_us = {}  # device activity by name; annotations (Optimizer.step) span kernels, so skip them
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)]
+    for e in device_events:
+        kernels_us[e.name] = kernels_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
+    return ts, {"steps": PROFILED_STEPS, "wall_ms_per_step_profiled": wall_ms / PROFILED_STEPS,
+                "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
+                "device_idle_share": 1 - busy_ms / wall_ms,
+                "device_launches_per_step": len(device_events) / PROFILED_STEPS,
+                "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}}
 
 
 def main() -> None:
@@ -442,6 +554,10 @@ def main() -> None:
               "gravity": cfg.gravity_enabled, "kernels": times[B],
               "env_steps_per_s": B / (times[B]["turbo_step"]["ms"] * 1e-3),
               "nvidia_smi": smi})
+    # the CNN DQN's engine: 1024 envs with gravity and auto-reset
+    times["dqn"] = time_kernels(DQN_ENVS, EngineConfig(auto_reset=True), n_kernel=200, n_plain=10)
+    emit({"phase": "times", "B": DQN_ENVS, "path": "dqn", "auto_reset": True, "gravity": True,
+          "kernels": times["dqn"], "nvidia_smi": smi})
 
     # where an iteration of the main path goes, at its shape
     cfg = EngineConfig()
@@ -475,6 +591,12 @@ def main() -> None:
     grouped = train_grouped_full_width(dev, smi)
     grouped_times = time_grouped_kernels(dev, smi)
 
+    # -- 17.-20. the CNN DQN slice ---------------------------------------------------
+    check_dqn_kernels(dev)
+    check_small_dqn()
+    dqn_runs = {K: train_dqn_full_width(dev, smi, K) for K in (4, 1)}
+    dqn_times = time_dqn_kernels(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -493,34 +615,43 @@ def main() -> None:
                        "tetris_gymnasium_tpu/rl/buffers.py:46"),
         "replay_sample": ("tetris_gymnasium_torch/csrc/replay.cu",
                           "tetris_gymnasium_tpu/rl/buffers.py:70"),
+        "replay_sample_stacked": ("tetris_gymnasium_torch/csrc/replay.cu",
+                                  "tetris_gymnasium_tpu/rl/buffers.py:111"),
+        "framestack_push": ("tetris_gymnasium_torch/csrc/framestack.cu",
+                            "tetris_gymnasium_tpu/ops/framestack.py:37"),
+        "dqn_act": ("tetris_gymnasium_torch/csrc/dqn_act.cu", "tetris_gymnasium_tpu/rl/dqn.py:143"),
     }
-    # Each kernel's time at the shape of the training path whose launches
-    # the line gives: the grouped step's 1024 envs (gravity off, and 256
-    # samples) for turbo_step, turbo_init and the four grouped kernels, the
-    # PPO step's B = 8192 for observe_board, gae and ppo_sample.
-    at_path = {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS],
-               "turbo_step": times[GROUPED_ENVS]["turbo_step"],
-               "turbo_init": times[GROUPED_ENVS]["turbo_init"],
-               "grouped_placements": grouped_times["grouped_placements"][f"features@{GROUPED_ENVS}"],
-               "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS],
-               "replay_add": grouped_times["replay_add"][GROUPED_ENVS],
-               "replay_sample": grouped_times["replay_sample"][256]}
-    per_grouped_step = {k: v / GROUPED_STEPS for k, v in grouped["launches"].items()}
-    per_ppo_step = {k: v / TRAIN_STEPS for k, v in train["launches"].items()}
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         # launches in the newest path that runs the kernel: the grouped
-         # training run (phase 15), else the PPO training run (phase 9)
-         "launches": grouped["launches"][name] or train["launches"][name],
-         "launches_grouped_train": grouped["launches"][name],
-         "launches_ppo_train": train["launches"][name], "launches_eval": launches[name],
-         "launches_per_grouped_step": per_grouped_step[name],
-         "launches_per_ppo_step": per_ppo_step[name],
-         "max_abs_err": MAX_ERR[name], "ms": at_path[name]["ms"],
-         "plain_ms": at_path[name]["plain_ms"], "bound_ms": at_path[name]["bound_ms"],
-         "bound_by": at_path[name].get("bound_by", "bytes"), "library_ms": None}
-        for name, (src, rep) in sources.items()
-    ]})
+    # Each kernel's launches and time come from one path: the newest that
+    # runs it (the K = 4 DQN, else the K = 1 DQN, else the grouped DQN, else
+    # PPO), its time at that path's shapes: the DQN's 1024 envs with gravity
+    # (512 samples of the 262,144-entry buffer), the grouped step's 1024 envs
+    # without gravity (256 samples), the PPO step's B = 8192.
+    dqn_at = {"turbo_step": times["dqn"]["turbo_step"], "turbo_init": times["dqn"]["turbo_init"],
+              "observe_board": times["dqn"]["observe_board"],
+              "framestack_push": dqn_times["framestack_push"][DQN_ENVS],
+              "dqn_act": dqn_times["dqn_act"][DQN_ENVS], "replay_add": dqn_times["replay_add"],
+              "replay_sample_stacked": dqn_times["replay_sample_stacked"][DQN_BATCH],
+              "replay_sample": dqn_times["replay_sample"]}
+    grouped_at = {"grouped_placements": grouped_times["grouped_placements"][f"features@{GROUPED_ENVS}"],
+                  "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS]}
+    paths = [("dqn_k4", dqn_runs[4]["launches"], DQN_STEPS, dqn_at),
+             ("dqn_k1", dqn_runs[1]["launches"], DQN_STEPS, dqn_at),
+             ("grouped_train", grouped["launches"], GROUPED_STEPS, grouped_at),
+             ("ppo_train", train["launches"], TRAIN_STEPS, {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS]})]
+    entries = []
+    for name, (src, rep) in sources.items():
+        path, counts, n_steps, at = next(p for p in paths if p[1][name])
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
+            "launches": counts[name], "launches_per_step": counts[name] / n_steps,
+            **{f"launches_{p[0]}": p[1][name] for p in paths},
+            "launches_eval": launches[name],
+            "launches_dqn_eval_k4": dqn_runs[4]["eval_launches"][name],
+            "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
+            "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
+            "library_ms": None,
+        })
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
@@ -1115,15 +1246,6 @@ def train_grouped_full_width(dev, smi) -> dict:
     if not last > 3 * max(first, 1.0):
         raise AssertionError(f"no learning: {first} -> {last} lines per chunk ({chunk_lines})")
 
-    def split_ms(steps):
-        parts = ("act", "env", "add", "update", "sync")
-        out = {p: 0.0 for p in parts}
-        for e in steps:
-            for a, b in zip(("start",) + parts, parts):
-                out[b] += e[a].elapsed_time(e[b]) / len(steps)
-        out["step"] = sum(out[p] for p in parts)
-        return out
-
     split = {"before_learning": split_ms(events[10:GROUPED_LEARNING_STARTS]),
              "learning": split_ms(events[GROUPED_LEARNING_STARTS + 10 :])}
     emit({"phase": "grouped_train", "n_envs": GROUPED_ENVS, "steps": n, "wall_s_with_setup": wall,
@@ -1145,35 +1267,13 @@ def train_grouped_full_width(dev, smi) -> dict:
           "nvidia_smi": smi})
 
     # the card's busy share: 20 more learning steps under torch.profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tetris_gymnasium_torch.rl import grouped_dqn
 
     cfg = grouped_dqn.GroupedDQNConfig(exploration_steps=args.exploration_steps,
                                        learning_starts=args.learning_starts)
     step = grouped_dqn.make_train_step(EngineConfig(gravity_enabled=False, auto_reset=True), cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            ts, _ = step(ts)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels_us = {}  # device activity by name; annotations (Optimizer.step) span kernels, so skip them
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)]
-    for e in device_events:
-        kernels_us[e.name] = kernels_us.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_ms = sum(kernels_us.values()) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "grouped_profile", "steps": PROFILED_STEPS,
-          "wall_ms_per_step_profiled": wall_ms / PROFILED_STEPS,
-          "device_busy_ms_per_step": busy_ms / PROFILED_STEPS, "device_idle_share": 1 - busy_ms / wall_ms,
-          "device_launches_per_step": len(device_events) / PROFILED_STEPS,
-          "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}, "nvidia_smi": smi})
+    ts, busy = profile_steps(step, ts)
+    emit({"phase": "grouped_profile", **busy, "nvidia_smi": smi})
     check_grouped_path_shapes(dev, ts, cfg)
     return {"launches": launches, "split": split}
 
@@ -1274,10 +1374,6 @@ def time_grouped_kernels(dev, smi) -> dict:
     out = {"grouped_placements": {}, "grouped_act": {}, "replay_add": {}, "replay_sample": {},
            "grouped_step": {}}
 
-    def timed(kernel_fn, plain_fn, n_kernel, n_plain, io, ops):
-        return {"ms": device_ms(kernel_fn, n_kernel), "plain_ms": device_ms(plain_fn, n_plain),
-                "call_ms": call_ms(kernel_fn, n_kernel), **_bound(io, ops)}
-
     for B in GROUPED_TIME_B:
         gs, _ = tg.reset(batch_keys(prng_key(1), B, device=dev), cfg, device=dev)
         for _ in range(20):  # mid-game boards
@@ -1288,7 +1384,7 @@ def time_grouped_kernels(dev, smi) -> dict:
             obs_bytes = B * A * (cfg.width + 3 if mode == "features" else cfg.height * cfg.width) * 4
             io = nbytes(s.rows, s.piece, s.rotation) + obs_bytes + B * A * (4 + 1 + 4)
             plain = tg.placements_plain if mode == "features" else tg.placement_boards_plain
-            out["grouped_placements"][f"{mode}@{B}"] = timed(
+            out["grouped_placements"][f"{mode}@{B}"] = timed_pair(
                 lambda: kernels.grouped_placements(s, cfg, turbo.PIECES, 4, mode),
                 lambda: plain(s, cfg), 20 if big else 100, 1 if big else 3, io,
                 B * A * placement_ops(cfg, mode))
@@ -1311,7 +1407,7 @@ def time_grouped_kernels(dev, smi) -> dict:
         act_key, eps_key = threefry.split(prng_key(B))
         io = nbytes(q) + B * A * 4 + B * 4
         ops = B * (A * ACT_OPS_PER_CANDIDATE + ACT_OPS_PER_ENV)
-        out["grouped_act"][B] = timed(
+        out["grouped_act"][B] = timed_pair(
             lambda: kernels.grouped_act(q, mask, act_key, eps_key, 0.3),
             lambda: grouped_dqn.act_plain(q, mask, act_key, eps_key, 0.3), 100, 10, io, ops)
 
@@ -1323,15 +1419,396 @@ def time_grouped_kernels(dev, smi) -> dict:
         buf = buffers.add(buf, _replay_block(B, (A, cfg.width + 3), g, dev))
     block = _replay_block(B, (A, cfg.width + 3), g, dev)
     entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
-    out["replay_add"][B] = timed(lambda: buffers.add(buf, block), lambda: buffers.add_plain(buf, block),
+    out["replay_add"][B] = timed_pair(lambda: buffers.add(buf, block), lambda: buffers.add_plain(buf, block),
                                  100, 20, 2 * B * entry, 0)
     key = prng_key(3)
-    out["replay_sample"][256] = timed(
+    out["replay_sample"][256] = timed_pair(
         lambda: buffers.sample_with_next(buf, key, 256, B),
         lambda: buffers.sample_with_next_plain(buf, key, 256, B), 100, 20, 4 * 256 * entry,
         2 * 256 * SAMPLE_INDEX_OPS)
     emit({"phase": "grouped_times", "grouped_act": out["grouped_act"], "replay_add": out["replay_add"],
           "replay_sample": out["replay_sample"], "buffer_capacity": buf.capacity,
+          "buffer_mib": sum(nbytes(x) for x in buf.data.values()) / 2**20, "nvidia_smi": smi})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 17.-20. the CNN DQN slice
+# ---------------------------------------------------------------------------
+
+
+def _dqn_block(B, window, g, dev):
+    """One transition batch whose stored frame is the window's newest, a strided view."""
+    return {"obs": window[:, -1],
+            "action": torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32),
+            "reward": torch.randn((B,), generator=g, device=dev),
+            "done": torch.rand((B,), generator=g, device=dev) < 0.15}
+
+
+def _boards(shape, g, dev):
+    return torch.randint(-1, 2, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def check_dqn_kernels(dev) -> None:
+    """Phase 17: ``framestack_push``, ``replay_sample_stacked`` (with
+    ``replay_add`` from a strided view) and ``dqn_act`` against their plain
+    versions, and the draws against JAX's mapping."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.ops import framestack, threefry
+    from tetris_gymnasium_torch.rl import buffers, dqn
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    t0 = time.perf_counter()
+    push_runs = []
+    for B, K in ((1024, 4), (512, 4), (1, 2), (1001, 2)):
+        stack = _boards((B, K, 20, 10), g, dev)
+        n_done = 0
+        for t in range(8):
+            obs = _boards((B, 20, 10), g, dev)
+            done = torch.rand((B,), generator=g, device=dev) < 0.15
+            got = kernels.framestack_push(stack, obs, done)
+            diff("framestack_push", got, framestack.push_plain(stack, obs, done), f"B={B} K={K} push {t}")
+            n_done += int(done.sum())
+            stack = got
+        push_runs.append({"B": B, "K": K, "pushes": 8, "dones": n_done})
+
+    sample_runs = []
+    for B, blocks, K, n in ((1024, 8, 4, 512), (64, 12, 4, 1001), (100, 7, 2, 256)):
+        window = _boards((B, K, 20, 10), g, dev)
+        example = _dqn_block(B, window, g, dev)
+        kbuf, pbuf = (buffers.create(example, blocks * B, B) for _ in range(2))
+        samples = 0
+        for t in range(2 * blocks + 3):  # wraps twice
+            block = _dqn_block(B, window, g, dev)
+            kbuf, pbuf = buffers.add(kbuf, block), buffers.add_plain(pbuf, block)
+            for k in example:
+                diff("replay_add", kbuf.data[k], pbuf.data[k], f"B={B} strided add {t} {k}")
+            window = framestack.push(window, _boards((B, 20, 10), g, dev), block["done"])
+            if t < K:  # k + 1 blocks must be resident
+                continue
+            key = threefry.fold_in(threefry.prng_key(41), t)
+            start, n_valid = buffers._stacked_window(kbuf, B, K)
+            kc, kn, off = kernels.replay_sample_stacked(kbuf.data, key, n, n_valid, start, B, K,
+                                                         return_offsets=True)
+            pc, pn = buffers.sample_with_next_stacked_plain(pbuf, key, n, B, K)
+            for k in example:
+                diff("replay_sample_stacked", kc[k], pc[k], f"B={B} K={K} sample {t} {k}")
+                diff("replay_sample_stacked", kn[k], pn[k], f"B={B} K={K} successor {t} {k}")
+            diff("replay_sample_stacked", off.long(), threefry.randint_lanes(key, n, n_valid, dev),
+                 f"B={B} K={K} offsets {t}")
+            if not np.array_equal(off.cpu().numpy(), threefry.randint(key, n, n_valid)):
+                raise AssertionError(f"stacked sample offsets B={B} t={t}: card and host draws differ")
+            samples += 1
+        sample_runs.append({"B": B, "capacity": blocks * B, "K": K, "n": n, "samples": samples})
+
+    act_runs = []
+    for B in (1024, 1, 1001):
+        counters = torch.arange(B, dtype=torch.int64, device=dev)
+        for trial, scale in enumerate(("near-ties", 1.0, 30.0)):
+            if scale == "near-ties":  # many Q values equal, the rest 2**-20 apart
+                q = torch.randint(0, 3, (B, 8), generator=g, device=dev).float() * 2**-20
+            else:
+                q = torch.randn((B, 8), generator=g, device=dev) * scale
+            for eps in (0.0, 0.3, 1.0):
+                act_key, eps_key = threefry.split(threefry.fold_in(threefry.prng_key(B), trial))
+                a, ra, eu = kernels.dqn_act(q, act_key, eps_key, eps, return_draws=True)
+                what = f"B={B} q={scale} eps={eps}"
+                diff("dqn_act", a, dqn.act_plain(q, act_key, eps_key, eps), f"{what} actions")
+                diff("dqn_act", ra, threefry.randint_lanes(act_key, B, 8, dev).to(torch.int32),
+                     f"{what} randint")
+                if not np.array_equal(ra.cpu().numpy(), threefry.randint(act_key, B, 8)):
+                    raise AssertionError(f"{what}: card and host randint draws differ")
+                diff("dqn_act", eu, threefry.bits_to_uniform_lanes(
+                    threefry.random_bits32_lanes(eps_key, counters)), f"{what} uniforms")
+            diff("dqn_act", kernels.dqn_act(q), dqn.act_plain(q), f"B={B} q={scale} greedy")
+        act_runs.append({"B": B, "q_scales": 3, "epsilons": 3})
+    torch.cuda.synchronize()
+    emit({"phase": "dqn_kernels", "bit_equal": True, "push_runs": push_runs,
+          "sample_runs": sample_runs, "act_runs": act_runs,
+          "max_abs_err": {k: MAX_ERR[k] for k in ("framestack_push", "replay_sample_stacked",
+                                                  "dqn_act", "replay_add")},
+          "seconds": time.perf_counter() - t0})
+
+
+def check_small_dqn() -> None:
+    """Phase 18: a small fp32 K = 4 DQN on the card against the same run on the CPU."""
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.models.networks import QNetworkCNN
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.rl import dqn
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat
+
+    t0 = time.perf_counter()
+    env_config = EngineConfig(auto_reset=True)
+    cfg = dqn.DQNConfig(**SMALL_DQN_CFG)
+    start = load_flat(DQN_INIT[4])
+    runs = {}
+    for where in ("cuda", "cpu"):
+        ts = dqn.init_dqn_state(prng_key(3), 64, env_config, cfg,
+                                net=QNetworkCNN(in_channels=4, dtype=torch.float32), device=where,
+                                params=start)
+        step = dqn.make_train_step(env_config, cfg)
+        losses, dones = [], 0
+        for _ in range(SMALL_DQN_STEPS):
+            ts, m = step(ts)
+            losses.append(float(m["loss"]))
+            dones += int(m["episodes_done"])
+        runs[where] = (ts, losses, dones)
+    (tc, lc, dc), (tp, lp, _) = runs["cuda"], runs["cpu"]
+    for k, v in tc.buffer.data.items():
+        if not torch.equal(bits(v.cpu()), bits(tp.buffer.data[k])):
+            raise AssertionError(f"small DQN: replay {k} differs between card and CPU")
+    for k in turbo.FIELDS:
+        if not torch.equal(bits(getattr(tc.env_states, k).cpu()), bits(getattr(tp.env_states, k))):
+            raise AssertionError(f"small DQN: env {k} differs between card and CPU")
+    if not torch.equal(tc.obs.cpu(), tp.obs):
+        raise AssertionError("small DQN: the window differs between card and CPU")
+    worst = 0.0
+    pc, pp = to_flax_params(tc.net.state_dict(), "q_cnn"), to_flax_params(tp.net.state_dict(), "q_cnn")
+    for k, p0 in start.items():
+        d_card, d_cpu = pc[k] - p0, pp[k] - p0
+        scale = float(np.abs(d_cpu).max())
+        rel = float(np.abs(d_card - d_cpu).max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if scale == 0 or rel > SMALL_DQN_PARAM_TOL:
+            raise AssertionError(f"small DQN: {k} changed by {rel} of its largest change "
+                                 f"({scale}) between card and CPU")
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
+    emit({"phase": "small_dqn", "replay_bit_equal": True, "env_bit_equal": True,
+          "window_bit_equal": True, "steps": SMALL_DQN_STEPS, "episodes_done": dc,
+          "param_change_max_rel_diff": worst, "loss_max_rel_diff": loss_rel,
+          "loss_last": [lc[-1], lp[-1]], "seconds": time.perf_counter() - t0})
+
+
+def dqn_argv(K) -> list:
+    return ["--n-envs", str(DQN_ENVS), "--steps", str(DQN_STEPS), "--chunk", str(DQN_CHUNK),
+            "--exploration-steps", str(DQN_EXPLORATION), "--learning-starts", str(DQN_LEARNING_STARTS),
+            "--seed", "1", "--frame-stack", str(K), "--init-params", DQN_INIT[K]]
+
+
+def train_dqn_full_width(dev, smi, K) -> dict:
+    """Phase 19: ``examples/train_cnn.py`` at the committed runs' shape, frame stack ``K``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.examples import train_cnn
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.rl import dqn
+    from tetris_gymnasium_torch.rl.evaluate import evaluate_q_checkpoint
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat, load_q_net
+
+    args = train_cnn.parse_args(dqn_argv(K))
+    events = []  # one dict of CUDA events per train step
+
+    def mark(name):
+        if name == "start":
+            events.append({})
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1][name] = ev
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, records = train_cnn.train(args, marks=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n, learn = DQN_STEPS, DQN_STEPS - DQN_LEARNING_STARTS
+    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": n, "observe_board": n + 1,
+            "dqn_act": n, "replay_add": n}
+    want.update({"replay_sample": learn} if K == 1 else
+                {"replay_sample_stacked": learn, "framestack_push": n})
+    if launches != want:
+        raise AssertionError(f"DQN K={K} launch counts {launches}, want {want}")
+    for rec in records:
+        for k, v in rec.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"DQN K={K} metric {k} is not finite: {rec}")
+    start = load_flat(DQN_INIT[K])
+    trained = to_flax_params(ts.net.state_dict(), "q_cnn")
+    moved = {k: float(np.abs(trained[k] - start[k]).max()) for k in start}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"some parameters did not move: {moved}")
+    chunks = [r["reward_per_step"] for r in records]
+    with open(DQN_JAX_CURVE[K]) as f:
+        jax_chunks = [json.loads(line)["reward_per_step"] for line in f][: len(chunks)]
+    first = sum(chunks[:2]) / 2  # steps 1-500
+    ratio = chunks[-1] / first  # steps 1751-2000
+    jax_ratio = jax_chunks[-1] / (sum(jax_chunks[:2]) / 2)
+
+    split = {"before_learning": split_ms(events[10:DQN_LEARNING_STARTS]),
+             "learning": split_ms(events[DQN_LEARNING_STARTS + 10:])}
+    emit({"phase": "dqn_train", "frame_stack": K, "n_envs": DQN_ENVS, "steps": n,
+          "wall_s_with_setup": wall, "launches": launches,
+          "reward_per_step_chunks": chunks, "jax_reward_per_step_chunks": jax_chunks,
+          "steps_per_episode_chunks": [r["steps_per_episode"] for r in records],
+          "gate_ratio": ratio, "jax_gate_ratio": jax_ratio, "gate": DQN_GATE,
+          "records_last": records[-1], "step_split_ms": split,
+          "env_steps_per_s_learning": DQN_ENVS / (split["learning"]["step"] * 1e-3),
+          "param_max_change": moved, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "nvidia_smi": smi})
+    if not ratio >= DQN_GATE:
+        raise AssertionError(f"DQN K={K} learning gate: steps 1751-2000 give {chunks[-1]} reward "
+                             f"per step, {ratio:.3f}x steps 1-500 ({first}); want {DQN_GATE}x")
+
+    t0 = time.perf_counter()
+    evals = {}
+    for name, net in (("untrained", load_q_net(DQN_INIT[K], "q_cnn", device=dev)), ("trained", ts.net)):
+        kernels.reset_launches()
+        evals[name] = evaluate_q_checkpoint(net, EVAL_EPISODES, EngineConfig(), seed=EVAL_SEED,
+                                            max_steps=EVAL_MAX_STEPS, frame_stack=K, device=dev)
+        torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)  # the trained net's evaluation
+    it = evals["trained"]["iterations"]
+    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": it, "dqn_act": it}
+    want.update({"observe_board": it} if K == 1 else {"observe_board": it + 1, "framestack_push": it})
+    if eval_launches != want:
+        raise AssertionError(f"DQN K={K} evaluation launch counts {eval_launches}, want {want}")
+    emit({"phase": "dqn_eval", "frame_stack": K, "episodes": EVAL_EPISODES,
+          "max_steps": EVAL_MAX_STEPS, **evals, "launches_trained": eval_launches,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
+    # the card's busy share: 20 more learning steps under torch.profiler
+    cfg = dqn.DQNConfig(exploration_steps=args.exploration_steps,
+                        learning_starts=args.learning_starts, frame_stack=K)
+    ts, busy = profile_steps(dqn.make_train_step(EngineConfig(auto_reset=True), cfg), ts)
+    emit({"phase": "dqn_profile", "frame_stack": K, **busy, "nvidia_smi": smi})
+    check_dqn_path_shapes(dev, ts, cfg)
+    return {"launches": launches, "eval_launches": eval_launches, "split": split}
+
+
+def check_dqn_path_shapes(dev, ts, cfg) -> None:
+    """The end of phase 19: every kernel of the DQN path against its plain
+    version at the path's shapes, on its trained state."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.ops import framestack, threefry
+    from tetris_gymnasium_torch.rl import buffers, dqn
+
+    t0 = time.perf_counter()
+    K = cfg.frame_stack
+    env_config = EngineConfig(auto_reset=True)
+    with torch.no_grad():
+        q = ts.net(ts.obs)
+    act_key, eps_key = threefry.split(threefry.fold_in(threefry.prng_key(19), ts.step))
+    a = kernels.dqn_act(q, act_key, eps_key, 0.5)
+    diff("dqn_act", a, dqn.act_plain(q, act_key, eps_key, 0.5), "trained state actions")
+    s = ts.env_states
+    on_cpu = s.replace(**{k: getattr(s, k).cpu() for k in turbo.FIELDS})
+    ks, kr, kd, kl = kernels.turbo_step(s, a, env_config, turbo.PIECES, RewardsMapping())
+    ps, pr, pd, pl = turbo.step_plain(on_cpu, a.cpu(), env_config)
+    for k in turbo.FIELDS:
+        diff("turbo_step", getattr(ks, k).cpu(), getattr(ps, k), f"trained step {k}")
+    for got, want, name in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
+        diff("turbo_step", got.cpu(), want, f"trained step {name}")
+    raw = kernels.observe_board(ks, env_config, turbo.PIECES)
+    diff("observe_board", raw.cpu(), turbo.observe_board_plain(ps, env_config), "trained obs")
+    n_done = int(kd.sum())
+    if K > 1:
+        if n_done == 0:
+            raise AssertionError("the trained step ended no episode, so no window restarted")
+        diff("framestack_push", kernels.framestack_push(ts.obs, raw, kd),
+             framestack.push_plain(ts.obs, raw, kd), "trained window push")
+
+    buf = ts.buffer
+    if buf.size != buf.capacity or buf.pos == 0:
+        raise AssertionError(f"the buffer is not full and wrapped: pos {buf.pos}, size {buf.size}")
+    block = {"obs": ts.obs if K == 1 else ts.obs[:, -1], "action": a, "reward": kr, "done": kd}
+    kbuf, pbuf = (buffers.ReplayBuffer({k: v.clone() for k, v in buf.data.items()}, buf.pos, buf.size)
+                  for _ in range(2))
+    kbuf, pbuf = buffers.add(kbuf, block), buffers.add_plain(pbuf, block)
+    for k in buf.data:
+        diff("replay_add", kbuf.data[k], pbuf.data[k], f"full buffer add {k}")
+    key = threefry.fold_in(threefry.prng_key(23), ts.step)
+    if K == 1:
+        name = "replay_sample"
+        (kc, kn), (pc, pn) = (buffers.sample_with_next(kbuf, key, cfg.batch_size, DQN_ENVS),
+                              buffers.sample_with_next_plain(pbuf, key, cfg.batch_size, DQN_ENVS))
+    else:
+        name = "replay_sample_stacked"
+        kc, kn = buffers.sample_with_next_stacked(kbuf, key, cfg.batch_size, DQN_ENVS, K)
+        pc, pn = buffers.sample_with_next_stacked_plain(pbuf, key, cfg.batch_size, DQN_ENVS, K)
+    for k in buf.data:
+        diff(name, kc[k], pc[k], f"full buffer sample {k}")
+        diff(name, kn[k], pn[k], f"full buffer successor {k}")
+    torch.cuda.synchronize()
+    emit({"phase": "dqn_path_shapes", "frame_stack": K, "bit_equal": True, "B": DQN_ENVS,
+          "episodes_ended": n_done, "buffer_capacity": buf.capacity, "buffer_pos": buf.pos,
+          "samples": cfg.batch_size, "seconds": time.perf_counter() - t0})
+
+
+def _stacked_sample_bytes(buf, key, n, B, K) -> int:
+    """Bytes that ``sample_with_next_stacked`` must move for this draw: each
+    distinct entry, frame and done flag that it reads, once, and its two
+    outputs.  The lookback of an anchor reads flags t-1 .. t-min(m+1, K-1)."""
+    from tetris_gymnasium_torch.rl import buffers
+
+    anchors, windows, depth = buffers.stacked_sample_rows(buf, key, n, B, K)
+    frame, flag = nbytes(buf.data["obs"][0]), nbytes(buf.data["done"][0])
+    fields = sum(nbytes(x[0]) for name, x in buf.data.items() if name not in ("obs", "done"))
+    js = torch.arange(1, K, device=anchors.device)
+    look = (anchors[..., None] - js * B) % buf.capacity
+    flags = torch.cat([anchors.flatten(), look[js <= depth[..., None] + 1]])
+    reads = (anchors.unique().numel() * fields + flags.unique().numel() * flag
+             + windows.unique().numel() * frame)
+    return reads + 2 * n * (K * frame + fields + flag)
+
+
+def time_dqn_kernels(dev, smi) -> dict:
+    """Phase 20: the DQN path's new kernels, and its replay kernels, beside their bounds."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.ops import framestack, threefry
+    from tetris_gymnasium_torch.rl import buffers, dqn
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    K = 4
+    out = {"framestack_push": {}, "dqn_act": {}, "replay_sample_stacked": {}}
+    for B in DQN_TIME_B:
+        big = B >= 65536
+        stack, obs = _boards((B, K, 20, 10), g, dev), _boards((B, 20, 10), g, dev)
+        done = torch.rand((B,), generator=g, device=dev) < 0.03
+        # the lanes not done read their K - 1 kept frames; every lane reads
+        # obs and done and writes K frames
+        kept = (B - int(done.sum())) * nbytes(stack[0, 1:])
+        out["framestack_push"][B] = timed_pair(
+            lambda: kernels.framestack_push(stack, obs, done),
+            lambda: framestack.push_plain(stack, obs, done), 100, 5 if big else 20,
+            kept + nbytes(obs, done, stack), 0)
+    for B in (DQN_ENVS, 65536):
+        q = torch.randn((B, 8), generator=g, device=dev)
+        act_key, eps_key = threefry.split(threefry.prng_key(B))
+        out["dqn_act"][B] = timed_pair(
+            lambda: kernels.dqn_act(q, act_key, eps_key, 0.3),
+            lambda: dqn.act_plain(q, act_key, eps_key, 0.3), 100, 10,
+            nbytes(q) + B * 4, B * DQN_ACT_OPS_PER_ENV)
+
+    # the replay at the path's shape: 1024 envs, the full 262,144 entries
+    B = DQN_ENVS
+    window = _boards((B, K, 20, 10), g, dev)
+    buf = buffers.create(_dqn_block(B, window, g, dev), dqn.DQNConfig().buffer_size, B)
+    for _ in range(buf.capacity // B):
+        buf = buffers.add(buf, _dqn_block(B, _boards((B, K, 20, 10), g, dev), g, dev))
+    block = _dqn_block(B, window, g, dev)
+    entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
+    out["replay_add"] = timed_pair(lambda: buffers.add(buf, block),
+                                   lambda: buffers.add_plain(buf, block), 100, 20, 2 * B * entry, 0)
+    key = threefry.prng_key(3)
+    for n in (DQN_BATCH, 65536):
+        out["replay_sample_stacked"][n] = timed_pair(
+            lambda: buffers.sample_with_next_stacked(buf, key, n, B, K),
+            lambda: buffers.sample_with_next_stacked_plain(buf, key, n, B, K), 100, 5 if n > B else 20,
+            _stacked_sample_bytes(buf, key, n, B, K),
+            n * (SAMPLE_INDEX_OPS + 2 * K * STACK_OPS_PER_FRAME))
+    out["replay_sample"] = timed_pair(
+        lambda: buffers.sample_with_next(buf, key, DQN_BATCH, B),
+        lambda: buffers.sample_with_next_plain(buf, key, DQN_BATCH, B), 100, 20,
+        4 * DQN_BATCH * entry, DQN_BATCH * SAMPLE_INDEX_OPS)
+    emit({"phase": "dqn_times", **out, "buffer_capacity": buf.capacity,
           "buffer_mib": sum(nbytes(x) for x in buf.data.values()) / 2**20, "nvidia_smi": smi})
     return out
 

@@ -19,7 +19,8 @@ from tetris_gymnasium_torch.core import turbo_grouped as tg
 from tetris_gymnasium_torch.ops import threefry
 from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
-from tetris_gymnasium_torch.rl import buffers, grouped_dqn, ppo
+from tetris_gymnasium_torch.ops import framestack
+from tetris_gymnasium_torch.rl import buffers, dqn, grouped_dqn, ppo
 
 NO_LAUNCHES = {name: 0 for name in kernels.LAUNCHES}
 
@@ -290,3 +291,127 @@ def test_grouped_kernel_wrappers_refuse_cpu_tensors():
         kernels.replay_add(data, {"x": torch.ones((4, 3))}, 0)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.replay_sample(data, prng_key(0), 4, 8)
+
+
+# ---------------------------------------------------------------------------
+# Frame-stack push, stacked replay sample, the DQN's epsilon-greedy
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, K", [(1024, 4), (512, 4), (1, 2), (1001, 2)])
+def test_framestack_push_kernel_matches_plain(cuda, B, K):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(B + K)
+    stack = torch.randint(-1, 2, (B, K, 20, 10), generator=g, device=cuda, dtype=torch.int8)
+    for t in range(3):
+        obs = torch.randint(-1, 2, (B, 20, 10), generator=g, device=cuda, dtype=torch.int8)
+        done = torch.rand((B,), generator=g, device=cuda) < 0.15
+        got = kernels.framestack_push(stack, obs, done)
+        _assert_equal(got, framestack.push_plain(stack, obs, done), f"push {t}")
+        stack = got
+    odd = torch.randint(-1, 2, (B, K, 3, 5), generator=g, device=cuda, dtype=torch.int8)
+    odd_obs = torch.randint(-1, 2, (B, 3, 5), generator=g, device=cuda, dtype=torch.int8)
+    done = torch.rand((B,), generator=g, device=cuda) < 0.5
+    _assert_equal(kernels.framestack_push(odd, odd_obs, done),
+                  framestack.push_plain(odd, odd_obs, done), "15-byte frames")
+
+
+def _stacked_buffers(device, B, blocks, adds, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    example = {"obs": torch.zeros((B, 20, 10), dtype=torch.int8, device=device),
+               "action": torch.zeros(B, dtype=torch.int32, device=device),
+               "reward": torch.zeros(B, device=device),
+               "done": torch.zeros(B, dtype=torch.bool, device=device)}
+    kbuf, pbuf = (buffers.create(example, blocks * B, B) for _ in range(2))
+    for _ in range(adds):
+        window = torch.randint(-1, 2, (B, 4, 20, 10), generator=g, device=device, dtype=torch.int8)
+        block = {"obs": window[:, -1], "action": torch.randint(0, 8, (B,), generator=g, device=device,
+                                                                dtype=torch.int32),
+                 "reward": torch.randn((B,), generator=g, device=device),
+                 "done": torch.rand((B,), generator=g, device=device) < 0.15}
+        kbuf = buffers.add(kbuf, block)
+        pbuf = buffers.add_plain(pbuf, block)
+        for k in example:
+            _assert_equal(kbuf.data[k], pbuf.data[k], f"strided add {k}")
+    return kbuf, pbuf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 2])
+def test_replay_sample_stacked_kernel_matches_plain(cuda, K):
+    B = 64
+    kbuf, pbuf = _stacked_buffers(cuda, B, 12, 30, K)  # wraps 2.5 times
+    for t in range(4):
+        key = threefry.fold_in(prng_key(21), t)
+        kc, kn = buffers.sample_with_next_stacked(kbuf, key, 512, B, K)
+        pc, pn = buffers.sample_with_next_stacked_plain(pbuf, key, 512, B, K)
+        assert kc["obs"].shape == (512, K, 20, 10)
+        for k in kc:
+            _assert_equal(kc[k], pc[k], f"stacked sample {k}")
+            _assert_equal(kn[k], pn[k], f"stacked successor {k}")
+    start, n_valid = buffers._stacked_window(kbuf, B, K)
+    _, _, off = kernels.replay_sample_stacked(kbuf.data, prng_key(3), 1001, n_valid, start, B, K,
+                                             return_offsets=True)
+    np.testing.assert_array_equal(off.cpu().numpy(), threefry.randint(prng_key(3), 1001, n_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1001, 1024])
+def test_dqn_act_kernel_matches_plain(cuda, B):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(B)
+    q = torch.randn((B, 8), generator=g, device=cuda)
+    q[: min(B, 3), 2:5] = 7.0  # ties: the lowest index wins
+    counters = torch.arange(B, dtype=torch.int64, device=cuda)
+    for eps in (0.0, 0.4, 1.0):
+        act_key, eps_key = threefry.split(prng_key(B + 1))
+        a, ra, eu = kernels.dqn_act(q, act_key, eps_key, eps, return_draws=True)
+        _assert_equal(a, dqn.act_plain(q, act_key, eps_key, eps), f"eps {eps}")
+        _assert_equal(ra, threefry.randint_lanes(act_key, B, 8, cuda).to(torch.int32), "randint")
+        _assert_equal(eu, threefry.bits_to_uniform_lanes(threefry.random_bits32_lanes(eps_key, counters)),
+                      "uniform")
+    _assert_equal(kernels.dqn_act(q), dqn.act_plain(q), "greedy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_dqn_train_step_launch_counts(cuda, K):
+    cfg = dqn.DQNConfig(buffer_size=64 * 8, batch_size=16, learning_starts=2, frame_stack=K)
+    config = EngineConfig(auto_reset=True)
+    ts = dqn.init_dqn_state(prng_key(0), 64, config, cfg, device=cuda)
+    step = dqn.make_train_step(config, cfg)
+    kernels.reset_launches()
+    for _ in range(6):
+        ts, _ = step(ts)
+    torch.cuda.synchronize()
+    learn = 6 - max(2, K)
+    want = {**NO_LAUNCHES, "dqn_act": 6, "turbo_step": 6, "observe_board": 6, "replay_add": 6}
+    want.update({"replay_sample": learn} if K == 1 else
+                {"replay_sample_stacked": learn, "framestack_push": 6})
+    assert kernels.LAUNCHES == want
+
+
+def test_dqn_dispatch_runs_plain_versions_on_cpu():
+    kernels.reset_launches()
+    cfg = dqn.DQNConfig(buffer_size=4 * 6, batch_size=4, learning_starts=1, frame_stack=2)
+    config = EngineConfig(auto_reset=True)
+    ts = dqn.init_dqn_state(prng_key(0), 4, config, cfg, device="cpu")
+    step = dqn.make_train_step(config, cfg)
+    for _ in range(3):
+        ts, _ = step(ts)
+    assert kernels.LAUNCHES == NO_LAUNCHES and ts.buffer.size == 12 and ts.obs.shape == (4, 2, 20, 10)
+
+
+def test_dqn_kernel_wrappers_refuse_cpu_tensors():
+    stack = torch.zeros((4, 2, 3, 5), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.framestack_push(stack, stack[:, 0].contiguous(), torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dqn_act(torch.zeros((4, 8)))
+    data = {"obs": torch.zeros((12, 3), dtype=torch.int8), "done": torch.zeros(12, dtype=torch.bool)}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.replay_sample_stacked(data, prng_key(0), 4, 4, 0, 4, 2)
+    with pytest.raises(NotImplementedError):
+        kernels.replay_sample_stacked(data, prng_key(0), 4, 4, 0, 1, 17)

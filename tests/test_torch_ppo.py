@@ -327,10 +327,15 @@ def test_minibatches_cover_every_sample_once_per_epoch():
 
 
 def test_frame_stack_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _init(ppo.PPOConfig(frame_stack=4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ppo.make_train_step(EngineConfig(auto_reset=True), ppo.PPOConfig(frame_stack=4))
+    """Frame stacking itself is ported now (``tests/test_torch_framestack.py``
+    holds it against JAX): a K = 4 state carries ``[B, 4, H, W]`` windows
+    into a four-channel trunk.  The engines it is not ported for still raise."""
+    ts = _init(ppo.PPOConfig(frame_stack=4, rollout_len=2, update_epochs=1, n_minibatches=2))
+    assert ts.last_obs.shape == (N_ENVS, 4, 20, 10)
+    assert ts.net.encoder.convs[0].weight.shape[1] == 4
+    with pytest.raises(NotImplementedError, match="flagship"):
+        ppo.init_train_state(prng_key(0), N_ENVS, EngineConfig(auto_reset=True),
+                             ppo.PPOConfig(frame_stack=4), impl="flagship", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +437,6 @@ def test_cli_chunk_divisibility_errors(argv):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--frame-stack", "4"], "item 7"),
     (["--obs", "rgb84"], "item 10"),
     (["--impl", "flagship"], "item 9"),
     (["--wandb"], "item 12"),

@@ -1,8 +1,8 @@
 """PPO on the turbo engine with the PyTorch port: envs, rollout and learner on the card.
 
-Twin of ``examples/train_ppo.py`` for its default configuration (turbo
-engine, board observations, no frame stack, ``ActorCriticCNN`` with a bf16
-trunk).  One iteration is ``rollout_len * n_envs`` env steps; the host loop
+Twin of ``examples/train_ppo.py`` for the turbo engine with board
+observations (``ActorCriticCNN`` with a bf16 trunk; ``--frame-stack K``
+feeds it ``[B, K, H, W]`` windows).  One iteration is ``rollout_len * n_envs`` env steps; the host loop
 calls the train step and reads the metrics every ``--chunk`` iterations::
 
     python -m tetris_gymnasium_torch.examples.train_ppo --n-envs 8192 --iterations 100
@@ -32,7 +32,6 @@ from tetris_gymnasium_torch.utils.device import resolve_device
 # options of the JAX script that this port does not have yet, with the
 # ROADMAP.md queue 1 item that brings each
 _NOT_PORTED = {
-    "frame_stack": "--frame-stack > 1 (frame stacking) comes with ROADMAP.md queue 1 item 7",
     "obs": "--obs rgb84 (the pixel chain) comes with ROADMAP.md queue 1 item 10",
     "impl": "--impl flagship (the flagship engine) comes with ROADMAP.md queue 1 item 9",
     "wandb": "--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12",
@@ -93,7 +92,9 @@ def parse_args(argv=None) -> argparse.Namespace:
             v = getattr(args, name)
             if v and v % args.chunk:
                 p.error(f"--{name.replace('_', '-')} {v} must be a multiple of --chunk {args.chunk}")
-    defaults = {"frame_stack": 1, "obs": "board", "impl": "turbo", "wandb": False, "video_every": 0}
+    if args.frame_stack < 1:
+        p.error(f"--frame-stack must be >= 1, got {args.frame_stack}")
+    defaults = {"obs": "board", "impl": "turbo", "wandb": False, "video_every": 0}
     for name, default in defaults.items():
         if getattr(args, name) != default:
             raise NotImplementedError(_NOT_PORTED[name])
@@ -123,8 +124,8 @@ def setup(args: argparse.Namespace, marks=None):
     params = load_flat(args.init_params) if args.init_params else None
     ts = ppo.init_train_state(
         prng_key(args.seed), args.n_envs, env_config, ppo_cfg,
-        net=ActorCriticCNN(strides=strides), impl=args.impl, obs=args.obs, device=device,
-        params=params,
+        net=ActorCriticCNN(strides=strides, in_channels=args.frame_stack), impl=args.impl,
+        obs=args.obs, device=device, params=params,
     )
     if params is not None:
         print(f"warm-started params from {args.init_params}", flush=True)
@@ -170,7 +171,8 @@ def train(args: argparse.Namespace, marks=None):
             if args.eval_every and it % args.eval_every == 0:
                 ev = evaluate.evaluate_policy(
                     evaluate.greedy_logits(ts.net), args.eval_episodes, env_config,
-                    prng_key(1000 + it), max_steps=args.eval_max_steps, device=args.device,
+                    prng_key(1000 + it), max_steps=args.eval_max_steps,
+                    frame_stack=args.frame_stack, device=args.device,
                 )
                 rec.update(
                     eval_return=round(ev["return_mean"], 3),

@@ -23,18 +23,24 @@ Kernels, with the JAX function each replaces:
   ``rl/grouped_dqn.py:train_step :165-174`` and ``_masked_random :78``, and
   ``rl/evaluate.py:greedy_masked_q :141``;
 * ``replay_add`` and ``replay_sample`` (``csrc/replay.cu``):
-  ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``.
+  ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``;
+* ``replay_sample_stacked`` (``csrc/replay.cu``):
+  ``rl/buffers.py:sample_with_next_stacked :111``;
+* ``framestack_push`` (``csrc/framestack.cu``): ``ops/framestack.py:push :37``;
+* ``dqn_act`` (``csrc/dqn_act.cu``): the epsilon-greedy of
+  ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``.
 
 ``csrc/threefry.cuh`` holds JAX's random bits for ``ppo_sample``,
-``grouped_act`` and ``replay_sample``.
+``grouped_act``, ``replay_sample``, ``replay_sample_stacked`` and ``dqn_act``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
 synchronising, and adds one to ``LAUNCHES[name]`` per launch.  Wrappers
 take CUDA tensors only; the plain versions for CPU tensors are in
 :mod:`tetris_gymnasium_torch.core.turbo`, :mod:`~tetris_gymnasium_torch.core.turbo_grouped`,
-:mod:`~tetris_gymnasium_torch.rl.ppo`, :mod:`~tetris_gymnasium_torch.rl.grouped_dqn` and
-:mod:`~tetris_gymnasium_torch.rl.buffers`, which dispatch.
+:mod:`~tetris_gymnasium_torch.rl.ppo`, :mod:`~tetris_gymnasium_torch.rl.grouped_dqn`,
+:mod:`~tetris_gymnasium_torch.rl.dqn`, :mod:`~tetris_gymnasium_torch.rl.buffers` and
+:mod:`~tetris_gymnasium_torch.ops.framestack`, which dispatch.
 """
 from __future__ import annotations
 
@@ -66,6 +72,8 @@ SOURCES = {
     "grouped_placements": PACKAGE_DIR / "csrc" / "grouped_placements.cu",
     "grouped_act": PACKAGE_DIR / "csrc" / "grouped_act.cu",
     "replay": PACKAGE_DIR / "csrc" / "replay.cu",
+    "framestack": PACKAGE_DIR / "csrc" / "framestack.cu",
+    "dqn_act": PACKAGE_DIR / "csrc" / "dqn_act.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +84,7 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0,
     "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
+    "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0,
 }
 
 _LIBS: dict = {}
@@ -187,13 +196,14 @@ class _ActParams(ctypes.Structure):
 
 
 _MAX_REPLAY_FIELDS = 8  # csrc/replay.cu:kMaxFields
+_MAX_STACK = 16  # csrc/replay.cu:kMaxStack
 
 
 class _ReplayField(ctypes.Structure):
     _fields_ = [
         ("store", ctypes.c_void_p), ("src", ctypes.c_void_p), ("out_cur", ctypes.c_void_p),
-        ("out_nxt", ctypes.c_void_p), ("row_bytes", ctypes.c_longlong), ("word", ctypes.c_int),
-        ("transposed", ctypes.c_int),
+        ("out_nxt", ctypes.c_void_p), ("row_bytes", ctypes.c_longlong),
+        ("src_stride", ctypes.c_longlong), ("word", ctypes.c_int), ("transposed", ctypes.c_int),
     ]
 
 
@@ -208,6 +218,19 @@ class _SampleParams(ctypes.Structure):
         ("span", ctypes.c_uint32), ("multiplier", ctypes.c_uint32),
         ("start", ctypes.c_longlong), ("capacity", ctypes.c_longlong),
         ("batch", ctypes.c_longlong), ("n", ctypes.c_int),
+    ]
+
+
+class _StackParams(ctypes.Structure):
+    _fields_ = [("done", ctypes.c_void_p), ("obs_field", ctypes.c_int), ("k", ctypes.c_int)]
+
+
+class _DqnActParams(ctypes.Structure):
+    _fields_ = [
+        ("A", ctypes.c_int), ("explore", ctypes.c_int),
+        ("hi_k0", ctypes.c_uint32), ("hi_k1", ctypes.c_uint32),
+        ("lo_k0", ctypes.c_uint32), ("lo_k1", ctypes.c_uint32), ("multiplier", ctypes.c_uint32),
+        ("eps_k0", ctypes.c_uint32), ("eps_k1", ctypes.c_uint32), ("epsilon", ctypes.c_float),
     ]
 
 
@@ -242,6 +265,15 @@ _ENTRY_POINTS = {
         "replay_add_launch": [ctypes.POINTER(_ReplayFields), ctypes.c_longlong, _I, _P],
         "replay_sample_launch": [ctypes.POINTER(_ReplayFields), ctypes.POINTER(_SampleParams),
                                  _P, _P],
+        "replay_sample_stacked_launch": [ctypes.POINTER(_ReplayFields),
+                                         ctypes.POINTER(_SampleParams),
+                                         ctypes.POINTER(_StackParams), _P, _P],
+    },
+    "framestack": {
+        "framestack_push_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P],
+    },
+    "dqn_act": {
+        "dqn_act_launch": [_P, _P, _P, _P, _I, ctypes.POINTER(_DqnActParams), _P],
     },
 }
 
@@ -587,12 +619,24 @@ def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
     return out
 
 
-def _copy_word(row_bytes: int, *tensors) -> int:
-    """The widest copy granule (16, 4 or 1 bytes) that the entry size and every pointer allow."""
+def _copy_word(row_bytes: int, *tensors, stride: int = 0) -> int:
+    """The widest copy granule (16, 4 or 1 bytes) that the entry size, a
+    source row stride in bytes and every pointer allow."""
     for word in (16, 4):
-        if row_bytes % word == 0 and all(t.data_ptr() % word == 0 for t in tensors):
+        if row_bytes % word == 0 and stride % word == 0 \
+                and all(t.data_ptr() % word == 0 for t in tensors):
             return word
     return 1
+
+
+def _rows_contiguous(x: torch.Tensor) -> bool:
+    """Each ``x[b]`` is contiguous (the rows may lie at any stride)."""
+    expect = 1
+    for size, stride in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
 
 
 def _replay_fields(fields) -> _ReplayFields:
@@ -609,9 +653,11 @@ def replay_add(data: dict, transitions: dict, pos: int) -> None:
     """Launch ``replay_add``: write one env batch into every store of ``data`` at entry ``pos``.
 
     Each transition is ``[B, ...]`` with its store's dtype and trailing
-    shape, contiguous, or a 2-D ``[B, n]`` view of a contiguous batch-minor
-    ``[n, B]`` tensor of 4-byte elements (written transposed).  ``pos + B``
-    must not pass the capacity.  Writes in place.
+    shape, and each of its rows ``x[b]`` contiguous (the rows may lie at any
+    stride, as the newest frame ``window[:, -1]`` of a frame stack does), or
+    a 2-D ``[B, n]`` view of a contiguous batch-minor ``[n, B]`` tensor of
+    4-byte elements (written transposed).  ``pos + B`` must not pass the
+    capacity.  Writes in place.
     """
     if set(transitions) != set(data):
         raise ValueError(f"transition fields {sorted(transitions)} differ from {sorted(data)}")
@@ -630,13 +676,14 @@ def replay_add(data: dict, transitions: dict, pos: int) -> None:
             raise ValueError(f"block [{pos}, {pos + B}) outside capacity {capacity}")
         _check_tensor(store, f"store {name}", store.dtype, store.shape, device)
         row_bytes = store[0].numel() * store.element_size()
-        transposed = not x.is_contiguous()
+        transposed = not _rows_contiguous(x)
         if transposed and not (x.ndim == 2 and x.element_size() == 4 and x.stride() == (1, B)):
-            raise ValueError(f"{name}: want a contiguous tensor or the transpose of a "
+            raise ValueError(f"{name}: want contiguous rows or the transpose of a "
                              f"contiguous [n, B] tensor of 4-byte elements")
-        word = 4 if transposed else _copy_word(row_bytes, store, x)
-        fields.append(_ReplayField(store.data_ptr(), x.data_ptr(), None, None, row_bytes, word,
-                                   int(transposed)))
+        src_stride = row_bytes if transposed or B <= 1 else x.stride(0) * x.element_size()
+        word = 4 if transposed else _copy_word(row_bytes, store, x, stride=src_stride)
+        fields.append(_ReplayField(store.data_ptr(), x.data_ptr(), None, None, row_bytes,
+                                   src_stride, word, int(transposed)))
     if B == 0:
         return
     device = next(iter(data.values())).device
@@ -646,16 +693,12 @@ def replay_add(data: dict, transitions: dict, pos: int) -> None:
     LAUNCHES["replay_add"] += 1
 
 
-def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: int = 0,
-                  return_offsets: bool = False):
-    """Launch ``replay_sample``: ``n`` entries of every store, drawn on the card.
-
-    The offsets are ``jax.random.randint(key, (n,), 0, maxval)``, from the
-    host ``uint32[2]`` key; entry ``i`` is ``(start + off) % capacity``.
-    With ``batch > 0`` the successors ``(i + batch) % capacity`` come too.
-    Returns ``(cur, nxt)`` dicts (``nxt`` None without successors), and the
-    offsets ``int32[n]`` third with ``return_offsets``.
-    """
+def _sample_setup(data: dict, key, n: int, maxval: int, start: int, batch: int,
+                  return_offsets: bool, window: tuple = None):
+    """The set-up that both replay samples share: the checks, the outputs and
+    the launch's arguments.  ``window`` is ``(field, k)`` where that field
+    comes back as ``k``-frame windows ``[n, k, ...]``.  Returns ``(out,
+    fields, params, offsets, stream)``, ``out`` as the wrappers return it."""
     from tetris_gymnasium_torch.ops import threefry
 
     stores = list(data.items())
@@ -671,7 +714,9 @@ def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: i
             raise ValueError(f"store {name} has {store.shape[0]} entries, not {capacity}")
         _check_tensor(store, f"store {name}", store.dtype, store.shape, device)
         row_bytes = store[0].numel() * store.element_size()
-        cur[name] = torch.empty((n,) + tuple(store.shape[1:]), dtype=store.dtype, device=device)
+        per = (window[1],) if window is not None and name == window[0] else ()
+        cur[name] = torch.empty((n,) + per + tuple(store.shape[1:]), dtype=store.dtype,
+                                device=device)
         outs = [cur[name]]
         if nxt is not None:
             nxt[name] = torch.empty_like(cur[name])
@@ -679,17 +724,142 @@ def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: i
         word = _copy_word(row_bytes, store, *outs)
         fields.append(_ReplayField(store.data_ptr(), None, cur[name].data_ptr(),
                                    nxt[name].data_ptr() if nxt is not None else None,
-                                   row_bytes, word, 0))
+                                   row_bytes, row_bytes, word, 0))
     offsets = torch.empty((n,), dtype=torch.int32, device=device) if return_offsets else None
     out = (cur, nxt, offsets) if return_offsets else (cur, nxt)
-    if n == 0:
-        return out
     params = _SampleParams(int(k_hi[0]), int(k_hi[1]), int(k_lo[0]), int(k_lo[1]), span,
                            multiplier, int(start), capacity, int(batch), n)
-    rc = _lib("replay").replay_sample_launch(
-        ctypes.byref(_replay_fields(fields)), ctypes.byref(params),
-        offsets.data_ptr() if return_offsets else None, _stream(device),
-    )
-    _check(rc, "replay_sample")
+    return (out, ctypes.byref(_replay_fields(fields)), ctypes.byref(params),
+            offsets.data_ptr() if return_offsets else None, _stream(device))
+
+
+def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: int = 0,
+                  return_offsets: bool = False):
+    """Launch ``replay_sample``: ``n`` entries of every store, drawn on the card.
+
+    The offsets are ``jax.random.randint(key, (n,), 0, maxval)``, from the
+    host ``uint32[2]`` key; entry ``i`` is ``(start + off) % capacity``.
+    With ``batch > 0`` the successors ``(i + batch) % capacity`` come too.
+    Returns ``(cur, nxt)`` dicts (``nxt`` None without successors), and the
+    offsets ``int32[n]`` third with ``return_offsets``.
+    """
+    out, fields, params, offsets, stream = _sample_setup(data, key, n, maxval, start, batch,
+                                                         return_offsets)
+    if n == 0:
+        return out
+    _check(_lib("replay").replay_sample_launch(fields, params, offsets, stream), "replay_sample")
     LAUNCHES["replay_sample"] += 1
+    return out
+
+
+def replay_sample_stacked(data: dict, key, n: int, maxval: int, start: int, batch: int, k: int,
+                          obs_key: str = "obs", done_key: str = "done",
+                          return_offsets: bool = False):
+    """Launch ``replay_sample_stacked``: ``n`` entries and their successors,
+    the ``obs_key`` field rebuilt as ``k``-frame windows, drawn on the card.
+
+    The offsets are ``jax.random.randint(key, (n,), 0, maxval)``; entry ``i``
+    is ``(start + (k - 1) * batch + off) % capacity`` and its successor
+    ``(i + batch) % capacity``.  The window of an entry looks back ``batch``
+    entries a frame and stops at the first ``done`` (``done_key``, a bool
+    store), repeating the episode's first frame from there; it comes oldest
+    first, ``[n, k, ...]``.  Returns ``(cur, nxt)`` dicts, and the offsets
+    ``int32[n]`` third with ``return_offsets``.
+    """
+    capacity = next(iter(data.values())).shape[0]
+    if not 1 <= k <= _MAX_STACK:
+        raise NotImplementedError(f"replay_sample_stacked takes 1 <= k <= {_MAX_STACK}, got {k}")
+    if batch <= 0 or capacity < (k + 1) * batch:
+        raise ValueError(f"want 0 < batch and capacity >= (k+1)*batch, got batch {batch}, "
+                         f"capacity {capacity}, k {k}")
+    names = list(data)
+    if obs_key not in names or done_key not in names:
+        raise ValueError(f"fields {names} lack {obs_key!r} or {done_key!r}")
+    done = data[done_key]
+    _check_tensor(done, f"store {done_key}", torch.bool, (capacity,), done.device)
+    out, fields, params, offsets, stream = _sample_setup(
+        data, key, n, maxval, int(start) + (k - 1) * int(batch), batch, return_offsets,
+        window=(obs_key, k))
+    if n == 0:
+        return out
+    stack = _StackParams(done.data_ptr(), names.index(obs_key), int(k))
+    _check(_lib("replay").replay_sample_stacked_launch(fields, params, ctypes.byref(stack), offsets,
+                                                       stream), "replay_sample_stacked")
+    LAUNCHES["replay_sample_stacked"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Frame stacking and the DQN's epsilon-greedy
+# ---------------------------------------------------------------------------
+
+
+def framestack_push(stack: torch.Tensor, obs: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    """Launch ``framestack_push``: the window ``[B, K, ...]`` with ``obs``
+    ``[B, ...]`` rolled in as its newest frame, or repeated K times where
+    ``done`` (``bool[B]``).  The output is new; ``stack`` is left as it was."""
+    device = stack.device
+    if stack.ndim < 2:
+        raise ValueError(f"stack: want [B, K, ...], got {tuple(stack.shape)}")
+    B, k = stack.shape[:2]
+    _check_tensor(stack, "stack", stack.dtype, stack.shape, device)
+    _check_tensor(obs, "obs", stack.dtype, (B,) + tuple(stack.shape[2:]), device)
+    _check_tensor(done, "done", torch.bool, (B,), device)
+    out = torch.empty_like(stack)
+    if out.numel() == 0:
+        return out
+    frame_bytes = obs[0].numel() * obs.element_size()
+    word = _copy_word(frame_bytes, stack, obs, out)
+    rc = _lib("framestack").framestack_push_launch(
+        stack.data_ptr(), obs.data_ptr(), done.data_ptr(), out.data_ptr(), B, k, frame_bytes,
+        word, _stream(device),
+    )
+    _check(rc, "framestack_push")
+    LAUNCHES["framestack_push"] += 1
+    return out
+
+
+def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
+            return_draws: bool = False):
+    """Launch ``dqn_act``: epsilon-greedy actions ``int32[B]`` from ``q`` ``f32[B, A]``.
+
+    With ``act_key`` and ``eps_key`` (host ``uint32[2]`` keys) an env takes
+    ``randint(act_key, (B,), 0, A)`` where ``uniform(eps_key, (B,))`` is
+    below ``epsilon`` (a float32 value), and the argmax of its row
+    otherwise; without them the action is the argmax.  With
+    ``return_draws`` the randint draws ``int32[B]`` and the uniforms
+    ``f32[B]`` come back too.
+    """
+    from tetris_gymnasium_torch.ops import threefry
+
+    device = q.device
+    if q.ndim != 2 or q.shape[1] < 1:
+        raise ValueError(f"q: want [B, A] with A >= 1, got {tuple(q.shape)}")
+    B, A = q.shape
+    _check_tensor(q, "q", torch.float32, (B, A), device)
+    explore = act_key is not None
+    if explore != (eps_key is not None):
+        raise ValueError("act_key and eps_key go together")
+    if return_draws and not explore:
+        raise ValueError("return_draws needs the random keys")
+    if B >= 2**31:
+        raise ValueError(f"batch {B} too large for 32-bit counters")
+    k_hi, k_lo = threefry.split(np.asarray(act_key if explore else (0, 0), dtype=np.uint32))
+    ek = np.asarray(eps_key if explore else (0, 0), dtype=np.uint32)
+    _, multiplier = threefry.randint_span(A)
+    action = torch.empty((B,), dtype=torch.int32, device=device)
+    random_a = torch.empty((B,), dtype=torch.int32, device=device) if return_draws else None
+    eps_u = torch.empty((B,), dtype=torch.float32, device=device) if return_draws else None
+    out = (action, random_a, eps_u) if return_draws else action
+    if B == 0:
+        return out
+    params = _DqnActParams(A, int(explore), int(k_hi[0]), int(k_hi[1]), int(k_lo[0]),
+                           int(k_lo[1]), multiplier, int(ek[0]), int(ek[1]),
+                           float(np.float32(epsilon)))
+    rc = _lib("dqn_act").dqn_act_launch(
+        q.data_ptr(), action.data_ptr(), random_a.data_ptr() if return_draws else None,
+        eps_u.data_ptr() if return_draws else None, B, ctypes.byref(params), _stream(device),
+    )
+    _check(rc, "dqn_act")
+    LAUNCHES["dqn_act"] += 1
     return out

@@ -10,7 +10,8 @@ the Flax parameter paths joined by ``/``, as
 * ``"qmlp"``: :class:`QMLP` (``Dense_0`` .. ``Dense_{n-1}``, the last one
   the head);
 * ``"grouped_cnn"``: :class:`QGroupedBoardsCNN` (``BoardEncoder_0`` and the
-  head ``Dense_0``).
+  head ``Dense_0``);
+* ``"q_cnn"``: :class:`QNetworkCNN`, the same map as ``"grouped_cnn"``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 _ENC = "params/BoardEncoder_0/"
-KINDS = ("actor_critic", "qmlp", "grouped_cnn")
+KINDS = ("actor_critic", "qmlp", "grouped_cnn", "q_cnn")
 
 
 def _encoder_map(n_convs: int) -> Dict[str, str]:
@@ -43,7 +44,7 @@ def _key_map(kind: str, n_layers: int) -> Dict[str, str]:
     CNNs) or dense layers (``qmlp``)."""
     if kind == "actor_critic":
         return {**_encoder_map(n_layers), **_dense("Dense_0", "policy"), **_dense("Dense_1", "value")}
-    if kind == "grouped_cnn":
+    if kind in ("grouped_cnn", "q_cnn"):
         return {**_encoder_map(n_layers), **_dense("Dense_0", "head")}
     if kind == "qmlp":
         m = {}

@@ -1,7 +1,8 @@
-"""Networks: the conv trunk, the PPO actor-critic and the grouped Q-nets.
+"""Networks: the conv trunk, the PPO actor-critic and the Q-nets.
 
 Port of ``tetris_gymnasium_tpu/models/networks.py`` (``BoardEncoder :25``,
-``ActorCriticCNN :146``, ``QMLP :174``, ``QGroupedBoardsCNN :193``).  As in the JAX package, parameters are float32
+``QNetworkCNN :61``, ``ActorCriticCNN :146``, ``QMLP :174``,
+``QGroupedBoardsCNN :193``).  As in the JAX package, parameters are float32
 and the trunk computes in ``dtype`` (bfloat16 by default) while both heads
 compute in float32.  Two details keep the outputs equal to Flax's:
 
@@ -77,6 +78,28 @@ class BoardEncoder(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten, as Flax
         x = F.linear(x, self.dense.weight.to(self.dtype), self.dense.bias.to(self.dtype))
         return F.relu(x)
+
+
+class QNetworkCNN(nn.Module):
+    """DQN value network: ``[B, H, W]`` board or ``[B, K, H, W]`` window -> Q ``f32[B, n_actions]``.
+
+    A :class:`BoardEncoder` over ``in_channels`` (the frame stack's K) in
+    ``dtype``, then a float32 head.
+    """
+
+    def __init__(
+        self,
+        n_actions: int = 8,
+        in_channels: int = 1,
+        board_shape: Tuple[int, int] = (20, 10),
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.encoder = BoardEncoder(in_channels, board_shape=board_shape, dtype=dtype)
+        self.head = nn.Linear(512, n_actions)
+
+    def forward(self, boards: torch.Tensor) -> torch.Tensor:
+        return self.head(self.encoder(boards).to(torch.float32))
 
 
 class ActorCriticCNN(nn.Module):

@@ -1,19 +1,24 @@
 """Greedy evaluation of a policy: N fresh episodes stepped in lockstep.
 
 Port of ``tetris_gymnasium_tpu/rl/evaluate.py`` (``_stats :30``,
-``evaluate_policy :56``, ``evaluate_grouped :96``, ``greedy_logits :132``,
-``greedy_masked_q :141``).  Episodes run with
+``evaluate_policy :56``, ``evaluate_grouped :96``, ``greedy_q :124``,
+``greedy_logits :132``, ``greedy_masked_q :141``, ``evaluate_q_checkpoint
+:162``).  Episodes run with
 ``auto_reset=False``, so a finished game freezes and the engine state's own
 accumulators (``score``, ``steps``, ``lines``) give the statistics at the
 end.  Where JAX scans ``max_steps`` iterations, this loop also stops once
 every game is over: frozen games do not change, so the statistics are the
 same.
 
-Run as a script it evaluates an exported actor-critic checkpoint, the twin
-of ``examples/evaluate_checkpoint.py --net actor-critic``::
+Run as a script it evaluates an exported checkpoint, the twin of
+``examples/evaluate_checkpoint.py``: an actor-critic (``--net
+actor-critic``, the default) or a :class:`QNetworkCNN` (``--net q``, with
+``--frame-stack K`` for a net that reads K-frame windows)::
 
     python -m tetris_gymnasium_torch.rl.evaluate \\
         --checkpoint results/ppo_lines_params.npz --episodes 512 --seed 0 --max-steps 2000
+    python -m tetris_gymnasium_torch.rl.evaluate --net q --frame-stack 4 \\
+        --checkpoint q.npz --episodes 512
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Callable
 import torch
 
 from tetris_gymnasium_torch.config import EngineConfig
+from tetris_gymnasium_torch.ops import framestack
 from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
 from tetris_gymnasium_torch.rl.engines import env_fns
@@ -74,20 +80,24 @@ def evaluate_policy(
 ) -> dict:
     """Greedy-rollout statistics of ``act`` over ``n_episodes`` fresh games.
 
-    ``act(obs int8[B, H, W]) -> int32[B]`` is the policy; ``key`` is a
+    ``act(obs) -> int32[B]`` is the policy; it sees the board ``int8[B, H,
+    W]``, or with ``frame_stack`` K > 1 the window ``int8[B, K, H, W]`` the
+    training actor saw (pushed with each step's ``done``).  ``key`` is a
     ``uint32[2]`` base key (``threefry.prng_key(seed)``), folded into one key
     per episode exactly as the JAX package does.  The returned dict also
     holds ``iterations``, the number of steps the loop ran.
     """
-    if frame_stack != 1:
-        raise NotImplementedError("frame stacking is not ported yet")
     cfg = env_config._replace(auto_reset=False)
     init, step, observe = env_fns(cfg, impl, obs=obs, device=device)
     states = init(batch_keys(key, n_episodes, device=device))
+    stack = framestack.init(observe(states), frame_stack) if frame_stack > 1 else None
     it = 0
     while it < max_steps:
-        action = act(observe(states))
-        states, *_ = step(states, action)
+        if stack is None:
+            states, *_ = step(states, act(observe(states)))
+        else:
+            states, _, _, done, _ = step(states, act(stack))
+            stack = framestack.push(stack, observe(states), done)
         it += 1
         if it % DONE_CHECK_EVERY == 0 and bool(states.game_over.all()):
             break
@@ -143,6 +153,38 @@ def greedy_masked_q(net) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     return act
 
 
+def greedy_q(net) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Policy from a Q-network: argmax over the action values.
+
+    On the card the ``dqn_act`` kernel takes the argmax.
+    """
+    from tetris_gymnasium_torch.rl.dqn import act as dqn_act
+
+    def act(obs):
+        with torch.inference_mode():
+            q = net(obs)
+        return dqn_act(q)
+
+    return act
+
+
+def evaluate_q_checkpoint(
+    net,
+    n_episodes: int,
+    env_config: EngineConfig,
+    seed: int = 0,
+    impl: str = "turbo",
+    max_steps: int = 2000,
+    frame_stack: int = 1,
+    obs: str = "board",
+    device="cuda",
+) -> dict:
+    """Greedy statistics of a Q-net (its own weights) over ``n_episodes``
+    fresh games from ``prng_key(seed)`` (``evaluate.py:162``)."""
+    return evaluate_policy(greedy_q(net), n_episodes, env_config, prng_key(seed), impl=impl,
+                           max_steps=max_steps, frame_stack=frame_stack, obs=obs, device=device)
+
+
 def greedy_logits(net) -> Callable[[torch.Tensor], torch.Tensor]:
     """Policy from an actor-critic: argmax over the policy logits."""
 
@@ -157,6 +199,10 @@ def greedy_logits(net) -> Callable[[torch.Tensor], torch.Tensor]:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", required=True, help="exported .npz (tools/export_torch_params.py)")
+    p.add_argument("--net", choices=("actor-critic", "q"), default="actor-critic",
+                   help="the checkpoint's network: ActorCriticCNN or QNetworkCNN")
+    p.add_argument("--frame-stack", type=int, default=1,
+                   help="K: the net reads [B, K, H, W] windows")
     p.add_argument("--episodes", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-steps", type=int, default=2000)
@@ -165,16 +211,20 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic
+    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic, load_q_net
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    net = load_actor_critic(args.checkpoint, device=device, dtype=getattr(torch, args.dtype))
+    dtype = getattr(torch, args.dtype)
+    if args.net == "q":
+        act = greedy_q(load_q_net(args.checkpoint, "q_cnn", device=device, dtype=dtype))
+    else:
+        act = greedy_logits(load_actor_critic(args.checkpoint, device=device, dtype=dtype))
     stats = evaluate_policy(
-        greedy_logits(net), args.episodes, EngineConfig(), prng_key(args.seed),
-        max_steps=args.max_steps, device=device,
+        act, args.episodes, EngineConfig(), prng_key(args.seed),
+        max_steps=args.max_steps, frame_stack=args.frame_stack, device=device,
     )
     print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()}))
     return stats

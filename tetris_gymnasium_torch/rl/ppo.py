@@ -1,7 +1,7 @@
 """PPO on the turbo engine: envs, rollout buffer, policy and learner on one card.
 
-Port of ``tetris_gymnasium_tpu/rl/ppo.py`` for its default path (turbo
-engine, board observations, no frame stack).  The algorithm, the
+Port of ``tetris_gymnasium_tpu/rl/ppo.py`` for the turbo engine with board
+observations, with or without a frame stack.  The algorithm, the
 hyperparameters and the random draws are the JAX package's; what changes is
 the execution.  JAX traces a whole rollout-plus-update iteration into one
 XLA program; here the host runs the loops and enqueues work on the card
@@ -10,7 +10,8 @@ without waiting for it:
 * the rollout steps ``rollout_len`` times under ``torch.no_grad()``: the
   policy network (PyTorch operators), the ``ppo_sample`` kernel for the
   action and its log-prob, the ``turbo_step`` kernel with auto-reset, the
-  ``observe_board`` kernel;
+  ``observe_board`` kernel and, with ``frame_stack`` K > 1, the
+  ``framestack_push`` kernel (the policy reads ``[B, K, H, W]`` windows);
 * GAE is the ``gae`` kernel, one launch per train step;
 * the update is ``update_epochs`` passes over block-shuffled minibatches:
   the loss, its backward pass and Adam are PyTorch operators, as the JAX
@@ -43,13 +44,10 @@ from tetris_gymnasium_torch.core import turbo
 from tetris_gymnasium_torch.models.convert import from_flax_params
 from tetris_gymnasium_torch.models.init import init_actor_critic_
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN
-from tetris_gymnasium_torch.ops import threefry
+from tetris_gymnasium_torch.ops import framestack, threefry
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
 from tetris_gymnasium_torch.rl.engines import env_fns
 from tetris_gymnasium_torch.utils.device import resolve_device
-
-FRAME_STACK_TODO = "frame stacking (frame_stack > 1) is not ported yet: ROADMAP.md queue 1 item 7"
-
 
 class PPOConfig(NamedTuple):
     """Static PPO hyperparameters, the JAX package's fields and defaults
@@ -74,7 +72,8 @@ class PPOConfig(NamedTuple):
 
 
 class Transition(NamedTuple):
-    """One rollout, every field ``[T, B, ...]`` (``obs`` is ``int8[T, B, H, W]``)."""
+    """One rollout, every field ``[T, B, ...]`` (``obs`` is ``int8[T, B, H, W]``, or
+    ``int8[T, B, K, H, W]`` with a frame stack)."""
 
     obs: torch.Tensor
     action: torch.Tensor
@@ -149,7 +148,7 @@ class TrainState:
     net: ActorCriticCNN
     optimizer: ClippedAdam
     env_states: turbo.TurboState
-    last_obs: torch.Tensor  # int8 [B, H, W]
+    last_obs: torch.Tensor  # int8 [B, H, W], or the window [B, K, H, W] with frame_stack K > 1
     key: np.ndarray  # uint32[2], on the host
     update_i: int = 0  # train steps taken; drives the annealing schedules
 
@@ -173,19 +172,20 @@ def init_train_state(
     As in JAX, the key splits three ways into the carried key, the network's
     key and the env key, and env ``i`` starts from ``fold_in(env_key, i)``.
     ``net`` gives the architecture (default :class:`ActorCriticCNN`, bf16
-    trunk).  Its weights are drawn with Flax's initialisers from a
+    trunk, over ``ppo.frame_stack`` channels); with ``frame_stack`` K > 1
+    the carried observation is the first board repeated K times
+    (``ppo.py:138``).  Its weights are drawn with Flax's initialisers from a
     ``torch.Generator`` seeded with the network key, unless ``params``, flat
     Flax parameters (``{flax/path: array}``, e.g. from a JAX state or an
     ``.npz``), are given.
     """
-    if ppo.frame_stack != 1:
-        raise NotImplementedError(FRAME_STACK_TODO)
     device = resolve_device(device)
     env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
     key, net_key, env_key = threefry.split(np.asarray(key, dtype=np.uint32), 3)
     env_states = env_init(batch_keys(env_key, n_envs, device=device))
-    obs_0 = env_observe(env_states)
-    net = (ActorCriticCNN() if net is None else net).cpu()
+    raw = env_observe(env_states)
+    obs_0 = raw if ppo.frame_stack == 1 else framestack.init(raw, ppo.frame_stack)
+    net = (ActorCriticCNN(in_channels=ppo.frame_stack) if net is None else net).cpu()
     if params is None:
         gen = torch.Generator()
         gen.manual_seed((int(net_key[0]) << 32) | int(net_key[1]))
@@ -283,8 +283,9 @@ def rollout(ts: TrainState, ppo: PPOConfig, env_step: Callable, observe: Callabl
     """``rollout_len`` policy steps from ``ts``, with no gradient.
 
     Returns ``(traj, env_states, last_obs, key)``: the :class:`Transition`
-    stacked over time, the env batch and observation after the last step,
-    and the carried key after one ``split`` per step.
+    stacked over time, the env batch and observation (or window, pushed
+    with each step's ``done``, ``ppo.py:180-190``) after the last step, and
+    the carried key after one ``split`` per step.
     """
     key = ts.key
     act_keys = []
@@ -299,7 +300,8 @@ def rollout(ts: TrainState, ppo: PPOConfig, env_step: Callable, observe: Callabl
             action, log_prob = sample_actions(logits, act_key)
             env_states, _, reward, done, _ = env_step(env_states, action)
             steps.append((window, action, log_prob, value, reward, done))
-            window = observe(env_states)
+            raw = observe(env_states)
+            window = raw if ppo.frame_stack == 1 else framestack.push(window, raw, done)
     traj = Transition(*(torch.stack(field) for field in zip(*steps)))
     return traj, env_states, window, key
 
@@ -405,8 +407,6 @@ def make_train_step(
     with ``"start"``, ``"rollout"``, ``"gae"`` and ``"update"`` as each phase
     has been enqueued (a caller can record CUDA events there).
     """
-    if ppo.frame_stack != 1:
-        raise NotImplementedError(FRAME_STACK_TODO)
     # step and observe run where the state lies; the device only binds init
     _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu")
     mark = marks or (lambda _name: None)

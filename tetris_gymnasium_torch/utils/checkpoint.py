@@ -5,8 +5,8 @@ cannot read without JAX.  ``tools/export_torch_params.py`` turns one into a
 plain ``.npz`` of the flat Flax parameter paths
 (``results/ppo_lines_params.npz`` for the committed PPO policy); this module
 reads that file, and writes the same format for a network the port trained:
-the actor-critic, and the grouped DQN's :class:`QMLP` and
-:class:`QGroupedBoardsCNN`.
+the actor-critic, the grouped DQN's :class:`QMLP` and
+:class:`QGroupedBoardsCNN`, and the DQN's :class:`QNetworkCNN`.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from tetris_gymnasium_torch.models.convert import from_flax_params, to_flax_params
-from tetris_gymnasium_torch.models.networks import ActorCriticCNN, QGroupedBoardsCNN, QMLP
+from tetris_gymnasium_torch.models.networks import ActorCriticCNN, QGroupedBoardsCNN, QMLP, QNetworkCNN
 from tetris_gymnasium_torch.utils.device import resolve_device
 
 
@@ -54,10 +54,11 @@ def save_actor_critic(path: str, net: ActorCriticCNN) -> None:
 
 def load_q_net(path: str, kind: str, device="cuda", dtype: torch.dtype = torch.bfloat16,
                board_shape=(20, 10)):
-    """A grouped Q-net with the exported weights, in eval mode on ``device``.
+    """A Q-net with the exported weights, in eval mode on ``device``.
 
-    ``kind`` is ``"qmlp"`` (widths read from the weights) or
-    ``"grouped_cnn"`` (for boards of ``board_shape``, with a ``dtype`` trunk).
+    ``kind`` is ``"qmlp"`` (widths read from the weights), ``"grouped_cnn"``
+    (for boards of ``board_shape``, with a ``dtype`` trunk) or ``"q_cnn"``
+    (the same, with the frame stack and the actions read from the weights).
     """
     device = resolve_device(device)
     sd = from_flax_params(load_flat(path), kind)
@@ -67,6 +68,10 @@ def load_q_net(path: str, kind: str, device="cuda", dtype: torch.dtype = torch.b
                    hidden=[sd[f"hidden.{i}.weight"].shape[0] for i in range(n_hidden)])
     elif kind == "grouped_cnn":
         net = QGroupedBoardsCNN(board_shape=tuple(board_shape), dtype=dtype)
+    elif kind == "q_cnn":
+        net = QNetworkCNN(n_actions=sd["head.weight"].shape[0],
+                          in_channels=sd["encoder.convs.0.weight"].shape[1],
+                          board_shape=tuple(board_shape), dtype=dtype)
     else:
         raise ValueError(f"unknown Q-net kind {kind!r}")
     net.load_state_dict(sd)
@@ -74,5 +79,5 @@ def load_q_net(path: str, kind: str, device="cuda", dtype: torch.dtype = torch.b
 
 
 def save_q_net(path: str, net, kind: str) -> None:
-    """Write a grouped Q-net's parameters as the flat float32 ``.npz`` that :func:`load_flat` reads."""
+    """Write a Q-net's parameters as the flat float32 ``.npz`` that :func:`load_flat` reads."""
     np.savez(path, **to_flax_params(net.state_dict(), kind))

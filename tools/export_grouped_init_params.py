@@ -1,14 +1,22 @@
-"""Export the JAX grouped DQN's initial ``QMLP`` weights to a plain ``.npz`` for the PyTorch port.
+"""Export a JAX DQN's initial Q-net weights to a plain ``.npz`` for the PyTorch port.
 
-``examples/train_lin_grouped.py --seed S`` starts from the weights that
-``grouped_dqn.init_grouped_dqn_state(PRNGKey(S), ...)`` draws with Flax's
-initialisers.  The port draws its own from a ``torch.Generator`` (equal in
-distribution, not in value), so a run of the port that is to follow the JAX
-run starts from this file instead
-(``python -m tetris_gymnasium_torch.examples.train_lin_grouped --init-params``)::
+``examples/train_lin_grouped.py --seed S`` starts from the ``QMLP`` weights
+that ``grouped_dqn.init_grouped_dqn_state(PRNGKey(S), ...)`` draws with
+Flax's initialisers (``--net qmlp``), and ``examples/train_cnn.py --seed S
+[--frame-stack K]`` from the ``QNetworkCNN`` weights of
+``dqn.init_dqn_state(PRNGKey(S), ..., impl="turbo")`` (``--net q_cnn``).
+The port draws its own from a ``torch.Generator`` (equal in distribution,
+not in value), so a run of the port that is to follow the JAX run starts
+from this file instead (``--init-params`` of
+``python -m tetris_gymnasium_torch.examples.train_lin_grouped`` or
+``.train_cnn``)::
 
     python tools/export_grouped_init_params.py --seed 1 \\
         --out results/grouped_qmlp_init_seed1.npz
+    python tools/export_grouped_init_params.py --net q_cnn --seed 1 \\
+        --out results/qcnn_init_seed1.npz
+    python tools/export_grouped_init_params.py --net q_cnn --frame-stack 4 --seed 1 \\
+        --out results/qcnn_k4_init_seed1.npz
 """
 from __future__ import annotations
 
@@ -21,21 +29,43 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def export(seed: int, out: str) -> dict:
-    """Write the flat float32 initial parameters of the default 10x20 run with ``seed`` to ``out``."""
+def default_out(net: str, seed: int, frame_stack: int = 1) -> str:
+    if net == "qmlp":
+        name = f"grouped_qmlp_init_seed{seed}.npz"
+    else:
+        name = f"qcnn{'' if frame_stack == 1 else f'_k{frame_stack}'}_init_seed{seed}.npz"
+    return os.path.join(REPO, "results", name)
+
+
+def export(seed: int, out: str, net: str = "qmlp", frame_stack: int = 1) -> dict:
+    """Write the flat float32 initial parameters of the default 10x20 run
+    with ``seed`` of the ``net`` DQN to ``out``."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import jax
 
     from tetris_gymnasium_tpu.config import EngineConfig
-    from tetris_gymnasium_tpu.models.networks import QMLP
-    from tetris_gymnasium_tpu.rl import grouped_dqn
 
     # the parameters depend on the key and the observation's shape only
-    ts = grouped_dqn.init_grouped_dqn_state(
-        jax.random.PRNGKey(seed), 2, EngineConfig(gravity_enabled=False, auto_reset=True),
-        grouped_dqn.GroupedDQNConfig(buffer_size=4), QMLP(),
-    )
+    if net == "qmlp":
+        from tetris_gymnasium_tpu.models.networks import QMLP
+        from tetris_gymnasium_tpu.rl import grouped_dqn
+
+        ts = grouped_dqn.init_grouped_dqn_state(
+            jax.random.PRNGKey(seed), 2, EngineConfig(gravity_enabled=False, auto_reset=True),
+            grouped_dqn.GroupedDQNConfig(buffer_size=4), QMLP(),
+        )
+    elif net == "q_cnn":
+        from tetris_gymnasium_tpu.models.networks import QNetworkCNN
+        from tetris_gymnasium_tpu.rl import dqn
+
+        ts = dqn.init_dqn_state(
+            jax.random.PRNGKey(seed), 2, EngineConfig(auto_reset=True),
+            dqn.DQNConfig(buffer_size=2 * (frame_stack + 1), frame_stack=frame_stack),
+            QNetworkCNN(), impl="turbo",
+        )
+    else:
+        raise ValueError(f"unknown net {net!r}: qmlp or q_cnn")
     flat = {
         "/".join(str(p.key) for p in path): np.asarray(leaf, dtype=np.float32)
         for path, leaf in jax.tree_util.tree_flatten_with_path(ts.params)[0]
@@ -46,10 +76,15 @@ def export(seed: int, out: str) -> dict:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--net", choices=("qmlp", "q_cnn"), default="qmlp")
+    p.add_argument("--frame-stack", type=int, default=1, help="K of the q_cnn net's input")
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--out", default=os.path.join(REPO, "results", "grouped_qmlp_init_seed1.npz"))
+    p.add_argument("--out", default=None,
+                   help="default: results/grouped_qmlp_init_seed<S>.npz or "
+                   "results/qcnn[_k<K>]_init_seed<S>.npz")
     args = p.parse_args(argv)
-    for k, v in export(args.seed, args.out).items():
+    out = args.out or default_out(args.net, args.seed, args.frame_stack)
+    for k, v in export(args.seed, out, args.net, args.frame_stack).items():
         print(f"{k} {v.shape}")
 
 
