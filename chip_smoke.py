@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
    ragged ones.
 8. A small fp32 PPO train step (64 envs, 8 steps, 2 epochs of 2
    minibatches, the committed weights) on the card against the same step on
-   the CPU: rollouts bit-equal, parameter changes within 1e-3 of the largest.
+   the CPU: rollouts bit-equal, each parameter leaf's change within
+   ``SMALL_TRAIN_PARAM_TOL`` of its norm.
 9. The training path: ``examples/train_ppo.py``'s code warm-starts from the
    committed weights at 8192 envs x 128 steps, 6 epochs of 8 minibatches,
    bf16 trunk, lr 4e-5, ent-coef 0.004, for 3 train steps; every kernel's
@@ -58,8 +59,8 @@ Phases, each printing one JSON line:
 14. A small fp32 grouped DQN (64 envs, the micro-gate configuration of
     ``tests/test_learning.py`` on the 10x20 board, 70 steps: learning from
     step 64 and a target sync) on the card and on the CPU from the same
-    weights: replay contents and env states bit-equal, parameter changes
-    within ``SMALL_GROUPED_PARAM_TOL``; a 64-episode ``evaluate_grouped`` of
+    weights: replay contents and env states bit-equal, each parameter
+    leaf's change within ``SMALL_GROUPED_PARAM_TOL`` of its norm; a 64-episode ``evaluate_grouped`` of
     the card's weights gives equal statistics on both.
 15. The grouped training path: ``examples/train_lin_grouped.py``'s code at
     the committed run's shape (1024 envs, ``QMLP``, buffer 131,072, batch
@@ -91,7 +92,8 @@ Phases, each printing one JSON line:
 18. A small fp32 CNN DQN (64 envs, K = 4, buffer 64 x 16, batch 32, learning
     from step 8, a target sync every 16, 40 steps) on the card and on the
     CPU from the same weights: replay contents, env states and the window
-    bit-equal, parameter changes within ``SMALL_DQN_PARAM_TOL``.
+    bit-equal, each parameter leaf's change within ``SMALL_DQN_PARAM_TOL``
+    of its norm.
 19. The CNN DQN path: ``examples/train_cnn.py``'s code at the committed runs'
     shape (1024 envs, buffer 262,144, batch 512, lr 1e-4, target sync every
     500, ``QNetworkCNN`` with a bf16 trunk) and schedule (epsilon over
@@ -110,14 +112,55 @@ Phases, each printing one JSON line:
 20. The new kernels' times beside their bounds, at the path's shapes and at
     B = 65536, and the DQN path's replay kernels at its shapes.
 
-Then the kernels line (twelve kernels; each with the launch counts of the
-newest path that runs it: the K = 4 DQN, else the K = 1 DQN, else the
-grouped DQN, else PPO; times at the shape of that path) and, last, the
-device line.  Any failed check raises, so the exit code is not 0.  The
-script imports nothing of JAX.
+21. The flagship engine: ``flagship_init`` against ``core.engine.init_plain``
+    at B = 512, 1 and 1001 (bag and uniform), and ``flagship_step`` against
+    ``step_plain`` along 300-step random trajectories biased towards hard
+    drops and swaps (B = 512 with auto-reset, B = 512 without gravity or
+    auto-reset and with custom rewards, B = 1001 uniform with auto-reset,
+    B = 1 uniform), bit for bit, with full holders and game-over frames;
+    each trajectory equal to ``turbo_step``'s on the same keys and actions
+    (occupancy, piece, bag, queue, holder, score, lines, reward, done); and
+    300 steps from hand-built stacks with up to six full rows, which clear
+    more rows at once than the turbo engine's envelope.
+22. ``flagship_observe_board`` against its plain version and the turbo
+    ``observe_board``, and ``render_rgb84`` against
+    ``preprocess_rgb84(render_rgb(state))``, on every state of phase 21.
+    Then the ``--impl flagship --obs board`` path: the committed PPO
+    policy's 512 greedy games on the flagship engine, with exact launch
+    counts, must give phase 5's statistics.
+23. A small fp32 pixel DQN (32 envs, K = 4, buffer 32 x 16, batch 16,
+    learning from step 8, a target sync every 16, 30 steps) on the card and
+    on the CPU from the same weights: replay contents, env states and the
+    window bit-equal, each parameter leaf's change within
+    ``SMALL_PIX_PARAM_TOL`` of its norm.
+24. The pixel DQN path: ``examples/train_cnn.py --obs rgb84 --frame-stack
+    4`` at the committed run's shape (512 envs, buffer 262,144 frames of
+    84x84, batch 512, lr 1e-4, sync every 500, ``AtariQNetwork`` with a
+    bf16 trunk) and schedule (epsilon over 6000 steps, learning from step
+    500) for 2000 steps from the JAX run's initial weights
+    (``results/atari_q_k4_init_seed1.npz``): exact launch counts, finite
+    metrics, weights that move, the start check (steps 1-500 within
+    ``PIX_START_TOL`` of ``results/dqn_rgb84.jsonl``) and the learning gate
+    (steps 1751-2000 at least ``PIX_GATE`` times steps 1-500) in 250-step
+    chunks beside the JAX curve, the step split with CUDA events, the
+    card's busy share, a 512-episode greedy ``evaluate_q_checkpoint`` of
+    the trained and the untrained net, and every kernel of the path against
+    its plain version on the trained state at its shapes (B = 512, the full
+    wrapped buffer).
+25. The new kernels' times beside their bounds at B = 512 and 65536 (the
+    plain versions at most at B = 4096, scaled), and the reused kernels at
+    the 7056-byte frame.
+
+Then the kernels line (sixteen kernels; each with the launch counts of the
+newest path that runs it: the pixel DQN, else the flagship board
+evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
+else PPO; times at the shape of that path) and, last, the device line.
+Any failed check raises, so the exit code is not 0.  The script imports
+nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -142,6 +185,16 @@ TRAIN_ARGV = [
     "--n-minibatches", "8", "--iterations", str(TRAIN_STEPS), "--chunk", str(TRAIN_STEPS),
     "--lr", "4e-5", "--ent-coef", "0.004", "--seed", "1", "--init-params", PARAMS,
 ]
+# Phases 8, 14 and 18 run a small fp32 training on the card (cuDNN's
+# deterministic algorithms) and on the CPU from the same weights.  Each
+# parameter leaf's change agrees within this share of its norm: float32
+# sums in another order, magnified by Adam's division by sqrt(v) + 1e-8
+# where a gradient is near zero.  Phase 18's convolution weights moved
+# 1.6e-6 of their norm between card and CPU, and as much between two card
+# runs with cuDNN's default algorithms (an H100 80GB HBM3 at 700 W); the
+# largest single difference, reported beside it, was 2.9e-4 of the largest
+# single change on one card and 1.9e-3 on another.
+SMALL_TRAIN_PARAM_TOL = 1e-3
 # ppo_sample's log-prob against the plain version: logf and expf are within
 # 1 and 2 ulps of exact (CUDA's documented error bounds), so
 # a sum of exps is within 2 ulps (2**-22 relative) and its log within
@@ -165,13 +218,11 @@ SAMPLE_INDEX_OPS = 160  # replay_sample: two threefry blocks and the modular ind
 GROUPED_CHECK_STEPS = 40
 # Phase 14: the 6x8 micro-gate configuration of tests/test_learning.py:113-116
 # on the default 10x20 board, run past learning_starts and one target sync
-# (step 64).  Parameter changes on the card and the CPU agree within 1e-3 of
-# the largest: float32 sums in another order, magnified by Adam's division
-# by sqrt(v) + 1e-8 where a gradient is near zero.
+# (step 64).
 SMALL_GROUPED_CFG = dict(buffer_size=4096, batch_size=128, exploration_steps=250,
                          learning_starts=64, target_update_every=64)
 SMALL_GROUPED_STEPS = 70
-SMALL_GROUPED_PARAM_TOL = 1e-3
+SMALL_GROUPED_PARAM_TOL = SMALL_TRAIN_PARAM_TOL
 # Phase 15: examples/train_lin_grouped.py at the committed run's shape
 # (results/grouped_dqn.jsonl: 1024 envs, QMLP, default GroupedDQNConfig:
 # buffer 131,072, batch 256), with the schedule that passed the learning gate
@@ -206,18 +257,59 @@ DQN_JAX_CURVE = {1: os.path.join(REPO, "results", "dqn.jsonl"),
 # reward per env step over steps 1751-2000 against steps 1-500; the committed
 # JAX curves give 1.82x for both K
 DQN_GATE = 1.4
-# Phase 18.  Parameter changes on the card and the CPU agree within 1e-3 of
-# the largest: float32 sums in another order, magnified by Adam's division by
-# sqrt(v) + 1e-8 where a gradient is near zero.
+# Phase 18.
 SMALL_DQN_CFG = dict(buffer_size=64 * 16, batch_size=32, learning_starts=8, target_update_every=16,
                      exploration_steps=6000, frame_stack=4)
 SMALL_DQN_STEPS = 40
-SMALL_DQN_PARAM_TOL = 1e-3
+SMALL_DQN_PARAM_TOL = SMALL_TRAIN_PARAM_TOL
 # dqn_act: three threefry blocks (~75 each), the argmax over 8 (~16) and the select
 DQN_ACT_OPS_PER_ENV = 250
 # replay_sample_stacked: per anchor and frame, the lookback's index and flag test
 STACK_OPS_PER_FRAME = 10
 DQN_TIME_B = (512, 1024, 65536)
+
+# The pixel CNN DQN slice.  Phases 21-22 step the flagship engine along
+# random trajectories with these action weights (left, right, down, cw,
+# ccw, hard drop, swap, no-op), biased towards hard drops and swaps.
+PIX_ENVS = 512
+FLAGSHIP_STEPS = 300
+FLAGSHIP_ACTION_P = (0.1, 0.1, 0.08, 0.1, 0.07, 0.3, 0.15, 0.1)
+# Phase 23: a small fp32 pixel DQN on the card and on the CPU, held as
+# phases 8, 14 and 18 are, within 1e-2 of each leaf's norm: after its 22
+# updates the third convolution's weights differ by 1.3e-3 to 1.5e-3 of
+# their norm between card and CPU, and as much between two card runs with
+# cuDNN's default algorithms (an H100 80GB HBM3 at 700 W).
+SMALL_PIX_ENVS, SMALL_PIX_STEPS = 32, 30
+SMALL_PIX_CFG = dict(buffer_size=32 * 16, batch_size=16, learning_starts=8, target_update_every=16,
+                     exploration_steps=100, frame_stack=4)
+SMALL_PIX_PARAM_TOL = 1e-2
+# Phase 24: examples/train_cnn.py --obs rgb84 --frame-stack 4 at the shape
+# of results/dqn_rgb84.jsonl (512 envs, default DQNConfig: buffer 262,144,
+# batch 512, lr 1e-4, sync every 500; AtariQNetwork with a bf16 trunk) and
+# its schedule (the script's defaults: epsilon over 6000 steps, learning
+# from step 500; its records give epsilon 0.9919 at step 50 and a loss of 0
+# through step 500), cut to 2000 of 12,000 steps, from the JAX run's
+# initial weights (tools/export_grouped_init_params.py --net atari_q
+# --frame-stack 4 --seed 1).
+PIX_STEPS, PIX_CHUNK, PIX_BATCH = 2000, 50, 512
+PIX_EXPLORATION, PIX_LEARNING_STARTS = 6000, 500
+PIX_INIT = os.path.join(REPO, "results", "atari_q_k4_init_seed1.npz")
+PIX_JAX_CURVE = os.path.join(REPO, "results", "dqn_rgb84.jsonl")
+# reward per env step over steps 1751-2000 against steps 1-500 (the JAX
+# curve gives 2.43x), and steps 1-500 within 0.01 of the JAX curve's
+PIX_GATE, PIX_START_TOL = 1.8, 0.01
+PIX_TIME_B = (512, 65536)
+PIX_PLAIN_MAX_B = 4096  # the plain chain's float64 temporaries at larger B pass 10 GB
+# 32-bit operations the kernels do, by their own count: flagship_step packs
+# 432 cells (3 each), builds up to four 21-window hit maps (8 each) and on a
+# lock compacts 20 rows (20 each); flagship_init shuffles 7 pieces (~100)
+# and writes 432 cells; flagship_observe_board 200 cells (6 each);
+# render_rgb84 per output pixel 4 tap weights, 12 multiply-adds, 3 rounds
+# and clips (4 each) and the gray (7)
+FLAGSHIP_STEP_OPS_PER_ENV = 3 * 432 + 4 * 21 * 8 + 20 * 20
+FLAGSHIP_INIT_OPS_PER_ENV = 100 + 432
+FLAGSHIP_OBS_OPS_PER_ENV = 6 * 200
+RENDER_OPS_PER_PIXEL = 4 + 2 * 12 + 3 * 4 + 7
 
 
 def emit(obj) -> None:
@@ -228,7 +320,8 @@ def emit(obj) -> None:
 MAX_ERR = {"turbo_step": 0.0, "turbo_init": 0.0, "observe_board": 0.0, "gae": 0.0,
            "ppo_sample": 0.0, "grouped_placements": 0.0, "grouped_act": 0.0, "replay_add": 0.0,
            "replay_sample": 0.0, "replay_sample_stacked": 0.0, "framestack_push": 0.0,
-           "dqn_act": 0.0}
+           "dqn_act": 0.0, "flagship_step": 0.0, "flagship_init": 0.0,
+           "flagship_observe_board": 0.0, "render_rgb84": 0.0}
 
 
 def bits(t):
@@ -236,6 +329,38 @@ def bits(t):
     if t.dtype in (torch.uint32, torch.float32):
         return t.view(torch.int32).to(torch.int64)
     return t.to(torch.int64)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, so that a card run of a parity phase
+    repeats bit for bit: its default weight gradients sum in an order that
+    varies from run to run, which Adam magnifies where a gradient is near zero."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def param_change_diff(what, start, card, cpu, tol) -> tuple:
+    """Each leaf's change from ``start`` on the card against the CPU's:
+    raises unless ``|d_card - d_cpu| <= tol |d_cpu|`` (L2 norms) and the leaf
+    moved.  Returns the largest norm ratio and the largest single difference
+    over the largest single change, which is reported, not gated: Adam moves
+    a weight whose gradient is near zero by up to a learning rate, whatever
+    the sign of that gradient's last bits."""
+    norm_worst = elem_worst = 0.0
+    for k, p0 in start.items():
+        d_card, d_cpu = card[k] - p0, cpu[k] - p0
+        rel = float(np.linalg.norm(d_card - d_cpu)) / max(float(np.linalg.norm(d_cpu)), 1e-30)
+        norm_worst = max(norm_worst, rel)
+        elem_worst = max(elem_worst, float(np.abs(d_card - d_cpu).max())
+                         / max(float(np.abs(d_cpu).max()), 1e-30))
+        if not np.abs(d_cpu).max() > 0 or rel > tol:
+            raise AssertionError(f"{what}: {k} changed by {rel} of its change's norm "
+                                 "between card and CPU")
+    return norm_worst, elem_worst
 
 
 def values(t):
@@ -597,6 +722,13 @@ def main() -> None:
     dqn_runs = {K: train_dqn_full_width(dev, smi, K) for K in (4, 1)}
     dqn_times = time_dqn_kernels(dev, smi)
 
+    # -- 21.-25. the pixel CNN DQN slice ----------------------------------------------
+    check_flagship(dev)
+    flag_eval = eval_flagship_board(dev, net, stats)
+    check_small_pixel_dqn()
+    pix = train_pixel_dqn_full_width(dev, smi)
+    pix_times = time_pixel_kernels(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -620,12 +752,27 @@ def main() -> None:
         "framestack_push": ("tetris_gymnasium_torch/csrc/framestack.cu",
                             "tetris_gymnasium_tpu/ops/framestack.py:37"),
         "dqn_act": ("tetris_gymnasium_torch/csrc/dqn_act.cu", "tetris_gymnasium_tpu/rl/dqn.py:143"),
+        "flagship_step": ("tetris_gymnasium_torch/csrc/flagship_step.cu",
+                          "tetris_gymnasium_tpu/core/engine.py:451"),
+        "flagship_init": ("tetris_gymnasium_torch/csrc/flagship_step.cu",
+                          "tetris_gymnasium_tpu/core/engine.py:131"),
+        "flagship_observe_board": ("tetris_gymnasium_torch/csrc/flagship_step.cu",
+                                   "tetris_gymnasium_tpu/core/engine.py:274"),
+        "render_rgb84": ("tetris_gymnasium_torch/csrc/render_rgb84.cu",
+                         "tetris_gymnasium_tpu/core/engine.py:529"),
     }
     # Each kernel's launches and time come from one path: the newest that
-    # runs it (the K = 4 DQN, else the K = 1 DQN, else the grouped DQN, else
-    # PPO), its time at that path's shapes: the DQN's 1024 envs with gravity
-    # (512 samples of the 262,144-entry buffer), the grouped step's 1024 envs
-    # without gravity (256 samples), the PPO step's B = 8192.
+    # runs it (the pixel DQN, else the flagship engine's board evaluation,
+    # else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN, else PPO),
+    # its time at that path's shapes: the pixel DQN's 512 envs (7056-byte
+    # frames, 512 samples of the 262,144-entry buffer), the evaluation's 512,
+    # the board DQN's 1024 envs with gravity (512 samples), the grouped
+    # step's 1024 envs without gravity (256 samples), the PPO step's B = 8192.
+    pix_at = {name: pix_times[name][PIX_ENVS] for name in
+              ("flagship_step", "flagship_init", "render_rgb84", "framestack_push", "dqn_act")}
+    pix_at.update(replay_add=pix_times["replay_add"],
+                  replay_sample_stacked=pix_times["replay_sample_stacked"][PIX_BATCH])
+    flag_at = {"flagship_observe_board": pix_times["flagship_observe_board"][EVAL_EPISODES]}
     dqn_at = {"turbo_step": times["dqn"]["turbo_step"], "turbo_init": times["dqn"]["turbo_init"],
               "observe_board": times["dqn"]["observe_board"],
               "framestack_push": dqn_times["framestack_push"][DQN_ENVS],
@@ -634,7 +781,9 @@ def main() -> None:
               "replay_sample": dqn_times["replay_sample"]}
     grouped_at = {"grouped_placements": grouped_times["grouped_placements"][f"features@{GROUPED_ENVS}"],
                   "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS]}
-    paths = [("dqn_k4", dqn_runs[4]["launches"], DQN_STEPS, dqn_at),
+    paths = [("dqn_rgb84", pix["launches"], PIX_STEPS, pix_at),
+             ("flagship_eval", flag_eval["launches"], flag_eval["iterations"], flag_at),
+             ("dqn_k4", dqn_runs[4]["launches"], DQN_STEPS, dqn_at),
              ("dqn_k1", dqn_runs[1]["launches"], DQN_STEPS, dqn_at),
              ("grouped_train", grouped["launches"], GROUPED_STEPS, grouped_at),
              ("ppo_train", train["launches"], TRAIN_STEPS, {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS]})]
@@ -647,6 +796,7 @@ def main() -> None:
             **{f"launches_{p[0]}": p[1][name] for p in paths},
             "launches_eval": launches[name],
             "launches_dqn_eval_k4": dqn_runs[4]["eval_launches"][name],
+            "launches_dqn_rgb84_eval": pix["eval_launches"][name],
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
             "library_ms": None,
@@ -730,30 +880,25 @@ def check_small_train_step() -> None:
     env_config = EngineConfig(auto_reset=True)
     start = load_flat(PARAMS)
     out = {}
-    for where in ("cuda", "cpu"):
-        ts = ppo.init_train_state(prng_key(0), 64, env_config, cfg,
-                                  net=ActorCriticCNN(dtype=torch.float32), device=where,
-                                  params=start)
-        _, env_step, observe = env_fns(env_config, device=where)
-        traj = ppo.rollout(ts, cfg, env_step, observe)[0]
-        ts, metrics = ppo.make_train_step(env_config, cfg)(ts)
-        out[where] = (traj, to_flax_params(ts.net.state_dict()),
-                      {k: float(v) for k, v in metrics.items()})
+    with deterministic_cudnn():
+        for where in ("cuda", "cpu"):
+            ts = ppo.init_train_state(prng_key(0), 64, env_config, cfg,
+                                      net=ActorCriticCNN(dtype=torch.float32), device=where,
+                                      params=start)
+            _, env_step, observe = env_fns(env_config, device=where)
+            traj = ppo.rollout(ts, cfg, env_step, observe)[0]
+            ts, metrics = ppo.make_train_step(env_config, cfg)(ts)
+            out[where] = (traj, to_flax_params(ts.net.state_dict()),
+                          {k: float(v) for k, v in metrics.items()})
     (tc, pc, mc), (tp, pp, mp) = out["cuda"], out["cpu"]
     for k in ("obs", "action", "reward", "done"):
         if not torch.equal(getattr(tc, k).cpu(), getattr(tp, k)):
             raise AssertionError(f"small train step: rollout {k} differs between card and CPU")
-    worst = 0.0
-    for k, p0 in start.items():
-        dc, dp = pc[k] - p0, pp[k] - p0
-        scale = float(np.abs(dp).max())
-        rel = float(np.abs(dc - dp).max()) / max(scale, 1e-30)
-        worst = max(worst, rel)
-        if scale == 0 or rel > 1e-3:
-            raise AssertionError(f"small train step: {k} changed by {rel} of its largest change "
-                                 f"({scale}) between card and CPU")
+    norm_worst, elem_worst = param_change_diff("small train step", start, pc, pp,
+                                               SMALL_TRAIN_PARAM_TOL)
     emit({"phase": "small_train_step", "rollout_bit_equal": True,
-          "param_change_max_rel_diff": worst, "metrics_cuda": mc, "metrics_cpu": mp,
+          "param_change_max_norm_rel_diff": norm_worst,
+          "param_change_max_elem_rel_diff": elem_worst, "metrics_cuda": mc, "metrics_cpu": mp,
           "seconds": time.perf_counter() - t0})
 
 
@@ -1157,15 +1302,16 @@ def check_small_grouped() -> None:
     cfg = grouped_dqn.GroupedDQNConfig(**SMALL_GROUPED_CFG)
     start = to_flax_params(init_lecun_(QMLP(), torch.Generator().manual_seed(5)).state_dict(), "qmlp")
     runs = {}
-    for where in ("cuda", "cpu"):
-        ts = grouped_dqn.init_grouped_dqn_state(prng_key(3), 64, env_config, cfg, device=where,
-                                                params=start)
-        step = grouped_dqn.make_train_step(env_config, cfg)
-        losses = []
-        for _ in range(SMALL_GROUPED_STEPS):
-            ts, m = step(ts)
-            losses.append(float(m["loss"]))
-        runs[where] = (ts, losses)
+    with deterministic_cudnn():
+        for where in ("cuda", "cpu"):
+            ts = grouped_dqn.init_grouped_dqn_state(prng_key(3), 64, env_config, cfg, device=where,
+                                                    params=start)
+            step = grouped_dqn.make_train_step(env_config, cfg)
+            losses = []
+            for _ in range(SMALL_GROUPED_STEPS):
+                ts, m = step(ts)
+                losses.append(float(m["loss"]))
+            runs[where] = (ts, losses)
     (tc, lc), (tp, lp) = runs["cuda"], runs["cpu"]
     for k, v in tc.buffer.data.items():
         if not torch.equal(bits(v.cpu()), bits(tp.buffer.data[k])):
@@ -1173,16 +1319,9 @@ def check_small_grouped() -> None:
     for k in turbo.FIELDS:
         if not torch.equal(bits(getattr(tc.env_states.env, k).cpu()), bits(getattr(tp.env_states.env, k))):
             raise AssertionError(f"small grouped DQN: env {k} differs between card and CPU")
-    worst = 0.0
     pc, pp = to_flax_params(tc.net.state_dict(), "qmlp"), to_flax_params(tp.net.state_dict(), "qmlp")
-    for k, p0 in start.items():
-        dc, dp = pc[k] - p0, pp[k] - p0
-        scale = float(np.abs(dp).max())
-        rel = float(np.abs(dc - dp).max()) / max(scale, 1e-30)
-        worst = max(worst, rel)
-        if scale == 0 or rel > SMALL_GROUPED_PARAM_TOL:
-            raise AssertionError(f"small grouped DQN: {k} changed by {rel} of its largest change "
-                                 f"({scale}) between card and CPU")
+    norm_worst, elem_worst = param_change_diff("small grouped DQN", start, pc, pp,
+                                               SMALL_GROUPED_PARAM_TOL)
     loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
     stats = {}
     for where, net in (("cuda", tc.net), ("cpu", copy.deepcopy(tc.net).cpu())):
@@ -1193,7 +1332,8 @@ def check_small_grouped() -> None:
             raise AssertionError(f"small grouped evaluation: {k} {v} on the card, "
                                  f"{stats['cpu'][k]} on the CPU")
     emit({"phase": "small_grouped", "replay_bit_equal": True, "env_bit_equal": True,
-          "steps": SMALL_GROUPED_STEPS, "param_change_max_rel_diff": worst,
+          "steps": SMALL_GROUPED_STEPS, "param_change_max_norm_rel_diff": norm_worst,
+          "param_change_max_elem_rel_diff": elem_worst,
           "loss_max_rel_diff": loss_rel, "loss_last": [lc[-1], lp[-1]],
           "eval_equal": stats["cuda"], "seconds": time.perf_counter() - t0})
 
@@ -1546,17 +1686,18 @@ def check_small_dqn() -> None:
     cfg = dqn.DQNConfig(**SMALL_DQN_CFG)
     start = load_flat(DQN_INIT[4])
     runs = {}
-    for where in ("cuda", "cpu"):
-        ts = dqn.init_dqn_state(prng_key(3), 64, env_config, cfg,
-                                net=QNetworkCNN(in_channels=4, dtype=torch.float32), device=where,
-                                params=start)
-        step = dqn.make_train_step(env_config, cfg)
-        losses, dones = [], 0
-        for _ in range(SMALL_DQN_STEPS):
-            ts, m = step(ts)
-            losses.append(float(m["loss"]))
-            dones += int(m["episodes_done"])
-        runs[where] = (ts, losses, dones)
+    with deterministic_cudnn():
+        for where in ("cuda", "cpu"):
+            ts = dqn.init_dqn_state(prng_key(3), 64, env_config, cfg,
+                                    net=QNetworkCNN(in_channels=4, dtype=torch.float32),
+                                    device=where, params=start)
+            step = dqn.make_train_step(env_config, cfg)
+            losses, dones = [], 0
+            for _ in range(SMALL_DQN_STEPS):
+                ts, m = step(ts)
+                losses.append(float(m["loss"]))
+                dones += int(m["episodes_done"])
+            runs[where] = (ts, losses, dones)
     (tc, lc, dc), (tp, lp, _) = runs["cuda"], runs["cpu"]
     for k, v in tc.buffer.data.items():
         if not torch.equal(bits(v.cpu()), bits(tp.buffer.data[k])):
@@ -1566,20 +1707,13 @@ def check_small_dqn() -> None:
             raise AssertionError(f"small DQN: env {k} differs between card and CPU")
     if not torch.equal(tc.obs.cpu(), tp.obs):
         raise AssertionError("small DQN: the window differs between card and CPU")
-    worst = 0.0
     pc, pp = to_flax_params(tc.net.state_dict(), "q_cnn"), to_flax_params(tp.net.state_dict(), "q_cnn")
-    for k, p0 in start.items():
-        d_card, d_cpu = pc[k] - p0, pp[k] - p0
-        scale = float(np.abs(d_cpu).max())
-        rel = float(np.abs(d_card - d_cpu).max()) / max(scale, 1e-30)
-        worst = max(worst, rel)
-        if scale == 0 or rel > SMALL_DQN_PARAM_TOL:
-            raise AssertionError(f"small DQN: {k} changed by {rel} of its largest change "
-                                 f"({scale}) between card and CPU")
+    norm_worst, elem_worst = param_change_diff("small DQN", start, pc, pp, SMALL_DQN_PARAM_TOL)
     loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
     emit({"phase": "small_dqn", "replay_bit_equal": True, "env_bit_equal": True,
           "window_bit_equal": True, "steps": SMALL_DQN_STEPS, "episodes_done": dc,
-          "param_change_max_rel_diff": worst, "loss_max_rel_diff": loss_rel,
+          "param_change_max_norm_rel_diff": norm_worst,
+          "param_change_max_elem_rel_diff": elem_worst, "loss_max_rel_diff": loss_rel,
           "loss_last": [lc[-1], lp[-1]], "seconds": time.perf_counter() - t0})
 
 
@@ -1812,6 +1946,503 @@ def time_dqn_kernels(dev, smi) -> dict:
           "buffer_mib": sum(nbytes(x) for x in buf.data.values()) / 2**20, "nvidia_smi": smi})
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# 21.-25. the pixel CNN DQN slice
+# ---------------------------------------------------------------------------
+
+
+def _flagship_actions(B, g, dev):
+    """Random actions biased towards hard drops and swaps."""
+    p = torch.tensor(FLAGSHIP_ACTION_P, device=dev)
+    return torch.multinomial(p.expand(B, -1), 1, replacement=True, generator=g)[:, 0].to(torch.int32)
+
+
+def _flagship_vs_turbo(fs, ts, what) -> None:
+    """The flagship state equals the turbo state field for field, its
+    occupancy packed from the id board."""
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.ops import bitboard as bb
+
+    rows = bb.pack_board(fs.board).T
+    if not torch.equal(rows, turbo.u32_to_lanes(ts.rows)):
+        raise AssertionError(f"{what}: occupancy differs from turbo_step's")
+    for k in turbo.FIELDS:
+        if k == "rows":
+            continue
+        a, b = getattr(fs, k), getattr(ts, k)
+        if a.ndim == 2 and k != "key":
+            a = a.T
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{what}: {k} differs from turbo_step's")
+
+
+def _surgery_boards(s, g, dev):
+    """Hand-built id boards: garbage in rows 8-19 and 0..6 full bottom rows,
+    random pieces, rotations and positions."""
+    B = s.board.shape[0]
+    board = s.board.clone()
+    inner = board[:, 8:20, 4:14]
+    garbage = torch.randint(2, 9, inner.shape, generator=g, device=dev, dtype=torch.int8)
+    keep = torch.rand(inner.shape, generator=g, device=dev) < 0.6
+    n_full = torch.randint(0, 7, (B,), generator=g, device=dev)
+    full = (torch.arange(8, 20, device=dev)[None, :] >= 20 - n_full[:, None])[:, :, None]
+    inner[:] = torch.where(keep | full, garbage, 0)
+    return s.replace(
+        board=board,
+        piece=torch.randint(0, 7, (B,), generator=g, device=dev, dtype=torch.int32),
+        rotation=torch.randint(0, 4, (B,), generator=g, device=dev, dtype=torch.int32),
+        x=torch.randint(-3, 18, (B,), generator=g, device=dev, dtype=torch.int32),
+        y=torch.randint(0, 5, (B,), generator=g, device=dev, dtype=torch.int32),
+    ), n_full
+
+
+def check_flagship(dev) -> None:
+    """Phases 21-22: ``flagship_init``, ``flagship_step``,
+    ``flagship_observe_board`` and ``render_rgb84`` against their plain
+    versions, bit for bit, and the flagship trajectories against
+    ``turbo_step``'s on the same keys and actions."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, turbo
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    def state_diff(kernel, ks, ps, what):
+        for k in engine.FIELDS:
+            diff(kernel, getattr(ks, k), getattr(ps, k), f"{what}: {k}")
+
+    def obs_checks(s, cfg, what, ts=None):
+        ob = kernels.flagship_observe_board(s, cfg, engine.PIECES)
+        diff("flagship_observe_board", ob, engine.observe_board_plain(s, cfg), f"{what} obs")
+        if ts is not None and not torch.equal(ob, kernels.observe_board(ts, cfg, turbo.PIECES)):
+            raise AssertionError(f"{what}: board observation differs from the turbo engine's")
+        diff("render_rgb84", kernels.render_rgb84(s, cfg, engine.PIECES),
+             engine.render_rgb84_plain(s, cfg), f"{what} rgb84")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    t0 = time.perf_counter()
+    for B in (PIX_ENVS, 1, 1001):
+        for kind in ("bag", "uniform"):
+            cfg = EngineConfig(queue_kind=kind)
+            keys = batch_keys(prng_key(B), B, device=dev)
+            state_diff("flagship_init", kernels.flagship_init(keys, cfg, engine.PIECES),
+                       engine.init_plain(keys, cfg), f"init B={B} {kind}")
+
+    runs = [
+        ("autoreset", PIX_ENVS, EngineConfig(auto_reset=True), RewardsMapping()),
+        ("nograv-frozen", PIX_ENVS, EngineConfig(gravity_enabled=False),
+         RewardsMapping(alife=0.5, game_over=-2.0)),
+        ("uniform-autoreset-nograv", 1001,
+         EngineConfig(auto_reset=True, gravity_enabled=False, queue_kind="uniform"), RewardsMapping()),
+        ("uniform-frozen", 1, EngineConfig(queue_kind="uniform"), RewardsMapping()),
+    ]
+    summary = []
+    counts = {"steps": 0, "obs": 0, "holder_full": 0, "game_over_frames": 0}
+    for name, B, cfg, rw in runs:
+        keys = batch_keys(prng_key(7), B, device=dev)
+        s = kernels.flagship_init(keys, cfg, engine.PIECES)
+        ts = kernels.turbo_init(keys, cfg, turbo.PIECES)
+        n_done = n_lines = 0
+        for i in range(FLAGSHIP_STEPS):
+            obs_checks(s, cfg, f"{name} @ {i}", ts)
+            counts["obs"] += 1
+            a = _flagship_actions(B, g, dev)
+            ks, kr, kd, kl = kernels.flagship_step(s, a, cfg, engine.PIECES, rw)
+            ps, pr, pd, pl = engine.step_plain(s, a, cfg, rewards=rw)
+            state_diff("flagship_step", ks, ps, f"{name} step {i}")
+            for got, want, what in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
+                diff("flagship_step", got, want, f"{name} {what} @ {i}")
+            ts, tr, td, tl = kernels.turbo_step(ts, a, cfg, turbo.PIECES, rw)
+            _flagship_vs_turbo(ks, ts, f"{name} step {i}")
+            for got, want, what in ((kr, tr, "reward"), (kd, td, "done"), (kl, tl, "lines")):
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"{name} {what} @ {i}: flagship and turbo differ")
+            counts["steps"] += 1
+            counts["holder_full"] += int((ks.holder_count >= cfg.holder_size).sum())
+            counts["game_over_frames"] += int(s.game_over.sum())
+            n_done += int((kd & ~s.game_over).sum())
+            n_lines += int(kl.sum())
+            s = ks
+        obs_checks(s, cfg, f"{name} end", ts)
+        summary.append({"run": name, "B": B, "steps": FLAGSHIP_STEPS, "episodes_ended": n_done,
+                        "lines": n_lines})
+
+    # hand-built boards: multi-line clears past the turbo engine's envelope
+    cfg = EngineConfig(auto_reset=True)
+    s = kernels.flagship_init(batch_keys(prng_key(8), PIX_ENVS, device=dev), cfg, engine.PIECES)
+    s, n_full = _surgery_boards(s, g, dev)
+    clears = torch.zeros(16, dtype=torch.int64)
+    for i in range(FLAGSHIP_STEPS):
+        obs_checks(s, cfg, f"surgery @ {i}")
+        a = _flagship_actions(PIX_ENVS, g, dev)
+        if i == 0:
+            a = torch.full_like(a, 5)  # hard drops onto the full rows
+        ks, kr, kd, kl = kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping())
+        ps, pr, pd, pl = engine.step_plain(s, a, cfg)
+        state_diff("flagship_step", ks, ps, f"surgery step {i}")
+        for got, want, what in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
+            diff("flagship_step", got, want, f"surgery {what} @ {i}")
+        clears += torch.bincount(kl.long().cpu(), minlength=16)[:16]
+        s = ks
+    torch.cuda.synchronize()
+    if int(clears[2:].sum()) == 0 or int(clears[5:].sum()) == 0:
+        raise AssertionError(f"the hand-built boards cleared no multi-line stack: {clears.tolist()}")
+    if counts["holder_full"] == 0 or counts["game_over_frames"] == 0:
+        raise AssertionError(f"the trajectories missed a full holder or a game-over frame: {counts}")
+    emit({"phase": "flagship_engine", "bit_equal": True, "turbo_equal": True, "runs": summary,
+          "surgery_lines_per_lock": {n: int(c) for n, c in enumerate(clears.tolist()) if c},
+          **counts, "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_init", "flagship_step")},
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "flagship_obs", "bit_equal": True, "turbo_equal": True,
+          "comparisons": counts["obs"] + FLAGSHIP_STEPS + len(runs),
+          "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_observe_board", "render_rgb84")}})
+
+
+def eval_flagship_board(dev, net, turbo_stats) -> dict:
+    """The ``--impl flagship --obs board`` path: the committed PPO policy's
+    512 greedy games (phase 5) on the flagship engine, which plays the turbo
+    engine's game, so its statistics equal phase 5's."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.rl.evaluate import evaluate_policy, greedy_logits
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = evaluate_policy(greedy_logits(net), EVAL_EPISODES, EngineConfig(), prng_key(EVAL_SEED),
+                            impl="flagship", max_steps=EVAL_MAX_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    it = stats["iterations"]
+    want = {**{k: 0 for k in launches}, "flagship_init": 1, "flagship_step": it,
+            "flagship_observe_board": it}
+    if launches != want:
+        raise AssertionError(f"flagship evaluation launch counts {launches}, want {want}")
+    if stats != turbo_stats:
+        raise AssertionError(f"flagship evaluation {stats} differs from the turbo engine's {turbo_stats}")
+    emit({"phase": "flagship_eval", "stats": stats, "equal_to_turbo": True, "launches": launches,
+          "seconds": wall, "ms_per_iteration": 1e3 * wall / max(it, 1)})
+    return {"launches": launches, "iterations": it}
+
+
+def check_small_pixel_dqn() -> None:
+    """Phase 23: a small fp32 pixel DQN on the card against the same run on the CPU."""
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.models.networks import AtariQNetwork
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.rl import dqn
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat
+
+    t0 = time.perf_counter()
+    env_config = EngineConfig(auto_reset=True)
+    cfg = dqn.DQNConfig(**SMALL_PIX_CFG)
+    start = load_flat(PIX_INIT)
+    runs = {}
+    with deterministic_cudnn():
+        for where in ("cuda", "cpu"):
+            ts = dqn.init_dqn_state(prng_key(3), SMALL_PIX_ENVS, env_config, cfg,
+                                    net=AtariQNetwork(in_channels=4, dtype=torch.float32),
+                                    impl="flagship", obs="rgb84", device=where, params=start)
+            step = dqn.make_train_step(env_config, cfg, impl="flagship", obs="rgb84")
+            losses, dones = [], 0
+            for _ in range(SMALL_PIX_STEPS):
+                ts, m = step(ts)
+                losses.append(float(m["loss"]))
+                dones += int(m["episodes_done"])
+            runs[where] = (ts, losses, dones)
+    (tc, lc, dc), (tp, lp, _) = runs["cuda"], runs["cpu"]
+    for k, v in tc.buffer.data.items():
+        if not torch.equal(bits(v.cpu()), bits(tp.buffer.data[k])):
+            raise AssertionError(f"small pixel DQN: replay {k} differs between card and CPU")
+    for k in engine.FIELDS:
+        if not torch.equal(bits(getattr(tc.env_states, k).cpu()), bits(getattr(tp.env_states, k))):
+            raise AssertionError(f"small pixel DQN: env {k} differs between card and CPU")
+    if not torch.equal(tc.obs.cpu(), tp.obs):
+        raise AssertionError("small pixel DQN: the window differs between card and CPU")
+    pc, pp = to_flax_params(tc.net.state_dict(), "atari_q"), to_flax_params(tp.net.state_dict(), "atari_q")
+    norm_worst, elem_worst = param_change_diff("small pixel DQN", start, pc, pp, SMALL_PIX_PARAM_TOL)
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
+    emit({"phase": "small_pixel_dqn", "replay_bit_equal": True, "env_bit_equal": True,
+          "window_bit_equal": True, "envs": SMALL_PIX_ENVS, "steps": SMALL_PIX_STEPS,
+          "episodes_done": dc, "param_change_max_norm_rel_diff": norm_worst,
+          "param_change_max_elem_rel_diff": elem_worst, "loss_max_rel_diff": loss_rel,
+          "loss_last": [lc[-1], lp[-1]], "seconds": time.perf_counter() - t0})
+
+
+def _chunks250(values, per):
+    """Means of consecutive 250-step windows of per-``per``-step records."""
+    n = 250 // per
+    return [sum(values[i : i + n]) / n for i in range(0, len(values) - n + 1, n)]
+
+
+def train_pixel_dqn_full_width(dev, smi) -> dict:
+    """Phase 24: ``examples/train_cnn.py --obs rgb84 --frame-stack 4`` at the
+    committed run's shape."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.examples import train_cnn
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.rl import dqn
+    from tetris_gymnasium_torch.rl.evaluate import evaluate_q_checkpoint
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat, load_q_net
+
+    args = train_cnn.parse_args([
+        "--obs", "rgb84", "--frame-stack", "4", "--n-envs", str(PIX_ENVS), "--steps", str(PIX_STEPS),
+        "--chunk", str(PIX_CHUNK), "--exploration-steps", str(PIX_EXPLORATION),
+        "--learning-starts", str(PIX_LEARNING_STARTS), "--seed", "1", "--init-params", PIX_INIT])
+    events = []
+
+    def mark(name):
+        if name == "start":
+            events.append({})
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1][name] = ev
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, records = train_cnn.train(args, marks=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n, learn = PIX_STEPS, PIX_STEPS - PIX_LEARNING_STARTS
+    want = {**{k: 0 for k in launches}, "flagship_init": 1, "flagship_step": n, "render_rgb84": n + 1,
+            "dqn_act": n, "replay_add": n, "framestack_push": n, "replay_sample_stacked": learn}
+    if launches != want:
+        raise AssertionError(f"pixel DQN launch counts {launches}, want {want}")
+    for rec in records:
+        for k, v in rec.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"pixel DQN metric {k} is not finite: {rec}")
+    start = load_flat(PIX_INIT)
+    trained = to_flax_params(ts.net.state_dict(), "atari_q")
+    moved = {k: float(np.abs(trained[k] - start[k]).max()) for k in start}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"some parameters did not move: {moved}")
+    chunks = _chunks250([r["reward_per_step"] for r in records], PIX_CHUNK)
+    with open(PIX_JAX_CURVE) as f:
+        jax_records = [json.loads(line)["reward_per_step"] for line in f]
+    jax_chunks = _chunks250(jax_records[: PIX_STEPS // PIX_CHUNK], PIX_CHUNK)
+    first, jax_first = sum(chunks[:2]) / 2, sum(jax_chunks[:2]) / 2
+    ratio, jax_ratio = chunks[-1] / first, jax_chunks[-1] / jax_first
+    learning = events[PIX_LEARNING_STARTS + 10:]
+    split = {"before_learning": split_ms(events[10:PIX_LEARNING_STARTS]), "learning": split_ms(learning)}
+    emit({"phase": "pixel_dqn_train", "n_envs": PIX_ENVS, "steps": n, "wall_s_with_setup": wall,
+          "launches": launches, "reward_per_step_250": chunks, "jax_reward_per_step_250": jax_chunks,
+          "steps_per_episode_chunks": [r["steps_per_episode"] for r in records],
+          "epsilon_last": records[-1]["epsilon"], "loss_last": records[-1]["loss"],
+          "start_mean": first, "jax_start_mean": jax_first, "gate_ratio": ratio,
+          "jax_gate_ratio": jax_ratio, "gate": PIX_GATE, "step_split_ms": split,
+          "env_steps_per_s_learning": PIX_ENVS / (split["learning"]["step"] * 1e-3),
+          "param_max_change": moved, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "nvidia_smi": smi})
+    if abs(first - jax_first) > PIX_START_TOL:
+        raise AssertionError(f"pixel DQN start: steps 1-500 give {first} reward per step, JAX "
+                             f"{jax_first}; want within {PIX_START_TOL}")
+    if not ratio >= PIX_GATE:
+        raise AssertionError(f"pixel DQN learning gate: steps 1751-2000 give {chunks[-1]} reward "
+                             f"per step, {ratio:.3f}x steps 1-500 ({first}); want {PIX_GATE}x")
+
+    t0 = time.perf_counter()
+    evals = {}
+    for name, net in (("untrained", load_q_net(PIX_INIT, "atari_q", device=dev)), ("trained", ts.net)):
+        kernels.reset_launches()
+        evals[name] = evaluate_q_checkpoint(net, EVAL_EPISODES, EngineConfig(), seed=EVAL_SEED,
+                                            impl="flagship", max_steps=EVAL_MAX_STEPS, frame_stack=4,
+                                            obs="rgb84", device=dev)
+        torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)  # the trained net's evaluation
+    it = evals["trained"]["iterations"]
+    want = {**{k: 0 for k in launches}, "flagship_init": 1, "flagship_step": it, "dqn_act": it,
+            "render_rgb84": it + 1, "framestack_push": it}
+    if eval_launches != want:
+        raise AssertionError(f"pixel DQN evaluation launch counts {eval_launches}, want {want}")
+    emit({"phase": "pixel_dqn_eval", "episodes": EVAL_EPISODES, "max_steps": EVAL_MAX_STEPS,
+          **evals, "launches_trained": eval_launches, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
+    cfg = dqn.DQNConfig(exploration_steps=PIX_EXPLORATION, learning_starts=PIX_LEARNING_STARTS,
+                        frame_stack=4)
+    step = dqn.make_train_step(EngineConfig(auto_reset=True), cfg, impl="flagship", obs="rgb84")
+    ts, busy = profile_steps(step, ts)
+    emit({"phase": "pixel_dqn_profile", **busy, "nvidia_smi": smi})
+    check_pixel_path_shapes(dev, ts, cfg)
+    return {"launches": launches, "eval_launches": eval_launches, "split": split}
+
+
+def check_pixel_path_shapes(dev, ts, cfg) -> None:
+    """The end of phase 24: every kernel of the pixel path against its plain
+    version at the path's shapes, on its trained state."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops import framestack, threefry
+    from tetris_gymnasium_torch.rl import buffers, dqn
+
+    t0 = time.perf_counter()
+    K = cfg.frame_stack
+    env_config = EngineConfig(auto_reset=True)
+    with torch.no_grad():
+        q = ts.net(ts.obs)
+    act_key, eps_key = threefry.split(threefry.fold_in(threefry.prng_key(24), ts.step))
+    a = kernels.dqn_act(q, act_key, eps_key, 0.5)
+    diff("dqn_act", a, dqn.act_plain(q, act_key, eps_key, 0.5), "trained state actions")
+    s = ts.env_states
+    ks, kr, kd, kl = kernels.flagship_step(s, a, env_config, engine.PIECES, RewardsMapping())
+    ps, pr, pd, pl = engine.step_plain(s, a, env_config)
+    for k in engine.FIELDS:
+        diff("flagship_step", getattr(ks, k), getattr(ps, k), f"trained step {k}")
+    for got, want, name in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
+        diff("flagship_step", got, want, f"trained step {name}")
+    raw = kernels.render_rgb84(ks, env_config, engine.PIECES)
+    diff("render_rgb84", raw, engine.render_rgb84_plain(ks, env_config), "trained frame")
+    diff("flagship_observe_board", kernels.flagship_observe_board(ks, env_config, engine.PIECES),
+         engine.observe_board_plain(ks, env_config), "trained board")
+    n_done = int(kd.sum())
+    if n_done == 0:
+        raise AssertionError("the trained step ended no episode, so no window restarted")
+    diff("framestack_push", kernels.framestack_push(ts.obs, raw, kd),
+         framestack.push_plain(ts.obs, raw, kd), "trained window push")
+
+    buf = ts.buffer
+    if buf.size != buf.capacity or buf.pos == 0:
+        raise AssertionError(f"the buffer is not full and wrapped: pos {buf.pos}, size {buf.size}")
+    block = {"obs": ts.obs[:, -1], "action": a, "reward": kr, "done": kd}
+    kbuf, pbuf = (buffers.ReplayBuffer({k: v.clone() for k, v in buf.data.items()}, buf.pos, buf.size)
+                  for _ in range(2))
+    kbuf, pbuf = buffers.add(kbuf, block), buffers.add_plain(pbuf, block)
+    for k in buf.data:
+        diff("replay_add", kbuf.data[k], pbuf.data[k], f"full buffer add {k}")
+    key = threefry.fold_in(threefry.prng_key(25), ts.step)
+    kc, kn = buffers.sample_with_next_stacked(kbuf, key, cfg.batch_size, PIX_ENVS, K)
+    pc, pn = buffers.sample_with_next_stacked_plain(pbuf, key, cfg.batch_size, PIX_ENVS, K)
+    for k in buf.data:
+        diff("replay_sample_stacked", kc[k], pc[k], f"full buffer sample {k}")
+        diff("replay_sample_stacked", kn[k], pn[k], f"full buffer successor {k}")
+    del kbuf, pbuf
+    torch.cuda.synchronize()
+    emit({"phase": "pixel_path_shapes", "bit_equal": True, "B": PIX_ENVS, "episodes_ended": n_done,
+          "lines_cleared": int(kl.sum()), "buffer_capacity": buf.capacity, "buffer_pos": buf.pos,
+          "samples": cfg.batch_size, "seconds": time.perf_counter() - t0})
+
+
+def _render_bytes(s, B) -> int:
+    """What ``render_rgb84`` must move: the fields it reads, once, and the frames."""
+    return nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.queue, s.holder_piece,
+                  s.holder_rotation, s.holder_count) + B * 84 * 84
+
+
+def time_pixel_kernels(dev, smi) -> dict:
+    """Phase 25: the new kernels beside their bounds at the path's shape (B =
+    512) and at B = 65536, and the reused kernels at the 7056-byte frame."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops import framestack, threefry
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.rl import buffers, dqn
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    cfg = EngineConfig(auto_reset=True)
+    out = {k: {} for k in ("flagship_step", "flagship_init", "flagship_observe_board", "render_rgb84",
+                           "framestack_push", "dqn_act", "replay_sample_stacked")}
+
+    def state_bytes(s):
+        return nbytes(*(getattr(s, k) for k in engine.FIELDS))
+
+    for B in PIX_TIME_B:
+        big = B >= 65536
+        keys = batch_keys(prng_key(B), B, device=dev)
+        s = kernels.flagship_init(keys, cfg, engine.PIECES)
+        for _ in range(40):  # mid-game boards
+            s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, engine.PIECES,
+                                      RewardsMapping())[0]
+        a = _flagship_actions(B, g, dev)
+        pb = min(B, PIX_PLAIN_MAX_B)  # the plain versions' batch
+        ps = engine.EngineState(**{k: (getattr(s, k)[:, :pb] if k == "key" else getattr(s, k)[:pb])
+                                   for k in engine.FIELDS})
+        ps = ps.replace(**{k: getattr(ps, k).contiguous() for k in engine.FIELDS})
+        scale = B / pb  # plain ms at pb, scaled to B
+        entries = {
+            "flagship_step": (lambda: kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping()),
+                              lambda: engine.step_plain(ps, a[:pb], cfg),
+                              2 * state_bytes(s) + nbytes(a) + B * (4 + 1 + 4),
+                              B * FLAGSHIP_STEP_OPS_PER_ENV),
+            "flagship_init": (lambda: kernels.flagship_init(keys, cfg, engine.PIECES),
+                              lambda: engine.init_plain(keys[:pb], cfg),
+                              nbytes(keys) + state_bytes(s), B * FLAGSHIP_INIT_OPS_PER_ENV),
+            "flagship_observe_board": (
+                lambda: kernels.flagship_observe_board(s, cfg, engine.PIECES),
+                lambda: engine.observe_board_plain(ps, cfg),
+                nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.game_over) + B * 200,
+                B * FLAGSHIP_OBS_OPS_PER_ENV),
+            "render_rgb84": (lambda: kernels.render_rgb84(s, cfg, engine.PIECES),
+                             lambda: engine.render_rgb84_plain(ps, cfg),
+                             _render_bytes(s, B), B * 84 * 84 * RENDER_OPS_PER_PIXEL),
+        }
+        for name, (kernel_fn, plain_fn, io, ops) in entries.items():
+            entry = timed_pair(kernel_fn, plain_fn, 20 if big else 100, 2 if big else 10, io, ops)
+            entry.update(plain_ms=entry["plain_ms"] * scale, plain_B=pb)
+            entry["env_steps_per_s" if name == "flagship_step" else "envs_per_s"] = B / (entry["ms"] * 1e-3)
+            out[name][B] = entry
+
+    # the reused kernels at the pixel path's 7056-byte frame
+    K = 4
+    for B in PIX_TIME_B:
+        big = B >= 65536
+        stack = torch.randint(0, 256, (B, K, 84, 84), generator=g, device=dev, dtype=torch.uint8)
+        obs = torch.randint(0, 256, (B, 84, 84), generator=g, device=dev, dtype=torch.uint8)
+        done = torch.rand((B,), generator=g, device=dev) < 0.03
+        kept = (B - int(done.sum())) * nbytes(stack[0, 1:])
+        out["framestack_push"][B] = timed_pair(
+            lambda: kernels.framestack_push(stack, obs, done),
+            lambda: framestack.push_plain(stack, obs, done), 20 if big else 100, 3 if big else 20,
+            kept + nbytes(obs, done, stack), 0)
+        del stack, obs
+    q = torch.randn((PIX_ENVS, 8), generator=g, device=dev)
+    act_key, eps_key = threefry.split(threefry.prng_key(PIX_ENVS))
+    out["dqn_act"][PIX_ENVS] = timed_pair(
+        lambda: kernels.dqn_act(q, act_key, eps_key, 0.3),
+        lambda: dqn.act_plain(q, act_key, eps_key, 0.3), 100, 10, nbytes(q) + PIX_ENVS * 4,
+        PIX_ENVS * DQN_ACT_OPS_PER_ENV)
+
+    B = PIX_ENVS
+    window = torch.randint(0, 256, (B, K, 84, 84), generator=g, device=dev, dtype=torch.uint8)
+
+    def block():
+        return _dqn_block(B, window, g, dev)
+
+    buf = buffers.create(block(), dqn.DQNConfig().buffer_size, B)
+    for _ in range(buf.capacity // B):
+        window.random_(0, 256, generator=g)
+        buf = buffers.add(buf, block())
+    blk = block()
+    entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
+    out["replay_add"] = timed_pair(lambda: buffers.add(buf, blk), lambda: buffers.add_plain(buf, blk),
+                                   100, 20, 2 * B * entry, 0)
+    key = threefry.prng_key(3)
+    for n in (PIX_BATCH, 65536):
+        out["replay_sample_stacked"][n] = timed_pair(
+            lambda: buffers.sample_with_next_stacked(buf, key, n, B, K),
+            lambda: buffers.sample_with_next_stacked_plain(buf, key, n, B, K), 20 if n > B else 100,
+            3 if n > B else 20, _stacked_sample_bytes(buf, key, n, B, K),
+            n * (SAMPLE_INDEX_OPS + 2 * K * STACK_OPS_PER_FRAME))
+    emit({"phase": "pixel_times", **out, "buffer_capacity": buf.capacity,
+          "buffer_gib": sum(nbytes(x) for x in buf.data.values()) / 2**30, "nvidia_smi": smi})
+    del buf
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

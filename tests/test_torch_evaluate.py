@@ -87,11 +87,17 @@ def test_stats_of_frozen_states():
 
 
 def test_unported_paths_raise():
+    """The flagship engine and its rgb84 frames are ported; the frames stay
+    flagship-only (a ValueError, as in JAX) and PPO on them (the
+    AtariActorCritic) is not ported yet."""
+    from tetris_gymnasium_torch.rl import ppo
     from tetris_gymnasium_torch.rl.engines import env_fns
 
-    with pytest.raises(NotImplementedError):
-        env_fns(EngineConfig(), "flagship", device="cpu")
-    with pytest.raises(NotImplementedError):
+    assert len(env_fns(EngineConfig(), "flagship", obs="rgb84", device="cpu")) == 3
+    with pytest.raises(ValueError, match="flagship"):
         env_fns(EngineConfig(), "turbo", obs="rgb84", device="cpu")
+    with pytest.raises(NotImplementedError, match="AtariActorCritic"):
+        ppo.init_train_state(prng_key(0), 4, EngineConfig(auto_reset=True), ppo.PPOConfig(),
+                             impl="flagship", obs="rgb84", device="cpu")
     with pytest.raises(ValueError):
         env_fns(EngineConfig(), "turbo", obs="pixels", device="cpu")

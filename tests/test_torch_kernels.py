@@ -415,3 +415,141 @@ def test_dqn_kernel_wrappers_refuse_cpu_tensors():
         kernels.replay_sample_stacked(data, prng_key(0), 4, 4, 0, 4, 2)
     with pytest.raises(NotImplementedError):
         kernels.replay_sample_stacked(data, prng_key(0), 4, 4, 0, 1, 17)
+
+
+# ---------------------------------------------------------------------------
+# The flagship engine and its 84x84 frame
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_P = (0.1, 0.1, 0.08, 0.1, 0.07, 0.3, 0.15, 0.1)  # biased towards drops and swaps
+
+
+def _flagship_actions(B, g, dev):
+    p = torch.tensor(FLAGSHIP_P, device=dev).expand(B, -1)
+    return torch.multinomial(p, 1, replacement=True, generator=g)[:, 0].to(torch.int32)
+
+
+def _assert_flagship_equal(a, b, what):
+    from tetris_gymnasium_torch.core import engine
+
+    for k in engine.FIELDS:
+        _assert_equal(getattr(a, k), getattr(b, k), f"{what}: {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "config",
+    [EngineConfig(auto_reset=True), EngineConfig(gravity_enabled=False, queue_kind="uniform")],
+    ids=["autoreset", "nograv-uniform"],
+)
+def test_flagship_kernels_match_plain(cuda, config):
+    """``flagship_init``, ``flagship_step``, ``flagship_observe_board`` and
+    ``render_rgb84`` bit-equal to their plain versions on a trajectory, and
+    the trajectory equal to ``turbo_step``'s on the same keys and actions."""
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops import bitboard as bb
+
+    B = 301
+    keys = batch_keys(prng_key(5), B, device=cuda)
+    s = engine.init(keys, config, device=cuda)
+    _assert_flagship_equal(s, engine.init_plain(keys, config), "init")
+    ts = turbo.init(keys, config, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    for i in range(60):
+        _assert_equal(engine.observe_board(s, config), engine.observe_board_plain(s, config), f"obs {i}")
+        _assert_equal(engine.observe_board(s, config), turbo.observe_board(ts, config), f"turbo obs {i}")
+        _assert_equal(engine.render_rgb84(s, config), engine.render_rgb84_plain(s, config), f"rgb84 {i}")
+        a = _flagship_actions(B, g, cuda)
+        ks, _, kr, kd, kinfo = engine.step(s, a, config)
+        ps, pr, pd, pl = engine.step_plain(s, a, config)
+        _assert_flagship_equal(ks, ps, f"step {i}")
+        for got, want in ((kr, pr), (kd, pd), (kinfo["lines_cleared"], pl)):
+            _assert_equal(got, want, f"outputs {i}")
+        ts, _, tr, td, _ = turbo.step(ts, a, config)
+        _assert_equal(bb.pack_board(ks.board).T, turbo.u32_to_lanes(ts.rows), f"turbo rows {i}")
+        _assert_equal(ks.queue.T, ts.queue, f"turbo queue {i}")
+        _assert_equal(kr, tr, f"turbo reward {i}")
+        _assert_equal(kd, td, f"turbo done {i}")
+        s = ks
+
+
+@pytest.mark.cuda
+def test_flagship_step_clears_any_number_of_rows(cuda):
+    """Hard drops onto stacks of up to eight full rows clear them all, as the plain version does."""
+    from tetris_gymnasium_torch.core import engine
+
+    config = EngineConfig(auto_reset=True)
+    B = 256
+    s = engine.init(batch_keys(prng_key(6), B, device=cuda), config, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    n_full = torch.randint(0, 9, (B,), generator=g, device=cuda)
+    rows = torch.arange(20, device=cuda)[None, :, None]
+    board = s.board.clone()
+    board[:, :20, 4:14] = torch.where(rows >= 20 - n_full[:, None, None], 2, board[:, :20, 4:14])
+    s = s.replace(board=board)
+    a = torch.full((B,), 5, dtype=torch.int32, device=cuda)
+    ks, _, kr, kd, kinfo = engine.step(s, a, config)
+    ps, pr, pd, pl = engine.step_plain(s, a, config)
+    _assert_flagship_equal(ks, ps, "surgery")
+    _assert_equal(kinfo["lines_cleared"], pl, "lines")
+    assert int(pl.max()) >= 8
+
+
+@pytest.mark.cuda
+def test_pixel_dqn_launch_counts(cuda):
+    from tetris_gymnasium_torch.models.networks import AtariQNetwork
+
+    cfg = dqn.DQNConfig(buffer_size=16 * 8, batch_size=8, learning_starts=4, frame_stack=4)
+    config = EngineConfig(auto_reset=True)
+    ts = dqn.init_dqn_state(prng_key(0), 16, config, cfg, net=AtariQNetwork(in_channels=4),
+                            impl="flagship", obs="rgb84", device=cuda)
+    step = dqn.make_train_step(config, cfg, impl="flagship", obs="rgb84")
+    kernels.reset_launches()
+    for _ in range(6):
+        ts, _ = step(ts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "dqn_act": 6, "flagship_step": 6, "render_rgb84": 6,
+                                "framestack_push": 6, "replay_add": 6, "replay_sample_stacked": 2}
+
+
+def test_flagship_dispatch_runs_plain_versions_on_cpu():
+    from tetris_gymnasium_torch.core import engine
+
+    kernels.reset_launches()
+    config = EngineConfig(auto_reset=True)
+    s = engine.init(batch_keys(prng_key(0), 4, device="cpu"), config, device="cpu")
+    s = engine.step(s, torch.full((4,), 5, dtype=torch.int32), config)[0]
+    assert engine.observe_board(s, config).shape == (4, 20, 10)
+    assert engine.render_rgb84(s, config).shape == (4, 84, 84)
+    assert kernels.LAUNCHES == NO_LAUNCHES
+
+
+def test_flagship_kernel_wrappers_refuse_cpu_tensors():
+    from tetris_gymnasium_torch.core import engine
+
+    config = EngineConfig()
+    s = engine.init_plain(batch_keys(prng_key(0), 4, device="cpu"), config)
+    a = torch.zeros(4, dtype=torch.int32)
+    for call in (lambda: kernels.flagship_step(s, a, config, engine.PIECES, RewardsMapping()),
+                 lambda: kernels.flagship_observe_board(s, config, engine.PIECES),
+                 lambda: kernels.render_rgb84(s, config, engine.PIECES)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.flagship_init(torch.zeros((4, 2), dtype=torch.uint32), config, engine.PIECES)
+    small = EngineConfig(width=6, height=8)
+    with pytest.raises(NotImplementedError):
+        kernels.flagship_step(s, a, small, engine.PIECES, RewardsMapping())
+    with pytest.raises(NotImplementedError):
+        kernels.render_rgb84(s, small, engine.PIECES)
+
+
+def test_engine_sources_share_one_header():
+    """The turbo and flagship kernels take their RNG, draws and bit helpers
+    from one header, which names both libraries."""
+    for name, src in (("turbo_step", "turbo_step.cu"), ("flagship_step", "flagship_step.cu"),
+                      ("render_rgb84", "render_rgb84.cu")):
+        assert [p.name for p in kernels._sources_of(kernels.SOURCES[name])] == \
+            [src, "engine_common.cuh"]

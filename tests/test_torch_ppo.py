@@ -329,13 +329,14 @@ def test_minibatches_cover_every_sample_once_per_epoch():
 def test_frame_stack_is_not_ported():
     """Frame stacking itself is ported now (``tests/test_torch_framestack.py``
     holds it against JAX): a K = 4 state carries ``[B, 4, H, W]`` windows
-    into a four-channel trunk.  The engines it is not ported for still raise."""
-    ts = _init(ppo.PPOConfig(frame_stack=4, rollout_len=2, update_epochs=1, n_minibatches=2))
+    into a four-channel trunk, on the turbo and the flagship engine alike."""
+    cfg = ppo.PPOConfig(frame_stack=4, rollout_len=2, update_epochs=1, n_minibatches=2)
+    ts = _init(cfg)
     assert ts.last_obs.shape == (N_ENVS, 4, 20, 10)
     assert ts.net.encoder.convs[0].weight.shape[1] == 4
-    with pytest.raises(NotImplementedError, match="flagship"):
-        ppo.init_train_state(prng_key(0), N_ENVS, EngineConfig(auto_reset=True),
-                             ppo.PPOConfig(frame_stack=4), impl="flagship", device="cpu")
+    flag = ppo.init_train_state(prng_key(0), N_ENVS, EngineConfig(auto_reset=True), cfg,
+                                impl="flagship", device="cpu")
+    assert torch.equal(flag.last_obs, ts.last_obs)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +444,11 @@ def test_cli_chunk_divisibility_errors(argv):
     (["--video-every", "5"], "item 12"),
 ])
 def test_cli_unported_options_raise(argv, item):
+    """The options still unported raise, naming their ROADMAP.md item;
+    ``--impl flagship`` (item 9) is ported and parses."""
+    if item == "item 9":
+        assert train_ppo.parse_args(argv).impl == "flagship"
+        return
     with pytest.raises(NotImplementedError, match=item):
         train_ppo.parse_args(argv)
 

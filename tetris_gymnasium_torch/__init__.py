@@ -4,16 +4,21 @@ The JAX package beside it is the reference; this package imports ``torch``
 and ``numpy`` only, never JAX or the JAX package.  Module names mirror the
 JAX package's so that each counterpart is easy to find.
 
-Ported so far (the greedy evaluation of a PPO policy on the turbo engine):
+Ported so far:
 
-* ``config``, ``pieces``, ``ops.bitboard``: constants and tables;
+* ``config``, ``pieces``, ``ops.bitboard``, ``ops.board``: constants, tables
+  and the bit operations;
 * ``ops.rng``, ``ops.threefry``, ``components.tetromino_randomizer``,
   ``parallel.mesh.batch_keys``: the RNG streams and per-env keys;
-* ``core.turbo``: the turbo engine, whose ``init``, ``step`` and
-  ``observe_board`` launch the CUDA kernels of ``kernels`` (sources in
-  ``csrc/``) on CUDA tensors and run plain PyTorch versions on CPU tensors;
-* ``models``: ``ActorCriticCNN`` and the Flax weight converter;
-* ``utils.checkpoint``, ``rl.engines``, ``rl.evaluate``.
+* ``core.turbo``, ``core.turbo_grouped`` and ``core.engine`` (the flagship
+  engine with its id boards), whose entry points launch the CUDA kernels of
+  ``kernels`` (sources in ``csrc/``) on CUDA tensors and run plain PyTorch
+  versions on CPU tensors;
+* ``ops.observations``, ``ops.image``, ``ops.framestack``: the RGB
+  composite, the 84x84 gray frames and frame stacks;
+* ``models``: the networks and the Flax weight converter;
+* ``rl`` (PPO, the grouped DQN, the DQN, replay, evaluation), ``examples``
+  (the training scripts) and ``utils``.
 
 Every public entry point takes ``device`` (default ``"cuda"``) and raises
 when CUDA is asked for and absent.

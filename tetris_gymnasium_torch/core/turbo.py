@@ -34,7 +34,9 @@ from tetris_gymnasium_torch.components.tetromino_randomizer import get_draw_fn
 from tetris_gymnasium_torch.config import ActionsMapping, EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.ops import bitboard as bb
 from tetris_gymnasium_torch.ops import rng as orng
+from tetris_gymnasium_torch.ops.board import clamp_start as _clamp_start
 from tetris_gymnasium_torch.pieces import PIECES, PieceSet
+from tetris_gymnasium_torch.utils import tree
 from tetris_gymnasium_torch.utils.device import resolve_device
 
 ACTIONS = ActionsMapping()
@@ -72,17 +74,8 @@ FIELDS = tuple(f.name for f in dataclasses.fields(TurboState))
 
 
 def select_tree(cond: torch.Tensor, a: TurboState, b: TurboState) -> TurboState:
-    """Per-env select of every field; ``cond [B]`` broadcasts on the minor axis.
-
-    ``uint32`` fields are selected through an int32 view (same bits).
-    """
-
-    def pick(x, y):
-        if x.dtype == torch.uint32:
-            return torch.where(cond, x.view(torch.int32), y.view(torch.int32)).view(torch.uint32)
-        return torch.where(cond, x, y)
-
-    return TurboState(**{k: pick(getattr(a, k), getattr(b, k)) for k in FIELDS})
+    """Per-env select of every field; ``cond [B]`` broadcasts on the minor axis."""
+    return tree.select_tree(cond, a, b, minor=FIELDS)
 
 
 def check_geometry(config: EngineConfig) -> None:
@@ -149,12 +142,6 @@ def _from_lanes(s: TurboState) -> TurboState:
 # ---------------------------------------------------------------------------
 # Bit helpers in [H, B] layout (int64 lanes)
 # ---------------------------------------------------------------------------
-
-
-def _clamp_start(v: torch.Tensor, limit: int, dim: int) -> torch.Tensor:
-    """``dynamic_slice`` start normalisation: negative wraps by ``+dim``."""
-    v = torch.where(v < 0, v + dim, v)
-    return v.clamp(0, limit)
 
 
 def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

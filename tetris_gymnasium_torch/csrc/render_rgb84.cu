@@ -1,0 +1,179 @@
+// The reference CNN workload's frame, state -> 84x84 gray, for Hopper (sm_90a).
+//
+// Replaces the JAX chain render_rgb (tetris_gymnasium_tpu/core/engine.py
+// :529, with observe_dict :257, project_active :227, queue_holder_strips
+// :239 and _strip :202), compose_rgb (ops/observations.py:84) and
+// preprocess_rgb84 (ops/image.py:197: resize_area_zoom :87, grayscale_u8
+// :149).  The plain PyTorch twin is
+// tetris_gymnasium_torch/core/engine.py:render_rgb84_plain; the output is
+// bit-equal to it.
+//
+// On the TPU the chain is a palette one-hot contraction and two small
+// integer matmuls over the whole batch, with [B, 24, 34, 3] and
+// [B, 84, 84, 3] int32 temporaries in HBM.  Here one block of 256 threads
+// makes one env's frame and nothing but the frame leaves the SM:
+//   1. the board (432 bytes) comes into shared memory in 16-byte words;
+//   2. the 24x34 id image is built in shared memory: the board with the
+//      active piece's id ADDED in its window unless the piece collides
+//      there, the queue's thumbnails at rotation 0 in rows 0-3 of the
+//      sidebar, bedrock rows 4-19, the holder's thumbnail (bedrock while
+//      empty) widened with bedrock in rows 20-23;
+//   3. each output pixel takes its (at most) 2x2 source ids through the
+//      palette and cv2's 11-bit INTER_AREA taps, which the host builds from
+//      the same numpy code as the plain version (ops/image.py:
+//      area_zoom_taps) and the wrapper keeps on the card (read through the
+//      read-only cache): an int32 accumulator per channel, (acc + 2^21) >> 22,
+//      a clip to [0, 255], then gray (r*W0 + g*W1 + b*W2) >> 22 with 22-bit
+//      weights;
+//   4. the 7056-byte frame is staged in shared memory and stored in 16-byte
+//      words (441 of them), neighbouring threads on neighbouring words.
+// No accumulator leaves int32: 255 * 2049 * 2049 < 2^31.
+//
+// Bound on this card: operations.  An env moves ~7.5 KB (the board and the
+// piece fields in, the frame out; 2.2 ns at 3.35 TB/s), and does ~47
+// integer operations per output pixel (4 tap weights, 12 multiply-adds, the
+// rounding and clip of 3 channels, the gray), ~332k an env (9.9 ns at
+// 33.5e12 a second).
+//
+// Geometry is the default EngineConfig (24x18 padded board, queue 4,
+// holder 1, 7 pieces, a 9-entry palette) and an 84x84 output; the wrapper
+// refuses others.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "engine_common.cuh"
+
+using namespace engine;
+
+// The fields of a flagship EngineState that the frame depends on.
+struct RenderPtrs {
+  const int8_t* board;            // [B, H, PW]
+  const int32_t* piece;           // [B]
+  const int32_t* rotation;        // [B]
+  const int32_t* x;               // [B]
+  const int32_t* y;               // [B]
+  const int32_t* queue;           // [B, QS]
+  const int32_t* holder_piece;    // [B, HS]
+  const int32_t* holder_rotation; // [B, HS]
+  const int32_t* holder_count;    // [B]
+};
+
+namespace {
+
+constexpr int OUT = 84;                 // output side
+constexpr int SIDE = QS * S;            // sidebar width: max(QS, HS) * padding = 16
+constexpr int IW = PW + SIDE;           // id image width: 34
+constexpr int BOARD = H * PW;           // 432
+constexpr int NPAL = NP + 2;            // palette entries: empty, bedrock, 7 pieces
+constexpr int kThreads = 256;
+
+// Offsets into the int32 table the wrapper builds (kernels.py:_render_table).
+constexpr int T_SY = 0;                 // [OUT, 2] source rows of each output row
+constexpr int T_CY = T_SY + 2 * OUT;    // [OUT, 2] their 11-bit coefficients
+constexpr int T_SX = T_CY + 2 * OUT;    // [OUT, 2] source columns
+constexpr int T_CX = T_SX + 2 * OUT;    // [OUT, 2]
+constexpr int T_PAL = T_CX + 2 * OUT;   // [NPAL, 3] RGB
+constexpr int T_GRAY = T_PAL + 3 * NPAL;  // [3] 22-bit gray weights
+
+// A thumbnail cell (_strip): the piece's id where its matrix at rot is
+// filled, else 0.
+__device__ __forceinline__ uint8_t thumb(const uint32_t* packed, const int32_t* ids, int piece,
+                                         int rot, int i, int j) {
+  const uint32_t bit = (piece_row(piece_word_2d(packed, piece, rot), i) >> j) & 1u;
+  return bit ? static_cast<uint8_t>(piece_entry(ids, piece)) : 0;
+}
+
+__global__ void __launch_bounds__(kThreads) render_rgb84_kernel(
+    RenderPtrs p, const uint32_t* __restrict__ packed, const int32_t* __restrict__ ids,
+    const int32_t* __restrict__ table, uint8_t* __restrict__ out) {
+  __shared__ __align__(16) int8_t board[BOARD];
+  __shared__ uint8_t img[H * IW];
+  __shared__ __align__(16) uint8_t frame[OUT * OUT];
+  __shared__ int hit;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  block_copy16(board, p.board + static_cast<size_t>(b) * BOARD, BOARD);
+  const int piece = p.piece[b];
+  const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]);
+  const int xc = clamp_start(p.x[b], PW - S, PW);
+  const int yc = clamp_start(p.y[b], H - S, H);
+  __syncthreads();
+
+  // project_active: the piece is drawn only where it does not collide
+  if (tid == 0) {
+    int h = 0;
+    for (int i = 0; i < S; ++i)
+      for (int j = 0; j < S; ++j)
+        if (((piece_row(word, i) >> j) & 1u) && board[(yc + i) * PW + xc + j] > 0) h = 1;
+    hit = h;
+  }
+  __syncthreads();
+
+  const int pid = hit ? 0 : piece_entry(ids, piece);
+  const int hcount = p.holder_count[b];
+  for (int cell = tid; cell < H * IW; cell += kThreads) {
+    const int r = cell / IW;
+    const int c = cell % IW;
+    uint8_t id;
+    if (c < PW) {
+      int v = board[r * PW + c];
+      const int i = r - yc, j = c - xc;
+      if (i >= 0 && i < S && j >= 0 && j < S && ((piece_row(word, i) >> j) & 1u)) v += pid;
+      id = static_cast<uint8_t>(static_cast<int8_t>(v));  // int8 sum, then the uint8 view
+    } else {
+      const int sc = c - PW;
+      if (r < S) {  // queue strip, rotation 0, every slot shown
+        id = thumb(packed, ids, p.queue[b * QS + sc / S], 0, r, sc % S);
+      } else if (r >= H - S && sc < HS * S) {  // holder strip; an empty slot is bedrock
+        const int slot = sc / S;
+        id = slot < hcount ? thumb(packed, ids, p.holder_piece[b * HS + slot],
+                                   p.holder_rotation[b * HS + slot], r - (H - S), sc % S)
+                           : 1;
+      } else {  // separator and widening: bedrock
+        id = 1;
+      }
+    }
+    img[cell] = id;
+  }
+  __syncthreads();
+
+  const int w0 = __ldg(table + T_GRAY), w1 = __ldg(table + T_GRAY + 1),
+            w2 = __ldg(table + T_GRAY + 2);
+  for (int px = tid; px < OUT * OUT; px += kThreads) {
+    const int Y = px / OUT, X = px % OUT;
+    int acc_r = 0, acc_g = 0, acc_b = 0;
+#pragma unroll
+    for (int ty = 0; ty < 2; ++ty) {
+      const int sy = __ldg(table + T_SY + 2 * Y + ty);
+      const int cy = __ldg(table + T_CY + 2 * Y + ty);
+#pragma unroll
+      for (int tx = 0; tx < 2; ++tx) {
+        const int sx = __ldg(table + T_SX + 2 * X + tx);
+        const int wgt = cy * __ldg(table + T_CX + 2 * X + tx);
+        const int id = img[sy * IW + sx];
+        if (id < NPAL) {  // an id outside the palette is black
+          acc_r += wgt * __ldg(table + T_PAL + 3 * id);
+          acc_g += wgt * __ldg(table + T_PAL + 3 * id + 1);
+          acc_b += wgt * __ldg(table + T_PAL + 3 * id + 2);
+        }
+      }
+    }
+    const int r = min(max((acc_r + (1 << 21)) >> 22, 0), 255);
+    const int g = min(max((acc_g + (1 << 21)) >> 22, 0), 255);
+    const int bl = min(max((acc_b + (1 << 21)) >> 22, 0), 255);
+    frame[px] = static_cast<uint8_t>((r * w0 + g * w1 + bl * w2) >> 22);
+  }
+  __syncthreads();
+  block_copy16(out + static_cast<size_t>(b) * OUT * OUT, frame, OUT * OUT);
+}
+
+}  // namespace
+
+extern "C" int render_rgb84_launch(const RenderPtrs* ptrs, const void* packed, const void* ids,
+                                   const void* table, void* out, int B, void* stream) {
+  render_rgb84_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *ptrs, static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(ids),
+      static_cast<const int32_t*>(table), static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,21 +1,27 @@
 """DQN with a CNN Q-net with the PyTorch port: envs, replay and learner on the card.
 
-Twin of ``examples/train_cnn.py`` for the turbo engine with board
-observations: :class:`QNetworkCNN` (bf16 trunk) reads the board, or with
-``--frame-stack K`` a ``[B, K, H, W]`` window of the newest K boards, while
-the replay stores single frames and rebuilds the windows at sample time.
-The host loop reads the metrics once every ``--chunk`` steps and prints one
-JSONL record per chunk, with the JAX script's keys::
+Twin of ``examples/train_cnn.py``.  On board observations
+:class:`QNetworkCNN` (bf16 trunk) reads the board, or with ``--frame-stack
+K`` a ``[B, K, H, W]`` window of the newest K boards; with ``--obs rgb84``
+(which selects the flagship engine) :class:`AtariQNetwork` reads the
+reference workload's 84x84 gray frames (RGB -> Resize(84, 84) -> Grayscale
+-> FrameStack(K)).  The replay stores single frames and rebuilds the
+windows at sample time.  The host loop reads the metrics once every
+``--chunk`` steps and prints one JSONL record per chunk, with the JAX
+script's keys::
 
     python -m tetris_gymnasium_torch.examples.train_cnn --n-envs 1024 --steps 20000 \\
         --frame-stack 4 --log-json results/dqn_torch_k4.jsonl
-    python -m tetris_gymnasium_torch.examples.train_cnn --device cpu --n-envs 8 --steps 20 \\
-        --chunk 10 --learning-starts 4 --frame-stack 4
+    python -m tetris_gymnasium_torch.examples.train_cnn --obs rgb84 --frame-stack 4 \\
+        --n-envs 512 --steps 12000 --init-params results/atari_q_k4_init_seed1.npz
+    python -m tetris_gymnasium_torch.examples.train_cnn --device cpu --obs rgb84 \\
+        --frame-stack 4 --n-envs 4 --steps 20 --chunk 10 --learning-starts 4
 
 ``reward_per_step`` (rising) and ``steps_per_episode`` (falling) are the
 learning signals.  Warm-start from an ``.npz`` of flat Flax parameters with
-``--init-params`` (``tools/export_grouped_init_params.py --net q_cnn``
-writes the JAX run's initial weights); save with ``--save-params``.
+``--init-params`` (``tools/export_grouped_init_params.py --net q_cnn`` or
+``--net atari_q`` writes the JAX run's initial weights); save with
+``--save-params``.
 """
 from __future__ import annotations
 
@@ -35,8 +41,6 @@ from tetris_gymnasium_torch.utils.device import resolve_device
 # options of the JAX script that this port does not have yet, with the
 # ROADMAP.md queue 1 item that brings each
 _NOT_PORTED = {
-    "obs": "--obs rgb84 (the pixel chain) comes with ROADMAP.md queue 1 item 10",
-    "impl": "--impl flagship (the flagship engine) comes with ROADMAP.md queue 1 item 9",
     "wandb": "--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12",
     "video_every": "--video-every (utils/video) comes with ROADMAP.md queue 1 item 12",
 }
@@ -70,10 +74,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.frame_stack < 1:
         p.error(f"--frame-stack must be >= 1, got {args.frame_stack}")
-    defaults = {"obs": "board", "impl": "turbo", "wandb": False, "video_every": 0}
+    defaults = {"wandb": False, "video_every": 0}
     for name, default in defaults.items():
         if getattr(args, name) != default:
             raise NotImplementedError(_NOT_PORTED[name])
+    if args.obs == "rgb84" and args.impl != "flagship":
+        print("obs=rgb84 needs id boards; switching --impl to flagship", flush=True)
+        args.impl = "flagship"
     return args
 
 
@@ -141,7 +148,7 @@ def train(args: argparse.Namespace, marks=None):
     if log_f:
         log_f.close()
     if args.save_params:
-        save_q_net(args.save_params, ts.net, "q_cnn")
+        save_q_net(args.save_params, ts.net, dqn.net_kind(ts.net))
         print(f"saved params to {args.save_params}", flush=True)
     return ts, records
 

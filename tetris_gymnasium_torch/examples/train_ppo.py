@@ -1,8 +1,8 @@
-"""PPO on the turbo engine with the PyTorch port: envs, rollout and learner on the card.
+"""PPO with the PyTorch port: envs, rollout and learner on the card.
 
-Twin of ``examples/train_ppo.py`` for the turbo engine with board
-observations (``ActorCriticCNN`` with a bf16 trunk; ``--frame-stack K``
-feeds it ``[B, K, H, W]`` windows).  One iteration is ``rollout_len * n_envs`` env steps; the host loop
+Twin of ``examples/train_ppo.py`` with board observations, on the turbo
+engine or (``--impl flagship``) the flagship engine (``ActorCriticCNN`` with
+a bf16 trunk; ``--frame-stack K`` feeds it ``[B, K, H, W]`` windows).  One iteration is ``rollout_len * n_envs`` env steps; the host loop
 calls the train step and reads the metrics every ``--chunk`` iterations::
 
     python -m tetris_gymnasium_torch.examples.train_ppo --n-envs 8192 --iterations 100
@@ -32,8 +32,8 @@ from tetris_gymnasium_torch.utils.device import resolve_device
 # options of the JAX script that this port does not have yet, with the
 # ROADMAP.md queue 1 item that brings each
 _NOT_PORTED = {
-    "obs": "--obs rgb84 (the pixel chain) comes with ROADMAP.md queue 1 item 10",
-    "impl": "--impl flagship (the flagship engine) comes with ROADMAP.md queue 1 item 9",
+    "obs": "--obs rgb84 (AtariActorCritic over the pixel chain) is not ported yet: a "
+           "candidate for the next slice (ROADMAP.md queue 1 item 10)",
     "wandb": "--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12",
     "video_every": "--video-every (utils/video) comes with ROADMAP.md queue 1 item 12",
 }
@@ -94,7 +94,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                 p.error(f"--{name.replace('_', '-')} {v} must be a multiple of --chunk {args.chunk}")
     if args.frame_stack < 1:
         p.error(f"--frame-stack must be >= 1, got {args.frame_stack}")
-    defaults = {"obs": "board", "impl": "turbo", "wandb": False, "video_every": 0}
+    defaults = {"obs": "board", "wandb": False, "video_every": 0}
     for name, default in defaults.items():
         if getattr(args, name) != default:
             raise NotImplementedError(_NOT_PORTED[name])

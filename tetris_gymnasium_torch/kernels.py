@@ -28,16 +28,26 @@ Kernels, with the JAX function each replaces:
   ``rl/buffers.py:sample_with_next_stacked :111``;
 * ``framestack_push`` (``csrc/framestack.cu``): ``ops/framestack.py:push :37``;
 * ``dqn_act`` (``csrc/dqn_act.cu``): the epsilon-greedy of
-  ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``.
+  ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``;
+* ``flagship_step``, ``flagship_init`` and ``flagship_observe_board``
+  (``csrc/flagship_step.cu``): the flagship engine's ``core/engine.py:step
+  :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230``),
+  ``init_state :131`` and ``observe_board :274``;
+* ``render_rgb84`` (``csrc/render_rgb84.cu``): ``core/engine.py:render_rgb
+  :529`` with ``ops/observations.py:compose_rgb :84`` and
+  ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame.
 
 ``csrc/threefry.cuh`` holds JAX's random bits for ``ppo_sample``,
-``grouped_act``, ``replay_sample``, ``replay_sample_stacked`` and ``dqn_act``.
+``grouped_act``, ``replay_sample``, ``replay_sample_stacked`` and ``dqn_act``;
+``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
+``turbo_step.cu`` and ``flagship_step.cu``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
 synchronising, and adds one to ``LAUNCHES[name]`` per launch.  Wrappers
 take CUDA tensors only; the plain versions for CPU tensors are in
 :mod:`tetris_gymnasium_torch.core.turbo`, :mod:`~tetris_gymnasium_torch.core.turbo_grouped`,
+:mod:`~tetris_gymnasium_torch.core.engine`,
 :mod:`~tetris_gymnasium_torch.rl.ppo`, :mod:`~tetris_gymnasium_torch.rl.grouped_dqn`,
 :mod:`~tetris_gymnasium_torch.rl.dqn`, :mod:`~tetris_gymnasium_torch.rl.buffers` and
 :mod:`~tetris_gymnasium_torch.ops.framestack`, which dispatch.
@@ -58,7 +68,7 @@ import numpy as np
 import torch
 
 from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-from tetris_gymnasium_torch.core import turbo
+from tetris_gymnasium_torch.core import engine, turbo
 from tetris_gymnasium_torch.ops import bitboard as bb
 from tetris_gymnasium_torch.pieces import PieceSet
 
@@ -74,6 +84,8 @@ SOURCES = {
     "replay": PACKAGE_DIR / "csrc" / "replay.cu",
     "framestack": PACKAGE_DIR / "csrc" / "framestack.cu",
     "dqn_act": PACKAGE_DIR / "csrc" / "dqn_act.cu",
+    "flagship_step": PACKAGE_DIR / "csrc" / "flagship_step.cu",
+    "render_rgb84": PACKAGE_DIR / "csrc" / "render_rgb84.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,7 +96,8 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0,
     "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
-    "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0,
+    "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0, "flagship_step": 0,
+    "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0,
 }
 
 _LIBS: dict = {}
@@ -234,6 +247,28 @@ class _DqnActParams(ctypes.Structure):
     ]
 
 
+class _FlagshipPtrs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in engine.FIELDS]
+
+
+class _FlagshipParams(ctypes.Structure):
+    _fields_ = [
+        ("gravity", ctypes.c_int),
+        ("auto_reset", ctypes.c_int),
+        ("uniform", ctypes.c_int),
+        ("r_alife", ctypes.c_float),
+        ("r_game_over", ctypes.c_float),
+    ]
+
+
+_RENDER_FIELDS = ("board", "piece", "rotation", "x", "y", "queue", "holder_piece",
+                  "holder_rotation", "holder_count")
+
+
+class _RenderPtrs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _RENDER_FIELDS]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -274,6 +309,16 @@ _ENTRY_POINTS = {
     },
     "dqn_act": {
         "dqn_act_launch": [_P, _P, _P, _P, _I, ctypes.POINTER(_DqnActParams), _P],
+    },
+    "flagship_step": {
+        "flagship_step_launch": [ctypes.POINTER(_FlagshipPtrs), ctypes.POINTER(_FlagshipPtrs),
+                                 _P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_FlagshipParams),
+                                 _P],
+        "flagship_init_launch": [_P, ctypes.POINTER(_FlagshipPtrs), _P, _I, _I, _P],
+        "flagship_observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    },
+    "render_rgb84": {
+        "render_rgb84_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _I, _P],
     },
 }
 
@@ -328,12 +373,12 @@ def _check_step_config(config: EngineConfig, t: bb.Tables) -> None:
         raise NotImplementedError(f"queue_kind {config.queue_kind!r} has no kernel")
 
 
-def _check_state(state: turbo.TurboState, config: EngineConfig, n_pieces: int, device) -> int:
-    B = state.piece.shape[0]
-    shapes = _state_shapes(config, n_pieces, B)
-    for k in turbo.FIELDS:
+def _check_fields(state, names, shapes: dict, dtypes: dict, device) -> None:
+    """Each field ``names`` of ``state``: contiguous, on ``device``, of its shape
+    and dtype (int32 where ``dtypes`` names none)."""
+    for k in names:
         v = getattr(state, k)
-        want = _STATE_DTYPES.get(k, torch.int32)
+        want = dtypes.get(k, torch.int32)
         if not v.is_cuda or v.device != device or v.dtype != want \
                 or tuple(v.shape) != shapes[k] or not v.is_contiguous():
             raise ValueError(
@@ -341,6 +386,17 @@ def _check_state(state: turbo.TurboState, config: EngineConfig, n_pieces: int, d
                 f"{device}, got {v.dtype} {tuple(v.shape)} on {v.device} "
                 f"(contiguous={v.is_contiguous()})"
             )
+
+
+def _empty(cls, shapes: dict, dtypes: dict, device):
+    """A state dataclass ``cls`` of uninitialised CUDA buffers."""
+    return cls(**{k: torch.empty(shapes[k], dtype=dtypes.get(k, torch.int32), device=device)
+                  for k in shapes})
+
+
+def _check_state(state: turbo.TurboState, config: EngineConfig, n_pieces: int, device) -> int:
+    B = state.piece.shape[0]
+    _check_fields(state, turbo.FIELDS, _state_shapes(config, n_pieces, B), _STATE_DTYPES, device)
     return B
 
 
@@ -349,11 +405,7 @@ def _ptrs(state: turbo.TurboState) -> _StatePtrs:
 
 
 def _empty_state(config: EngineConfig, n_pieces: int, B: int, device) -> turbo.TurboState:
-    shapes = _state_shapes(config, n_pieces, B)
-    return turbo.TurboState(**{
-        k: torch.empty(shapes[k], dtype=_STATE_DTYPES.get(k, torch.int32), device=device)
-        for k in turbo.FIELDS
-    })
+    return _empty(turbo.TurboState, _state_shapes(config, n_pieces, B), _STATE_DTYPES, device)
 
 
 def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConfig,
@@ -862,4 +914,176 @@ def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
     )
     _check(rc, "dqn_act")
     LAUNCHES["dqn_act"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The flagship engine and its 84x84 frame
+# ---------------------------------------------------------------------------
+
+_FLAGSHIP_DTYPES = {
+    "key": torch.uint32, "board": torch.int8, "has_swapped": torch.bool,
+    "game_over": torch.bool, "score": torch.float32,
+}
+_DEVICE_TABLES: dict = {}
+
+
+def _flagship_shapes(config: EngineConfig, n_pieces: int, B: int) -> dict:
+    shapes = {k: (B,) for k in engine.FIELDS}
+    shapes.update(
+        key=(2, B), board=(B, config.padded_height, config.padded_width), bag=(B, n_pieces),
+        queue=(B, config.queue_size), holder_piece=(B, config.holder_size),
+        holder_rotation=(B, config.holder_size),
+    )
+    return shapes
+
+
+def _check_flagship_state(state, config: EngineConfig, n_pieces: int, device, names) -> int:
+    """Checks the fields ``names`` of a flagship state; returns B.  The board
+    must start on a 16-byte boundary: the kernels move it in 16-byte words."""
+    B = state.piece.shape[0]
+    _check_fields(state, names, _flagship_shapes(config, n_pieces, B), _FLAGSHIP_DTYPES, device)
+    if state.board.data_ptr() % 16:
+        raise ValueError("state.board must start on a 16-byte boundary")
+    return B
+
+
+def _flagship_ptrs(state) -> _FlagshipPtrs:
+    return _FlagshipPtrs(*(getattr(state, k).data_ptr() for k in engine.FIELDS))
+
+
+def _empty_flagship_state(config: EngineConfig, n_pieces: int, B: int, device):
+    return _empty(engine.EngineState, _flagship_shapes(config, n_pieces, B), _FLAGSHIP_DTYPES,
+                  device)
+
+
+def _ids_for(pieces: PieceSet, device) -> torch.Tensor:
+    """The pieces' cell ids as int32 on ``device`` (cached)."""
+    ck = ("ids", pieces.ids.tobytes(), str(device))
+    hit = _DEVICE_TABLES.get(ck)
+    if hit is None:
+        hit = _DEVICE_TABLES[ck] = torch.as_tensor(pieces.ids.astype(np.int32), device=device)
+    return hit
+
+
+def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: PieceSet,
+                  rewards: RewardsMapping):
+    """Launch ``flagship_step``: returns ``(new_state, reward f32[B], done bool[B], lines int32[B])``.
+
+    The new state is in new buffers; ``state`` is left as it was.
+    """
+    device = state.board.device
+    t, packed, box = turbo.tables_for(pieces, device)
+    _check_step_config(config, t)
+    B = _check_flagship_state(state, config, t.n_pieces, device, engine.FIELDS)
+    if not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
+            or not action.is_contiguous() or action.device != device:
+        raise ValueError(f"action: want a contiguous int32[{B}] tensor on {device}")
+    out = _empty_flagship_state(config, t.n_pieces, B, device)
+    reward = torch.empty((B,), dtype=torch.float32, device=device)
+    done = torch.empty((B,), dtype=torch.bool, device=device)
+    lines = torch.empty((B,), dtype=torch.int32, device=device)
+    if B == 0:
+        return out, reward, done, lines
+    params = _FlagshipParams(
+        int(config.gravity_enabled), int(config.auto_reset), int(config.queue_kind == "uniform"),
+        float(np.float32(rewards.alife)), float(np.float32(rewards.game_over)),
+    )
+    in_p, out_p = _flagship_ptrs(state), _flagship_ptrs(out)
+    rc = _lib("flagship_step").flagship_step_launch(
+        ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
+        done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
+        _ids_for(pieces, device).data_ptr(), B, ctypes.byref(params), _stream(device),
+    )
+    _check(rc, "flagship_step")
+    LAUNCHES["flagship_step"] += 1
+    return out, reward, done, lines
+
+
+def flagship_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet):
+    """Launch ``flagship_init``: fresh episodes from per-env keys ``uint32[B, 2]``."""
+    device = keys.device
+    t, _, box = turbo.tables_for(pieces, device)
+    _check_step_config(config, t)
+    if not keys.is_cuda or keys.dtype != torch.uint32 or keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys: want a CUDA uint32[B, 2] tensor, got {keys.dtype} {tuple(keys.shape)}")
+    keys = keys.contiguous()
+    B = keys.shape[0]
+    out = _empty_flagship_state(config, t.n_pieces, B, device)
+    if B == 0:
+        return out
+    out_p = _flagship_ptrs(out)
+    rc = _lib("flagship_step").flagship_init_launch(
+        keys.data_ptr(), ctypes.byref(out_p), box.data_ptr(), B,
+        int(config.queue_kind == "uniform"), _stream(device),
+    )
+    _check(rc, "flagship_init")
+    LAUNCHES["flagship_init"] += 1
+    return out
+
+
+def flagship_observe_board(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
+    """Launch ``flagship_observe_board``: ``int8[B, height, width]``, the
+    occupancy with the active piece added as -1 unless the game is over."""
+    device = state.board.device
+    t, packed, _ = turbo.tables_for(pieces, device)
+    _check_step_config(config, t)
+    B = _check_flagship_state(state, config, t.n_pieces, device,
+                              ("board", "piece", "rotation", "x", "y", "game_over"))
+    out = torch.empty((B, config.height, config.width), dtype=torch.int8, device=device)
+    if B == 0:
+        return out
+    rc = _lib("flagship_step").flagship_observe_board_launch(
+        state.board.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(),
+        state.x.data_ptr(), state.y.data_ptr(), state.game_over.data_ptr(), packed.data_ptr(),
+        out.data_ptr(), B, _stream(device),
+    )
+    _check(rc, "flagship_observe_board")
+    LAUNCHES["flagship_observe_board"] += 1
+    return out
+
+
+RGB84 = 84  # csrc/render_rgb84.cu:OUT
+
+
+def _render_table(config: EngineConfig, pieces: PieceSet, device) -> torch.Tensor:
+    """The int32 table ``render_rgb84`` reads (cached): the 84-row taps of
+    the id image's height and width, the palette and the gray weights, in
+    the order of ``csrc/render_rgb84.cu:T_*``."""
+    from tetris_gymnasium_torch.ops import image
+    from tetris_gymnasium_torch.ops.observations import sidebar_width
+
+    ck = ("render", config.padded_height, config.padded_width, pieces.palette.tobytes(),
+          str(device))
+    hit = _DEVICE_TABLES.get(ck)
+    if hit is None:
+        img_w = config.padded_width + sidebar_width(config.padding, config.queue_size,
+                                                    config.holder_size)
+        sy, cy = image.area_zoom_taps(config.padded_height, RGB84)
+        sx, cx = image.area_zoom_taps(img_w, RGB84)
+        parts = [sy, cy, sx, cx, pieces.palette.astype(np.int32), np.asarray(image._W22)]
+        flat = np.concatenate([np.asarray(x, dtype=np.int32).ravel() for x in parts])
+        hit = _DEVICE_TABLES[ck] = torch.as_tensor(flat, device=device)
+    return hit
+
+
+def render_rgb84(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
+    """Launch ``render_rgb84``: the 84x84 gray frames ``uint8[B, 84, 84]`` of
+    ``preprocess_rgb84(render_rgb(state))``."""
+    device = state.board.device
+    t, packed, _ = turbo.tables_for(pieces, device)
+    _check_step_config(config, t)
+    if pieces.palette.shape != (t.n_pieces + 2, 3):
+        raise NotImplementedError(f"render_rgb84 is built for a {t.n_pieces + 2}-entry palette")
+    B = _check_flagship_state(state, config, t.n_pieces, device, _RENDER_FIELDS)
+    out = torch.empty((B, RGB84, RGB84), dtype=torch.uint8, device=device)
+    if B == 0:
+        return out
+    ptrs = _RenderPtrs(*(getattr(state, k).data_ptr() for k in _RENDER_FIELDS))
+    rc = _lib("render_rgb84").render_rgb84_launch(
+        ctypes.byref(ptrs), packed.data_ptr(), _ids_for(pieces, device).data_ptr(),
+        _render_table(config, pieces, device).data_ptr(), out.data_ptr(), B, _stream(device),
+    )
+    _check(rc, "render_rgb84")
+    LAUNCHES["render_rgb84"] += 1
     return out

@@ -11,7 +11,9 @@ the Flax parameter paths joined by ``/``, as
   the head);
 * ``"grouped_cnn"``: :class:`QGroupedBoardsCNN` (``BoardEncoder_0`` and the
   head ``Dense_0``);
-* ``"q_cnn"``: :class:`QNetworkCNN`, the same map as ``"grouped_cnn"``.
+* ``"q_cnn"``: :class:`QNetworkCNN`, the same map as ``"grouped_cnn"``;
+* ``"atari_q"``: :class:`AtariQNetwork` (``Conv_0`` .. ``Conv_2``, the
+  dense layer ``Dense_0`` and the head ``Dense_1``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 _ENC = "params/BoardEncoder_0/"
-KINDS = ("actor_critic", "qmlp", "grouped_cnn", "q_cnn")
+KINDS = ("actor_critic", "qmlp", "grouped_cnn", "q_cnn", "atari_q")
 
 
 def _encoder_map(n_convs: int) -> Dict[str, str]:
@@ -46,6 +48,11 @@ def _key_map(kind: str, n_layers: int) -> Dict[str, str]:
         return {**_encoder_map(n_layers), **_dense("Dense_0", "policy"), **_dense("Dense_1", "value")}
     if kind in ("grouped_cnn", "q_cnn"):
         return {**_encoder_map(n_layers), **_dense("Dense_0", "head")}
+    if kind == "atari_q":
+        m = {}
+        for i in range(n_layers):
+            m.update(_dense(f"Conv_{i}", f"convs.{i}"))
+        return {**m, **_dense("Dense_0", "dense"), **_dense("Dense_1", "head")}
     if kind == "qmlp":
         m = {}
         for i in range(n_layers - 1):
@@ -55,14 +62,15 @@ def _key_map(kind: str, n_layers: int) -> Dict[str, str]:
 
 
 def _n_layers_flax(flat, kind: str) -> int:
-    prefix = "params/Dense_" if kind == "qmlp" else f"{_ENC}Conv_"
+    prefix = {"qmlp": "params/Dense_", "atari_q": "params/Conv_"}.get(kind, f"{_ENC}Conv_")
     return sum(1 for k in flat if k.startswith(prefix) and k.endswith("/kernel"))
 
 
 def _n_layers_torch(state_dict, kind: str) -> int:
     if kind == "qmlp":
         return sum(1 for k in state_dict if k.startswith("hidden.") and k.endswith(".weight")) + 1
-    return sum(1 for k in state_dict if k.startswith("encoder.convs.") and k.endswith(".weight"))
+    prefix = "convs." if kind == "atari_q" else "encoder.convs."
+    return sum(1 for k in state_dict if k.startswith(prefix) and k.endswith(".weight"))
 
 
 def from_flax_params(flat: Dict[str, np.ndarray], kind: str = "actor_critic") -> Dict[str, torch.Tensor]:

@@ -10,8 +10,8 @@ Port of the initialisers the networks get in the JAX package
   ``orthogonal(1.0)`` (``:146-171``);
 * every bias: zero.
 
-``QNetworkCNN`` (``:61``), ``QMLP`` (``:174``) and ``QGroupedBoardsCNN``
-(``:193``) take the defaults throughout.
+``QNetworkCNN`` (``:61``), ``AtariQNetwork`` (``:76``), ``QMLP`` (``:174``)
+and ``QGroupedBoardsCNN`` (``:193``) take the defaults throughout.
 
 The draws come from an explicit ``torch.Generator``, so they match Flax's
 in distribution, not bit for bit; parameters carried across from JAX go in
@@ -51,8 +51,8 @@ def init_actor_critic_(net: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def init_lecun_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Flax's defaults for every layer of ``net`` (a :class:`QMLP`,
-    :class:`QGroupedBoardsCNN` or :class:`QNetworkCNN`): ``lecun_normal``
-    weights, zero biases; returns it."""
+    :class:`QGroupedBoardsCNN`, :class:`QNetworkCNN` or
+    :class:`AtariQNetwork`): ``lecun_normal`` weights, zero biases; returns it."""
     for layer in net.modules():
         if isinstance(layer, (nn.Linear, nn.Conv2d)):
             lecun_normal_(layer.weight, generator)

@@ -1,8 +1,8 @@
 """Networks: the conv trunk, the PPO actor-critic and the Q-nets.
 
 Port of ``tetris_gymnasium_tpu/models/networks.py`` (``BoardEncoder :25``,
-``QNetworkCNN :61``, ``ActorCriticCNN :146``, ``QMLP :174``,
-``QGroupedBoardsCNN :193``).  As in the JAX package, parameters are float32
+``QNetworkCNN :61``, ``AtariQNetwork :76``, ``ActorCriticCNN :146``,
+``QMLP :174``, ``QGroupedBoardsCNN :193``).  As in the JAX package, parameters are float32
 and the trunk computes in ``dtype`` (bfloat16 by default) while both heads
 compute in float32.  Two details keep the outputs equal to Flax's:
 
@@ -100,6 +100,45 @@ class QNetworkCNN(nn.Module):
 
     def forward(self, boards: torch.Tensor) -> torch.Tensor:
         return self.head(self.encoder(boards).to(torch.float32))
+
+
+class AtariQNetwork(nn.Module):
+    """The reference CNN workload's Q-net over 84x84 gray frames: ``[B, 84,
+    84]`` or a ``[B, K, 84, 84]`` window (uint8) -> Q ``f32[B, n_actions]``.
+
+    Convolutions 32@8x8/4, 64@4x4/2 and 64@3x3/1 with VALID padding, each
+    followed by ReLU, a 512-wide dense layer with ReLU, all in ``dtype``,
+    then a float32 head.  The input is scaled as ``frames.to(dtype) /
+    255`` in ``dtype``, as Flax divides by a bf16 255; the dense layer reads
+    the features in NHWC order.
+    """
+
+    PLAN = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+
+    def __init__(self, n_actions: int = 8, in_channels: int = 1, frame_shape=(84, 84),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        h, w = frame_shape
+        c = in_channels
+        convs = []
+        for feat, k, stride in self.PLAN:
+            convs.append(nn.Conv2d(c, feat, k, stride=stride))
+            h, w, c = (h - k) // stride + 1, (w - k) // stride + 1, feat
+        self.convs = nn.ModuleList(convs)
+        self.dense = nn.Linear(c * h * w, 512)
+        self.head = nn.Linear(512, n_actions)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        x = frames.to(self.dtype)
+        if x.ndim == 3:
+            x = x[:, None]
+        x = x / 255.0  # in dtype: 255 is exact in bf16, as Flax's bf16 divisor
+        for conv in self.convs:
+            x = F.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype), conv.stride))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten, as Flax
+        x = F.relu(F.linear(x, self.dense.weight.to(self.dtype), self.dense.bias.to(self.dtype)))
+        return self.head(x.to(torch.float32))
 
 
 class ActorCriticCNN(nn.Module):

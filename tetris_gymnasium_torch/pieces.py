@@ -1,15 +1,18 @@
-"""Tetromino piece tables, in numpy.
+"""Tetromino piece tables, in numpy, and the batched matrix fetch.
 
-Port of ``tetris_gymnasium_tpu/pieces.py:27-135`` without its ``jnp``
-helpers: seven pieces, each pre-rotated into a ``[7, 4, 4, 4]`` int8 table,
-plus the bounding-box side per piece.  Values are identical to the JAX
-package's tables.
+Port of ``tetris_gymnasium_tpu/pieces.py:27-150``: seven pieces, each
+pre-rotated into a ``[7, 4, 4, 4]`` int8 table, plus the bounding-box side
+per piece, and ``piece_matrix :138`` over a batch.  Values are identical to
+the JAX package's tables.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
+
+from tetris_gymnasium_torch.utils.device import constant
 
 # Piece shapes in their canonical (rotation 0) orientation.
 _SHAPES = {
@@ -100,3 +103,16 @@ def make_pieces() -> PieceSet:
 
 
 PIECES = make_pieces()
+
+
+def piece_matrix(pieces: PieceSet, piece: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
+    """``int8[B, S, S]`` matrices of ``piece`` at ``rotation`` (``pieces.py:138``).
+
+    An index outside the table gives an all-zero matrix, as the JAX
+    version's one-hot contraction does.
+    """
+    mats = constant(pieces.matrices, piece.device)  # [n, 4, S, S]
+    n = mats.shape[0]
+    ok = (piece >= 0) & (piece < n) & (rotation >= 0) & (rotation < 4)
+    got = mats[piece.clamp(0, n - 1).long(), rotation.clamp(0, 3).long()]
+    return torch.where(ok[:, None, None], got, torch.zeros_like(got))

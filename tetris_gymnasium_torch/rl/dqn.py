@@ -1,15 +1,18 @@
 """DQN with a CNN Q-net and an on-card replay buffer, optionally over frame stacks.
 
-Port of ``tetris_gymnasium_tpu/rl/dqn.py`` for the turbo engine with board
-observations.  The algorithm, the hyperparameters and the random draws are
-the JAX package's; JAX traces a train step into one XLA program, and here
-the host enqueues it without waiting for the card:
+Port of ``tetris_gymnasium_tpu/rl/dqn.py``: on the turbo or the flagship
+engine, over board observations (:class:`QNetworkCNN`) or the reference
+workload's 84x84 gray frames (``obs="rgb84"``, flagship only,
+:class:`AtariQNetwork`).  The algorithm, the hyperparameters and the random
+draws are the JAX package's; JAX traces a train step into one XLA program,
+and here the host enqueues it without waiting for the card:
 
 * the epsilon-greedy is the ``dqn_act`` kernel (argmax, JAX's ``randint``
   and ``uniform`` draws and the select in one launch);
-* the env step is the ``turbo_step`` kernel (auto-reset inside), the
-  observation the ``observe_board`` kernel, and with ``frame_stack`` K > 1
-  the window push the ``framestack_push`` kernel;
+* the env step is the ``turbo_step`` or ``flagship_step`` kernel
+  (auto-reset inside), the observation the ``observe_board``,
+  ``flagship_observe_board`` or ``render_rgb84`` kernel, and with
+  ``frame_stack`` K > 1 the window push the ``framestack_push`` kernel;
 * the replay write is one ``replay_add`` launch (with K > 1 it stores the
   window's newest frame, read through a strided view); the sample is one
   ``replay_sample`` launch, or with K > 1 one ``replay_sample_stacked``
@@ -38,7 +41,7 @@ from torch import nn
 from tetris_gymnasium_torch.config import EngineConfig
 from tetris_gymnasium_torch.models.convert import from_flax_params
 from tetris_gymnasium_torch.models.init import init_lecun_
-from tetris_gymnasium_torch.models.networks import QNetworkCNN
+from tetris_gymnasium_torch.models.networks import AtariQNetwork, QNetworkCNN
 from tetris_gymnasium_torch.ops import framestack, threefry
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
 from tetris_gymnasium_torch.rl import buffers
@@ -71,8 +74,8 @@ class DQNState:
     target_net: nn.Module
     optimizer: torch.optim.Adam
     buffer: buffers.ReplayBuffer
-    env_states: object  # turbo.TurboState
-    obs: torch.Tensor  # int8 [B, H, W], or the window [B, K, H, W] with frame_stack K > 1
+    env_states: object  # turbo.TurboState or engine.EngineState
+    obs: torch.Tensor  # int8 [B, H, W] or uint8 [B, 84, 84]; the window [B, K, ...] with K > 1
     step: int
     key: np.ndarray  # uint32[2], on the host
 
@@ -122,12 +125,13 @@ def init_dqn_state(
 
     As in JAX, the key splits three ways into the carried key, the
     network's key and the env key, and env ``i`` starts from
-    ``fold_in(env_key, i)``.  ``net`` defaults to :class:`QNetworkCNN` (bf16
-    trunk) over ``cfg.frame_stack`` channels; its weights are drawn with
-    Flax's initialisers from a ``torch.Generator`` seeded with the network
-    key, unless ``params``, flat Flax parameters (e.g. from a JAX state or
-    an ``.npz``), are given.  The replay stores single frames even when the
-    net reads windows.
+    ``fold_in(env_key, i)``.  ``net`` defaults to :class:`QNetworkCNN`, or
+    with ``obs="rgb84"`` to :class:`AtariQNetwork` (bf16 trunks), over
+    ``cfg.frame_stack`` channels; its weights are drawn with Flax's
+    initialisers from a ``torch.Generator`` seeded with the network key,
+    unless ``params``, flat Flax parameters (e.g. from a JAX state or an
+    ``.npz``), are given.  The replay stores single frames even when the net
+    reads windows.
     """
     device = resolve_device(device)
     env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
@@ -135,7 +139,9 @@ def init_dqn_state(
     env_states = env_init(batch_keys(env_key, n_envs, device=device))
     raw_obs = env_observe(env_states)
     window = raw_obs if cfg.frame_stack == 1 else framestack.init(raw_obs, cfg.frame_stack)
-    if net is None:
+    if net is None and obs == "rgb84":
+        net = AtariQNetwork(n_actions=cfg.n_actions, in_channels=cfg.frame_stack)
+    elif net is None:
         net = QNetworkCNN(n_actions=cfg.n_actions, in_channels=cfg.frame_stack,
                           board_shape=(env_config.height, env_config.width))
     net = net.cpu()
@@ -144,7 +150,7 @@ def init_dqn_state(
         gen.manual_seed((int(net_key[0]) << 32) | int(net_key[1]))
         init_lecun_(net, gen)
     else:
-        net.load_state_dict(from_flax_params(params, "q_cnn"))
+        net.load_state_dict(from_flax_params(params, net_kind(net)))
     net = net.to(device)
     example = {
         "obs": raw_obs,
@@ -162,6 +168,11 @@ def init_dqn_state(
         step=0,
         key=key,
     )
+
+
+def net_kind(net: nn.Module) -> str:
+    """The converter's kind of a DQN's Q-net (``models/convert.py``)."""
+    return "atari_q" if isinstance(net, AtariQNetwork) else "q_cnn"
 
 
 def td_loss(net: nn.Module, target_net: nn.Module, batch: Dict[str, torch.Tensor],

@@ -1,8 +1,16 @@
-"""Engine selection for the RL stacks.
+"""Engine selection for the RL stacks: the turbo engine or the flagship engine.
 
-Port of ``tetris_gymnasium_tpu/rl/engines.py:26``.  Only the turbo engine
-with board observations is ported; the flagship engine and the ``rgb84``
-pixel chain raise ``NotImplementedError`` until their slices land.
+Port of ``tetris_gymnasium_tpu/rl/engines.py:26``.  ``impl="turbo"`` is the
+batch-minor bit-packed engine (:mod:`tetris_gymnasium_torch.core.turbo`);
+``impl="flagship"`` the batch-leading engine with id boards
+(:mod:`tetris_gymnasium_torch.core.engine`), which also renders the
+reference CNN workload's frames.  Both take per-env keys ``uint32[B, 2]``
+and give the same board observations.  ``obs`` is:
+
+* ``"board"``: the ``int8[B, H, W]`` board with the active piece as -1;
+* ``"rgb84"``: the reference chain RGB -> 84x84 INTER_AREA -> grayscale,
+  ``uint8[B, 84, 84]`` (one ``render_rgb84`` kernel on the card); flagship
+  only, since the turbo engine's rows carry no cell ids to colour.
 """
 from __future__ import annotations
 
@@ -10,7 +18,7 @@ import functools
 from typing import Callable, Optional, Tuple
 
 from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-from tetris_gymnasium_torch.core import turbo
+from tetris_gymnasium_torch.core import engine, turbo
 from tetris_gymnasium_torch.utils.device import resolve_device
 
 
@@ -31,15 +39,17 @@ def env_fns(
         raise ValueError(f"unknown observation kind: {obs!r}")
     if impl not in ("turbo", "flagship"):
         raise ValueError(f"unknown engine impl: {impl!r}")
-    if impl == "flagship" or obs == "rgb84":
-        raise NotImplementedError(
-            f"impl={impl!r}, obs={obs!r}: only the turbo engine with board "
-            "observations is ported so far"
+    if obs == "rgb84" and impl != "flagship":
+        raise ValueError(
+            "obs='rgb84' needs the flagship engine (id boards for the RGB palette); "
+            "the turbo engine stores binary rows only"
         )
     device = resolve_device(device)
     rkw = {} if rewards is None else {"rewards": rewards}
     pkw = {} if pieces is None else {"pieces": pieces}
-    init = functools.partial(turbo.init, config=env_config, device=device, **pkw)
-    step = functools.partial(turbo.step, config=env_config, **rkw, **pkw)
-    observe = functools.partial(turbo.observe_board, config=env_config, **pkw)
+    mod = turbo if impl == "turbo" else engine
+    init = functools.partial(mod.init, config=env_config, device=device, **pkw)
+    step = functools.partial(mod.step, config=env_config, **rkw, **pkw)
+    observe_fn = engine.render_rgb84 if obs == "rgb84" else mod.observe_board
+    observe = functools.partial(observe_fn, config=env_config, **pkw)
     return init, step, observe

@@ -12,13 +12,17 @@ same.
 
 Run as a script it evaluates an exported checkpoint, the twin of
 ``examples/evaluate_checkpoint.py``: an actor-critic (``--net
-actor-critic``, the default) or a :class:`QNetworkCNN` (``--net q``, with
-``--frame-stack K`` for a net that reads K-frame windows)::
+actor-critic``, the default) or a Q-net (``--net q``: a :class:`QNetworkCNN`
+over boards, or with ``--obs rgb84`` an :class:`AtariQNetwork` over the
+flagship engine's 84x84 frames; ``--frame-stack K`` for a net that reads
+K-frame windows)::
 
     python -m tetris_gymnasium_torch.rl.evaluate \\
         --checkpoint results/ppo_lines_params.npz --episodes 512 --seed 0 --max-steps 2000
     python -m tetris_gymnasium_torch.rl.evaluate --net q --frame-stack 4 \\
         --checkpoint q.npz --episodes 512
+    python -m tetris_gymnasium_torch.rl.evaluate --net q --obs rgb84 --frame-stack 4 \\
+        --checkpoint results/atari_q_k4_init_seed1.npz --episodes 512
 """
 from __future__ import annotations
 
@@ -80,9 +84,10 @@ def evaluate_policy(
 ) -> dict:
     """Greedy-rollout statistics of ``act`` over ``n_episodes`` fresh games.
 
-    ``act(obs) -> int32[B]`` is the policy; it sees the board ``int8[B, H,
-    W]``, or with ``frame_stack`` K > 1 the window ``int8[B, K, H, W]`` the
-    training actor saw (pushed with each step's ``done``).  ``key`` is a
+    ``act(obs) -> int32[B]`` is the policy; it sees the observation ``obs``
+    names (the board ``int8[B, H, W]`` or the frame ``uint8[B, 84, 84]``),
+    or with ``frame_stack`` K > 1 the window ``[B, K, ...]`` the training
+    actor saw (pushed with each step's ``done``).  ``key`` is a
     ``uint32[2]`` base key (``threefry.prng_key(seed)``), folded into one key
     per episode exactly as the JAX package does.  The returned dict also
     holds ``iterations``, the number of steps the loop ran.
@@ -200,7 +205,11 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", required=True, help="exported .npz (tools/export_torch_params.py)")
     p.add_argument("--net", choices=("actor-critic", "q"), default="actor-critic",
-                   help="the checkpoint's network: ActorCriticCNN or QNetworkCNN")
+                   help="the checkpoint's network: ActorCriticCNN, or QNetworkCNN "
+                   "(AtariQNetwork with --obs rgb84)")
+    p.add_argument("--impl", choices=("flagship", "turbo"), default="turbo",
+                   help="engine (--obs rgb84 selects flagship)")
+    p.add_argument("--obs", choices=("board", "rgb84"), default="board")
     p.add_argument("--frame-stack", type=int, default=1,
                    help="K: the net reads [B, K, H, W] windows")
     p.add_argument("--episodes", type=int, default=512)
@@ -218,13 +227,18 @@ def main(argv=None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
+    impl = "flagship" if args.obs == "rgb84" else args.impl
     if args.net == "q":
-        act = greedy_q(load_q_net(args.checkpoint, "q_cnn", device=device, dtype=dtype))
+        kind = "atari_q" if args.obs == "rgb84" else "q_cnn"
+        act = greedy_q(load_q_net(args.checkpoint, kind, device=device, dtype=dtype))
+    elif args.obs == "rgb84":
+        raise NotImplementedError("--net actor-critic --obs rgb84 (AtariActorCritic) is not "
+                                  "ported yet (ROADMAP.md queue 1 item 10)")
     else:
         act = greedy_logits(load_actor_critic(args.checkpoint, device=device, dtype=dtype))
     stats = evaluate_policy(
-        act, args.episodes, EngineConfig(), prng_key(args.seed),
-        max_steps=args.max_steps, frame_stack=args.frame_stack, device=device,
+        act, args.episodes, EngineConfig(), prng_key(args.seed), impl=impl,
+        max_steps=args.max_steps, frame_stack=args.frame_stack, obs=args.obs, device=device,
     )
     print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()}))
     return stats

@@ -1,16 +1,17 @@
-"""PPO on the turbo engine: envs, rollout buffer, policy and learner on one card.
+"""PPO: envs, rollout buffer, policy and learner on one card.
 
-Port of ``tetris_gymnasium_tpu/rl/ppo.py`` for the turbo engine with board
-observations, with or without a frame stack.  The algorithm, the
-hyperparameters and the random draws are the JAX package's; what changes is
-the execution.  JAX traces a whole rollout-plus-update iteration into one
-XLA program; here the host runs the loops and enqueues work on the card
-without waiting for it:
+Port of ``tetris_gymnasium_tpu/rl/ppo.py`` with board observations, on the
+turbo or the flagship engine (``impl``), with or without a frame stack.  The
+algorithm, the hyperparameters and the random draws are the JAX package's;
+what changes is the execution.  JAX traces a whole rollout-plus-update
+iteration into one XLA program; here the host runs the loops and enqueues
+work on the card without waiting for it:
 
 * the rollout steps ``rollout_len`` times under ``torch.no_grad()``: the
   policy network (PyTorch operators), the ``ppo_sample`` kernel for the
-  action and its log-prob, the ``turbo_step`` kernel with auto-reset, the
-  ``observe_board`` kernel and, with ``frame_stack`` K > 1, the
+  action and its log-prob, the ``turbo_step`` (or ``flagship_step``)
+  kernel with auto-reset, the ``observe_board`` (or
+  ``flagship_observe_board``) kernel and, with ``frame_stack`` K > 1, the
   ``framestack_push`` kernel (the policy reads ``[B, K, H, W]`` windows);
 * GAE is the ``gae`` kernel, one launch per train step;
 * the update is ``update_epochs`` passes over block-shuffled minibatches:
@@ -40,7 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from tetris_gymnasium_torch.config import EngineConfig
-from tetris_gymnasium_torch.core import turbo
 from tetris_gymnasium_torch.models.convert import from_flax_params
 from tetris_gymnasium_torch.models.init import init_actor_critic_
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN
@@ -147,7 +147,7 @@ class TrainState:
 
     net: ActorCriticCNN
     optimizer: ClippedAdam
-    env_states: turbo.TurboState
+    env_states: object  # turbo.TurboState or engine.EngineState
     last_obs: torch.Tensor  # int8 [B, H, W], or the window [B, K, H, W] with frame_stack K > 1
     key: np.ndarray  # uint32[2], on the host
     update_i: int = 0  # train steps taken; drives the annealing schedules
@@ -179,6 +179,9 @@ def init_train_state(
     Flax parameters (``{flax/path: array}``, e.g. from a JAX state or an
     ``.npz``), are given.
     """
+    if obs != "board":
+        raise NotImplementedError(f"PPO on obs={obs!r} (AtariActorCritic) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 10)")
     device = resolve_device(device)
     env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
     key, net_key, env_key = threefry.split(np.asarray(key, dtype=np.uint32), 3)

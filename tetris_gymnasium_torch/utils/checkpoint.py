@@ -6,7 +6,8 @@ plain ``.npz`` of the flat Flax parameter paths
 (``results/ppo_lines_params.npz`` for the committed PPO policy); this module
 reads that file, and writes the same format for a network the port trained:
 the actor-critic, the grouped DQN's :class:`QMLP` and
-:class:`QGroupedBoardsCNN`, and the DQN's :class:`QNetworkCNN`.
+:class:`QGroupedBoardsCNN`, and the DQN's :class:`QNetworkCNN` and
+:class:`AtariQNetwork`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from tetris_gymnasium_torch.models.convert import from_flax_params, to_flax_params
-from tetris_gymnasium_torch.models.networks import ActorCriticCNN, QGroupedBoardsCNN, QMLP, QNetworkCNN
+from tetris_gymnasium_torch.models.networks import (
+    ActorCriticCNN, AtariQNetwork, QGroupedBoardsCNN, QMLP, QNetworkCNN,
+)
 from tetris_gymnasium_torch.utils.device import resolve_device
 
 
@@ -57,8 +60,9 @@ def load_q_net(path: str, kind: str, device="cuda", dtype: torch.dtype = torch.b
     """A Q-net with the exported weights, in eval mode on ``device``.
 
     ``kind`` is ``"qmlp"`` (widths read from the weights), ``"grouped_cnn"``
-    (for boards of ``board_shape``, with a ``dtype`` trunk) or ``"q_cnn"``
-    (the same, with the frame stack and the actions read from the weights).
+    (for boards of ``board_shape``, with a ``dtype`` trunk), ``"q_cnn"``
+    (the same, with the frame stack and the actions read from the weights)
+    or ``"atari_q"`` (84x84 frames; frame stack and actions from the weights).
     """
     device = resolve_device(device)
     sd = from_flax_params(load_flat(path), kind)
@@ -72,6 +76,9 @@ def load_q_net(path: str, kind: str, device="cuda", dtype: torch.dtype = torch.b
         net = QNetworkCNN(n_actions=sd["head.weight"].shape[0],
                           in_channels=sd["encoder.convs.0.weight"].shape[1],
                           board_shape=tuple(board_shape), dtype=dtype)
+    elif kind == "atari_q":
+        net = AtariQNetwork(n_actions=sd["head.weight"].shape[0],
+                            in_channels=sd["convs.0.weight"].shape[1], dtype=dtype)
     else:
         raise ValueError(f"unknown Q-net kind {kind!r}")
     net.load_state_dict(sd)

@@ -1,6 +1,7 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and constant tables on a device."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,18 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions"
         )
     return device
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(array, device, dtype=None) -> torch.Tensor:
+    """The numpy table ``array`` as a tensor on ``device``, made once and
+    cached: a plain version run on the card then copies no table from the
+    host on each call, and can be captured in a CUDA graph."""
+    a = np.asarray(array)
+    key = (a.dtype.str, a.shape, a.tobytes(), str(torch.device(device)), dtype)
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        hit = _CONSTANTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return hit

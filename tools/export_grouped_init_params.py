@@ -2,9 +2,12 @@
 
 ``examples/train_lin_grouped.py --seed S`` starts from the ``QMLP`` weights
 that ``grouped_dqn.init_grouped_dqn_state(PRNGKey(S), ...)`` draws with
-Flax's initialisers (``--net qmlp``), and ``examples/train_cnn.py --seed S
+Flax's initialisers (``--net qmlp``), ``examples/train_cnn.py --seed S
 [--frame-stack K]`` from the ``QNetworkCNN`` weights of
-``dqn.init_dqn_state(PRNGKey(S), ..., impl="turbo")`` (``--net q_cnn``).
+``dqn.init_dqn_state(PRNGKey(S), ..., impl="turbo")`` (``--net q_cnn``),
+and ``examples/train_cnn.py --obs rgb84 --seed S [--frame-stack K]`` from
+the ``AtariQNetwork`` weights of ``dqn.init_dqn_state(PRNGKey(S), ...,
+AtariQNetwork(), impl="flagship", obs="rgb84")`` (``--net atari_q``).
 The port draws its own from a ``torch.Generator`` (equal in distribution,
 not in value), so a run of the port that is to follow the JAX run starts
 from this file instead (``--init-params`` of
@@ -17,6 +20,8 @@ from this file instead (``--init-params`` of
         --out results/qcnn_init_seed1.npz
     python tools/export_grouped_init_params.py --net q_cnn --frame-stack 4 --seed 1 \\
         --out results/qcnn_k4_init_seed1.npz
+    python tools/export_grouped_init_params.py --net atari_q --frame-stack 4 --seed 1 \\
+        --out results/atari_q_k4_init_seed1.npz
 """
 from __future__ import annotations
 
@@ -30,10 +35,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def default_out(net: str, seed: int, frame_stack: int = 1) -> str:
+    stack = '' if frame_stack == 1 else f'_k{frame_stack}'
     if net == "qmlp":
         name = f"grouped_qmlp_init_seed{seed}.npz"
+    elif net == "atari_q":
+        name = f"atari_q{stack}_init_seed{seed}.npz"
     else:
-        name = f"qcnn{'' if frame_stack == 1 else f'_k{frame_stack}'}_init_seed{seed}.npz"
+        name = f"qcnn{stack}_init_seed{seed}.npz"
     return os.path.join(REPO, "results", name)
 
 
@@ -64,8 +72,17 @@ def export(seed: int, out: str, net: str = "qmlp", frame_stack: int = 1) -> dict
             dqn.DQNConfig(buffer_size=2 * (frame_stack + 1), frame_stack=frame_stack),
             QNetworkCNN(), impl="turbo",
         )
+    elif net == "atari_q":
+        from tetris_gymnasium_tpu.models.networks import AtariQNetwork
+        from tetris_gymnasium_tpu.rl import dqn
+
+        ts = dqn.init_dqn_state(
+            jax.random.PRNGKey(seed), 2, EngineConfig(auto_reset=True),
+            dqn.DQNConfig(buffer_size=2 * (frame_stack + 1), frame_stack=frame_stack),
+            AtariQNetwork(), impl="flagship", obs="rgb84",
+        )
     else:
-        raise ValueError(f"unknown net {net!r}: qmlp or q_cnn")
+        raise ValueError(f"unknown net {net!r}: qmlp, q_cnn or atari_q")
     flat = {
         "/".join(str(p.key) for p in path): np.asarray(leaf, dtype=np.float32)
         for path, leaf in jax.tree_util.tree_flatten_with_path(ts.params)[0]
@@ -76,12 +93,13 @@ def export(seed: int, out: str, net: str = "qmlp", frame_stack: int = 1) -> dict
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--net", choices=("qmlp", "q_cnn"), default="qmlp")
-    p.add_argument("--frame-stack", type=int, default=1, help="K of the q_cnn net's input")
+    p.add_argument("--net", choices=("qmlp", "q_cnn", "atari_q"), default="qmlp")
+    p.add_argument("--frame-stack", type=int, default=1,
+                   help="K of the q_cnn or atari_q net's input")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--out", default=None,
-                   help="default: results/grouped_qmlp_init_seed<S>.npz or "
-                   "results/qcnn[_k<K>]_init_seed<S>.npz")
+                   help="default: results/grouped_qmlp_init_seed<S>.npz, "
+                   "results/qcnn[_k<K>]_init_seed<S>.npz or results/atari_q[_k<K>]_init_seed<S>.npz")
     args = p.parse_args(argv)
     out = args.out or default_out(args.net, args.seed, args.frame_stack)
     for k, v in export(args.seed, out, args.net, args.frame_stack).items():
