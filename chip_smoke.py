@@ -151,10 +151,37 @@ Phases, each printing one JSON line:
     plain versions at most at B = 4096, scaled), and the reused kernels at
     the 7056-byte frame.
 
-Then the kernels line (sixteen kernels; each with the launch counts of the
-newest path that runs it: the pixel DQN, else the flagship board
+26. The Gymnasium surface's kernels against their plain versions, bit for
+    bit: ``grouped_flagship`` (ids, boards, features under all 16 flag
+    sets), ``feature_vector``, ``observe_dict`` and ``compose_rgb`` (grouped
+    rgb with ids outside the palette too) on 300-step flagship trajectories
+    (B = 4096, 1001, 1) and hand-built stacks with a full holder;
+    ``render_rgb84`` still bit-equal; the flagship grouped engine at 4096
+    envs equal to the turbo grouped engine through ``turbo.from_flagship``
+    for 100 steps (masks, features, rewards, done, lines, env fields).
+27. ``Tetris(device="cuda")`` against ``Tetris(device="cpu")`` over 20
+    seeded episodes of random actions (ids -1, 8 and 11 included): the Dict
+    obs, reward, termination, ``lines_cleared``, ``render("rgb_array")`` and
+    the ansi render equal at every step; ``GroupedActionsObservations`` over
+    ``Tetris`` in the features, boards, rgb and host modes (and features
+    without termination), legal and illegal actions, card against CPU; exact
+    launch counts a step.
+28. The batched flagship grouped engine at 4096 envs, 32 steps of random
+    legal placements in features and boards mode: placements/s, exact
+    launch counts, the step's parts with CUDA events.
+29. ``TetrisVectorEnv`` at 8192 envs x 64 steps, ``impl="turbo"`` and
+    ``"flagship"``, numpy in and out: env-steps/s, exact launch counts, the
+    first 16 steps (mostly hard drops, so episodes end in them) equal to a
+    CPU run, ``final_obs`` included.
+30. The new kernels' device ms at B = 1, 4096 and 65536 (the grouped boards
+    mode at 4096) beside their bounds and plain versions, and one shell
+    step's host ms at B = 1.
+
+Then the kernels line (twenty kernels; each with the launch counts of the
+first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
-else PPO; times at the shape of that path) and, last, the device line.
+else PPO, else the grouped engine, else the shell; times at the shape of
+that path) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -321,7 +348,8 @@ MAX_ERR = {"turbo_step": 0.0, "turbo_init": 0.0, "observe_board": 0.0, "gae": 0.
            "ppo_sample": 0.0, "grouped_placements": 0.0, "grouped_act": 0.0, "replay_add": 0.0,
            "replay_sample": 0.0, "replay_sample_stacked": 0.0, "framestack_push": 0.0,
            "dqn_act": 0.0, "flagship_step": 0.0, "flagship_init": 0.0,
-           "flagship_observe_board": 0.0, "render_rgb84": 0.0}
+           "flagship_observe_board": 0.0, "render_rgb84": 0.0, "grouped_flagship": 0.0,
+           "feature_vector": 0.0, "observe_dict": 0.0, "compose_rgb": 0.0}
 
 
 def bits(t):
@@ -729,6 +757,13 @@ def main() -> None:
     pix = train_pixel_dqn_full_width(dev, smi)
     pix_times = time_pixel_kernels(dev, smi)
 
+    # -- 26.-30. the Gymnasium surface --------------------------------------------------
+    check_surface_kernels(dev)
+    shell = check_shell(dev)
+    grouped_engine = run_grouped_engine(dev, smi)
+    vector = run_vector_env(dev, smi)
+    surface_times = time_surface_kernels(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -760,14 +795,25 @@ def main() -> None:
                                    "tetris_gymnasium_tpu/core/engine.py:274"),
         "render_rgb84": ("tetris_gymnasium_torch/csrc/render_rgb84.cu",
                          "tetris_gymnasium_tpu/core/engine.py:529"),
+        "grouped_flagship": ("tetris_gymnasium_torch/csrc/grouped_flagship.cu",
+                             "tetris_gymnasium_tpu/core/grouped.py:98"),
+        "feature_vector": ("tetris_gymnasium_torch/csrc/features.cu",
+                           "tetris_gymnasium_tpu/ops/observations.py:57"),
+        "observe_dict": ("tetris_gymnasium_torch/csrc/observe_dict.cu",
+                         "tetris_gymnasium_tpu/core/engine.py:257"),
+        "compose_rgb": ("tetris_gymnasium_torch/csrc/observe_dict.cu",
+                        "tetris_gymnasium_tpu/ops/observations.py:84"),
     }
-    # Each kernel's launches and time come from one path: the newest that
-    # runs it (the pixel DQN, else the flagship engine's board evaluation,
-    # else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN, else PPO),
-    # its time at that path's shapes: the pixel DQN's 512 envs (7056-byte
-    # frames, 512 samples of the 262,144-entry buffer), the evaluation's 512,
-    # the board DQN's 1024 envs with gravity (512 samples), the grouped
-    # step's 1024 envs without gravity (256 samples), the PPO step's B = 8192.
+    # Each kernel's launches and time come from one path: the first below
+    # that runs it (the pixel DQN, else the flagship engine's board
+    # evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped
+    # DQN, else PPO, else the batched flagship grouped engine, else the
+    # Gymnasium shell and its grouped wrapper), its time at that path's shapes:
+    # the pixel DQN's 512 envs (7056-byte frames, 512 samples of the
+    # 262,144-entry buffer), the evaluation's 512, the board DQN's 1024 envs
+    # with gravity (512 samples), the grouped step's 1024 envs without
+    # gravity (256 samples), the PPO step's B = 8192, the grouped engine's
+    # 4096 envs (features), the shell's B = 1.
     pix_at = {name: pix_times[name][PIX_ENVS] for name in
               ("flagship_step", "flagship_init", "render_rgb84", "framestack_push", "dqn_act")}
     pix_at.update(replay_add=pix_times["replay_add"],
@@ -786,7 +832,12 @@ def main() -> None:
              ("dqn_k4", dqn_runs[4]["launches"], DQN_STEPS, dqn_at),
              ("dqn_k1", dqn_runs[1]["launches"], DQN_STEPS, dqn_at),
              ("grouped_train", grouped["launches"], GROUPED_STEPS, grouped_at),
-             ("ppo_train", train["launches"], TRAIN_STEPS, {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS]})]
+             ("ppo_train", train["launches"], TRAIN_STEPS, {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS]}),
+             ("grouped_engine", grouped_engine["launches"], grouped_engine["steps"],
+              {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
+             ("shell", shell["launches"], shell["steps"],
+              {k: surface_times[k][1] for k in ("observe_dict", "compose_rgb", "feature_vector")}),
+             ("vector_env", vector["launches"], vector["steps"], {})]
     entries = []
     for name, (src, rep) in sources.items():
         path, counts, n_steps, at = next(p for p in paths if p[1][name])
@@ -799,7 +850,7 @@ def main() -> None:
             "launches_dqn_rgb84_eval": pix["eval_launches"][name],
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
-            "library_ms": None,
+            "library_ms": at[name].get("library_ms"),
         })
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2431,6 +2482,10 @@ def time_pixel_kernels(dev, smi) -> dict:
     entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
     out["replay_add"] = timed_pair(lambda: buffers.add(buf, blk), lambda: buffers.add_plain(buf, blk),
                                    100, 20, 2 * B * entry, 0)
+    # the library's ring write: one index_copy_ a field, the port never calls it
+    ring = torch.arange(buf.pos, buf.pos + B, device=dev)
+    out["replay_add"]["library_ms"] = device_ms(
+        lambda: [store.index_copy_(0, ring, blk[k]) for k, store in buf.data.items()], 100)
     key = threefry.prng_key(3)
     for n in (PIX_BATCH, 65536):
         out["replay_sample_stacked"][n] = timed_pair(
@@ -2442,6 +2497,522 @@ def time_pixel_kernels(dev, smi) -> dict:
           "buffer_gib": sum(nbytes(x) for x in buf.data.values()) / 2**30, "nvidia_smi": smi})
     del buf
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 26.-30. the Gymnasium surface
+# ---------------------------------------------------------------------------
+
+SURFACE_B = (4096, 1001, 1)
+SURFACE_STEPS = 300
+SURFACE_GROUPED_EVERY = 10  # grouped_flagship against its plain version every 10th state
+SURFACE_FLAGS_EVERY = 50  # and under all 16 flag sets every 50th
+SURFACE_TURBO_STEPS = 100  # flagship grouped against turbo grouped at B = 4096
+SHELL_EPISODES, SHELL_MAX_STEPS = 20, 300
+SHELL_ACTIONS = (-1, 8, 11) + tuple(range(8))  # out-of-range ids are no-ops with gravity
+SHELL_ACTION_P = (0.02, 0.02, 0.02) + (0.1, 0.1, 0.08, 0.1, 0.07, 0.3, 0.07, 0.12)
+WRAPPER_EPISODES, WRAPPER_MAX_STEPS = 3, 40
+GROUPED_ENGINE_B, GROUPED_ENGINE_STEPS = 4096, 32  # bench.py:402-406
+VECTOR_B, VECTOR_STEPS = 8192, 64  # bench.py:419
+VECTOR_CHECK_STEPS = 16  # against the CPU; hard drops end episodes from step ~10, so final_obs is checked
+VECTOR_DROP_P = (0.02, 0.02, 0.02, 0.02, 0.02, 0.86, 0.02, 0.02)
+SURFACE_TIME_B = (1, 4096, 65536)
+SURFACE_PLAIN_MAX_B = 4096  # the plain versions' batch; larger B scaled from it
+SHELL_TIMED_STEPS = 200
+# 32-bit operations the functions need: grouped_flagship per candidate builds
+# a 21-window hit map (8 each), tests 16 frame cells (3 each), 16 staged rows
+# (2 each) and 4 window rows of 10 summed cells (4 each), and then either
+# tests the 16 other rows for fullness on their packed words (4 each), folds
+# each of the 20 rows into the height counters as one 10-bit mask (1 for the
+# mask, 15 for the accumulator) and reads them out (60), or rebuilds 432 cells
+# (12 each); feature_vector 20 rows of 10 cells (3 each, 15 a row) and the
+# read-out; observe_dict 432 board cells (10 each), 432 mask cells (8 each)
+# and 80 strip cells (10 each); compose_rgb 12 a pixel
+GROUPED_FLAGSHIP_OPS = 8 * 21 + 3 * 16 + 2 * 16 + 4 * 40
+GROUPED_FLAGSHIP_OPS_BY_MODE = {"features": GROUPED_FLAGSHIP_OPS + 4 * 16 + 20 * (1 + 15) + 60,
+                                "boards": GROUPED_FLAGSHIP_OPS + 12 * 432}
+FEATURE_VECTOR_OPS_PER_ENV = 20 * (3 * 10 + 15) + 60
+OBSERVE_DICT_OPS_PER_ENV = 10 * 432 + 8 * 432 + 10 * 80
+COMPOSE_OPS_PER_PIXEL = 12
+FLAG_SETS = tuple(tuple(bool(m >> k & 1) for k in range(4)) for m in range(16))
+
+
+def _surface_actions(mask, g, dev, wild):
+    """Random placements from a batch-leading mask ``[B, A]``."""
+    import types
+
+    return _grouped_actions(types.SimpleNamespace(mask=mask.T), g, dev, wild)
+
+
+def _grouped_features_plain(boards, flags):
+    """grouped_observation_plain's features, from the plain placements' boards."""
+    from tetris_gymnasium_torch.ops.observations import feature_vector_plain
+
+    B, A = boards.shape[:2]
+    return feature_vector_plain(boards[:, :, :20, 4:14].reshape(B * A, 20, 10), flags) \
+        .reshape(B, A, -1).to(torch.float32)
+
+
+def check_surface_kernels(dev) -> dict:
+    """Phase 26: ``grouped_flagship`` (ids, boards, features), ``feature_vector``,
+    ``observe_dict`` and ``compose_rgb`` against their plain versions, bit
+    for bit, on 300-step flagship trajectories (B = 4096, 1001, 1) and
+    hand-built stacks; ``render_rgb84`` still bit-equal; the flagship grouped
+    engine equal to the turbo grouped engine through ``from_flagship``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, grouped, turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, compose_rgb_plain, feature_vector_plain
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    cfg = EngineConfig(auto_reset=True)
+    P = engine.PIECES
+    checked = {"grouped_flagship": 0, "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0,
+               "render_rgb84": 0}
+
+    def check_state(s, what, grouped_too, all_flags):
+        d = kernels.observe_dict(s, cfg, P)
+        dp = engine.observe_dict_plain(s, cfg)
+        for k in dp:
+            diff("observe_dict", d[k], dp[k], f"{what} {k}")
+        diff("compose_rgb", kernels.compose_rgb(d["board"], d["queue"], d["holder"], P),
+             compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), f"{what} rgb")
+        diff("render_rgb84", kernels.render_rgb84(s, cfg, P), engine.render_rgb84_plain(s, cfg),
+             f"{what} rgb84")
+        strips = kernels.observe_dict(s, cfg, P, strips_only=True)
+        if strips.keys() != {"queue", "holder"}:
+            raise AssertionError(f"observe_dict strips_only wrote {sorted(strips)}")
+        for k in strips:
+            diff("observe_dict", strips[k], dp[k], f"{what} strips_only {k}")
+        crop = s.board[:, :20, 4:14]
+        for flags in (FLAG_SETS if all_flags else (tuple(FeatureFlags()),)):
+            diff("feature_vector", kernels.feature_vector(crop, FeatureFlags(*flags)),
+                 feature_vector_plain(crop, FeatureFlags(*flags)), f"{what} features {flags}")
+        checked.update({k: checked[k] + 1 for k in ("observe_dict", "compose_rgb", "render_rgb84",
+                                                    "feature_vector")})
+        if not grouped_too:
+            return
+        want = grouped.placements_plain(s, cfg)
+        for k, (a, b) in enumerate(zip(kernels.grouped_flagship(s, cfg, P, "ids"), want)):
+            diff("grouped_flagship", a, b, f"{what} ids output {k}")
+        diff("grouped_flagship", kernels.grouped_flagship(s, cfg, P, "boards")[0], want[0].float(),
+             f"{what} boards")
+        for flags in (FLAG_SETS[1:] if all_flags else (tuple(FeatureFlags()),)):
+            diff("grouped_flagship", kernels.grouped_flagship(s, cfg, P, "features", FeatureFlags(*flags))[0],
+                 _grouped_features_plain(want[0], FeatureFlags(*flags)), f"{what} features {flags}")
+        B, A = want[1].shape
+        rgb = grouped.grouped_observation(s, cfg, mode="rgb")[0]  # ids, observe_dict, compose_rgb
+        diff("compose_rgb", rgb, compose_rgb_plain(want[0].view(torch.uint8).reshape(B * A, 24, 18),
+                                                   dp["queue"], dp["holder"], P, A).reshape(rgb.shape),
+             f"{what} grouped rgb")
+        checked["grouped_flagship"] += 1
+        return want
+
+    t0 = time.perf_counter()
+    runs, n_illegal, n_over = [], 0, 0
+    for B in SURFACE_B:
+        s = kernels.flagship_init(batch_keys(prng_key(26 + B), B, device=dev), cfg, P)
+        n_done = 0
+        for i in range(SURFACE_STEPS + 1):
+            want = check_state(s, f"B={B} @ {i}", i % SURFACE_GROUPED_EVERY == 0,
+                               i % SURFACE_FLAGS_EVERY == 0)
+            if want is not None:
+                n_illegal += int((want[1] == 0).sum())
+                n_over += int(want[2].sum())
+            if i == SURFACE_STEPS:
+                break
+            s, _, kd, _ = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P,
+                                                RewardsMapping())
+            n_done += int(kd.sum())
+        runs.append({"B": B, "steps": SURFACE_STEPS, "episodes_ended": n_done})
+    # hand-built stacks: garbage ids, up to six full rows, random poses, a
+    # full holder, and a quarter of the envs stacked to the ceiling
+    s = kernels.flagship_init(batch_keys(prng_key(27), 4096, device=dev), cfg, P)
+    s, _ = _surgery_boards(s, g, dev)
+    board = s.board.clone()
+    board[:1024, :8, 4:14] = torch.randint(2, 9, (1024, 8, 10), generator=g, device=dev,
+                                           dtype=torch.int8)
+    s = s.replace(board=board,
+                  holder_count=torch.randint(0, 2, (4096,), generator=g, device=dev, dtype=torch.int32),
+                  holder_piece=torch.randint(0, 7, (4096, 1), generator=g, device=dev, dtype=torch.int32))
+    want = check_state(s, "surgery", True, True)
+    if int(want[3].max()) < 2 or not bool(want[2].any()) or not bool((want[1] == 0).any()):
+        raise AssertionError("the hand-built stacks made no multi-line, game-over or illegal candidate")
+    if n_illegal == 0 or n_over == 0:
+        raise AssertionError(f"the trajectories made no illegal ({n_illegal}) or game-over ({n_over}) "
+                             "candidate")
+
+    # the flagship grouped engine plays the turbo grouped engine's game
+    gcfg = EngineConfig(gravity_enabled=False, auto_reset=True)
+    keys = batch_keys(prng_key(26), GROUPED_ENGINE_B, device=dev)
+    fgs, fobs = grouped.reset(keys, gcfg, mode="features", device=dev)
+    tgs, tobs = tg.reset(keys, gcfg, device=dev)
+    lines = 0
+    for i in range(SURFACE_TURBO_STEPS + 1):
+        if not (torch.equal(bits(fobs), bits(tobs)) and torch.equal(fgs.mask.T, tgs.mask)):
+            raise AssertionError(f"flagship and turbo grouped observations differ @ {i}")
+        ft = turbo.from_flagship(fgs.env, gcfg)
+        for k in turbo.FIELDS:
+            if not torch.equal(bits(getattr(ft, k)), bits(getattr(tgs.env, k))):
+                raise AssertionError(f"flagship and turbo grouped {k} differ @ {i}")
+        if i == SURFACE_TURBO_STEPS:
+            break
+        a = _surface_actions(fgs.mask, g, dev, 0.1)
+        fgs, fobs, fr, fd, fi = grouped.step(fgs, a, gcfg, mode="features")
+        tgs, tobs, tr, td, ti = tg.step(tgs, a, gcfg)
+        for got, ref, what in ((fr, tr, "reward"), (fd, td, "done"),
+                               (fi["lines_cleared"], ti["lines_cleared"], "lines")):
+            if not torch.equal(bits(got), bits(ref)):
+                raise AssertionError(f"flagship and turbo grouped {what} differ @ {i}")
+        lines += int(fi["lines_cleared"].sum())
+    torch.cuda.synchronize()
+    keys_ = ("grouped_flagship", "feature_vector", "observe_dict", "compose_rgb", "render_rgb84")
+    emit({"phase": "surface_kernels", "bit_equal": True, "turbo_grouped_equal": True, "runs": runs,
+          "checked_states": checked, "illegal_candidates": n_illegal, "game_over_candidates": n_over,
+          "turbo_steps": SURFACE_TURBO_STEPS, "turbo_lines": lines,
+          "max_abs_err": {k: MAX_ERR[k] for k in keys_}, "seconds": time.perf_counter() - t0})
+    return checked
+
+
+def _eq_obs(a, b, what):
+    """Two host observations (arrays or dicts of arrays) are equal."""
+    a, b = (a, b) if isinstance(b, dict) else ({0: a}, {0: b})
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: keys {sorted(a)} vs {sorted(b)}")
+    for k in b:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {k} differs between card and CPU")
+
+
+def _wrapper_launches(mode, terminate, legal):
+    """Launches of one grouped wrapper step (``legal`` None: its reset)."""
+    out = {}
+
+    def add(**kw):
+        for k, v in kw.items():
+            out[k] = out.get(k, 0) + v
+
+    info_fn = {"features": "feature_vector", "rgb": "compose_rgb", "host": "feature_vector"}.get(mode)
+    if legal is None:
+        add(flagship_init=1, observe_dict=1, grouped_flagship=1)
+    else:
+        add(flagship_step=1 if terminate else 2, grouped_flagship=1)
+    if mode == "rgb":
+        add(observe_dict=1, compose_rgb=1)
+    if legal is None or legal:
+        if legal:
+            add(observe_dict=1)
+        if info_fn:
+            add(**{info_fn: 1})
+    if mode == "host" and (legal is None or legal or not terminate):
+        if legal is False:
+            add(observe_dict=1)
+        add(feature_vector=1)  # the 40 candidates' boards in one call
+    return out
+
+
+def check_shell(dev) -> dict:
+    """Phase 27: ``Tetris(device="cuda")`` against ``Tetris(device="cpu")``
+    over 20 seeded episodes of random actions (out-of-range ids included),
+    and ``GroupedActionsObservations`` over ``Tetris`` in the features,
+    boards, rgb and host modes, card against CPU, with exact launch counts
+    a step.  Returns the launches of the card's runs (the shell path)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.envs import Tetris
+    from tetris_gymnasium_torch.wrappers import (FeatureVectorObservation, GroupedActionsObservations,
+                                                 RgbObservation)
+
+    rng = np.random.default_rng(27)
+    t0 = time.perf_counter()
+    card = Tetris(render_mode="rgb_array", device=dev)
+    cpu = Tetris(render_mode="rgb_array", device="cpu")
+    kernels.reset_launches()
+    steps = ends = lines = 0
+    for ep in range(SHELL_EPISODES):
+        oc, _ = card.reset(seed=ep)
+        op, _ = cpu.reset(seed=ep)
+        _eq_obs(oc, op, f"episode {ep} reset")
+        for t in range(SHELL_MAX_STEPS):
+            a = int(rng.choice(SHELL_ACTIONS, p=SHELL_ACTION_P))
+            oc, rc, tc, trc, ic = card.step(a)
+            op, rp, tp, trp, ip = cpu.step(a)
+            _eq_obs(oc, op, f"episode {ep} step {t}")
+            if (rc, tc, trc, ic) != (rp, tp, trp, ip):
+                raise AssertionError(f"episode {ep} step {t}: {(rc, tc, trc, ic)} vs {(rp, tp, trp, ip)}")
+            _eq_obs(card.render(), cpu.render(), f"episode {ep} step {t} rgb_array")
+            if card._render_ansi() != cpu._render_ansi():
+                raise AssertionError(f"episode {ep} step {t}: ansi renders differ")
+            steps += 1
+            lines += ic["lines_cleared"]
+            if tc:
+                ends += 1
+                break
+    torch.cuda.synchronize()
+    shell_launches = dict(kernels.LAUNCHES)
+    resets = SHELL_EPISODES
+    want = {**{k: 0 for k in shell_launches}, "flagship_init": resets, "flagship_step": steps,
+            "observe_dict": resets + 3 * steps, "compose_rgb": steps}
+    if shell_launches != want:
+        raise AssertionError(f"shell launch counts {shell_launches}, want {want}")
+    if ends == 0:
+        raise AssertionError("no shell episode ended")
+    shell_seconds = time.perf_counter() - t0
+
+    # the grouped wrapper over the shell, every mode
+    t1 = time.perf_counter()
+    wrapper_runs = []
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for mode, terminate in (("features", True), ("boards", True), ("rgb", True), ("host", True),
+                            ("features", False)):
+        stacks = []
+        for where in (dev, "cpu"):
+            env = Tetris(gravity=False, device=where)
+            inner = {"features": [FeatureVectorObservation(env)], "boards": None,
+                     "rgb": [RgbObservation(env)],
+                     "host": [FeatureVectorObservation(env, report_bumpiness=False)]}[mode]
+            stacks.append(GroupedActionsObservations(env, inner, terminate, "host" if mode == "host" else None))
+        w, wp = stacks
+        kernels.reset_launches()
+        want = {k: 0 for k in kernels.LAUNCHES}
+        n_steps = n_illegal = 0
+        for ep in range(WRAPPER_EPISODES):
+            o, i = w.reset(seed=100 + ep)
+            op, ip = wp.reset(seed=100 + ep)
+            for k, v in _wrapper_launches(mode, terminate, None).items():
+                want[k] += v
+            for t in range(WRAPPER_MAX_STEPS):
+                _eq_obs(o, op, f"{mode} episode {ep} step {t} obs")
+                if i.keys() != ip.keys():
+                    raise AssertionError(f"{mode} episode {ep} step {t}: info keys differ")
+                for k in ip:
+                    _eq_obs(i[k], ip[k], f"{mode} episode {ep} step {t} info {k}")
+                legal, illegal = (np.nonzero(i["action_mask"] == v)[0] for v in (1, 0))
+                u = rng.random()
+                pick = illegal if (u < 0.05 and len(illegal)) or not len(legal) else legal
+                a = int(rng.integers(0, 40)) if u > 0.95 else int(rng.choice(pick))
+                is_legal = bool(i["action_mask"][a])
+                for k, v in _wrapper_launches(mode, terminate, is_legal).items():
+                    want[k] += v
+                o, r, d, tr, i = w.step(a)
+                op, rp, dp, trp, ip = wp.step(a)
+                if (r, d, tr) != (rp, dp, trp):
+                    raise AssertionError(f"{mode} episode {ep} step {t}: {(r, d, tr)} vs {(rp, dp, trp)}")
+                n_steps += 1
+                n_illegal += int(not is_legal)
+                if d:
+                    break
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        if got != want:
+            raise AssertionError(f"grouped wrapper ({mode}, terminate={terminate}) launches {got}, want {want}")
+        if n_illegal == 0:
+            raise AssertionError(f"grouped wrapper ({mode}) took no illegal action")
+        for k in total:
+            total[k] += got[k]
+        wrapper_runs.append({"mode": mode, "terminate_on_illegal": terminate, "steps": n_steps,
+                             "illegal": n_illegal, "launches": {k: v for k, v in got.items() if v}})
+    launches = {k: shell_launches[k] + total[k] for k in total}
+    emit({"phase": "shell", "equal_card_cpu": True, "episodes": SHELL_EPISODES, "steps": steps,
+          "episodes_ended": ends, "lines": lines,
+          "launches": {k: v for k, v in shell_launches.items() if v},
+          "launches_per_step": {k: v / steps for k, v in shell_launches.items() if v},
+          "shell_seconds": shell_seconds, "grouped_wrapper": wrapper_runs,
+          "wrapper_seconds": time.perf_counter() - t1})
+    return {"launches": launches, "steps": steps + sum(r["steps"] for r in wrapper_runs)}
+
+
+def run_grouped_engine(dev, smi) -> dict:
+    """Phase 28: the batched flagship grouped engine at 4096 envs, 32 steps of
+    random legal placements in features and in boards mode; placements/s on
+    the host's clock, the step's parts with CUDA events."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, grouped
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(28)
+    cfg = EngineConfig(gravity_enabled=False, auto_reset=True)
+    B, T = GROUPED_ENGINE_B, GROUPED_ENGINE_STEPS
+    out = {}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for mode in ("features", "boards"):
+        gs, _ = grouped.reset(batch_keys(prng_key(28), B, device=dev), cfg, mode=mode, device=dev)
+        actions = [None] * T
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(T):
+            actions[i] = _surface_actions(gs.mask, g, dev, 0.0)
+            gs, obs, r, d, info = grouped.step(gs, actions[i], cfg, mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        want = {**{k: 0 for k in got}, "flagship_step": T, "flagship_init": T, "grouped_flagship": T}
+        if got != want:
+            raise AssertionError(f"grouped engine ({mode}) launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+        if not torch.isfinite(obs).all() or obs.shape[:2] != (B, 40):
+            raise AssertionError(f"grouped engine ({mode}) observation {tuple(obs.shape)} not finite")
+        a = actions[-1]
+        drop_a = torch.full_like(a, 5)
+        parts = {
+            "grouped_flagship": device_ms(lambda: kernels.grouped_flagship(gs.env, cfg, engine.PIECES, mode), 20),
+            "hard_drop": device_ms(lambda: kernels.flagship_step(gs.env, drop_a, cfg, engine.PIECES,
+                                                                 RewardsMapping()), 20),
+            "auto_reset_init": device_ms(lambda: kernels.flagship_init(gs.env.key.T.contiguous(), cfg,
+                                                                       engine.PIECES), 20),
+        }
+        step_call = call_ms(lambda: grouped.step(gs, a, cfg, mode=mode), 20)
+        parts["selects_and_rest_call"] = step_call - sum(parts.values())
+        out[mode] = {"B": B, "steps": T, "wall_s": wall, "step_ms": 1e3 * wall / T,
+                     "placements_per_s": B * T / wall, "candidates_per_s": 40 * B * T / wall,
+                     "step_call_ms": step_call, "parts_device_ms": parts}
+        emit({"phase": "grouped_engine", "mode": mode, **out[mode], "launches": want, "nvidia_smi": smi})
+    return {"launches": total, "steps": 2 * T, "times": out}
+
+
+def run_vector_env(dev, smi) -> dict:
+    """Phase 29: ``TetrisVectorEnv`` at 8192 envs x 64 steps, numpy in and
+    out, ``impl="turbo"`` and ``"flagship"``; the first 16 steps (mostly hard
+    drops, so that episodes end in them) equal to a CPU run at the same B and
+    seed, ``final_obs`` included."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.envs import TetrisVectorEnv
+
+    rng = np.random.default_rng(29)
+    B, T = VECTOR_B, VECTOR_STEPS
+    p = np.asarray(FLAGSHIP_ACTION_P)
+    out = {}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for impl in ("turbo", "flagship"):
+        acts = [rng.choice(8, B, p=VECTOR_DROP_P if t < VECTOR_CHECK_STEPS else p) for t in range(T)]
+        cpu = TetrisVectorEnv(B, EngineConfig(), impl=impl, seed=29, device="cpu")
+        ref = [cpu.reset(seed=29)] + [cpu.step(a) for a in acts[:VECTOR_CHECK_STEPS]]
+        env = TetrisVectorEnv(B, EngineConfig(), impl=impl, seed=29, device=dev)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [env.reset(seed=29)]
+        ends = 0
+        for t in range(T):
+            res = env.step(acts[t])
+            ends += int(res[2].sum())
+            if t < VECTOR_CHECK_STEPS:
+                got.append(res)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        names = {"turbo": ("turbo_init", "turbo_step", "observe_board"),
+                 "flagship": ("flagship_init", "flagship_step", "flagship_observe_board")}[impl]
+        want = {**{k: 0 for k in launches}, names[0]: T + 1, names[1]: T, names[2]: 2 * T + 1}
+        if launches != want:
+            raise AssertionError(f"vector env ({impl}) launches {launches}, want {want}")
+        for t, (g_, r_) in enumerate(zip(got, ref)):
+            for k, (x, y) in enumerate(zip(g_[:-1], r_[:-1])):
+                if not np.array_equal(x, y) or x.dtype != y.dtype:
+                    raise AssertionError(f"vector env ({impl}) output {k} @ {t} differs from the CPU's")
+            gi, ri = g_[-1], r_[-1]
+            if gi.keys() != ri.keys():
+                raise AssertionError(f"vector env ({impl}) info keys @ {t} differ")
+            for k in ri:
+                for x, y in zip(gi[k], ri[k]) if ri[k].dtype == object else [(gi[k], ri[k])]:
+                    if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+                        raise AssertionError(f"vector env ({impl}) info {k} @ {t} differs from the CPU's")
+        checked_ends = sum(int(r[2].sum()) for r in ref[1:])
+        if checked_ends == 0:
+            raise AssertionError(f"vector env ({impl}): no episode ended in the steps checked")
+        out[impl] = {"B": B, "steps": T, "wall_s": wall, "step_ms": 1e3 * wall / T,
+                     "env_steps_per_s": B * T / wall, "episodes_ended": ends,
+                     "checked_steps": VECTOR_CHECK_STEPS, "checked_episode_ends": checked_ends}
+        for k in total:
+            total[k] += launches[k]
+        emit({"phase": "vector_env", "impl": impl, **out[impl], "equal_cpu": True,
+              "launches": {k: v for k, v in launches.items() if v}, "nvidia_smi": smi})
+    return {"launches": total, "steps": 2 * T, "times": out}
+
+
+def time_surface_kernels(dev, smi) -> dict:
+    """Phase 30: the four new kernels' device ms at B = 1, 4096 and 65536
+    (the grouped boards mode at 4096) beside their bounds and their plain
+    versions (at most at B = 4096, scaled), and one shell step's host ms at B = 1."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, grouped
+    from tetris_gymnasium_torch.envs import Tetris
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, compose_rgb_plain, feature_vector_plain
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(30)
+    cfg = EngineConfig(auto_reset=True)
+    P = engine.PIECES
+    flags = FeatureFlags()
+    out = {k: {} for k in ("grouped_flagship", "feature_vector", "observe_dict", "compose_rgb")}
+    for B in SURFACE_TIME_B:
+        big = B >= 65536
+        s = kernels.flagship_init(batch_keys(prng_key(30 + B), B, device=dev), cfg, P)
+        for _ in range(40):  # mid-game boards
+            s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P, RewardsMapping())[0]
+        pb = min(B, SURFACE_PLAIN_MAX_B)
+        ps = engine.EngineState(**{k: (getattr(s, k)[:, :pb] if k == "key" else getattr(s, k)[:pb])
+                                   .contiguous() for k in engine.FIELDS})
+        scale = B / pb
+        d = kernels.observe_dict(s, cfg, P)
+        dp = {k: v[:pb].contiguous() for k, v in d.items()}
+        crop, pcrop = s.board[:, :20, 4:14], ps.board[:, :20, 4:14]
+        state_in = nbytes(s.board, s.piece, s.rotation)
+        entries = {
+            ("grouped_flagship", "features"): (
+                lambda: kernels.grouped_flagship(s, cfg, P, "features"),
+                lambda: _grouped_features_plain(grouped.placements_plain(ps, cfg)[0], flags),
+                state_in + B * 40 * (13 * 4 + 4 + 1 + 4), B * 40 * GROUPED_FLAGSHIP_OPS_BY_MODE["features"]),
+            ("feature_vector", None): (
+                lambda: kernels.feature_vector(crop, flags), lambda: feature_vector_plain(pcrop, flags),
+                B * (200 + 13 * 4), B * FEATURE_VECTOR_OPS_PER_ENV),
+            ("observe_dict", None): (
+                lambda: kernels.observe_dict(s, cfg, P), lambda: engine.observe_dict_plain(ps, cfg),
+                nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.queue, s.holder_piece, s.holder_rotation,
+                       s.holder_count) + B * (2 * 432 + 16 + 64), B * OBSERVE_DICT_OPS_PER_ENV),
+            ("compose_rgb", None): (
+                lambda: kernels.compose_rgb(d["board"], d["queue"], d["holder"], P),
+                lambda: compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P),
+                B * (432 + 80 + 24 * 34 * 3), B * 24 * 34 * COMPOSE_OPS_PER_PIXEL),
+        }
+        if B == 4096:
+            entries[("grouped_flagship", "boards")] = (
+                lambda: kernels.grouped_flagship(s, cfg, P, "boards"),
+                lambda: grouped.placements_plain(ps, cfg)[0].float(),
+                state_in + B * 40 * (432 * 4 + 4 + 1 + 4), B * 40 * GROUPED_FLAGSHIP_OPS_BY_MODE["boards"])
+        for (name, mode), (kernel_fn, plain_fn, io, ops) in entries.items():
+            entry = timed_pair(kernel_fn, plain_fn, 10 if big else 100, 1 if pb >= 4096 else 10, io, ops)
+            entry.update(plain_ms=entry["plain_ms"] * scale, plain_B=pb, library_ms=None,
+                         envs_per_s=B / (entry["ms"] * 1e-3))
+            out[name][f"{mode}@{B}" if mode else B] = entry
+        del s, ps, d, dp
+        torch.cuda.empty_cache()
+    # one shell step at B = 1, host clock
+    env = Tetris(device=dev)
+    env.reset(seed=0)
+    rng = np.random.default_rng(30)
+    acts = rng.choice(8, SHELL_TIMED_STEPS, p=np.asarray(FLAGSHIP_ACTION_P))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts:
+        if env.step(int(a))[2]:
+            env.reset(seed=int(a))
+    shell_ms = 1e3 * (time.perf_counter() - t0) / SHELL_TIMED_STEPS
+    out["shell_step_call_ms"] = shell_ms
+    emit({"phase": "surface_times", **out, "nvidia_smi": smi})
     return out
 
 

@@ -84,7 +84,8 @@ def _step_both(ts, js, actions, **kw):
     _, _, jstep, _ = _jax(**kw)
     a = np.asarray(actions, dtype=np.int32)
     js, _, jr, jd, jinfo = jstep(js, jnp.asarray(a))
-    ts, obs, tr, td, tinfo = engine.step(ts, torch.from_numpy(a), EngineConfig(**kw))
+    ts, obs, tr, td, tinfo = engine.step(ts, torch.from_numpy(a), EngineConfig(**kw),
+                                         obs_fn=engine.no_obs)
     assert obs is None
     _assert_states_equal(ts, js, "step")
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))

@@ -548,8 +548,185 @@ def test_flagship_kernel_wrappers_refuse_cpu_tensors():
 
 def test_engine_sources_share_one_header():
     """The turbo and flagship kernels take their RNG, draws and bit helpers
-    from one header, which names both libraries."""
-    for name, src in (("turbo_step", "turbo_step.cu"), ("flagship_step", "flagship_step.cu"),
-                      ("render_rgb84", "render_rgb84.cu")):
-        assert [p.name for p in kernels._sources_of(kernels.SOURCES[name])] == \
-            [src, "engine_common.cuh"]
+    from one header, which names every library that includes it; the id
+    image and the feature vector are shared headers too."""
+    for name, chain in (("turbo_step", ["turbo_step.cu"]), ("flagship_step", ["flagship_step.cu"]),
+                        ("render_rgb84", ["render_rgb84.cu", "id_image.cuh"]),
+                        ("observe_dict", ["observe_dict.cu", "id_image.cuh"]),
+                        ("grouped_flagship", ["grouped_flagship.cu", "engine_common.cuh",
+                                              "features.cuh"])):
+        names = [p.name for p in kernels._sources_of(kernels.SOURCES[name])]
+        assert names[: len(chain)] == chain and "engine_common.cuh" in names
+    assert [p.name for p in kernels._sources_of(kernels.SOURCES["features"])] == \
+        ["features.cu", "features.cuh"]
+
+
+# ---------------------------------------------------------------------------
+# The Gymnasium surface: grouped_flagship, feature_vector, observe_dict, compose_rgb
+# ---------------------------------------------------------------------------
+
+ALL_FLAGS = [tuple(bool(m >> k & 1) for k in range(4)) for m in range(16)]
+
+
+def _surface_states(dev, B, steps, seed):
+    """Flagship states along a random trajectory, then hand-built stacks:
+    garbage ids, full rows, pieces in random spots and a full holder."""
+    from tetris_gymnasium_torch.core import engine
+
+    config = EngineConfig(auto_reset=True)
+    s = engine.init(batch_keys(prng_key(seed), B, device=dev), config, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    out = [s]
+    for _ in range(steps):
+        s = engine.step(s, _flagship_actions(B, g, dev), config, obs_fn=engine.no_obs)[0]
+        out.append(s)
+    board = s.board.clone()
+    inner = board[:, 2:20, 4:14]
+    garbage = torch.randint(-3, 12, inner.shape, generator=g, device=dev, dtype=torch.int8)
+    keep = torch.rand(inner.shape, generator=g, device=dev) < 0.5
+    full = torch.rand((B, 18, 1), generator=g, device=dev) < 0.3
+    inner[:] = torch.where(keep | full, garbage.abs() % 9 * full + garbage * ~full, 0)
+    out.append(s.replace(
+        board=board,
+        piece=torch.randint(-1, 8, (B,), generator=g, device=dev, dtype=torch.int32),
+        rotation=torch.randint(0, 4, (B,), generator=g, device=dev, dtype=torch.int32),
+        x=torch.randint(-3, 18, (B,), generator=g, device=dev, dtype=torch.int32),
+        y=torch.randint(-2, 22, (B,), generator=g, device=dev, dtype=torch.int32),
+        holder_count=torch.randint(0, 2, (B,), generator=g, device=dev, dtype=torch.int32),
+    ))
+    return config, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 301])
+def test_grouped_flagship_kernel_matches_plain(cuda, B):
+    from tetris_gymnasium_torch.core import grouped
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags
+
+    config, states = _surface_states(cuda, B, 40, seed=B)
+    for i, s in enumerate(states[::4] + states[-1:]):
+        want = grouped.placements_plain(s, config)
+        for got, ref, what in zip(kernels.grouped_flagship(s, config, turbo.PIECES, "ids"), want,
+                                  ("ids", "mask", "over", "lines")):
+            _assert_equal(got, ref, f"{what} @ {i}")
+        _assert_equal(kernels.grouped_flagship(s, config, turbo.PIECES, "boards")[0],
+                      want[0].float(), f"boards @ {i}")
+        for flags in ALL_FLAGS:
+            flags = FeatureFlags(*flags)
+            got = kernels.grouped_flagship(s, config, turbo.PIECES, "features", flags)[0]
+            ref = grouped.grouped_observation_plain(s, config, mode="features",
+                                                    feature_flags=flags)[0]
+            _assert_equal(got, ref, f"features {flags} @ {i}")
+
+
+@pytest.mark.cuda
+def test_feature_vector_kernel_matches_plain(cuda):
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, feature_vector_plain
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    boards = torch.randint(-5, 9, (1001, 24, 18), generator=g, device=cuda, dtype=torch.int8)
+    boards *= torch.rand((1001, 24, 18), generator=g, device=cuda) < 0.4
+    boards[:5] = 0
+    boards[5:10, :20, 4] = 3  # a full column
+    crop = boards[:, :20, 4:14]
+    for flags in ALL_FLAGS:
+        flags = FeatureFlags(*flags)
+        _assert_equal(kernels.feature_vector(crop, flags), feature_vector_plain(crop, flags),
+                      str(flags))
+
+
+@pytest.mark.cuda
+def test_observe_dict_and_compose_rgb_kernels_match_plain(cuda):
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.observations import compose_rgb_plain
+
+    config, states = _surface_states(cuda, 257, 40, seed=9)
+    for i, s in enumerate(states):
+        got, want = kernels.observe_dict(s, config, engine.PIECES), engine.observe_dict_plain(s, config)
+        for k in want:
+            _assert_equal(got[k], want[k], f"{k} @ {i}")
+        strips = kernels.observe_dict(s, config, engine.PIECES, strips_only=True)
+        assert strips.keys() == {"queue", "holder"}
+        for k in strips:
+            _assert_equal(strips[k], want[k], f"strips_only {k} @ {i}")
+        _assert_equal(engine.render_rgb(s, config), engine.render_rgb_plain(s, config), f"rgb @ {i}")
+        _assert_equal(kernels.render_rgb84(s, config, engine.PIECES),
+                      engine.render_rgb84_plain(s, config), f"rgb84 @ {i}")
+    g = torch.Generator(device=cuda)
+    g.manual_seed(10)
+    boards = torch.randint(0, 256, (80, 24, 18), generator=g, device=cuda, dtype=torch.uint8)
+    q = torch.randint(0, 12, (2, 4, 16), generator=g, device=cuda, dtype=torch.uint8)
+    h = torch.randint(0, 12, (2, 4, 4), generator=g, device=cuda, dtype=torch.uint8)
+    _assert_equal(kernels.compose_rgb(boards, q, h, engine.PIECES, 40),
+                  compose_rgb_plain(boards, q, h, engine.PIECES, 40), "ids outside the palette")
+
+
+@pytest.mark.cuda
+def test_shell_launch_counts(cuda):
+    from tetris_gymnasium_torch.envs import Tetris
+    from tetris_gymnasium_torch.wrappers import FeatureVectorObservation, GroupedActionsObservations
+
+    env = Tetris(render_mode="rgb_array", device=cuda)
+    env.reset(seed=0)
+    kernels.reset_launches()
+    for a in range(8):
+        env.step(a)
+    env.render()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "flagship_step": 8, "observe_dict": 9,
+                                "compose_rgb": 1}
+    base = Tetris(device=cuda)
+    genv = GroupedActionsObservations(base, [FeatureVectorObservation(base)])
+    _, info = genv.reset(seed=1)
+    kernels.reset_launches()
+    genv.step(int(np.nonzero(info["action_mask"])[0][0]))
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "flagship_step": 1, "grouped_flagship": 1,
+                                "observe_dict": 1, "feature_vector": 1}
+    host = GroupedActionsObservations(base, [FeatureVectorObservation(base)], mode="host")
+    _, info = host.reset(seed=1)
+    kernels.reset_launches()
+    host.step(int(np.nonzero(info["action_mask"])[0][0]))  # info["board"], then 40 candidates at once
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "flagship_step": 1, "grouped_flagship": 1,
+                                "observe_dict": 1, "feature_vector": 2}
+
+
+def test_surface_dispatch_runs_plain_versions_on_cpu():
+    from tetris_gymnasium_torch.core import engine, grouped
+    from tetris_gymnasium_torch.ops.observations import feature_vector
+
+    kernels.reset_launches()
+    config = EngineConfig()
+    s = engine.init(batch_keys(prng_key(0), 3, device="cpu"), config, device="cpu")
+    assert engine.step(s, torch.zeros(3, dtype=torch.int32), config)[1]["board"].shape == (3, 24, 18)
+    assert engine.render_rgb(s, config).shape == (3, 24, 34, 3)
+    for mode in grouped.MODES:
+        assert grouped.grouped_observation(s, config, mode=mode)[1].shape == (3, 40)
+    assert feature_vector(s.board[:, :20, 4:14]).shape == (3, 13)
+    assert kernels.LAUNCHES == NO_LAUNCHES
+
+
+def test_surface_kernel_wrappers_refuse_cpu_tensors():
+    from tetris_gymnasium_torch.core import engine
+
+    config = EngineConfig()
+    s = engine.init_plain(batch_keys(prng_key(0), 2, device="cpu"), config)
+    d = engine.observe_dict_plain(s, config)
+    for call in (lambda: kernels.grouped_flagship(s, config, engine.PIECES, "boards"),
+                 lambda: kernels.feature_vector(s.board[:, :20, 4:14], (True,) * 4),
+                 lambda: kernels.observe_dict(s, config, engine.PIECES),
+                 lambda: kernels.compose_rgb(d["board"], d["queue"], d["holder"], engine.PIECES)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_surface_kernels_refuse_other_geometry():
+    from tetris_gymnasium_torch.core import engine
+
+    config = EngineConfig(width=8)
+    s = engine.init_plain(batch_keys(prng_key(0), 2, device="cpu"), config)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        kernels.grouped_flagship(s, config, engine.PIECES, "boards")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        kernels.feature_vector(s.board[:, :20, 4:12], (True,) * 4)

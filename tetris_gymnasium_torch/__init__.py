@@ -10,12 +10,15 @@ Ported so far:
   and the bit operations;
 * ``ops.rng``, ``ops.threefry``, ``components.tetromino_randomizer``,
   ``parallel.mesh.batch_keys``: the RNG streams and per-env keys;
-* ``core.turbo``, ``core.turbo_grouped`` and ``core.engine`` (the flagship
-  engine with its id boards), whose entry points launch the CUDA kernels of
-  ``kernels`` (sources in ``csrc/``) on CUDA tensors and run plain PyTorch
-  versions on CPU tensors;
-* ``ops.observations``, ``ops.image``, ``ops.framestack``: the RGB
-  composite, the 84x84 gray frames and frame stacks;
+* ``core.turbo``, ``core.turbo_grouped``, ``core.engine`` (the flagship
+  engine with its id boards) and ``core.grouped`` (its placement MDP),
+  whose entry points launch the CUDA kernels of ``kernels`` (sources in
+  ``csrc/``) on CUDA tensors and run plain PyTorch versions on CPU tensors;
+* ``ops.observations``, ``ops.image``, ``ops.framestack``: the feature
+  vector, the RGB composite, the 84x84 gray frames and frame stacks;
+* ``envs`` (the Gymnasium shell ``Tetris``, registered as
+  ``tetris_gymnasium_torch/Tetris``, and ``TetrisVectorEnv``), ``wrappers``
+  and ``components`` (the host piece model, queue, holder, randomizers);
 * ``models``: the networks and the Flax weight converter;
 * ``rl`` (PPO, the grouped DQN, the DQN, replay, evaluation), ``examples``
   (the training scripts) and ``utils``.

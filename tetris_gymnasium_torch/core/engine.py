@@ -11,13 +11,16 @@ turbo engine's is (``uint32[2, B]``):
   holder_size]``, the other fields ``[B]``.
 
 Each entry point dispatches on the device of the tensors it is given: on
-CUDA tensors :func:`init`, :func:`step`, :func:`observe_board` and
-:func:`render_rgb84` launch the hand-written kernels of
-:mod:`tetris_gymnasium_torch.kernels` (``flagship_init``,
-``flagship_step``, ``flagship_observe_board``, ``render_rgb84``) or raise;
-on CPU tensors they run the plain versions in this module (``*_plain``),
-which mirror the JAX functions line for line and also run on CUDA tensors
-when called by name.  The RNG and the piece draws are the turbo engine's
+CUDA tensors :func:`init`, :func:`step`, :func:`observe_board`,
+:func:`observe_dict`, :func:`render_rgb` and :func:`render_rgb84` launch the
+hand-written kernels of :mod:`tetris_gymnasium_torch.kernels`
+(``flagship_init``, ``flagship_step``, ``flagship_observe_board``,
+``observe_dict``, ``observe_dict`` then ``compose_rgb``, ``render_rgb84``)
+or raise; on CPU tensors they run the plain versions in this module
+(``*_plain``), which mirror the JAX functions line for line and also run on
+CUDA tensors when called by name.  The JAX module's cached ``jit_*`` and
+``batched_*`` entry points are plain cached callables here (PyTorch runs
+eagerly).  The RNG and the piece draws are the turbo engine's
 (:mod:`tetris_gymnasium_torch.ops.rng`,
 :mod:`tetris_gymnasium_torch.components.tetromino_randomizer`), which work
 batch-minor: the plain versions transpose the bag into them and out again.
@@ -28,6 +31,7 @@ are built for the default geometry.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,7 +45,7 @@ from tetris_gymnasium_torch.ops import bitboard as bb
 from tetris_gymnasium_torch.ops import board as ob
 from tetris_gymnasium_torch.ops import rng as orng
 from tetris_gymnasium_torch.ops.image import preprocess_rgb84
-from tetris_gymnasium_torch.ops.observations import compose_rgb
+from tetris_gymnasium_torch.ops.observations import compose_rgb, compose_rgb_plain
 from tetris_gymnasium_torch.pieces import PIECES, PieceSet, piece_matrix
 from tetris_gymnasium_torch.utils.device import constant, resolve_device
 from tetris_gymnasium_torch.utils.tree import select_tree
@@ -235,8 +239,8 @@ def queue_holder_strips(state: EngineState, pieces: PieceSet = PIECES):
     return queue_strip, holder_strip
 
 
-def observe_dict(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> dict:
-    """The Dict observation (``:257``): ``board``, ``active_tetromino_mask``, ``holder``, ``queue``."""
+def observe_dict_plain(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> dict:
+    """Plain version of :func:`observe_dict`, on any device."""
     queue_strip, holder_strip = queue_holder_strips(state, pieces)
     return {
         "board": project_active(state, config, pieces).to(torch.uint8),
@@ -244,6 +248,17 @@ def observe_dict(state: EngineState, config: EngineConfig, pieces: PieceSet = PI
         "holder": holder_strip,
         "queue": queue_strip,
     }
+
+
+def observe_dict(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> dict:
+    """The Dict observation (``:257``): ``board``, ``active_tetromino_mask``,
+    ``holder``, ``queue``, each ``uint8`` with the batch leading.  On CUDA
+    tensors the ``observe_dict`` kernel computes all four."""
+    if state.board.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        return kernels.observe_dict(state, config, pieces)
+    return observe_dict_plain(state, config, pieces)
 
 
 def observe_board_plain(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
@@ -268,15 +283,22 @@ def observe_board(state: EngineState, config: EngineConfig, pieces: PieceSet = P
     return observe_board_plain(state, config, pieces)
 
 
+def render_rgb_plain(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
+    """Plain version of :func:`render_rgb`, on any device."""
+    obs = observe_dict_plain(state, config, pieces)
+    return compose_rgb_plain(obs["board"], obs["queue"], obs["holder"], pieces)
+
+
 def render_rgb(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
-    """RGB composite ``uint8[B, H_pad, W_pad + sidebar, 3]`` (``:529``)."""
+    """RGB composite ``uint8[B, H_pad, W_pad + sidebar, 3]`` (``:529``).  On
+    CUDA tensors it is the ``observe_dict`` kernel, then ``compose_rgb``."""
     obs = observe_dict(state, config, pieces)
     return compose_rgb(obs["board"], obs["queue"], obs["holder"], pieces)
 
 
 def render_rgb84_plain(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
     """Plain version of :func:`render_rgb84`, on any device."""
-    return preprocess_rgb84(render_rgb(state, config, pieces))
+    return preprocess_rgb84(render_rgb_plain(state, config, pieces))
 
 
 def render_rgb84(state: EngineState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
@@ -436,8 +458,9 @@ def step(state: EngineState, action: torch.Tensor, config: EngineConfig, pieces:
     """One batched step; ``action`` is ``int32[B]``.
 
     Returns ``(state, obs, reward, done, info)`` like the JAX ``step``, with
-    ``obs = obs_fn(state, config, pieces)`` or None.  On CUDA tensors the
-    ``flagship_step`` kernel computes it into new buffers.
+    ``obs = obs_fn(state, config, pieces)``, by default the Dict obs
+    (:func:`observe_dict`); pass ``obs_fn=no_obs`` to build none.  On CUDA
+    tensors the ``flagship_step`` kernel computes it into new buffers.
     """
     if state.board.is_cuda:
         from tetris_gymnasium_torch import kernels
@@ -445,9 +468,14 @@ def step(state: EngineState, action: torch.Tensor, config: EngineConfig, pieces:
         stepped, reward, done, lines = kernels.flagship_step(state, action, config, pieces, rewards)
     else:
         stepped, reward, done, lines = step_plain(state, action, config, pieces, rewards)
-    obs = obs_fn(stepped, config, pieces) if obs_fn is not None else None
+    obs = (obs_fn or observe_dict)(stepped, config, pieces)
     info = {"lines_cleared": lines, "score": stepped.score, "steps": stepped.steps}
     return stepped, obs, reward, done, info
+
+
+def no_obs(state, config, pieces):
+    """An ``obs_fn`` that builds no observation (the RL loops' and the grouped engine's)."""
+    return None
 
 
 def rollout(state: EngineState, actions: torch.Tensor, config: EngineConfig,
@@ -461,3 +489,44 @@ def rollout(state: EngineState, actions: torch.Tensor, config: EngineConfig,
         state, o, r, d, info = step(state, a, config, pieces, obs_fn=obs_fn)
         outs.append((o, r, d, info["lines_cleared"]))
     return state, tuple(torch.stack(xs) for xs in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# Cached entry points (``:539-584``): plain callables, one per config
+# ---------------------------------------------------------------------------
+
+_OBS_FNS = {"dict": observe_dict, "board": observe_board}
+
+
+@functools.lru_cache(maxsize=None)
+def jit_render_rgb(config: EngineConfig):
+    """Cached RGB renderer for the default piece set."""
+    return functools.partial(render_rgb, config=config)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_observe(config: EngineConfig, obs: str = "dict"):
+    """Cached observation function for the default piece set."""
+    return functools.partial(_OBS_FNS[obs], config=config)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_step(config: EngineConfig, obs: str = "dict", rewards: RewardsMapping = REWARDS):
+    """Cached step for the default piece set: ``(state, action int32[B]) -> (state, obs, reward, done, info)``."""
+    return functools.partial(step, config=config, obs_fn=_OBS_FNS[obs], rewards=rewards)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_reset(config: EngineConfig, obs: str = "dict", device="cuda"):
+    """Cached reset for the default piece set: ``keys uint32[B, 2] -> (state, obs)``."""
+    return functools.partial(reset, config=config, obs_fn=_OBS_FNS[obs], device=device)
+
+
+def batched_step(states, actions, *, config: EngineConfig, obs: str = "dict"):
+    """Step over the leading env axis (``:577``)."""
+    return jit_step(config, obs)(states, actions)
+
+
+def batched_reset(keys, *, config: EngineConfig, obs: str = "dict", device="cuda"):
+    """Reset from per-env keys ``uint32[B, 2]`` (``:582``)."""
+    return jit_reset(config, obs, device)(keys)

@@ -585,3 +585,32 @@ def heights(state: TurboState, config: EngineConfig) -> torch.Tensor:
         top = torch.where(col_bits(rows, w), h, H).amin(dim=0)
         out.append(H - top)
     return torch.stack(out).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Flagship interop and rollouts
+# ---------------------------------------------------------------------------
+
+
+def from_flagship(es, config: EngineConfig) -> TurboState:
+    """The turbo state of a batched flagship ``EngineState`` (``:783``): the
+    id board reduced to occupancy rows, every field batch-minor.  New
+    buffers, contiguous, on the flagship state's device."""
+    check_geometry(config)
+    minor = ("bag", "queue", "holder_piece", "holder_rotation")
+    fields = {k: getattr(es, k) for k in FIELDS if k != "rows"}
+    fields.update({k: fields[k].T for k in minor})
+    fields["rows"] = lanes_to_u32(bb.pack_board(es.board).T)
+    return TurboState(**{k: v.contiguous().clone() for k, v in fields.items()})
+
+
+def rollout(state: TurboState, actions: torch.Tensor, config: EngineConfig,
+            pieces: PieceSet = PIECES, obs_fn: Optional[Callable] = None):
+    """Step an action sequence ``[T, B]`` (``:830``): ``(state, (obs, reward,
+    done, lines))``, each stacked over ``T`` (``obs`` None without ``obs_fn``)."""
+    outs = []
+    for a in actions:
+        state, o, r, d, info = step(state, a, config, pieces, obs_fn=obs_fn)
+        outs.append((o, r, d, info["lines_cleared"]))
+    obs = None if obs_fn is None else torch.stack([o[0] for o in outs])
+    return state, (obs,) + tuple(torch.stack(xs) for xs in list(zip(*outs))[1:])

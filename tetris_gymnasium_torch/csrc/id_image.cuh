@@ -1,0 +1,88 @@
+// The id image of the flagship engine's observation, as device code shared
+// by render_rgb84.cu, observe_dict.cu (observe_dict and compose_rgb): the
+// board with the active piece added unless it collides
+// (tetris_gymnasium_tpu/core/engine.py:project_active :227), the queue and
+// holder thumbnails (_strip :202, queue_holder_strips :239) and the
+// composite's sidebar layout (ops/observations.py:compose_rgb :84).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "engine_common.cuh"
+
+// The fields of a flagship EngineState that the observation depends on.
+struct RenderPtrs {
+  const int8_t* board;            // [B, H, PW]
+  const int32_t* piece;           // [B]
+  const int32_t* rotation;        // [B]
+  const int32_t* x;               // [B]
+  const int32_t* y;               // [B]
+  const int32_t* queue;           // [B, QS]
+  const int32_t* holder_piece;    // [B, HS]
+  const int32_t* holder_rotation; // [B, HS]
+  const int32_t* holder_count;    // [B]
+};
+
+namespace engine {
+
+constexpr int SIDE = QS * S;   // sidebar width: max(QS, HS) * padding = 16
+constexpr int IW = PW + SIDE;  // id image width: 34
+constexpr int NPAL = NP + 2;   // palette entries: empty, bedrock, 7 pieces
+
+// A thumbnail cell (_strip): the piece's id where its matrix at rot is
+// filled, else 0; 0 for a piece outside the table.
+__device__ __forceinline__ uint8_t thumb(const uint32_t* packed, const int32_t* ids, int piece,
+                                         int rot, int i, int j) {
+  const uint32_t bit = (piece_row(piece_word_2d(packed, piece, rot), i) >> j) & 1u;
+  return bit ? static_cast<uint8_t>(piece_entry(ids, piece)) : 0;
+}
+
+// project_active's test: a filled piece cell over a cell > 0 of the board
+// in the clamped window (xc, yc).
+__device__ __forceinline__ bool active_collides(const int8_t* board, uint32_t word, int xc, int yc) {
+  bool hit = false;
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      hit |= ((piece_row(word, i) >> j) & 1u) && board[(yc + i) * PW + xc + j] > 0;
+  return hit;
+}
+
+// Cell (r, c) of project_active's board: `pid` (0 where the piece collides)
+// added under the piece's cells as an int8 sum, then viewed as uint8.
+__device__ __forceinline__ uint8_t active_cell(const int8_t* board, int r, int c, uint32_t word,
+                                               int xc, int yc, int pid) {
+  int v = board[r * PW + c];
+  const int i = r - yc, j = c - xc;
+  if (i >= 0 && i < S && j >= 0 && j < S && ((piece_row(word, i) >> j) & 1u)) v += pid;
+  return static_cast<uint8_t>(static_cast<int8_t>(v));
+}
+
+// Cell (r, sc) of the composite's sidebar: the queue strip in rows 0..S-1,
+// the holder strip widened with bedrock in the bottom S rows, bedrock
+// between.  `queue(i, j)` and `holder(i, j)` read the strips.
+template <class Q, class Hd>
+__device__ __forceinline__ uint8_t sidebar_cell(int r, int sc, Q queue, Hd holder) {
+  if (r < S) return queue(r, sc);
+  if (r >= H - S && sc < HS * S) return holder(r - (H - S), sc);
+  return 1;
+}
+
+// The queue strip's cell (i, j): slot j / S at rotation 0, every slot shown.
+__device__ __forceinline__ uint8_t queue_cell(const uint32_t* packed, const int32_t* ids,
+                                              const int32_t* queue, int i, int j) {
+  return thumb(packed, ids, queue[j / S], 0, i, j % S);
+}
+
+// The holder strip's cell (i, j): slot j / S at its stored rotation,
+// bedrock while the slot is empty.
+__device__ __forceinline__ uint8_t holder_cell(const uint32_t* packed, const int32_t* ids,
+                                               const int32_t* hp, const int32_t* hr, int count,
+                                               int i, int j) {
+  const int slot = j / S;
+  return slot < count ? thumb(packed, ids, hp[slot], hr[slot], i, j % S) : 1;
+}
+
+}  // namespace engine

@@ -13,11 +13,12 @@
 // [B, 84, 84, 3] int32 temporaries in HBM.  Here one block of 256 threads
 // makes one env's frame and nothing but the frame leaves the SM:
 //   1. the board (432 bytes) comes into shared memory in 16-byte words;
-//   2. the 24x34 id image is built in shared memory: the board with the
-//      active piece's id ADDED in its window unless the piece collides
-//      there, the queue's thumbnails at rotation 0 in rows 0-3 of the
-//      sidebar, bedrock rows 4-19, the holder's thumbnail (bedrock while
-//      empty) widened with bedrock in rows 20-23;
+//   2. the 24x34 id image is built in shared memory (id_image.cuh, shared
+//      with observe_dict.cu): the board with the active piece's id ADDED in
+//      its window unless the piece collides there, the queue's thumbnails
+//      at rotation 0 in rows 0-3 of the sidebar, bedrock rows 4-19, the
+//      holder's thumbnail (bedrock while empty) widened with bedrock in
+//      rows 20-23;
 //   3. each output pixel takes its (at most) 2x2 source ids through the
 //      palette and cv2's 11-bit INTER_AREA taps, which the host builds from
 //      the same numpy code as the plain version (ops/image.py:
@@ -42,30 +43,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "engine_common.cuh"
+#include "id_image.cuh"
 
 using namespace engine;
-
-// The fields of a flagship EngineState that the frame depends on.
-struct RenderPtrs {
-  const int8_t* board;            // [B, H, PW]
-  const int32_t* piece;           // [B]
-  const int32_t* rotation;        // [B]
-  const int32_t* x;               // [B]
-  const int32_t* y;               // [B]
-  const int32_t* queue;           // [B, QS]
-  const int32_t* holder_piece;    // [B, HS]
-  const int32_t* holder_rotation; // [B, HS]
-  const int32_t* holder_count;    // [B]
-};
 
 namespace {
 
 constexpr int OUT = 84;                 // output side
-constexpr int SIDE = QS * S;            // sidebar width: max(QS, HS) * padding = 16
-constexpr int IW = PW + SIDE;           // id image width: 34
 constexpr int BOARD = H * PW;           // 432
-constexpr int NPAL = NP + 2;            // palette entries: empty, bedrock, 7 pieces
 constexpr int kThreads = 256;
 
 // Offsets into the int32 table the wrapper builds (kernels.py:_render_table).
@@ -75,14 +60,6 @@ constexpr int T_SX = T_CY + 2 * OUT;    // [OUT, 2] source columns
 constexpr int T_CX = T_SX + 2 * OUT;    // [OUT, 2]
 constexpr int T_PAL = T_CX + 2 * OUT;   // [NPAL, 3] RGB
 constexpr int T_GRAY = T_PAL + 3 * NPAL;  // [3] 22-bit gray weights
-
-// A thumbnail cell (_strip): the piece's id where its matrix at rot is
-// filled, else 0.
-__device__ __forceinline__ uint8_t thumb(const uint32_t* packed, const int32_t* ids, int piece,
-                                         int rot, int i, int j) {
-  const uint32_t bit = (piece_row(piece_word_2d(packed, piece, rot), i) >> j) & 1u;
-  return bit ? static_cast<uint8_t>(piece_entry(ids, piece)) : 0;
-}
 
 __global__ void __launch_bounds__(kThreads) render_rgb84_kernel(
     RenderPtrs p, const uint32_t* __restrict__ packed, const int32_t* __restrict__ ids,
@@ -101,40 +78,22 @@ __global__ void __launch_bounds__(kThreads) render_rgb84_kernel(
   __syncthreads();
 
   // project_active: the piece is drawn only where it does not collide
-  if (tid == 0) {
-    int h = 0;
-    for (int i = 0; i < S; ++i)
-      for (int j = 0; j < S; ++j)
-        if (((piece_row(word, i) >> j) & 1u) && board[(yc + i) * PW + xc + j] > 0) h = 1;
-    hit = h;
-  }
+  if (tid == 0) hit = active_collides(board, word, xc, yc) ? 1 : 0;
   __syncthreads();
 
   const int pid = hit ? 0 : piece_entry(ids, piece);
   const int hcount = p.holder_count[b];
+  const int32_t* queue = p.queue + b * QS;
+  const int32_t* hp = p.holder_piece + b * HS;
+  const int32_t* hr = p.holder_rotation + b * HS;
   for (int cell = tid; cell < H * IW; cell += kThreads) {
     const int r = cell / IW;
     const int c = cell % IW;
-    uint8_t id;
-    if (c < PW) {
-      int v = board[r * PW + c];
-      const int i = r - yc, j = c - xc;
-      if (i >= 0 && i < S && j >= 0 && j < S && ((piece_row(word, i) >> j) & 1u)) v += pid;
-      id = static_cast<uint8_t>(static_cast<int8_t>(v));  // int8 sum, then the uint8 view
-    } else {
-      const int sc = c - PW;
-      if (r < S) {  // queue strip, rotation 0, every slot shown
-        id = thumb(packed, ids, p.queue[b * QS + sc / S], 0, r, sc % S);
-      } else if (r >= H - S && sc < HS * S) {  // holder strip; an empty slot is bedrock
-        const int slot = sc / S;
-        id = slot < hcount ? thumb(packed, ids, p.holder_piece[b * HS + slot],
-                                   p.holder_rotation[b * HS + slot], r - (H - S), sc % S)
-                           : 1;
-      } else {  // separator and widening: bedrock
-        id = 1;
-      }
-    }
-    img[cell] = id;
+    img[cell] = c < PW ? active_cell(board, r, c, word, xc, yc, pid)
+                       : sidebar_cell(
+                             r, c - PW,
+                             [&](int i, int j) { return queue_cell(packed, ids, queue, i, j); },
+                             [&](int i, int j) { return holder_cell(packed, ids, hp, hr, hcount, i, j); });
   }
   __syncthreads();
 

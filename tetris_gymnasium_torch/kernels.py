@@ -35,12 +35,28 @@ Kernels, with the JAX function each replaces:
   ``init_state :131`` and ``observe_board :274``;
 * ``render_rgb84`` (``csrc/render_rgb84.cu``): ``core/engine.py:render_rgb
   :529`` with ``ops/observations.py:compose_rgb :84`` and
-  ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame.
+  ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame;
+* ``grouped_flagship`` (``csrc/grouped_flagship.cu``): the flagship grouped
+  engine's ``core/grouped.py:placements :98`` (``_candidate :68``,
+  ``_frame_overlap :57``) and ``grouped_observation :113``;
+* ``feature_vector`` (``csrc/features.cu``):
+  ``ops/observations.py:feature_vector :57``;
+* ``observe_dict`` and ``compose_rgb`` (``csrc/observe_dict.cu``):
+  ``core/engine.py:observe_dict :257`` and ``ops/observations.py:compose_rgb
+  :84`` (``render_rgb :529`` is the two in turn).
 
 ``csrc/threefry.cuh`` holds JAX's random bits for ``ppo_sample``,
 ``grouped_act``, ``replay_sample``, ``replay_sample_stacked`` and ``dqn_act``;
 ``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
-``turbo_step.cu`` and ``flagship_step.cu``.
+``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``;
+``csrc/id_image.cuh`` the id image of the observation, shared by
+``render_rgb84.cu`` and ``observe_dict.cu``; ``csrc/features.cuh`` the
+feature vector, shared by ``features.cu`` and ``grouped_flagship.cu``.
+
+The kernels are built for the default geometry (10x20, padding 4, queue 4,
+holder 1) and seven pieces of side at most 4; on CUDA tensors any other
+configuration raises ``NotImplementedError`` (wider boards and other
+geometries are ROADMAP item 11); the plain versions take them on the CPU.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -86,6 +102,9 @@ SOURCES = {
     "dqn_act": PACKAGE_DIR / "csrc" / "dqn_act.cu",
     "flagship_step": PACKAGE_DIR / "csrc" / "flagship_step.cu",
     "render_rgb84": PACKAGE_DIR / "csrc" / "render_rgb84.cu",
+    "grouped_flagship": PACKAGE_DIR / "csrc" / "grouped_flagship.cu",
+    "features": PACKAGE_DIR / "csrc" / "features.cu",
+    "observe_dict": PACKAGE_DIR / "csrc" / "observe_dict.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,7 +116,8 @@ LAUNCHES = {
     "turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0,
     "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
     "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0, "flagship_step": 0,
-    "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0,
+    "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0, "grouped_flagship": 0,
+    "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0,
 }
 
 _LIBS: dict = {}
@@ -320,6 +340,16 @@ _ENTRY_POINTS = {
     "render_rgb84": {
         "render_rgb84_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _I, _P],
     },
+    "grouped_flagship": {
+        "grouped_flagship_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "features": {
+        "feature_vector_launch": [_P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P, _P],
+    },
+    "observe_dict": {
+        "observe_dict_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "compose_rgb_launch": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P],
+    },
 }
 
 
@@ -366,8 +396,9 @@ def _check_step_config(config: EngineConfig, t: bb.Tables) -> None:
     got = {k: getattr(config, k) for k in _STEP_GEOMETRY}
     if got != _STEP_GEOMETRY or (t.n_pieces, t.size) != (7, 4):
         raise NotImplementedError(
-            f"the turbo_step kernel is built for {_STEP_GEOMETRY} and the 7 standard "
-            f"pieces; got {got}, {t.n_pieces} pieces of side {t.size}"
+            f"the engine kernels are built for {_STEP_GEOMETRY} and the 7 standard "
+            f"pieces; got {got}, {t.n_pieces} pieces of side {t.size} (other geometries "
+            "are ROADMAP item 11; pass device='cpu' for the plain versions)"
         )
     if config.queue_kind not in ("bag", "uniform"):
         raise NotImplementedError(f"queue_kind {config.queue_kind!r} has no kernel")
@@ -1086,4 +1117,161 @@ def render_rgb84(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
     )
     _check(rc, "render_rgb84")
     LAUNCHES["render_rgb84"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The Gymnasium surface: grouped placements, features, the Dict obs, the composite
+# ---------------------------------------------------------------------------
+
+_GROUPED_FLAGSHIP_MODES = {"features": 0, "boards": 1, "ids": 2}
+_FEATURE_BITS = (1, 2, 4, 8)  # csrc/features.cuh: kHeight, kMaxHeight, kHoles, kBumpiness
+
+
+def _feature_bits(flags) -> int:
+    return sum(bit for bit, on in zip(_FEATURE_BITS, flags) if on)
+
+
+def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = "boards",
+                     flags=None):
+    """Launch ``grouped_flagship``: every placement of every env's active
+    piece, ``(obs, mask f32[B, A], game_over bool[B, A], lines int32[B, A])``
+    with ``obs`` ``f32[B, A, n]`` (``features``, under ``flags``, default
+    all), ``f32[B, A, 24, 18]`` (``boards``) or ``int8[B, A, 24, 18]`` (``ids``)."""
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, n_features
+
+    if mode not in _GROUPED_FLAGSHIP_MODES:
+        raise ValueError(f"unknown grouped_flagship mode: {mode}")
+    flags = FeatureFlags() if flags is None else flags
+    device = state.board.device
+    t, packed, box = turbo.tables_for(pieces, device)
+    _check_step_config(config, t)
+    B = _check_flagship_state(state, config, t.n_pieces, device, ("board", "piece", "rotation"))
+    A = config.width * 4
+    board_shape = (B, A, config.padded_height, config.padded_width)
+    if mode == "features":
+        obs = torch.empty((B, A, n_features(config.width, flags)), dtype=torch.float32, device=device)
+    else:
+        obs = torch.empty(board_shape, dtype=torch.float32 if mode == "boards" else torch.int8,
+                          device=device)
+    mask = torch.empty((B, A), dtype=torch.float32, device=device)
+    game_over = torch.empty((B, A), dtype=torch.bool, device=device)
+    lines = torch.empty((B, A), dtype=torch.int32, device=device)
+    if B == 0:
+        return obs, mask, game_over, lines
+    rc = _lib("grouped_flagship").grouped_flagship_launch(
+        state.board.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(), packed.data_ptr(),
+        box.data_ptr(), _ids_for(pieces, device).data_ptr(), obs.data_ptr(), mask.data_ptr(),
+        game_over.data_ptr(), lines.data_ptr(), B, _GROUPED_FLAGSHIP_MODES[mode],
+        _feature_bits(flags), _stream(device),
+    )
+    _check(rc, "grouped_flagship")
+    LAUNCHES["grouped_flagship"] += 1
+    return obs, mask, game_over, lines
+
+
+FEATURE_CROP = (20, 10)  # csrc/features.cuh: FH, FW
+
+
+def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
+    """Launch ``feature_vector``: ``int32[B, n]`` features of an ``int8[B,
+    20, 10]`` playfield, read in place at any batch and row stride (the crop
+    ``board[:, :-pad, pad:-pad]`` of a padded board is a view)."""
+    from tetris_gymnasium_torch.ops.observations import n_features
+
+    if playfield.ndim != 3 or tuple(playfield.shape[1:]) != FEATURE_CROP:
+        raise NotImplementedError(
+            f"feature_vector is built for [B, 20, 10] playfields, got {tuple(playfield.shape)} "
+            "(other geometries are ROADMAP item 11)")
+    device = playfield.device
+    if not playfield.is_cuda or playfield.dtype != torch.int8 or playfield.stride(2) != 1:
+        raise ValueError(f"playfield: want a CUDA int8 tensor with unit column stride, got "
+                         f"{playfield.dtype} on {device}, strides {playfield.stride()}")
+    B = playfield.shape[0]
+    n = n_features(FEATURE_CROP[1], flags)
+    out = torch.empty((B, n), dtype=torch.int32, device=device)
+    if B == 0 or n == 0:
+        return out
+    rc = _lib("features").feature_vector_launch(
+        playfield.data_ptr(), playfield.stride(0), playfield.stride(1), B, _feature_bits(flags),
+        out.data_ptr(), _stream(device),
+    )
+    _check(rc, "feature_vector")
+    LAUNCHES["feature_vector"] += 1
+    return out
+
+
+PALETTE_SHAPE = (9, 3)  # csrc/id_image.cuh: NPAL entries
+
+
+def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: bool = False) -> dict:
+    """Launch ``observe_dict``: the Dict observation, ``board`` and
+    ``active_tetromino_mask`` ``uint8[B, 24, 18]``, ``holder`` ``uint8[B, 4,
+    4]``, ``queue`` ``uint8[B, 4, 16]``; with ``strips_only`` the holder and
+    queue strips alone (``engine.queue_holder_strips``)."""
+    device = state.board.device
+    t, packed, box = turbo.tables_for(pieces, device)
+    _check_step_config(config, t)
+    B = _check_flagship_state(state, config, t.n_pieces, device, _RENDER_FIELDS)
+    hw = (B, config.padded_height, config.padded_width)
+    pad = config.padding
+    out = {} if strips_only else {
+        "board": torch.empty(hw, dtype=torch.uint8, device=device),
+        "active_tetromino_mask": torch.empty(hw, dtype=torch.uint8, device=device),
+    }
+    out["holder"] = torch.empty((B, pad, pad * config.holder_size), dtype=torch.uint8, device=device)
+    out["queue"] = torch.empty((B, pad, pad * config.queue_size), dtype=torch.uint8, device=device)
+    if B == 0:
+        return out
+    ptrs = _RenderPtrs(*(getattr(state, k).data_ptr() for k in _RENDER_FIELDS))
+    rc = _lib("observe_dict").observe_dict_launch(
+        ctypes.byref(ptrs), packed.data_ptr(), box.data_ptr(), _ids_for(pieces, device).data_ptr(),
+        None if strips_only else out["board"].data_ptr(),
+        None if strips_only else out["active_tetromino_mask"].data_ptr(), out["holder"].data_ptr(),
+        out["queue"].data_ptr(), B, _stream(device),
+    )
+    _check(rc, "observe_dict")
+    LAUNCHES["observe_dict"] += 1
+    return out
+
+
+def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: torch.Tensor,
+                pieces: PieceSet, group: int = 1) -> torch.Tensor:
+    """Launch ``compose_rgb``: ``uint8[N, 24, 34, 3]`` composites of the id
+    boards ``uint8[N, 24, 18]`` with the strips ``uint8[M, 4, 16]`` and
+    ``uint8[M, 4, 4]`` of board ``n``'s env ``n // group`` (``N = M * group``)."""
+    from tetris_gymnasium_torch.utils.device import constant
+
+    device = board.device
+    cfg = EngineConfig()
+    if pieces.palette.shape != PALETTE_SHAPE:
+        raise NotImplementedError(f"compose_rgb is built for a {PALETTE_SHAPE[0]}-entry palette, "
+                                  f"got {pieces.palette.shape[0]} (ROADMAP item 11)")
+    N = board.shape[0]
+    if group < 1 or N % group:
+        raise ValueError(f"{N} boards do not split into groups of {group}")
+    M = N // group
+    pad = cfg.padding
+    if tuple(board.shape[1:]) != (cfg.padded_height, cfg.padded_width) \
+            or tuple(queue_strip.shape[1:]) != (pad, pad * cfg.queue_size) \
+            or tuple(holder_strip.shape[1:]) != (pad, pad * cfg.holder_size):
+        raise NotImplementedError(
+            f"compose_rgb is built for the default geometry; got boards {tuple(board.shape)}, "
+            f"strips {tuple(queue_strip.shape)} and {tuple(holder_strip.shape)} (ROADMAP item 11)")
+    _check_tensor(board, "board", torch.uint8, board.shape, device)
+    _check_tensor(queue_strip, "queue_strip", torch.uint8, (M,) + tuple(queue_strip.shape[1:]), device)
+    _check_tensor(holder_strip, "holder_strip", torch.uint8, (M,) + tuple(holder_strip.shape[1:]),
+                  device)
+    side = pad * max(cfg.queue_size, cfg.holder_size)
+    out = torch.empty((N, cfg.padded_height, cfg.padded_width + side, 3), dtype=torch.uint8,
+                      device=device)
+    if N == 0:
+        return out
+    palette = constant(pieces.palette, device)
+    rc = _lib("observe_dict").compose_rgb_launch(
+        board.data_ptr(), queue_strip.data_ptr(), holder_strip.data_ptr(), palette.data_ptr(),
+        int(group), N, out.data_ptr(), _stream(device),
+    )
+    _check(rc, "compose_rgb")
+    LAUNCHES["compose_rgb"] += 1
     return out

@@ -1,10 +1,10 @@
 """Id-board helpers of the flagship engine, batched, plain PyTorch.
 
-Port of the half of ``tetris_gymnasium_tpu/ops/board.py`` that the flagship
-engine uses: ``create_board :27``, ``_clamp_start :40`` (here
-:func:`clamp_start`, which the bit operations and the turbo engine share),
-``collision :62``,
-``project :80`` and ``spawn_x_classic :276``.  A board is ``int8[B, H, W]``
+Port of the part of ``tetris_gymnasium_tpu/ops/board.py`` that the flagship
+engine and its grouped placements use: ``create_board :27``, ``_clamp_start
+:40`` (here :func:`clamp_start`, which the bit operations and the turbo
+engine share), ``collision :62``, ``project :80``, ``drop_distance :116``,
+``clear_lines :166`` and ``spawn_x_classic :276``.  A board is ``int8[B, H, W]``
 (cell ids: 0 empty, 1 bedrock, 2.. pieces) with the batch leading; a piece
 matrix is ``[B, S, S]`` and ``x``, ``y`` are ``int32[B]``.  The JAX
 versions address the ``S x S`` window with one-hot contractions; here the
@@ -13,6 +13,7 @@ window is gathered and scattered directly, with the same start clamping.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from tetris_gymnasium_torch.pieces import BEDROCK_ID
 
@@ -43,10 +44,15 @@ def _window(board: torch.Tensor, size: int, x: torch.Tensor, y: torch.Tensor):
     return b, rows, cols
 
 
+def window(board: torch.Tensor, size: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Each env's clamped ``size x size`` window of ``board``, ``[B, S, S]``
+    (``lax.dynamic_slice`` at (y, x))."""
+    return board[_window(board, size, x, y)]
+
+
 def collision(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``bool[B]``: a filled piece cell overlaps a cell ``> 0`` of the window at (x, y)."""
-    window = board[_window(board, piece.shape[-1], x, y)]
-    return ((window > 0) & (piece > 0)).flatten(1).any(dim=1)
+    return ((window(board, piece.shape[-1], x, y) > 0) & (piece > 0)).flatten(1).any(dim=1)
 
 
 def project(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -64,6 +70,42 @@ def project(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor, y: torch.
     out = board.clone()
     out[idx] = (board[idx].to(torch.int32) + stamp).to(board.dtype)
     return out
+
+
+def drop_distance(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """How far the piece falls from (x, y), ``int32[B]`` (``:116``).
+
+    The collision test at every offset ``d`` in ``[0, H)``, its window start
+    ``clip(y + 1 + d, 0, H - S)`` (a plain clip, no wrap), and the count of
+    the collision-free prefix: a board without a floor gives ``H``.
+    """
+    B, H, W = board.shape
+    S = piece.shape[-1]
+    ar = torch.arange(S, device=board.device)
+    cols = clamp_start(x, W - S, W).long()[:, None] + ar  # [B, S]
+    occ = (board > 0).gather(2, cols[:, None, :].expand(B, H, S))  # occ[b, r, x + j]
+    row_hit = (occ[:, :, None, :] & (piece > 0)[:, None, :, :]).any(dim=-1)  # [B, H, S]: row r under piece row i
+    ys = (y.long()[:, None] + 1 + torch.arange(H, device=board.device)).clamp(0, H - S)  # [B, H]
+    hit = row_hit.gather(1, ys[:, :, None] + ar).any(dim=-1)  # [B, H]: the window at ys[d]
+    return torch.cumprod((~hit).to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
+
+
+def clear_lines(board: torch.Tensor, height: int, width: int, padding: int):
+    """Clear every full playfield row and compact the stack down (``:166``):
+    ``(board, lines int32[B])``.  The rows that stay keep their order at the
+    bottom, the cleared rows come back as zeros at the top, and the bottom
+    padding and both side frames are rebuilt as bedrock."""
+    inner = board[:, :-padding, padding:-padding]
+    filled = (inner > 0).all(dim=2)  # [B, height]
+    n = filled.sum(dim=1, dtype=torch.int32)
+    keep = ~filled
+    # a kept row goes to its rank among the kept rows plus n; a full row to a
+    # spare row past the end, dropped (no host sync: a CUDA graph can hold it)
+    dest = torch.where(keep, torch.cumsum(keep.to(torch.int64), dim=1) - 1 + n[:, None], height)
+    out = torch.zeros((inner.shape[0], height + 1, width), dtype=inner.dtype, device=inner.device)
+    out.scatter_(1, dest[:, :, None].expand(-1, -1, width), inner)
+    return F.pad(out[:, :height], (padding, padding, 0, padding), value=BEDROCK_ID), n
 
 
 def spawn_x_classic(padded_width: int, box: torch.Tensor) -> torch.Tensor:

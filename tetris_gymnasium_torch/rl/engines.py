@@ -49,7 +49,9 @@ def env_fns(
     pkw = {} if pieces is None else {"pieces": pieces}
     mod = turbo if impl == "turbo" else engine
     init = functools.partial(mod.init, config=env_config, device=device, **pkw)
-    step = functools.partial(mod.step, config=env_config, **rkw, **pkw)
+    # the flagship step builds no Dict obs here: observe() makes the one asked for
+    okw = {"obs_fn": engine.no_obs} if impl == "flagship" else {}
+    step = functools.partial(mod.step, config=env_config, **rkw, **pkw, **okw)
     observe_fn = engine.render_rgb84 if obs == "rgb84" else mod.observe_board
     observe = functools.partial(observe_fn, config=env_config, **pkw)
     return init, step, observe
