@@ -177,11 +177,31 @@ Phases, each printing one JSON line:
     mode at 4096) beside their bounds and plain versions, and one shell
     step's host ms at B = 1.
 
-Then the kernels line (twenty kernels; each with the launch counts of the
+31. The engine kernels at other geometries (``wide_geometries``: 30x20 with
+    and without gravity, 61x12 with a queue of 3, 28x14 with bit 31 of word
+    0 in play, 8x12 with a uniform queue of 2, and 6x6 pieces at widths 10
+    and 30), each built for its geometry in phase 2: ``turbo_init``,
+    ``turbo_step``, ``observe_board``, ``heights``, ``flagship_init``,
+    ``flagship_step`` and ``flagship_observe_board`` bit-equal to their
+    plain versions on 300-step trajectories at B = 4096, 1001 and 1, on
+    hand-built stacks with up to six full rows, and on drops that clear rows
+    whose gaps straddle the word boundary (columns 0, 12, 14, 26; one and
+    two rows) at 30x20.
+32. The turbo engine equal to the flagship engine at 30x20 and 61x12, 120
+    steps at 4096 envs.
+33. The slice's path: ``TetrisVectorEnv`` at width 30, height 20 as in
+    phase 29 (8192 envs x 64 steps, both engines, the first 16 steps equal
+    to a CPU run, exact launch counts, env-steps/s).
+34. The engine kernels' device ms at B = 4096 and 65536 at 30x20 and 61x12,
+    and ``turbo_step``, ``observe_board``, ``flagship_step`` and ``heights``
+    at the default geometry at 65536, beside their bounds and plain versions.
+
+Then the kernels line (21 kernels; each with the launch counts of the
 first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
 else PPO, else the grouped engine, else the shell; times at the shape of
-that path) and, last, the device line.
+that path; ``heights``, which no path calls, with 0 launches and its time
+at 30x20, B = 4096) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -349,7 +369,7 @@ MAX_ERR = {"turbo_step": 0.0, "turbo_init": 0.0, "observe_board": 0.0, "gae": 0.
            "replay_sample": 0.0, "replay_sample_stacked": 0.0, "framestack_push": 0.0,
            "dqn_act": 0.0, "flagship_step": 0.0, "flagship_init": 0.0,
            "flagship_observe_board": 0.0, "render_rgb84": 0.0, "grouped_flagship": 0.0,
-           "feature_vector": 0.0, "observe_dict": 0.0, "compose_rgb": 0.0}
+           "feature_vector": 0.0, "observe_dict": 0.0, "compose_rgb": 0.0, "heights": 0.0}
 
 
 def bits(t):
@@ -529,12 +549,13 @@ def main() -> None:
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    builds = kernels.build()
+    builds = kernels.build([(cfg, P) for _, cfg, P in wide_geometries()])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": [{k: b[k] for k in ("name", "seconds", "cached")} for b in builds]})
+          "kernels": [{k: b[k] for k in ("name", "defines", "seconds", "cached")} for b in builds]})
     for b in builds:
+        tag = ",".join(f"{k[7:].lower()}={v}" for k, v in b["defines"].items())
         for line in b["ptxas"].splitlines():
-            print(f"  [{b['name']}] {line.strip()}", flush=True)
+            print(f"  [{b['name']}{'@' + tag if tag else ''}] {line.strip()}", flush=True)
 
     # -- helpers ----------------------------------------------------------------
     def state_diff(kernel, ks, ps, what):
@@ -764,6 +785,12 @@ def main() -> None:
     vector = run_vector_env(dev, smi)
     surface_times = time_surface_kernels(dev, smi)
 
+    # -- 31.-34. wide boards and other geometries ----------------------------------------
+    check_wide_kernels(dev)
+    check_wide_cross_engine(dev)
+    wide_vector = run_vector_env(dev, smi, WIDE_VECTOR)
+    wide_times = time_wide_kernels(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -803,6 +830,8 @@ def main() -> None:
                          "tetris_gymnasium_tpu/core/engine.py:257"),
         "compose_rgb": ("tetris_gymnasium_torch/csrc/observe_dict.cu",
                         "tetris_gymnasium_tpu/ops/observations.py:84"),
+        "heights": ("tetris_gymnasium_torch/csrc/heights.cu",
+                    "tetris_gymnasium_tpu/core/turbo.py:760"),
     }
     # Each kernel's launches and time come from one path: the first below
     # that runs it (the pixel DQN, else the flagship engine's board
@@ -837,14 +866,19 @@ def main() -> None:
               {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
              ("shell", shell["launches"], shell["steps"],
               {k: surface_times[k][1] for k in ("observe_dict", "compose_rgb", "feature_vector")}),
-             ("vector_env", vector["launches"], vector["steps"], {})]
+             ("vector_env", vector["launches"], vector["steps"], {}),
+             ("vector_env_wide", wide_vector["launches"], wide_vector["steps"], {}),
+             # heights: no path calls it (nor any in the JAX package); its
+             # time is at 30x20, B = 4096, its launches 0
+             ("none", {k: 0 for k in kernels.LAUNCHES}, 1,
+              {"heights": wide_times["30x20"]["heights"][4096]})]
     entries = []
     for name, (src, rep) in sources.items():
-        path, counts, n_steps, at = next(p for p in paths if p[1][name])
+        path, counts, n_steps, at = next(p for p in paths if p[1][name] or p[0] == "none")
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
             "launches": counts[name], "launches_per_step": counts[name] / n_steps,
-            **{f"launches_{p[0]}": p[1][name] for p in paths},
+            **{f"launches_{p[0]}": p[1][name] for p in paths if p[0] != "none"},
             "launches_eval": launches[name],
             "launches_dqn_eval_k4": dqn_runs[4]["eval_launches"][name],
             "launches_dqn_rgb84_eval": pix["eval_launches"][name],
@@ -2010,14 +2044,14 @@ def _flagship_actions(B, g, dev):
     return torch.multinomial(p.expand(B, -1), 1, replacement=True, generator=g)[:, 0].to(torch.int32)
 
 
-def _flagship_vs_turbo(fs, ts, what) -> None:
-    """The flagship state equals the turbo state field for field, its
-    occupancy packed from the id board."""
+def _flagship_vs_turbo(fs, ts, what, cfg=None) -> None:
+    """The flagship state equals the turbo state of geometry ``cfg`` (by
+    default the default one) field for field, its occupancy packed from the
+    id board."""
+    from tetris_gymnasium_torch.config import EngineConfig
     from tetris_gymnasium_torch.core import turbo
-    from tetris_gymnasium_torch.ops import bitboard as bb
 
-    rows = bb.pack_board(fs.board).T
-    if not torch.equal(rows, turbo.u32_to_lanes(ts.rows)):
+    if not torch.equal(bits(turbo.from_flagship(fs, cfg or EngineConfig()).rows), bits(ts.rows)):
         raise AssertionError(f"{what}: occupancy differs from turbo_step's")
     for k in turbo.FIELDS:
         if k == "rows":
@@ -2386,6 +2420,12 @@ def check_pixel_path_shapes(dev, ts, cfg) -> None:
           "samples": cfg.batch_size, "seconds": time.perf_counter() - t0})
 
 
+def _playfield(board, cfg):
+    """The cells of id boards ``[B, H+pad, W+2pad]`` that a board observation
+    reads: the playfield's rows and columns, no bedrock."""
+    return board[:, : cfg.height, cfg.padding : cfg.padding + cfg.width]
+
+
 def _render_bytes(s, B) -> int:
     """What ``render_rgb84`` must move: the fields it reads, once, and the frames."""
     return nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.queue, s.holder_piece,
@@ -2436,7 +2476,7 @@ def time_pixel_kernels(dev, smi) -> dict:
             "flagship_observe_board": (
                 lambda: kernels.flagship_observe_board(s, cfg, engine.PIECES),
                 lambda: engine.observe_board_plain(ps, cfg),
-                nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.game_over) + B * 200,
+                nbytes(_playfield(s.board, cfg), s.piece, s.rotation, s.x, s.y, s.game_over) + B * 200,
                 B * FLAGSHIP_OBS_OPS_PER_ENV),
             "render_rgb84": (lambda: kernels.render_rgb84(s, cfg, engine.PIECES),
                              lambda: engine.render_rgb84_plain(ps, cfg),
@@ -2880,15 +2920,17 @@ def run_grouped_engine(dev, smi) -> dict:
     return {"launches": total, "steps": 2 * T, "times": out}
 
 
-def run_vector_env(dev, smi) -> dict:
-    """Phase 29: ``TetrisVectorEnv`` at 8192 envs x 64 steps, numpy in and
-    out, ``impl="turbo"`` and ``"flagship"``; the first 16 steps (mostly hard
-    drops, so that episodes end in them) equal to a CPU run at the same B and
-    seed, ``final_obs`` included."""
+def run_vector_env(dev, smi, geometry=None) -> dict:
+    """Phase 29 (the default board) and 33 (``geometry``, the keywords of an
+    ``EngineConfig``): ``TetrisVectorEnv`` at 8192 envs x 64 steps, numpy in
+    and out, ``impl="turbo"`` and ``"flagship"``; the first 16 steps (mostly
+    hard drops, so that episodes end in them) equal to a CPU run at the same
+    B and seed, ``final_obs`` included."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig
     from tetris_gymnasium_torch.envs import TetrisVectorEnv
 
+    config = EngineConfig(**(geometry or {}))
     rng = np.random.default_rng(29)
     B, T = VECTOR_B, VECTOR_STEPS
     p = np.asarray(FLAGSHIP_ACTION_P)
@@ -2896,9 +2938,9 @@ def run_vector_env(dev, smi) -> dict:
     total = {k: 0 for k in kernels.LAUNCHES}
     for impl in ("turbo", "flagship"):
         acts = [rng.choice(8, B, p=VECTOR_DROP_P if t < VECTOR_CHECK_STEPS else p) for t in range(T)]
-        cpu = TetrisVectorEnv(B, EngineConfig(), impl=impl, seed=29, device="cpu")
+        cpu = TetrisVectorEnv(B, config, impl=impl, seed=29, device="cpu")
         ref = [cpu.reset(seed=29)] + [cpu.step(a) for a in acts[:VECTOR_CHECK_STEPS]]
-        env = TetrisVectorEnv(B, EngineConfig(), impl=impl, seed=29, device=dev)
+        env = TetrisVectorEnv(B, config, impl=impl, seed=29, device=dev)
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2935,7 +2977,8 @@ def run_vector_env(dev, smi) -> dict:
                      "checked_steps": VECTOR_CHECK_STEPS, "checked_episode_ends": checked_ends}
         for k in total:
             total[k] += launches[k]
-        emit({"phase": "vector_env", "impl": impl, **out[impl], "equal_cpu": True,
+        emit({"phase": "vector_env" if geometry is None else "wide_vector_env", "impl": impl,
+              "width": config.width, "height": config.height, **out[impl], "equal_cpu": True,
               "launches": {k: v for k, v in launches.items() if v}, "nvidia_smi": smi})
     return {"launches": total, "steps": 2 * T, "times": out}
 
@@ -3013,6 +3056,383 @@ def time_surface_kernels(dev, smi) -> dict:
     shell_ms = 1e3 * (time.perf_counter() - t0) / SHELL_TIMED_STEPS
     out["shell_step_call_ms"] = shell_ms
     emit({"phase": "surface_times", **out, "nvidia_smi": smi})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 31.-34. wide boards and other geometries
+# ---------------------------------------------------------------------------
+
+WIDE_B = (4096, 1001, 1)
+WIDE_STEPS = 300
+WIDE_GAPS = (0, 12, 14, 26)  # tests/test_wide_boards.py:118-157: 12..15 and 14..17 straddle words
+WIDE_CROSS_B, WIDE_CROSS_STEPS = 4096, 120
+WIDE_TIME_B = (4096, 65536)
+WIDE_TIMED = ("30x20", "61x12")
+WIDE_PLAIN_MAX_B = 4096  # the plain versions' batch in phase 34; larger B scaled from it
+WIDE_VECTOR = dict(width=30, height=20)  # phase 33, the slice's path
+
+
+def wide_geometries():
+    """``(name, config, pieces)`` of every geometry of the JAX package's
+    wide-board and oversize-piece tests (tests/test_wide_boards.py:31-37,
+    tests/test_components.py:221-330): padded widths 38, 69 and 36 (bit 31
+    of word 0 in play), a narrow 8x12 board with a queue of 2, and the 6x6
+    pieces, whose table entries take two words, at widths 10 and 30."""
+    from tetris_gymnasium_torch.components.tetromino import Tetromino, pieces_from_tetrominoes
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.pieces import PIECES
+
+    big, pad = pieces_from_tetrominoes([
+        Tetromino(2, (255, 0, 0), np.array([[1, 1], [1, 1]], np.uint8)),
+        Tetromino(3, (0, 255, 0), np.ones((1, 6), np.uint8)),
+        Tetromino(4, (0, 0, 255), np.array([[0, 1, 0], [1, 1, 1], [0, 0, 0]], np.uint8))])
+    oversize = dict(height=16, padding=pad, queue_size=2, queue_kind="uniform", auto_reset=True)
+    return [
+        ("30x20", EngineConfig(width=30, height=20, auto_reset=True), PIECES),
+        ("30x20-nograv", EngineConfig(width=30, height=20, gravity_enabled=False), PIECES),
+        ("61x12", EngineConfig(width=61, height=12, queue_size=3, auto_reset=True), PIECES),
+        ("28x14", EngineConfig(width=28, height=14, auto_reset=True), PIECES),
+        ("8x12-uniform", EngineConfig(width=8, height=12, queue_size=2, queue_kind="uniform",
+                                      auto_reset=True), PIECES),
+        ("6x6-w10", EngineConfig(width=10, **oversize), big),
+        ("6x6-w30", EngineConfig(width=30, **oversize), big),
+    ]
+
+
+def _cat_turbo(states):
+    from tetris_gymnasium_torch.core import turbo
+
+    return turbo.TurboState(**{k: torch.cat([getattr(s, k) for s in states], dim=-1)
+                               for k in turbo.FIELDS})
+
+
+def _cat_flagship(states):
+    from tetris_gymnasium_torch.core import engine
+
+    return engine.EngineState(**{k: torch.cat([getattr(s, k) for s in states], dim=1 if k == "key" else 0)
+                                 for k in engine.FIELDS})
+
+
+def _graphed(fn, *example):
+    """``fn`` captured once in a CUDA graph at the shapes of ``example``
+    (tensors and state dataclasses): a call copies its arguments into the
+    graph's inputs and replays it, and returns the graph's own outputs, valid
+    until the next call.  The plain versions are sync-free, so phase 31 runs
+    them this way and the host enqueues one replay, not hundreds of small
+    kernels, a step."""
+    import dataclasses
+
+    def leaves(x):
+        return [getattr(x, f.name) for f in dataclasses.fields(x)] if dataclasses.is_dataclass(x) else [x]
+
+    static = [x.replace(**{f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)})
+              if dataclasses.is_dataclass(x) else x.clone() for x in example]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+
+    def call(*args):
+        for st, arg in zip(static, args):
+            for dst, src in zip(leaves(st), leaves(arg)):
+                dst.copy_(src)
+        graph.replay()
+        return out
+
+    return call
+
+
+def _fields_diff(kernel, ks, ps, fields, what):
+    for k in fields:
+        diff(kernel, getattr(ks, k), getattr(ps, k), f"{what}: {k}")
+
+
+def _wide_stacks(cfg, pieces, B, g, dev, seed):
+    """Flagship states on hand-built stacks: random cells below the top third,
+    0..6 full rows at the bottom, a random piece at a random window."""
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    s = engine.init_plain(batch_keys(prng_key(seed), B, device=dev), cfg, pieces)
+    H, W, pad = cfg.height, cfg.width, cfg.padding
+    inner = torch.where(torch.rand((B, H, W), generator=g, device=dev) < 0.6, 3, 0).to(torch.int8)
+    inner[:, : H // 3] = 0
+    n_full = torch.randint(0, 7, (B,), generator=g, device=dev)
+    full = torch.arange(H, device=dev)[None, :, None] >= H - n_full[:, None, None]
+    board = s.board.clone()
+    board[:, :H, pad : pad + W] = torch.where(full, 2, inner).to(torch.int8)
+    n = int(pieces.ids.shape[0])
+    return s.replace(
+        board=board,
+        piece=torch.randint(0, n, (B,), generator=g, device=dev, dtype=torch.int32),
+        rotation=torch.randint(0, 4, (B,), generator=g, device=dev, dtype=torch.int32),
+        x=torch.randint(-3, cfg.padded_width, (B,), generator=g, device=dev, dtype=torch.int32),
+        y=torch.randint(0, 4, (B,), generator=g, device=dev, dtype=torch.int32)), n_full
+
+
+def _straddle_state(cfg, gap, n_rows, B, dev):
+    """tests/test_wide_boards.py:_surgery_states at B envs: the bottom
+    ``n_rows`` playfield rows full but for a 4-wide gap at ``gap``, a flat I
+    parked over it."""
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    s = engine.init_plain(batch_keys(prng_key(7), B, device=dev), cfg)
+    H, W, pad = cfg.height, cfg.width, cfg.padding
+    board = s.board.clone()
+    board[:, H - n_rows : H, pad : pad + W] = 2
+    board[:, H - n_rows : H, pad + gap : pad + gap + 4] = 0
+    zero = torch.zeros((B,), dtype=torch.int32, device=dev)
+    return s.replace(board=board, piece=zero, rotation=zero.clone(),
+                     x=torch.full((B,), gap + pad, dtype=torch.int32, device=dev), y=zero.clone())
+
+
+def check_wide_kernels(dev) -> dict:
+    """Phase 31: ``turbo_init``, ``turbo_step``, ``observe_board``,
+    ``heights``, ``flagship_init``, ``flagship_step`` and
+    ``flagship_observe_board`` bit-equal to their plain versions at every
+    geometry of :func:`wide_geometries`, on 300-step trajectories at B =
+    4096, 1001 and 1 (the plain versions run once on the three batches side
+    by side, replayed from CUDA graphs), then on hand-built stacks: drops
+    into 4-wide gaps at columns
+    0, 12, 14 and 26 of one and two rows at 30x20, and random stacks with up
+    to six full rows at every geometry (``turbo_step`` with ``max_clear`` 4
+    and the board's height)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, turbo
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    rw = RewardsMapping()
+    t0 = time.perf_counter()
+    runs = []
+    for name, cfg, P in wide_geometries():
+        keys = [batch_keys(prng_key(31 + B), B, device=dev) for B in WIDE_B]
+        ts = [kernels.turbo_init(k, cfg, P) for k in keys]
+        fs = [kernels.flagship_init(k, cfg, P) for k in keys]
+        all_keys = torch.cat(keys)
+        _fields_diff("turbo_init", _cat_turbo(ts), turbo.init_plain(all_keys, cfg, P), turbo.FIELDS,
+                     f"{name} init")
+        _fields_diff("flagship_init", _cat_flagship(fs), engine.init_plain(all_keys, cfg, P),
+                     engine.FIELDS, f"{name} flagship init")
+        n_done = n_lines = n_flines = 0
+        t_all, f_all = _cat_turbo(ts), _cat_flagship(fs)
+        a_all = torch.zeros((sum(WIDE_B),), dtype=torch.int32, device=dev)
+        plain = {
+            "obs": _graphed(lambda t: turbo.observe_board_plain(t, cfg, P), t_all),
+            "heights": _graphed(lambda t: turbo.heights_plain(t, cfg), t_all),
+            "flagship_obs": _graphed(lambda f: engine.observe_board_plain(f, cfg, P), f_all),
+            "step": _graphed(lambda t, a: turbo.step_plain(t, a, cfg, P), t_all, a_all),
+            "flagship_step": _graphed(lambda f, a: engine.step_plain(f, a, cfg, P), f_all, a_all),
+        }
+        for i in range(WIDE_STEPS):
+            t_all, f_all = _cat_turbo(ts), _cat_flagship(fs)
+            what = f"{name} @ {i}"
+            diff("observe_board", torch.cat([kernels.observe_board(s, cfg, P) for s in ts]),
+                 plain["obs"](t_all), f"{what} obs")
+            diff("heights", torch.cat([kernels.heights(s, cfg) for s in ts], dim=1),
+                 plain["heights"](t_all), f"{what} heights")
+            diff("flagship_observe_board", torch.cat([kernels.flagship_observe_board(s, cfg, P) for s in fs]),
+                 plain["flagship_obs"](f_all), f"{what} flagship obs")
+            acts = [_flagship_actions(B, g, dev) for B in WIDE_B]
+            a_all = torch.cat(acts)
+            kt = [kernels.turbo_step(s, a, cfg, P, rw) for s, a in zip(ts, acts)]
+            pt = plain["step"](t_all, a_all)
+            _fields_diff("turbo_step", _cat_turbo([o[0] for o in kt]), pt[0], turbo.FIELDS, f"{what} step")
+            kf = [kernels.flagship_step(s, a, cfg, P, rw) for s, a in zip(fs, acts)]
+            pf = plain["flagship_step"](f_all, a_all)
+            _fields_diff("flagship_step", _cat_flagship([o[0] for o in kf]), pf[0], engine.FIELDS,
+                         f"{what} flagship step")
+            for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
+                diff("turbo_step", torch.cat([o[j] for o in kt]), pt[j], f"{what} {out}")
+                diff("flagship_step", torch.cat([o[j] for o in kf]), pf[j], f"{what} flagship {out}")
+            n_done += int((pt[2] & ~t_all.game_over).sum())
+            n_lines += int(pt[3].sum())
+            n_flines += int(pf[3].sum())
+            ts, fs = [o[0] for o in kt], [o[0] for o in kf]
+        del plain
+        # hand-built stacks with up to six full rows
+        s, n_full = _wide_stacks(cfg, P, WIDE_B[0], g, dev, seed=310)
+        t = turbo.from_flagship(s, cfg)
+        a = torch.where(torch.rand((WIDE_B[0],), generator=g, device=dev) < 0.5, 5,
+                        torch.randint(0, 8, (WIDE_B[0],), generator=g, device=dev)).to(torch.int32)
+        stack_lines = {}
+        for max_clear in (4, cfg.height):
+            kt1, pt1 = kernels.turbo_step(t, a, cfg, P, rw, max_clear), turbo.step_plain(t, a, cfg, P, max_clear=max_clear)
+            _fields_diff("turbo_step", kt1[0], pt1[0], turbo.FIELDS, f"{name} stacks max_clear={max_clear}")
+            for j in (1, 2, 3):
+                diff("turbo_step", kt1[j], pt1[j], f"{name} stacks max_clear={max_clear} output {j}")
+            stack_lines[f"turbo_max_clear_{max_clear}"] = int(pt1[3].max())
+        diff("observe_board", kernels.observe_board(t, cfg, P), turbo.observe_board_plain(t, cfg, P),
+             f"{name} stacks obs")
+        diff("heights", kernels.heights(t, cfg), turbo.heights_plain(t, cfg), f"{name} stacks heights")
+        kf1, pf1 = kernels.flagship_step(s, a, cfg, P, rw), engine.step_plain(s, a, cfg, P)
+        _fields_diff("flagship_step", kf1[0], pf1[0], engine.FIELDS, f"{name} flagship stacks")
+        for j in (1, 2, 3):
+            diff("flagship_step", kf1[j], pf1[j], f"{name} flagship stacks output {j}")
+        diff("flagship_observe_board", kernels.flagship_observe_board(s, cfg, P),
+             engine.observe_board_plain(s, cfg, P), f"{name} flagship stacks obs")
+        stack_lines["flagship"] = int(pf1[3].max())
+        if stack_lines["flagship"] < 5:
+            raise AssertionError(f"{name}: no hand-built stack cleared five rows at once")
+        runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
+                     "piece_side": int(P.matrices.shape[-1]), "steps": WIDE_STEPS, "B": list(WIDE_B),
+                     "episodes_ended": n_done, "lines": n_lines, "flagship_lines": n_flines,
+                     "stacks_max_lines": stack_lines})
+        emit({"phase": "wide_kernels", **runs[-1], "seconds": time.perf_counter() - t0})
+    # drops into gaps that straddle the word boundary, on both engines
+    cfg = EngineConfig(width=30, height=20)
+    clears = {}
+    for gap in WIDE_GAPS:
+        for n_rows in (1, 2):
+            s = _straddle_state(cfg, gap, n_rows, WIDE_B[0], dev)
+            t = turbo.from_flagship(s, cfg)
+            a = torch.full((WIDE_B[0],), 5, dtype=torch.int32, device=dev)
+            kt1, pt1 = kernels.turbo_step(t, a, cfg, turbo.PIECES, rw), turbo.step_plain(t, a, cfg)
+            kf1, pf1 = kernels.flagship_step(s, a, cfg, engine.PIECES, rw), engine.step_plain(s, a, cfg)
+            what = f"gap {gap} rows {n_rows}"
+            _fields_diff("turbo_step", kt1[0], pt1[0], turbo.FIELDS, what)
+            _fields_diff("flagship_step", kf1[0], pf1[0], engine.FIELDS, f"flagship {what}")
+            for j in (1, 2, 3):
+                diff("turbo_step", kt1[j], pt1[j], f"{what} output {j}")
+                diff("flagship_step", kf1[j], pf1[j], f"flagship {what} output {j}")
+            _flagship_vs_turbo(kf1[0], kt1[0], what, cfg)
+            if not (bool((pt1[3] == 1).all()) and bool((pf1[3] == 1).all())):
+                raise AssertionError(f"{what}: the drop did not clear exactly one row")
+            clears[f"{gap}x{n_rows}"] = 1
+    torch.cuda.synchronize()
+    out = {"bit_equal": True, "geometries": [r["geometry"] for r in runs], "straddling_clears": clears,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "wide_kernels_summary", **out,
+          "max_abs_err": {k: MAX_ERR[k] for k in WIDE_KERNELS}})
+    return out
+
+
+WIDE_KERNELS = ("turbo_step", "turbo_init", "observe_board", "heights", "flagship_step",
+                "flagship_init", "flagship_observe_board")
+
+
+def check_wide_cross_engine(dev) -> dict:
+    """Phase 32: the turbo engine equals the flagship engine on the card at
+    30x20 and 61x12, 120 random steps at 4096 envs (kernels only): every
+    field, occupancy from the id board, reward, done, lines and the board
+    observation."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import RewardsMapping
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    out = {}
+    for name, cfg, P in wide_geometries():
+        if name not in WIDE_TIMED:
+            continue
+        keys = batch_keys(prng_key(32), WIDE_CROSS_B, device=dev)
+        ts, fs = kernels.turbo_init(keys, cfg, P), kernels.flagship_init(keys, cfg, P)
+        ends = lines = 0
+        for i in range(WIDE_CROSS_STEPS):
+            a = _flagship_actions(WIDE_CROSS_B, g, dev)
+            ts, tr, td, tl = kernels.turbo_step(ts, a, cfg, P, RewardsMapping())
+            fs, fr, fd, fl = kernels.flagship_step(fs, a, cfg, P, RewardsMapping())
+            _flagship_vs_turbo(fs, ts, f"{name} step {i}", cfg)
+            for x, y, what in ((tr, fr, "reward"), (td, fd, "done"), (tl, fl, "lines")):
+                if not torch.equal(bits(x), bits(y)):
+                    raise AssertionError(f"{name} step {i}: turbo {what} differs from the flagship's")
+            if not torch.equal(kernels.observe_board(ts, cfg, P), kernels.flagship_observe_board(fs, cfg, P)):
+                raise AssertionError(f"{name} step {i}: board observations differ")
+            ends += int(td.sum())
+            lines += int(tl.sum())
+        out[name] = {"B": WIDE_CROSS_B, "steps": WIDE_CROSS_STEPS, "done": ends, "lines": lines}
+    emit({"phase": "wide_cross_engine", "equal": True, **out})
+    return out
+
+
+def time_wide_kernels(dev, smi) -> dict:
+    """Phase 34: device ms of every engine kernel at B = 4096 and 65536 at
+    30x20 and 61x12, and of ``turbo_step``, ``observe_board``,
+    ``flagship_step`` and ``heights`` at the default geometry at 65536,
+    beside their bounds and their plain versions (at most at B = 4096,
+    scaled), on mid-game states (40 random steps in)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, turbo
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(34)
+    rw = RewardsMapping()
+    geoms = [(n, c, p) for n, c, p in wide_geometries() if n in WIDE_TIMED]
+    geoms.append(("default", EngineConfig(auto_reset=True), turbo.PIECES))
+    out = {}
+    for name, cfg, P in geoms:
+        H, PW, S = cfg.padded_height, cfg.padded_width, int(P.matrices.shape[-1])
+        nw, board = turbo.n_words(cfg), H * PW
+        step_ops = 3 * board + 4 * (H - S + 1) * 2 * S * nw + cfg.height * cfg.height * nw
+        for B in (WIDE_TIME_B if name != "default" else (65536,)):
+            big = B >= 65536
+            keys = batch_keys(prng_key(34 + B), B, device=dev)
+            t, f = kernels.turbo_init(keys, cfg, P), kernels.flagship_init(keys, cfg, P)
+            for _ in range(40):
+                a = _flagship_actions(B, g, dev)
+                t = kernels.turbo_step(t, a, cfg, P, rw)[0]
+                f = kernels.flagship_step(f, a, cfg, P, rw)[0]
+            a = _flagship_actions(B, g, dev)
+            pb = min(B, WIDE_PLAIN_MAX_B)
+            pt = turbo.TurboState(**{k: getattr(t, k)[..., :pb].contiguous() for k in turbo.FIELDS})
+            pf = engine.EngineState(**{k: (getattr(f, k)[:, :pb] if k == "key" else getattr(f, k)[:pb])
+                                       .contiguous() for k in engine.FIELDS})
+            tbytes = nbytes(*(getattr(t, k) for k in turbo.FIELDS))
+            fbytes = nbytes(*(getattr(f, k) for k in engine.FIELDS))
+            obs_out = B * cfg.height * cfg.width
+            entries = {
+                "turbo_step": (lambda: kernels.turbo_step(t, a, cfg, P, rw), lambda: turbo.step_plain(pt, a[:pb], cfg, P),
+                               2 * tbytes + nbytes(a) + B * (4 + 1 + 4), 0),
+                "turbo_init": (lambda: kernels.turbo_init(keys, cfg, P), lambda: turbo.init_plain(keys[:pb], cfg, P),
+                               nbytes(keys) + tbytes, 0),
+                "observe_board": (lambda: kernels.observe_board(t, cfg, P),
+                                  lambda: turbo.observe_board_plain(pt, cfg, P),
+                                  nbytes(t.rows[: cfg.height], t.piece, t.rotation, t.x, t.y, t.game_over)
+                                  + obs_out, 0),
+                "heights": (lambda: kernels.heights(t, cfg), lambda: turbo.heights_plain(pt, cfg),
+                            nbytes(t.rows[: cfg.height]) + B * cfg.width * 4, 0),
+                "flagship_step": (lambda: kernels.flagship_step(f, a, cfg, P, rw),
+                                  lambda: engine.step_plain(pf, a[:pb], cfg, P),
+                                  2 * fbytes + nbytes(a) + B * (4 + 1 + 4), B * step_ops),
+                "flagship_init": (lambda: kernels.flagship_init(keys, cfg, P),
+                                  lambda: engine.init_plain(keys[:pb], cfg, P),
+                                  nbytes(keys) + fbytes, B * (100 + board)),
+                "flagship_observe_board": (lambda: kernels.flagship_observe_board(f, cfg, P),
+                                           lambda: engine.observe_board_plain(pf, cfg, P),
+                                           nbytes(_playfield(f.board, cfg), f.piece, f.rotation, f.x, f.y,
+                                                  f.game_over) + obs_out,
+                                           B * 6 * cfg.height * cfg.width),
+            }
+            if name == "default":
+                entries = {k: v for k, v in entries.items()
+                           if k in ("turbo_step", "observe_board", "flagship_step", "heights")}
+            for kname, (kernel_fn, plain_fn, io, ops) in entries.items():
+                entry = timed_pair(kernel_fn, plain_fn, 20 if big else 100, 2 if big else 10, io, ops)
+                entry.update(plain_ms=entry["plain_ms"] * B / pb, plain_B=pb, library_ms=None,
+                             envs_per_s=B / (entry["ms"] * 1e-3))
+                out.setdefault(name, {}).setdefault(kname, {})[B] = entry
+            emit({"phase": "wide_times", "geometry": name, "B": B, "words_per_row": nw,
+                  "kernels": {k: v[B] for k, v in out[name].items()}, "nvidia_smi": smi})
+            del t, f, pt, pf
+            torch.cuda.empty_cache()
     return out
 
 

@@ -405,9 +405,21 @@ def test_reset_returns_the_dict_observation():
 
 
 def test_wide_geometry_is_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-word"):
-        engine.init(batch_keys(threefry.prng_key(0), 2, device=CPU), EngineConfig(width=30),
-                    device=CPU)
+    """A wide board plays on the flagship engine, equal to JAX's; only the
+    default-geometry kernels of the Dict observation and the renders are
+    not ported to it (ROADMAP item 11-rest)."""
+    from tetris_gymnasium_torch import kernels
+
+    ts, js = _pair(0, 2, width=30)
+    assert ts.board.shape == (2, 24, 38)
+    _, _, step, _ = _jax(width=30)
+    a = np.full(2, A.hard_drop, np.int32)
+    ts2, _, r, d, _ = engine.step(ts, torch.from_numpy(a), EngineConfig(width=30), obs_fn=engine.no_obs)
+    js2, _, jr, jd, _ = step(js, jnp.asarray(a))
+    _assert_states_equal(ts2, js2, "drop")
+    for call in (kernels.observe_dict, kernels.render_rgb84):
+        with pytest.raises(NotImplementedError, match="item 11-rest"):
+            call(ts, EngineConfig(width=30), PIECES)
 
 
 # ---------------------------------------------------------------------------

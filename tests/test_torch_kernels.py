@@ -148,10 +148,35 @@ def test_ppo_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_step_kernel_refuses_other_geometry():
-    with pytest.raises(NotImplementedError):
-        kernels._check_step_config(EngineConfig(width=8), kernels.bb.turbo_tables())
-    with pytest.raises(NotImplementedError):
-        kernels._check_step_config(EngineConfig(queue_size=5), kernels.bb.turbo_tables())
+    """Each geometry maps to the defines of its own build, and a config past
+    a static limit of the engine kernels raises naming that limit."""
+    tables = kernels.bb.turbo_tables()
+    default = dict(kernels.engine_defines(EngineConfig(), tables))
+    assert default == {"TETRIS_HEIGHT": 20, "TETRIS_WIDTH": 10, "TETRIS_PAD": 4, "TETRIS_QS": 4,
+                       "TETRIS_HS": 1, "TETRIS_NP": 7, "TETRIS_S": 4}
+    wide = dict(kernels.engine_defines(EngineConfig(width=61, height=12, queue_size=3), tables))
+    assert wide == {**default, "TETRIS_HEIGHT": 12, "TETRIS_WIDTH": 61, "TETRIS_QS": 3}
+    # every geometry of the JAX package's tests (the 6x6 pieces' padding 6 among them)
+    for kw in (dict(width=30, height=20), dict(width=28, height=14), dict(width=14, height=30),
+               dict(width=8, height=12, queue_size=2, queue_kind="uniform"),
+               dict(queue_size=7, holder_size=2), dict(width=6, height=8), dict(width=7, height=12),
+               dict(width=9, height=15, queue_size=3), dict(width=14, height=24),
+               dict(width=30, height=10), dict(width=40, height=14, padding=6, queue_size=2),
+               dict(width=30, height=16, padding=6, queue_size=2), dict(width=6, height=8, padding=2)):
+        assert kernels.engine_defines(EngineConfig(**kw), tables, flagship=True)
+    src = kernels.SOURCES["turbo_step"]
+    paths = {kernels._lib_path(src, kernels.engine_defines(EngineConfig(width=w), tables))
+             for w in (10, 30, 61)}
+    assert len(paths) == 3 and kernels._lib_path(src) not in paths
+    assert kernels.engine_defines(EngineConfig(width=60, height=40), tables, flagship=True)
+    for kw, flagship, why in ((dict(height=61), False, "padded height 65"),
+                              (dict(width=121), False, "padded width 129"),
+                              (dict(width=70, height=40), True, "padded board of 3432 cells"),
+                              (dict(queue_size=17), False, "queue size 17"),
+                              (dict(holder_size=0), False, "holder size 0"),
+                              (dict(queue_kind="always_o"), False, "queue_kind")):
+        with pytest.raises(NotImplementedError, match=why):
+            kernels.engine_defines(EngineConfig(**kw), tables, flagship=flagship)
 
 
 def test_library_names_follow_the_sources():
@@ -540,9 +565,9 @@ def test_flagship_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.flagship_init(torch.zeros((4, 2), dtype=torch.uint32), config, engine.PIECES)
     small = EngineConfig(width=6, height=8)
-    with pytest.raises(NotImplementedError):
-        kernels.flagship_step(s, a, small, engine.PIECES, RewardsMapping())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="padded width"):
+        kernels.flagship_step(s, a, EngineConfig(width=121), engine.PIECES, RewardsMapping())
+    with pytest.raises(NotImplementedError, match="item 11-rest"):
         kernels.render_rgb84(s, small, engine.PIECES)
 
 
@@ -730,3 +755,138 @@ def test_surface_kernels_refuse_other_geometry():
         kernels.grouped_flagship(s, config, engine.PIECES, "boards")
     with pytest.raises(NotImplementedError, match="item 11"):
         kernels.feature_vector(s.board[:, :20, 4:12], (True,) * 4)
+
+
+# ---------------------------------------------------------------------------
+# Other geometries: the engine kernels built for each, and heights
+# ---------------------------------------------------------------------------
+
+WIDE = [EngineConfig(width=30, height=20, auto_reset=True),
+        EngineConfig(width=61, height=12, queue_size=3, auto_reset=True),
+        EngineConfig(width=28, height=14, gravity_enabled=False),
+        EngineConfig(width=8, height=12, queue_size=2, queue_kind="uniform", auto_reset=True)]
+WIDE_IDS = ["30x20", "61x12-q3", "28x14-nograv", "8x12-q2-uniform"]
+
+
+def _oversize_pieces():
+    from tetris_gymnasium_torch.components import Tetromino
+    from tetris_gymnasium_torch.components.tetromino import pieces_from_tetrominoes
+
+    return pieces_from_tetrominoes([
+        Tetromino(2, (255, 0, 0), np.ones((2, 2), np.uint8)),
+        Tetromino(3, (0, 255, 0), np.ones((1, 6), np.uint8)),
+        Tetromino(4, (0, 0, 255), np.array([[0, 1, 0], [1, 1, 1], [0, 0, 0]], np.uint8))])
+
+
+def _engine_kernels_against_plain(dev, config, pieces, B, steps, seed):
+    """Both engines' kernels against their plain versions along one
+    trajectory, and the turbo engine against the flagship engine."""
+    from tetris_gymnasium_torch.core import engine
+
+    keys = batch_keys(prng_key(seed), B, device=dev)
+    ts, fs = turbo.init(keys, config, pieces, device=dev), engine.init(keys, config, pieces, device=dev)
+    for k in turbo.FIELDS:
+        _assert_equal(getattr(ts, k), getattr(turbo.init_plain(keys, config, pieces), k), f"init {k}")
+    _assert_flagship_equal(fs, engine.init_plain(keys, config, pieces), "flagship init")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for i in range(steps):
+        _assert_equal(turbo.observe_board(ts, config, pieces), turbo.observe_board_plain(ts, config, pieces),
+                      f"obs {i}")
+        _assert_equal(turbo.heights(ts, config), turbo.heights_plain(ts, config), f"heights {i}")
+        _assert_equal(engine.observe_board(fs, config, pieces), engine.observe_board_plain(fs, config, pieces),
+                      f"flagship obs {i}")
+        a = _flagship_actions(B, g, dev)
+        ks, _, kr, kd, kinfo = turbo.step(ts, a, config, pieces)
+        ps, pr, pd, pl = turbo.step_plain(ts, a, config, pieces)
+        for k in turbo.FIELDS:
+            _assert_equal(getattr(ks, k), getattr(ps, k), f"{k} @ {i}")
+        for got, want in ((kr, pr), (kd, pd), (kinfo["lines_cleared"], pl)):
+            _assert_equal(got, want, f"outputs @ {i}")
+        fks, _, fr, fd, finfo = engine.step(fs, a, config, pieces, obs_fn=engine.no_obs)
+        fps, *fouts = engine.step_plain(fs, a, config, pieces)
+        _assert_flagship_equal(fks, fps, f"flagship step {i}")
+        for got, want in zip((fr, fd, finfo["lines_cleared"]), fouts):
+            _assert_equal(got, want, f"flagship outputs @ {i}")
+        _assert_equal(turbo.from_flagship(fks, config).rows, ks.rows, f"turbo rows {i}")
+        ts, fs = ks, fks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", WIDE, ids=WIDE_IDS)
+def test_engine_kernels_match_plain_at_other_geometries(cuda, config):
+    _engine_kernels_against_plain(cuda, config, turbo.PIECES, 1001, 100, 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [10, 30])  # padded 22 (one word) and 42 (two)
+def test_engine_kernels_take_oversize_pieces(cuda, width):
+    """The 6x6 pieces: two-word table entries whose rows straddle a word."""
+    pieces, pad = _oversize_pieces()
+    config = EngineConfig(width=width, height=16, padding=pad, queue_size=2, queue_kind="uniform",
+                          auto_reset=True)
+    _engine_kernels_against_plain(cuda, config, pieces, 513, 100, 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap", [0, 12, 14, 26])
+@pytest.mark.parametrize("n_rows", [1, 2])
+def test_line_clears_across_the_word_boundary(cuda, gap, n_rows):
+    """A flat I dropped into a 4-wide gap clears the row on both engines'
+    kernels as on their plain versions (tests/test_wide_boards.py:118-157)."""
+    from tetris_gymnasium_torch.core import engine
+
+    config = EngineConfig(width=30, height=20)
+    B, pad = 64, config.padding
+    s = engine.init(batch_keys(prng_key(7), B, device=cuda), config, device=cuda)
+    board = s.board.clone()
+    board[:, 20 - n_rows : 20, pad : pad + 30] = 2
+    board[:, 20 - n_rows : 20, pad + gap : pad + gap + 4] = 0
+    zero = torch.zeros(B, dtype=torch.int32, device=cuda)
+    s = s.replace(board=board, piece=zero, rotation=zero.clone(), y=zero.clone(),
+                  x=torch.full((B,), gap + pad, dtype=torch.int32, device=cuda))
+    ts = turbo.from_flagship(s, config)
+    a = torch.full((B,), 5, dtype=torch.int32, device=cuda)
+    ks, _, _, _, kinfo = turbo.step(ts, a, config)
+    ps, _, _, pl = turbo.step_plain(ts, a, config)
+    for k in turbo.FIELDS:
+        _assert_equal(getattr(ks, k), getattr(ps, k), k)
+    fks, _, _, _, finfo = engine.step(s, a, config, obs_fn=engine.no_obs)
+    _assert_flagship_equal(fks, engine.step_plain(s, a, config)[0], "flagship")
+    assert (pl == 1).all() and (kinfo["lines_cleared"] == 1).all() and (finfo["lines_cleared"] == 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [EngineConfig(), WIDE[0], WIDE[1]], ids=["10x20", "30x20", "61x12"])
+def test_heights_kernel_matches_plain(cuda, config):
+    """Hand-built stacks: random cells under random column tops, B = 1 and 4097."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(13)
+    for B in (1, 4097):
+        s = turbo.init(batch_keys(prng_key(B), B, device=cuda), config, device=cuda)
+        H, W, pad = config.height, config.width, config.padding
+        cells = torch.rand((B, H, W), generator=g, device=cuda) < 0.4
+        tops = torch.randint(0, H + 1, (B, 1, W), generator=g, device=cuda)
+        cells &= torch.arange(H, device=cuda)[None, :, None] >= tops
+        board = torch.nn.functional.pad(cells.to(torch.int8) * 2, (pad, pad, 0, pad), value=1)
+        from tetris_gymnasium_torch.core import engine
+
+        es = engine.init_plain(batch_keys(prng_key(B), B, device=cuda), config).replace(board=board)
+        s = s.replace(rows=turbo.from_flagship(es, config).rows)
+        kernels.reset_launches()
+        _assert_equal(turbo.heights(s, config), turbo.heights_plain(s, config), f"B={B}")
+        assert kernels.LAUNCHES == {**NO_LAUNCHES, "heights": 1}
+
+
+def test_heights_dispatch_and_refusals():
+    """On a CPU tensor heights runs its plain version; the wrapper refuses
+    CPU tensors, and the rows' shape follows the words of a row."""
+    config = EngineConfig(width=30, height=20)
+    s = turbo.init(batch_keys(prng_key(0), 3, device="cpu"), config, device="cpu")
+    kernels.reset_launches()
+    assert turbo.heights(s, config).shape == (30, 3) and (turbo.heights(s, config) == 0).all()
+    assert kernels.LAUNCHES == NO_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.heights(s, config)
+    assert kernels._rows_shape(config, 5) == (24, 2, 5)
+    assert kernels._rows_shape(EngineConfig(), 5) == (24, 5)

@@ -63,9 +63,9 @@ def test_constants_match_jax():
         np.testing.assert_array_equal(bb.empty_rows(h, w, p), jbb.empty_rows(h, w, p))
     jt = jturbo._tables_for(jpieces.PIECES)
     tt = bb.turbo_tables(tpieces.PIECES)
-    np.testing.assert_array_equal(tt.packed, jt.packed[:, 0])
+    np.testing.assert_array_equal(tt.packed, jt.packed)
     np.testing.assert_array_equal(tt.box, jt.box)
-    assert (tt.size, tt.n_pieces) == (jt.size, jt.n_pieces)
+    assert (tt.size, tt.n_pieces, tt.n_words) == (jt.size, jt.n_pieces, jt.n_words)
 
 
 @pytest.mark.parametrize("queue_kind", ["bag", "uniform"])
@@ -214,9 +214,16 @@ def test_frozen_state_does_not_change():
 
 
 def test_wide_board_raises():
-    tc = tconfig.EngineConfig(width=30)
-    with pytest.raises(NotImplementedError):
-        turbo.init(batch_keys(threefry.prng_key(0), 2, device=CPU), tc, device=CPU)
+    """A wide board plays on the turbo engine, rows ``[H, NW, B]`` equal to
+    JAX's; only the grouped engine's multi-word candidates still raise."""
+    from tetris_gymnasium_torch.core import turbo_grouped
+
+    jc, tc = _pair(width=30)
+    ts = turbo.init(batch_keys(threefry.prng_key(0), 2, device=CPU), tc, device=CPU)
+    assert ts.rows.shape == (24, 2, 2)
+    _assert_states_equal(ts, jturbo.init(jbatch_keys(jax.random.PRNGKey(0), 2), jc), "init")
+    with pytest.raises(NotImplementedError, match="item 11-rest"):
+        turbo_grouped.placements(ts, tc)
 
 
 def test_cuda_without_card_raises():

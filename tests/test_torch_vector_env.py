@@ -113,12 +113,30 @@ def test_third_party_style_loop_runs():
 
 
 def test_oversize_pieces_raise_on_turbo_and_play_on_flagship():
+    """A 6x6-box set plays on both engines, the same game (the turbo
+    engine's two-word piece table); the kernels take it, and raise only for
+    a box past their static limit."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.components.tetromino import pieces_from_tetrominoes
+    from tetris_gymnasium_torch.ops import bitboard as bb
+
     tets = [Tetromino(2, (255, 0, 0), np.ones((2, 2), np.uint8)),
             Tetromino(3, (0, 255, 0), np.ones((1, 6), np.uint8))]
     cfg = EngineConfig(width=8, height=12, queue_size=2, queue_kind="uniform")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TetrisVectorEnv(4, cfg, impl="turbo", tetrominoes=tets, device="cpu")
-    env = TetrisVectorEnv(4, cfg, impl="flagship", tetrominoes=tets, device="cpu")
-    assert env.reset(seed=0)[0].shape == (4, 12, 8)
-    deaths = sum(int(env.step(np.full(4, 5))[2].sum()) for _ in range(40))
+    envs = [TetrisVectorEnv(4, cfg, impl=impl, tetrominoes=tets, device="cpu")
+            for impl in ("turbo", "flagship")]
+    obs = [env.reset(seed=0)[0] for env in envs]
+    assert obs[0].shape == (4, 12, 8)
+    np.testing.assert_array_equal(obs[0], obs[1])
+    deaths = 0
+    for _ in range(40):
+        got = [env.step(np.full(4, 5)) for env in envs]
+        for x, y in zip(got[0][:4], got[1][:4]):
+            np.testing.assert_array_equal(x, y)
+        deaths += int(got[0][2].sum())
     assert deaths > 0
+    pieces, pad = pieces_from_tetrominoes(tets)
+    assert dict(kernels.engine_defines(cfg._replace(padding=pad), bb.turbo_tables(pieces)))["TETRIS_S"] == 6
+    big, pad = pieces_from_tetrominoes(tets + [Tetromino(4, (0, 0, 255), np.ones((1, 9), np.uint8))])
+    with pytest.raises(NotImplementedError, match="piece box side 9"):
+        kernels.engine_defines(cfg._replace(padding=pad), bb.turbo_tables(big))

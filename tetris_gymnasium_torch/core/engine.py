@@ -25,8 +25,12 @@ eagerly).  The RNG and the piece draws are the turbo engine's
 :mod:`tetris_gymnasium_torch.components.tetromino_randomizer`), which work
 batch-minor: the plain versions transpose the bag into them and out again.
 
-Only single-word geometry (``padded_width <= 32``) is ported; the kernels
-are built for the default geometry.
+Any geometry plays: :func:`_kb` picks the bit operations of
+:mod:`~tetris_gymnasium_torch.ops.bitboard` for padded rows that fit one
+32-bit word and those of :mod:`~tetris_gymnasium_torch.ops.bitboard_wide`
+for wider ones, as the JAX engine does.  The step, init and board
+observation kernels are built for each geometry at first use; the Dict
+observation and the renders have kernels for the default geometry only.
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ import torch.nn.functional as F
 
 from tetris_gymnasium_torch.components.tetromino_randomizer import get_draw_fn
 from tetris_gymnasium_torch.config import ActionsMapping, EngineConfig, RewardsMapping
-from tetris_gymnasium_torch.core.turbo import check_geometry, lanes_to_u32, u32_to_lanes
-from tetris_gymnasium_torch.ops import bitboard as bb
+from tetris_gymnasium_torch.core.turbo import lanes_to_u32, u32_to_lanes
+from tetris_gymnasium_torch.ops import bitboard_wide as bbw
 from tetris_gymnasium_torch.ops import board as ob
 from tetris_gymnasium_torch.ops import rng as orng
 from tetris_gymnasium_torch.ops.image import preprocess_rgb84
@@ -81,6 +85,13 @@ class EngineState:
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(EngineState))
+
+
+def _kb(config: EngineConfig):
+    """The bit-operation module of this geometry (``:46``): single-word rows
+    ``[B, H]`` up to a padded width of 32, else multi-word rows ``[B, H, NW]``
+    with the same API."""
+    return bbw.row_ops(config.padded_width)
 
 
 def _lookup(table, idx: torch.Tensor) -> torch.Tensor:
@@ -166,7 +177,6 @@ def _init_from_lanes(key: torch.Tensor, config: EngineConfig, pieces: PieceSet) 
 
 def init_plain(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet = PIECES) -> EngineState:
     """Plain version of :func:`init`: fresh episodes from keys ``uint32[B, 2]`` on any device."""
-    check_geometry(config)
     s = _init_from_lanes(u32_to_lanes(keys).T.contiguous(), config, pieces)
     return s.replace(key=lanes_to_u32(s.key))
 
@@ -322,23 +332,24 @@ def _commit(s: EngineState, rows, hm, config: EngineConfig, pieces: PieceSet, rt
     """Drop, lock, clear and respawn (``:289``); ``hm`` is the piece's hit
     map at its column over the pre-step rows.  A piece that already overlaps
     (``pre_over``) changes nothing but ``game_over``."""
+    kb = _kb(config)
     pw, size, pad = config.padded_width, rtab.shape[-1], config.padding
     mat = piece_matrix(pieces, s.piece, s.rotation)
-    rb = bb.piece_row_bits(rtab, s.piece, s.rotation)
-    pre_over = bb.collision_at(hm, s.y, size)
+    rb = kb.piece_row_bits(rtab, s.piece, s.rotation)
+    pre_over = kb.collision_at(hm, s.y, size)
 
-    y_f = s.y + bb.drop_from_map(hm, s.y, size)
+    y_f = s.y + kb.drop_from_map(hm, s.y, size)
     stamped = ob.project(s.board, mat, s.x, y_f, piece_id(pieces, s.piece))
-    stamped_rows = bb.project(rows, rb, s.x, y_f, pw)
-    cleared_rows, lines, filled = bb.clear_lines(stamped_rows, config.height, config.width, pad)
+    stamped_rows = kb.project(rows, rb, s.x, y_f, pw)
+    cleared_rows, lines, filled = kb.clear_lines(stamped_rows, config.height, config.width, pad)
     # the clear rewrites the pad columns and bottom rows as fresh bedrock
-    inner = bb.compact_ids(stamped[:, : config.height, pad:-pad], filled)
+    inner = kb.compact_ids(stamped[:, : config.height, pad:-pad], filled)
     cleared = F.pad(inner, (pad, pad, 0, pad), value=1)
 
     new_piece, queue, bag, bag_index, key = _queue_draw(s.queue, s.bag, s.bag_index, s.key, config)
     sx = _spawn_x(config, pieces, new_piece)
-    rb_new = bb.piece_row_bits(rtab, new_piece, torch.zeros_like(new_piece))
-    spawn_over = bb.collision(cleared_rows, rb_new, sx, torch.zeros_like(sx), pw)
+    rb_new = kb.piece_row_bits(rtab, new_piece, torch.zeros_like(new_piece))
+    spawn_over = kb.collision(cleared_rows, rb_new, sx, torch.zeros_like(sx), pw)
 
     line_reward = (lines * lines * config.width).to(torch.float32)
     reward = torch.where(pre_over | spawn_over, float(np.float32(rewards.game_over)),
@@ -388,21 +399,22 @@ def _swap(s: EngineState, config: EngineConfig, pieces: PieceSet) -> EngineState
 
 def _apply_action(s: EngineState, rows, action, config: EngineConfig, pieces: PieceSet, rtab):
     """Phase 1 of a step (``:412``): the action's effect, probed on the pre-step rows."""
+    kb = _kb(config)
     pw, size = config.padded_width, rtab.shape[-1]
-    rb = bb.piece_row_bits(rtab, s.piece, s.rotation)
+    rb = kb.piece_row_bits(rtab, s.piece, s.rotation)
 
     dx = torch.where(action == ACTIONS.move_left, -1, torch.where(action == ACTIONS.move_right, 1, 0))
     x_cand = s.x + dx
-    hm_cand = bb.hit_map(rows, bb.shift_piece(rb, x_cand, pw))
-    x = torch.where((dx != 0) & ~bb.collision_at(hm_cand, s.y, size), x_cand, s.x)
-    hm_x = bb.hit_map(rows, bb.shift_piece(rb, x, pw))
-    down = (action == ACTIONS.move_down) & ~bb.collision_at(hm_x, s.y + 1, size)
+    hm_cand = kb.hit_map(rows, kb.shift_piece(rb, x_cand, pw))
+    x = torch.where((dx != 0) & ~kb.collision_at(hm_cand, s.y, size), x_cand, s.x)
+    hm_x = kb.hit_map(rows, kb.shift_piece(rb, x, pw))
+    down = (action == ACTIONS.move_down) & ~kb.collision_at(hm_x, s.y + 1, size)
     y = s.y + down.to(torch.int32)
 
     rot_dir = torch.where(action == ACTIONS.rotate_clockwise, 1,
                           torch.where(action == ACTIONS.rotate_counterclockwise, -1, 0))
     rot_cand = torch.remainder(s.rotation + rot_dir, 4)
-    rot_ok = ~bb.collision(rows, bb.piece_row_bits(rtab, s.piece, rot_cand), x, y, pw)
+    rot_ok = ~kb.collision(rows, kb.piece_row_bits(rtab, s.piece, rot_cand), x, y, pw)
     rotation = torch.where((rot_dir != 0) & rot_ok, rot_cand, s.rotation)
 
     moved = s.replace(x=x.to(torch.int32), y=y.to(torch.int32), rotation=rotation.to(torch.int32))
@@ -414,18 +426,18 @@ def step_plain(state: EngineState, action: torch.Tensor, config: EngineConfig,
                pieces: PieceSet = PIECES, rewards: RewardsMapping = REWARDS):
     """Plain version of one step (``:451``): ``(state, reward f32[B], done
     bool[B], lines int32[B])``, on any device."""
-    check_geometry(config)
-    rtab = bb.row_bits_table(pieces)
+    kb = _kb(config)
+    rtab = kb.row_bits_table(pieces)
     size = rtab.shape[-1]
     s = state.replace(key=u32_to_lanes(state.key))
     action = action.to(torch.int32)
-    rows = bb.pack_board(s.board)
+    rows = kb.pack_board(s.board)
     s1 = _apply_action(s, rows, action, config, pieces, rtab)
 
     is_drop = action == ACTIONS.hard_drop
-    rb1 = bb.piece_row_bits(rtab, s1.piece, s1.rotation)
-    hm1 = bb.hit_map(rows, bb.shift_piece(rb1, s1.x, config.padded_width))
-    grav_free = ~bb.collision_at(hm1, s1.y + 1, size)
+    rb1 = kb.piece_row_bits(rtab, s1.piece, s1.rotation)
+    hm1 = kb.hit_map(rows, kb.shift_piece(rb1, s1.x, config.padded_width))
+    grav_free = ~kb.collision_at(hm1, s1.y + 1, size)
     if config.gravity_enabled:
         fall = ~is_drop & grav_free
         commit_now = is_drop | ~grav_free

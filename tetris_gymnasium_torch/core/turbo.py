@@ -4,23 +4,28 @@ PyTorch port of ``tetris_gymnasium_tpu/core/turbo.py``.  Every state field
 keeps the JAX layout, with the env batch as the MINOR axis: rows
 ``uint32[H, B]`` (one 32-bit occupancy mask per padded row), bag
 ``int32[n, B]``, queue ``int32[queue_size, B]``, key ``uint32[2, B]``.
+Boards wider than one word (``padded_width > 32``) keep a word axis, rows
+``uint32[H, NW, B]`` with ``NW = ceil(padded_width / 32)``, and take the
+multi-word paths below (:mod:`tetris_gymnasium_torch.ops.bitboard_wide`
+semantics), chosen from the static geometry as the JAX module chooses them.
 
 Each entry point dispatches on the device of the tensors it is given:
 
-* on a CUDA tensor, :func:`init`, :func:`step` and :func:`observe_board`
-  launch the hand-written kernels of :mod:`tetris_gymnasium_torch.kernels`
-  (``csrc/turbo_step.cu``, ``csrc/observe_board.cu``), or raise;
+* on a CUDA tensor, :func:`init`, :func:`step`, :func:`observe_board` and
+  :func:`heights` launch the hand-written kernels of
+  :mod:`tetris_gymnasium_torch.kernels` (``csrc/turbo_step.cu``, built for
+  the config's geometry, ``csrc/observe_board.cu``, ``csrc/heights.cu``),
+  or raise;
 * on a CPU tensor they run the plain PyTorch versions in this module
-  (:func:`init_plain`, :func:`step_plain`, :func:`observe_board_plain`).
+  (:func:`init_plain`, :func:`step_plain`, :func:`observe_board_plain`,
+  :func:`heights_plain`).
 
 The plain versions mirror the JAX functions line for line and are the
 kernels' oracle; they also run on CUDA tensors when called by name, which is
 how ``chip_smoke.py`` holds the kernels against them.  PyTorch lacks
 ``uint32`` arithmetic on the CPU, so they compute on int64 lanes holding
-32-bit values (see :mod:`tetris_gymnasium_torch.ops.rng`).
-
-Only single-word geometry (``padded_width <= 32``) is ported; wider boards
-raise ``NotImplementedError``.
+32-bit values (see :mod:`tetris_gymnasium_torch.ops.rng`), masking every
+left shift back to 32 bits.
 """
 from __future__ import annotations
 
@@ -33,11 +38,12 @@ import torch
 from tetris_gymnasium_torch.components.tetromino_randomizer import get_draw_fn
 from tetris_gymnasium_torch.config import ActionsMapping, EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.ops import bitboard as bb
+from tetris_gymnasium_torch.ops import bitboard_wide as bw
 from tetris_gymnasium_torch.ops import rng as orng
 from tetris_gymnasium_torch.ops.board import clamp_start as _clamp_start
 from tetris_gymnasium_torch.pieces import PIECES, PieceSet
 from tetris_gymnasium_torch.utils import tree
-from tetris_gymnasium_torch.utils.device import resolve_device
+from tetris_gymnasium_torch.utils.device import constant, resolve_device
 
 ACTIONS = ActionsMapping()
 REWARDS = RewardsMapping()
@@ -49,7 +55,8 @@ class TurboState:
     """Batched engine state; every field has the env batch as its minor axis."""
 
     key: torch.Tensor  # uint32[2, B] counter-RNG state per env
-    rows: torch.Tensor  # uint32[H, B] packed occupancy (bit w = column w)
+    rows: torch.Tensor  # uint32[H, B] packed occupancy (bit w = column w);
+    #   boards wider than one word carry a word axis: uint32[H, NW, B]
     piece: torch.Tensor  # int32[B]
     rotation: torch.Tensor  # int32[B]
     x: torch.Tensor  # int32[B]
@@ -78,20 +85,18 @@ def select_tree(cond: torch.Tensor, a: TurboState, b: TurboState) -> TurboState:
     return tree.select_tree(cond, a, b, minor=FIELDS)
 
 
-def check_geometry(config: EngineConfig) -> None:
-    if config.padded_width > 32:
-        raise NotImplementedError(
-            f"padded width {config.padded_width} needs multi-word rows, which the "
-            "port does not have yet"
-        )
+def n_words(config: EngineConfig) -> int:
+    """Words of a packed row: 1 up to a padded width of 32."""
+    return bw.n_words(config.padded_width)
 
 
 _TABLES: dict = {}
 
 
 def tables_for(pieces: PieceSet, device) -> Tuple[bb.Tables, torch.Tensor, torch.Tensor]:
-    """The packed piece table and box sizes, in numpy and as int32 tensors on
-    ``device`` (cached; the kernels read the packed table as uint32, same bits)."""
+    """The packed piece table ``[n*4, NW]`` and box sizes, in numpy and as
+    int32 tensors on ``device`` (cached; the kernels read the packed table
+    as uint32, same bits)."""
     ck = (pieces.matrices.tobytes(), pieces.box.tobytes(), str(device))
     hit = _TABLES.get(ck)
     if hit is None:
@@ -106,14 +111,12 @@ def tables_for(pieces: PieceSet, device) -> Tuple[bb.Tables, torch.Tensor, torch
 
 
 def _empty_rows(config: EngineConfig, device) -> torch.Tensor:
-    """Packed rows of an empty board as int64 lanes on ``device`` (cached, so
-    that a step makes no host-to-device copy once warm)."""
-    ck = ("empty", config.height, config.width, config.padding, str(device))
-    hit = _TABLES.get(ck)
-    if hit is None:
-        rows = bb.empty_rows(config.height, config.width, config.padding).astype(np.int64)
-        hit = _TABLES[ck] = torch.as_tensor(rows, device=device)
-    return hit
+    """Packed rows ``[H]`` (``[H, NW]`` when wide) of an empty board as int64
+    lanes on ``device`` (cached, so that a step makes no host-to-device copy
+    once warm)."""
+    kb = bw.row_ops(config.padded_width)
+    rows = kb.empty_rows(config.height, config.width, config.padding).astype(np.int64)
+    return constant(rows, device)
 
 
 # ---------------------------------------------------------------------------
@@ -151,24 +154,49 @@ def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, table[idx.clamp(0, n - 1).long()].to(torch.int64), 0)
 
 
-def _unpack_rows(word: torch.Tensor, size: int) -> torch.Tensor:
-    """Packed word -> piece row masks ``[S, B]``."""
+def _unpack_rows(words, size: int) -> torch.Tensor:
+    """Packed words -> piece row masks ``[S, B]``: row ``s`` is bits ``[s*S,
+    (s+1)*S)`` of the words laid end to end; a row that straddles two words
+    joins them with split shifts."""
     mask = (1 << size) - 1
-    return torch.stack([(word >> (s * size)) & mask for s in range(size)])
+    rows = []
+    for s in range(size):
+        w0, r = divmod(s * size, 32)
+        v = words[w0] >> r
+        if r and r + size > 32:
+            v = v | (words[w0 + 1] << (32 - r))
+        rows.append(v & mask)
+    return torch.stack(rows)
 
 
 def _row_bits(t, packed, piece, rotation) -> torch.Tensor:
-    return _unpack_rows(_lookup(packed, piece * 4 + rotation), t.size)
+    idx = piece * 4 + rotation
+    return _unpack_rows([_lookup(packed[:, w], idx) for w in range(t.n_words)], t.size)
 
 
 def _row_bits_spawn(t, packed, piece) -> torch.Tensor:
     """Row masks at rotation 0 (spawn collision check)."""
-    return _unpack_rows(_lookup(packed, piece * 4), t.size)
+    return _row_bits(t, packed, piece, torch.zeros_like(piece))
 
 
 def _shift(rb: torch.Tensor, x: torch.Tensor, width: int) -> torch.Tensor:
+    """x-shifted piece rows: ``[S, *batch]`` single words up to ``width`` 32,
+    else ``[S, NW, *batch]``, each row's low word ``rb << (x % 32)`` at word
+    ``x // 32`` and its guarded carry ``rb >> (32 - x % 32)`` at the next."""
     xc = _clamp_start(x, width - rb.shape[0], width)
-    return rb << xc
+    if not bw.wide(width):
+        return rb << xc
+    nw = bw.n_words(width)
+    word, off = xc // 32, xc % 32
+    lo = (rb << off) & MASK32
+    hi = torch.where(off == 0, 0, rb >> (32 - off))
+    j = torch.arange(nw, device=rb.device).reshape((1, nw) + (1,) * xc.ndim)
+    return torch.where(j == word, lo[:, None], 0) | torch.where(j == word + 1, hi[:, None], 0)
+
+
+def _h_iota(H: int, ndim: int, device) -> torch.Tensor:
+    """``arange(H)`` shaped to broadcast over ``ndim - 1`` trailing axes."""
+    return torch.arange(H, dtype=torch.int32, device=device).reshape((H,) + (1,) * (ndim - 1))
 
 
 def _hit_map(rows: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
@@ -180,10 +208,19 @@ def _hit_map(rows: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
     return acc != 0
 
 
-def _spawn_overlap(rows: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
-    over = torch.zeros_like(rows[0], dtype=torch.bool)
+def _hit_map_r(rows: torch.Tensor, sp: torch.Tensor, width: int) -> torch.Tensor:
+    """The hit map with the word axis of multi-word rows OR-reduced away."""
+    hm = _hit_map(rows, sp)
+    return hm.any(dim=1) if bw.wide(width) else hm
+
+
+def _spawn_overlap(rows: torch.Tensor, sp: torch.Tensor, width: int) -> torch.Tensor:
+    """``bool[B]`` overlap of the spawn-shifted piece rows with rows ``0..S-1``."""
+    over = None
     for s in range(sp.shape[0]):
-        over = over | ((rows[s] & sp[s]) != 0)
+        hit = (rows[s] & sp[s]) != 0
+        hit = hit.any(dim=0) if bw.wide(width) else hit
+        over = hit if over is None else over | hit
     return over
 
 
@@ -208,7 +245,7 @@ def _project(rows: torch.Tensor, sp: torch.Tensor, y: torch.Tensor, size: int) -
     """OR the x-shifted piece rows into the board at (clamped) row ``y``."""
     H = rows.shape[0]
     yc = _clamp_start(y, H - size, H)
-    h = torch.arange(H, dtype=torch.int32, device=rows.device)[:, None]
+    h = _h_iota(H, rows.ndim, rows.device)
     out = rows
     for s in range(sp.shape[0]):
         out = out | torch.where(h == yc + s, sp[s], 0)
@@ -223,6 +260,8 @@ def _clear_lines(rows: torch.Tensor, config: EngineConfig, max_clear: int):
     ``max_clear`` are applied: a row that would move further is dropped, and
     the caller ends the game when ``n > max_clear``.
     """
+    if bw.wide(config.padded_width):
+        return _clear_lines_wide(rows, config, max_clear)
     height = config.height
     pm = bb.play_mask(config.width, config.padding)
     side = bb.side_mask(config.width, config.padding)
@@ -243,6 +282,36 @@ def _clear_lines(rows: torch.Tensor, config: EngineConfig, max_clear: int):
         else:
             src = inner
         acc = torch.where(move_k, src, acc)
+    return torch.cat([acc, rows[height:]], dim=0), n
+
+
+def _clear_lines_wide(rows: torch.Tensor, config: EngineConfig, max_clear: int):
+    """:func:`_clear_lines` on multi-word rows ``[H, NW, B]`` (``:326``): the
+    masks are per-word constants, a row is full when every word is, and the
+    compaction moves whole rows of words."""
+    height, nw = config.height, n_words(config)
+    B = rows.shape[2]
+    pm = constant(bw.play_mask_words(config.width, config.padding).astype(np.int64),
+                  rows.device)[None, :, None]
+    side = constant(bw.side_mask_words(config.width, config.padding).astype(np.int64),
+                    rows.device)[None, :, None]
+
+    inner = rows[:height]
+    filled = ((inner & pm) == pm).all(dim=1)  # [height, B]
+    n = filled.sum(dim=0, dtype=torch.int32)
+    below_incl = filled.flip(0).to(torch.int32).cumsum(0).flip(0)
+    sh = below_incl - filled.to(torch.int32)
+    keep = ~filled
+
+    acc = side.expand(height, nw, B)
+    for k in range(min(max_clear, height) + 1):
+        move_k = keep & (sh == k)
+        if k:
+            move_k = torch.cat([torch.zeros_like(move_k[:k]), move_k[: height - k]], dim=0)
+            src = torch.cat([side.expand(k, nw, B), inner[: height - k]], dim=0)
+        else:
+            src = inner
+        acc = torch.where(move_k[:, None], src, acc)
     return torch.cat([acc, rows[height:]], dim=0), n
 
 
@@ -291,7 +360,7 @@ def _init_from_lanes(key: torch.Tensor, config: EngineConfig, pieces: PieceSet) 
 
     return TurboState(
         key=key,
-        rows=empty[:, None].expand(config.padded_height, B).clone(),
+        rows=empty[..., None].expand(empty.shape + (B,)).clone(),
         piece=active.to(torch.int32).clone(),
         rotation=zeros(),
         x=_spawn_x(box, config, active),
@@ -312,7 +381,6 @@ def _init_from_lanes(key: torch.Tensor, config: EngineConfig, pieces: PieceSet) 
 
 def init_plain(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet = PIECES) -> TurboState:
     """Plain version of :func:`init`: keys ``uint32[B, 2]`` on any device."""
-    check_geometry(config)
     return _from_lanes(_init_from_lanes(u32_to_lanes(keys).T.contiguous(), config, pieces))
 
 
@@ -389,9 +457,9 @@ def _apply_action(s: TurboState, action, t, packed, box, config: EngineConfig) -
 
     dx = torch.where(action == ACTIONS.move_left, -1, torch.where(action == ACTIONS.move_right, 1, 0))
     x_cand = s.x + dx
-    hm_cand = _hit_map(rows, _shift(rb, x_cand, pw))
+    hm_cand = _hit_map_r(rows, _shift(rb, x_cand, pw), pw)
     x = torch.where((dx != 0) & ~_collision_at(hm_cand, s.y, S), x_cand, s.x)
-    hm_x = _hit_map(rows, _shift(rb, x, pw))
+    hm_x = _hit_map_r(rows, _shift(rb, x, pw), pw)
     down = (action == ACTIONS.move_down) & ~_collision_at(hm_x, s.y + 1, S)
     y = s.y + down.to(torch.int32)
 
@@ -402,7 +470,7 @@ def _apply_action(s: TurboState, action, t, packed, box, config: EngineConfig) -
     )
     rot_cand = torch.remainder(s.rotation + rot_dir, 4)
     rb_cand = _row_bits(t, packed, s.piece, rot_cand)
-    hm_rot = _hit_map(rows, _shift(rb_cand, x, pw))
+    hm_rot = _hit_map_r(rows, _shift(rb_cand, x, pw), pw)
     rot_ok = ~_collision_at(hm_rot, y, S)
     rotation = torch.where((rot_dir != 0) & rot_ok, rot_cand, s.rotation)
 
@@ -427,7 +495,7 @@ def _commit(s, rows, hm, t, packed, box, config, rewards, max_clear):
     sp_new = _shift(_row_bits_spawn(t, packed, new_piece), sx, pw)
     # more than max_clear full rows only come from a hand-built board: the
     # compaction above dropped rows, so the game ends instead of playing on
-    spawn_over = _spawn_overlap(cleared_rows, sp_new) | (lines > max_clear)
+    spawn_over = _spawn_overlap(cleared_rows, sp_new, pw) | (lines > max_clear)
 
     line_reward = (lines * lines * config.width).to(torch.float32)
     reward = torch.where(
@@ -466,7 +534,6 @@ def step_plain(
 
     Works on any device; on the CPU it is what :func:`step` runs.
     """
-    check_geometry(config)
     t, packed, box = tables_for(pieces, state.rows.device)
     state = _to_lanes(state)
     action = action.to(torch.int32)
@@ -475,7 +542,7 @@ def step_plain(
 
     is_drop = action == ACTIONS.hard_drop
     rb1 = _row_bits(t, packed, s1.piece, s1.rotation)
-    hm1 = _hit_map(rows, _shift(rb1, s1.x, config.padded_width))
+    hm1 = _hit_map_r(rows, _shift(rb1, s1.x, config.padded_width), config.padded_width)
     grav_free = ~_collision_at(hm1, s1.y + 1, t.size)
     if config.gravity_enabled:
         fall = ~is_drop & grav_free
@@ -538,15 +605,20 @@ def step(
 
 
 def _unpack_playfield(rows: torch.Tensor, config: EngineConfig) -> torch.Tensor:
-    """Packed rows ``[H, B]`` (int64 lanes) -> playfield bits ``int8[B, height, W]``."""
-    shifts = torch.arange(config.padding, config.padding + config.width, device=rows.device)
-    words = rows[: config.height].T[..., None]  # [B, height, 1]
-    return ((words >> shifts) & 1).to(torch.int8)
+    """Packed rows ``[H, B]`` or ``[H, NW, B]`` (int64 lanes) -> playfield
+    bits ``int8[B, height, W]`` (``unpack_playfield :702``): the packed words
+    move batch-first, then each word's bits unpack along a new axis."""
+    H, pad, W = config.height, config.padding, config.width
+    if not bw.wide(config.padded_width):
+        shifts = torch.arange(pad, pad + W, device=rows.device)
+        return ((rows[:H].T[..., None] >> shifts) & 1).to(torch.int8)  # [B, height, W]
+    words = rows[:H].permute(2, 0, 1)  # [B, height, NW]
+    bits = (words[..., None] >> torch.arange(32, device=rows.device)) & 1
+    return bits.flatten(-2)[..., pad : pad + W].to(torch.int8)
 
 
 def observe_board_plain(state: TurboState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
     """Plain version of :func:`observe_board`, on any device."""
-    check_geometry(config)
     t, packed, _ = tables_for(pieces, state.rows.device)
     rows = u32_to_lanes(state.rows)
     sp = _shift(_row_bits(t, packed, state.piece, state.rotation), state.x, config.padded_width)
@@ -568,23 +640,35 @@ def observe_board(state: TurboState, config: EngineConfig, pieces: PieceSet = PI
     return observe_board_plain(state, config, pieces)
 
 
-def col_bits(rows: torch.Tensor, col: int) -> torch.Tensor:
-    """``bool[H, *batch]`` occupancy of padded column ``col`` from single-word
-    rows in int64 lanes (``_col_bits :730``)."""
-    return ((rows >> col) & 1) != 0
+def col_bits(rows: torch.Tensor, col: int, config: EngineConfig) -> torch.Tensor:
+    """``bool[H, *batch]`` occupancy of padded column ``col`` from rows in
+    int64 lanes (``_col_bits :730``); multi-word rows index word ``col // 32``."""
+    if not bw.wide(config.padded_width):
+        return ((rows >> col) & 1) != 0
+    return ((rows[:, col // 32] >> (col % 32)) & 1) != 0
 
 
-def heights(state: TurboState, config: EngineConfig) -> torch.Tensor:
-    """Per-column stack heights ``int32[W, B]`` (plain version on any device)."""
-    check_geometry(config)
+def heights_plain(state: TurboState, config: EngineConfig) -> torch.Tensor:
+    """Plain version of :func:`heights`, on any device."""
     H = config.height
     rows = u32_to_lanes(state.rows[:H])
     h = torch.arange(H, dtype=torch.int32, device=rows.device)[:, None]
     out = []
     for w in range(config.padding, config.padding + config.width):
-        top = torch.where(col_bits(rows, w), h, H).amin(dim=0)
+        top = torch.where(col_bits(rows, w, config), h, H).amin(dim=0)
         out.append(H - top)
     return torch.stack(out).to(torch.int32)
+
+
+def heights(state: TurboState, config: EngineConfig) -> torch.Tensor:
+    """Per-column stack heights ``int32[W, B]`` straight from the bit rows
+    (``:760``): ``height - `` the row of a column's topmost occupied cell, 0
+    for an empty column.  On CUDA tensors the ``heights`` kernel computes it."""
+    if state.rows.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        return kernels.heights(state, config)
+    return heights_plain(state, config)
 
 
 # ---------------------------------------------------------------------------
@@ -596,11 +680,13 @@ def from_flagship(es, config: EngineConfig) -> TurboState:
     """The turbo state of a batched flagship ``EngineState`` (``:783``): the
     id board reduced to occupancy rows, every field batch-minor.  New
     buffers, contiguous, on the flagship state's device."""
-    check_geometry(config)
     minor = ("bag", "queue", "holder_piece", "holder_rotation")
     fields = {k: getattr(es, k) for k in FIELDS if k != "rows"}
     fields.update({k: fields[k].T for k in minor})
-    fields["rows"] = lanes_to_u32(bb.pack_board(es.board).T)
+    if not bw.wide(config.padded_width):
+        fields["rows"] = lanes_to_u32(bb.pack_board(es.board).T)  # [H, B]
+    else:
+        fields["rows"] = lanes_to_u32(bw.pack_board(es.board).permute(1, 2, 0))  # [H, NW, B]
     return TurboState(**{k: v.contiguous().clone() for k, v in fields.items()})
 
 

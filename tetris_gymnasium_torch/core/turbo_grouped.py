@@ -28,7 +28,8 @@ hard-drops through :func:`turbo.step` (the ``turbo_step`` kernel on the
 card) and restarts illegal-terminated games through
 :func:`turbo.init_from_key` (``turbo_init``).
 
-Only single-word geometry (``padded_width <= 32``) is ported.
+Only single-word geometry (``padded_width <= 32``) is ported: the
+multi-word candidate path is ROADMAP item 11-rest.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch
 
 from tetris_gymnasium_torch.config import ActionsMapping, EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.core import turbo
+from tetris_gymnasium_torch.ops import bitboard_wide as bw
 from tetris_gymnasium_torch.pieces import PIECES, PieceSet
 
 ACTIONS = ActionsMapping()
@@ -79,7 +81,7 @@ def _features_from_rows(rows: torch.Tensor, config: EngineConfig) -> torch.Tenso
     h = torch.arange(H, dtype=torch.int32, device=rows.device)[:, None]
     heights, hole_counts = [], []
     for w in range(pad, pad + W):
-        col = turbo.col_bits(inner, w)
+        col = turbo.col_bits(inner, w, config)
         height_w = H - torch.where(col, h, H).amin(dim=0)
         heights.append(height_w)
         hole_counts.append(height_w - col.sum(dim=0, dtype=torch.int32))  # empty cells under the top
@@ -104,7 +106,11 @@ def _candidate_rows(state: turbo.TurboState, config: EngineConfig, pieces: Piece
     Returns cleared rows ``[H, A, B]`` in int64 lanes, ``frame_hit``,
     ``stack_hit`` (bool) and ``lines`` (int32), each ``[A, B]``.
     """
-    turbo.check_geometry(config)
+    if bw.wide(config.padded_width):
+        raise NotImplementedError(
+            f"padded width {config.padded_width}: the turbo grouped engine's multi-word "
+            "candidate path is ROADMAP item 11-rest; pass impl='flagship' or a width of at "
+            f"most {32 - 2 * config.padding}")
     dev = state.rows.device
     t, packed, box = turbo.tables_for(pieces, dev)
     S, H, pw = t.size, config.padded_height, config.padded_width

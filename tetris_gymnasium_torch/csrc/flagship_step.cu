@@ -10,30 +10,44 @@
 // On the TPU the step is one straight-line masked program per env under
 // vmap, with every candidate outcome computed and selected.  Here one
 // thread owns one env and branches.  The state is batch-leading: the id
-// board int8[B, 24, 18] (432 bytes an env) and small per-env fields.  A
-// block of 32 envs first copies its 32 boards (13.8 KB, contiguous in
-// memory) into shared memory with 16-byte loads, neighbouring threads on
-// neighbouring words; each thread then packs its board into 24 occupancy
-// words in registers and runs the turbo engine's bit logic on them
-// (engine_common.cuh).  Only a lock writes the id board: the piece's id is
-// ADDED into its 4x4 window (the JAX project adds), full rows go and the
-// kept rows move down row by row in shared memory, the cleared rows at the
-// top become zeros and the pad columns and bottom rows are rewritten as
-// bedrock.  The block then stores its boards back with 16-byte stores.
+// board int8[B, H, PW] (432 bytes an env at 10x20, 912 at 30x20) and small
+// per-env fields.  A block of 32 envs first copies its 32 boards
+// (contiguous in memory) into shared memory with 16-byte loads,
+// neighbouring threads on neighbouring words; each thread then packs its
+// board into H x NW occupancy words in registers and runs the turbo
+// engine's bit logic on them (engine_common.cuh).  Only a lock writes the
+// id board: the piece's id is ADDED into its S x S window (the JAX project
+// adds), full rows go and the kept rows move down row by row in shared
+// memory, the cleared rows at the top become zeros and the pad columns and
+// bottom rows are rewritten as bedrock.  The block then stores its boards
+// back with 16-byte stores.
 //
 // Bound on this card: bytes.  A step reads the board and ~80 bytes of
 // other state and the action, and writes the same plus reward, done and
-// lines: ~1.06 KB an env, 0.16 us at B = 512, 21 us at B = 65536 at
-// 3.35 TB/s.  The integer work per env (a few hundred instructions, more on
-// a lock) is below that at full occupancy.  flagship_init writes a fresh
-// state (~0.53 KB an env); flagship_observe_board reads the board and
-// writes the cropped int8[20, 10] frame (432 + 200 bytes an env), 32 envs
-// a block, one thread per (env, row), the frames staged in shared memory
-// and stored in 16-byte words.
+// lines: ~1.06 KB an env at 10x20 (0.16 us at B = 512, 21 us at B = 65536
+// at 3.35 TB/s), ~2.03 KB at 30x20.  The integer work per env (a few
+// hundred instructions, more on a lock) is below that at full occupancy.
+// flagship_init writes a fresh state (~0.53 KB an env at 10x20);
+// flagship_observe_board reads the board and writes the cropped
+// int8[HEIGHT, WIDTH] frame (432 + 200 bytes an env at 10x20), 32 envs a
+// block, one thread per (env, row), the frames staged in shared memory and
+// stored in 16-byte words.
 //
-// Geometry is the default EngineConfig (10x20 playfield, padding 4, queue 4,
-// holder 1, the 7 standard pieces, bag or uniform queue); the wrappers
-// refuse others.
+// Geometry is fixed at compile time by the TETRIS_* defines
+// (engine_common.cuh, kernels.py:engine_defines), one library per
+// geometry.  What other geometries change here:
+//   - pack_rows builds each row word by word, bit w - 32 j of word j, so no
+//     shift reaches 32 (the default build's 1u << w does not generalise);
+//   - BOARD = H * PW need not be a multiple of 16 (648 bytes at 28x14, 924
+//     for the 6x6 pieces at 30x16): 32 boards always are, so every block's
+//     boards start on a 16-byte boundary, and block_copy16 moves the
+//     bytes of a ragged tail one a thread;
+//   - the boards of a block (and the observation's frames) live in dynamic
+//     shared memory: 32 envs a block always, kEnvs * BOARD bytes for the
+//     step and the init, kObsEnvs * (BOARD + OBS) for the observation (29 KB
+//     and 48 KB at 30x20, 35 KB and 58 KB at 61x12), opted in above 48 KB;
+//     engine_defines keeps BOARD <= 3072 so that the observation's 196 KB
+//     stays inside the 227 KB a block may have.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,11 +87,16 @@ struct FlagshipParams {
 
 namespace {
 
-constexpr int BOARD = H * PW;  // 432 bytes, a multiple of 16
+constexpr int BOARD = H * PW;  // bytes of a board: 432 at 10x20
 constexpr int kEnvs = 32;      // envs (threads) a block of the step and the init
 constexpr int kObsEnvs = 32;   // envs a block of the observation
 constexpr int kObsThreads = 256;
-constexpr int OBS = HEIGHT * WIDTH;  // 200 bytes of a cropped frame
+constexpr int OBS = HEIGHT * WIDTH;  // bytes of a cropped frame: 200 at 10x20
+constexpr int kStepSmem = kEnvs * BOARD;
+constexpr int kObsSmem = kObsEnvs * (BOARD + OBS);
+static_assert((kEnvs * BOARD) % 16 == 0 && (kObsEnvs * BOARD) % 16 == 0 &&
+              (kObsEnvs * OBS) % 16 == 0, "each block's boards and frames start 16-byte aligned");
+static_assert(kObsSmem <= 227 * 1024 && kStepSmem <= 227 * 1024, "shared memory of a block");
 
 __device__ __forceinline__ void load_env(Env& e, const FlagshipPtrs& p, int b, int B) {
   e.k0 = p.key[b];
@@ -130,14 +149,19 @@ __device__ __forceinline__ void store_env(const Env& e, const FlagshipPtrs& p, i
   p.steps[b] = e.steps;
 }
 
-// pack_board: bit w of row h is set iff the cell id is > 0 (signed).
+// pack_board: bit w % 32 of word w / 32 of row h is set iff the cell id is
+// > 0 (signed).
 __device__ __forceinline__ void pack_rows(Env& e, const int8_t* bd) {
 #pragma unroll
   for (int h = 0; h < H; ++h) {
-    uint32_t r = 0;
 #pragma unroll
-    for (int w = 0; w < PW; ++w) r |= (bd[h * PW + w] > 0 ? 1u : 0u) << w;
-    e.rows[h] = r;
+    for (int j = 0; j < NW; ++j) {
+      uint32_t r = 0;
+#pragma unroll
+      for (int w = 32 * j; w < PW && w < 32 * j + 32; ++w)
+        r |= (bd[h * PW + w] > 0 ? 1u : 0u) << (w - 32 * j);
+      e.rows[h][j] = r;
+    }
   }
 }
 
@@ -150,7 +174,7 @@ __device__ __forceinline__ void empty_board(int8_t* bd) {
 
 // ops/board.py:project with the piece's id: ADD it into the clamped window
 // (int8 wrap, as the JAX sum in int8).
-__device__ __forceinline__ void stamp_ids(int8_t* bd, uint32_t word, int x, int y, int id) {
+__device__ __forceinline__ void stamp_ids(int8_t* bd, const PieceWord& word, int x, int y, int id) {
   const int xc = clamp_start(x, PW - S, PW);
   const int yc = clamp_start(y, H - S, H);
   for (int i = 0; i < S; ++i) {
@@ -168,7 +192,7 @@ __device__ __forceinline__ void stamp_ids(int8_t* bd, uint32_t word, int x, int 
 // the full rows below them (bottom-up, so each source row is read before it
 // is overwritten), the top rows become zeros, the pad columns and the
 // bottom rows bedrock.
-__device__ __forceinline__ void compact_ids(int8_t* bd, uint32_t filled) {
+__device__ __forceinline__ void compact_ids(int8_t* bd, FillMask filled) {
   int s = HEIGHT - 1;
   for (int d = HEIGHT - 1; d >= 0; --d) {
     while (s >= 0 && ((filled >> s) & 1u)) --s;
@@ -193,7 +217,7 @@ __global__ void __launch_bounds__(kEnvs) flagship_step_kernel(
     float* __restrict__ reward_out, uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
     const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
     const int32_t* __restrict__ ids, int B, FlagshipParams p) {
-  __shared__ __align__(16) int8_t boards[kEnvs * BOARD];
+  extern __shared__ __align__(16) int8_t boards[];  // kStepSmem bytes
   const int base = blockIdx.x * kEnvs;
   const int n = min(kEnvs, B - base);
   block_copy16(boards, in.board + static_cast<size_t>(base) * BOARD, n * BOARD);
@@ -215,8 +239,8 @@ __global__ void __launch_bounds__(kEnvs) flagship_step_kernel(
       // -- phase 1: the action's direct effect, tested against the pre-step rows
       apply_action<true>(e, a, uniform, packed, box);
       // -- phase 2: gravity, then commit on rest or hard drop
-      const uint32_t w1 = piece_word_2d(packed, e.piece, e.rotation);
-      const uint32_t hm1 = hit_map(e.rows, w1, e.x);
+      const PieceWord w1 = piece_word_2d(packed, e.piece, e.rotation);
+      const HitMask hm1 = hit_map(e.rows, w1, e.x);
       const bool is_drop = a == kDrop;
       const bool grav_free = !collision_at(hm1, e.y + 1);
       const bool fall = p.gravity ? (!is_drop && grav_free) : false;
@@ -230,7 +254,7 @@ __global__ void __launch_bounds__(kEnvs) flagship_step_kernel(
           const int y_f = e.y + drop_from_map(hm1, e.y);
           stamp_ids(bd, w1, e.x, y_f, piece_entry(ids, e.piece));
           project(e.rows, w1, e.x, y_f);
-          const uint32_t filled = filled_mask(e.rows);
+          const FillMask filled = filled_mask(e.rows);
           const int nl = clear_lines(e.rows, HEIGHT);  // no envelope: any number of rows
           compact_ids(bd, filled);
           const int new_piece = queue_draw(e, uniform);
@@ -267,7 +291,7 @@ __global__ void __launch_bounds__(kEnvs) flagship_step_kernel(
 __global__ void __launch_bounds__(kEnvs) flagship_init_kernel(
     const uint32_t* __restrict__ keys, FlagshipPtrs out, const int32_t* __restrict__ box, int B,
     int uniform) {
-  __shared__ __align__(16) int8_t boards[kEnvs * BOARD];
+  extern __shared__ __align__(16) int8_t boards[];  // kStepSmem bytes
   const int base = blockIdx.x * kEnvs;
   const int n = min(kEnvs, B - base);
   const int t = threadIdx.x;
@@ -289,8 +313,8 @@ __global__ void __launch_bounds__(kObsThreads) flagship_observe_board_kernel(
     const int32_t* __restrict__ rotation, const int32_t* __restrict__ xs,
     const int32_t* __restrict__ ys, const uint8_t* __restrict__ game_over,
     const uint32_t* __restrict__ packed, int8_t* __restrict__ out, int B) {
-  __shared__ __align__(16) int8_t in_s[kObsEnvs * BOARD];
-  __shared__ __align__(16) int8_t out_s[kObsEnvs * OBS];
+  extern __shared__ __align__(16) int8_t in_s[];  // kObsSmem bytes: the boards, then the frames
+  int8_t* out_s = in_s + kObsEnvs * BOARD;
   const int base = blockIdx.x * kObsEnvs;
   const int n = min(kObsEnvs, B - base);
   block_copy16(in_s, board + static_cast<size_t>(base) * BOARD, n * BOARD);
@@ -299,24 +323,30 @@ __global__ void __launch_bounds__(kObsThreads) flagship_observe_board_kernel(
     const int t = item / HEIGHT;
     const int r = item % HEIGHT;
     const int b = base + t;
-    const uint32_t word = game_over[b] ? 0u : piece_word_2d(packed, piece[b], rotation[b]);
+    const PieceWord word = game_over[b] ? no_piece() : piece_word_2d(packed, piece[b], rotation[b]);
     const int xc = clamp_start(xs[b], PW - S, PW);
     const int off = r - clamp_start(ys[b], H - S, H);
-    const uint32_t prow = (off >= 0 && off < S) ? piece_row(word, off) << xc : 0u;
+    uint32_t prow[NW];
+    shift_row((off >= 0 && off < S) ? piece_row(word, off) : 0u, xc, prow);
     const int8_t* src = in_s + t * BOARD + r * PW;
     int8_t* dst = out_s + t * OBS + r * WIDTH;
 #pragma unroll
     for (int c = 0; c < WIDTH; ++c) {
       const int col = c + PAD;
-      dst[c] = static_cast<int8_t>((src[col] > 0 ? 1 : 0) - static_cast<int>((prow >> col) & 1u));
+      dst[c] = static_cast<int8_t>((src[col] > 0 ? 1 : 0) -
+                                   static_cast<int>((prow[col >> 5] >> (col & 31)) & 1u));
     }
   }
   __syncthreads();
-  // n * OBS bytes: 16-byte words, then the 8 bytes an odd tail leaves
-  int8_t* dst = out + static_cast<size_t>(base) * OBS;
-  const int words = n * OBS / 16;
-  block_copy16(dst, out_s, words * 16);
-  for (int i = words * 16 + threadIdx.x; i < n * OBS; i += blockDim.x) dst[i] = out_s[i];
+  block_copy16(out + static_cast<size_t>(base) * OBS, out_s, n * OBS);
+}
+
+// Opts a kernel in to more than 48 KB of dynamic shared memory, once.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done || bytes <= 48 * 1024) return cudaSuccess;
+  done = true;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -325,8 +355,10 @@ extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* 
                                     const void* action, void* reward, void* done, void* lines,
                                     const void* packed, const void* box, const void* ids, int B,
                                     const FlagshipParams* params, void* stream) {
+  static bool opted = false;
+  if (const cudaError_t err = allow_smem(flagship_step_kernel, kStepSmem, opted)) return err;
   const int blocks = (B + kEnvs - 1) / kEnvs;
-  flagship_step_kernel<<<blocks, kEnvs, 0, static_cast<cudaStream_t>(stream)>>>(
+  flagship_step_kernel<<<blocks, kEnvs, kStepSmem, static_cast<cudaStream_t>(stream)>>>(
       *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
       static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
       static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
@@ -337,8 +369,10 @@ extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* 
 // keys: uint32[B, 2] (mesh.batch_keys layout).
 extern "C" int flagship_init_launch(const void* keys, const FlagshipPtrs* out, const void* box,
                                     int B, int uniform, void* stream) {
+  static bool opted = false;
+  if (const cudaError_t err = allow_smem(flagship_init_kernel, kStepSmem, opted)) return err;
   const int blocks = (B + kEnvs - 1) / kEnvs;
-  flagship_init_kernel<<<blocks, kEnvs, 0, static_cast<cudaStream_t>(stream)>>>(
+  flagship_init_kernel<<<blocks, kEnvs, kStepSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), *out, static_cast<const int32_t*>(box), B, uniform);
   return static_cast<int>(cudaGetLastError());
 }
@@ -347,8 +381,10 @@ extern "C" int flagship_observe_board_launch(const void* board, const void* piec
                                              const void* rotation, const void* x, const void* y,
                                              const void* game_over, const void* packed, void* out,
                                              int B, void* stream) {
+  static bool opted = false;
+  if (const cudaError_t err = allow_smem(flagship_observe_board_kernel, kObsSmem, opted)) return err;
   const int blocks = (B + kObsEnvs - 1) / kObsEnvs;
-  flagship_observe_board_kernel<<<blocks, kObsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  flagship_observe_board_kernel<<<blocks, kObsThreads, kObsSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(board), static_cast<const int32_t*>(piece),
       static_cast<const int32_t*>(rotation), static_cast<const int32_t*>(x),
       static_cast<const int32_t*>(y), static_cast<const uint8_t*>(game_over),

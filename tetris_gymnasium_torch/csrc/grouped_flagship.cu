@@ -45,7 +45,8 @@
 // ~850 integer operations an env against 40 * 4 * 13 + 360 bytes).
 //
 // Geometry is the default EngineConfig (24x18 padded board, 7 pieces of
-// side <= 4); the wrapper refuses others.
+// side <= 4): the header's default build, single-word rows and piece
+// entries; the wrapper refuses others.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +55,7 @@
 #include "features.cuh"
 
 using namespace engine;
+static_assert(NW == 1 && TW == 1, "grouped_flagship is built for the default geometry");
 
 namespace {
 
@@ -113,17 +115,18 @@ __global__ void __launch_bounds__(kThreads) grouped_flagship_kernel(
   if (e < n_env) {
     const int b = b0 + e;
     const int8_t* bd = sboard + e * BOARD;
-    uint32_t rows[H];
+    Rows rows;
 #pragma unroll
-    for (int h = 0; h < H; ++h) rows[h] = srows[e * H + h];
+    for (int h = 0; h < H; ++h) rows[h][0] = srows[e * H + h];
 
     // -- the candidate (_candidate :68): rotation, column, drop from the top
     const int piece = piece_in[b];
     int rot = (rotation_in[b] + (a & 3)) % 4;
     if (rot < 0) rot += 4;
-    const uint32_t word = piece_word_2d(packed, piece, rot);
+    const PieceWord pword = piece_word_2d(packed, piece, rot);
+    const uint32_t word = pword.w[0];
     const int x = a / 4 + PAD - piece_entry(box, piece) / 2;
-    const uint32_t hm = hit_map(rows, word, x);
+    const HitMask hm = hit_map(rows, pword, x);
     const int y = drop_from_map(hm, 0);
     const int xc = clamp_start(x, PW - S, PW);
     const int yc = clamp_start(y, H - S, H);
@@ -162,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) grouped_flagship_kernel(
     }
 #pragma unroll
     for (int h = 0; h < HEIGHT; ++h)
-      if (h < yc || h >= yc + S) filled |= ((rows[h] & PLAY_MASK) == PLAY_MASK ? 1u : 0u) << h;
+      if (h < yc || h >= yc + S) filled |= (row_full(rows[h]) ? 1u : 0u) << h;
     const int n = __popc(filled);
     const int status = frame_hit ? kIllegal : (stack_hit ? kOver : kPlaced);
     const long long ab = static_cast<long long>(b) * A + a;

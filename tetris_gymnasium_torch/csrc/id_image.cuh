@@ -26,6 +26,8 @@ struct RenderPtrs {
 
 namespace engine {
 
+static_assert(NW == 1 && TW == 1, "the id image kernels are built for the default geometry");
+
 constexpr int SIDE = QS * S;   // sidebar width: max(QS, HS) * padding = 16
 constexpr int IW = PW + SIDE;  // id image width: 34
 constexpr int NPAL = NP + 2;   // palette entries: empty, bedrock, 7 pieces

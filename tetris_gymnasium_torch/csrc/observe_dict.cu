@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(kThreads) observe_dict_kernel(
     if (threadIdx.x < n) {
       const int b = b0 + threadIdx.x;
       const int piece = p.piece[b];
-      const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]);
+      const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]).w[0];
       const bool hit = active_collides(sboard + threadIdx.x * BOARD, word,
                                        clamp_start(p.x[b], PW - S, PW), clamp_start(p.y[b], H - S, H));
       spid[threadIdx.x] = hit ? 0 : piece_entry(ids, piece);
@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) observe_dict_kernel(
       const int r = cell / PW, c = cell % PW;
       const int piece = p.piece[b];
       const int x = p.x[b], y = p.y[b];
-      const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]);
+      const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]).w[0];
       board_out[base + i] = active_cell(sboard + e * BOARD, r, c, word, clamp_start(x, PW - S, PW),
                                         clamp_start(y, H - S, H), spid[e]);
       const int bx = piece_entry(box, piece);

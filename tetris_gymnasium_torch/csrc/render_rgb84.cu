@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) render_rgb84_kernel(
   const int tid = threadIdx.x;
   block_copy16(board, p.board + static_cast<size_t>(b) * BOARD, BOARD);
   const int piece = p.piece[b];
-  const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]);
+  const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]).w[0];
   const int xc = clamp_start(p.x[b], PW - S, PW);
   const int yc = clamp_start(p.y[b], H - S, H);
   __syncthreads();

@@ -9,27 +9,31 @@
 //
 // On the TPU the step is branch-free vector code over [H, B] tiles, with
 // one-hot selects standing in for per-env control flow.  Here each thread
-// owns one env and branches: the env's 24 rows, bag, queue and holder live
-// in registers (every array index below is a compile-time constant after
-// unrolling), the hit map of a piece over all window starts is one 32-bit
-// mask, and the key advances only where a draw happens.  State arrays are
-// batch-minor ([rows, B]), so every load and store of a field is coalesced
-// along B.
+// owns one env and branches: the env's H x NW row words, bag, queue and
+// holder live in registers (every array index below is a compile-time
+// constant after unrolling), the hit map of a piece over all window starts
+// is one 32- or 64-bit mask, and the key advances only where a draw
+// happens.  State arrays are batch-minor ([rows, B], [H, NW, B] for the
+// rows), so every load and store of a field is coalesced along B.
 //
-// Bound on this card: bytes.  One env-step reads the state (24 rows + 2 key
-// words + 7 bag + 4 queue + 2 holder words + 9 scalar words = 48 words, and
-// 2 bools: 194 bytes) and the action, and writes the state plus reward, done
-// and lines: 198 bytes in, 203 bytes out, 401 bytes in all, 0.120 ns per
-// env-step at 3.35 TB/s.  The integer work (a few hundred
-// instructions per env) stays under that at full occupancy; the design keeps
-// to one pass over the state and no scratch traffic.
+// Bound on this card: bytes.  One env-step reads the state (H * NW row
+// words + 2 key words + NP bag + QS queue + 2 * HS holder words + 9 scalar
+// words, and 2 bools; at the default 10x20 board 24 rows, 194 bytes) and
+// the action, and writes the state plus reward, done and lines: 401 bytes
+// in all at 10x20, 0.120 ns per env-step at 3.35 TB/s; 593 bytes at 30x20
+// (NW = 2) and 61x12 (NW = 3, 16 rows).  The integer work (a few hundred
+// instructions per env, times NW in the hit maps and the line clear) stays
+// under that at full occupancy; the design keeps to one pass over the state
+// and no scratch traffic.  At NW > 1 the 48 row words of 30x20 or 61x12 sit
+// in registers beside the rest of the env; nvcc's -Xptxas -v report
+// (kernels.build) gives the registers and any spill of each geometry.
 //
-// Geometry is the default EngineConfig (10x20 playfield, padding 4, queue 4,
-// holder 1, the 7 standard pieces); the Python wrapper refuses others.  The
-// state may be stepped in place (each thread reads all of its env before it
-// writes) but the wrapper writes to new buffers.  The RNG, the draws, the
-// swap and the bit helpers are shared with the flagship engine's kernels
-// (engine_common.cuh).
+// Geometry is fixed at compile time by the TETRIS_* defines
+// (engine_common.cuh, kernels.py:engine_defines), one library per geometry.
+// The state may be stepped in place (each thread reads all of its env
+// before it writes) but the wrapper writes to new buffers.  The RNG, the
+// draws, the swap and the bit helpers are shared with the flagship engine's
+// kernels (engine_common.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,7 +45,7 @@ using namespace engine;
 // Pointers to the 17 batch-minor fields of a TurboState, in field order.
 struct StatePtrs {
   uint32_t* key;           // [2, B]
-  uint32_t* rows;          // [H, B]
+  uint32_t* rows;          // [H, NW, B]
   int32_t* piece;          // [B]
   int32_t* rotation;       // [B]
   int32_t* x;              // [B]
@@ -73,7 +77,9 @@ __device__ __forceinline__ void load_env(Env& e, const StatePtrs& p, int b, int 
   e.k0 = p.key[b];
   e.k1 = p.key[B + b];
 #pragma unroll
-  for (int h = 0; h < H; ++h) e.rows[h] = p.rows[h * B + b];
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) e.rows[h][j] = p.rows[(h * NW + j) * B + b];
   e.piece = p.piece[b];
   e.rotation = p.rotation[b];
   e.x = p.x[b];
@@ -100,7 +106,9 @@ __device__ __forceinline__ void store_env(const Env& e, const StatePtrs& p, int 
   p.key[b] = e.k0;
   p.key[B + b] = e.k1;
 #pragma unroll
-  for (int h = 0; h < H; ++h) p.rows[h * B + b] = e.rows[h];
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) p.rows[(h * NW + j) * B + b] = e.rows[h][j];
   p.piece[b] = e.piece;
   p.rotation[b] = e.rotation;
   p.x[b] = e.x;
@@ -140,8 +148,8 @@ __global__ void __launch_bounds__(128) turbo_step_kernel(
     // -- phase 1: the action's direct effect, tested against the pre-step rows
     apply_action<false>(e, a, uniform, packed, box);
     // -- phase 2: gravity, then commit on rest or hard drop
-    const uint32_t w1 = piece_word(packed, e.piece, e.rotation);
-    const uint32_t hm1 = hit_map(e.rows, w1, e.x);
+    const PieceWord w1 = piece_word(packed, e.piece, e.rotation);
+    const HitMask hm1 = hit_map(e.rows, w1, e.x);
     const bool is_drop = a == kDrop;
     const bool grav_free = !collision_at(hm1, e.y + 1);
     const bool fall = p.gravity ? (!is_drop && grav_free) : false;

@@ -81,16 +81,15 @@ class TetrisVectorEnv(VectorEnv):
 
     Args:
         num_envs: batch size.
-        config: engine geometry and behaviour; ``auto_reset`` is ignored
-            (the adapter restarts the envs itself, to report terminal
-            observations).
+        config: engine geometry and behaviour, any width and height;
+            ``auto_reset`` is ignored (the adapter restarts the envs
+            itself, to report terminal observations).
         impl: ``"turbo"`` (bit-packed) or ``"flagship"`` (id boards).
         seed: base seed of the per-env streams.
         tetrominoes: optional custom piece list (``components.Tetromino``);
-            it sets ``config.padding`` to the set's box size.  Piece boxes
-            above 5x5 need the turbo engine's multi-word piece tables, not
-            ported yet (ROADMAP item 11), and raise there; the kernels take
-            seven pieces of side at most 4, so another set runs on the CPU.
+            it sets ``config.padding`` to the set's box size.  Both engines
+            take any set; on the card the kernels are built for it at first
+            use, within the limits of ``kernels.engine_defines``.
         device: where the batch lives (default ``"cuda"``).
     """
 
@@ -104,10 +103,6 @@ class TetrisVectorEnv(VectorEnv):
             from tetris_gymnasium_torch.components.tetromino import pieces_from_tetrominoes
 
             self._pieces, pad = pieces_from_tetrominoes(tetrominoes)
-            if impl == "turbo" and pad * pad > 32:
-                raise NotImplementedError(
-                    f"piece boxes of side {pad} need the turbo engine's multi-word piece "
-                    "tables, not ported yet (ROADMAP item 11)")
             config = config._replace(padding=pad)
         self.num_envs = int(num_envs)
         self.config = config

@@ -2,17 +2,23 @@
 
 Sources live in ``csrc/``; each is compiled on first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
-``build/torch_kernels/`` (gitignored), named by the hash of its source, and
-loaded with ``ctypes``.  Pointers and the stream go in as ``c_void_p``; the
+``build/torch_kernels/`` (gitignored), named by the hash of its source, its
+headers, its flags and its defines, and loaded with ``ctypes``.  The engine
+sources (``turbo_step.cu``, ``flagship_step.cu``) are built once for each
+geometry they are called at: :func:`engine_defines` turns a config into
+the ``TETRIS_*`` defines of ``csrc/engine_common.cuh``.  Pointers and the stream go in as ``c_void_p``; the
 stream is PyTorch's current one; each C entry point returns
 ``cudaGetLastError()`` and the wrapper raises if it is not 0.
 
 Kernels, with the JAX function each replaces:
 
-* ``turbo_step`` (``csrc/turbo_step.cu``): ``core/turbo.py:step :639``;
+* ``turbo_step`` (``csrc/turbo_step.cu``): ``core/turbo.py:step :639``,
+  with ``_shift :205``, ``_hit_map_r :251`` and ``_clear_lines_wide :326``
+  (``ops/bitboard_wide.py:108-215`` in the turbo layout) at any geometry;
 * ``turbo_init`` (``csrc/turbo_step.cu``): ``core/turbo.py:_init_from_key :440``,
   reached through ``init :497``;
 * ``observe_board`` (``csrc/observe_board.cu``): ``core/turbo.py:observe_board :738``;
+* ``heights`` (``csrc/heights.cu``): ``core/turbo.py:heights :760``;
 * ``gae`` (``csrc/gae.cu``): ``rl/ppo.py:_gae :147``;
 * ``ppo_sample`` (``csrc/ppo_sample.cu``): the sampling tail of
   ``rl/ppo.py:policy_step :184-187``;
@@ -31,8 +37,9 @@ Kernels, with the JAX function each replaces:
   ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``;
 * ``flagship_step``, ``flagship_init`` and ``flagship_observe_board``
   (``csrc/flagship_step.cu``): the flagship engine's ``core/engine.py:step
-  :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230``),
-  ``init_state :131`` and ``observe_board :274``;
+  :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230`` or
+  ``ops/bitboard_wide.py:108-215``), ``init_state :131`` and
+  ``observe_board :274``;
 * ``render_rgb84`` (``csrc/render_rgb84.cu``): ``core/engine.py:render_rgb
   :529`` with ``ops/observations.py:compose_rgb :84`` and
   ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame;
@@ -53,10 +60,16 @@ Kernels, with the JAX function each replaces:
 ``render_rgb84.cu`` and ``observe_dict.cu``; ``csrc/features.cuh`` the
 feature vector, shared by ``features.cu`` and ``grouped_flagship.cu``.
 
-The kernels are built for the default geometry (10x20, padding 4, queue 4,
-holder 1) and seven pieces of side at most 4; on CUDA tensors any other
-configuration raises ``NotImplementedError`` (wider boards and other
-geometries are ROADMAP item 11); the plain versions take them on the CPU.
+``turbo_step``, ``turbo_init``, ``flagship_step``, ``flagship_init`` and
+``flagship_observe_board`` take any geometry within the static limits that
+:func:`engine_defines` names; ``observe_board``, ``heights`` and
+``grouped_placements`` take the geometry as run-time arguments (the last
+only up to a padded width of 32).  ``grouped_flagship``, ``feature_vector``,
+``observe_dict``, ``compose_rgb`` and ``render_rgb84`` are built for the
+default geometry (10x20, padding 4, queue 4, holder 1, the 7 standard
+pieces).  On CUDA tensors a config past these raises
+``NotImplementedError``, naming the limit or ROADMAP item 11-rest; the plain
+versions take every geometry on the CPU.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -86,6 +99,7 @@ import torch
 from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.core import engine, turbo
 from tetris_gymnasium_torch.ops import bitboard as bb
+from tetris_gymnasium_torch.ops import bitboard_wide as bbw
 from tetris_gymnasium_torch.pieces import PieceSet
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -93,6 +107,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "turbo_step": PACKAGE_DIR / "csrc" / "turbo_step.cu",
     "observe_board": PACKAGE_DIR / "csrc" / "observe_board.cu",
+    "heights": PACKAGE_DIR / "csrc" / "heights.cu",
     "gae": PACKAGE_DIR / "csrc" / "gae.cu",
     "ppo_sample": PACKAGE_DIR / "csrc" / "ppo_sample.cu",
     "grouped_placements": PACKAGE_DIR / "csrc" / "grouped_placements.cu",
@@ -117,7 +132,7 @@ LAUNCHES = {
     "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
     "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0, "flagship_step": 0,
     "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0, "grouped_flagship": 0,
-    "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0,
+    "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0, "heights": 0,
 }
 
 _LIBS: dict = {}
@@ -149,27 +164,33 @@ def _sources_of(source: Path) -> list:
     return seen
 
 
-def _lib_path(source: Path) -> Path:
-    """The library of ``source``, named by the hash of the source, the local
-    headers it includes and the flags, so that an edit to any of them rebuilds."""
+def _define_flags(defines) -> list:
+    return [f"-D{k}={v}" for k, v in defines]
+
+
+def _lib_path(source: Path, defines=()) -> Path:
+    """The library of ``source`` built with ``defines`` (``(name, value)``
+    pairs), named by the hash of the source, the local headers it includes,
+    the flags and the defines, so that an edit to any of them rebuilds."""
     digest = hashlib.sha256()
     for path in _sources_of(source):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + _define_flags(defines)).encode())
     return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(name: str) -> dict:
+def _compile(name: str, defines=()) -> dict:
     """Compile one source unless its library exists; returns build facts."""
     source = SOURCES[name]
-    out = _lib_path(source)
+    out = _lib_path(source, defines)
     if out.exists():
-        return {"name": name, "seconds": 0.0, "cached": True, "ptxas": ""}
+        return {"name": name, "defines": dict(defines), "seconds": 0.0, "cached": True,
+                "ptxas": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [_nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -177,16 +198,25 @@ def _compile(name: str) -> dict:
     os.replace(tmp, out)
     return {
         "name": name,
+        "defines": dict(defines),
         "seconds": time.perf_counter() - t0,
         "cached": False,
         "ptxas": "\n".join(l for l in proc.stderr.splitlines() if "ptxas" in l),
     }
 
 
-def build() -> list:
-    """Compile every kernel source in parallel (one ``nvcc`` each)."""
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        return list(pool.map(_compile, SOURCES))
+def build(geometries=()) -> list:
+    """Compile every kernel source in parallel, one ``nvcc`` each: the engine
+    sources for the default geometry and for each ``(config, pieces)`` of
+    ``geometries``, the others once."""
+    from tetris_gymnasium_torch.pieces import PIECES
+
+    jobs = [(name, ()) for name in SOURCES if name not in ENGINE_SOURCES]
+    for config, pieces in ((EngineConfig(), PIECES), *geometries):
+        defines = engine_defines(config, bb.turbo_tables(pieces))
+        jobs += [(name, defines) for name in ENGINE_SOURCES if (name, defines) not in jobs]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return list(pool.map(lambda job: _compile(*job), jobs))
 
 
 class _StatePtrs(ctypes.Structure):
@@ -207,7 +237,8 @@ class _StepParams(ctypes.Structure):
 class _ObsGeometry(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_int)
-        for name in ("height", "width", "padding", "rows_h", "padded_width", "size", "n_entries")
+        for name in ("height", "width", "padding", "rows_h", "padded_width", "size", "n_entries",
+                     "nw", "nt")
     ]
 
 
@@ -303,6 +334,9 @@ _ENTRY_POINTS = {
         "observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                  ctypes.POINTER(_ObsGeometry), _P],
     },
+    "heights": {
+        "heights_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    },
     "gae": {
         "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P],
     },
@@ -353,15 +387,15 @@ _ENTRY_POINTS = {
 }
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+def _lib(name: str, defines=()) -> ctypes.CDLL:
+    lib = _LIBS.get((name, defines))
     if lib is None:
-        _compile(name)
-        lib = ctypes.CDLL(str(_lib_path(SOURCES[name])))
+        _compile(name, defines)
+        lib = ctypes.CDLL(str(_lib_path(SOURCES[name], defines)))
         for fn, argtypes in _ENTRY_POINTS[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[(name, defines)] = lib
     return lib
 
 
@@ -374,31 +408,98 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# Geometry the turbo_step kernel is compiled for (csrc/turbo_step.cu).
-_STEP_GEOMETRY = dict(width=10, height=20, padding=4, queue_size=4, holder_size=1)
+# The sources built once for each geometry (csrc/engine_common.cuh's defines).
+ENGINE_SOURCES = ("turbo_step", "flagship_step")
+# The geometry of the default EngineConfig, for which the other engine-state
+# kernels (grouped_flagship, observe_dict, render_rgb84) are built.
+DEFAULT_GEOMETRY = dict(width=10, height=20, padding=4, queue_size=4, holder_size=1)
+# Static limits of the engine kernels (engine_defines).
+MAX_PADDED_HEIGHT = 64  # hit maps and full-row masks are 64-bit words at most
+MAX_PADDED_WIDTH = 128  # an env's rows live in registers: 4 words a row at most
+MAX_PIECE_SIDE = 8  # a piece table entry is 2 words at most
+MAX_PIECES = 32  # the bag lives in registers
+MAX_QUEUE = 16
+MAX_HOLDER = 8
+MAX_BOARD_CELLS = 3072  # flagship: 32 boards and frames of a block in 227 KB of shared memory
 _STATE_DTYPES = {
     "key": torch.uint32, "rows": torch.uint32, "has_swapped": torch.bool,
     "game_over": torch.bool, "score": torch.float32,
 }
 
 
+def _rows_shape(config: EngineConfig, B: int) -> tuple:
+    """``(H, B)``, or ``(H, NW, B)`` when a row takes more than one word."""
+    if not bbw.wide(config.padded_width):
+        return (config.padded_height, B)
+    return (config.padded_height, turbo.n_words(config), B)
+
+
 def _state_shapes(config: EngineConfig, n_pieces: int, B: int) -> dict:
     shapes = {k: (B,) for k in turbo.FIELDS}
     shapes.update(
-        key=(2, B), rows=(config.padded_height, B), bag=(n_pieces, B),
+        key=(2, B), rows=_rows_shape(config, B), bag=(n_pieces, B),
         queue=(config.queue_size, B), holder_piece=(config.holder_size, B),
         holder_rotation=(config.holder_size, B),
     )
     return shapes
 
 
-def _check_step_config(config: EngineConfig, t: bb.Tables) -> None:
-    got = {k: getattr(config, k) for k in _STEP_GEOMETRY}
-    if got != _STEP_GEOMETRY or (t.n_pieces, t.size) != (7, 4):
+def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -> tuple:
+    """The ``TETRIS_*`` defines (``(name, value)`` pairs) that build
+    ``turbo_step.cu`` and ``flagship_step.cu`` for ``config`` and the piece
+    tables ``t``, or ``NotImplementedError`` naming the static limit the
+    config passes.  The limits:
+
+    * padded height at most 64: the hit map over the window starts and the
+      mask of full rows are 64-bit words at most;
+    * padded width at most 128: an env's rows live in registers, 4 words a
+      row at most;
+    * piece box side at most 8, and inside the padded board: a packed piece
+      table entry is 2 words at most;
+    * 1 to 32 pieces, a queue of 1 to 16 and a holder of 1 to 8: the bag,
+      queue and holder live in registers;
+    * with ``flagship``, a padded board of at most 3072 cells: the flagship
+      kernels keep the boards (and the observation's frames) of a block of
+      32 envs in shared memory, 227 KB at most;
+    * ``queue_kind`` ``"bag"`` or ``"uniform"``.
+
+    Every geometry of the JAX package's tests is inside them.
+    """
+    H, PW, S = config.padded_height, config.padded_width, t.size
+    for ok, why in (
+        (H <= MAX_PADDED_HEIGHT, f"padded height {H} > {MAX_PADDED_HEIGHT}: hit maps and "
+                                 "full-row masks are 64-bit words at most"),
+        (PW <= MAX_PADDED_WIDTH, f"padded width {PW} > {MAX_PADDED_WIDTH}: an env's rows live in "
+                                 "registers, 4 words a row at most"),
+        (S <= MAX_PIECE_SIDE, f"piece box side {S} > {MAX_PIECE_SIDE}: a piece table entry is "
+                              "2 words at most"),
+        (S <= min(H, PW), f"piece box side {S} exceeds the padded board {H}x{PW}"),
+        (1 <= t.n_pieces <= MAX_PIECES, f"{t.n_pieces} pieces: 1 to {MAX_PIECES} are built"),
+        (1 <= config.queue_size <= MAX_QUEUE, f"queue size {config.queue_size}: 1 to {MAX_QUEUE} "
+                                              "are built"),
+        (1 <= config.holder_size <= MAX_HOLDER, f"holder size {config.holder_size}: 1 to "
+                                                f"{MAX_HOLDER} are built"),
+        (not flagship or H * PW <= MAX_BOARD_CELLS,
+         f"padded board of {H * PW} cells > {MAX_BOARD_CELLS}: the flagship kernels keep a "
+         "block's 32 boards and frames in 227 KB of shared memory"),
+        (config.queue_kind in ("bag", "uniform"), f"queue_kind {config.queue_kind!r} has no kernel"),
+    ):
+        if not ok:
+            raise NotImplementedError(
+                f"the engine kernels: {why} (pass device='cpu' for the plain versions)")
+    return (("TETRIS_HEIGHT", config.height), ("TETRIS_WIDTH", config.width),
+            ("TETRIS_PAD", config.padding), ("TETRIS_QS", config.queue_size),
+            ("TETRIS_HS", config.holder_size), ("TETRIS_NP", t.n_pieces), ("TETRIS_S", S))
+
+
+def _check_default_geometry(config: EngineConfig, t: bb.Tables, name: str) -> None:
+    """Raises unless ``config`` and ``t`` are the geometry ``name`` is built for."""
+    got = {k: getattr(config, k) for k in DEFAULT_GEOMETRY}
+    if got != DEFAULT_GEOMETRY or (t.n_pieces, t.size) != (7, 4):
         raise NotImplementedError(
-            f"the engine kernels are built for {_STEP_GEOMETRY} and the 7 standard "
-            f"pieces; got {got}, {t.n_pieces} pieces of side {t.size} (other geometries "
-            "are ROADMAP item 11; pass device='cpu' for the plain versions)"
+            f"{name} is built for {DEFAULT_GEOMETRY} and the 7 standard pieces; got {got}, "
+            f"{t.n_pieces} pieces of side {t.size} (other geometries are ROADMAP item 11-rest; "
+            "pass device='cpu' for the plain versions)"
         )
     if config.queue_kind not in ("bag", "uniform"):
         raise NotImplementedError(f"queue_kind {config.queue_kind!r} has no kernel")
@@ -447,7 +548,7 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
     """
     device = state.rows.device
     t, packed, box = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    defines = engine_defines(config, t)
     if max_clear < 0:
         raise ValueError(f"max_clear must be >= 0, got {max_clear}")
     B = _check_state(state, config, t.n_pieces, device)
@@ -465,7 +566,7 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
         int(max_clear), float(np.float32(rewards.alife)), float(np.float32(rewards.game_over)),
     )
     in_p, out_p = _ptrs(state), _ptrs(out)
-    rc = _lib("turbo_step").turbo_step_launch(
+    rc = _lib("turbo_step", defines).turbo_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
         done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(), B,
         ctypes.byref(params), _stream(device),
@@ -479,7 +580,7 @@ def turbo_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet) -> tu
     """Launch ``turbo_init``: fresh episodes from per-env keys ``uint32[B, 2]``."""
     device = keys.device
     t, _, box = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    defines = engine_defines(config, t)
     if not keys.is_cuda or keys.dtype != torch.uint32 or keys.ndim != 2 or keys.shape[1] != 2:
         raise ValueError(f"keys: want a CUDA uint32[B, 2] tensor, got {keys.dtype} {tuple(keys.shape)}")
     keys = keys.contiguous()
@@ -488,7 +589,7 @@ def turbo_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet) -> tu
     if B == 0:
         return out
     out_p = _ptrs(out)
-    rc = _lib("turbo_step").turbo_init_launch(
+    rc = _lib("turbo_step", defines).turbo_init_launch(
         keys.data_ptr(), ctypes.byref(out_p), box.data_ptr(), B,
         int(config.queue_kind == "uniform"), _stream(device),
     )
@@ -499,12 +600,15 @@ def turbo_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet) -> tu
 
 def observe_board(state: turbo.TurboState, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
     """Launch ``observe_board``: ``int8[B, height, width]`` board with the piece as -1."""
-    turbo.check_geometry(config)
     device = state.rows.device
     t, packed, _ = turbo.tables_for(pieces, device)
+    if t.size > 31 or 16 * config.height * config.width > 227 * 1024:
+        raise NotImplementedError(
+            f"observe_board takes piece boxes of side <= 31 and 16 frames in 227 KB of shared "
+            f"memory; got side {t.size}, {config.height}x{config.width} frames")
     B = state.piece.shape[0]
     want = {
-        "rows": (torch.uint32, (config.padded_height, B)), "piece": (torch.int32, (B,)),
+        "rows": (torch.uint32, _rows_shape(config, B)), "piece": (torch.int32, (B,)),
         "rotation": (torch.int32, (B,)), "x": (torch.int32, (B,)), "y": (torch.int32, (B,)),
         "game_over": (torch.bool, (B,)),
     }
@@ -518,7 +622,7 @@ def observe_board(state: turbo.TurboState, config: EngineConfig, pieces: PieceSe
         return out
     geom = _ObsGeometry(
         config.height, config.width, config.padding, config.padded_height,
-        config.padded_width, t.size, t.n_pieces * 4,
+        config.padded_width, t.size, t.n_pieces * 4, turbo.n_words(config), t.n_words,
     )
     rc = _lib("observe_board").observe_board_launch(
         state.rows.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(),
@@ -527,6 +631,23 @@ def observe_board(state: turbo.TurboState, config: EngineConfig, pieces: PieceSe
     )
     _check(rc, "observe_board")
     LAUNCHES["observe_board"] += 1
+    return out
+
+
+def heights(state: turbo.TurboState, config: EngineConfig) -> torch.Tensor:
+    """Launch ``heights``: column heights ``int32[width, B]`` of the packed rows."""
+    device = state.rows.device
+    B = state.rows.shape[-1]
+    _check_tensor(state.rows, "state.rows", torch.uint32, _rows_shape(config, B), device)
+    out = torch.empty((config.width, B), dtype=torch.int32, device=device)
+    if B == 0 or config.width == 0:
+        return out
+    rc = _lib("heights").heights_launch(
+        state.rows.data_ptr(), out.data_ptr(), B, config.height, config.width, config.padding,
+        turbo.n_words(config), _stream(device),
+    )
+    _check(rc, "heights")
+    LAUNCHES["heights"] += 1
     return out
 
 
@@ -614,7 +735,10 @@ def grouped_placements(state: turbo.TurboState, config: EngineConfig, pieces: Pi
     """Launch ``grouped_placements``: ``(obs, mask f32[A, B], game_over bool[A, B],
     lines int32[A, B])``, ``obs`` ``f32[B, A, width + 3]`` (features) or
     ``f32[B, A, height, width]`` (boards)."""
-    turbo.check_geometry(config)
+    if bbw.wide(config.padded_width):
+        raise NotImplementedError(
+            f"grouped_placements takes single-word rows (padded width <= 32), got "
+            f"{config.padded_width} (multi-word candidates are ROADMAP item 11-rest)")
     if mode not in _GROUPED_MODES:
         raise ValueError(f"unknown turbo grouped observation mode: {mode}")
     device = state.rows.device
@@ -1005,7 +1129,7 @@ def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: Pie
     """
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    defines = engine_defines(config, t, flagship=True)
     B = _check_flagship_state(state, config, t.n_pieces, device, engine.FIELDS)
     if not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
             or not action.is_contiguous() or action.device != device:
@@ -1021,7 +1145,7 @@ def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: Pie
         float(np.float32(rewards.alife)), float(np.float32(rewards.game_over)),
     )
     in_p, out_p = _flagship_ptrs(state), _flagship_ptrs(out)
-    rc = _lib("flagship_step").flagship_step_launch(
+    rc = _lib("flagship_step", defines).flagship_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
         done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
         _ids_for(pieces, device).data_ptr(), B, ctypes.byref(params), _stream(device),
@@ -1035,7 +1159,7 @@ def flagship_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet):
     """Launch ``flagship_init``: fresh episodes from per-env keys ``uint32[B, 2]``."""
     device = keys.device
     t, _, box = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    defines = engine_defines(config, t, flagship=True)
     if not keys.is_cuda or keys.dtype != torch.uint32 or keys.ndim != 2 or keys.shape[1] != 2:
         raise ValueError(f"keys: want a CUDA uint32[B, 2] tensor, got {keys.dtype} {tuple(keys.shape)}")
     keys = keys.contiguous()
@@ -1044,7 +1168,7 @@ def flagship_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet):
     if B == 0:
         return out
     out_p = _flagship_ptrs(out)
-    rc = _lib("flagship_step").flagship_init_launch(
+    rc = _lib("flagship_step", defines).flagship_init_launch(
         keys.data_ptr(), ctypes.byref(out_p), box.data_ptr(), B,
         int(config.queue_kind == "uniform"), _stream(device),
     )
@@ -1058,13 +1182,13 @@ def flagship_observe_board(state, config: EngineConfig, pieces: PieceSet) -> tor
     occupancy with the active piece added as -1 unless the game is over."""
     device = state.board.device
     t, packed, _ = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    defines = engine_defines(config, t, flagship=True)
     B = _check_flagship_state(state, config, t.n_pieces, device,
                               ("board", "piece", "rotation", "x", "y", "game_over"))
     out = torch.empty((B, config.height, config.width), dtype=torch.int8, device=device)
     if B == 0:
         return out
-    rc = _lib("flagship_step").flagship_observe_board_launch(
+    rc = _lib("flagship_step", defines).flagship_observe_board_launch(
         state.board.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(),
         state.x.data_ptr(), state.y.data_ptr(), state.game_over.data_ptr(), packed.data_ptr(),
         out.data_ptr(), B, _stream(device),
@@ -1103,7 +1227,7 @@ def render_rgb84(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
     ``preprocess_rgb84(render_rgb(state))``."""
     device = state.board.device
     t, packed, _ = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    _check_default_geometry(config, t, "render_rgb84")
     if pieces.palette.shape != (t.n_pieces + 2, 3):
         raise NotImplementedError(f"render_rgb84 is built for a {t.n_pieces + 2}-entry palette")
     B = _check_flagship_state(state, config, t.n_pieces, device, _RENDER_FIELDS)
@@ -1145,7 +1269,7 @@ def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = 
     flags = FeatureFlags() if flags is None else flags
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    _check_default_geometry(config, t, "grouped_flagship")
     B = _check_flagship_state(state, config, t.n_pieces, device, ("board", "piece", "rotation"))
     A = config.width * 4
     board_shape = (B, A, config.padded_height, config.padded_width)
@@ -1182,7 +1306,7 @@ def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
     if playfield.ndim != 3 or tuple(playfield.shape[1:]) != FEATURE_CROP:
         raise NotImplementedError(
             f"feature_vector is built for [B, 20, 10] playfields, got {tuple(playfield.shape)} "
-            "(other geometries are ROADMAP item 11)")
+            "(other geometries are ROADMAP item 11-rest)")
     device = playfield.device
     if not playfield.is_cuda or playfield.dtype != torch.int8 or playfield.stride(2) != 1:
         raise ValueError(f"playfield: want a CUDA int8 tensor with unit column stride, got "
@@ -1211,7 +1335,7 @@ def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: boo
     queue strips alone (``engine.queue_holder_strips``)."""
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
-    _check_step_config(config, t)
+    _check_default_geometry(config, t, "observe_dict")
     B = _check_flagship_state(state, config, t.n_pieces, device, _RENDER_FIELDS)
     hw = (B, config.padded_height, config.padded_width)
     pad = config.padding
@@ -1246,7 +1370,7 @@ def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: to
     cfg = EngineConfig()
     if pieces.palette.shape != PALETTE_SHAPE:
         raise NotImplementedError(f"compose_rgb is built for a {PALETTE_SHAPE[0]}-entry palette, "
-                                  f"got {pieces.palette.shape[0]} (ROADMAP item 11)")
+                                  f"got {pieces.palette.shape[0]} (ROADMAP item 11-rest)")
     N = board.shape[0]
     if group < 1 or N % group:
         raise ValueError(f"{N} boards do not split into groups of {group}")
@@ -1257,7 +1381,7 @@ def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: to
             or tuple(holder_strip.shape[1:]) != (pad, pad * cfg.holder_size):
         raise NotImplementedError(
             f"compose_rgb is built for the default geometry; got boards {tuple(board.shape)}, "
-            f"strips {tuple(queue_strip.shape)} and {tuple(holder_strip.shape)} (ROADMAP item 11)")
+            f"strips {tuple(queue_strip.shape)} and {tuple(holder_strip.shape)} (ROADMAP item 11-rest)")
     _check_tensor(board, "board", torch.uint8, board.shape, device)
     _check_tensor(queue_strip, "queue_strip", torch.uint8, (M,) + tuple(queue_strip.shape[1:]), device)
     _check_tensor(holder_strip, "holder_strip", torch.uint8, (M,) + tuple(holder_strip.shape[1:]),

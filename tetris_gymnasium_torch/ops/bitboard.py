@@ -11,9 +11,9 @@ padded board row is one 32-bit mask, bit ``w`` = column ``w`` occupied.
 The batched operations take rows ``[B, H]`` with the batch leading, held
 in int64 lanes (PyTorch has no ``uint32`` arithmetic on the CPU), piece
 row masks ``[B, S]`` and per-env ``x``, ``y``.  Window starts are clamped
-as ``lax.dynamic_slice`` clamps them, from the 4x4 padded matrix.  Only
-single-word rows (``padded_width <= 32``) are ported;
-``ops/bitboard_wide.py`` is not.
+as ``lax.dynamic_slice`` clamps them, from the 4x4 padded matrix.  Boards
+wider than one word (``padded_width > 32``) use the same operations over
+multi-word rows, in :mod:`tetris_gymnasium_torch.ops.bitboard_wide`.
 """
 from __future__ import annotations
 
@@ -62,34 +62,42 @@ def empty_rows(height: int, width: int, padding: int) -> np.ndarray:
 class Tables(NamedTuple):
     """Turbo engine constant tables."""
 
-    packed: np.ndarray  # uint32[n*4]: row s of (piece, rotation) in bits [s*S, (s+1)*S)
+    packed: np.ndarray  # uint32[n*4, NW]: row s of (piece, rotation) in bits [s*S, (s+1)*S)
+    #   of the words laid end to end (NW = 1 for the default pieces)
     box: np.ndarray  # int32[n]
     size: int  # piece box side S
     n_pieces: int
+    n_words: int  # NW = ceil(S * S / 32)
 
 
 def turbo_tables(pieces: PieceSet = PIECES) -> Tables:
-    """The turbo engine's packed piece table (``core/turbo.py:_tables_for``).
+    """The turbo engine's packed piece table (``core/turbo.py:_tables_for :114``).
 
-    Only the single-word packing (``S * S <= 32``) is ported; the default
-    4x4 set needs 16 bits per (piece, rotation).
+    The ``S`` rows of ``S`` bits each are laid end to end over ``ceil(S * S
+    / 32)`` words: one word for the default 4x4 set, two for a 6x6 set,
+    whose rows then straddle a word boundary.
     """
     rtab = row_bits_table(pieces)  # [n, 4, S]
     n, _, size = rtab.shape
-    if size * size > 32:
+    if size > 32:
         raise NotImplementedError(
-            f"piece box side {size} needs a multi-word packed table, which the "
-            "port does not have yet"
+            f"piece box side {size} exceeds one 32-bit row mask; no Tetris "
+            "variant needs pieces wider than 32 columns"
         )
+    nw = (size * size + 31) // 32
     flat = rtab.reshape(n * 4, size).astype(np.uint64)
-    packed = np.zeros((n * 4,), dtype=np.uint64)
+    packed = np.zeros((n * 4, nw), dtype=np.uint64)
     for s in range(size):
-        packed |= flat[:, s] << np.uint64(s * size)
+        w0, r = divmod(s * size, 32)
+        packed[:, w0] |= (flat[:, s] << np.uint64(r)) & np.uint64(0xFFFFFFFF)
+        if r + size > 32:
+            packed[:, w0 + 1] |= flat[:, s] >> np.uint64(32 - r)
     return Tables(
         packed=packed.astype(np.uint32),
         box=np.asarray(pieces.box, dtype=np.int32),
         size=size,
         n_pieces=n,
+        n_words=nw,
     )
 
 
