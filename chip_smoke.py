@@ -196,12 +196,33 @@ Phases, each printing one JSON line:
     and ``turbo_step``, ``observe_board``, ``flagship_step`` and ``heights``
     at the default geometry at 65536, beside their bounds and plain versions.
 
+35. The six surface kernels at every geometry of phase 31 and at a holder
+    longer than the queue (queue 1, holder 2), each built for it in phase
+    2: ``observe_dict`` (and its strips), ``compose_rgb``, ``render_rgb84``
+    (wherever JAX's resize takes the composite: at all of them) and
+    ``feature_vector`` bit-equal to their plain versions on 200-step
+    flagship trajectories at B = 1001 and 1, ``grouped_flagship`` (ids,
+    boards, features) and ``grouped_placements`` (features, boards) on every
+    25th state and on hand-built stacks with up to six full rows.
+36. The turbo grouped engine equal to the flagship grouped engine on the
+    card at 30x14 without gravity, 4096 envs, 50 masked-random steps
+    (features, masks, rewards, dones, lines, env fields).
+37. The slice's path at 30x20: ``Tetris(width=30, height=20)`` on the card
+    against the CPU as in phase 27 (20 episodes, the grouped wrapper in
+    every mode), ``RgbObservation`` and ``FeatureVectorObservation`` card
+    against CPU, exact launch counts, and a shell step's host ms.
+38. The flagship and the turbo grouped engine at 30x20, 4096 envs, features
+    mode: step ms, placements/s, exact launch counts.
+39. The six surface kernels' device ms at 30x20 and 61x12, B = 4096 and
+    65536 (the board modes at 4096), beside their bounds and plain versions.
+
 Then the kernels line (21 kernels; each with the launch counts of the
 first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
 else PPO, else the grouped engine, else the shell; times at the shape of
 that path; ``heights``, which no path calls, with 0 launches and its time
-at 30x20, B = 4096) and, last, the device line.
+at 30x20, B = 4096; each with its builds, one a geometry, and the six
+surface kernels with their phase-39 times) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -209,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -549,9 +571,11 @@ def main() -> None:
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    builds = kernels.build([(cfg, P) for _, cfg, P in wide_geometries()])
+    builds = kernels.build([(cfg, P) for _, cfg, P in surface_geometries()]
+                           + [(EngineConfig(**GROUPED_WIDE), turbo.PIECES)])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": [{k: b[k] for k in ("name", "defines", "seconds", "cached")} for b in builds]})
+          "kernels": [{k: b.get(k) for k in ("name", "defines", "seconds", "cached", "extra_flags")}
+                      for b in builds]})
     for b in builds:
         tag = ",".join(f"{k[7:].lower()}={v}" for k, v in b["defines"].items())
         for line in b["ptxas"].splitlines():
@@ -791,6 +815,13 @@ def main() -> None:
     wide_vector = run_vector_env(dev, smi, WIDE_VECTOR)
     wide_times = time_wide_kernels(dev, smi)
 
+    # -- 35.-39. the Gymnasium surface and both grouped engines at any geometry -----------
+    check_surface_geometries(dev)
+    check_grouped_engines_wide(dev)
+    wide_shell = check_shell(dev, SHELL_WIDE)
+    wide_grouped = run_grouped_engines_wide(dev, smi)
+    surface_wide_times = time_surface_wide(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -868,10 +899,22 @@ def main() -> None:
               {k: surface_times[k][1] for k in ("observe_dict", "compose_rgb", "feature_vector")}),
              ("vector_env", vector["launches"], vector["steps"], {}),
              ("vector_env_wide", wide_vector["launches"], wide_vector["steps"], {}),
+             ("shell_wide", wide_shell["launches"], wide_shell["steps"], {}),
+             ("grouped_engines_wide", wide_grouped["launches"], wide_grouped["steps"], {}),
              # heights: no path calls it (nor any in the JAX package); its
              # time is at 30x20, B = 4096, its launches 0
              ("none", {k: 0 for k in kernels.LAUNCHES}, 1,
               {"heights": wide_times["30x20"]["heights"][4096]})]
+    # each kernel's builds (phase 2: one library per geometry for the
+    # sources of kernels.GEOMETRY_SOURCES and features.cu), and the surface
+    # kernels' times at 30x20 and 61x12 (phase 39)
+    builds_of = {}
+    for b in builds:
+        builds_of.setdefault(b["name"], []).append(
+            ",".join(f"{k[7:].lower()}={v}" for k, v in b["defines"].items()) or "default")
+    wide_at = {k: {geo: {key: {f: e[f] for f in ("ms", "bound_ms", "bound_by", "plain_ms")}
+                         for key, e in by_kernel[k].items()}
+                   for geo, by_kernel in surface_wide_times.items()} for k in SURFACE_KERNELS}
     entries = []
     for name, (src, rep) in sources.items():
         path, counts, n_steps, at = next(p for p in paths if p[1][name] or p[0] == "none")
@@ -885,6 +928,8 @@ def main() -> None:
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
             "library_ms": at[name].get("library_ms"),
+            "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
+            **({"wide": wide_at[name]} if name in wide_at else {}),
         })
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2757,21 +2802,27 @@ def _wrapper_launches(mode, terminate, legal):
     return out
 
 
-def check_shell(dev) -> dict:
-    """Phase 27: ``Tetris(device="cuda")`` against ``Tetris(device="cpu")``
-    over 20 seeded episodes of random actions (out-of-range ids included),
-    and ``GroupedActionsObservations`` over ``Tetris`` in the features,
-    boards, rgb and host modes, card against CPU, with exact launch counts
-    a step.  Returns the launches of the card's runs (the shell path)."""
+def check_shell(dev, geometry=None) -> dict:
+    """Phase 27 (the default board) and 37 (``geometry``, the keywords of
+    ``Tetris``' width and height): ``Tetris(device="cuda")`` against
+    ``Tetris(device="cpu")`` over 20 seeded episodes of random actions
+    (out-of-range ids included), and ``GroupedActionsObservations`` over
+    ``Tetris`` in the features, boards, rgb and host modes, card against
+    CPU, with exact launch counts a step.  With ``geometry``, also
+    ``RgbObservation`` and ``FeatureVectorObservation`` card against CPU
+    and one shell step's host ms.  Returns the launches of the card's runs
+    (the shell path)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.envs import Tetris
     from tetris_gymnasium_torch.wrappers import (FeatureVectorObservation, GroupedActionsObservations,
                                                  RgbObservation)
 
+    geo = geometry or {}
     rng = np.random.default_rng(27)
     t0 = time.perf_counter()
-    card = Tetris(render_mode="rgb_array", device=dev)
-    cpu = Tetris(render_mode="rgb_array", device="cpu")
+    card = Tetris(render_mode="rgb_array", device=dev, **geo)
+    cpu = Tetris(render_mode="rgb_array", device="cpu", **geo)
+    n_actions = card.config.width * 4
     kernels.reset_launches()
     steps = ends = lines = 0
     for ep in range(SHELL_EPISODES):
@@ -2812,7 +2863,7 @@ def check_shell(dev) -> dict:
                             ("features", False)):
         stacks = []
         for where in (dev, "cpu"):
-            env = Tetris(gravity=False, device=where)
+            env = Tetris(gravity=False, device=where, **geo)
             inner = {"features": [FeatureVectorObservation(env)], "boards": None,
                      "rgb": [RgbObservation(env)],
                      "host": [FeatureVectorObservation(env, report_bumpiness=False)]}[mode]
@@ -2835,7 +2886,7 @@ def check_shell(dev) -> dict:
                 legal, illegal = (np.nonzero(i["action_mask"] == v)[0] for v in (1, 0))
                 u = rng.random()
                 pick = illegal if (u < 0.05 and len(illegal)) or not len(legal) else legal
-                a = int(rng.integers(0, 40)) if u > 0.95 else int(rng.choice(pick))
+                a = int(rng.integers(0, n_actions)) if u > 0.95 else int(rng.choice(pick))
                 is_legal = bool(i["action_mask"][a])
                 for k, v in _wrapper_launches(mode, terminate, is_legal).items():
                     want[k] += v
@@ -2858,13 +2909,78 @@ def check_shell(dev) -> dict:
         wrapper_runs.append({"mode": mode, "terminate_on_illegal": terminate, "steps": n_steps,
                              "illegal": n_illegal, "launches": {k: v for k, v in got.items() if v}})
     launches = {k: shell_launches[k] + total[k] for k in total}
-    emit({"phase": "shell", "equal_card_cpu": True, "episodes": SHELL_EPISODES, "steps": steps,
-          "episodes_ended": ends, "lines": lines,
+    extra = {} if geometry is None else _observation_wrappers_card_cpu(dev, geo, rng)
+    emit({"phase": "shell" if geometry is None else "wide_shell", **geo, "equal_card_cpu": True,
+          "episodes": SHELL_EPISODES, "steps": steps, "episodes_ended": ends, "lines": lines,
           "launches": {k: v for k, v in shell_launches.items() if v},
           "launches_per_step": {k: v / steps for k, v in shell_launches.items() if v},
           "shell_seconds": shell_seconds, "grouped_wrapper": wrapper_runs,
-          "wrapper_seconds": time.perf_counter() - t1})
-    return {"launches": launches, "steps": steps + sum(r["steps"] for r in wrapper_runs)}
+          "wrapper_seconds": time.perf_counter() - t1, **extra})
+    return {"launches": launches, "steps": steps + sum(r["steps"] for r in wrapper_runs), **extra}
+
+
+def _observation_wrappers_card_cpu(dev, geo, rng) -> dict:
+    """Phase 37's ``RgbObservation`` and ``FeatureVectorObservation`` (three
+    flag sets) over ``Tetris(**geo)``, card against CPU, with exact launch
+    counts a step, and one shell step's host ms on the card."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.envs import Tetris
+    from tetris_gymnasium_torch.wrappers import FeatureVectorObservation, RgbObservation
+
+    flag_sets = ((1, 1, 1, 1), (0, 1, 1, 0), (1, 0, 0, 1))
+    runs = {}
+    for name in ("rgb", "features"):
+        pair = []
+        for where in (dev, "cpu"):
+            env = Tetris(device=where, **geo)
+            pair.append(RgbObservation(env) if name == "rgb"
+                        else [FeatureVectorObservation(env, *f) for f in flag_sets])
+        w, wp = pair
+        lead, lead_p = (w, wp) if name == "rgb" else (w[0], wp[0])
+        kernels.reset_launches()
+        n = 0
+        for ep in range(WRAPPER_EPISODES):
+            o, _ = lead.reset(seed=200 + ep)
+            op, _ = lead_p.reset(seed=200 + ep)
+            for t in range(WRAPPER_MAX_STEPS):
+                if name == "rgb":
+                    _eq_obs(o, op, f"RgbObservation episode {ep} step {t}")
+                else:
+                    for f, fp in zip(w, wp):
+                        _eq_obs(f.observation(None), fp.observation(None),
+                                f"FeatureVectorObservation {f.flags} episode {ep} step {t}")
+                a = int(rng.choice(8, p=np.asarray(FLAGSHIP_ACTION_P)))
+                o, r, d, *_ = lead.step(a)
+                op, rp, dp, *_ = lead_p.step(a)
+                if (r, d) != (rp, dp):
+                    raise AssertionError(f"{name} wrapper episode {ep} step {t}: {(r, d)} vs {(rp, dp)}")
+                n += 1
+                if d:
+                    break
+        torch.cuda.synchronize()
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        # a step: flagship_step, the env's observe_dict and the wrapper's kernel;
+        # the features checked by hand: one feature_vector for each flag set
+        resets = WRAPPER_EPISODES
+        if name == "rgb":
+            want = {"flagship_init": resets, "flagship_step": n, "observe_dict": resets + n,
+                    "compose_rgb": resets + n}
+        else:
+            want = {"flagship_init": resets, "flagship_step": n, "observe_dict": resets + n,
+                    "feature_vector": resets + n + len(flag_sets) * n}
+        if got != want:
+            raise AssertionError(f"{name} observation wrapper launches {got}, want {want}")
+        runs[name] = {"steps": n, "launches": got}
+    env = Tetris(device=dev, **geo)
+    env.reset(seed=0)
+    acts = rng.choice(8, SHELL_TIMED_STEPS, p=np.asarray(FLAGSHIP_ACTION_P))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts:
+        if env.step(int(a))[2]:
+            env.reset(seed=int(a))
+    return {"observation_wrappers": runs,
+            "shell_step_call_ms": 1e3 * (time.perf_counter() - t0) / SHELL_TIMED_STEPS}
 
 
 def run_grouped_engine(dev, smi) -> dict:
@@ -3432,6 +3548,445 @@ def time_wide_kernels(dev, smi) -> dict:
             emit({"phase": "wide_times", "geometry": name, "B": B, "words_per_row": nw,
                   "kernels": {k: v[B] for k, v in out[name].items()}, "nvidia_smi": smi})
             del t, f, pt, pf
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 35.-39. the Gymnasium surface and both grouped engines at any geometry
+# ---------------------------------------------------------------------------
+
+SURF_GEO_B = (1001, 1)
+SURF_GEO_STEPS = 200
+SURF_GEO_GROUPED_EVERY = 25  # the grouped kernels against their plain versions every 25th state
+GROUPED_WIDE = dict(width=30, height=14, gravity_enabled=False, auto_reset=True)  # tests/test_wide_boards.py:165-191
+GROUPED_WIDE_B, GROUPED_WIDE_STEPS = 4096, 50
+SHELL_WIDE = dict(width=30, height=20)  # phase 37, the slice's path
+GROUPED_RATE_WIDE = dict(width=30, height=20, gravity_enabled=False, auto_reset=True)  # phase 38
+SURF_WIDE_TIME_B = (4096, 65536)
+SURF_WIDE_PLAIN_B = {"grouped": 1024, "other": 4096}  # the plain versions' batch; larger B scaled
+SURFACE_KERNELS = ("grouped_flagship", "grouped_placements", "feature_vector", "observe_dict",
+                   "compose_rgb", "render_rgb84")
+
+
+def surface_geometries():
+    """:func:`wide_geometries` and a holder longer than the queue (queue 1,
+    holder 2: the sidebar is ``S * max(queue, holder)`` wide and the queue
+    strip is widened with bedrock)."""
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.pieces import PIECES
+
+    return wide_geometries() + [("queue1-holder2", EngineConfig(queue_size=1, holder_size=2,
+                                                                auto_reset=True), PIECES)]
+
+
+def _side(pieces) -> int:
+    return int(pieces.matrices.shape[-1])
+
+
+def _rgb84_taken(cfg, pieces) -> bool:
+    """JAX's resize takes the composite: at most 84 pixels on each side."""
+    S = _side(pieces)
+    return max(cfg.padded_height, cfg.padded_width + S * max(cfg.queue_size, cfg.holder_size)) <= 84
+
+
+def _grouped_features_of(boards, cfg, flags):
+    """The features mode of the flagship grouped engine, from the plain
+    placements' id boards."""
+    from tetris_gymnasium_torch.ops.observations import feature_vector_plain
+
+    B, A = boards.shape[:2]
+    pad = cfg.padding
+    crop = boards[:, :, :-pad, pad:-pad].reshape(B * A, cfg.height, cfg.width)
+    return feature_vector_plain(crop, flags).reshape(B, A, -1).to(torch.float32)
+
+
+def _check_grouped_surface(s, cfg, P, what, stacks=False) -> dict:
+    """``grouped_flagship`` in its three modes and ``grouped_placements`` in
+    both against their plain versions on the flagship state ``s`` (the
+    turbo state through ``from_flagship``); with ``stacks`` the turbo
+    engine's envelope at ``max_clear`` 4 and at the board's height."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import grouped, turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags
+
+    want = grouped.placements_plain(s, cfg, P)
+    for k, (a, b) in enumerate(zip(kernels.grouped_flagship(s, cfg, P, "ids"), want)):
+        diff("grouped_flagship", a, b, f"{what} ids output {k}")
+    diff("grouped_flagship", kernels.grouped_flagship(s, cfg, P, "boards")[0], want[0].float(),
+         f"{what} boards")
+    for flags in (FeatureFlags(), FeatureFlags(True, False, True, False)):
+        diff("grouped_flagship", kernels.grouped_flagship(s, cfg, P, "features", flags)[0],
+             _grouped_features_of(want[0], cfg, flags), f"{what} features {tuple(flags)}")
+    ts = turbo.from_flagship(s, cfg)
+    lines = 0
+    for max_clear in ((4, cfg.height) if stacks else (4,)):
+        for mode, plain in (("features", tg.placements_plain), ("boards", tg.placement_boards_plain)):
+            ref = plain(ts, cfg, P, max_clear)
+            for k, (a, b) in enumerate(zip(kernels.grouped_placements(ts, cfg, P, max_clear, mode), ref)):
+                diff("grouped_placements", a, b, f"{what} turbo {mode} max_clear={max_clear} output {k}")
+            lines = max(lines, int(ref[3].max()))
+    return {"illegal": int((want[1] == 0).sum()), "game_over": int(want[2].sum()),
+            "max_lines": int(want[3].max()), "turbo_max_lines": lines}
+
+
+def check_surface_geometries(dev) -> dict:
+    """Phase 35: the six surface kernels bit-equal to their plain versions
+    at every geometry of :func:`surface_geometries`, each built for it in
+    phase 2: ``observe_dict`` (and its strips), ``compose_rgb``,
+    ``render_rgb84`` (wherever JAX's resize takes the composite) and
+    ``feature_vector`` (all 16 flag sets on the first state) on 200-step
+    flagship trajectories at B = 1001 and 1 (the plain versions on the two
+    batches side by side); ``grouped_flagship``
+    (ids, boards, features) and ``grouped_placements`` (features, boards)
+    on every 25th state of both, and on hand-built stacks with up to six
+    full rows (the turbo engine's envelope at ``max_clear`` 4 and at the
+    board's height)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import RewardsMapping
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, compose_rgb_plain, feature_vector_plain
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(35)
+    rw = RewardsMapping()
+    t0 = time.perf_counter()
+    runs = []
+    for name, cfg, P in surface_geometries():
+        pad = cfg.padding
+        rgb84 = _rgb84_taken(cfg, P)
+        fs = [kernels.flagship_init(batch_keys(prng_key(35 + B), B, device=dev), cfg, P) for B in SURF_GEO_B]
+
+        def plain_all(f):
+            d = engine.observe_dict_plain(f, cfg, P)
+            out = {**d, "rgb": compose_rgb_plain(d["board"], d["queue"], d["holder"], P),
+                   "features": feature_vector_plain(f.board[:, :-pad, pad:-pad], FeatureFlags())}
+            if rgb84:
+                out["rgb84"] = engine.render_rgb84_plain(f, cfg, P)
+            return out
+
+        grouped_stats = []
+        for i in range(SURF_GEO_STEPS + 1):
+            what = f"{name} @ {i}"
+            f_all = _cat_flagship(fs)
+            want = plain_all(f_all)
+            ds = [kernels.observe_dict(s, cfg, P) for s in fs]
+            for k in ("board", "active_tetromino_mask", "queue", "holder"):
+                diff("observe_dict", torch.cat([d[k] for d in ds]), want[k], f"{what} {k}")
+            strips = [kernels.observe_dict(s, cfg, P, strips_only=True) for s in fs]
+            for k in ("queue", "holder"):
+                diff("observe_dict", torch.cat([d[k] for d in strips]), want[k], f"{what} strips_only {k}")
+            diff("compose_rgb", torch.cat([kernels.compose_rgb(d["board"], d["queue"], d["holder"], P)
+                                           for d in ds]), want["rgb"], f"{what} rgb")
+            if rgb84:
+                diff("render_rgb84", torch.cat([kernels.render_rgb84(s, cfg, P) for s in fs]),
+                     want["rgb84"], f"{what} rgb84")
+            diff("feature_vector", torch.cat([kernels.feature_vector(s.board[:, :-pad, pad:-pad], FeatureFlags())
+                                              for s in fs]), want["features"], f"{what} features")
+            if i == 0:
+                crop = f_all.board[:, :-pad, pad:-pad]
+                for flags in FLAG_SETS:
+                    flags = FeatureFlags(*flags)
+                    diff("feature_vector", kernels.feature_vector(crop, flags), feature_vector_plain(crop, flags),
+                         f"{what} features {tuple(flags)}")
+            if i % SURF_GEO_GROUPED_EVERY == 0:
+                for s in fs:
+                    grouped_stats.append(_check_grouped_surface(s, cfg, P, f"{what} B={s.board.shape[0]}"))
+            if i == SURF_GEO_STEPS:
+                break
+            fs = [kernels.flagship_step(s, _flagship_actions(s.board.shape[0], g, dev), cfg, P, rw)[0]
+                  for s in fs]
+        # hand-built stacks: up to six full rows, pieces at random windows,
+        # full holders, and a quarter of the envs stacked to the ceiling
+        s, _ = _wide_stacks(cfg, P, SURF_GEO_B[0], g, dev, seed=350)
+        board = s.board.clone()
+        board[: SURF_GEO_B[0] // 4, : cfg.height // 3 + 1, pad : pad + cfg.width] = 3
+        s = s.replace(board=board, holder_count=torch.full_like(s.holder_count, cfg.holder_size),
+                      holder_piece=torch.randint(0, int(P.ids.shape[0]), s.holder_piece.shape, generator=g,
+                                                 device=dev, dtype=torch.int32))
+        d, dp = kernels.observe_dict(s, cfg, P), engine.observe_dict_plain(s, cfg, P)
+        for k in dp:
+            diff("observe_dict", d[k], dp[k], f"{name} stacks {k}")
+        diff("compose_rgb", kernels.compose_rgb(d["board"], d["queue"], d["holder"], P),
+             compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), f"{name} stacks rgb")
+        if rgb84:
+            diff("render_rgb84", kernels.render_rgb84(s, cfg, P), engine.render_rgb84_plain(s, cfg, P),
+                 f"{name} stacks rgb84")
+        crop = s.board[:, :-pad, pad:-pad]
+        diff("feature_vector", kernels.feature_vector(crop, FeatureFlags()), feature_vector_plain(crop),
+             f"{name} stacks features")
+        stacks = _check_grouped_surface(s, cfg, P, f"{name} stacks", stacks=True)
+        if stacks["max_lines"] < 2 or stacks["illegal"] == 0 or stacks["game_over"] == 0:
+            raise AssertionError(f"{name}: the hand-built stacks made no multi-line, illegal or "
+                                 f"game-over candidate: {stacks}")
+        runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
+                     "piece_side": _side(P), "B": list(SURF_GEO_B), "steps": SURF_GEO_STEPS,
+                     "render_rgb84": rgb84,
+                     "grouped_states": len(grouped_stats),
+                     "illegal_candidates": sum(x["illegal"] for x in grouped_stats),
+                     "game_over_candidates": sum(x["game_over"] for x in grouped_stats),
+                     "stacks": stacks})
+        emit({"phase": "surface_geometries", **runs[-1], "seconds": time.perf_counter() - t0})
+    torch.cuda.synchronize()
+    out = {"bit_equal": True, "geometries": [r["geometry"] for r in runs],
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "surface_geometries_summary", **out,
+          "max_abs_err": {k: MAX_ERR[k] for k in SURFACE_KERNELS}})
+    return out
+
+
+def check_grouped_engines_wide(dev) -> dict:
+    """Phase 36: the turbo grouped engine equal to the flagship grouped
+    engine on the card at 30x14 without gravity (tests/test_wide_boards.py:
+    165-191): 4096 envs, 50 steps of random legal placements (one in ten
+    uniform over all candidates, so some are illegal): features, masks,
+    rewards, dones, lines and every env field through ``from_flagship``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import grouped, turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(36)
+    cfg = EngineConfig(**GROUPED_WIDE)
+    keys = batch_keys(prng_key(36), GROUPED_WIDE_B, device=dev)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    fgs, fobs = grouped.reset(keys, cfg, mode="features", device=dev)
+    tgs, tobs = tg.reset(keys, cfg, device=dev)
+    lines = dones = illegal = 0
+    for i in range(GROUPED_WIDE_STEPS + 1):
+        if not (torch.equal(bits(fobs), bits(tobs)) and torch.equal(fgs.mask.T, tgs.mask)):
+            raise AssertionError(f"30x14: flagship and turbo grouped observations differ @ {i}")
+        ft = turbo.from_flagship(fgs.env, cfg)
+        for k in turbo.FIELDS:
+            if not torch.equal(bits(getattr(ft, k)), bits(getattr(tgs.env, k))):
+                raise AssertionError(f"30x14: flagship and turbo grouped {k} differ @ {i}")
+        if i == GROUPED_WIDE_STEPS:
+            break
+        a = _surface_actions(fgs.mask, g, dev, 0.1)
+        illegal += int((fgs.mask.gather(1, a.long()[:, None])[:, 0] == 0).sum())
+        fgs, fobs, fr, fd, fi = grouped.step(fgs, a, cfg, mode="features")
+        tgs, tobs, tr, td, ti = tg.step(tgs, a, cfg)
+        for got, ref, what in ((fr, tr, "reward"), (fd, td, "done"),
+                               (fi["lines_cleared"], ti["lines_cleared"], "lines")):
+            if not torch.equal(bits(got), bits(ref)):
+                raise AssertionError(f"30x14: flagship and turbo grouped {what} differ @ {i}")
+        lines += int(fi["lines_cleared"].sum())
+        dones += int(fd.sum())
+    torch.cuda.synchronize()
+    T = GROUPED_WIDE_STEPS
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want = {"flagship_init": T + 1, "flagship_step": T, "grouped_flagship": T + 1,
+            "turbo_init": T + 1, "turbo_step": T, "grouped_placements": T + 1}
+    if launches != want:
+        raise AssertionError(f"phase 36 launches {launches}, want {want}")
+    out = {"config": GROUPED_WIDE, "B": GROUPED_WIDE_B, "steps": T, "lines": lines, "done": dones,
+           "illegal_actions": illegal, "launches": launches, "seconds": time.perf_counter() - t0}
+    if illegal == 0 or dones == 0:
+        raise AssertionError(f"phase 36 took no illegal action or ended no episode: {out}")
+    emit({"phase": "grouped_engines_wide", "equal": True, **out})
+    return out
+
+
+def run_grouped_engines_wide(dev, smi) -> dict:
+    """Phase 38: the flagship and the turbo grouped engine at 30x20 without
+    gravity, 4096 envs, features mode, 32 steps of random legal placements
+    (phase 28's shape, ``bench.py:402-406``): step ms and placements/s on
+    the host's clock, exact launch counts, the kernels' device ms."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, grouped, turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(38)
+    cfg = EngineConfig(**GROUPED_RATE_WIDE)
+    B, T, A = GROUPED_ENGINE_B, GROUPED_ENGINE_STEPS, cfg.width * 4
+    keys = batch_keys(prng_key(38), B, device=dev)
+    out = {}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for impl in ("flagship", "turbo"):
+        if impl == "flagship":
+            gs, obs = grouped.reset(keys, cfg, mode="features", device=dev)
+            step = functools.partial(grouped.step, config=cfg, mode="features")
+            mask_of = lambda gs: gs.mask  # noqa: E731
+        else:
+            gs, obs = tg.reset(keys, cfg, device=dev)
+            step = functools.partial(tg.step, config=cfg)
+            mask_of = lambda gs: gs.mask.T  # noqa: E731
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(T):
+            a = _surface_actions(mask_of(gs), g, dev, 0.0)
+            gs, obs, r, d, info = step(gs, a)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        names = {"flagship": ("flagship_step", "flagship_init", "grouped_flagship"),
+                 "turbo": ("turbo_step", "turbo_init", "grouped_placements")}[impl]
+        if got != {k: T for k in names}:
+            raise AssertionError(f"grouped engine ({impl}, 30x20) launches {got}, want {T} of {names}")
+        for k, v in got.items():
+            total[k] += v
+        if obs.shape != (B, A, cfg.width + 3) or not torch.isfinite(obs).all():
+            raise AssertionError(f"grouped engine ({impl}, 30x20) observation {tuple(obs.shape)} not finite")
+        drop = torch.full((B,), 5, dtype=torch.int32, device=dev)
+        if impl == "flagship":
+            parts = {
+                "grouped_flagship": device_ms(lambda: kernels.grouped_flagship(gs.env, cfg, engine.PIECES,
+                                                                               "features"), 20),
+                "hard_drop": device_ms(lambda: kernels.flagship_step(gs.env, drop, cfg, engine.PIECES,
+                                                                     RewardsMapping()), 20),
+                "auto_reset_init": device_ms(lambda: kernels.flagship_init(gs.env.key.T.contiguous(), cfg,
+                                                                           engine.PIECES), 20)}
+        else:
+            parts = {
+                "grouped_placements": device_ms(lambda: kernels.grouped_placements(gs.env, cfg, turbo.PIECES),
+                                                20),
+                "hard_drop": device_ms(lambda: kernels.turbo_step(gs.env, drop, cfg, turbo.PIECES,
+                                                                  RewardsMapping()), 20),
+                "auto_reset_init": device_ms(lambda: kernels.turbo_init(gs.env.key.T.contiguous(), cfg,
+                                                                        turbo.PIECES), 20)}
+        a = _surface_actions(mask_of(gs), g, dev, 0.0)
+        step_call = call_ms(lambda: step(gs, a), 20)
+        parts["selects_and_rest_call"] = step_call - sum(parts.values())
+        out[impl] = {"B": B, "steps": T, "wall_s": wall, "step_ms": 1e3 * wall / T,
+                     "placements_per_s": B * T / wall, "candidates_per_s": A * B * T / wall,
+                     "step_call_ms": step_call, "parts_device_ms": parts}
+        emit({"phase": "grouped_engines_wide_rate", "impl": impl, "config": GROUPED_RATE_WIDE, **out[impl],
+              "launches": got, "nvidia_smi": smi})
+    return {"launches": total, "steps": 2 * T, "times": out}
+
+
+def _surface_ops(cfg, P) -> dict:
+    """32-bit operations a unit of each surface function needs at ``cfg``,
+    by the kernels' own count, generalised from phases 16, 25 and 30: a
+    candidate of ``grouped_flagship`` (a hit map over the window starts, 8
+    a window and word; 16 frame cells; the staged rows; the window rows'
+    summed cells, 4 each; then either the other rows' fullness, 4 a word,
+    and each kept row folded into the height counters, 1 + 3 a plane and
+    word, with a 6-a-column read-out, or 12 a rebuilt board cell), a
+    candidate of ``grouped_placements`` (phase 16's count with 8 a window
+    and word), an env of ``feature_vector`` (3 a cell, 15 a row, the
+    read-out) and ``observe_dict`` (10 a board cell, 8 a mask cell, 10 a
+    strip cell), a pixel of ``compose_rgb`` (12) and an output pixel of
+    ``render_rgb84`` (phase 25's 47)."""
+    H, PW, W, h, S = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height, _side(P)
+    nw, nwf = (PW + 31) // 32, (W + 31) // 32
+    planes = max(1, int(h).bit_length())
+    hit = 8 * (H - S + 1) * nw
+    base = hit + 3 * S * S + 2 * (H - S) * nw + 4 * S * W
+    fold = 4 * (h - S) * nw + h * (1 + 3 * planes * nwf) + 6 * W
+    place = hit + 6 * h * nw + 40
+    strips = S * S * (cfg.queue_size + cfg.holder_size)
+    side = S * max(cfg.queue_size, cfg.holder_size)
+    return {"grouped_flagship_features": base + fold, "grouped_flagship_boards": base + 12 * H * PW,
+            "grouped_placements_features": place + (2 + 3 * planes) * h * nwf + 18 * W,
+            "grouped_placements_boards": place + 2 * h * W,
+            "feature_vector": h * (3 * W + 15) + 6 * W,
+            "observe_dict": 18 * H * PW + 10 * strips, "compose_rgb": 12 * H * (PW + side),
+            "render_rgb84": 84 * 84 * RENDER_OPS_PER_PIXEL}
+
+
+def time_surface_wide(dev, smi) -> dict:
+    """Phase 39: device ms of the six surface kernels at 30x20 and 61x12, B
+    = 4096 and 65536 (the board modes at 4096), beside their bounds and
+    their plain versions (at most at B = 1024 for the grouped ones and 4096
+    for the others, scaled), on mid-game states (40 random steps in)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, grouped, turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, compose_rgb_plain, feature_vector_plain
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(39)
+    rw = RewardsMapping()
+    flags = FeatureFlags()
+    out = {}
+    for name, cfg, P in wide_geometries():
+        if name not in WIDE_TIMED:
+            continue
+        ops = _surface_ops(cfg, P)
+        H, PW, W, h, S = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height, _side(P)
+        A, pad = W * 4, cfg.padding
+        strip_bytes = S * S * (cfg.queue_size + cfg.holder_size)
+        img = H * (PW + S * max(cfg.queue_size, cfg.holder_size))
+        for B in SURF_WIDE_TIME_B:
+            big = B >= 65536
+            s = kernels.flagship_init(batch_keys(prng_key(39 + B), B, device=dev), cfg, P)
+            for _ in range(40):
+                s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P, rw)[0]
+            t = turbo.from_flagship(s, cfg)
+            d = kernels.observe_dict(s, cfg, P)
+            crop = s.board[:, :-pad, pad:-pad]
+
+            def head(x, n):
+                return engine.EngineState(**{k: (getattr(x, k)[:, :n] if k == "key" else getattr(x, k)[:n])
+                                             .contiguous() for k in engine.FIELDS})
+
+            pg, po = min(B, SURF_WIDE_PLAIN_B["grouped"]), min(B, SURF_WIDE_PLAIN_B["other"])
+            sg, so = head(s, pg), head(s, po)
+            tgp = turbo.from_flagship(sg, cfg)
+            dp = {k: v[:po].contiguous() for k, v in d.items()}
+            cp = so.board[:, :-pad, pad:-pad]
+            board_in = nbytes(s.board, s.piece, s.rotation)
+            rows_in = nbytes(t.rows, t.piece, t.rotation)
+            dict_in = nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.queue, s.holder_piece,
+                             s.holder_rotation, s.holder_count)
+            flag = 4 + 1 + 4  # mask, game over, lines
+            entries = {
+                ("grouped_flagship", "features"): (
+                    lambda: kernels.grouped_flagship(s, cfg, P, "features"),
+                    lambda: _grouped_features_of(grouped.placements_plain(sg, cfg, P)[0], cfg, flags),
+                    pg, board_in + B * A * (4 * (W + 3) + flag), B * A * ops["grouped_flagship_features"]),
+                ("grouped_placements", "features"): (
+                    lambda: kernels.grouped_placements(t, cfg, P),
+                    lambda: tg.placements_plain(tgp, cfg, P), pg,
+                    rows_in + B * A * (4 * (W + 3) + flag), B * A * ops["grouped_placements_features"]),
+                ("feature_vector", None): (
+                    lambda: kernels.feature_vector(crop, flags), lambda: feature_vector_plain(cp, flags), po,
+                    B * (h * W + 4 * (W + 3)), B * ops["feature_vector"]),
+                ("observe_dict", None): (
+                    lambda: kernels.observe_dict(s, cfg, P), lambda: engine.observe_dict_plain(so, cfg, P), po,
+                    dict_in + B * (2 * H * PW + strip_bytes), B * ops["observe_dict"]),
+                ("compose_rgb", None): (
+                    lambda: kernels.compose_rgb(d["board"], d["queue"], d["holder"], P),
+                    lambda: compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), po,
+                    B * (H * PW + strip_bytes + 3 * img), B * img * COMPOSE_OPS_PER_PIXEL),
+                ("render_rgb84", None): (
+                    lambda: kernels.render_rgb84(s, cfg, P), lambda: engine.render_rgb84_plain(so, cfg, P), po,
+                    dict_in + B * 84 * 84, B * ops["render_rgb84"]),
+            }
+            if not big:
+                entries[("grouped_flagship", "boards")] = (
+                    lambda: kernels.grouped_flagship(s, cfg, P, "boards"),
+                    lambda: grouped.placements_plain(sg, cfg, P)[0].float(), pg,
+                    board_in + B * A * (4 * H * PW + flag), B * A * ops["grouped_flagship_boards"])
+                entries[("grouped_placements", "boards")] = (
+                    lambda: kernels.grouped_placements(t, cfg, P, 4, "boards"),
+                    lambda: tg.placement_boards_plain(tgp, cfg, P), pg,
+                    rows_in + B * A * (4 * h * W + flag), B * A * ops["grouped_placements_boards"])
+            for (kname, mode), (kernel_fn, plain_fn, pb, io, n_ops) in entries.items():
+                entry = timed_pair(kernel_fn, plain_fn, 10 if big else 50, 1 if pb >= 1024 else 5, io, n_ops)
+                entry.update(plain_ms=entry["plain_ms"] * B / pb, plain_B=pb, library_ms=None,
+                             envs_per_s=B / (entry["ms"] * 1e-3))
+                out.setdefault(name, {}).setdefault(kname, {})[f"{mode}@{B}" if mode else B] = entry
+            emit({"phase": "surface_wide_times", "geometry": name, "B": B,
+                  "kernels": {k: {m: e for m, e in v.items() if str(m).endswith(str(B))}
+                              for k, v in out[name].items()}, "nvidia_smi": smi})
+            del s, t, d, crop, sg, so, tgp, dp, cp
             torch.cuda.empty_cache()
     return out
 

@@ -405,21 +405,30 @@ def test_reset_returns_the_dict_observation():
 
 
 def test_wide_geometry_is_not_ported():
-    """A wide board plays on the flagship engine, equal to JAX's; only the
-    default-geometry kernels of the Dict observation and the renders are
-    not ported to it (ROADMAP item 11-rest)."""
+    """A wide board plays on the flagship engine, equal to JAX's, and so do
+    its Dict observation and renders (the kernels, built for each geometry,
+    refuse only CPU tensors here)."""
     from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_tpu.ops.image import preprocess_rgb84 as jpreprocess
 
     ts, js = _pair(0, 2, width=30)
     assert ts.board.shape == (2, 24, 38)
-    _, _, step, _ = _jax(width=30)
+    _, _, step, obs = _jax(width=30)
     a = np.full(2, A.hard_drop, np.int32)
-    ts2, _, r, d, _ = engine.step(ts, torch.from_numpy(a), EngineConfig(width=30), obs_fn=engine.no_obs)
+    cfg = EngineConfig(width=30)
+    ts2, _, r, d, _ = engine.step(ts, torch.from_numpy(a), cfg, obs_fn=engine.no_obs)
     js2, _, jr, jd, _ = step(js, jnp.asarray(a))
     _assert_states_equal(ts2, js2, "drop")
+    _, jdict, jrgb = obs(js2)
+    tdict = engine.observe_dict(ts2, cfg)
+    for k in jdict:
+        np.testing.assert_array_equal(tdict[k].numpy(), np.asarray(jdict[k]), err_msg=k)
+    np.testing.assert_array_equal(engine.render_rgb(ts2, cfg).numpy(), np.asarray(jrgb))
+    np.testing.assert_array_equal(engine.render_rgb84(ts2, cfg).numpy(),
+                                  np.asarray(jpreprocess(jrgb)))
     for call in (kernels.observe_dict, kernels.render_rgb84):
-        with pytest.raises(NotImplementedError, match="item 11-rest"):
-            call(ts, EngineConfig(width=30), PIECES)
+        with pytest.raises(ValueError, match="CUDA"):
+            call(ts2, cfg, PIECES)
 
 
 # ---------------------------------------------------------------------------

@@ -564,11 +564,20 @@ def test_flagship_kernel_wrappers_refuse_cpu_tensors():
             call()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.flagship_init(torch.zeros((4, 2), dtype=torch.uint32), config, engine.PIECES)
-    small = EngineConfig(width=6, height=8)
     with pytest.raises(NotImplementedError, match="padded width"):
         kernels.flagship_step(s, a, EngineConfig(width=121), engine.PIECES, RewardsMapping())
-    with pytest.raises(NotImplementedError, match="item 11-rest"):
-        kernels.render_rgb84(s, small, engine.PIECES)
+    # render_rgb84 takes a 6x8 board, refusing only the CPU tensor; it
+    # refuses a composite wider than 84 as JAX's resize does, and a board
+    # past the engine kernels' limits by name
+    small = EngineConfig(width=6, height=8)
+    s8 = engine.init_plain(batch_keys(prng_key(0), 4, device="cpu"), small)
+    assert engine.render_rgb84(s8, small).shape == (4, 84, 84)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.render_rgb84(s8, small, engine.PIECES)
+    with pytest.raises(ValueError, match="only enlarges"):
+        kernels.render_rgb84(s, EngineConfig(width=70), engine.PIECES)
+    with pytest.raises(NotImplementedError, match="cells > 3072"):
+        kernels.render_rgb84(s, EngineConfig(width=60, height=60), engine.PIECES)
 
 
 def test_engine_sources_share_one_header():
@@ -747,14 +756,33 @@ def test_surface_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_surface_kernels_refuse_other_geometry():
+    """The surface kernels are built for every geometry: at width 8 they
+    refuse only the CPU tensors, and they refuse by name only past their
+    static limits (or, where JAX's composite fails, with its TypeError)."""
     from tetris_gymnasium_torch.core import engine
 
     config = EngineConfig(width=8)
     s = engine.init_plain(batch_keys(prng_key(0), 2, device="cpu"), config)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        kernels.grouped_flagship(s, config, engine.PIECES, "boards")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        kernels.feature_vector(s.board[:, :20, 4:12], (True,) * 4)
+    d = engine.observe_dict_plain(s, config)
+    for call in (lambda: kernels.grouped_flagship(s, config, engine.PIECES, "boards"),
+                 lambda: kernels.feature_vector(s.board[:, :20, 4:12], (True,) * 4),
+                 lambda: kernels.observe_dict(s, config, engine.PIECES),
+                 lambda: kernels.compose_rgb(d["board"], d["queue"], d["holder"], engine.PIECES),
+                 lambda: kernels.grouped_placements(turbo.from_flagship(s, config), config,
+                                                    engine.PIECES)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(NotImplementedError, match="65 rows"):
+        kernels.feature_vector(torch.zeros((2, 65, 10), dtype=torch.int8), (True,) * 4)
+    with pytest.raises(NotImplementedError, match="129 columns"):
+        kernels.feature_vector(torch.zeros((2, 20, 129), dtype=torch.int8), (True,) * 4)
+    with pytest.raises(NotImplementedError, match="cells > 3072"):
+        kernels.grouped_flagship(s, EngineConfig(width=120, height=30), engine.PIECES, "boards")
+    with pytest.raises(NotImplementedError, match="padded width"):
+        kernels.grouped_placements(turbo.from_flagship(s, config), EngineConfig(width=121),
+                                   engine.PIECES)
+    with pytest.raises(TypeError, match="lower than"):
+        kernels.compose_rgb(d["board"][:, :7], d["queue"], d["holder"], engine.PIECES)
 
 
 # ---------------------------------------------------------------------------
@@ -890,3 +918,78 @@ def test_heights_dispatch_and_refusals():
         kernels.heights(s, config)
     assert kernels._rows_shape(config, 5) == (24, 2, 5)
     assert kernels._rows_shape(EngineConfig(), 5) == (24, 5)
+
+
+# ---------------------------------------------------------------------------
+# The surface kernels at other geometries
+# ---------------------------------------------------------------------------
+
+SURFACE_WIDE = WIDE + [EngineConfig(queue_size=1, holder_size=2, auto_reset=True)]
+SURFACE_WIDE_IDS = WIDE_IDS + ["queue1-holder2"]
+
+
+def _surface_kernels_against_plain(dev, config, pieces, B, steps, seed):
+    """The six surface kernels against their plain versions along one
+    flagship trajectory: the Dict observation (and its strips), the
+    composite, the 84x84 frame where the composite is at most 84 on a side,
+    the feature vector, the flagship grouped engine in its three modes and
+    the turbo grouped engine in both."""
+    from tetris_gymnasium_torch.core import engine, grouped
+    from tetris_gymnasium_torch.ops.observations import (FeatureFlags, compose_rgb_plain,
+                                                         feature_vector_plain)
+
+    S, pad = int(pieces.matrices.shape[-1]), config.padding
+    rgb84 = max(config.padded_height, config.padded_width + S * max(config.queue_size,
+                                                                   config.holder_size)) <= 84
+    s = engine.init(batch_keys(prng_key(seed), B, device=dev), config, pieces, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for i in range(steps):
+        d, dp = kernels.observe_dict(s, config, pieces), engine.observe_dict_plain(s, config, pieces)
+        for k in dp:
+            _assert_equal(d[k], dp[k], f"observe_dict {k} @ {i}")
+        for k, v in kernels.observe_dict(s, config, pieces, strips_only=True).items():
+            _assert_equal(v, dp[k], f"strips {k} @ {i}")
+        _assert_equal(kernels.compose_rgb(d["board"], d["queue"], d["holder"], pieces),
+                      compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], pieces), f"rgb @ {i}")
+        if rgb84:
+            _assert_equal(kernels.render_rgb84(s, config, pieces),
+                          engine.render_rgb84_plain(s, config, pieces), f"rgb84 @ {i}")
+        crop = s.board[:, :-pad, pad:-pad]
+        for flags in ALL_FLAGS[:: 5 if i else 1]:
+            flags = FeatureFlags(*flags)
+            _assert_equal(kernels.feature_vector(crop, flags), feature_vector_plain(crop, flags),
+                          f"features {flags} @ {i}")
+        if i % 5 == 0:
+            want = grouped.placements_plain(s, config, pieces)
+            for got, ref, what in zip(kernels.grouped_flagship(s, config, pieces, "ids"), want,
+                                      ("ids", "mask", "over", "lines")):
+                _assert_equal(got, ref, f"grouped {what} @ {i}")
+            _assert_equal(kernels.grouped_flagship(s, config, pieces, "boards")[0], want[0].float(),
+                          f"grouped boards @ {i}")
+            _assert_equal(kernels.grouped_flagship(s, config, pieces, "features")[0],
+                          grouped.grouped_observation_plain(s, config, pieces, "features")[0],
+                          f"grouped features @ {i}")
+            ts = turbo.from_flagship(s, config)
+            for max_clear in (4, config.height):
+                for mode, plain in (("features", tg.placements_plain), ("boards", tg.placement_boards_plain)):
+                    for got, ref in zip(kernels.grouped_placements(ts, config, pieces, max_clear, mode),
+                                        plain(ts, config, pieces, max_clear)):
+                        _assert_equal(got, ref, f"turbo grouped {mode} max_clear={max_clear} @ {i}")
+        s = engine.step(s, _flagship_actions(B, g, dev), config, pieces, obs_fn=engine.no_obs)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", SURFACE_WIDE, ids=SURFACE_WIDE_IDS)
+def test_surface_kernels_match_plain_at_other_geometries(cuda, config):
+    _surface_kernels_against_plain(cuda, config, turbo.PIECES, 257, 40, 21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [10, 30])
+def test_surface_kernels_take_oversize_pieces(cuda, width):
+    """The 6x6 pieces: two-word piece entries, 6-row thumbnails."""
+    pieces, pad = _oversize_pieces()
+    config = EngineConfig(width=width, height=16, padding=pad, queue_size=2, queue_kind="uniform",
+                          auto_reset=True)
+    _surface_kernels_against_plain(cuda, config, pieces, 129, 40, 22)

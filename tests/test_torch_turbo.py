@@ -215,15 +215,21 @@ def test_frozen_state_does_not_change():
 
 def test_wide_board_raises():
     """A wide board plays on the turbo engine, rows ``[H, NW, B]`` equal to
-    JAX's; only the grouped engine's multi-word candidates still raise."""
+    JAX's, and so do the grouped engine's multi-word candidates
+    (``turbo_grouped.py:126-133``): features, mask, game over and lines."""
     from tetris_gymnasium_torch.core import turbo_grouped
+    from tetris_gymnasium_tpu.core import turbo_grouped as jturbo_grouped
 
     jc, tc = _pair(width=30)
     ts = turbo.init(batch_keys(threefry.prng_key(0), 2, device=CPU), tc, device=CPU)
     assert ts.rows.shape == (24, 2, 2)
-    _assert_states_equal(ts, jturbo.init(jbatch_keys(jax.random.PRNGKey(0), 2), jc), "init")
-    with pytest.raises(NotImplementedError, match="item 11-rest"):
-        turbo_grouped.placements(ts, tc)
+    js = jturbo.init(jbatch_keys(jax.random.PRNGKey(0), 2), jc)
+    _assert_states_equal(ts, js, "init")
+    feats, mask, over, lines = turbo_grouped.placements(ts, tc)
+    jfeats, jmask, jover, jlines = jturbo_grouped.placements(js, jc)
+    np.testing.assert_array_equal(feats.numpy(), np.transpose(np.asarray(jfeats), (2, 1, 0)))
+    for got, want in ((mask, jmask), (over, jover), (lines, jlines)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_cuda_without_card_raises():

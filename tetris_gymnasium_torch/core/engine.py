@@ -28,9 +28,9 @@ batch-minor: the plain versions transpose the bag into them and out again.
 Any geometry plays: :func:`_kb` picks the bit operations of
 :mod:`~tetris_gymnasium_torch.ops.bitboard` for padded rows that fit one
 32-bit word and those of :mod:`~tetris_gymnasium_torch.ops.bitboard_wide`
-for wider ones, as the JAX engine does.  The step, init and board
-observation kernels are built for each geometry at first use; the Dict
-observation and the renders have kernels for the default geometry only.
+for wider ones, as the JAX engine does.  The step, init, board
+observation, Dict observation and render kernels are built for each
+geometry at first use.
 """
 from __future__ import annotations
 

@@ -22,14 +22,12 @@ layout the network reads: where the JAX ``placements`` returns
 device: on CUDA tensors the ``grouped_placements`` kernel of
 :mod:`tetris_gymnasium_torch.kernels` computes them, on CPU tensors the plain
 versions below (:func:`placements_plain`, :func:`placement_boards_plain`),
-which fold the candidate axis into the batch (``[H, A*B]``) so that the
-turbo engine's bit helpers apply unchanged.  :func:`step` teleports and
-hard-drops through :func:`turbo.step` (the ``turbo_step`` kernel on the
-card) and restarts illegal-terminated games through
-:func:`turbo.init_from_key` (``turbo_init``).
-
-Only single-word geometry (``padded_width <= 32``) is ported: the
-multi-word candidate path is ROADMAP item 11-rest.
+which fold the candidate axis into the batch (``[H, A*B]``, or ``[H, NW,
+A*B]`` for rows of several words) so that the turbo engine's bit helpers
+apply unchanged.  :func:`step` teleports and hard-drops through
+:func:`turbo.step` (the ``turbo_step`` kernel on the card) and restarts
+illegal-terminated games through :func:`turbo.init_from_key`
+(``turbo_init``).  Every geometry the turbo engine takes plays here.
 """
 from __future__ import annotations
 
@@ -41,7 +39,6 @@ import torch
 
 from tetris_gymnasium_torch.config import ActionsMapping, EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.core import turbo
-from tetris_gymnasium_torch.ops import bitboard_wide as bw
 from tetris_gymnasium_torch.pieces import PIECES, PieceSet
 
 ACTIONS = ActionsMapping()
@@ -74,8 +71,8 @@ def n_features(config: EngineConfig) -> int:
 
 
 def _features_from_rows(rows: torch.Tensor, config: EngineConfig) -> torch.Tensor:
-    """Features ``float32[F, N]`` from packed rows ``[H, N]`` in int64 lanes
-    (``_features_from_rows :65``)."""
+    """Features ``float32[F, N]`` from packed rows ``[H, N]`` (``[H, NW, N]``
+    when wide) in int64 lanes (``_features_from_rows :65``)."""
     H, pad, W = config.height, config.padding, config.width
     inner = rows[:H]
     h = torch.arange(H, dtype=torch.int32, device=rows.device)[:, None]
@@ -103,14 +100,10 @@ def _candidate_geometry(box: torch.Tensor, config: EngineConfig, piece, rotation
 def _candidate_rows(state: turbo.TurboState, config: EngineConfig, pieces: PieceSet, max_clear: int):
     """Drop, lock and clear every candidate (``_candidate_rows :103``).
 
-    Returns cleared rows ``[H, A, B]`` in int64 lanes, ``frame_hit``,
-    ``stack_hit`` (bool) and ``lines`` (int32), each ``[A, B]``.
+    Returns cleared rows ``[H, A, B]`` (``[H, NW, A, B]`` when wide,
+    ``:126-133``) in int64 lanes, ``frame_hit``, ``stack_hit`` (bool) and
+    ``lines`` (int32), each ``[A, B]``.
     """
-    if bw.wide(config.padded_width):
-        raise NotImplementedError(
-            f"padded width {config.padded_width}: the turbo grouped engine's multi-word "
-            "candidate path is ROADMAP item 11-rest; pass impl='flagship' or a width of at "
-            f"most {32 - 2 * config.padding}")
     dev = state.rows.device
     t, packed, box = turbo.tables_for(pieces, dev)
     S, H, pw = t.size, config.padded_height, config.padded_width
@@ -120,13 +113,16 @@ def _candidate_rows(state: turbo.TurboState, config: EngineConfig, pieces: Piece
     piece_ab = state.piece[None, :].expand(A, B)
     # the candidate axis folds into the batch: [H, A*B], index a * B + b
     rb = turbo._row_bits(t, packed, piece_ab.reshape(-1), rot.reshape(-1))
-    sp = turbo._shift(rb, x.reshape(-1), pw)
-    rows_ab = turbo.u32_to_lanes(state.rows)[:, None, :].expand(H, A, B).reshape(H, A * B)
-    bed = turbo._empty_rows(config, dev)[:, None].expand(H, A * B)
+    sp = turbo._shift(rb, x.reshape(-1), pw)  # [S, A*B], or [S, NW, A*B] when wide
+    rows = turbo.u32_to_lanes(state.rows)  # [H, B] or [H, NW, B]
+    word_axes = rows.shape[1:-1]
+    rows_ab = rows[..., None, :].expand(rows.shape[:-1] + (A, B)).reshape(rows.shape[:-1] + (A * B,))
+    empty = turbo._empty_rows(config, dev)  # [H] or [H, NW]
+    bed = empty[..., None].expand(empty.shape + (A * B,))
 
-    hm = turbo._hit_map(rows_ab, sp)  # stack and frame
+    hm = turbo._hit_map_r(rows_ab, sp, pw)  # stack and frame
     y = turbo._drop_from_map(hm, torch.zeros(A * B, dtype=torch.int32, device=dev), S)
-    frame_hit = turbo._collision_at(turbo._hit_map(bed, sp), y, S)
+    frame_hit = turbo._collision_at(turbo._hit_map_r(bed, sp, pw), y, S)
     stack_hit = turbo._collision_at(hm, y, S) & ~frame_hit
 
     stamped = turbo._project(rows_ab, sp, y, S)
@@ -135,16 +131,16 @@ def _candidate_rows(state: turbo.TurboState, config: EngineConfig, pieces: Piece
     # compaction dropped rows, so the placement counts as a game over
     stack_hit = stack_hit | (lines > max_clear)
     lines = torch.where(frame_hit | stack_hit, 0, lines)
-    return (cleared.reshape(H, A, B), frame_hit.reshape(A, B), stack_hit.reshape(A, B),
-            lines.reshape(A, B).to(torch.int32))
+    return (cleared.reshape((H,) + word_axes + (A, B)), frame_hit.reshape(A, B),
+            stack_hit.reshape(A, B), lines.reshape(A, B).to(torch.int32))
 
 
 def placements_plain(state: turbo.TurboState, config: EngineConfig, pieces: PieceSet = PIECES,
                      max_clear: int = 4):
     """Plain version of :func:`placements`, on any device."""
     cleared, frame_hit, stack_hit, lines = _candidate_rows(state, config, pieces, max_clear)
-    H, A, B = cleared.shape
-    feats = _features_from_rows(cleared.reshape(H, A * B), config).reshape(-1, A, B)
+    A, B = cleared.shape[-2:]
+    feats = _features_from_rows(cleared.flatten(-2), config).reshape(-1, A, B)
     # the all-ones board's features: every height and the max at full height, no holes, flat
     ones_feats = torch.full((feats.shape[0], 1, 1), float(config.height), device=feats.device)
     ones_feats[config.width + 1 :] = 0.0
@@ -158,10 +154,9 @@ def placement_boards_plain(state: turbo.TurboState, config: EngineConfig, pieces
                            max_clear: int = 4):
     """Plain version of :func:`placement_boards`, on any device."""
     cleared, frame_hit, stack_hit, lines = _candidate_rows(state, config, pieces, max_clear)
-    pad, W = config.padding, config.width
-    words = cleared[: config.height].permute(2, 1, 0)[..., None]  # [B, A, height, 1]
-    shifts = torch.arange(pad, pad + W, device=words.device)
-    boards = ((words >> shifts) & 1).to(torch.float32)  # [B, A, height, W]
+    A, B = cleared.shape[-2:]
+    bits = turbo._unpack_playfield(cleared.flatten(-2), config)  # [A*B, height, W]
+    boards = bits.reshape((A, B) + bits.shape[1:]).transpose(0, 1).to(torch.float32)
     boards = torch.where(frame_hit.T[:, :, None, None], 1.0, boards)
     boards = torch.where(stack_hit.T[:, :, None, None], 0.0, boards)
     mask = (~frame_hit).to(torch.float32)

@@ -497,4 +497,24 @@ __device__ __forceinline__ void block_copy16(void* dst, const void* src, int nby
     static_cast<int8_t*>(dst)[i] = static_cast<const int8_t*>(src)[i];
 }
 
+// block_copy16 where both buffers lie on 16-byte boundaries, else 4-byte
+// words where both lie on 4-byte boundaries, else bytes: a block of a few
+// boards of BOARD bytes starts at a multiple of 16 only where BOARD allows
+// (648 bytes at 28x14, 924 for the 6x6 pieces at 30x16).
+__device__ __forceinline__ void block_copy(void* dst, const void* src, int nbytes) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
+  if ((at & 15u) == 0) {
+    block_copy16(dst, src, nbytes);
+  } else if ((at & 3u) == 0) {
+    uint32_t* d = static_cast<uint32_t*>(dst);
+    const uint32_t* s = static_cast<const uint32_t*>(src);
+    for (int i = threadIdx.x; i < nbytes / 4; i += blockDim.x) d[i] = s[i];
+    for (int i = (nbytes & ~3) + threadIdx.x; i < nbytes; i += blockDim.x)
+      static_cast<int8_t*>(dst)[i] = static_cast<const int8_t*>(src)[i];
+  } else {
+    for (int i = threadIdx.x; i < nbytes; i += blockDim.x)
+      static_cast<int8_t*>(dst)[i] = static_cast<const int8_t*>(src)[i];
+  }
+}
+
 }  // namespace engine

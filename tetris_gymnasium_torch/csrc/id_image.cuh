@@ -4,6 +4,18 @@
 // (tetris_gymnasium_tpu/core/engine.py:project_active :227), the queue and
 // holder thumbnails (_strip :202, queue_holder_strips :239) and the
 // composite's sidebar layout (ops/observations.py:compose_rgb :84).
+//
+// The geometry is engine_common.cuh's, fixed at compile time by the
+// TETRIS_* defines (kernels.py:engine_defines, one library per geometry):
+// any padded board, piece side S and queue and holder sizes within its
+// limits (padded height <= 64, padded width <= 128, S <= 8, queue <= 16,
+// holder <= 8).  Piece rows come from PieceWord entries of TW words, so the
+// 6x6 pieces' rows that straddle two table words read as in the engine
+// kernels.  The sidebar is
+// S * max(QS, HS) columns wide, the strips' common width, as compose_rgb
+// widens them; each strip is widened with bedrock to it.  An image needs
+// H >= 2S (the queue strip, the bedrock between, the holder strip): where
+// it is lower the JAX composite fails too, and the wrappers refuse it.
 #pragma once
 
 #include <cstdint>
@@ -26,11 +38,9 @@ struct RenderPtrs {
 
 namespace engine {
 
-static_assert(NW == 1 && TW == 1, "the id image kernels are built for the default geometry");
-
-constexpr int SIDE = QS * S;   // sidebar width: max(QS, HS) * padding = 16
-constexpr int IW = PW + SIDE;  // id image width: 34
-constexpr int NPAL = NP + 2;   // palette entries: empty, bedrock, 7 pieces
+constexpr int SIDE = S * (QS > HS ? QS : HS);  // sidebar width: 16 by default
+constexpr int IW = PW + SIDE;                   // id image width: 34 by default
+constexpr int NPAL = NP + 2;                    // palette entries: empty, bedrock, the pieces
 
 // A thumbnail cell (_strip): the piece's id where its matrix at rot is
 // filled, else 0; 0 for a piece outside the table.
@@ -42,19 +52,21 @@ __device__ __forceinline__ uint8_t thumb(const uint32_t* packed, const int32_t* 
 
 // project_active's test: a filled piece cell over a cell > 0 of the board
 // in the clamped window (xc, yc).
-__device__ __forceinline__ bool active_collides(const int8_t* board, uint32_t word, int xc, int yc) {
+__device__ __forceinline__ bool active_collides(const int8_t* board, const PieceWord& word, int xc,
+                                                int yc) {
   bool hit = false;
 #pragma unroll
-  for (int i = 0; i < S; ++i)
+  for (int i = 0; i < S; ++i) {
+    const uint32_t prow = piece_row(word, i);
 #pragma unroll
-    for (int j = 0; j < S; ++j)
-      hit |= ((piece_row(word, i) >> j) & 1u) && board[(yc + i) * PW + xc + j] > 0;
+    for (int j = 0; j < S; ++j) hit |= ((prow >> j) & 1u) && board[(yc + i) * PW + xc + j] > 0;
+  }
   return hit;
 }
 
 // Cell (r, c) of project_active's board: `pid` (0 where the piece collides)
 // added under the piece's cells as an int8 sum, then viewed as uint8.
-__device__ __forceinline__ uint8_t active_cell(const int8_t* board, int r, int c, uint32_t word,
+__device__ __forceinline__ uint8_t active_cell(const int8_t* board, int r, int c, const PieceWord& word,
                                                int xc, int yc, int pid) {
   int v = board[r * PW + c];
   const int i = r - yc, j = c - xc;
@@ -63,11 +75,11 @@ __device__ __forceinline__ uint8_t active_cell(const int8_t* board, int r, int c
 }
 
 // Cell (r, sc) of the composite's sidebar: the queue strip in rows 0..S-1,
-// the holder strip widened with bedrock in the bottom S rows, bedrock
-// between.  `queue(i, j)` and `holder(i, j)` read the strips.
+// the holder strip in the bottom S rows, each widened with bedrock to SIDE
+// columns, bedrock between.  `queue(i, j)` and `holder(i, j)` read the strips.
 template <class Q, class Hd>
 __device__ __forceinline__ uint8_t sidebar_cell(int r, int sc, Q queue, Hd holder) {
-  if (r < S) return queue(r, sc);
+  if (r < S) return sc < QS * S ? queue(r, sc) : 1;
   if (r >= H - S && sc < HS * S) return holder(r - (H - S), sc);
   return 1;
 }

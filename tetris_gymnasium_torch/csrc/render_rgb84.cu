@@ -9,23 +9,27 @@
 // bit-equal to it.
 //
 // On the TPU the chain is a palette one-hot contraction and two small
-// integer matmuls over the whole batch, with [B, 24, 34, 3] and
+// integer matmuls over the whole batch, with [B, H, IW, 3] and
 // [B, 84, 84, 3] int32 temporaries in HBM.  Here one block of 256 threads
 // makes one env's frame and nothing but the frame leaves the SM:
-//   1. the board (432 bytes) comes into shared memory in 16-byte words;
-//   2. the 24x34 id image is built in shared memory (id_image.cuh, shared
+//   1. the board (H * PW bytes, 432 at 10x20) comes into shared memory, in
+//      16-byte words where it starts on a 16-byte boundary
+//      (engine_common.cuh:block_copy);
+//   2. the H x IW id image is built in shared memory (id_image.cuh, shared
 //      with observe_dict.cu): the board with the active piece's id ADDED in
 //      its window unless the piece collides there, the queue's thumbnails
-//      at rotation 0 in rows 0-3 of the sidebar, bedrock rows 4-19, the
-//      holder's thumbnail (bedrock while empty) widened with bedrock in
-//      rows 20-23;
+//      at rotation 0 in rows 0..S-1 of the sidebar, bedrock between, the
+//      holder's thumbnails (bedrock while empty) in the bottom S rows, each
+//      strip widened with bedrock to the sidebar's S * max(QS, HS) columns;
 //   3. each output pixel takes its (at most) 2x2 source ids through the
 //      palette and cv2's 11-bit INTER_AREA taps, which the host builds from
 //      the same numpy code as the plain version (ops/image.py:
 //      area_zoom_taps) and the wrapper keeps on the card (read through the
 //      read-only cache): an int32 accumulator per channel, (acc + 2^21) >> 22,
 //      a clip to [0, 255], then gray (r*W0 + g*W1 + b*W2) >> 22 with 22-bit
-//      weights;
+//      weights.  Two taps a side suffice because the chain only enlarges:
+//      the composite is at most 84 on each side, and the wrapper raises
+//      JAX's ValueError (ops/image.py:_area_zoom_matrix) where it is not;
 //   4. the 7056-byte frame is staged in shared memory and stored in 16-byte
 //      words (441 of them), neighbouring threads on neighbouring words.
 // No accumulator leaves int32: 255 * 2049 * 2049 < 2^31.
@@ -34,11 +38,14 @@
 // piece fields in, the frame out; 2.2 ns at 3.35 TB/s), and does ~47
 // integer operations per output pixel (4 tap weights, 12 multiply-adds, the
 // rounding and clip of 3 channels, the gray), ~332k an env (9.9 ns at
-// 33.5e12 a second).
+// 33.5e12 a second), whatever the geometry.
 //
-// Geometry is the default EngineConfig (24x18 padded board, queue 4,
-// holder 1, 7 pieces, a 9-entry palette) and an 84x84 output; the wrapper
-// refuses others.
+// The geometry is fixed at compile time by the TETRIS_* defines
+// (kernels.py:engine_defines with flagship=True, one library per
+// geometry: padded height <= 64, padded width <= 128, piece side <= 8,
+// 1-32 pieces, queue <= 16, holder <= 8, a padded board of <= 3072 cells)
+// and a composite of at most 84 x 84; the output is always 84x84.  The board, the id image and the
+// frame take at most 3 + 16 + 7 KB of static shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,7 +57,7 @@ using namespace engine;
 namespace {
 
 constexpr int OUT = 84;                 // output side
-constexpr int BOARD = H * PW;           // 432
+constexpr int BOARD = H * PW;           // 432 by default
 constexpr int kThreads = 256;
 
 // Offsets into the int32 table the wrapper builds (kernels.py:_render_table).
@@ -70,9 +77,9 @@ __global__ void __launch_bounds__(kThreads) render_rgb84_kernel(
   __shared__ int hit;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  block_copy16(board, p.board + static_cast<size_t>(b) * BOARD, BOARD);
+  block_copy(board, p.board + static_cast<size_t>(b) * BOARD, BOARD);
   const int piece = p.piece[b];
-  const uint32_t word = piece_word_2d(packed, piece, p.rotation[b]).w[0];
+  const PieceWord word = piece_word_2d(packed, piece, p.rotation[b]);
   const int xc = clamp_start(p.x[b], PW - S, PW);
   const int yc = clamp_start(p.y[b], H - S, H);
   __syncthreads();

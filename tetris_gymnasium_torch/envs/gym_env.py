@@ -84,9 +84,8 @@ class Tetris(gym.Env):
         the draw strategy, or a strategy name), ``queue`` / ``holder``
         handles (their sizes, and the queue's randomizer, configure the
         engine), and custom ``tetrominoes`` / ``base_pixels`` (board padding
-        = the pieces' box size).  The kernels on the card are built for the
-        default pieces, geometry and randomizers; other configurations run
-        with ``device="cpu"``."""
+        = the pieces' box size).  On the card the kernels are built for the
+        configured geometry and pieces at first use."""
         if queue is not None:
             queue_size = queue.size
             if queue.randomizer is not None:  # the queue owns its randomizer

@@ -3,12 +3,15 @@
 Sources live in ``csrc/``; each is compiled on first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/torch_kernels/`` (gitignored), named by the hash of its source, its
-headers, its flags and its defines, and loaded with ``ctypes``.  The engine
-sources (``turbo_step.cu``, ``flagship_step.cu``) are built once for each
-geometry they are called at: :func:`engine_defines` turns a config into
-the ``TETRIS_*`` defines of ``csrc/engine_common.cuh``.  Pointers and the stream go in as ``c_void_p``; the
-stream is PyTorch's current one; each C entry point returns
-``cudaGetLastError()`` and the wrapper raises if it is not 0.
+headers, its flags and its defines, and loaded with ``ctypes``.  Every
+source that reads an engine state or a board is built once for each
+geometry it is called at (``GEOMETRY_SOURCES``): :func:`engine_defines`
+turns a config into the ``TETRIS_*`` defines of
+``csrc/engine_common.cuh``; :func:`feature_defines` and
+:func:`compose_defines` take them from the shapes of their inputs.
+Pointers and the stream go in as ``c_void_p``; the stream is PyTorch's
+current one; each C entry point returns ``cudaGetLastError()`` and the
+wrapper raises if it is not 0.
 
 Kernels, with the JAX function each replaces:
 
@@ -60,16 +63,16 @@ Kernels, with the JAX function each replaces:
 ``render_rgb84.cu`` and ``observe_dict.cu``; ``csrc/features.cuh`` the
 feature vector, shared by ``features.cu`` and ``grouped_flagship.cu``.
 
-``turbo_step``, ``turbo_init``, ``flagship_step``, ``flagship_init`` and
-``flagship_observe_board`` take any geometry within the static limits that
-:func:`engine_defines` names; ``observe_board``, ``heights`` and
-``grouped_placements`` take the geometry as run-time arguments (the last
-only up to a padded width of 32).  ``grouped_flagship``, ``feature_vector``,
-``observe_dict``, ``compose_rgb`` and ``render_rgb84`` are built for the
-default geometry (10x20, padding 4, queue 4, holder 1, the 7 standard
-pieces).  On CUDA tensors a config past these raises
-``NotImplementedError``, naming the limit or ROADMAP item 11-rest; the plain
-versions take every geometry on the CPU.
+Every kernel takes any geometry within the static limits that
+:func:`engine_defines` names (padded height <= 64, padded width <= 128,
+piece side <= 8, 1-32 pieces, queue <= 16, holder <= 8; a flagship board of
+<= 3072 cells), ``feature_vector`` any crop of <= 64 rows and <= 128
+columns; ``observe_board`` and ``heights`` take the geometry as run-time
+arguments.  On CUDA tensors a config past a limit raises
+``NotImplementedError`` naming it; where the JAX function itself refuses
+(a composite over 84 pixels for the 84x84 frame, a board lower than the two
+strips of the sidebar) the wrapper raises JAX's error.  The plain versions
+take every geometry on the CPU.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -189,10 +192,20 @@ def _compile(name: str, defines=()) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp), str(source)],
-        capture_output=True, text=True,
-    )
+
+    def nvcc(*extra):
+        return subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, *extra, *_define_flags(defines), "-o", str(tmp), str(source)],
+            capture_output=True, text=True,
+        )
+
+    proc, extra = nvcc(), []
+    if proc.returncode != 0 and "Segmentation fault" in proc.stderr:
+        # ptxas of CUDA 12.9 crashes on the PTX that cicc makes at -O3 of
+        # turbo_step_kernel at 30x14 and 30x18 (and -O1 or -O2 in ptxas do not
+        # help); the PTX of cicc at -O1 compiles.  Said in the build facts.
+        extra = ["-Xcicc", "-O1"]
+        proc = nvcc(*extra)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
@@ -201,21 +214,40 @@ def _compile(name: str, defines=()) -> dict:
         "defines": dict(defines),
         "seconds": time.perf_counter() - t0,
         "cached": False,
-        "ptxas": "\n".join(l for l in proc.stderr.splitlines() if "ptxas" in l),
+        "extra_flags": extra,
+        "ptxas": "\n".join(l for l in proc.stderr.splitlines() if "ptxas" in l or "spill" in l),
     }
 
 
+def _geometry_jobs(config: EngineConfig, pieces: PieceSet) -> list:
+    """``(source, defines)`` of every build that a state of ``config`` and
+    ``pieces`` is run with: each source of ``GEOMETRY_SOURCES`` whose static
+    limits take it, and ``features`` at its playfield's shape."""
+    t = bb.turbo_tables(pieces)
+    jobs = []
+    for name in GEOMETRY_SOURCES:
+        try:
+            jobs.append((name, engine_defines(config, t, flagship=name in FLAGSHIP_SOURCES)))
+        except NotImplementedError:
+            pass
+    try:
+        jobs.append(("features", feature_defines(config.height, config.width)))
+    except NotImplementedError:
+        pass
+    return jobs
+
+
 def build(geometries=()) -> list:
-    """Compile every kernel source in parallel, one ``nvcc`` each: the engine
-    sources for the default geometry and for each ``(config, pieces)`` of
-    ``geometries``, the others once."""
+    """Compile every kernel source in parallel, one ``nvcc`` each, two for
+    each core at a time (seventy at once have crashed ``nvcc``): the
+    per-geometry sources for the default geometry and for each ``(config,
+    pieces)`` of ``geometries`` (:func:`_geometry_jobs`), the others once."""
     from tetris_gymnasium_torch.pieces import PIECES
 
-    jobs = [(name, ()) for name in SOURCES if name not in ENGINE_SOURCES]
+    jobs = [(name, ()) for name in SOURCES if name not in GEOMETRY_SOURCES + ("features",)]
     for config, pieces in ((EngineConfig(), PIECES), *geometries):
-        defines = engine_defines(config, bb.turbo_tables(pieces))
-        jobs += [(name, defines) for name in ENGINE_SOURCES if (name, defines) not in jobs]
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        jobs += [job for job in _geometry_jobs(config, pieces) if job not in jobs]
+    with ThreadPoolExecutor(max_workers=min(len(jobs), 2 * (os.cpu_count() or 4))) as pool:
         return list(pool.map(lambda job: _compile(*job), jobs))
 
 
@@ -242,12 +274,8 @@ class _ObsGeometry(ctypes.Structure):
     ]
 
 
-class _GroupedGeometry(ctypes.Structure):
-    _fields_ = [
-        (name, ctypes.c_int)
-        for name in ("height", "width", "padding", "rows_h", "padded_width", "n_entries",
-                     "n_pieces", "n_actions", "max_clear", "mode")
-    ]
+class _PlacementParams(ctypes.Structure):
+    _fields_ = [("max_clear", ctypes.c_int), ("mode", ctypes.c_int)]
 
 
 class _ActParams(ctypes.Structure):
@@ -345,7 +373,7 @@ _ENTRY_POINTS = {
     },
     "grouped_placements": {
         "grouped_placements_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      ctypes.POINTER(_GroupedGeometry), _P],
+                                      ctypes.POINTER(_PlacementParams), _P],
     },
     "grouped_act": {
         "grouped_act_launch": [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_ActParams), _P],
@@ -408,11 +436,12 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# The sources built once for each geometry (csrc/engine_common.cuh's defines).
-ENGINE_SOURCES = ("turbo_step", "flagship_step")
-# The geometry of the default EngineConfig, for which the other engine-state
-# kernels (grouped_flagship, observe_dict, render_rgb84) are built.
-DEFAULT_GEOMETRY = dict(width=10, height=20, padding=4, queue_size=4, holder_size=1)
+# The sources built once for each geometry (csrc/engine_common.cuh's
+# defines), those of them that keep flagship boards in shared memory, and
+# features.cu, built once for each playfield shape (feature_defines).
+GEOMETRY_SOURCES = ("turbo_step", "flagship_step", "grouped_placements", "grouped_flagship",
+                    "observe_dict", "render_rgb84")
+FLAGSHIP_SOURCES = ("flagship_step", "grouped_flagship", "observe_dict", "render_rgb84")
 # Static limits of the engine kernels (engine_defines).
 MAX_PADDED_HEIGHT = 64  # hit maps and full-row masks are 64-bit words at most
 MAX_PADDED_WIDTH = 128  # an env's rows live in registers: 4 words a row at most
@@ -421,6 +450,8 @@ MAX_PIECES = 32  # the bag lives in registers
 MAX_QUEUE = 16
 MAX_HOLDER = 8
 MAX_BOARD_CELLS = 3072  # flagship: 32 boards and frames of a block in 227 KB of shared memory
+MAX_FEATURE_HEIGHT = 64  # feature_vector: 7 bit planes of height counters
+MAX_FEATURE_WIDTH = 128  # feature_vector: 4 words a row
 _STATE_DTYPES = {
     "key": torch.uint32, "rows": torch.uint32, "has_swapped": torch.bool,
     "game_over": torch.bool, "score": torch.float32,
@@ -445,10 +476,11 @@ def _state_shapes(config: EngineConfig, n_pieces: int, B: int) -> dict:
 
 
 def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -> tuple:
-    """The ``TETRIS_*`` defines (``(name, value)`` pairs) that build
-    ``turbo_step.cu`` and ``flagship_step.cu`` for ``config`` and the piece
-    tables ``t``, or ``NotImplementedError`` naming the static limit the
-    config passes.  The limits:
+    """The ``TETRIS_*`` defines (``(name, value)`` pairs) that build the
+    sources of ``GEOMETRY_SOURCES`` for ``config`` and the piece tables
+    ``t`` (the sources of ``FLAGSHIP_SOURCES`` with ``flagship``), or
+    ``NotImplementedError`` naming the static limit the config passes.  The
+    limits:
 
     * padded height at most 64: the hit map over the window starts and the
       mask of full rows are 64-bit words at most;
@@ -460,12 +492,17 @@ def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -
       queue and holder live in registers;
     * with ``flagship``, a padded board of at most 3072 cells: the flagship
       kernels keep the boards (and the observation's frames) of a block of
-      32 envs in shared memory, 227 KB at most;
+      32 envs in shared memory, 227 KB at most, and ``grouped_flagship``,
+      ``observe_dict`` and ``render_rgb84`` keep theirs in 48 KB;
     * ``queue_kind`` ``"bag"`` or ``"uniform"``.
 
     Every geometry of the JAX package's tests is inside them.
     """
-    H, PW, S = config.padded_height, config.padded_width, t.size
+    return _defines(config, t.n_pieces, t.size, flagship)
+
+
+def _defines(config: EngineConfig, n_pieces: int, S: int, flagship: bool) -> tuple:
+    H, PW = config.padded_height, config.padded_width
     for ok, why in (
         (H <= MAX_PADDED_HEIGHT, f"padded height {H} > {MAX_PADDED_HEIGHT}: hit maps and "
                                  "full-row masks are 64-bit words at most"),
@@ -474,7 +511,7 @@ def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -
         (S <= MAX_PIECE_SIDE, f"piece box side {S} > {MAX_PIECE_SIDE}: a piece table entry is "
                               "2 words at most"),
         (S <= min(H, PW), f"piece box side {S} exceeds the padded board {H}x{PW}"),
-        (1 <= t.n_pieces <= MAX_PIECES, f"{t.n_pieces} pieces: 1 to {MAX_PIECES} are built"),
+        (1 <= n_pieces <= MAX_PIECES, f"{n_pieces} pieces: 1 to {MAX_PIECES} are built"),
         (1 <= config.queue_size <= MAX_QUEUE, f"queue size {config.queue_size}: 1 to {MAX_QUEUE} "
                                               "are built"),
         (1 <= config.holder_size <= MAX_HOLDER, f"holder size {config.holder_size}: 1 to "
@@ -489,20 +526,45 @@ def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -
                 f"the engine kernels: {why} (pass device='cpu' for the plain versions)")
     return (("TETRIS_HEIGHT", config.height), ("TETRIS_WIDTH", config.width),
             ("TETRIS_PAD", config.padding), ("TETRIS_QS", config.queue_size),
-            ("TETRIS_HS", config.holder_size), ("TETRIS_NP", t.n_pieces), ("TETRIS_S", S))
+            ("TETRIS_HS", config.holder_size), ("TETRIS_NP", n_pieces), ("TETRIS_S", S))
 
 
-def _check_default_geometry(config: EngineConfig, t: bb.Tables, name: str) -> None:
-    """Raises unless ``config`` and ``t`` are the geometry ``name`` is built for."""
-    got = {k: getattr(config, k) for k in DEFAULT_GEOMETRY}
-    if got != DEFAULT_GEOMETRY or (t.n_pieces, t.size) != (7, 4):
-        raise NotImplementedError(
-            f"{name} is built for {DEFAULT_GEOMETRY} and the 7 standard pieces; got {got}, "
-            f"{t.n_pieces} pieces of side {t.size} (other geometries are ROADMAP item 11-rest; "
-            "pass device='cpu' for the plain versions)"
-        )
-    if config.queue_kind not in ("bag", "uniform"):
-        raise NotImplementedError(f"queue_kind {config.queue_kind!r} has no kernel")
+def feature_defines(height: int, width: int) -> tuple:
+    """The defines that build ``features.cu`` for a ``height`` x ``width``
+    crop, or ``NotImplementedError`` naming the static limit passed: at most
+    64 rows (the height counters are 7 bit planes) and 128 columns (a row
+    mask is 4 words)."""
+    for ok, why in (
+        (1 <= height <= MAX_FEATURE_HEIGHT, f"{height} rows: 1 to {MAX_FEATURE_HEIGHT} are built "
+                                            "(7 bit planes of height counters)"),
+        (1 <= width <= MAX_FEATURE_WIDTH, f"{width} columns: 1 to {MAX_FEATURE_WIDTH} are built "
+                                          "(4 words a row mask)"),
+    ):
+        if not ok:
+            raise NotImplementedError(f"feature_vector: {why} (pass a CPU tensor for the plain version)")
+    return (("TETRIS_HEIGHT", height), ("TETRIS_WIDTH", width))
+
+
+def compose_defines(board_shape, queue_shape, holder_shape, n_palette: int) -> tuple:
+    """The defines that build ``observe_dict.cu``'s ``compose_rgb`` for id
+    boards ``[N, H, PW]``, strips ``[M, S, S * QS]`` and ``[M, S, S * HS]``
+    and a palette of ``n_palette`` colours (2 + the pieces).  The composite
+    needs no padding, so the build takes the shell's, ``padding = S`` (less
+    on a board narrower than ``2 S + 1``): at every geometry whose padding
+    is its pieces' side this is ``observe_dict``'s own build.  Raises
+    ``TypeError``, as JAX's composite does, on a board lower than the two
+    strips, and ``NotImplementedError`` past :func:`engine_defines`' limits."""
+    (H, PW), (S, qw), (hs, hw) = board_shape[1:], queue_shape[1:], holder_shape[1:]
+    if hs != S or qw % S or hw % S or not qw or not hw:
+        raise ValueError(f"compose_rgb: strips {tuple(queue_shape)} and {tuple(holder_shape)} are not "
+                         "[M, S, S * size] thumbnails of one side S")
+    if H < 2 * S:
+        raise TypeError(f"compose_rgb: a board of {H} rows is lower than the sidebar's two {S}-row "
+                        "strips (the JAX composite's bedrock separator would have a negative height)")
+    pad = min(S, (PW - 1) // 2)
+    config = EngineConfig(width=PW - 2 * pad, height=H - pad, padding=pad, queue_size=qw // S,
+                          holder_size=hw // S)
+    return _defines(config, n_palette - 2, S, flagship=True)
 
 
 def _check_fields(state, names, shapes: dict, dtypes: dict, device) -> None:
@@ -734,25 +796,18 @@ def grouped_placements(state: turbo.TurboState, config: EngineConfig, pieces: Pi
                        max_clear: int = 4, mode: str = "features"):
     """Launch ``grouped_placements``: ``(obs, mask f32[A, B], game_over bool[A, B],
     lines int32[A, B])``, ``obs`` ``f32[B, A, width + 3]`` (features) or
-    ``f32[B, A, height, width]`` (boards)."""
-    if bbw.wide(config.padded_width):
-        raise NotImplementedError(
-            f"grouped_placements takes single-word rows (padded width <= 32), got "
-            f"{config.padded_width} (multi-word candidates are ROADMAP item 11-rest)")
+    ``f32[B, A, height, width]`` (boards).  Built for each geometry within
+    :func:`engine_defines`' limits; rows of one word or of several."""
     if mode not in _GROUPED_MODES:
         raise ValueError(f"unknown turbo grouped observation mode: {mode}")
     device = state.rows.device
     t, packed, box = turbo.tables_for(pieces, device)
-    if t.size != 4 or config.padded_height > 64 or config.height > 63:
-        raise NotImplementedError(
-            f"grouped_placements is built for 4x4 piece boxes and at most 64 padded rows; got "
-            f"side {t.size}, {config.padded_height} rows"
-        )
+    defines = engine_defines(config, t)
     if max_clear < 0:
         raise ValueError(f"max_clear must be >= 0, got {max_clear}")
     B = state.piece.shape[0]
     A = config.width * 4
-    _check_tensor(state.rows, "state.rows", torch.uint32, (config.padded_height, B), device)
+    _check_tensor(state.rows, "state.rows", torch.uint32, _rows_shape(config, B), device)
     _check_tensor(state.piece, "state.piece", torch.int32, (B,), device)
     _check_tensor(state.rotation, "state.rotation", torch.int32, (B,), device)
     obs_shape = (B, A, config.width + 3) if mode == "features" else (B, A, config.height, config.width)
@@ -762,14 +817,11 @@ def grouped_placements(state: turbo.TurboState, config: EngineConfig, pieces: Pi
     lines = torch.empty((A, B), dtype=torch.int32, device=device)
     if B == 0:
         return obs, mask, game_over, lines
-    geom = _GroupedGeometry(
-        config.height, config.width, config.padding, config.padded_height, config.padded_width,
-        t.n_pieces * 4, t.n_pieces, A, int(max_clear), _GROUPED_MODES[mode],
-    )
-    rc = _lib("grouped_placements").grouped_placements_launch(
+    params = _PlacementParams(int(max_clear), _GROUPED_MODES[mode])
+    rc = _lib("grouped_placements", defines).grouped_placements_launch(
         state.rows.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(),
         packed.data_ptr(), box.data_ptr(), obs.data_ptr(), mask.data_ptr(), game_over.data_ptr(),
-        lines.data_ptr(), B, ctypes.byref(geom), _stream(device),
+        lines.data_ptr(), B, ctypes.byref(params), _stream(device),
     )
     _check(rc, "grouped_placements")
     LAUNCHES["grouped_placements"] += 1
@@ -1204,16 +1256,23 @@ RGB84 = 84  # csrc/render_rgb84.cu:OUT
 def _render_table(config: EngineConfig, pieces: PieceSet, device) -> torch.Tensor:
     """The int32 table ``render_rgb84`` reads (cached): the 84-row taps of
     the id image's height and width, the palette and the gray weights, in
-    the order of ``csrc/render_rgb84.cu:T_*``."""
+    the order of ``csrc/render_rgb84.cu:T_*``.  The id image is the
+    composite's: the padded board and a sidebar of ``S * max(queue, holder)``
+    columns, ``S`` the pieces' side (``engine.render_rgb`` composites the
+    strips as they are).  Raises JAX's ``ValueError`` where the image is
+    larger than 84 on a side, and its ``TypeError`` where it is lower than
+    the sidebar's two strips."""
     from tetris_gymnasium_torch.ops import image
-    from tetris_gymnasium_torch.ops.observations import sidebar_width
 
-    ck = ("render", config.padded_height, config.padded_width, pieces.palette.tobytes(),
-          str(device))
+    S = int(pieces.matrices.shape[-1])
+    if config.padded_height < 2 * S:
+        raise TypeError(f"render_rgb84: a board of {config.padded_height} rows is lower than the "
+                        f"sidebar's two {S}-row strips (JAX's composite fails there too)")
+    ck = ("render", config.padded_height, config.padded_width, S, config.queue_size,
+          config.holder_size, pieces.palette.tobytes(), str(device))
     hit = _DEVICE_TABLES.get(ck)
     if hit is None:
-        img_w = config.padded_width + sidebar_width(config.padding, config.queue_size,
-                                                    config.holder_size)
+        img_w = config.padded_width + S * max(config.queue_size, config.holder_size)
         sy, cy = image.area_zoom_taps(config.padded_height, RGB84)
         sx, cx = image.area_zoom_taps(img_w, RGB84)
         parts = [sy, cy, sx, cx, pieces.palette.astype(np.int32), np.asarray(image._W22)]
@@ -1224,10 +1283,13 @@ def _render_table(config: EngineConfig, pieces: PieceSet, device) -> torch.Tenso
 
 def render_rgb84(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
     """Launch ``render_rgb84``: the 84x84 gray frames ``uint8[B, 84, 84]`` of
-    ``preprocess_rgb84(render_rgb(state))``."""
+    ``preprocess_rgb84(render_rgb(state))``, at any geometry within
+    :func:`engine_defines`' flagship limits whose composite is at most 84
+    pixels on a side (``ValueError`` past it, as JAX's resize raises)."""
     device = state.board.device
     t, packed, _ = turbo.tables_for(pieces, device)
-    _check_default_geometry(config, t, "render_rgb84")
+    table = _render_table(config, pieces, device)
+    defines = engine_defines(config, t, flagship=True)
     if pieces.palette.shape != (t.n_pieces + 2, 3):
         raise NotImplementedError(f"render_rgb84 is built for a {t.n_pieces + 2}-entry palette")
     B = _check_flagship_state(state, config, t.n_pieces, device, _RENDER_FIELDS)
@@ -1235,9 +1297,9 @@ def render_rgb84(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
     if B == 0:
         return out
     ptrs = _RenderPtrs(*(getattr(state, k).data_ptr() for k in _RENDER_FIELDS))
-    rc = _lib("render_rgb84").render_rgb84_launch(
+    rc = _lib("render_rgb84", defines).render_rgb84_launch(
         ctypes.byref(ptrs), packed.data_ptr(), _ids_for(pieces, device).data_ptr(),
-        _render_table(config, pieces, device).data_ptr(), out.data_ptr(), B, _stream(device),
+        table.data_ptr(), out.data_ptr(), B, _stream(device),
     )
     _check(rc, "render_rgb84")
     LAUNCHES["render_rgb84"] += 1
@@ -1261,7 +1323,9 @@ def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = 
     """Launch ``grouped_flagship``: every placement of every env's active
     piece, ``(obs, mask f32[B, A], game_over bool[B, A], lines int32[B, A])``
     with ``obs`` ``f32[B, A, n]`` (``features``, under ``flags``, default
-    all), ``f32[B, A, 24, 18]`` (``boards``) or ``int8[B, A, 24, 18]`` (``ids``)."""
+    all), ``f32[B, A, H_pad, W_pad]`` (``boards``) or ``int8[B, A, H_pad,
+    W_pad]`` (``ids``), ``A = width * 4``.  Built for each geometry within
+    :func:`engine_defines`' flagship limits."""
     from tetris_gymnasium_torch.ops.observations import FeatureFlags, n_features
 
     if mode not in _GROUPED_FLAGSHIP_MODES:
@@ -1269,7 +1333,7 @@ def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = 
     flags = FeatureFlags() if flags is None else flags
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
-    _check_default_geometry(config, t, "grouped_flagship")
+    defines = engine_defines(config, t, flagship=True)
     B = _check_flagship_state(state, config, t.n_pieces, device, ("board", "piece", "rotation"))
     A = config.width * 4
     board_shape = (B, A, config.padded_height, config.padded_width)
@@ -1283,7 +1347,7 @@ def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = 
     lines = torch.empty((B, A), dtype=torch.int32, device=device)
     if B == 0:
         return obs, mask, game_over, lines
-    rc = _lib("grouped_flagship").grouped_flagship_launch(
+    rc = _lib("grouped_flagship", defines).grouped_flagship_launch(
         state.board.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(), packed.data_ptr(),
         box.data_ptr(), _ids_for(pieces, device).data_ptr(), obs.data_ptr(), mask.data_ptr(),
         game_over.data_ptr(), lines.data_ptr(), B, _GROUPED_FLAGSHIP_MODES[mode],
@@ -1294,29 +1358,27 @@ def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = 
     return obs, mask, game_over, lines
 
 
-FEATURE_CROP = (20, 10)  # csrc/features.cuh: FH, FW
-
-
 def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
     """Launch ``feature_vector``: ``int32[B, n]`` features of an ``int8[B,
-    20, 10]`` playfield, read in place at any batch and row stride (the crop
-    ``board[:, :-pad, pad:-pad]`` of a padded board is a view)."""
+    height, width]`` playfield, read in place at any batch and row stride
+    (the crop ``board[:, :-pad, pad:-pad]`` of a padded board is a view).
+    Built for each crop shape (:func:`feature_defines`: at most 64 rows and
+    128 columns)."""
     from tetris_gymnasium_torch.ops.observations import n_features
 
-    if playfield.ndim != 3 or tuple(playfield.shape[1:]) != FEATURE_CROP:
-        raise NotImplementedError(
-            f"feature_vector is built for [B, 20, 10] playfields, got {tuple(playfield.shape)} "
-            "(other geometries are ROADMAP item 11-rest)")
+    if playfield.ndim != 3:
+        raise ValueError(f"playfield: want [B, height, width], got {tuple(playfield.shape)}")
+    defines = feature_defines(*playfield.shape[1:])
     device = playfield.device
     if not playfield.is_cuda or playfield.dtype != torch.int8 or playfield.stride(2) != 1:
         raise ValueError(f"playfield: want a CUDA int8 tensor with unit column stride, got "
                          f"{playfield.dtype} on {device}, strides {playfield.stride()}")
     B = playfield.shape[0]
-    n = n_features(FEATURE_CROP[1], flags)
+    n = n_features(playfield.shape[2], flags)
     out = torch.empty((B, n), dtype=torch.int32, device=device)
     if B == 0 or n == 0:
         return out
-    rc = _lib("features").feature_vector_launch(
+    rc = _lib("features", defines).feature_vector_launch(
         playfield.data_ptr(), playfield.stride(0), playfield.stride(1), B, _feature_bits(flags),
         out.data_ptr(), _stream(device),
     )
@@ -1325,30 +1387,29 @@ def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
     return out
 
 
-PALETTE_SHAPE = (9, 3)  # csrc/id_image.cuh: NPAL entries
-
-
 def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: bool = False) -> dict:
     """Launch ``observe_dict``: the Dict observation, ``board`` and
-    ``active_tetromino_mask`` ``uint8[B, 24, 18]``, ``holder`` ``uint8[B, 4,
-    4]``, ``queue`` ``uint8[B, 4, 16]``; with ``strips_only`` the holder and
-    queue strips alone (``engine.queue_holder_strips``)."""
+    ``active_tetromino_mask`` ``uint8[B, H_pad, W_pad]``, ``holder``
+    ``uint8[B, S, S * holder_size]``, ``queue`` ``uint8[B, S, S *
+    queue_size]`` (``S`` the pieces' side); with ``strips_only`` the holder
+    and queue strips alone (``engine.queue_holder_strips``).  Built for each
+    geometry within :func:`engine_defines`' flagship limits."""
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
-    _check_default_geometry(config, t, "observe_dict")
+    defines = engine_defines(config, t, flagship=True)
     B = _check_flagship_state(state, config, t.n_pieces, device, _RENDER_FIELDS)
     hw = (B, config.padded_height, config.padded_width)
-    pad = config.padding
+    S = t.size
     out = {} if strips_only else {
         "board": torch.empty(hw, dtype=torch.uint8, device=device),
         "active_tetromino_mask": torch.empty(hw, dtype=torch.uint8, device=device),
     }
-    out["holder"] = torch.empty((B, pad, pad * config.holder_size), dtype=torch.uint8, device=device)
-    out["queue"] = torch.empty((B, pad, pad * config.queue_size), dtype=torch.uint8, device=device)
+    out["holder"] = torch.empty((B, S, S * config.holder_size), dtype=torch.uint8, device=device)
+    out["queue"] = torch.empty((B, S, S * config.queue_size), dtype=torch.uint8, device=device)
     if B == 0:
         return out
     ptrs = _RenderPtrs(*(getattr(state, k).data_ptr() for k in _RENDER_FIELDS))
-    rc = _lib("observe_dict").observe_dict_launch(
+    rc = _lib("observe_dict", defines).observe_dict_launch(
         ctypes.byref(ptrs), packed.data_ptr(), box.data_ptr(), _ids_for(pieces, device).data_ptr(),
         None if strips_only else out["board"].data_ptr(),
         None if strips_only else out["active_tetromino_mask"].data_ptr(), out["holder"].data_ptr(),
@@ -1361,38 +1422,33 @@ def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: boo
 
 def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: torch.Tensor,
                 pieces: PieceSet, group: int = 1) -> torch.Tensor:
-    """Launch ``compose_rgb``: ``uint8[N, 24, 34, 3]`` composites of the id
-    boards ``uint8[N, 24, 18]`` with the strips ``uint8[M, 4, 16]`` and
-    ``uint8[M, 4, 4]`` of board ``n``'s env ``n // group`` (``N = M * group``)."""
+    """Launch ``compose_rgb``: ``uint8[N, H, W + S * max(QS, HS), 3]``
+    composites of the id boards ``uint8[N, H, W]`` with the strips
+    ``uint8[M, S, S * QS]`` and ``uint8[M, S, S * HS]`` of board ``n``'s env
+    ``n // group`` (``N = M * group``).  The build follows the shapes and
+    the palette (:func:`compose_defines`)."""
     from tetris_gymnasium_torch.utils.device import constant
 
     device = board.device
-    cfg = EngineConfig()
-    if pieces.palette.shape != PALETTE_SHAPE:
-        raise NotImplementedError(f"compose_rgb is built for a {PALETTE_SHAPE[0]}-entry palette, "
-                                  f"got {pieces.palette.shape[0]} (ROADMAP item 11-rest)")
+    if board.ndim != 3 or queue_strip.ndim != 3 or holder_strip.ndim != 3:
+        raise ValueError(f"compose_rgb: want [N, H, W] boards and [M, S, S * n] strips, got "
+                         f"{tuple(board.shape)}, {tuple(queue_strip.shape)}, {tuple(holder_strip.shape)}")
+    defines = compose_defines(board.shape, queue_strip.shape, holder_strip.shape,
+                              pieces.palette.shape[0])
     N = board.shape[0]
     if group < 1 or N % group:
         raise ValueError(f"{N} boards do not split into groups of {group}")
     M = N // group
-    pad = cfg.padding
-    if tuple(board.shape[1:]) != (cfg.padded_height, cfg.padded_width) \
-            or tuple(queue_strip.shape[1:]) != (pad, pad * cfg.queue_size) \
-            or tuple(holder_strip.shape[1:]) != (pad, pad * cfg.holder_size):
-        raise NotImplementedError(
-            f"compose_rgb is built for the default geometry; got boards {tuple(board.shape)}, "
-            f"strips {tuple(queue_strip.shape)} and {tuple(holder_strip.shape)} (ROADMAP item 11-rest)")
     _check_tensor(board, "board", torch.uint8, board.shape, device)
     _check_tensor(queue_strip, "queue_strip", torch.uint8, (M,) + tuple(queue_strip.shape[1:]), device)
     _check_tensor(holder_strip, "holder_strip", torch.uint8, (M,) + tuple(holder_strip.shape[1:]),
                   device)
-    side = pad * max(cfg.queue_size, cfg.holder_size)
-    out = torch.empty((N, cfg.padded_height, cfg.padded_width + side, 3), dtype=torch.uint8,
-                      device=device)
+    side = max(queue_strip.shape[2], holder_strip.shape[2])
+    out = torch.empty((N, board.shape[1], board.shape[2] + side, 3), dtype=torch.uint8, device=device)
     if N == 0:
         return out
     palette = constant(pieces.palette, device)
-    rc = _lib("observe_dict").compose_rgb_launch(
+    rc = _lib("observe_dict", defines).compose_rgb_launch(
         board.data_ptr(), queue_strip.data_ptr(), holder_strip.data_ptr(), palette.data_ptr(),
         int(group), N, out.data_ptr(), _stream(device),
     )

@@ -113,6 +113,9 @@ def compose_rgb_plain(board: torch.Tensor, queue_strip: torch.Tensor, holder_str
         holder_strip = holder_strip.repeat_interleave(group, dim=0)
     pad_h = queue_strip.shape[1]
     side_w = max(queue_strip.shape[2], holder_strip.shape[2])
+    if board.shape[1] < 2 * pad_h:  # JAX's bedrock separator would have a negative height
+        raise TypeError(f"compose_rgb: a board of {board.shape[1]} rows is lower than the "
+                        f"sidebar's two {pad_h}-row strips")
 
     def widen(strip):
         return F.pad(strip, (0, side_w - strip.shape[2]), value=1)
