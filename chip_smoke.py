@@ -216,13 +216,40 @@ Phases, each printing one JSON line:
 39. The six surface kernels' device ms at 30x20 and 61x12, B = 4096 and
     65536 (the board modes at 4096), beside their bounds and plain versions.
 
-Then the kernels line (21 kernels; each with the launch counts of the
+40. ``grayscale_u8_exact`` bit-equal to its plain version over all 2**24
+    RGB triples and on a random ``[512, 84, 84, 3]`` batch; the triples
+    where it differs from numpy's float64 formula, counted for both (the
+    JAX package documents 164), must agree.
+41. The compat engine's kernels (``fn_reset``, ``fn_step``, ``fn_observe``)
+    bit-equal to their plain versions in every field, the observation,
+    reward, terminated and lines, at five configurations
+    (``fn_geometries``: the default, no gravity, a uniform queue of 5, width
+    30, 8x12 with padding 2), each built for it in phase 2: 300-step
+    random-action trajectories (actions 0-7) at B = 4096, 1001 and 1, ended
+    games starting afresh every 25 steps, the observation of every state;
+    then hand-built stacks (1-4 full rows, a non-empty row 0, queues at their
+    refill boundary, games over), each taking every action 0-7, where a line
+    clear's copy of row 0, a refill and a frozen game must each show.
+42. The slice's path: ``examples/play_random_functional.py``'s game from
+    ``prng_key(42)`` on the card equal to the plain versions on the CPU
+    (steps, score, last observation; steps/s; exact launch counts), then
+    ``batched_reset`` and ``rollout`` at B = 65536, T = 64: env-steps/s,
+    exact launch counts (1 ``fn_reset``, 1 ``fn_step`` a step, 0
+    ``fn_observe``), the first 1024 envs' trajectories equal to a CPU run.
+43. Device ms of ``fn_step`` (live and frozen states), ``fn_observe`` and
+    ``fn_reset`` at B = 1, 8192 and 65536, and of ``grayscale_u8_exact``
+    at 2**24 pixels and ``[512, 84, 84, 3]``, beside their bounds and
+    plain versions.
+
+Then the kernels line (25 kernels; each with the launch counts of the
 first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
-else PPO, else the grouped engine, else the shell; times at the shape of
-that path; ``heights``, which no path calls, with 0 launches and its time
-at 30x20, B = 4096; each with its builds, one a geometry, and the six
-surface kernels with their phase-39 times) and, last, the device line.
+else PPO, else the grouped engine, else the shell, else the compat
+rollout; times at the shape of that path; ``heights``, ``fn_observe`` and
+``grayscale_u8_exact``, which no path calls, with 0 launches and their
+times at 30x20 and B = 4096, at B = 65536 and over 2**24 pixels; each with
+its builds, one a geometry, and the six surface kernels with their
+phase-39 times) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -391,7 +418,8 @@ MAX_ERR = {"turbo_step": 0.0, "turbo_init": 0.0, "observe_board": 0.0, "gae": 0.
            "replay_sample": 0.0, "replay_sample_stacked": 0.0, "framestack_push": 0.0,
            "dqn_act": 0.0, "flagship_step": 0.0, "flagship_init": 0.0,
            "flagship_observe_board": 0.0, "render_rgb84": 0.0, "grouped_flagship": 0.0,
-           "feature_vector": 0.0, "observe_dict": 0.0, "compose_rgb": 0.0, "heights": 0.0}
+           "feature_vector": 0.0, "observe_dict": 0.0, "compose_rgb": 0.0, "heights": 0.0,
+           "fn_reset": 0.0, "fn_step": 0.0, "fn_observe": 0.0, "grayscale_u8_exact": 0.0}
 
 
 def bits(t):
@@ -572,7 +600,8 @@ def main() -> None:
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     builds = kernels.build([(cfg, P) for _, cfg, P in surface_geometries()]
-                           + [(EngineConfig(**GROUPED_WIDE), turbo.PIECES)])
+                           + [(EngineConfig(**GROUPED_WIDE), turbo.PIECES)],
+                           [(cfg, turbo.PIECES) for _, cfg, _ in fn_geometries()])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": [{k: b.get(k) for k in ("name", "defines", "seconds", "cached", "extra_flags")}
                       for b in builds]})
@@ -822,6 +851,12 @@ def main() -> None:
     wide_grouped = run_grouped_engines_wide(dev, smi)
     surface_wide_times = time_surface_wide(dev, smi)
 
+    # -- 40.-43. the compat functional engine and the exact grayscale --------------------
+    check_gray_exact(dev)
+    check_fn_kernels(dev)
+    fn_path = run_fn_path(dev, smi)
+    fn_times = time_fn_kernels(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -863,6 +898,11 @@ def main() -> None:
                         "tetris_gymnasium_tpu/ops/observations.py:84"),
         "heights": ("tetris_gymnasium_torch/csrc/heights.cu",
                     "tetris_gymnasium_tpu/core/turbo.py:760"),
+        "fn_reset": ("tetris_gymnasium_torch/csrc/fn_env.cu", "tetris_gymnasium_tpu/core/fn_env.py:210"),
+        "fn_step": ("tetris_gymnasium_torch/csrc/fn_env.cu", "tetris_gymnasium_tpu/core/fn_env.py:189"),
+        "fn_observe": ("tetris_gymnasium_torch/csrc/fn_env.cu", "tetris_gymnasium_tpu/core/fn_env.py:64"),
+        "grayscale_u8_exact": ("tetris_gymnasium_torch/csrc/gray_exact.cu",
+                               "tetris_gymnasium_tpu/ops/image.py:176"),
     }
     # Each kernel's launches and time come from one path: the first below
     # that runs it (the pixel DQN, else the flagship engine's board
@@ -901,10 +941,15 @@ def main() -> None:
              ("vector_env_wide", wide_vector["launches"], wide_vector["steps"], {}),
              ("shell_wide", wide_shell["launches"], wide_shell["steps"], {}),
              ("grouped_engines_wide", wide_grouped["launches"], wide_grouped["steps"], {}),
-             # heights: no path calls it (nor any in the JAX package); its
-             # time is at 30x20, B = 4096, its launches 0
+             ("fn_rollout", fn_path["launches"], fn_path["steps"],
+              {k: fn_times[k][FN_PATH_B] for k in ("fn_reset", "fn_step")}),
+             # heights, fn_observe (fn_step and fn_reset write their own
+             # observations) and grayscale_u8_exact: no path calls them;
+             # heights' time is at 30x20, B = 4096, fn_observe's at B =
+             # 65536, grayscale_u8_exact's over 2**24 pixels, their launches 0
              ("none", {k: 0 for k in kernels.LAUNCHES}, 1,
-              {"heights": wide_times["30x20"]["heights"][4096]})]
+              {"heights": wide_times["30x20"]["heights"][4096], "fn_observe": fn_times["fn_observe"][FN_PATH_B],
+               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL]})]
     # each kernel's builds (phase 2: one library per geometry for the
     # sources of kernels.GEOMETRY_SOURCES and features.cu), and the surface
     # kernels' times at 30x20 and 61x12 (phase 39)
@@ -3988,6 +4033,353 @@ def time_surface_wide(dev, smi) -> dict:
                               for k, v in out[name].items()}, "nvidia_smi": smi})
             del s, t, d, crop, sg, so, tgp, dp, cp
             torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 40.-43. the compat functional engine and the exact grayscale
+# ---------------------------------------------------------------------------
+
+GRAY_BATCH = (512, 84, 84, 3)
+GRAY_ALL = 1 << 24  # every RGB triple
+GRAY_JAX_OFF = 164  # triples where the exact grayscale differs from numpy's float64 (ops/image.py:25-28)
+GRAY_OPS_PER_PIXEL = 14  # 6 table lookups, 4 adds, 2 shifts, the byte extract and the pack
+FN_B = (4096, 1001, 1)
+FN_STEPS = 300
+FN_RESTART_EVERY = 25  # random play ends a game within 8-27 steps: ended games start afresh
+FN_STACKS = 512  # hand-built states a geometry, each taking every action 0-7
+FN_PATH_B, FN_PATH_T, FN_CPU_B = 65536, 64, 1024
+FN_TIME_B = (1, 8192, 65536)
+FN_LIVE_STEPS = 8  # phase 43 times the state 8 steps into a fresh rollout, most games live
+
+
+def fn_geometries():
+    """``(name, config, queue kind)`` of phase 41: the default board, no
+    gravity, a uniform queue of 5 (its off-by-one draws pieces 0-3), width
+    30, and 8x12 with padding 2, where a piece stands low enough (``y + 1 >
+    H + pad - 4``) for the window clamps to bind."""
+    from tetris_gymnasium_torch.config import EnvConfig
+
+    return [("10x20", EnvConfig(), "bag"), ("10x20-nograv", EnvConfig(gravity_enabled=False), "bag"),
+            ("uniform5", EnvConfig(queue_size=5), "uniform"), ("30x20", EnvConfig(width=30), "bag"),
+            ("8x12-pad2", EnvConfig(width=8, height=12, padding=2), "bag")]
+
+
+def _fn_queue(kind):
+    from tetris_gymnasium_torch.ops.queue import BAG_QUEUE, UNIFORM_QUEUE
+
+    return BAG_QUEUE if kind == "bag" else UNIFORM_QUEUE
+
+
+def _fn_rows(s, o, n):
+    """Envs ``o .. o + n`` of a compat state (contiguous views)."""
+    from tetris_gymnasium_torch.core import fn_env
+
+    return fn_env.FnState(**{k: getattr(s, k)[o : o + n] for k in fn_env.FIELDS})
+
+
+def _fn_cat(parts):
+    """Kernel outputs of several batches, concatenated field by field."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(parts[0]):
+        return type(parts[0])(**{f.name: torch.cat([getattr(p, f.name) for p in parts])
+                                 for f in dataclasses.fields(parts[0])})
+    return torch.cat(parts)
+
+
+def _fn_diff(kernel, got, want, what):
+    """Compat states (field by field) or tensors, bit for bit."""
+    from tetris_gymnasium_torch.core import fn_env
+
+    if isinstance(want, fn_env.FnState):
+        _fields_diff(kernel, got, want, fn_env.FIELDS, what)
+    else:
+        diff(kernel, got, want, what)
+
+
+def check_gray_exact(dev) -> dict:
+    """Phase 40: ``grayscale_u8_exact`` bit-equal to its plain version over
+    all 2**24 RGB triples and on a random ``[512, 84, 84, 3]`` batch; the
+    triples where it differs from numpy's float64 formula, counted for the
+    kernel and the plain version."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.ops import image
+
+    t0 = time.perf_counter()
+    i = torch.arange(GRAY_ALL, device=dev, dtype=torch.int32)
+    rgb = torch.stack([i >> 16, (i >> 8) & 255, i & 255], dim=-1).to(torch.uint8)
+    got, plain = kernels.grayscale_u8_exact(rgb), image.grayscale_u8_exact_plain(rgb)
+    diff("grayscale_u8_exact", got, plain, "all 2**24 RGB triples")
+    want = np.sum(np.multiply(rgb.cpu().numpy(), np.array([0.2125, 0.7154, 0.0721])), axis=-1).astype(np.uint8)
+    off = {"kernel": int((got.cpu().numpy() != want).sum()), "plain": int((plain.cpu().numpy() != want).sum())}
+    if off["kernel"] != off["plain"]:
+        raise AssertionError(f"grayscale_u8_exact: {off} triples differ from numpy's float64")
+    g = torch.Generator(device=dev)
+    g.manual_seed(40)
+    batch = torch.randint(0, 256, GRAY_BATCH, generator=g, device=dev, dtype=torch.uint8)
+    diff("grayscale_u8_exact", kernels.grayscale_u8_exact(batch), image.grayscale_u8_exact_plain(batch),
+         f"random {list(GRAY_BATCH)}")
+    torch.cuda.synchronize()
+    out = {"phase": "grayscale_u8_exact", "bit_equal": True, "triples": GRAY_ALL,
+           "differ_from_numpy_float64": off, "jax_documented": GRAY_JAX_OFF,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def _fn_stacks(cfg, kind, n, dev, seed):
+    """Compat states on hand-built stacks, made in numpy and carried to the
+    card by ``state_from_numpy``, each repeated for the 8 actions 0-7: 1-4
+    full rows at the bottom, random cells below the top half and a
+    non-empty row 0 that is not full (so that a clear copies it), a random
+    piece at a random position (the clamps included), half the queues at
+    their refill boundary, a fifth of the games over."""
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    rng = np.random.default_rng(seed)
+    _, s, _ = fn_env.reset_plain(batch_keys(prng_key(seed), n, device="cpu"), cfg, queue_fns=_fn_queue(kind))
+    st = fn_env.state_to_numpy(s)
+    H, W, pad, qs = cfg.height, cfg.width, cfg.padding, cfg.queue_size
+    inner = np.where(rng.random((n, H, W)) < 0.5, 5, 0).astype(np.int8)
+    inner[:, 1 : H // 2] = 0
+    inner[:, 0, 0], inner[:, 0, 1] = 6, 0
+    n_full = rng.integers(1, 5, n)
+    inner[np.arange(H)[None, :] >= H - n_full[:, None]] = 3
+    st["board"][:, :H, pad : pad + W] = inner
+    st.update(piece=rng.integers(0, qs, n), rotation=rng.integers(0, 4, n),
+              x=rng.integers(-3, cfg.padded_width, n), y=rng.integers(0, cfg.padded_height, n),
+              queue_index=np.where(rng.random(n) < 0.5, qs, rng.integers(0, qs, n)),
+              game_over=rng.random(n) < 0.2)
+    st = fn_env.state_from_numpy({k: np.repeat(v, 8, axis=0) for k, v in st.items()}, device=dev)
+    return st, (torch.arange(8 * n, device=dev) % 8).to(torch.int32)
+
+
+def check_fn_kernels(dev) -> dict:
+    """Phase 41: ``fn_reset``, ``fn_step`` and ``fn_observe`` bit-equal to
+    their plain versions at every geometry of :func:`fn_geometries`, in every
+    field, the observation, reward, terminated and lines: 300-step
+    random-action trajectories (actions 0-7, 7 a no-op) at B = 4096, 1001 and
+    1 (the plain versions once on the three batches side by side, replayed
+    from a CUDA graph; ended games start afresh every 25 steps), the
+    observation of every state, then the hand-built states of
+    :func:`_fn_stacks`: the row-0 copy of a line clear, a refill and frozen
+    games must each show."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.pieces import PIECES
+    from tetris_gymnasium_torch.utils.tree import select_tree
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    t0 = time.perf_counter()
+    spans = [(sum(FN_B[:i]), B) for i, B in enumerate(FN_B)]
+    total = sum(FN_B)
+    summary = {}
+    for gi, (name, cfg, kind) in enumerate(fn_geometries()):
+        qf = _fn_queue(kind)
+
+        def keys_at(seed):
+            return torch.cat([batch_keys(prng_key(seed + j), B, device=dev) for j, B in enumerate(FN_B)])
+
+        def reset_both(keys, what):
+            k = [kernels.fn_reset(keys[o : o + B], cfg, PIECES, kind) for o, B in spans]
+            p = fn_env.reset_plain(keys, cfg, PIECES, qf)
+            for part, want, field in zip(zip(*k), p, ("keys", "state", "obs")):
+                _fn_diff("fn_reset", _fn_cat(part), want, f"{name} {what} {field}")
+            return p[1]
+
+        s = reset_both(keys_at(100 * gi), "reset")
+        plain_step = _graphed(lambda st, a: fn_env.step_plain(st, a, cfg, PIECES, qf), s,
+                              torch.zeros((total,), dtype=torch.int32, device=dev))
+        ended = lines = live = 0
+        for i in range(FN_STEPS):
+            a = torch.randint(0, 8, (total,), generator=g, device=dev, dtype=torch.int32)
+            k = [kernels.fn_step(_fn_rows(s, o, B), a[o : o + B], cfg, PIECES, kind) for o, B in spans]
+            p = plain_step(s, a)
+            for part, want, field in zip(zip(*k), p, ("state", "obs", "reward", "terminated", "lines")):
+                _fn_diff("fn_step", _fn_cat(part), want, f"{name} step {i} {field}")
+            obs = [kernels.fn_observe(part[0], cfg, PIECES) for part in k]
+            _fn_diff("fn_observe", _fn_cat(obs), p[1], f"{name} observe {i}")
+            live += int((~s.game_over).sum())
+            ended += int((p[3] & ~s.game_over).sum())
+            lines += int(p[4].sum())
+            s = p[0]
+            if i % FN_RESTART_EVERY == FN_RESTART_EVERY - 1:
+                fresh = reset_both(keys_at(100 * gi + i + 1), f"restart {i}")
+                s = select_tree(s.game_over, fresh, s, minor=())
+        del plain_step
+
+        st, a = _fn_stacks(cfg, kind, FN_STACKS, dev, 41 + gi)
+        diff("fn_observe", kernels.fn_observe(st, cfg, PIECES), fn_env.observe_plain(st, cfg), f"{name} stacks obs")
+        k = kernels.fn_step(st, a, cfg, PIECES, kind)
+        p = fn_env.step_plain(st, a, cfg, PIECES, qf)
+        for got, want, field in zip(k, p, ("state", "obs", "reward", "terminated", "lines")):
+            _fn_diff("fn_step", got, want, f"{name} stacks {field}")
+        new, pad, W = p[0], cfg.padding, cfg.width
+        row0 = (new.board[:, 0, pad : pad + W] > 0).any(dim=1)
+        shown = {"row0_copies": int(((p[4] > 0) & row0 & ~st.game_over).sum()),
+                 "refills": int(((st.queue_index == cfg.queue_size) & (new.queue_index == 1)
+                                 & ~st.game_over).sum()),
+                 "frozen": int(st.game_over.sum()), "lines": p[4].bincount(minlength=5).tolist()}
+        frozen = st.game_over
+        if not (torch.equal(new.board[frozen], st.board[frozen]) and bool((p[2][frozen] == 0).all())
+                and bool((p[4][frozen] == 0).all())):
+            raise AssertionError(f"{name}: a game that was over changed")
+        if min(shown["row0_copies"], shown["refills"], shown["frozen"]) == 0:
+            raise AssertionError(f"{name}: the hand-built states did not show every case: {shown}")
+        summary[name] = {"steps": FN_STEPS, "B": list(FN_B), "live_env_steps": live, "games_ended": ended,
+                         "lines": lines, "stacks": shown}
+    torch.cuda.synchronize()
+    out = {"phase": "fn_kernels", "bit_equal": True, "geometries": summary,
+           "max_abs_err": {k: MAX_ERR[k] for k in ("fn_reset", "fn_step", "fn_observe")},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def run_fn_path(dev, smi) -> dict:
+    """Phase 42: the slice's path.  ``examples/play_random_functional.py``'s
+    game from ``prng_key(42)`` on the card and in the plain versions on the
+    CPU (steps, score and the last observation equal; steps/s, host-bound
+    at B = 1; exact launch counts), then ``batched_reset`` and ``rollout``
+    at B = 65536, T = 64 with random actions 0-6: env-steps/s, exact launch
+    counts (one ``fn_reset``, one ``fn_step`` a step, no ``fn_observe``),
+    and the first 1024 envs' trajectories equal to a CPU run of the same
+    keys and actions."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EnvConfig
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.examples import play_random_functional as prf
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    no_launches = {k: 0 for k in kernels.LAUNCHES}
+    kernels.reset_launches()
+    card = prf.play("cuda")
+    game_launches = dict(kernels.LAUNCHES)
+    cpu = prf.play("cpu")
+    if (card["steps"], card["score"]) != (cpu["steps"], cpu["score"]) or not np.array_equal(card["obs"], cpu["obs"]):
+        raise AssertionError(f"the example's game: {card['steps']} steps, score {card['score']} on the card, "
+                             f"{cpu['steps']}, {cpu['score']} on the CPU")
+    if game_launches != {**no_launches, "fn_reset": 1, "fn_step": card["steps"]}:
+        raise AssertionError(f"the example's launch counts {game_launches}")
+
+    cfg = EnvConfig()
+    g = torch.Generator(device=dev)
+    g.manual_seed(42)
+    keys = batch_keys(prng_key(42), FN_PATH_B, device=dev)
+    actions = torch.randint(0, 7, (FN_PATH_T, FN_PATH_B), generator=g, device=dev, dtype=torch.int32)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, s0, obs0 = fn_env.batched_reset(keys, config=cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    final, (obs, reward, term, lines) = fn_env.rollout(s0, actions, cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    if launches != {**no_launches, "fn_reset": 1, "fn_step": FN_PATH_T}:
+        raise AssertionError(f"the rollout's launch counts {launches}")
+    for t in (obs, reward):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError("the rollout gave a value that is not finite")
+
+    n = FN_CPU_B
+    _, c0, cobs0 = fn_env.batched_reset(keys[:n].cpu(), config=cfg, device="cpu")
+    cfinal, cout = fn_env.rollout(c0, actions[:, :n].cpu(), cfg)
+    diff("fn_reset", obs0[:n].cpu(), cobs0, "rollout reset obs (CPU)")
+    for got, want, field in zip((obs, reward, term, lines), cout, ("obs", "reward", "terminated", "lines")):
+        diff("fn_step", got[:, :n].cpu(), want, f"rollout {field} (CPU)")
+    _fields_diff("fn_step", fn_env.FnState(**{k: getattr(final, k)[:n].cpu() for k in fn_env.FIELDS}),
+                 cfinal, fn_env.FIELDS, "rollout final (CPU)")
+    out = {"phase": "fn_path", "game": {"steps": card["steps"], "score": card["score"],
+                                         "steps_per_s": card["steps"] / card["seconds"],
+                                         "launches": {k: v for k, v in game_launches.items() if v}},
+           "B": FN_PATH_B, "T": FN_PATH_T, "reset_s": t1 - t0, "rollout_s": t2 - t1,
+           "env_steps_per_s": FN_PATH_B * FN_PATH_T / (t2 - t1),
+           "games_ended": int((term[-1] & ~s0.game_over).sum()), "lines": int(lines.sum()),
+           "launches": {k: v for k, v in launches.items() if v}, "cpu_equal_envs": n, "nvidia_smi": smi}
+    emit(out)
+    return {"launches": launches, "steps": FN_PATH_T, "game_launches": game_launches}
+
+
+def _fn_step_ops(cfg) -> int:
+    """32-bit operations of ``fn_step`` on one env, the kernel's own count on
+    a locking hard drop: four 16-cell window tests and a drop of up to H
+    tests (6 each a cell), the stamp, the compaction and the frame (4 a
+    cell), two threefry blocks, a refill's QS more and its sort (80 a
+    block, 4 a comparison), and the observation (8 a cell)."""
+    H, cells, qs = cfg.padded_height, cfg.padded_height * cfg.padded_width, cfg.queue_size
+    return (4 + H) * 16 * 6 + 4 * cells + 80 * (2 + qs) + 4 * qs * qs + 8 * cfg.height * cfg.width
+
+
+def time_fn_kernels(dev, smi) -> dict:
+    """Phase 43: device ms (a CUDA graph, the median of 7 replays) of
+    ``fn_step`` and ``fn_observe`` at B = 1, 8192 and 65536 on live states
+    (8 steps into a fresh rollout), ``fn_step`` also on frozen ones,
+    ``fn_reset`` at the same B, and ``grayscale_u8_exact`` at 2**24 pixels
+    and ``[512, 84, 84, 3]``, beside their bounds and plain versions."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EnvConfig
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops import image
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.pieces import PIECES
+
+    cfg = EnvConfig()
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    pad, h, w = cfg.padding, cfg.height, cfg.width
+    out = {}
+    for B in FN_TIME_B:
+        big = B >= 65536
+        keys = batch_keys(prng_key(43), B, device=dev)
+        s = kernels.fn_reset(keys, cfg, PIECES)[1]
+        for _ in range(FN_LIVE_STEPS):
+            s = kernels.fn_step(s, torch.randint(0, 7, (B,), generator=g, device=dev, dtype=torch.int32),
+                                cfg, PIECES)[0]
+        a = torch.randint(0, 7, (B,), generator=g, device=dev, dtype=torch.int32)
+        frozen = s.replace(game_over=torch.ones_like(s.game_over))
+        state_bytes = nbytes(*(getattr(s, k) for k in fn_env.FIELDS))
+        step_io = 2 * state_bytes + nbytes(a) + B * (h * w + 4 + 1 + 4)
+        step_ops = B * _fn_step_ops(cfg)
+        entries = {
+            "fn_step": (lambda: kernels.fn_step(s, a, cfg, PIECES), lambda: fn_env.step_plain(s, a, cfg),
+                        step_io, step_ops),
+            "fn_step_frozen": (lambda: kernels.fn_step(frozen, a, cfg, PIECES),
+                               lambda: fn_env.step_plain(frozen, a, cfg), step_io, step_ops),
+            "fn_observe": (lambda: kernels.fn_observe(s, cfg, PIECES), lambda: fn_env.observe_plain(s, cfg),
+                           nbytes(s.board[:, :h, pad : pad + w], s.piece, s.rotation, s.x, s.y, s.game_over)
+                           + B * h * w, B * 8 * h * w),
+            "fn_reset": (lambda: kernels.fn_reset(keys, cfg, PIECES), lambda: fn_env.reset_plain(keys, cfg),
+                         2 * nbytes(keys) + state_bytes + B * h * w,
+                         B * (80 * (2 + cfg.queue_size) + 4 * cfg.padded_height * cfg.padded_width)),
+        }
+        live = float((~s.game_over).float().mean())
+        for name, (kernel_fn, plain_fn, io, ops) in entries.items():
+            entry = timed_pair(kernel_fn, plain_fn, 20 if big else 100, 2 if big else 10, io, ops)
+            entry.update(library_ms=None, envs_per_s=B / (entry["ms"] * 1e-3), live_share=live)
+            out.setdefault(name, {})[B] = entry
+        emit({"phase": "fn_times", "B": B, "live_share": live,
+              "kernels": {k: v[B] for k, v in out.items()}, "nvidia_smi": smi})
+        del s, frozen
+        torch.cuda.empty_cache()
+    for shape in ((GRAY_ALL, 3), GRAY_BATCH):
+        rgb = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+        n = rgb.numel() // 3
+        entry = timed_pair(lambda: kernels.grayscale_u8_exact(rgb), lambda: image.grayscale_u8_exact_plain(rgb),
+                           20, 2, 4 * n, n * GRAY_OPS_PER_PIXEL)
+        entry.update(library_ms=None, pixels_per_s=n / (entry["ms"] * 1e-3))
+        out.setdefault("grayscale_u8_exact", {})[n] = entry
+        emit({"phase": "gray_times", "shape": list(shape), "kernels": {"grayscale_u8_exact": entry},
+              "nvidia_smi": smi})
     return out
 
 

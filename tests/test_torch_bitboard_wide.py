@@ -172,7 +172,7 @@ def test_clear_lines_equivalence(geom, filled):
 @pytest.mark.parametrize("geom", GEOMETRIES)
 def test_empty_rows_matches_create_board(geom):
     H, W, PAD, HP, WP = dims(geom)
-    board = ob.create_board(H, W, PAD, 1)
+    board = ob.create_board(H, W, PAD, 1, "cpu")
     np.testing.assert_array_equal(bw.pack_board(board)[0].numpy(),
                                   bw.empty_rows(H, W, PAD).astype(np.int64))
 

@@ -116,7 +116,7 @@ def _run(seed, actions, B=1, surgery=None, **kw):
 def test_board_helpers_match_jax():
     rng = np.random.default_rng(0)
     for h, w, p in ((20, 10, 4), (8, 6, 4), (15, 9, 2)):
-        np.testing.assert_array_equal(ob.create_board(h, w, p, 3)[1].numpy(),
+        np.testing.assert_array_equal(ob.create_board(h, w, p, 3, "cpu")[1].numpy(),
                                       np.asarray(jboard.create_board(h, w, p)))
     B = 64
     boards = rng.integers(-1, 9, size=(B, 24, 18)).astype(np.int8)

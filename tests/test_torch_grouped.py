@@ -73,7 +73,7 @@ def _jax_observe(cfg):
 
 def _example_board():
     """The reference's half-filled fixture board (``tests/test_grouped.py:29``)."""
-    board = create_board(H, W, P, 1)[0].numpy().copy()
+    board = create_board(H, W, P, 1, "cpu")[0].numpy().copy()
     top = H // 2
     board[top:H, P : -(P + 1)] = 2
     board[top - 1, P + 1] = 2
@@ -229,7 +229,7 @@ def test_illegal_placements_are_all_ones():
 
 
 def test_game_over_placements_are_all_zeros():
-    board = create_board(H, W, P, 1)[0].numpy().copy()
+    board = create_board(H, W, P, 1, "cpu")[0].numpy().copy()
     board[0:H, P:-P] = 2
     boards, mask, over, _ = grouped.placements(_fixture_state(board), CFG)
     hit = [(mask[0, a] == 1) and np.all(boards[0, a].numpy() == 0) for a in range(40)]

@@ -348,7 +348,7 @@ def _shell(gravity=True, piece=0, rotation=0, x=None, y=0, board=None):
 
 
 def _board(fill=None):
-    board = create_board(H, W, P, 1)[0].numpy().copy()
+    board = create_board(H, W, P, 1, "cpu")[0].numpy().copy()
     if fill is not None:
         fill(board)
     return board

@@ -993,3 +993,101 @@ def test_surface_kernels_take_oversize_pieces(cuda, width):
     config = EngineConfig(width=width, height=16, padding=pad, queue_size=2, queue_kind="uniform",
                           auto_reset=True)
     _surface_kernels_against_plain(cuda, config, pieces, 129, 40, 22)
+
+
+# ---------------------------------------------------------------------------
+# The compat functional engine and the exact grayscale
+# ---------------------------------------------------------------------------
+
+FN_CONFIGS = [(dict(), "bag"), (dict(gravity_enabled=False), "bag"), (dict(queue_size=5), "uniform"),
+              (dict(width=30), "bag"), (dict(width=8, height=12, padding=2), "bag")]
+FN_IDS = ["default", "nograv", "uniform5", "30x20", "8x12-pad2"]
+
+
+def _fn_equal(got, want, what):
+    from tetris_gymnasium_torch.core import fn_env
+
+    if isinstance(want, fn_env.FnState):
+        for k in fn_env.FIELDS:
+            _assert_equal(getattr(got, k), getattr(want, k), f"{what} {k}")
+    else:
+        _assert_equal(got, want, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kind", FN_CONFIGS, ids=FN_IDS)
+def test_fn_kernels_match_plain(cuda, kw, kind):
+    """``fn_reset``, ``fn_step`` and ``fn_observe`` bit-equal to their plain
+    versions along 120 random steps (actions 0-7) at B = 1001."""
+    from tetris_gymnasium_torch.config import EnvConfig
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops.queue import BAG_QUEUE, UNIFORM_QUEUE
+
+    config, qf = EnvConfig(**kw), (BAG_QUEUE if kind == "bag" else UNIFORM_QUEUE)
+    B = 1001
+    keys = batch_keys(prng_key(9), B, device=cuda)
+    got = fn_env.reset(keys, config, queue_fns=qf)
+    want = fn_env.reset_plain(keys, config, queue_fns=qf)
+    for a, b, what in zip(got, want, ("keys", "state", "obs")):
+        _fn_equal(a, b, f"reset {what}")
+    s = want[1]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    for i in range(120):
+        _assert_equal(fn_env.observe(s, config), fn_env.observe_plain(s, config), f"obs {i}")
+        a = torch.randint(0, 8, (B,), generator=g, device=cuda, dtype=torch.int32)
+        ks, ko, kr, kt, kinfo = fn_env.step(s, a, config, queue_fns=qf)
+        want = fn_env.step_plain(s, a, config, queue_fns=qf)
+        for got_, ref, what in zip((ks, ko, kr, kt, kinfo["lines_cleared"]), want,
+                                   ("state", "obs", "reward", "terminated", "lines")):
+            _fn_equal(got_, ref, f"step {i} {what}")
+        s = ks
+
+
+@pytest.mark.cuda
+def test_fn_launch_counts(cuda):
+    from tetris_gymnasium_torch.config import EnvConfig
+    from tetris_gymnasium_torch.core import fn_env
+
+    config = EnvConfig()
+    kernels.reset_launches()
+    _, s, _ = fn_env.batched_reset(batch_keys(prng_key(0), 64, device=cuda), config=config)
+    fn_env.rollout(s, torch.zeros((5, 64), dtype=torch.int32, device=cuda), config)
+    fn_env.observe(s, config)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**NO_LAUNCHES, "fn_reset": 1, "fn_step": 5, "fn_observe": 1}
+
+
+@pytest.mark.cuda
+def test_grayscale_u8_exact_kernel_matches_plain(cuda):
+    from tetris_gymnasium_torch.ops import image
+
+    i = torch.arange(1 << 24, device=cuda, dtype=torch.int32)
+    rgb = torch.stack([i >> 16, (i >> 8) & 255, i & 255], dim=-1).to(torch.uint8)
+    _assert_equal(image.grayscale_u8_exact(rgb), image.grayscale_u8_exact_plain(rgb), "all triples")
+    odd = rgb[1:1000]  # not on a 4-byte boundary: the one-pixel path
+    _assert_equal(image.grayscale_u8_exact(odd), image.grayscale_u8_exact_plain(odd), "unaligned")
+
+
+def test_fn_kernel_wrappers_refuse_cpu_tensors_and_named_limits():
+    from tetris_gymnasium_torch.config import EnvConfig
+    from tetris_gymnasium_torch.core import fn_env
+
+    config = EnvConfig()
+    keys = batch_keys(prng_key(0), 2, device="cpu")
+    _, s, _ = fn_env.reset(keys, config, device="cpu")
+    a = torch.zeros(2, dtype=torch.int32)
+    for call in (lambda: kernels.fn_reset(keys, config, turbo.PIECES),
+                 lambda: kernels.fn_step(s, a, config, turbo.PIECES),
+                 lambda: kernels.fn_observe(s, config, turbo.PIECES)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    for bad, match in ((EnvConfig(queue_size=8), "queue size 8"), (EnvConfig(padding=0), "padding 0"),
+                       (EnvConfig(width=80, height=40), "3056")):
+        with pytest.raises(NotImplementedError, match=match):
+            kernels.fn_defines(bad, turbo.PIECES)
+    with pytest.raises(NotImplementedError, match="BAG_QUEUE and UNIFORM_QUEUE"):
+        fn_env._queue_fns_kind(fn_env.QueueFns(create=None, next_piece=None))
+    assert kernels.fn_defines(EnvConfig(width=8, height=12, padding=2), turbo.PIECES) == (
+        ("TETRIS_HEIGHT", 12), ("TETRIS_WIDTH", 8), ("TETRIS_PAD", 2), ("TETRIS_QS", 7), ("TETRIS_NP", 7),
+        ("TETRIS_S", 4))

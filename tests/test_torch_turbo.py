@@ -54,6 +54,8 @@ def test_constants_match_jax():
     assert tconfig.EngineConfig()._asdict() == jconfig.EngineConfig()._asdict()
     assert tconfig.ActionsMapping().__dict__ == jconfig.ActionsMapping().__dict__
     assert tconfig.RewardsMapping().__dict__ == jconfig.RewardsMapping().__dict__
+    assert tconfig.EnvConfig()._asdict() == jconfig.EnvConfig()._asdict()
+    assert tconfig.FN_ACTION_ID_TO_NAME == jconfig.FN_ACTION_ID_TO_NAME
     for name in jpieces.PieceSet._fields:
         np.testing.assert_array_equal(getattr(tpieces.PIECES, name), getattr(jpieces.PIECES, name))
     np.testing.assert_array_equal(bb.row_bits_table(), jbb.ROW_BITS)

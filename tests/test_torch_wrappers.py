@@ -43,7 +43,7 @@ def _one_torch_thread():
 
 
 def _example_board():
-    board = create_board(H, W, P, 1)[0].numpy().copy()
+    board = create_board(H, W, P, 1, "cpu")[0].numpy().copy()
     top = H // 2
     board[top:H, P : -(P + 1)] = 2
     board[top - 1, P + 1] = 2

@@ -1,6 +1,7 @@
 // JAX's random bits on the card: threefry-2x32 and its float32 uniform.
 //
-// Shared by ppo_sample.cu, grouped_act.cu and replay.cu.  Under
+// Shared by ppo_sample.cu, grouped_act.cu, replay.cu, dqn_act.cu and
+// fn_env.cu.  Under
 // jax_threefry_partitionable, jax.random.bits(key, shape) at row-major flat
 // index i is y0 ^ y1 of one 20-round threefry-2x32 block of the key at
 // counter [0, i] (i < 2**32 here), and jax.random.uniform puts the top 23
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 namespace tf {
 
@@ -17,8 +19,9 @@ constexpr float kTiny = 1.17549435e-38f;  // float32 tiny: gumbel's minval
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 
-// y0 ^ y1 of one 20-round threefry-2x32 block of key (k0, k1) at counter (c0, c1).
-__device__ __forceinline__ uint32_t bits(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1) {
+// Both words (y0, y1) of one 20-round threefry-2x32 block of key (k0, k1) at
+// counter (c0, c1): jax.random.split(key, n)[i] is the block at (0, i).
+__device__ __forceinline__ uint2 block(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
   uint32_t x0 = c0 + k0;
   uint32_t x1 = c1 + k1;
@@ -37,7 +40,13 @@ __device__ __forceinline__ uint32_t bits(uint32_t k0, uint32_t k1, uint32_t c0, 
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
   x0 += k2; x1 += k0 + 5u;
 #undef TF_ROUND
-  return x0 ^ x1;
+  return make_uint2(x0, x1);
+}
+
+// y0 ^ y1 of one block: jax.random.bits at counter (c0, c1).
+__device__ __forceinline__ uint32_t bits(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1) {
+  const uint2 y = block(k0, k1, c0, c1);
+  return y.x ^ y.y;
 }
 
 // JAX's float32 uniform in [lo, lo + scale) from 32 random bits, where

@@ -53,10 +53,18 @@ Kernels, with the JAX function each replaces:
   ``ops/observations.py:feature_vector :57``;
 * ``observe_dict`` and ``compose_rgb`` (``csrc/observe_dict.cu``):
   ``core/engine.py:observe_dict :257`` and ``ops/observations.py:compose_rgb
-  :84`` (``render_rgb :529`` is the two in turn).
+  :84`` (``render_rgb :529`` is the two in turn);
+* ``fn_reset``, ``fn_step`` and ``fn_observe`` (``csrc/fn_env.cu``): the
+  compat engine's ``core/fn_env.py:reset :210``, ``step :189`` (with
+  ``_update :124``, ``_lock_piece :80``, ``ops/board.py:clear_lines_compat
+  :203`` and the queues of ``ops/queue.py``) and ``observe :64``, built for
+  each geometry (:func:`fn_defines`);
+* ``grayscale_u8_exact`` (``csrc/gray_exact.cu``):
+  ``ops/image.py:grayscale_u8_exact :176`` with ``_gray_tables :125``.
 
-``csrc/threefry.cuh`` holds JAX's random bits for ``ppo_sample``,
-``grouped_act``, ``replay_sample``, ``replay_sample_stacked`` and ``dqn_act``;
+``csrc/threefry.cuh`` holds JAX's threefry blocks and random bits for
+``ppo_sample``, ``grouped_act``, ``replay_sample``, ``replay_sample_stacked``,
+``dqn_act`` and the ``fn_*`` kernels;
 ``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
 ``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``;
 ``csrc/id_image.cuh`` the id image of the observation, shared by
@@ -81,8 +89,9 @@ take CUDA tensors only; the plain versions for CPU tensors are in
 :mod:`tetris_gymnasium_torch.core.turbo`, :mod:`~tetris_gymnasium_torch.core.turbo_grouped`,
 :mod:`~tetris_gymnasium_torch.core.engine`,
 :mod:`~tetris_gymnasium_torch.rl.ppo`, :mod:`~tetris_gymnasium_torch.rl.grouped_dqn`,
-:mod:`~tetris_gymnasium_torch.rl.dqn`, :mod:`~tetris_gymnasium_torch.rl.buffers` and
-:mod:`~tetris_gymnasium_torch.ops.framestack`, which dispatch.
+:mod:`~tetris_gymnasium_torch.rl.dqn`, :mod:`~tetris_gymnasium_torch.rl.buffers`,
+:mod:`~tetris_gymnasium_torch.ops.framestack`, :mod:`~tetris_gymnasium_torch.core.fn_env`
+and :mod:`~tetris_gymnasium_torch.ops.image`, which dispatch.
 """
 from __future__ import annotations
 
@@ -99,8 +108,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-from tetris_gymnasium_torch.core import engine, turbo
+from tetris_gymnasium_torch.config import EngineConfig, EnvConfig, RewardsMapping
+from tetris_gymnasium_torch.core import engine, fn_env, turbo
 from tetris_gymnasium_torch.ops import bitboard as bb
 from tetris_gymnasium_torch.ops import bitboard_wide as bbw
 from tetris_gymnasium_torch.pieces import PieceSet
@@ -123,6 +132,8 @@ SOURCES = {
     "grouped_flagship": PACKAGE_DIR / "csrc" / "grouped_flagship.cu",
     "features": PACKAGE_DIR / "csrc" / "features.cu",
     "observe_dict": PACKAGE_DIR / "csrc" / "observe_dict.cu",
+    "fn_env": PACKAGE_DIR / "csrc" / "fn_env.cu",
+    "gray_exact": PACKAGE_DIR / "csrc" / "gray_exact.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -136,6 +147,7 @@ LAUNCHES = {
     "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0, "flagship_step": 0,
     "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0, "grouped_flagship": 0,
     "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0, "heights": 0,
+    "fn_reset": 0, "fn_step": 0, "fn_observe": 0, "grayscale_u8_exact": 0,
 }
 
 _LIBS: dict = {}
@@ -237,16 +249,22 @@ def _geometry_jobs(config: EngineConfig, pieces: PieceSet) -> list:
     return jobs
 
 
-def build(geometries=()) -> list:
+def build(geometries=(), fn_geometries=()) -> list:
     """Compile every kernel source in parallel, one ``nvcc`` each, two for
     each core at a time (seventy at once have crashed ``nvcc``): the
     per-geometry sources for the default geometry and for each ``(config,
-    pieces)`` of ``geometries`` (:func:`_geometry_jobs`), the others once."""
+    pieces)`` of ``geometries`` (:func:`_geometry_jobs`), ``fn_env.cu`` for
+    the default :class:`EnvConfig` and each ``(config, pieces)`` of
+    ``fn_geometries`` (:func:`fn_defines`), the others once."""
     from tetris_gymnasium_torch.pieces import PIECES
 
-    jobs = [(name, ()) for name in SOURCES if name not in GEOMETRY_SOURCES + ("features",)]
+    per_geometry = GEOMETRY_SOURCES + ("features", "fn_env")
+    jobs = [(name, ()) for name in SOURCES if name not in per_geometry]
     for config, pieces in ((EngineConfig(), PIECES), *geometries):
         jobs += [job for job in _geometry_jobs(config, pieces) if job not in jobs]
+    for config, pieces in ((EnvConfig(), PIECES), *fn_geometries):
+        job = ("fn_env", fn_defines(config, pieces))
+        jobs += [job] if job not in jobs else []
     with ThreadPoolExecutor(max_workers=min(len(jobs), 2 * (os.cpu_count() or 4))) as pool:
         return list(pool.map(lambda job: _compile(*job), jobs))
 
@@ -348,6 +366,14 @@ class _RenderPtrs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _RENDER_FIELDS]
 
 
+class _FnPtrs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in fn_env.FIELDS]
+
+
+class _FnParams(ctypes.Structure):
+    _fields_ = [("gravity", ctypes.c_int), ("uniform", ctypes.c_int)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -411,6 +437,15 @@ _ENTRY_POINTS = {
     "observe_dict": {
         "observe_dict_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _P, _P, _P, _I, _P],
         "compose_rgb_launch": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P],
+    },
+    "fn_env": {
+        "fn_step_launch": [ctypes.POINTER(_FnPtrs), ctypes.POINTER(_FnPtrs), _P, _P, _P, _P, _P,
+                           _P, _P, _I, ctypes.POINTER(_FnParams), _P],
+        "fn_reset_launch": [_P, _P, ctypes.POINTER(_FnPtrs), _P, _P, _I, _I, _P],
+        "fn_observe_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    },
+    "gray_exact": {
+        "gray_exact_launch": [_P, _P, ctypes.c_longlong, _P, _P],
     },
 }
 
@@ -1454,4 +1489,174 @@ def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: to
     )
     _check(rc, "compose_rgb")
     LAUNCHES["compose_rgb"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The compat functional engine and the exact grayscale
+# ---------------------------------------------------------------------------
+
+MAX_FN_BOARD_CELLS = 3056  # csrc/fn_env.cu: 16 boards and their windows in 48 KB of shared memory
+MAX_FN_QUEUE = 32  # csrc/fn_env.cu: the queue lives in registers
+_FN_DTYPES = {"rng_key": torch.uint32, "board": torch.int8, "game_over": torch.bool,
+              "score": torch.float32}
+
+
+def fn_defines(config: EnvConfig, pieces: PieceSet) -> tuple:
+    """The ``TETRIS_*`` defines that build ``csrc/fn_env.cu`` for ``config``
+    and ``pieces``, or ``NotImplementedError`` naming the static limit
+    passed: a padding of at least 1 (JAX's crop of padding 0 is empty), a
+    padded board of at most 3056 cells (16 boards of a block in 48 KB of
+    shared memory), a piece box side of at most 8 inside the padded board
+    (a matrix is one 64-bit mask), binary piece matrices, and a queue of 1
+    to 32 that is no longer than the piece set (the bag draws ``arange(
+    queue_size)`` as piece indices)."""
+    mats = np.asarray(pieces.matrices)
+    n, S = int(mats.shape[0]), int(mats.shape[-1])
+    H, PW, qs = config.padded_height, config.padded_width, config.queue_size
+    for ok, why in (
+        (config.padding >= 1 and config.height >= 1 and config.width >= 1,
+         f"padding {config.padding}, {config.height}x{config.width}: a padding of at least 1 and a "
+         "non-empty playfield are built (JAX's crop of padding 0 is empty)"),
+        (H * PW <= MAX_FN_BOARD_CELLS, f"padded board of {H * PW} cells > {MAX_FN_BOARD_CELLS}: a "
+                                       "block keeps 16 boards in 48 KB of shared memory"),
+        (S <= 8 and S <= min(H, PW), f"piece box side {S}: at most 8 (a 64-bit mask) and inside the "
+                                     f"padded board {H}x{PW}"),
+        (bool(np.isin(mats, (0, 1)).all()), "piece matrices must be binary"),
+        (1 <= qs <= min(MAX_FN_QUEUE, n), f"queue size {qs}: 1 to {MAX_FN_QUEUE} and at most the "
+                                          f"{n} pieces are built"),
+    ):
+        if not ok:
+            raise NotImplementedError(f"the fn_env kernels: {why} (pass device='cpu' for the plain versions)")
+    return (("TETRIS_HEIGHT", config.height), ("TETRIS_WIDTH", config.width),
+            ("TETRIS_PAD", config.padding), ("TETRIS_QS", qs), ("TETRIS_NP", n), ("TETRIS_S", S))
+
+
+def _fn_masks(pieces: PieceSet, device) -> torch.Tensor:
+    """The piece matrices as 64-bit masks ``[n * 4]`` (bit ``i * S + j``) on
+    ``device``, cached; int64 with the bits of csrc/fn_env.cu's uint64."""
+    ck = ("fn_masks", pieces.matrices.tobytes(), pieces.matrices.shape, str(device))
+    hit = _DEVICE_TABLES.get(ck)
+    if hit is None:
+        mats = np.asarray(pieces.matrices) > 0
+        n, S = mats.shape[0], mats.shape[-1]
+        weights = np.uint64(1) << np.arange(S * S, dtype=np.uint64)
+        masks = (mats.reshape(n * 4, S * S).astype(np.uint64) * weights).sum(axis=1, dtype=np.uint64)
+        hit = _DEVICE_TABLES[ck] = torch.as_tensor(masks.view(np.int64), device=device)
+    return hit
+
+
+def _fn_shapes(config: EnvConfig, B: int) -> dict:
+    shapes = {k: (B,) for k in fn_env.FIELDS}
+    shapes.update(rng_key=(B, 2), board=(B, config.padded_height, config.padded_width),
+                  queue=(B, config.queue_size))
+    return shapes
+
+
+def _fn_ptrs(state) -> _FnPtrs:
+    return _FnPtrs(*(getattr(state, k).data_ptr() for k in fn_env.FIELDS))
+
+
+def _queue_uniform(queue_kind: str) -> int:
+    if queue_kind not in ("bag", "uniform"):
+        raise ValueError(f"queue_kind {queue_kind!r}: the fn_env kernels draw 'bag' or 'uniform'")
+    return int(queue_kind == "uniform")
+
+
+def fn_step(state, action: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind: str = "bag"):
+    """Launch ``fn_step``: ``(new_state, obs int8[B, height, width], reward
+    f32[B], terminated bool[B], lines int32[B])`` of one compat step; the new
+    state is in new buffers, ``state`` is left as it was."""
+    device = state.board.device
+    defines = fn_defines(config, pieces)
+    uniform = _queue_uniform(queue_kind)
+    B = state.piece.shape[0]
+    _check_fields(state, fn_env.FIELDS, _fn_shapes(config, B), _FN_DTYPES, device)
+    _check_tensor(action, "action", torch.int32, (B,), device)
+    out = _empty(fn_env.FnState, _fn_shapes(config, B), _FN_DTYPES, device)
+    obs = torch.empty((B, config.height, config.width), dtype=torch.int8, device=device)
+    reward = torch.empty((B,), dtype=torch.float32, device=device)
+    terminated = torch.empty((B,), dtype=torch.bool, device=device)
+    lines = torch.empty((B,), dtype=torch.int32, device=device)
+    if B == 0:
+        return out, obs, reward, terminated, lines
+    params = _FnParams(int(config.gravity_enabled), uniform)
+    in_p, out_p = _fn_ptrs(state), _fn_ptrs(out)
+    rc = _lib("fn_env", defines).fn_step_launch(
+        ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), obs.data_ptr(),
+        reward.data_ptr(), terminated.data_ptr(), lines.data_ptr(),
+        _fn_masks(pieces, device).data_ptr(), _ids_for(pieces, device).data_ptr(), B,
+        ctypes.byref(params), _stream(device),
+    )
+    _check(rc, "fn_step")
+    LAUNCHES["fn_step"] += 1
+    return out, obs, reward, terminated, lines
+
+
+def fn_reset(keys: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind: str = "bag"):
+    """Launch ``fn_reset``: ``(keys uint32[B, 2], state, obs int8[B, height,
+    width])``, fresh episodes from per-env keys ``uint32[B, 2]``."""
+    device = keys.device
+    defines = fn_defines(config, pieces)
+    uniform = _queue_uniform(queue_kind)
+    if keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys: want [B, 2], got {tuple(keys.shape)}")
+    keys = keys.contiguous()
+    B = keys.shape[0]
+    _check_tensor(keys, "keys", torch.uint32, (B, 2), device)
+    keys_out = torch.empty_like(keys)
+    out = _empty(fn_env.FnState, _fn_shapes(config, B), _FN_DTYPES, device)
+    obs = torch.empty((B, config.height, config.width), dtype=torch.int8, device=device)
+    if B == 0:
+        return keys_out, out, obs
+    out_p = _fn_ptrs(out)
+    rc = _lib("fn_env", defines).fn_reset_launch(
+        keys.data_ptr(), keys_out.data_ptr(), ctypes.byref(out_p), obs.data_ptr(),
+        _fn_masks(pieces, device).data_ptr(), B, uniform, _stream(device),
+    )
+    _check(rc, "fn_reset")
+    LAUNCHES["fn_reset"] += 1
+    return keys_out, out, obs
+
+
+def fn_observe(state, config: EnvConfig, pieces: PieceSet) -> torch.Tensor:
+    """Launch ``fn_observe``: ``int8[B, height, width]``, the occupancy with
+    the active piece added as -1 unless the game is over."""
+    device = state.board.device
+    defines = fn_defines(config, pieces)
+    B = state.piece.shape[0]
+    _check_fields(state, ("board", "piece", "rotation", "x", "y", "game_over"),
+                  _fn_shapes(config, B), _FN_DTYPES, device)
+    obs = torch.empty((B, config.height, config.width), dtype=torch.int8, device=device)
+    if B == 0:
+        return obs
+    rc = _lib("fn_env", defines).fn_observe_launch(
+        state.board.data_ptr(), state.piece.data_ptr(), state.rotation.data_ptr(),
+        state.x.data_ptr(), state.y.data_ptr(), state.game_over.data_ptr(),
+        _fn_masks(pieces, device).data_ptr(), obs.data_ptr(), B, _stream(device),
+    )
+    _check(rc, "fn_observe")
+    LAUNCHES["fn_observe"] += 1
+    return obs
+
+
+def grayscale_u8_exact(rgb: torch.Tensor) -> torch.Tensor:
+    """Launch ``grayscale_u8_exact``: ``uint8[...]`` gray values of a
+    contiguous ``uint8[..., 3]`` image."""
+    from tetris_gymnasium_torch.ops import image
+    from tetris_gymnasium_torch.utils.device import constant
+
+    device = rgb.device
+    if rgb.ndim < 1 or rgb.shape[-1] != 3:
+        raise ValueError(f"rgb: want [..., 3], got {tuple(rgb.shape)}")
+    _check_tensor(rgb, "rgb", torch.uint8, rgb.shape, device)
+    out = torch.empty(rgb.shape[:-1], dtype=torch.uint8, device=device)
+    n = out.numel()
+    if n == 0:
+        return out
+    tables = constant(np.stack(image._gray_tables()), device)
+    rc = _lib("gray_exact").gray_exact_launch(rgb.data_ptr(), out.data_ptr(), n, tables.data_ptr(),
+                                              _stream(device))
+    _check(rc, "grayscale_u8_exact")
+    LAUNCHES["grayscale_u8_exact"] += 1
     return out

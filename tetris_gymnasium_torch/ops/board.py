@@ -1,24 +1,26 @@
-"""Id-board helpers of the flagship engine, batched, plain PyTorch.
+"""Id-board helpers of the flagship and compat engines, batched, plain PyTorch.
 
-Port of the part of ``tetris_gymnasium_tpu/ops/board.py`` that the flagship
-engine and its grouped placements use: ``create_board :27``, ``_clamp_start
-:40`` (here :func:`clamp_start`, which the bit operations and the turbo
-engine share), ``collision :62``, ``project :80``, ``drop_distance :116``,
-``clear_lines :166`` and ``spawn_x_classic :276``.  A board is ``int8[B, H, W]``
-(cell ids: 0 empty, 1 bedrock, 2.. pieces) with the batch leading; a piece
-matrix is ``[B, S, S]`` and ``x``, ``y`` are ``int32[B]``.  The JAX
-versions address the ``S x S`` window with one-hot contractions; here the
-window is gathered and scattered directly, with the same start clamping.
+Port of ``tetris_gymnasium_tpu/ops/board.py``: ``create_board :27``,
+``_clamp_start :40`` (here :func:`clamp_start`, which the bit operations
+and the turbo engine share), ``collision :62``, ``project :80``,
+``drop_distance :116``, ``hard_drop :155``, ``clear_lines :166``,
+``clear_lines_compat :203``, ``score_fn :242``, ``score_classic :253``,
+``gravity_step :259``, ``spawn_xy_fn :267`` and ``spawn_x_classic :276``.
+A board is ``int8[B, H, W]`` (cell ids: 0 empty, 1 bedrock, 2.. pieces)
+with the batch leading; a piece matrix is ``[B, S, S]`` and ``x``, ``y``
+are ``int32[B]``.  The JAX versions address the ``S x S`` window with
+one-hot contractions; here the window is gathered and scattered directly,
+with the same start clamping.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from tetris_gymnasium_torch.pieces import BEDROCK_ID
+from tetris_gymnasium_torch.pieces import BEDROCK_ID, MAX_SIZE
 
 
-def create_board(height: int, width: int, padding: int, batch: int, device="cpu") -> torch.Tensor:
+def create_board(height: int, width: int, padding: int, batch: int, device) -> torch.Tensor:
     """Empty padded boards ``int8[batch, height + padding, width + 2 * padding]``:
     zeros inside, bedrock on the left, right and bottom."""
     board = torch.full((batch, height + padding, width + 2 * padding), BEDROCK_ID,
@@ -91,6 +93,12 @@ def drop_distance(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor,
     return torch.cumprod((~hit).to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
 
 
+def hard_drop(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Drop to rest (``:155``): ``(new_y, reward = 2 per cell dropped)``, ``int32[B]`` each."""
+    dist = drop_distance(board, piece, x, y)
+    return (y + dist).to(torch.int32), 2 * dist
+
+
 def clear_lines(board: torch.Tensor, height: int, width: int, padding: int):
     """Clear every full playfield row and compact the stack down (``:166``):
     ``(board, lines int32[B])``.  The rows that stay keep their order at the
@@ -106,6 +114,44 @@ def clear_lines(board: torch.Tensor, height: int, width: int, padding: int):
     out = torch.zeros((inner.shape[0], height + 1, width), dtype=inner.dtype, device=inner.device)
     out.scatter_(1, dest[:, :, None].expand(-1, -1, width), inner)
     return F.pad(out[:, :height], (padding, padding, 0, padding), value=BEDROCK_ID), n
+
+
+def clear_lines_compat(board: torch.Tensor, height: int, width: int, padding: int):
+    """The compat engine's line clear (``:203``): :func:`clear_lines`, but
+    the ``n`` new top rows are copies of the pre-clear playfield row 0, not
+    zeros (the reference's ``take`` wraps the cleared rows' index
+    ``-height`` to row 0).  Returns ``(board, lines int32[B])``."""
+    inner = board[:, :-padding, padding:-padding]
+    cleared, n = clear_lines(board, height, width, padding)
+    top = torch.arange(height, device=board.device)[None, :] < n[:, None]  # [B, height]
+    rows = torch.where(top[:, :, None], inner[:, :1], cleared[:, :-padding, padding:-padding])
+    return F.pad(rows, (padding, padding, 0, padding), value=BEDROCK_ID), n
+
+
+def score_fn(rows_cleared: torch.Tensor) -> torch.Tensor:
+    """The compat engine's line-clear score (``:242``): 1 -> 100, 2 -> 300,
+    3 -> 500, 4 -> 800 (``rows * 200 - 100`` but for a tetris), ``int32``."""
+    rows = rows_cleared.to(torch.int32)
+    standard = torch.where(rows > 0, rows * 200 - 100, 0)
+    return torch.where(rows == 4, 800, standard).to(torch.int32)
+
+
+def score_classic(rows_cleared: torch.Tensor, width: int) -> torch.Tensor:
+    """The flagship engine's score, ``rows ** 2 * width`` (``:253``), ``int32``."""
+    rows = rows_cleared.to(torch.int32)
+    return rows * rows * width
+
+
+def gravity_step(board: torch.Tensor, piece: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One cell of gravity where the cell below is free (``:259``), ``int32[B]``."""
+    blocked = collision(board, piece, x, y + 1)
+    return torch.where(blocked, y, y + 1).to(torch.int32)
+
+
+def spawn_xy_fn(config):
+    """The compat engine's spawn ``(x, y)`` (``:267``): the column comes from
+    the padded matrix width 4, so it does not depend on the piece."""
+    return (config.width + 2 * config.padding) // 2 - MAX_SIZE // 2, 0
 
 
 def spawn_x_classic(padded_width: int, box: torch.Tensor) -> torch.Tensor:

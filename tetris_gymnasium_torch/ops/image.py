@@ -1,16 +1,20 @@
 """The reference CNN workload's resize and grayscale, plain PyTorch.
 
 Port of ``tetris_gymnasium_tpu/ops/image.py`` (``_area_zoom_matrix :49``,
-``resize_area_zoom :87``, ``_W22 :146``, ``grayscale_u8 :149``,
-``preprocess_rgb84 :197``), with its own copies of the coefficient table
-and the gray weights:
+``resize_area_zoom :87``, ``_gray_tables :125``, ``_W22 :146``,
+``grayscale_u8 :149``, ``grayscale_u8_exact :176``, ``preprocess_rgb84
+:197``), with its own copies of the coefficient table, the gray weights and
+the limb tables:
 
 * :func:`resize_area_zoom` is ``cv2.resize(..., INTER_AREA)`` for an
   enlargement in cv2's fixed point: 11-bit coefficients per axis, one pass
   along the width and one along the height, then ``(acc + 2**21) >> 22``
   and a clip to ``[0, 255]``.  The accumulator stays below ``2**31``; the
   passes run as float64 products, which hold every partial sum exactly;
-* :func:`grayscale_u8` is ``(r*W0 + g*W1 + b*W2) >> 22`` with 22-bit weights.
+* :func:`grayscale_u8` is ``(r*W0 + g*W1 + b*W2) >> 22`` with 22-bit weights;
+* :func:`grayscale_u8_exact` evaluates gymnasium's float64 sum exactly from
+  25-bit limbs of ``v * w_c * 2**45``; on CUDA tensors the
+  ``grayscale_u8_exact`` kernel (``csrc/gray_exact.cu``) computes it.
 
 On the card the chain from the engine state to the gray frame is the
 ``render_rgb84`` kernel, which reads the same coefficients as taps from
@@ -31,6 +35,8 @@ _COEF_SCALE = 1 << _COEF_BITS
 # gymnasium's GrayscaleObservation weights, as 22-bit fixed point
 _GRAY_WEIGHTS = (0.2125, 0.7154, 0.0721)
 _W22 = tuple(int(round(w * (1 << 22))) for w in _GRAY_WEIGHTS)
+_LIMB_BITS = 25
+_FRAC_BITS = 45  # every double in [0, 256) is a multiple of 2**-45
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,6 +115,47 @@ def grayscale_u8(rgb: torch.Tensor) -> torch.Tensor:
         t = rgb[..., c].to(torch.int32) * _W22[c]
         acc = t if acc is None else acc + t
     return (acc >> 22).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _gray_tables():
+    """Per-channel scaled-integer tables ``(hi int32[3, 256], lo int32[3, 256])``:
+    ``v * w_c`` in float64 (what gymnasium computes) times ``2**45`` is an
+    integer below ``2**53``, split into a high limb (``>> 25``) and a low one."""
+    v = np.arange(256, dtype=np.float64)
+    hi, lo = [], []
+    for w in _GRAY_WEIGHTS:
+        t = np.round((v * w) * float(2**_FRAC_BITS)).astype(np.int64)
+        hi.append(t >> _LIMB_BITS)
+        lo.append(t & ((1 << _LIMB_BITS) - 1))
+    return np.stack(hi).astype(np.int32), np.stack(lo).astype(np.int32)
+
+
+def grayscale_u8_exact_plain(rgb: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`grayscale_u8_exact`, on any device."""
+    hi_t, lo_t = (constant(t, rgb.device) for t in _gray_tables())
+    hi = lo = None
+    for c in range(3):
+        idx = rgb[..., c].long()
+        h, l = hi_t[c][idx], lo_t[c][idx]
+        hi = h if hi is None else hi + h
+        lo = l if lo is None else lo + l
+    total_hi = hi + (lo >> _LIMB_BITS)
+    return (total_hi >> (_FRAC_BITS - _LIMB_BITS)).to(torch.uint8)
+
+
+def grayscale_u8_exact(rgb: torch.Tensor) -> torch.Tensor:
+    """gymnasium's float64 gray formula, exactly: ``[..., 3] uint8 -> [...] uint8``.
+
+    Differs from numpy's float64 value only where numpy's own sequential
+    additions round onto an integer (164 of the 2**24 RGB triples, by the
+    JAX package's count).  On CUDA tensors the ``grayscale_u8_exact``
+    kernel computes it."""
+    if rgb.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        return kernels.grayscale_u8_exact(rgb)
+    return grayscale_u8_exact_plain(rgb)
 
 
 def preprocess_rgb84(rgb: torch.Tensor, out_h: int = 84, out_w: int = 84) -> torch.Tensor:

@@ -25,7 +25,9 @@ implementation and ``jax_threefry_partitionable = True``:
 
 Host functions work on numpy ``uint32``; the ``*_lanes`` functions are their
 PyTorch twins on int64 lanes holding 32-bit values (PyTorch has no
-``uint32`` arithmetic on the CPU), for tensors on any device.
+``uint32`` arithmetic on the CPU), for tensors on any device, with one
+host key; the ``*_keyed`` functions take a key per lane instead, int64
+lanes ``[..., 2]``, as the compat engine's per-env streams need.
 """
 from __future__ import annotations
 
@@ -149,12 +151,9 @@ def _rotl_lanes(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & _MASK32) | (x >> (32 - r))
 
 
-def threefry_2x32_lanes(key, x0: torch.Tensor, x1: torch.Tensor):
-    """:func:`threefry_2x32` on int64 lanes of 32-bit counter words.
-
-    ``key`` is a host ``uint32[2]``; returns ``(y0, y1)`` as int64 lanes.
-    """
-    k0, k1 = int(key[0]), int(key[1])
+def _threefry_lanes(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """The rounds of :func:`threefry_2x32` on int64 lanes; the key words
+    ``k0`` and ``k1`` are ints or int64 lanes that broadcast with ``x0``."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK32
     x1 = (x1 + ks[1]) & _MASK32
@@ -165,6 +164,14 @@ def threefry_2x32_lanes(key, x0: torch.Tensor, x1: torch.Tensor):
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
     return x0, x1
+
+
+def threefry_2x32_lanes(key, x0: torch.Tensor, x1: torch.Tensor):
+    """:func:`threefry_2x32` on int64 lanes of 32-bit counter words.
+
+    ``key`` is a host ``uint32[2]``; returns ``(y0, y1)`` as int64 lanes.
+    """
+    return _threefry_lanes(int(key[0]), int(key[1]), x0, x1)
 
 
 def random_bits32_lanes(key, counters: torch.Tensor) -> torch.Tensor:
@@ -216,3 +223,48 @@ def permutation_lanes(key, n: int, device) -> torch.Tensor:
         order = torch.sort(random_bits32_lanes(sub, counters), stable=True).indices
         x = x[order]
     return x
+
+
+# ---------------------------------------------------------------------------
+# A key per lane: int64 lanes [..., 2]
+# ---------------------------------------------------------------------------
+
+
+def _blocks_keyed(keys: torch.Tensor, n: int):
+    """``(y0, y1)``, int64 ``[..., n]``: block ``[0, i]`` of each lane's key for ``i < n``."""
+    c = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return _threefry_lanes(keys[..., :1], keys[..., 1:], torch.zeros_like(c), c)
+
+
+def split_keyed(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """:func:`split` of every lane's key: ``[..., 2]`` -> ``[..., n, 2]``."""
+    y0, y1 = _blocks_keyed(keys, n)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits32_keyed(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`random_bits32` of every lane's key: ``[..., 2]`` -> ``[..., n]``."""
+    y0, y1 = _blocks_keyed(keys, n)
+    return y0 ^ y1
+
+
+def permutation_keyed(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`permutation` of every lane's key: ``[..., 2]`` -> int64 ``[..., n]``."""
+    x = torch.arange(n, dtype=torch.int64, device=keys.device).expand(keys.shape[:-1] + (n,))
+    for _ in range(shuffle_rounds(n)):
+        halves = split_keyed(keys)
+        keys, sub = halves[..., 0, :], halves[..., 1, :]
+        order = torch.sort(random_bits32_keyed(sub, n), dim=-1, stable=True).indices
+        x = x.gather(-1, order)
+    return x
+
+
+def randint_keyed(keys: torch.Tensor, n: int, maxval: int) -> torch.Tensor:
+    """:func:`randint` of every lane's key: ``[..., 2]`` -> int64 ``[..., n]``
+    in ``[0, maxval)``, wrapping as uint32 does (see :func:`randint_lanes`)."""
+    span, m = randint_span(maxval)
+    halves = split_keyed(keys)
+    hi = random_bits32_keyed(halves[..., 0, :], n)
+    lo = random_bits32_keyed(halves[..., 1, :], n)
+    off = ((hi % span) * m + lo % span) & _MASK32
+    return off % span
