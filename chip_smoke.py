@@ -10,17 +10,24 @@ Phases, each printing one JSON line:
 3. ``turbo_step`` and ``turbo_init`` against their plain PyTorch versions on
    the card, bit for bit, over random-action rollouts (B = 4096 with
    auto-reset; B = 4096 without gravity and with custom rewards; B = 512,
-   the evaluation's shape; uniform pieces) and hand-built boards with up to
-   six full rows.
+   the evaluation's shape; uniform pieces; B = 1001, a ragged last block,
+   and B = 1) and hand-built boards with up to six full rows: every build of
+   ``turbo_step`` (each lanes count of ``kernels.STEP_LANES``, without and
+   with the board observation written in the same launch, held to
+   ``observe_board_plain`` of the returned state).
 4. ``observe_board`` against its plain version on every state of phase 3.
 5. The main path: the committed PPO policy (``results/ppo_lines_params.npz``,
    bf16 trunk) plays 512 greedy games of at most 2000 steps through
-   ``rl.evaluate.evaluate_policy``; every kernel's launch count is read.  A
-   small fp32 evaluation on the card must equal the same evaluation run by
-   the plain versions on the CPU.
-6. Times with CUDA events at the evaluation's shape (B = 512), the
+   ``rl.evaluate.evaluate_policy``; every kernel's launch count is read
+   (each step one ``turbo_step`` launch that writes the observation,
+   ``observe_board`` once for the first).  A small fp32 evaluation on the
+   card must equal the same evaluation run by the plain versions on the CPU.
+6. The least launch the card takes (a CUDA graph of ``torch.cuda._sleep(0)``)
+   and a copy of 8192 floats (the least for a kernel that reads and writes
+   once), then times with CUDA events at the evaluation's shape (B = 512), the
    training's (B = 8192), the grouped training's (B = 1024, gravity off) and
-   B = 65536, beside each kernel's byte bound at 3.35 TB/s.
+   B = 65536, beside each kernel's byte bound at 3.35 TB/s: ``turbo_step``
+   without and with the observation (the wrapper's lanes, and each build).
 7. ``gae`` against ``rl.ppo.gae_plain`` (bit-equal) and ``ppo_sample``
    against ``rl.ppo.sample_actions_plain`` (uniforms bit-equal, actions
    equal, log-probs within ``LOG_PROB_TOL``) at the training's shapes and at
@@ -32,7 +39,8 @@ Phases, each printing one JSON line:
 9. The training path: ``examples/train_ppo.py``'s code warm-starts from the
    committed weights at 8192 envs x 128 steps, 6 epochs of 8 minibatches,
    bf16 trunk, lr 4e-5, ent-coef 0.004, for 3 train steps; every kernel's
-   launch count is read, the metrics must be finite and the weights must
+   launch count is read (the rollout's observations from ``turbo_step``'s
+   own launches), the metrics must be finite and the weights must
    move, and 512 greedy games of the trained weights must still clear 9.5
    lines each.  On the first minibatch of one more rollout, the training
    update must lower that minibatch's loss, and the clipped surrogate must
@@ -100,9 +108,10 @@ Phases, each printing one JSON line:
     10,000 steps, learning from step 1000) for 2000 steps, K = 4 and then
     K = 1, from the JAX runs' initial weights
     (``results/qcnn*_init_seed1.npz``).  Each: exact launch
-    counts, finite metrics, weights that move, the learning gate (mean
-    reward per env step over steps 1751-2000 at least ``DQN_GATE`` times the
-    mean over steps 1-500) beside the committed JAX curve, the step split
+    counts (the observations from ``turbo_step``'s launches), finite
+    metrics, weights that move, the learning gate (mean reward per env step
+    over steps 1751-2000 at least ``DQN_GATE`` times the mean over steps
+    1-500) beside the committed JAX curve, the step split
     (act, env step with observe and push, replay add, sample + update, sync)
     with CUDA events, a 512-episode greedy ``evaluate_q_checkpoint`` (at most
     2000 steps, seed 0) of the trained and the untrained net, the card's
@@ -181,20 +190,21 @@ Phases, each printing one JSON line:
     and without gravity, 61x12 with a queue of 3, 28x14 with bit 31 of word
     0 in play, 8x12 with a uniform queue of 2, and 6x6 pieces at widths 10
     and 30), each built for its geometry in phase 2: ``turbo_init``,
-    ``turbo_step``, ``observe_board``, ``heights``, ``flagship_init``,
-    ``flagship_step`` and ``flagship_observe_board`` bit-equal to their
-    plain versions on 300-step trajectories at B = 4096, 1001 and 1, on
-    hand-built stacks with up to six full rows, and on drops that clear rows
-    whose gaps straddle the word boundary (columns 0, 12, 14, 26; one and
-    two rows) at 30x20.
+    ``turbo_step`` (every build, as in phase 3), ``observe_board``,
+    ``heights``, ``flagship_init``, ``flagship_step`` and
+    ``flagship_observe_board`` bit-equal to their plain versions on 300-step
+    trajectories at B = 4096, 1001 and 1, on hand-built stacks with up to
+    six full rows, and on drops that clear rows whose gaps straddle the word
+    boundary (columns 0, 12, 14, 26; one and two rows) at 30x20.
 32. The turbo engine equal to the flagship engine at 30x20 and 61x12, 120
     steps at 4096 envs.
 33. The slice's path: ``TetrisVectorEnv`` at width 30, height 20 as in
     phase 29 (8192 envs x 64 steps, both engines, the first 16 steps equal
     to a CPU run, exact launch counts, env-steps/s).
-34. The engine kernels' device ms at B = 4096 and 65536 at 30x20 and 61x12,
-    and ``turbo_step``, ``observe_board``, ``flagship_step`` and ``heights``
-    at the default geometry at 65536, beside their bounds and plain versions.
+34. The engine kernels' device ms at B = 4096 and 65536 at 30x20 and 61x12
+    (``turbo_step`` also with the observation), and ``turbo_step`` (both
+    ways), ``observe_board``, ``flagship_step`` and ``heights`` at the
+    default geometry at 65536, beside their bounds and plain versions.
 
 35. The six surface kernels at every geometry of phase 31 and at a holder
     longer than the queue (queue 1, holder 2), each built for it in phase
@@ -241,8 +251,9 @@ Phases, each printing one JSON line:
     at 2**24 pixels and ``[512, 84, 84, 3]``, beside their bounds and
     plain versions.
 
-Then the kernels line (25 kernels; each with the launch counts of the
-first path that runs it: the pixel DQN, else the flagship board
+Then the kernels line (25 kernels; ``turbo_step``'s time is its launch
+with the observation, as the paths take it; each with the launch counts of
+the first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
 else PPO, else the grouped engine, else the shell, else the compat
 rollout; times at the shape of that path; ``heights``, ``fn_observe`` and
@@ -571,6 +582,50 @@ def profile_steps(step, ts):
                 "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}}
 
 
+def flat_bytes(tensors):
+    """The tensors' bytes end to end (uint8), for one bit-for-bit comparison."""
+    return torch.cat([(t.view(torch.int32) if t.dtype == torch.uint32 else t).contiguous()
+                      .view(torch.uint8).reshape(-1) for t in tensors])
+
+
+def step_variants_diff(s, a, cfg, pieces, rw, max_clear, want, what, want_obs=None) -> int:
+    """Every build of ``turbo_step`` (each lanes count of
+    ``kernels.STEP_LANES``, without and with the observation written in the
+    same launch) on ``(s, a)`` against the plain step's ``want = (state,
+    reward, done, lines)`` and ``want_obs``, ``observe_board_plain`` of its
+    state (computed here unless given), bit for bit; returns the number of
+    launches compared."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import turbo
+
+    B = s.piece.shape[0]
+    if want_obs is None:
+        want_obs = turbo.observe_board_plain(want[0], cfg, pieces)
+    outs = [getattr(want[0], k) for k in turbo.FIELDS] + list(want[1:])
+    want_all = {False: flat_bytes(outs), True: flat_bytes(outs + [want_obs])}
+    builds = [(lanes, with_obs) for lanes in kernels.STEP_LANES for with_obs in (False, True)]
+    runs, differs = [], []
+    for lanes, with_obs in builds:
+        obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8,
+                          device=s.rows.device) if with_obs else None
+        got = kernels.turbo_step(s, a, cfg, pieces, rw, max_clear, obs=obs, lanes=lanes)
+        parts = [getattr(got[0], k) for k in turbo.FIELDS] + list(got[1:])
+        got_all = flat_bytes(parts + ([obs] if with_obs else []))
+        differs.append((got_all != want_all[with_obs]).any())
+        runs.append((got, obs))
+    if not bool(torch.stack(differs).any()):  # one wait for every build; bit-equal
+        return len(builds)
+    for (lanes, with_obs), (got, obs) in zip(builds, runs):  # diff raises at the first difference
+        tag = f"{what} (lanes {lanes}{', obs' if with_obs else ''})"
+        for k in turbo.FIELDS:
+            diff("turbo_step", getattr(got[0], k), getattr(want[0], k), f"{tag} {k}")
+        for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
+            diff("turbo_step", got[j], want[j], f"{tag} {out}")
+        if with_obs:
+            diff("turbo_step", obs, want_obs, f"{tag} obs")
+    raise AssertionError(f"{what}: a build differs from the plain step")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -625,6 +680,8 @@ def main() -> None:
         ("eval-shape", EVAL_EPISODES, 500, EngineConfig(), RewardsMapping()),
         ("uniform", 4096, 200, EngineConfig(auto_reset=True, queue_kind="uniform"),
          RewardsMapping()),
+        ("ragged", 1001, 200, EngineConfig(auto_reset=True), RewardsMapping()),
+        ("one-env", 1, 200, EngineConfig(auto_reset=True), RewardsMapping()),
     ]
     checked = {"turbo_step": 0, "turbo_init": 0, "observe_board": 0}
     t0 = time.perf_counter()
@@ -635,23 +692,27 @@ def main() -> None:
         state_diff("turbo_init", s, turbo.init_plain(keys, cfg), f"{name} init")
         checked["turbo_init"] += 1
         n_done = n_lines = 0
+        a = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # the plain step and the plain observation of its state, replayed from a CUDA graph
+        plain = _graphed(lambda t, x: (lambda o: (o, turbo.observe_board_plain(o[0], cfg)))(
+            turbo.step_plain(t, x, cfg, rewards=rw)), s, a)
+        obs_s = turbo.observe_board_plain(s, cfg)
         for i in range(T):
-            diff("observe_board", kernels.observe_board(s, cfg, turbo.PIECES),
-                 turbo.observe_board_plain(s, cfg), f"{name} obs @ {i}")
+            diff("observe_board", kernels.observe_board(s, cfg, turbo.PIECES), obs_s,
+                 f"{name} obs @ {i}")
             checked["observe_board"] += 1
             a = torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32)
-            ks, kr, kd, kl = kernels.turbo_step(s, a, cfg, turbo.PIECES, rw)
-            ps, pr, pd, pl = turbo.step_plain(s, a, cfg, rewards=rw)
-            state_diff("turbo_step", ks, ps, f"{name} step {i}")
-            diff("turbo_step", kr, pr, f"{name} reward @ {i}")
-            diff("turbo_step", kd, pd, f"{name} done @ {i}")
-            diff("turbo_step", kl, pl, f"{name} lines @ {i}")
-            checked["turbo_step"] += 1
-            n_done += int((kd & ~s.game_over).sum())
-            n_lines += int(kl.sum())
-            s = ks
+            (ps, pr, pd, pl), pobs = plain(s, a)
+            checked["turbo_step"] += step_variants_diff(s, a, cfg, turbo.PIECES, rw, 4,
+                                                        (ps, pr, pd, pl), f"{name} step {i}",
+                                                        want_obs=pobs)
+            n_done += int((pd & ~s.game_over).sum())
+            n_lines += int(pl.sum())
+            # the graph's outputs are overwritten by its next replay
+            s = ps.replace(**{k: getattr(ps, k).clone() for k in turbo.FIELDS})
+            obs_s = pobs.clone()
         summary.append({"run": name, "B": B, "steps": T, "episodes_ended": n_done,
-                        "lines": n_lines})
+                        "lines": n_lines, "seconds": time.perf_counter() - t0})
 
     # hand-built boards: random stacks with 0..6 full rows and random pieces
     B = 4096
@@ -677,15 +738,13 @@ def main() -> None:
     for max_clear in (4, height):
         a = torch.where(torch.rand((B,), generator=g, device=dev) < 0.5, 5,
                         torch.randint(0, 8, (B,), generator=g, device=dev)).to(torch.int32)
-        ks, kr, kd, kl = kernels.turbo_step(s, a, cfg, turbo.PIECES, RewardsMapping(), max_clear)
         ps, pr, pd, pl = turbo.step_plain(s, a, cfg, max_clear=max_clear)
-        state_diff("turbo_step", ks, ps, f"surgery max_clear={max_clear}")
-        diff("turbo_step", kr, pr, "surgery reward")
-        diff("turbo_step", kd, pd, "surgery done")
-        diff("turbo_step", kl, pl, "surgery lines")
+        checked["turbo_step"] += step_variants_diff(s, a, cfg, turbo.PIECES, RewardsMapping(),
+                                                    max_clear, (ps, pr, pd, pl),
+                                                    f"surgery max_clear={max_clear}")
+        kr, kd, kl = pr, pd, pl  # equal to every build's
         diff("observe_board", kernels.observe_board(s, cfg, turbo.PIECES),
              turbo.observe_board_plain(s, cfg), "surgery obs")
-        checked["turbo_step"] += 1
         checked["observe_board"] += 1
         surgery[max_clear] = {"lines_max": int(kl.max()), "done": int(kd.sum())}
         if max_clear == 4:
@@ -697,7 +756,8 @@ def main() -> None:
             raise AssertionError("max_clear=20 cleared no 5-row stack")
     torch.cuda.synchronize()
     emit({"phase": "turbo_step", "bit_equal": True, "max_abs_err": MAX_ERR, "runs": summary,
-          "surgery": surgery, "comparisons": checked["turbo_step"],
+          "surgery": surgery, "lanes": list(kernels.STEP_LANES),
+          "comparisons": checked["turbo_step"],
           "init_comparisons": checked["turbo_init"], "seconds": time.perf_counter() - t0})
     emit({"phase": "observe_board", "bit_equal": True, "comparisons": checked["observe_board"]})
 
@@ -726,8 +786,8 @@ def main() -> None:
           "ms_per_iteration": 1e3 * wall / max(stats["iterations"], 1),
           "small_fp32_equal_cpu": small["cuda"], "jax_reference_lines": JAX_LINES})
     it = stats["iterations"]
-    if launches != {**{k: 0 for k in launches}, "turbo_step": it, "observe_board": it,
-                    "turbo_init": 1}:
+    if launches != {**{k: 0 for k in launches}, "turbo_step": it, "turbo_step_obs": it,
+                    "observe_board": 1, "turbo_init": 1}:
         raise AssertionError(f"launch counts {launches} do not match {it} iterations")
     if not stats["lines_mean"] >= MIN_LINES or stats["episodes_completed"] < 500:
         raise AssertionError(f"the policy played below the gate: {stats}")
@@ -747,10 +807,16 @@ def main() -> None:
             s = kernels.turbo_step(s, a, cfg, turbo.PIECES, RewardsMapping())[0]
         a = torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32)
         keys = batch_keys(prng_key(2), B, device=dev)
+        obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+        step_io = 2 * state_bytes(s) + nbytes(a) + B * (4 + 1 + 4)
         fns = {
             "turbo_step": (lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, RewardsMapping()),
-                           lambda: turbo.step_plain(s, a, cfg),
-                           2 * state_bytes(s) + nbytes(a) + B * (4 + 1 + 4)),
+                           lambda: turbo.step_plain(s, a, cfg), step_io),
+            # the main paths' launch: the step and its board observation
+            "turbo_step_obs": (
+                lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, RewardsMapping(), obs=obs),
+                lambda: turbo.observe_board_plain(turbo.step_plain(s, a, cfg)[0], cfg),
+                step_io + nbytes(obs)),
             "turbo_init": (lambda: kernels.turbo_init(keys, cfg, turbo.PIECES),
                            lambda: turbo.init_plain(keys, cfg),
                            nbytes(keys) + state_bytes(s)),
@@ -768,10 +834,27 @@ def main() -> None:
                 "plain_call_ms": call_ms(plain_fn, n_plain),
                 "bytes": io,
             }
+        out["turbo_step"]["lanes"] = kernels.step_lanes(B)
+        out["turbo_step_obs"]["lanes"] = kernels.step_lanes(B, cfg.height * cfg.width)
+        for lanes in kernels.STEP_LANES:  # each build, whichever the wrapper takes at this B
+            out[f"turbo_step_lanes{lanes}"] = {"ms": device_ms(
+                lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, RewardsMapping(), lanes=lanes),
+                n_kernel), "bytes": step_io}
+            out[f"turbo_step_obs_lanes{lanes}"] = {"ms": device_ms(
+                lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, RewardsMapping(), obs=obs,
+                                           lanes=lanes), n_kernel), "bytes": step_io + nbytes(obs)}
         for v in out.values():
             v["bound_ms"] = 1e3 * v["bytes"] / HBM_BYTES_PER_S
+            v["bound_by"] = "bytes"
         return out
 
+    # the least launch the card takes (a CUDA graph of empty spins), and the
+    # least for a kernel that reads and writes once (a copy of 8192 floats)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
+    src, dst = torch.zeros(TRAIN_ENVS, device=dev), torch.empty(TRAIN_ENVS, device=dev)
+    copy_ms = device_ms(lambda: dst.copy_(src), 200)
+    emit({"phase": "launch_floor", "ms": floor_ms, "copy_8192_floats_ms": copy_ms,
+          "nvidia_smi": smi})
     times = {}
     for B, cfg in ((EVAL_EPISODES, EngineConfig()), (TRAIN_ENVS, EngineConfig(auto_reset=True)),
                    (GROUPED_ENVS, EngineConfig(gravity_enabled=False, auto_reset=True)),
@@ -798,10 +881,8 @@ def main() -> None:
     t512 = times[EVAL_EPISODES]
     emit({"phase": "breakdown", "B": EVAL_EPISODES, "iteration_ms": 1e3 * wall / max(it, 1),
           "policy_call_ms": net_call, "policy_device_ms": net_device,
-          "turbo_step_call_ms": t512["turbo_step"]["call_ms"],
-          "observe_board_call_ms": t512["observe_board"]["call_ms"],
-          "device_ms_per_iteration": net_device + t512["turbo_step"]["ms"]
-          + t512["observe_board"]["ms"],
+          "turbo_step_obs_call_ms": t512["turbo_step_obs"]["call_ms"],
+          "device_ms_per_iteration": net_device + t512["turbo_step_obs"]["ms"],
           "nvidia_smi": smi})
 
     # -- 7.-10. the training slice ------------------------------------------------
@@ -919,7 +1000,7 @@ def main() -> None:
     pix_at.update(replay_add=pix_times["replay_add"],
                   replay_sample_stacked=pix_times["replay_sample_stacked"][PIX_BATCH])
     flag_at = {"flagship_observe_board": pix_times["flagship_observe_board"][EVAL_EPISODES]}
-    dqn_at = {"turbo_step": times["dqn"]["turbo_step"], "turbo_init": times["dqn"]["turbo_init"],
+    dqn_at = {"turbo_step": times["dqn"]["turbo_step_obs"], "turbo_init": times["dqn"]["turbo_init"],
               "observe_board": times["dqn"]["observe_board"],
               "framestack_push": dqn_times["framestack_push"][DQN_ENVS],
               "dqn_act": dqn_times["dqn_act"][DQN_ENVS], "replay_add": dqn_times["replay_add"],
@@ -932,7 +1013,9 @@ def main() -> None:
              ("dqn_k4", dqn_runs[4]["launches"], DQN_STEPS, dqn_at),
              ("dqn_k1", dqn_runs[1]["launches"], DQN_STEPS, dqn_at),
              ("grouped_train", grouped["launches"], GROUPED_STEPS, grouped_at),
-             ("ppo_train", train["launches"], TRAIN_STEPS, {**times[TRAIN_ENVS], **ppo_times[TRAIN_ENVS]}),
+             ("ppo_train", train["launches"], TRAIN_STEPS,
+              {**times[TRAIN_ENVS], "turbo_step": times[TRAIN_ENVS]["turbo_step_obs"],
+               **ppo_times[TRAIN_ENVS]}),
              ("grouped_engine", grouped_engine["launches"], grouped_engine["steps"],
               {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
              ("shell", shell["launches"], shell["steps"],
@@ -972,7 +1055,7 @@ def main() -> None:
             "launches_dqn_rgb84_eval": pix["eval_launches"][name],
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
-            "library_ms": at[name].get("library_ms"),
+            "library_ms": at[name].get("library_ms"), "launch_floor_ms": floor_ms,
             "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
             **({"wide": wide_at[name]} if name in wide_at else {}),
         })
@@ -1105,7 +1188,7 @@ def train_full_width(dev, smi) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": TRAIN_STEPS * TRAIN_T,
-            "observe_board": TRAIN_STEPS * TRAIN_T + 1, "gae": TRAIN_STEPS,
+            "turbo_step_obs": TRAIN_STEPS * TRAIN_T, "observe_board": 1, "gae": TRAIN_STEPS,
             "ppo_sample": TRAIN_STEPS * TRAIN_T}
     if launches != want:
         raise AssertionError(f"training launch counts {launches}, want {want}")
@@ -1926,8 +2009,8 @@ def train_dqn_full_width(dev, smi, K) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n, learn = DQN_STEPS, DQN_STEPS - DQN_LEARNING_STARTS
-    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": n, "observe_board": n + 1,
-            "dqn_act": n, "replay_add": n}
+    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": n, "turbo_step_obs": n,
+            "observe_board": 1, "dqn_act": n, "replay_add": n}
     want.update({"replay_sample": learn} if K == 1 else
                 {"replay_sample_stacked": learn, "framestack_push": n})
     if launches != want:
@@ -1972,8 +2055,9 @@ def train_dqn_full_width(dev, smi, K) -> dict:
         torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)  # the trained net's evaluation
     it = evals["trained"]["iterations"]
-    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": it, "dqn_act": it}
-    want.update({"observe_board": it} if K == 1 else {"observe_board": it + 1, "framestack_push": it})
+    want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": it, "turbo_step_obs": it,
+            "observe_board": 1, "dqn_act": it}
+    want.update({} if K == 1 else {"framestack_push": it})
     if eval_launches != want:
         raise AssertionError(f"DQN K={K} evaluation launch counts {eval_launches}, want {want}")
     emit({"phase": "dqn_eval", "frame_stack": K, "episodes": EVAL_EPISODES,
@@ -2008,14 +2092,17 @@ def check_dqn_path_shapes(dev, ts, cfg) -> None:
     diff("dqn_act", a, dqn.act_plain(q, act_key, eps_key, 0.5), "trained state actions")
     s = ts.env_states
     on_cpu = s.replace(**{k: getattr(s, k).cpu() for k in turbo.FIELDS})
-    ks, kr, kd, kl = kernels.turbo_step(s, a, env_config, turbo.PIECES, RewardsMapping())
+    raw = torch.empty((a.shape[0], env_config.height, env_config.width), dtype=torch.int8,
+                      device=dev)
+    ks, kr, kd, kl = kernels.turbo_step(s, a, env_config, turbo.PIECES, RewardsMapping(), obs=raw)
     ps, pr, pd, pl = turbo.step_plain(on_cpu, a.cpu(), env_config)
     for k in turbo.FIELDS:
         diff("turbo_step", getattr(ks, k).cpu(), getattr(ps, k), f"trained step {k}")
     for got, want, name in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
         diff("turbo_step", got.cpu(), want, f"trained step {name}")
-    raw = kernels.observe_board(ks, env_config, turbo.PIECES)
-    diff("observe_board", raw.cpu(), turbo.observe_board_plain(ps, env_config), "trained obs")
+    diff("turbo_step", raw.cpu(), turbo.observe_board_plain(ps, env_config), "trained fused obs")
+    diff("observe_board", kernels.observe_board(s, env_config, turbo.PIECES).cpu(),
+         turbo.observe_board_plain(on_cpu, env_config), "trained obs")
     n_done = int(kd.sum())
     if K > 1:
         if n_done == 0:
@@ -3387,7 +3474,7 @@ def check_wide_kernels(dev) -> dict:
                      f"{name} init")
         _fields_diff("flagship_init", _cat_flagship(fs), engine.init_plain(all_keys, cfg, P),
                      engine.FIELDS, f"{name} flagship init")
-        n_done = n_lines = n_flines = 0
+        n_done = n_lines = n_flines = n_variants = 0
         t_all, f_all = _cat_turbo(ts), _cat_flagship(fs)
         a_all = torch.zeros((sum(WIDE_B),), dtype=torch.int32, device=dev)
         plain = {
@@ -3418,6 +3505,15 @@ def check_wide_kernels(dev) -> dict:
             for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
                 diff("turbo_step", torch.cat([o[j] for o in kt]), pt[j], f"{what} {out}")
                 diff("flagship_step", torch.cat([o[j] for o in kf]), pf[j], f"{what} flagship {out}")
+            # every lanes count, with and without the observation, on each batch
+            pobs, off = plain["obs"](pt[0]), 0
+            for s_, a_, B in zip(ts, acts, WIDE_B):
+                cut = pt[0].replace(**{k: getattr(pt[0], k)[..., off:off + B]
+                                       for k in turbo.FIELDS})
+                n_variants += step_variants_diff(
+                    s_, a_, cfg, P, rw, 4, (cut, *(x[off:off + B] for x in pt[1:])),
+                    f"{what} B={B}", want_obs=pobs[off:off + B])
+                off += B
             n_done += int((pt[2] & ~t_all.game_over).sum())
             n_lines += int(pt[3].sum())
             n_flines += int(pf[3].sum())
@@ -3430,10 +3526,9 @@ def check_wide_kernels(dev) -> dict:
                         torch.randint(0, 8, (WIDE_B[0],), generator=g, device=dev)).to(torch.int32)
         stack_lines = {}
         for max_clear in (4, cfg.height):
-            kt1, pt1 = kernels.turbo_step(t, a, cfg, P, rw, max_clear), turbo.step_plain(t, a, cfg, P, max_clear=max_clear)
-            _fields_diff("turbo_step", kt1[0], pt1[0], turbo.FIELDS, f"{name} stacks max_clear={max_clear}")
-            for j in (1, 2, 3):
-                diff("turbo_step", kt1[j], pt1[j], f"{name} stacks max_clear={max_clear} output {j}")
+            pt1 = turbo.step_plain(t, a, cfg, P, max_clear=max_clear)
+            n_variants += step_variants_diff(t, a, cfg, P, rw, max_clear, pt1,
+                                             f"{name} stacks max_clear={max_clear}")
             stack_lines[f"turbo_max_clear_{max_clear}"] = int(pt1[3].max())
         diff("observe_board", kernels.observe_board(t, cfg, P), turbo.observe_board_plain(t, cfg, P),
              f"{name} stacks obs")
@@ -3450,7 +3545,7 @@ def check_wide_kernels(dev) -> dict:
         runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
                      "piece_side": int(P.matrices.shape[-1]), "steps": WIDE_STEPS, "B": list(WIDE_B),
                      "episodes_ended": n_done, "lines": n_lines, "flagship_lines": n_flines,
-                     "stacks_max_lines": stack_lines})
+                     "stacks_max_lines": stack_lines, "turbo_step_builds_compared": n_variants})
         emit({"phase": "wide_kernels", **runs[-1], "seconds": time.perf_counter() - t0})
     # drops into gaps that straddle the word boundary, on both engines
     cfg = EngineConfig(width=30, height=20)
@@ -3463,6 +3558,7 @@ def check_wide_kernels(dev) -> dict:
             kt1, pt1 = kernels.turbo_step(t, a, cfg, turbo.PIECES, rw), turbo.step_plain(t, a, cfg)
             kf1, pf1 = kernels.flagship_step(s, a, cfg, engine.PIECES, rw), engine.step_plain(s, a, cfg)
             what = f"gap {gap} rows {n_rows}"
+            step_variants_diff(t, a, cfg, turbo.PIECES, rw, 4, pt1, what)
             _fields_diff("turbo_step", kt1[0], pt1[0], turbo.FIELDS, what)
             _fields_diff("flagship_step", kf1[0], pf1[0], engine.FIELDS, f"flagship {what}")
             for j in (1, 2, 3):
@@ -3559,9 +3655,13 @@ def time_wide_kernels(dev, smi) -> dict:
             tbytes = nbytes(*(getattr(t, k) for k in turbo.FIELDS))
             fbytes = nbytes(*(getattr(f, k) for k in engine.FIELDS))
             obs_out = B * cfg.height * cfg.width
+            obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
             entries = {
                 "turbo_step": (lambda: kernels.turbo_step(t, a, cfg, P, rw), lambda: turbo.step_plain(pt, a[:pb], cfg, P),
                                2 * tbytes + nbytes(a) + B * (4 + 1 + 4), 0),
+                "turbo_step_obs": (lambda: kernels.turbo_step(t, a, cfg, P, rw, obs=obs),
+                                   lambda: turbo.observe_board_plain(turbo.step_plain(pt, a[:pb], cfg, P)[0], cfg, P),
+                                   2 * tbytes + nbytes(a) + B * (4 + 1 + 4) + obs_out, 0),
                 "turbo_init": (lambda: kernels.turbo_init(keys, cfg, P), lambda: turbo.init_plain(keys[:pb], cfg, P),
                                nbytes(keys) + tbytes, 0),
                 "observe_board": (lambda: kernels.observe_board(t, cfg, P),
@@ -3584,7 +3684,8 @@ def time_wide_kernels(dev, smi) -> dict:
             }
             if name == "default":
                 entries = {k: v for k, v in entries.items()
-                           if k in ("turbo_step", "observe_board", "flagship_step", "heights")}
+                           if k in ("turbo_step", "turbo_step_obs", "observe_board", "flagship_step",
+                                    "heights")}
             for kname, (kernel_fn, plain_fn, io, ops) in entries.items():
                 entry = timed_pair(kernel_fn, plain_fn, 20 if big else 100, 2 if big else 10, io, ops)
                 entry.update(plain_ms=entry["plain_ms"] * B / pb, plain_B=pb, library_ms=None,
@@ -3592,7 +3693,7 @@ def time_wide_kernels(dev, smi) -> dict:
                 out.setdefault(name, {}).setdefault(kname, {})[B] = entry
             emit({"phase": "wide_times", "geometry": name, "B": B, "words_per_row": nw,
                   "kernels": {k: v[B] for k, v in out[name].items()}, "nvidia_smi": smi})
-            del t, f, pt, pf
+            del t, f, pt, pf, obs
             torch.cuda.empty_cache()
     return out
 

@@ -584,17 +584,26 @@ def step(
     Returns ``(state, obs, reward, done, info)`` like the JAX ``turbo.step``,
     with ``obs = obs_fn(state, config, pieces)`` or None.  On CUDA tensors
     the ``turbo_step`` kernel computes it; the input state is left as it was
-    and the new state is in new buffers.
+    and the new state is in new buffers.  With ``obs_fn=observe_board`` the
+    same launch writes the board observation (one kernel for both); any
+    other ``obs_fn`` is called on the new state.
     """
     if state.rows.is_cuda:
         from tetris_gymnasium_torch import kernels
 
+        obs = None
+        if obs_fn is observe_board:
+            B = state.piece.shape[0]
+            obs = torch.empty((B, config.height, config.width), dtype=torch.int8,
+                              device=state.rows.device)
         stepped, reward, done, lines = kernels.turbo_step(
-            state, action, config, pieces, rewards, max_clear
+            state, action, config, pieces, rewards, max_clear, obs=obs
         )
+        if obs is None and obs_fn is not None:
+            obs = obs_fn(stepped, config, pieces)
     else:
         stepped, reward, done, lines = step_plain(state, action, config, pieces, rewards, max_clear)
-    obs = obs_fn(stepped, config, pieces) if obs_fn is not None else None
+        obs = obs_fn(stepped, config, pieces) if obs_fn is not None else None
     info = {"lines_cleared": lines, "score": stepped.score, "steps": stepped.steps}
     return stepped, obs, reward, done, info
 

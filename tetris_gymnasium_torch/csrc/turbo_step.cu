@@ -1,44 +1,79 @@
-// Turbo engine step and reset for Hopper (sm_90a): one thread per env.
+// Turbo engine step and reset for Hopper (sm_90a): one thread or a group of
+// lanes per env, and the board observation in the same launch.
 //
 // Replaces the JAX turbo step, tetris_gymnasium_tpu/core/turbo.py:step (:639)
 // with _apply_action (:545), _swap (:507), _commit (:580), _clear_lines (:364)
 // and _init_from_key (:440), plus the counter RNG (ops/rng.py:48-114) and the
-// 7-bag draw (components/tetromino_randomizer.py:bag_draw :35) inside it.
-// The plain PyTorch twin is tetris_gymnasium_torch/core/turbo.py:step_plain;
-// every output is bit-equal to it.
+// 7-bag draw (components/tetromino_randomizer.py:bag_draw :35) inside it;
+// with an obs output also observe_board (:738) of the state it stores.  The
+// plain PyTorch twins are tetris_gymnasium_torch/core/turbo.py:step_plain
+// and observe_board_plain; every output is bit-equal to them.
 //
 // On the TPU the step is branch-free vector code over [H, B] tiles, with
-// one-hot selects standing in for per-env control flow.  Here each thread
-// owns one env and branches: the env's H x NW row words, bag, queue and
-// holder live in registers (every array index below is a compile-time
-// constant after unrolling), the hit map of a piece over all window starts
-// is one 32- or 64-bit mask, and the key advances only where a draw
-// happens.  State arrays are batch-minor ([rows, B], [H, NW, B] for the
-// rows), so every load and store of a field is coalesced along B.
+// one-hot selects standing in for per-env control flow.  Here an env's
+// control flow branches: its bag, queue, holder and key live in registers
+// (every array index below is a compile-time constant after unrolling), the
+// hit map of a piece over all window starts is one 32- or 64-bit mask, and
+// the key advances only where a draw happens.  State arrays are batch-minor
+// ([rows, B], [H, NW, B] for the rows).
 //
 // Bound on this card: bytes.  One env-step reads the state (H * NW row
 // words + 2 key words + NP bag + QS queue + 2 * HS holder words + 9 scalar
 // words, and 2 bools; at the default 10x20 board 24 rows, 194 bytes) and
 // the action, and writes the state plus reward, done and lines: 401 bytes
-// in all at 10x20, 0.120 ns per env-step at 3.35 TB/s; 593 bytes at 30x20
-// (NW = 2) and 61x12 (NW = 3, 16 rows).  The integer work (a few hundred
-// instructions per env, times NW in the hit maps and the line clear) stays
-// under that at full occupancy; the design keeps to one pass over the state
-// and no scratch traffic.  At NW > 1 the 48 row words of 30x20 or 61x12 sit
-// in registers beside the rest of the env; nvcc's -Xptxas -v report
-// (kernels.build) gives the registers and any spill of each geometry.
+// at 10x20, 593 at 30x20 (NW = 2) and 61x12 (NW = 3, 16 rows).  The
+// observation adds height * width bytes written: 601 bytes an env at 10x20
+// (1.47 us at B = 8192, 0.0117 ms at 65536, at 3.35 TB/s), 593 + 600 at
+// 30x20.  Below the bound lies the launch floor, what the card takes for
+// the smallest launch (a CUDA graph of empty kernels, 0.8 us on an H100),
+// and a kernel that loads and stores its state once takes about twice that.
+//
+// What bounds the step at the main paths' batches (PPO's rollout at 8192,
+// the evaluation at 512, the DQNs at 1024) is not bytes but the chain of
+// one env's step: the state's loads, the action's hit map, gravity's hit
+// map, the commit (project, line clear, draw, spawn test), the bag's
+// Fisher-Yates and the reset, each waiting for the last; a warp waits for
+// its slowest env.  With one thread an env (L = 1, 128 envs a block) B =
+// 8192 fills 64 of 132 SMs with one warp a scheduler.  With L = 8 lanes an
+// env (16 envs a block; turbo_band.cuh) every lane runs the scalar chain,
+// so the RNG stream cannot diverge, but holds only a band of ceil(H / 8)
+// rows: the hit maps test 3 window starts a lane and OR-reduce over the
+// group, the full rows are OR-reduced and the line clear moves rows
+// through shared memory, and B = 8192 gives 512 blocks, several on every
+// SM.  That shortens the row work, not the scalar chain, which the chip
+// shows taking most of the time (tools/ablate_turbo_step.py at B = 512,
+// L = 8: 3.3 us a step, 1.7 us with loads and stores alone, 0.6 us less
+// without the action's effect, 0.2 us less without the swap or the draw),
+// and it repeats the scalar work and its loads on every lane of the group.
+// So on an H100 (PERF.md) the 8-lane build wins below B = 8192 without the
+// observation and below 16384 with it, where one thread's byte-wise writes
+// of 200 cells a step are its slow part; one thread an env wins above, and
+// at 65536 (4 warps a scheduler) reaches 88% of its byte bound.
+// kernels.py:step_lanes picks L from B.
+//
+// With the observation, each lane writes the cells of the rows it holds
+// into the block's frames in shared memory, and the block stores its frames,
+// contiguous in the output, with 16-byte words (observe_board.cu's staging).
+//
+// Registers a thread (-Xptxas -v, CUDA 12.9; L = 8 without / with the
+// observation, then L = 1 without / with it), no spill and no stack frame
+// at any geometry (tools/time_turbo_kernels.py --ptxas): 10x20 56 / 56,
+// 96 / 96; 30x20 64 / 64, 119 / 128; 61x12 72 / 72, 128 / 128; 28x14
+// 64 / 64, 96 / 96; 8x12 56 / 48, 64 / 64; 6x6 pieces at width 10 56 / 48,
+// 80 / 80, at width 30 64 / 64, 128 / 128.
 //
 // Geometry is fixed at compile time by the TETRIS_* defines
-// (engine_common.cuh, kernels.py:engine_defines), one library per geometry.
-// The state may be stepped in place (each thread reads all of its env
-// before it writes) but the wrapper writes to new buffers.  The RNG, the
+// (engine_common.cuh, kernels.py:engine_defines), one library per geometry,
+// each with the four builds (L = 1 or 8, with or without the observation).
+// The wrapper writes the new state to new buffers.  The RNG, the
 // draws, the swap and the bit helpers are shared with the flagship engine's
-// kernels (engine_common.cuh).
+// kernels (engine_common.cuh, unchanged by the band helpers).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "engine_common.cuh"
+#include "turbo_band.cuh"
 
 using namespace engine;
 
@@ -73,13 +108,9 @@ struct StepParams {
 };
 
 namespace {
-__device__ __forceinline__ void load_env(Env& e, const StatePtrs& p, int b, int B) {
+__device__ __forceinline__ void load_scalars(Env& e, const StatePtrs& p, int b, int B) {
   e.k0 = p.key[b];
   e.k1 = p.key[B + b];
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) e.rows[h][j] = p.rows[(h * NW + j) * B + b];
   e.piece = p.piece[b];
   e.rotation = p.rotation[b];
   e.x = p.x[b];
@@ -102,13 +133,9 @@ __device__ __forceinline__ void load_env(Env& e, const StatePtrs& p, int b, int 
   e.steps = p.steps[b];
 }
 
-__device__ __forceinline__ void store_env(const Env& e, const StatePtrs& p, int b, int B) {
+__device__ __forceinline__ void store_scalars(const Env& e, const StatePtrs& p, int b, int B) {
   p.key[b] = e.k0;
   p.key[B + b] = e.k1;
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) p.rows[(h * NW + j) * B + b] = e.rows[h][j];
   p.piece[b] = e.piece;
   p.rotation[b] = e.rotation;
   p.x[b] = e.x;
@@ -131,25 +158,45 @@ __device__ __forceinline__ void store_env(const Env& e, const StatePtrs& p, int 
   p.steps[b] = e.steps;
 }
 
-__global__ void __launch_bounds__(128) turbo_step_kernel(
-    StatePtrs in, StatePtrs out, const int32_t* __restrict__ action, float* __restrict__ reward_out,
-    uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
-    const uint32_t* __restrict__ packed, const int32_t* __restrict__ box, int B, StepParams p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const bool uniform = p.uniform != 0;
-  Env e;
-  load_env(e, in, b, B);
-  float reward = 0.0f;
-  int lines = 0;
+__device__ __forceinline__ void load_env(Env& e, const StatePtrs& p, int b, int B) {
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) e.rows[h][j] = p.rows[(h * NW + j) * B + b];
+  load_scalars(e, p, b, B);
+}
 
+__device__ __forceinline__ void store_env(const Env& e, const StatePtrs& p, int b, int B) {
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) p.rows[(h * NW + j) * B + b] = e.rows[h][j];
+  store_scalars(e, p, b, B);
+}
+
+constexpr int kThreads = 128;
+constexpr int kFrame = HEIGHT * WIDTH;  // bytes of an observation
+
+// One step of one env (a thread, or a group of L lanes on bands of its
+// rows), then auto-reset.  The control flow is the same for every L: only
+// the row helpers differ.  Returns the reward; sets done (before the
+// reset) and n_lines.
+template <int L, typename Rows_>
+__device__ __forceinline__ float step_env(Env& e, Rows_& rows, int a, const StepParams& p,
+                                          const uint32_t* packed, const int32_t* box,
+                                          uint32_t (*scratch)[NW], bool& done, int& n_lines) {
+  const bool uniform = p.uniform != 0;
+  float reward = 0.0f;
+  n_lines = 0;
   if (!e.game_over) {  // a finished game freezes, key and steps included
-    const int a = action[b];
     // -- phase 1: the action's direct effect, tested against the pre-step rows
-    apply_action<false>(e, a, uniform, packed, box);
+    if constexpr (L == 1) apply_action<false>(e, a, uniform, packed, box);
+    else band_apply_action(e, rows, a, uniform, packed, box);
     // -- phase 2: gravity, then commit on rest or hard drop
     const PieceWord w1 = piece_word(packed, e.piece, e.rotation);
-    const HitMask hm1 = hit_map(e.rows, w1, e.x);
+    HitMask hm1;
+    if constexpr (L == 1) hm1 = hit_map(e.rows, w1, e.x);
+    else hm1 = band_hit_map(rows, w1, e.x);
     const bool is_drop = a == kDrop;
     const bool grav_free = !collision_at(hm1, e.y + 1);
     const bool fall = p.gravity ? (!is_drop && grav_free) : false;
@@ -160,12 +207,20 @@ __global__ void __launch_bounds__(128) turbo_step_kernel(
         e.game_over = true;
         reward = p.r_game_over;
       } else {
-        project(e.rows, w1, e.x, e.y + drop_from_map(hm1, e.y));
-        const int n = clear_lines(e.rows, p.max_clear);
+        int n;
+        if constexpr (L == 1) {
+          project(e.rows, w1, e.x, e.y + drop_from_map(hm1, e.y));
+          n = clear_lines(e.rows, p.max_clear);
+        } else {
+          band_project(rows, w1, e.x, e.y + drop_from_map(hm1, e.y));
+          n = band_clear_lines(rows, p.max_clear, scratch);
+        }
         const int new_piece = queue_draw(e, uniform);
         const int sx = spawn_x(box, new_piece);
-        const bool spawn_over =
-            spawn_overlap(e.rows, piece_word(packed, new_piece, 0), sx) || n > p.max_clear;
+        bool over;
+        if constexpr (L == 1) over = spawn_overlap(e.rows, piece_word(packed, new_piece, 0), sx);
+        else over = band_spawn_overlap(rows, piece_word(packed, new_piece, 0), sx);
+        const bool spawn_over = over || n > p.max_clear;
         reward = spawn_over ? p.r_game_over : static_cast<float>(n * n * WIDTH) + p.r_alife;
         e.piece = new_piece;
         e.rotation = 0;
@@ -174,21 +229,73 @@ __global__ void __launch_bounds__(128) turbo_step_kernel(
         e.has_swapped = false;
         e.game_over = spawn_over;
         e.lines += n;
-        lines = n;
+        n_lines = n;
       }
     }
     e.score = e.score + reward;
     e.steps += 1;
   }
-  const bool done = e.game_over;
-  if (p.auto_reset && done) init_env(e, e.k0, e.k1, uniform, box);
-  store_env(e, out, b, B);
-  reward_out[b] = reward;
-  done_out[b] = done ? 1 : 0;
-  lines_out[b] = lines;
+  done = e.game_over;
+  if (p.auto_reset && done) {
+    init_env(e, e.k0, e.k1, uniform, box);
+    if constexpr (L > 1) band_empty(rows);
+  }
+  return reward;
 }
 
-__global__ void __launch_bounds__(128) turbo_init_kernel(
+// L lanes an env (kThreads / L envs a block); with kObs the observation of
+// the stored state is written to obs int8[B, HEIGHT, WIDTH], staged in the
+// block's dynamic shared memory (kThreads / L frames) and stored with
+// 16-byte words.
+template <int L, bool kObs>
+__global__ void __launch_bounds__(kThreads) turbo_step_kernel(
+    StatePtrs in, StatePtrs out, const int32_t* __restrict__ action, float* __restrict__ reward_out,
+    uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
+    const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
+    int8_t* __restrict__ obs, int B, StepParams p) {
+  constexpr int E = kThreads / L;  // envs a block
+  extern __shared__ __align__(16) int8_t frames[];  // kObs: E frames of kFrame bytes
+  __shared__ uint32_t scratch[L > 1 ? E : 1][HEIGHT][NW];  // the line clear's rows, a group each
+  const int t = threadIdx.x / L;  // the env's slot in the block
+  const int base = blockIdx.x * E;
+  const int b = base + t;
+  if (!kObs && b >= B) return;
+  if (b < B) {
+    Env e;
+    int lines;
+    bool done;
+    float reward;
+    const int a = action[b];
+    if constexpr (L == 1) {
+      load_env(e, in, b, B);
+      reward = step_env<1>(e, e.rows, a, p, packed, box, nullptr, done, lines);
+      store_env(e, out, b, B);
+      if constexpr (kObs) write_frame_rows<H>(e.rows, 0, e, packed, frames + t * kFrame);
+    } else {
+      Band<L> bd;
+      bd.lane = threadIdx.x % L;
+      bd.mask = (L == 32 ? 0xFFFFFFFFu : (1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+      load_scalars(e, in, b, B);
+      load_band(bd, in.rows, b, B);
+      reward = step_env<L>(e, bd, a, p, packed, box, scratch[t], done, lines);
+      store_band(bd, out.rows, b, B);
+      if (bd.lane == 0) store_scalars(e, out, b, B);
+      if constexpr (kObs)
+        write_frame_rows<Band<L>::R>(bd.rows, bd.row0(), e, packed, frames + t * kFrame);
+    }
+    if (L == 1 || threadIdx.x % L == 0) {
+      reward_out[b] = reward;
+      done_out[b] = done ? 1 : 0;
+      lines_out[b] = lines;
+    }
+  }
+  if constexpr (kObs) {
+    __syncthreads();
+    if (base < B) block_copy(obs + static_cast<long long>(base) * kFrame, frames,
+                             min(E, B - base) * kFrame);
+  }
+}
+__global__ void __launch_bounds__(kThreads) turbo_init_kernel(
     const uint32_t* __restrict__ keys, StatePtrs out, const int32_t* __restrict__ box, int B,
     int uniform) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -198,19 +305,52 @@ __global__ void __launch_bounds__(128) turbo_init_kernel(
   store_env(e, out, b, B);
 }
 
-constexpr int kThreads = 128;
+template <int L, bool kObs>
+int launch_step(const StatePtrs* in, const StatePtrs* out, const void* action, void* reward,
+                void* done, void* lines, const void* packed, const void* box, void* obs, int B,
+                const StepParams* params, cudaStream_t stream) {
+  constexpr int E = kThreads / L;
+  constexpr int kStatic = (L > 1 ? E : 1) * HEIGHT * NW * 4;  // the line clear's scratch
+  const int smem = kObs ? E * kFrame : 0;
+  if (smem + kStatic > 48 * 1024) {  // past 48 KB in all, the dynamic part needs the attribute
+    const cudaError_t err = cudaFuncSetAttribute(
+        turbo_step_kernel<L, kObs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  turbo_step_kernel<L, kObs><<<(B + E - 1) / E, kThreads, smem, stream>>>(
+      *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
+      static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
+      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
+      static_cast<int8_t*>(obs), B, *params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch_lanes(const StatePtrs* in, const StatePtrs* out, const void* action, void* reward,
+                 void* done, void* lines, const void* packed, const void* box, void* obs, int B,
+                 const StepParams* params, cudaStream_t stream) {
+  return obs ? launch_step<L, true>(in, out, action, reward, done, lines, packed, box, obs, B,
+                                    params, stream)
+             : launch_step<L, false>(in, out, action, reward, done, lines, packed, box, obs, B,
+                                     params, stream);
+}
 
 }  // namespace
 
+// lanes: 1 or 8 (kernels.py:step_lanes); obs: int8[B, HEIGHT, WIDTH] or null.
 extern "C" int turbo_step_launch(const StatePtrs* in, const StatePtrs* out, const void* action,
                                  void* reward, void* done, void* lines, const void* packed,
-                                 const void* box, int B, const StepParams* params, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  turbo_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
-      static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
-      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box), B, *params);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* box, void* obs, int B, int lanes,
+                                 const StepParams* params, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1:
+      return launch_lanes<1>(in, out, action, reward, done, lines, packed, box, obs, B, params, s);
+    case 8:
+      return launch_lanes<8>(in, out, action, reward, done, lines, packed, box, obs, B, params, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // keys: uint32[B, 2] (mesh.batch_keys layout).

@@ -15,9 +15,12 @@ wrapper raises if it is not 0.
 
 Kernels, with the JAX function each replaces:
 
-* ``turbo_step`` (``csrc/turbo_step.cu``): ``core/turbo.py:step :639``,
-  with ``_shift :205``, ``_hit_map_r :251`` and ``_clear_lines_wide :326``
-  (``ops/bitboard_wide.py:108-215`` in the turbo layout) at any geometry;
+* ``turbo_step`` (``csrc/turbo_step.cu`` with ``csrc/turbo_band.cuh``):
+  ``core/turbo.py:step :639``, with ``_shift :205``, ``_hit_map_r :251`` and
+  ``_clear_lines_wide :326`` (``ops/bitboard_wide.py:108-215`` in the turbo
+  layout) at any geometry, one thread or a group of lanes an env
+  (:func:`step_lanes`), and with an ``obs`` output also ``observe_board
+  :738`` of the state it stores, in the same launch;
 * ``turbo_init`` (``csrc/turbo_step.cu``): ``core/turbo.py:_init_from_key :440``,
   reached through ``init :497``;
 * ``observe_board`` (``csrc/observe_board.cu``): ``core/turbo.py:observe_board :738``;
@@ -140,10 +143,12 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Launch counts, one per kernel: added to where a wrapper launches, nowhere else.
+# Launch counts, one per kernel: added to where a wrapper launches, nowhere
+# else; "turbo_step_obs" counts the turbo_step launches that also wrote the
+# board observation.
 LAUNCHES = {
-    "turbo_step": 0, "turbo_init": 0, "observe_board": 0, "gae": 0, "ppo_sample": 0,
-    "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
+    "turbo_step": 0, "turbo_step_obs": 0, "turbo_init": 0, "observe_board": 0, "gae": 0,
+    "ppo_sample": 0, "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
     "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0, "flagship_step": 0,
     "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0, "grouped_flagship": 0,
     "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0, "heights": 0,
@@ -265,8 +270,16 @@ def build(geometries=(), fn_geometries=()) -> list:
     for config, pieces in ((EnvConfig(), PIECES), *fn_geometries):
         job = ("fn_env", fn_defines(config, pieces))
         jobs += [job] if job not in jobs else []
+    # the longest builds first, so that none of them starts last
+    rank = {name: i for i, name in enumerate(_SLOW_BUILDS)}
+    jobs.sort(key=lambda job: rank.get(job[0], len(rank)))
     with ThreadPoolExecutor(max_workers=min(len(jobs), 2 * (os.cpu_count() or 4))) as pool:
         return list(pool.map(lambda job: _compile(*job), jobs))
+
+
+# Sources by their nvcc time a geometry on the card's machine, longest first
+# (chip_smoke.py's build phase): build() starts them first.
+_SLOW_BUILDS = ("turbo_step", "flagship_step", "grouped_flagship", "grouped_placements")
 
 
 class _StatePtrs(ctypes.Structure):
@@ -381,7 +394,8 @@ _I = ctypes.c_int
 _ENTRY_POINTS = {
     "turbo_step": {
         "turbo_step_launch": [ctypes.POINTER(_StatePtrs), ctypes.POINTER(_StatePtrs),
-                              _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_StepParams), _P],
+                              _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.POINTER(_StepParams),
+                              _P],
         "turbo_init_launch": [_P, ctypes.POINTER(_StatePtrs), _P, _I, _I, _P],
     },
     "observe_board": {
@@ -637,18 +651,66 @@ def _empty_state(config: EngineConfig, n_pieces: int, B: int, device) -> turbo.T
     return _empty(turbo.TurboState, _state_shapes(config, n_pieces, B), _STATE_DTYPES, device)
 
 
+# Lanes an env of turbo_step's builds (csrc/turbo_step.cu:turbo_step_launch).
+# One thread an env is the fastest build from these batches up, without and
+# with the observation in the same launch; below them a group of 8 lanes
+# shares an env's rows (PERF.md, the times of each build on an H100).
+STEP_LANES = (1, 8)
+ONE_LANE_FROM_B = 8192
+ONE_LANE_FROM_B_OBS = 16384
+_STEP_THREADS = 128  # csrc/turbo_step.cu:kThreads
+_MAX_SMEM = 227 * 1024  # shared memory a block can take (dynamic)
+
+
+def step_lanes(B: int, frame_bytes: int = 0) -> int:
+    """The lanes an env that ``turbo_step`` takes at batch ``B``, without an
+    observation (``frame_bytes`` 0) or with one of ``frame_bytes`` an env: 1
+    from ``ONE_LANE_FROM_B`` (``ONE_LANE_FROM_B_OBS``) envs up, else 8; 8
+    also where one lane an env could not stage its block's observations in
+    shared memory."""
+    one_from = ONE_LANE_FROM_B_OBS if frame_bytes else ONE_LANE_FROM_B
+    if B >= one_from and _STEP_THREADS * frame_bytes <= _MAX_SMEM:
+        return 1
+    return 8
+
+
+def _check_obs(obs: torch.Tensor, config: EngineConfig, B: int, device) -> None:
+    want = (B, config.height, config.width)
+    if not isinstance(obs, torch.Tensor) or obs.dtype != torch.int8 or tuple(obs.shape) != want \
+            or not obs.is_contiguous() or not obs.is_cuda or obs.device != device:
+        got = (f"{obs.dtype} {tuple(obs.shape)} on {obs.device} (contiguous={obs.is_contiguous()})"
+               if isinstance(obs, torch.Tensor) else type(obs).__name__)
+        raise ValueError(f"obs: want a contiguous CUDA int8 tensor of shape {want} on {device}, "
+                         f"got {got}")
+
+
 def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConfig,
-               pieces: PieceSet, rewards: RewardsMapping, max_clear: int = 4):
+               pieces: PieceSet, rewards: RewardsMapping, max_clear: int = 4,
+               obs: torch.Tensor = None, lanes: int = None):
     """Launch ``turbo_step``: returns ``(new_state, reward f32[B], done bool[B], lines int32[B])``.
 
-    The new state is in new buffers; ``state`` is left as it was.
+    The new state is in new buffers; ``state`` is left as it was.  With
+    ``obs``, an ``int8[B, height, width]`` tensor, the same launch also
+    writes ``observe_board`` of the new state (after auto-reset) into it.
+    ``lanes`` (one of ``STEP_LANES``) overrides :func:`step_lanes`' choice.
     """
+    if lanes is not None and lanes not in STEP_LANES:
+        raise ValueError(f"lanes must be one of {STEP_LANES}, got {lanes}")
     device = state.rows.device
+    B = state.piece.shape[0]
+    if obs is not None:
+        _check_obs(obs, config, B, device)
     t, packed, box = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t)
     if max_clear < 0:
         raise ValueError(f"max_clear must be >= 0, got {max_clear}")
-    B = _check_state(state, config, t.n_pieces, device)
+    frame = config.height * config.width if obs is not None else 0
+    lanes = step_lanes(B, frame) if lanes is None else lanes
+    if (_STEP_THREADS // lanes) * frame > _MAX_SMEM:
+        raise NotImplementedError(
+            f"turbo_step stages {_STEP_THREADS // lanes} observations of {frame} bytes a block in "
+            f"{_MAX_SMEM} bytes of shared memory")
+    _check_state(state, config, t.n_pieces, device)
     if not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
             or not action.is_contiguous() or action.device != device:
         raise ValueError(f"action: want a contiguous int32[{B}] tensor on {device}")
@@ -665,11 +727,13 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
     in_p, out_p = _ptrs(state), _ptrs(out)
     rc = _lib("turbo_step", defines).turbo_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
-        done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(), B,
-        ctypes.byref(params), _stream(device),
+        done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
+        None if obs is None else obs.data_ptr(), B, lanes, ctypes.byref(params), _stream(device),
     )
     _check(rc, "turbo_step")
     LAUNCHES["turbo_step"] += 1
+    if obs is not None:
+        LAUNCHES["turbo_step_obs"] += 1
     return out, reward, done, lines
 
 

@@ -208,7 +208,7 @@ def make_train_step(
     enqueued (a caller can record CUDA events there).
     """
     # step and observe run where the state lies; the device only binds init
-    _, env_step, observe = env_fns(env_config, impl, obs=obs, device="cpu")
+    _, env_step, observe = env_fns(env_config, impl, obs=obs, device="cpu", step_obs=True)
     mark = marks or (lambda _name: None)
     k = cfg.frame_stack
 
@@ -221,8 +221,8 @@ def make_train_step(
             q = ts.net(ts.obs)
         action = act(q, act_key, eps_key, eps)
         mark("act")
-        env_states, _, reward, done, _ = env_step(ts.env_states, action)
-        raw_next = observe(env_states)
+        env_states, raw_next, reward, done, _ = env_step(ts.env_states, action)
+        raw_next = observe(env_states) if raw_next is None else raw_next
         next_obs = raw_next if k == 1 else framestack.push(ts.obs, raw_next, done)
         mark("env")
         # single frames: the window's newest frame, a strided view

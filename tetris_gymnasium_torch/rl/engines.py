@@ -29,11 +29,15 @@ def env_fns(
     obs: str = "board",
     pieces=None,
     device="cuda",
+    step_obs: bool = False,
 ) -> Tuple[Callable, Callable, Callable]:
     """``(init, step, observe)`` batched over the env axis.
 
     ``init(keys [B, 2])`` makes the state on ``device``; ``step`` and
-    ``observe`` run where the state lies.
+    ``observe`` run where the state lies.  ``step`` returns ``(state, obs,
+    reward, done, info)`` with ``obs`` None, except with ``step_obs`` on the
+    turbo engine's board observation: there ``obs`` is ``observe(state)``,
+    written by the step's own launch on the card.
     """
     if obs not in ("board", "rgb84"):
         raise ValueError(f"unknown observation kind: {obs!r}")
@@ -51,6 +55,8 @@ def env_fns(
     init = functools.partial(mod.init, config=env_config, device=device, **pkw)
     # the flagship step builds no Dict obs here: observe() makes the one asked for
     okw = {"obs_fn": engine.no_obs} if impl == "flagship" else {}
+    if step_obs and impl == "turbo" and obs == "board":
+        okw = {"obs_fn": turbo.observe_board}
     step = functools.partial(mod.step, config=env_config, **rkw, **pkw, **okw)
     observe_fn = engine.render_rgb84 if obs == "rgb84" else mod.observe_board
     observe = functools.partial(observe_fn, config=env_config, **pkw)

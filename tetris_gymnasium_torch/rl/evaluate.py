@@ -93,16 +93,16 @@ def evaluate_policy(
     holds ``iterations``, the number of steps the loop ran.
     """
     cfg = env_config._replace(auto_reset=False)
-    init, step, observe = env_fns(cfg, impl, obs=obs, device=device)
+    init, step, observe = env_fns(cfg, impl, obs=obs, device=device, step_obs=True)
     states = init(batch_keys(key, n_episodes, device=device))
     stack = framestack.init(observe(states), frame_stack) if frame_stack > 1 else None
-    it = 0
+    it, seen = 0, None  # seen: the step's observation of states, where it made one
     while it < max_steps:
         if stack is None:
-            states, *_ = step(states, act(observe(states)))
+            states, seen, *_ = step(states, act(observe(states) if seen is None else seen))
         else:
-            states, _, _, done, _ = step(states, act(stack))
-            stack = framestack.push(stack, observe(states), done)
+            states, seen, _, done, _ = step(states, act(stack))
+            stack = framestack.push(stack, observe(states) if seen is None else seen, done)
         it += 1
         if it % DONE_CHECK_EVERY == 0 and bool(states.game_over.all()):
             break

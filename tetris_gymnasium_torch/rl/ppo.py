@@ -301,9 +301,9 @@ def rollout(ts: TrainState, ppo: PPOConfig, env_step: Callable, observe: Callabl
         for act_key in act_keys:
             logits, value = ts.net(window)
             action, log_prob = sample_actions(logits, act_key)
-            env_states, _, reward, done, _ = env_step(env_states, action)
+            env_states, raw, reward, done, _ = env_step(env_states, action)
             steps.append((window, action, log_prob, value, reward, done))
-            raw = observe(env_states)
+            raw = observe(env_states) if raw is None else raw
             window = raw if ppo.frame_stack == 1 else framestack.push(window, raw, done)
     traj = Transition(*(torch.stack(field) for field in zip(*steps)))
     return traj, env_states, window, key
@@ -411,7 +411,8 @@ def make_train_step(
     has been enqueued (a caller can record CUDA events there).
     """
     # step and observe run where the state lies; the device only binds init
-    _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu")
+    _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu",
+                                   step_obs=True)
     mark = marks or (lambda _name: None)
 
     def train_step(ts: TrainState):

@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Device ms of ``turbo_step`` and ``observe_board`` for the port found
+under ``--repo``, at the main paths' batches:
+
+    python tools/time_turbo_kernels.py [--repo DIR] [--label NAME] [--batches 512,1024,8192,65536]
+
+For each batch B: ``turbo_step`` as the wrapper launches it, without and
+with the observation written in the same launch (where the tree's
+``kernels.turbo_step`` takes ``obs``), each lanes-per-env build of
+``kernels.STEP_LANES`` with and without it, ``observe_board`` alone and
+the least launch the card takes (a CUDA graph of ``torch.cuda._sleep(0)``),
+on mid-game states (40 random steps in, auto-reset on; the evaluation's B =
+512 without it, as ``chip_smoke.py`` phase 6 times them), beside the byte
+bound at 3.35 TB/s.  Then ``flagship_step`` (B = 512), ``grouped_placements``
+(features, B = 1024, no gravity) and ``grouped_flagship`` (features, B =
+4096), whose sources share ``csrc/engine_common.cuh``.  Each time is the
+median over 7 replays of a CUDA graph of 200 launches (50 at 65536).  With
+``--ptxas`` it first builds ``turbo_step`` for the default board and
+``chip_smoke.py``'s wide geometries and prints each build's registers and
+spills.  Prints one JSON line with the card's name and power limit.  To
+compare two trees on one card, unpack the other into a directory that
+``.gitignore`` lists and run both in one call, in turns: A, B, B, A.  Needs
+a card; builds the kernels of ``DIR`` into its own ``build/``.
+"""
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repo", default=HERE)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--batches", default="512,1024,8192,65536")
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_turbo_kernels: needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from chip_smoke import _flagship_actions, _grouped_actions, device_ms, nbytes
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine, turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
+    from tetris_gymnasium_torch.ops import bitboard as bb
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    fused = "obs" in inspect.signature(kernels.turbo_step).parameters
+    lanes_all = getattr(kernels, "STEP_LANES", ())
+    builds = {}
+    if args.ptxas:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from chip_smoke import wide_geometries
+
+        geos = [("10x20", EngineConfig(), turbo.PIECES)] + list(wide_geometries())
+        jobs = {}  # one build a set of defines (30x20 with and without gravity share one)
+        for name, cfg, P in geos:
+            defines = kernels.engine_defines(cfg, bb.turbo_tables(P))
+            if defines not in jobs.values():
+                jobs[name] = defines
+        jobs = list(jobs.items())
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            facts = list(pool.map(lambda job: kernels._compile("turbo_step", job[1]), jobs))
+        builds = {name: {"seconds": f["seconds"], "extra_flags": f.get("extra_flags"),
+                         "ptxas": [l.strip() for l in f["ptxas"].splitlines()
+                                   if "registers" in l or "spill" in l or "Compiling" in l]}
+                  for (name, _), f in zip(jobs, facts)}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rw = RewardsMapping()
+    out = {}
+
+    def floor():
+        torch.cuda._sleep(0)
+
+    out["launch_floor_ms"] = device_ms(floor, 200)
+    for B in (int(b) for b in args.batches.split(",")):
+        cfg = EngineConfig(auto_reset=B != 512)
+        n = 50 if B >= 65536 else 200
+        s = kernels.turbo_init(batch_keys(prng_key(1), B, device=dev), cfg, turbo.PIECES)
+        for _ in range(40):
+            a = torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32)
+            s = kernels.turbo_step(s, a, cfg, turbo.PIECES, rw)[0]
+        a = torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32)
+        obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+        step_bytes = 2 * nbytes(*(getattr(s, k) for k in turbo.FIELDS)) + nbytes(a) + B * 9
+        obs_bytes = B * cfg.height * cfg.width
+        row = {"turbo_step": device_ms(lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, rw), n),
+               "observe_board": device_ms(lambda: kernels.observe_board(s, cfg, turbo.PIECES), n),
+               "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+               "observe_bound_ms": 1e3 * (nbytes(s.rows[: cfg.height], s.piece, s.rotation, s.x,
+                                                 s.y, s.game_over) + obs_bytes) / HBM_BYTES_PER_S,
+               "fused_bound_ms": 1e3 * (step_bytes + obs_bytes) / HBM_BYTES_PER_S}
+        if fused:
+            row["lanes"] = kernels.step_lanes(B, cfg.height * cfg.width)
+            row["turbo_step_obs"] = device_ms(
+                lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, rw, obs=obs), n)
+            for L in lanes_all:
+                row[f"turbo_step_L{L}"] = device_ms(
+                    lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, rw, lanes=L), n)
+                row[f"turbo_step_obs_L{L}"] = device_ms(
+                    lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, rw, obs=obs, lanes=L), n)
+        out[B] = row
+        del s, a, obs
+    P = engine.PIECES
+    fcfg = EngineConfig(auto_reset=True)
+    fs = kernels.flagship_init(batch_keys(prng_key(31), 512, device=dev), fcfg, P)
+    for _ in range(40):
+        fs = kernels.flagship_step(fs, _flagship_actions(512, g, dev), fcfg, P, rw)[0]
+    fa = _flagship_actions(512, g, dev)
+    out["flagship_step@512"] = device_ms(lambda: kernels.flagship_step(fs, fa, fcfg, P, rw), 200)
+    gcfg = EngineConfig(gravity_enabled=False, auto_reset=True)
+    gs, _ = tg.reset(batch_keys(prng_key(1), 1024, device=dev), gcfg, device=dev)
+    for _ in range(20):
+        gs = tg.step(gs, _grouped_actions(gs, g, dev, wild=0.0), gcfg)[0]
+    out["grouped_placements_features@1024"] = device_ms(
+        lambda: kernels.grouped_placements(gs.env, gcfg, turbo.PIECES, 4, "features"), 200)
+    fs4 = kernels.flagship_init(batch_keys(prng_key(32), 4096, device=dev), fcfg, P)
+    for _ in range(40):
+        fs4 = kernels.flagship_step(fs4, _flagship_actions(4096, g, dev), fcfg, P, rw)[0]
+    out["grouped_flagship_features@4096"] = device_ms(
+        lambda: kernels.grouped_flagship(fs4, fcfg, P, "features"), 200)
+    print(json.dumps({"label": args.label, "repo": os.path.abspath(args.repo), "nvidia_smi": smi,
+                      "builds": builds, "ms": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
