@@ -14,7 +14,13 @@ Phases, each printing one JSON line:
    and B = 1) and hand-built boards with up to six full rows: every build of
    ``turbo_step`` (each lanes count of ``kernels.STEP_LANES``, without and
    with the board observation written in the same launch, held to
-   ``observe_board_plain`` of the returned state).
+   ``observe_board_plain`` of the returned state).  Then the sampling builds
+   (PPO's rollout step: the action sampled from logits in the launch, 1 and
+   8 lanes) at B = 8192, 4096, 1001 and 1, 16 steps each under logits
+   scaled x0.1, x3, x30 and exact ties: actions, state, observation,
+   reward, done and lines bit-equal to ``sample_actions_plain`` +
+   ``step_plain`` + ``observe_board_plain``, log-probs within
+   ``LOG_PROB_ULPS`` of the plain one and bit-equal to ``ppo_sample``'s.
 4. ``observe_board`` against its plain version on every state of phase 3.
 5. The main path: the committed PPO policy (``results/ppo_lines_params.npz``,
    bf16 trunk) plays 512 greedy games of at most 2000 steps through
@@ -28,10 +34,12 @@ Phases, each printing one JSON line:
    training's (B = 8192), the grouped training's (B = 1024, gravity off) and
    B = 65536, beside each kernel's byte bound at 3.35 TB/s: ``turbo_step``
    without and with the observation (the wrapper's lanes, and each build).
-7. ``gae`` against ``rl.ppo.gae_plain`` (bit-equal) and ``ppo_sample``
-   against ``rl.ppo.sample_actions_plain`` (uniforms bit-equal, actions
-   equal, log-probs within ``LOG_PROB_TOL``) at the training's shapes and at
-   ragged ones.
+7. ``gae`` against ``rl.ppo.gae_plain`` (bit-equal), both builds (TMA
+   tensor copies where B % 16 == 0, cp.async everywhere) at T = 1, 7, 128, 129,
+   512 and B = 1, 16, 1001, 8192, 65536 with p_done 0, 1/200 and 1, and
+   ``ppo_sample`` against ``rl.ppo.sample_actions_plain`` (uniforms
+   bit-equal, actions equal, log-probs within ``LOG_PROB_ULPS``) at the
+   training's shapes and at ragged ones.
 8. A small fp32 PPO train step (64 envs, 8 steps, 2 epochs of 2
    minibatches, the committed weights) on the card against the same step on
    the CPU: rollouts bit-equal, each parameter leaf's change within
@@ -39,8 +47,9 @@ Phases, each printing one JSON line:
 9. The training path: ``examples/train_ppo.py``'s code warm-starts from the
    committed weights at 8192 envs x 128 steps, 6 epochs of 8 minibatches,
    bf16 trunk, lr 4e-5, ent-coef 0.004, for 3 train steps; every kernel's
-   launch count is read (the rollout's observations from ``turbo_step``'s
-   own launches), the metrics must be finite and the weights must
+   launch count is read (each rollout step one ``turbo_step`` launch that
+   samples the action, steps and writes the observation; ``ppo_sample``
+   0), the metrics must be finite and the weights must
    move, and 512 greedy games of the trained weights must still clear 9.5
    lines each.  On the first minibatch of one more rollout, the training
    update must lower that minibatch's loss, and the clipped surrogate must
@@ -48,8 +57,14 @@ Phases, each printing one JSON line:
    the gradient).  The train step's time is split into rollout, GAE and update
    with CUDA events, and one minibatch's into gather, forward, backward and
    optimizer.
-10. ``gae`` and ``ppo_sample`` times at B = 8192 and 65536 beside their
-    bounds.
+10. Times at B = 2048, 8192 and 65536 beside their bounds and the launch
+    floor: ``gae`` (T = 128, the wrapper's build and both), ``ppo_sample``,
+    the sampling step (the wrapper's lanes and both) and the two launches
+    it replaces (``ppo_sample``, then ``turbo_step`` with the observation).
+    ``gae`` and the sampling step are timed twice: on inputs the previous
+    launch left in the L2, and on inputs read from HBM (``cold_ms``: a read
+    of 128 MiB before each launch, its own time taken off), as the path
+    gives them after the policy's forward pass.
 
 11. ``grouped_placements`` against its plain versions, features and boards,
     bit for bit: random-placement grouped trajectories (one action in ten
@@ -195,7 +210,8 @@ Phases, each printing one JSON line:
     ``flagship_observe_board`` bit-equal to their plain versions on 300-step
     trajectories at B = 4096, 1001 and 1, on hand-built stacks with up to
     six full rows, and on drops that clear rows whose gaps straddle the word
-    boundary (columns 0, 12, 14, 26; one and two rows) at 30x20.
+    boundary (columns 0, 12, 14, 26; one and two rows) at 30x20; the
+    sampling builds of ``turbo_step`` as in phase 3 at every geometry.
 32. The turbo engine equal to the flagship engine at 30x20 and 61x12, 120
     steps at 4096 envs.
 33. The slice's path: ``TetrisVectorEnv`` at width 30, height 20 as in
@@ -252,13 +268,15 @@ Phases, each printing one JSON line:
     plain versions.
 
 Then the kernels line (25 kernels; ``turbo_step``'s time is its launch
-with the observation, as the paths take it; each with the launch counts of
+with the observation, as the paths take it, with its sampling builds' and
+``gae``'s builds' times at B = 8192 beside it; each with the launch counts of
 the first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
 else PPO, else the grouped engine, else the shell, else the compat
-rollout; times at the shape of that path; ``heights``, ``fn_observe`` and
-``grayscale_u8_exact``, which no path calls, with 0 launches and their
-times at 30x20 and B = 4096, at B = 65536 and over 2**24 pixels; each with
+rollout; times at the shape of that path; ``heights``, ``fn_observe``,
+``grayscale_u8_exact`` and ``ppo_sample`` (the flagship route's, not
+driven), which no path calls, with 0 launches and their times at 30x20 and
+B = 4096, at B = 65536, over 2**24 pixels and at B = 8192; each with
 its builds, one a geometry, and the six surface kernels with their
 phase-39 times) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
@@ -308,6 +326,10 @@ SMALL_TRAIN_PARAM_TOL = 1e-3
 # 2**-22 absolute plus an ulp of the result; both sides call the same
 # functions, so bit-equality is expected and this bound is what is allowed.
 LOG_PROB_ULPS = 2
+# Phase 7 holds gae's builds at these rollout lengths and batches (ragged
+# ones and the main path's), with p_done 0, 1/200 and 1.
+GAE_CHECK_T = (1, 7, 128, 129, 512)
+GAE_CHECK_B = (1, 16, 1001, 8192, 65536)
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM,
 # 67 TFLOP/s float32 outside the tensor cores, counting an FMA as two, so
 # 33.5e12 32-bit lane operations a second.
@@ -530,6 +552,22 @@ def device_ms(fn, n, replays=7):
     return per[len(per) // 2]
 
 
+L2_FLUSH_BYTES = 128 * 2**20  # over twice the H100's 50 MB L2
+
+
+def cold_device_ms(fn, n, dev):
+    """Device time per call of ``fn`` on inputs read from HBM: a read of
+    ``L2_FLUSH_BYTES`` before each call evicts what the last call left in
+    the L2, and the time of that read alone is taken off."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+    sink = torch.empty((), device=dev)
+
+    def flush():
+        torch.sum(buf, dim=0, out=sink)
+
+    return device_ms(lambda: (flush(), fn()), n) - device_ms(flush, n)
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -624,6 +662,96 @@ def step_variants_diff(s, a, cfg, pieces, rw, max_clear, want, what, want_obs=No
         if with_obs:
             diff("turbo_step", obs, want_obs, f"{tag} obs")
     raise AssertionError(f"{what}: a build differs from the plain step")
+
+
+def sample_variants_diff(s, x, key, cfg, pieces, rw, what) -> tuple:
+    """Both sampling builds of ``turbo_step`` (each lanes count of
+    ``kernels.STEP_LANES``, with the observation; the action sampled in the
+    launch from logits ``x`` and ``key``) on ``s`` against
+    ``sample_actions_plain`` + ``step_plain`` + ``observe_board_plain`` and
+    against the stand-alone ``ppo_sample`` kernel: actions, state,
+    observation, reward, done and lines bit-equal to the plain versions,
+    log-probs bit-equal to ``ppo_sample``'s and within ``LOG_PROB_ULPS``
+    (and 2**-22) of the plain one.  Returns ``(the plain step's state, the
+    launches compared, the largest log-prob error in ulps, whether every
+    log-prob was bit-equal to the plain one)``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.rl import ppo
+
+    B = s.piece.shape[0]
+    pa, plp = ppo.sample_actions_plain(x, key)
+    want = turbo.step_plain(s, pa, cfg, pieces, rw)
+    want_obs = turbo.observe_board_plain(want[0], cfg, pieces)
+    want_all = flat_bytes([getattr(want[0], k) for k in turbo.FIELDS] + list(want[1:])
+                          + [want_obs, pa])
+    ka, klp = kernels.sample_actions(x, key)
+    ulp = torch.nextafter(plp.abs(), torch.full_like(plp, float("inf"))) - plp.abs()
+    tol = 2.0**-22 + LOG_PROB_ULPS * ulp.double()
+    runs, differs, errs = [], [], []
+    for lanes in kernels.STEP_LANES:
+        obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=s.rows.device)
+        got = kernels.turbo_step(s, None, cfg, pieces, rw, obs=obs, lanes=lanes, logits=x,
+                                 act_key=key)
+        parts = [getattr(got[0], k) for k in turbo.FIELDS] + list(got[1:4]) + [obs, got[4]]
+        err = (got[5].double() - plp.double()).abs()
+        differs += [(flat_bytes(parts) != want_all).any(), (got[4] != ka).any(),
+                    (bits(got[5]) != bits(klp)).any(), (err > tol).any()]
+        errs.append(err / ulp.double())
+        runs.append((lanes, got, obs, err))
+    if bool(torch.stack(differs).any()):  # one wait for every build
+        for lanes, got, obs, err in runs:  # diff raises at the first difference
+            tag = f"{what} (sample, lanes {lanes})"
+            diff("turbo_step", got[4], pa, f"{tag} action")
+            diff("ppo_sample", got[4], ka, f"{tag} action against ppo_sample")
+            for k in turbo.FIELDS:
+                diff("turbo_step", getattr(got[0], k), getattr(want[0], k), f"{tag} {k}")
+            for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
+                diff("turbo_step", got[j], want[j], f"{tag} {out}")
+            diff("turbo_step", obs, want_obs, f"{tag} obs")
+            diff("ppo_sample", got[5], klp, f"{tag} log_prob against ppo_sample")
+            if bool((err > tol).any()):
+                raise AssertionError(f"{tag}: log_prob off the plain one by {float(err.max())}")
+        raise AssertionError(f"{what}: a sampling build differs")
+    worst = max(float(e.max()) for e in errs)
+    MAX_ERR["ppo_sample"] = max(MAX_ERR["ppo_sample"], max(float(r[3].max()) for r in runs))
+    return want[0], len(runs), worst, bool(torch.equal(bits(runs[0][1][5]), bits(plp)))
+
+
+SAMPLE_B = (8192, 4096, 1001, 1)
+SAMPLE_STEPS = 16
+SAMPLE_KINDS = (0.1, 3.0, 30.0, "ties")  # logits scaled so, or exact ties (integers 0-2)
+
+
+def check_sample_builds(dev, cfg, pieces, name, seed) -> dict:
+    """Both sampling builds of ``turbo_step`` (:func:`sample_variants_diff`)
+    at ``SAMPLE_B`` along ``SAMPLE_STEPS`` steps of the plain composition,
+    the logits of each step one of ``SAMPLE_KINDS`` in turn, the key drawn
+    from ``seed``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import RewardsMapping
+    from tetris_gymnasium_torch.ops.threefry import fold_in, prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n = worst = 0
+    lp_bit_equal = True
+    for B in SAMPLE_B:
+        s = kernels.turbo_init(batch_keys(prng_key(seed + B), B, device=dev), cfg, pieces)
+        for i in range(SAMPLE_STEPS):
+            kind = SAMPLE_KINDS[i % len(SAMPLE_KINDS)]
+            if kind == "ties":
+                x = torch.randint(0, 3, (B, 8), generator=g, device=dev).float()
+            else:
+                x = torch.randn((B, 8), generator=g, device=dev) * kind
+            key = fold_in(prng_key(seed), B * SAMPLE_STEPS + i)
+            s, k, w, eq = sample_variants_diff(s, x, key, cfg, pieces, RewardsMapping(),
+                                               f"{name} B={B} step {i} logits {kind}")
+            n, worst, lp_bit_equal = n + k, max(worst, w), lp_bit_equal and eq
+    return {"geometry": name, "B": list(SAMPLE_B), "steps": SAMPLE_STEPS,
+            "sample_builds_compared": n, "log_prob_max_ulps": worst,
+            "log_prob_bit_equal_plain": lp_bit_equal}
 
 
 def main() -> None:
@@ -754,9 +882,11 @@ def main() -> None:
                 raise AssertionError("no 5-full-row drop ended its game under max_clear=4")
         elif int(kl.max()) < 5:
             raise AssertionError("max_clear=20 cleared no 5-row stack")
+    # the sampling builds: PPO's rollout step, the action sampled in the launch
+    sampled = check_sample_builds(dev, EngineConfig(auto_reset=True), turbo.PIECES, "10x20", 3)
     torch.cuda.synchronize()
     emit({"phase": "turbo_step", "bit_equal": True, "max_abs_err": MAX_ERR, "runs": summary,
-          "surgery": surgery, "lanes": list(kernels.STEP_LANES),
+          "surgery": surgery, "lanes": list(kernels.STEP_LANES), "sample": sampled,
           "comparisons": checked["turbo_step"],
           "init_comparisons": checked["turbo_init"], "seconds": time.perf_counter() - t0})
     emit({"phase": "observe_board", "bit_equal": True, "comparisons": checked["observe_board"]})
@@ -1027,12 +1157,25 @@ def main() -> None:
              ("fn_rollout", fn_path["launches"], fn_path["steps"],
               {k: fn_times[k][FN_PATH_B] for k in ("fn_reset", "fn_step")}),
              # heights, fn_observe (fn_step and fn_reset write their own
-             # observations) and grayscale_u8_exact: no path calls them;
-             # heights' time is at 30x20, B = 4096, fn_observe's at B =
-             # 65536, grayscale_u8_exact's over 2**24 pixels, their launches 0
+             # observations), grayscale_u8_exact and ppo_sample (the turbo
+             # engine's PPO rollout samples in turbo_step's launch; the
+             # flagship route, which launches it, is not driven here): no
+             # path calls them; heights' time is at 30x20, B = 4096,
+             # fn_observe's at B = 65536, grayscale_u8_exact's over 2**24
+             # pixels, ppo_sample's at the training's B = 8192, their launches 0
              ("none", {k: 0 for k in kernels.LAUNCHES}, 1,
               {"heights": wide_times["30x20"]["heights"][4096], "fn_observe": fn_times["fn_observe"][FN_PATH_B],
-               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL]})]
+               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL],
+               "ppo_sample": ppo_times[TRAIN_ENVS]["ppo_sample"]})]
+    # the builds inside a library: turbo_step's lanes, observation and
+    # sample; gae's two copy schemes (times at the training's B = 8192)
+    variants = {
+        "turbo_step": {
+            **{f"lanes{L}{tag}": None for L in kernels.STEP_LANES for tag in ("", "+obs")},
+            **{f"lanes{L}+obs+sample": ppo_times[TRAIN_ENVS][f"sample_step_lanes{L}"]["ms"]
+               for L in kernels.STEP_LANES}},
+        "gae": {b: ppo_times[TRAIN_ENVS][f"gae_{b}"]["ms"] for b in kernels.GAE_BUILDS},
+    }
     # each kernel's builds (phase 2: one library per geometry for the
     # sources of kernels.GEOMETRY_SOURCES and features.cu), and the surface
     # kernels' times at 30x20 and 61x12 (phase 39)
@@ -1058,7 +1201,10 @@ def main() -> None:
             "library_ms": at[name].get("library_ms"), "launch_floor_ms": floor_ms,
             "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
             **({"wide": wide_at[name]} if name in wide_at else {}),
+            **({"variants_ms_at_8192": variants[name]} if name in variants else {}),
         })
+        if name == "turbo_step":  # its sampling build on the PPO path (phase 9)
+            entries[-1]["launches_sample_ppo_train"] = train["launches"]["turbo_step_sample"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1074,18 +1220,23 @@ def check_ppo_kernels(dev) -> None:
     g.manual_seed(7)
     t0 = time.perf_counter()
     gae_runs = []
-    for T, B, p_done in ((TRAIN_T, TRAIN_ENVS, 1 / 200), (TRAIN_T, TRAIN_ENVS, 0.0),
-                         (TRAIN_T, TRAIN_ENVS, 1.0), (TRAIN_T, 1, 1 / 200), (TRAIN_T, 1000, 0.3),
-                         (5, 8191, 1 / 200)):
+    shapes = [(T, B, p) for T in GAE_CHECK_T for B in GAE_CHECK_B for p in (0.0, 1 / 200, 1.0)]
+    for T, B, p_done in shapes + [(TRAIN_T, 1000, 0.3), (5, 8191, 1 / 200)]:
         reward = torch.randn((T, B), generator=g, device=dev)
         value = torch.randn((T, B), generator=g, device=dev) * 10
         done = torch.rand((T, B), generator=g, device=dev) < p_done
         last = torch.randn((B,), generator=g, device=dev) * 10
-        got = kernels.gae(reward, value, done, last, 0.999, 0.95)
         want = ppo.gae_plain(reward, value, done, last, 0.999, 0.95)
-        diff("gae", got[0], want[0], f"gae advantages T={T} B={B} p_done={p_done}")
-        diff("gae", got[1], want[1], f"gae targets T={T} B={B} p_done={p_done}")
-        gae_runs.append({"T": T, "B": B, "dones": int(done.sum())})
+        taken = kernels.gae_build(B, reward, value, done, reward, value)
+        if taken != ("tma" if B % 16 == 0 else "cp_async"):
+            raise AssertionError(f"gae takes the {taken} build at B = {B}")
+        # both builds where every row lies on 16 bytes, the cp.async build elsewhere
+        for build in kernels.GAE_BUILDS if taken == "tma" else ("cp_async",):
+            got = kernels.gae(reward, value, done, last, 0.999, 0.95, build=build)
+            what = f"gae ({build}) T={T} B={B} p_done={p_done}"
+            diff("gae", got[0], want[0], f"{what} advantages")
+            diff("gae", got[1], want[1], f"{what} targets")
+            gae_runs.append({"T": T, "B": B, "p_done": p_done, "build": build})
 
     sample_runs = []
     worst_ulps = 0
@@ -1116,7 +1267,9 @@ def check_ppo_kernels(dev) -> None:
                 lp_bit_equal &= torch.equal(bits(lp), bits(plp))
         sample_runs.append({"B": B, "keys": n_keys})
     torch.cuda.synchronize()
-    emit({"phase": "ppo_kernels", "gae_bit_equal": True, "gae_runs": gae_runs,
+    emit({"phase": "ppo_kernels", "gae_bit_equal": True, "gae_runs": len(gae_runs),
+          "gae_shapes": {b: sorted({(r["T"], r["B"]) for r in gae_runs if r["build"] == b})
+                         for b in kernels.GAE_BUILDS},
           "sample_uniforms_bit_equal": True, "sample_actions_equal": True,
           "sample_log_prob_bit_equal": lp_bit_equal, "sample_log_prob_max_ulps": worst_ulps,
           "sample_runs": sample_runs, "max_abs_err": {k: MAX_ERR[k] for k in ("gae", "ppo_sample")},
@@ -1130,7 +1283,6 @@ def check_small_train_step() -> None:
     from tetris_gymnasium_torch.models.networks import ActorCriticCNN
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.rl import ppo
-    from tetris_gymnasium_torch.rl.engines import env_fns
     from tetris_gymnasium_torch.utils.checkpoint import load_flat
 
     t0 = time.perf_counter()
@@ -1143,8 +1295,7 @@ def check_small_train_step() -> None:
             ts = ppo.init_train_state(prng_key(0), 64, env_config, cfg,
                                       net=ActorCriticCNN(dtype=torch.float32), device=where,
                                       params=start)
-            _, env_step, observe = env_fns(env_config, device=where)
-            traj = ppo.rollout(ts, cfg, env_step, observe)[0]
+            traj = ppo.rollout(ts, cfg, ppo.sample_step_fn(env_config))[0]
             ts, metrics = ppo.make_train_step(env_config, cfg)(ts)
             out[where] = (traj, to_flax_params(ts.net.state_dict()),
                           {k: float(v) for k, v in metrics.items()})
@@ -1168,7 +1319,6 @@ def train_full_width(dev, smi) -> dict:
     from tetris_gymnasium_torch.models.convert import to_flax_params
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.rl import ppo
-    from tetris_gymnasium_torch.rl.engines import env_fns
     from tetris_gymnasium_torch.rl.evaluate import evaluate_policy, greedy_logits
     from tetris_gymnasium_torch.utils.checkpoint import load_flat
 
@@ -1187,9 +1337,11 @@ def train_full_width(dev, smi) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    # each rollout step one turbo_step launch that samples, steps and
+    # observes; ppo_sample runs on the flagship route only
     want = {**{k: 0 for k in launches}, "turbo_init": 1, "turbo_step": TRAIN_STEPS * TRAIN_T,
-            "turbo_step_obs": TRAIN_STEPS * TRAIN_T, "observe_board": 1, "gae": TRAIN_STEPS,
-            "ppo_sample": TRAIN_STEPS * TRAIN_T}
+            "turbo_step_obs": TRAIN_STEPS * TRAIN_T, "turbo_step_sample": TRAIN_STEPS * TRAIN_T,
+            "observe_board": 1, "gae": TRAIN_STEPS, "ppo_sample": 0}
     if launches != want:
         raise AssertionError(f"training launch counts {launches}, want {want}")
 
@@ -1234,8 +1386,8 @@ def train_full_width(dev, smi) -> dict:
     # overshoots this near-deterministic policy; it is reported at lr and
     # lr / 10, not gated.
     cfg = ppo.PPOConfig(rollout_len=TRAIN_T, ent_coef=0.004, learning_rate=4e-5)
-    _, env_step, observe = env_fns(EngineConfig(auto_reset=True), device=dev)
-    traj, _, last_obs, key = ppo.rollout(ts, cfg, env_step, observe)
+    sample_step = ppo.sample_step_fn(EngineConfig(auto_reset=True))
+    traj, _, last_obs, key = ppo.rollout(ts, cfg, sample_step)
     with torch.no_grad():
         _, last_value = ts.net(last_obs)
     adv, tgt = ppo.gae(cfg, traj, last_value)
@@ -1317,16 +1469,29 @@ def train_full_width(dev, smi) -> dict:
     return {"launches": launches, "steps": steps}
 
 
+PPO_TIME_B = (2048, TRAIN_ENVS, 65536)  # the JAX example's --n-envs, the training's, the largest
+
+
 def time_ppo_kernels(dev, smi) -> dict:
-    """Phase 10: ``gae`` and ``ppo_sample`` device times beside their bounds."""
+    """Phase 10: device times beside their bounds and the launch floor of
+    ``gae`` (as the wrapper takes it and each build, T = 128), ``ppo_sample``,
+    PPO's sampling step (``turbo_step`` sampling, stepping and observing in
+    one launch, as the wrapper takes it and each lanes build) and the two
+    launches it replaces (``ppo_sample``, then ``turbo_step`` with the
+    observation, in one graph)."""
     from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import turbo
     from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
     from tetris_gymnasium_torch.rl import ppo
 
     g = torch.Generator(device=dev)
     g.manual_seed(3)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
+    cfg, rw = EngineConfig(auto_reset=True), RewardsMapping()
     out = {}
-    for B in (TRAIN_ENVS, 65536):
+    for B in PPO_TIME_B:
         T = TRAIN_T
         reward = torch.randn((T, B), generator=g, device=dev)
         value = torch.randn((T, B), generator=g, device=dev)
@@ -1334,27 +1499,66 @@ def time_ppo_kernels(dev, smi) -> dict:
         last = torch.randn((B,), generator=g, device=dev)
         logits = torch.randn((B, 8), generator=g, device=dev) * 3
         key = prng_key(5)
+        s = kernels.turbo_init(batch_keys(prng_key(1), B, device=dev), cfg, turbo.PIECES)
+        for _ in range(40):  # a state in mid-game
+            a = torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32)
+            s = kernels.turbo_step(s, a, cfg, turbo.PIECES, rw)[0]
+        obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+        step_io = (2 * nbytes(*(getattr(s, k) for k in turbo.FIELDS)) + B * (4 + 1 + 4)
+                   + nbytes(obs))
+        gae_io = nbytes(reward, value, done, last) + 2 * nbytes(reward)
+        sample_io = nbytes(logits) + B * (4 + 4)
+
+        def gae_fn(build=None):
+            return lambda: kernels.gae(reward, value, done, last, 0.999, 0.95, build=build)
+
+        def sample_step(lanes=None):
+            return lambda: kernels.turbo_step(s, None, cfg, turbo.PIECES, rw, obs=obs, lanes=lanes,
+                                              logits=logits, act_key=key)
+
+        def sample_step_plain():
+            pa, _ = ppo.sample_actions_plain(logits, key)
+            return turbo.observe_board_plain(turbo.step_plain(s, pa, cfg)[0], cfg)
+
+        gae_plain = lambda: ppo.gae_plain(reward, value, done, last, 0.999, 0.95)  # noqa: E731
+        sample_plain = lambda: ppo.sample_actions_plain(logits, key)  # noqa: E731
         fns = {
-            "gae": (lambda: kernels.gae(reward, value, done, last, 0.999, 0.95),
-                    lambda: ppo.gae_plain(reward, value, done, last, 0.999, 0.95),
-                    nbytes(reward, value, done, last) + 2 * nbytes(reward),
-                    GAE_OPS_PER_ELEMENT * T * B),
-            "ppo_sample": (lambda: kernels.sample_actions(logits, key),
-                           lambda: ppo.sample_actions_plain(logits, key),
-                           nbytes(logits) + B * (4 + 4), SAMPLE_OPS_PER_ELEMENT * B * 8),
+            "gae": (gae_fn(), gae_plain, gae_io, GAE_OPS_PER_ELEMENT * T * B),
+            "ppo_sample": (lambda: kernels.sample_actions(logits, key), sample_plain, sample_io,
+                           SAMPLE_OPS_PER_ELEMENT * B * 8),
+            "sample_step": (sample_step(), sample_step_plain, step_io + sample_io,
+                            SAMPLE_OPS_PER_ELEMENT * B * 8),
+            # the same work as the sampling step in two launches
+            "ppo_sample_then_turbo_step_obs": (
+                lambda: kernels.turbo_step(s, kernels.sample_actions(logits, key)[0], cfg,
+                                           turbo.PIECES, rw, obs=obs),
+                None, step_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
         }
+        for build in kernels.GAE_BUILDS:
+            fns[f"gae_{build}"] = (gae_fn(build), None, gae_io, GAE_OPS_PER_ELEMENT * T * B)
+        for lanes in kernels.STEP_LANES:
+            fns[f"sample_step_lanes{lanes}"] = (sample_step(lanes), None, step_io + sample_io,
+                                                SAMPLE_OPS_PER_ELEMENT * B * 8)
         out[B] = {}
         for name, (kernel_fn, plain_fn, io, ops) in fns.items():
             bytes_ms, ops_ms = 1e3 * io / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
+            n_plain = 3 if name.startswith("gae") else 10
             out[B][name] = {
                 "ms": device_ms(kernel_fn, 100),
-                "plain_ms": device_ms(plain_fn, 3 if name == "gae" else 10),
+                "plain_ms": device_ms(plain_fn, n_plain) if plain_fn is not None else None,
                 "call_ms": call_ms(kernel_fn, 100),
                 "bytes": io, "operations": ops, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "launch_floor_ms": floor_ms,
             }
-        emit({"phase": "ppo_times", "B": B, "T": TRAIN_T, "kernels": out[B], "nvidia_smi": smi})
+            if name.startswith(("gae", "sample_step", "ppo_sample_then")):
+                out[B][name]["cold_ms"] = cold_device_ms(kernel_fn, 100, dev)
+        out[B]["gae"]["build"] = kernels.gae_build(B, reward, value, done, reward, value)
+        out[B]["sample_step"]["lanes"] = kernels.step_lanes(B, cfg.height * cfg.width)
+        emit({"phase": "ppo_times", "B": B, "T": TRAIN_T, "kernels": out[B],
+              "launch_floor_ms": floor_ms, "nvidia_smi": smi})
+        del reward, value, done, s, obs
     return out
 
 
@@ -3542,10 +3746,12 @@ def check_wide_kernels(dev) -> dict:
         stack_lines["flagship"] = int(pf1[3].max())
         if stack_lines["flagship"] < 5:
             raise AssertionError(f"{name}: no hand-built stack cleared five rows at once")
+        sampled = check_sample_builds(dev, cfg, P, name, 311)
         runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
                      "piece_side": int(P.matrices.shape[-1]), "steps": WIDE_STEPS, "B": list(WIDE_B),
                      "episodes_ended": n_done, "lines": n_lines, "flagship_lines": n_flines,
-                     "stacks_max_lines": stack_lines, "turbo_step_builds_compared": n_variants})
+                     "stacks_max_lines": stack_lines, "turbo_step_builds_compared": n_variants,
+                     "sample": sampled})
         emit({"phase": "wide_kernels", **runs[-1], "seconds": time.perf_counter() - t0})
     # drops into gaps that straddle the word boundary, on both engines
     cfg = EngineConfig(width=30, height=20)

@@ -441,7 +441,6 @@ def test_ppo_flagship_rollout_equals_turbo():
     same small PPO rollout, on the flagship and the turbo engine."""
     from tetris_gymnasium_torch.models.networks import ActorCriticCNN
     from tetris_gymnasium_torch.rl import ppo
-    from tetris_gymnasium_torch.rl.engines import env_fns
 
     config = EngineConfig(auto_reset=True)
     cfg = ppo.PPOConfig(rollout_len=6, update_epochs=1, n_minibatches=2)
@@ -449,8 +448,8 @@ def test_ppo_flagship_rollout_equals_turbo():
     for impl in ("turbo", "flagship"):
         ts = ppo.init_train_state(threefry.prng_key(0), 8, config, cfg,
                                   net=ActorCriticCNN(dtype=torch.float32), impl=impl, device=CPU)
-        _, step, observe = env_fns(config, impl, device=CPU)
-        out[impl] = (ts.last_obs, ppo.rollout(ts, cfg, step, observe))
+        # the turbo engine samples in its step's call, the flagship engine apart
+        out[impl] = (ts.last_obs, ppo.rollout(ts, cfg, ppo.sample_step_fn(config, impl)))
     (obs_t, (traj_t, _, last_t, key_t)), (obs_f, (traj_f, _, last_f, key_f)) = out["turbo"], out["flagship"]
     assert torch.equal(obs_t, obs_f) and torch.equal(last_t, last_f)
     np.testing.assert_array_equal(key_t, key_f)

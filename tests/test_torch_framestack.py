@@ -35,7 +35,6 @@ from tetris_gymnasium_torch.models.convert import to_flax_params
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN
 from tetris_gymnasium_torch.ops import framestack
 from tetris_gymnasium_torch.rl import buffers, ppo
-from tetris_gymnasium_torch.rl.engines import env_fns
 
 
 def _flat(params):
@@ -191,8 +190,7 @@ def test_ppo_frame_stack_step_matches_jax(jax_ppo):
                               device="cpu", params=p0)
     assert ts.last_obs.shape == (N_ENVS, 2, 8, 6)
     np.testing.assert_array_equal(ts.last_obs.numpy(), np.asarray(jax_ppo["ts"].last_obs))
-    _, env_step, observe = env_fns(config, device="cpu")
-    traj = ppo.rollout(ts, cfg, env_step, observe)[0]
+    traj = ppo.rollout(ts, cfg, ppo.sample_step_fn(config))[0]
     want = jax_ppo["traj"]
     assert want["done"].any()  # a window restarts inside the rollout
     for k in ("obs", "action", "reward", "done"):

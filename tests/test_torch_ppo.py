@@ -45,7 +45,6 @@ from tetris_gymnasium_torch.models.init import init_actor_critic_
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN
 from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.rl import ppo
-from tetris_gymnasium_torch.rl.engines import env_fns
 from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic, load_flat, save_actor_critic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -236,8 +235,9 @@ def test_train_step_matches_jax(jax_run):
     np.testing.assert_array_equal(ts.key, np.asarray(jts.key))
     np.testing.assert_array_equal(ts.last_obs.numpy(), np.asarray(jts.last_obs))
     cfg = ppo.PPOConfig(**SMALL)
-    _, env_step, observe = env_fns(EngineConfig(auto_reset=True), device="cpu")
-    traj, _, _, _ = ppo.rollout(ts, cfg, env_step, observe)
+    sample_step = ppo.sample_step_fn(EngineConfig(auto_reset=True))
+    assert sample_step.func is ppo.turbo_sample_step  # the turbo engine's one-call route
+    traj, _, _, _ = ppo.rollout(ts, cfg, sample_step)
     want = jax_run["traj"]
     for k in ("obs", "action", "reward", "done"):
         got = getattr(traj, k).numpy()

@@ -8,10 +8,11 @@ launch on the card; on CPU tensors it runs ``step_plain`` and then
   reward, done, lines), from numpy-seeded keys and actions at 10x20, 30x20,
   61x12 and the 6x6 pieces at widths 10 and 30, with and without
   auto-reset and gravity;
-* the PPO rollout, the greedy evaluation and the DQN step, which take the
-  observation from the step (``env_fns(..., step_obs=True)``), against the
-  same code taking it from a second call, and their env part against JAX,
-  whose rollout steps and then observes (``rl/ppo.py:188-189``);
+* the PPO rollout, which samples, steps and observes in one call
+  (``ppo.turbo_sample_step``), the greedy evaluation and the DQN step,
+  which take the observation from the step (``env_fns(..., step_obs=True)``),
+  against the same code taking them from separate calls, and their env part
+  against JAX, whose rollout steps and then observes (``rl/ppo.py:188-189``);
 * the wrapper's choice of lanes an env and its checks of the ``obs``
   tensor.
 
@@ -158,6 +159,12 @@ def _two_call(monkeypatch, module):
                         lambda *a, **kw: engines.env_fns(*a, **{**kw, "step_obs": False}))
 
 
+def _three_calls(config):
+    """PPO's rollout step that samples, steps and observes in three calls."""
+    _, env_step, observe = engines.env_fns(config, device=CPU, step_obs=False)
+    return ppo.composed_sample_step(env_step, observe)
+
+
 def _small_ppo_state(K):
     cfg = ppo.PPOConfig(rollout_len=6, update_epochs=1, n_minibatches=1, frame_stack=K)
     net = ActorCriticCNN(in_channels=K, dtype=torch.float32)
@@ -167,16 +174,15 @@ def _small_ppo_state(K):
 
 @pytest.mark.parametrize("K", [1, 4])
 def test_ppo_rollout_fused_equals_two_call_and_jax(K, monkeypatch):
-    """The rollout with the step's observation equals the rollout that
-    observes after the step, field for field, and its observations, rewards
-    and dones equal JAX's ``env_step`` then ``observe`` on its actions."""
+    """The rollout that samples, steps and observes in one call (the
+    sampling step) equals the rollout that samples, steps and observes in
+    three, field for field, and its observations, rewards and dones equal
+    JAX's ``env_step`` then ``observe`` on its actions."""
     config = EngineConfig(auto_reset=True)
     cfg, ts = _small_ppo_state(K)
     start = ts.env_states
-    runs = {}
-    for form, step_obs in (("fused", True), ("two_call", False)):
-        _, env_step, observe = engines.env_fns(config, device=CPU, step_obs=step_obs)
-        runs[form] = ppo.rollout(ts, cfg, env_step, observe)
+    runs = {"fused": ppo.rollout(ts, cfg, ppo.sample_step_fn(config)),
+            "two_call": ppo.rollout(ts, cfg, _three_calls(config))}
     (traj, states, last, key), (traj2, states2, last2, key2) = runs["fused"], runs["two_call"]
     for k in ppo.Transition._fields:
         assert torch.equal(getattr(traj, k), getattr(traj2, k)), k
@@ -198,7 +204,7 @@ def test_ppo_rollout_fused_equals_two_call_and_jax(K, monkeypatch):
         np.testing.assert_array_equal(traj.reward[t].numpy(), np.asarray(jr))
         np.testing.assert_array_equal(traj.done[t].numpy(), np.asarray(jd))
 
-    _two_call(monkeypatch, ppo)
+    monkeypatch.setattr(ppo, "sample_step_fn", lambda env_config, *a, **kw: _three_calls(env_config))
     ts_a, m_a = ppo.make_train_step(config, cfg)(_small_ppo_state(K)[1])
     monkeypatch.undo()
     ts_b, m_b = ppo.make_train_step(config, cfg)(_small_ppo_state(K)[1])

@@ -55,16 +55,43 @@
 // into the block's frames in shared memory, and the block stores its frames,
 // contiguous in the output, with 16-byte words (observe_board.cu's staging).
 //
+// With the sample (PPO's rollout on this engine: kSample, built only with
+// the observation, at L = 1 and 8), the launch also takes the tail of
+// tetris_gymnasium_tpu/rl/ppo.py:policy_step (:184-187) that ppo_sample.cu
+// runs on its own: it reads the policy's logits f32[B, 8] and the step's
+// key, draws JAX's Gumbel noise (threefry.cuh, counter b*8 + a), takes the
+// argmax of noise + logits (the lower index on a tie) and the log-prob
+// (x_a - m) - logf(sum exp(x - m)), the sum in the butterfly's order
+// ((e0+e4)+(e2+e6)) + ((e1+e5)+(e3+e7)) with _rn adds, writes the action
+// and the log-prob, and steps the env with that action.  At L = 8 lane a of
+// the group is action a and the reductions are shuffles inside the group;
+// at L = 1 one thread draws the eight and repeats each lane's arithmetic of
+// the butterfly, so both builds are bit-equal to ppo_sample.cu.  The logits
+// load and the eight threefry blocks do not depend on the env's state and
+// are issued before its loads; what the chain gains is the reductions and
+// a compare.  It adds 32 bytes of logits read and 8 bytes written an env
+// (641 bytes at 10x20 with the observation: 1.57 us at B = 8192, 0.0125 ms
+// at 65536, at 3.35 TB/s) and 8 threefry blocks (about 800 32-bit
+// operations an env, 0.20 us at 8192 at 33.5e12 a second), so bytes still
+// bound it; it saves ppo_sample's launch, which ran at about two launch
+// floors: on an H100 0.00590 ms at B = 8192 against 0.00750 for
+// ppo_sample and then this kernel with the observation (PERF.md).
+//
 // Registers a thread (-Xptxas -v, CUDA 12.9; L = 8 without / with the
-// observation, then L = 1 without / with it), no spill and no stack frame
-// at any geometry (tools/time_turbo_kernels.py --ptxas): 10x20 56 / 56,
-// 96 / 96; 30x20 64 / 64, 119 / 128; 61x12 72 / 72, 128 / 128; 28x14
-// 64 / 64, 96 / 96; 8x12 56 / 48, 64 / 64; 6x6 pieces at width 10 56 / 48,
-// 80 / 80, at width 30 64 / 64, 128 / 128.
+// observation / with the sample, then L = 1 the same), no spill and no
+// stack frame at any geometry but the one-lane sampling build at 10x20 (an
+// 8-byte frame, 4 bytes spilled) (tools/time_turbo_kernels.py --ptxas):
+// 10x20 56 / 56 / 56, 96 / 96 / 96; 30x20 64 / 64 / 64, 119 / 128 / 128;
+// 61x12 72 / 72 / 72, 128 / 128 / 128; 28x14 64 / 64 / 64, 96 / 96 / 96;
+// 8x12 56 / 48 / 48, 64 / 64 / 72; 6x6 pieces at width 10 56 / 48 / 56,
+// 80 / 80 / 80, at width 30 64 / 64 / 64, 128 / 128 / 118.  The four
+// builds without the sample compile to the SASS they had before it was
+// added (cuobjdump -sass, parameter offsets aside).
 //
 // Geometry is fixed at compile time by the TETRIS_* defines
 // (engine_common.cuh, kernels.py:engine_defines), one library per geometry,
-// each with the four builds (L = 1 or 8, with or without the observation).
+// each with six builds (L = 1 or 8, with or without the observation, and
+// with the observation and the sample).
 // The wrapper writes the new state to new buffers.  The RNG, the
 // draws, the swap and the bit helpers are shared with the flagship engine's
 // kernels (engine_common.cuh, unchanged by the band helpers).
@@ -73,6 +100,7 @@
 #include <cuda_runtime.h>
 
 #include "engine_common.cuh"
+#include "threefry.cuh"
 #include "turbo_band.cuh"
 
 using namespace engine;
@@ -96,6 +124,14 @@ struct StatePtrs {
   float* score;            // [B]
   int32_t* lines;          // [B]
   int32_t* steps;          // [B]
+};
+
+// PPO's sampling tail in the step's launch (kSample).
+struct SampleArgs {
+  const float* logits;  // [B, 8]
+  int32_t* action;      // [B], the sampled action
+  float* log_prob;      // [B], its log-prob
+  uint32_t k0, k1;      // the step's key
 };
 
 struct StepParams {
@@ -243,16 +279,117 @@ __device__ __forceinline__ float step_env(Env& e, Rows_& rows, int a, const Step
   return reward;
 }
 
+constexpr int kActions = 8;
+
+// The sample's first half, which needs nothing of the env's state: lane
+// `lane`'s logit x and noise + logit (L = 8), or all eight (L = 1).
+template <int L>
+struct Draw {
+  static constexpr int N = L == 1 ? kActions : 1;  // actions a thread draws
+  float x[N];
+  float best[N];
+};
+
+template <int L>
+__device__ __forceinline__ void sample_draw(Draw<L>& d, const SampleArgs& s, int b, int lane) {
+#pragma unroll
+  for (int i = 0; i < Draw<L>::N; ++i) {
+    const int a = L == 1 ? i : lane;
+    const uint32_t c = static_cast<uint32_t>(b * kActions + a);  // B * 8 < 2**31 (kernels.py)
+    d.x[i] = s.logits[b * kActions + a];
+    d.best[i] = __fadd_rn(tf::gumbel(tf::gumbel_uniform(tf::bits(s.k0, s.k1, 0u, c))), d.x[i]);
+  }
+}
+
+// The second half: the argmax, the max and the log-sum-exp in
+// ppo_sample.cu's butterfly (lanes a and a^1, a^2, a^4 for the argmax and
+// the max; a^4, a^2, a^1 for the sum), the result of the group's lane 0.
+// Every lane of a group returns the same action; log_prob is lane 0's.
+template <int L>
+__device__ __forceinline__ int sample_reduce(const Draw<L>& d, int lane, unsigned mask,
+                                             float& log_prob) {
+  if constexpr (L == 1) {
+    float best[kActions], m[kActions], sum[kActions];
+    int arg[kActions];
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) {
+      best[a] = d.best[a];
+      arg[a] = a;
+      m[a] = d.x[a];
+    }
+#pragma unroll
+    for (int off = 1; off < kActions; off <<= 1) {
+      float nb[kActions], nm[kActions];
+      int na[kActions];
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) {
+        const int o = a ^ off;
+        const bool take = best[o] > best[a] || (best[o] == best[a] && arg[o] < arg[a]);
+        nb[a] = take ? best[o] : best[a];
+        na[a] = take ? arg[o] : arg[a];
+        nm[a] = fmaxf(m[a], m[o]);
+      }
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) {
+        best[a] = nb[a];
+        arg[a] = na[a];
+        m[a] = nm[a];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) sum[a] = expf(__fsub_rn(d.x[a], m[a]));
+#pragma unroll
+    for (int off = kActions / 2; off >= 1; off >>= 1) {
+      float ns[kActions];
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) ns[a] = __fadd_rn(sum[a], sum[a ^ off]);
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) sum[a] = ns[a];
+    }
+    float x_arg = d.x[0];
+#pragma unroll
+    for (int a = 1; a < kActions; ++a) x_arg = arg[0] == a ? d.x[a] : x_arg;
+    log_prob = __fsub_rn(__fsub_rn(x_arg, m[0]), logf(sum[0]));
+    return arg[0];
+  } else {
+    static_assert(L == kActions, "a lane an action");
+    const float x = d.x[0];
+    float best = d.best[0];
+    int arg = lane;
+    float m = x;
+#pragma unroll
+    for (int off = 1; off < kActions; off <<= 1) {
+      const float ov = __shfl_xor_sync(mask, best, off, L);
+      const int oa = __shfl_xor_sync(mask, arg, off, L);
+      if (ov > best || (ov == best && oa < arg)) {
+        best = ov;
+        arg = oa;
+      }
+      m = fmaxf(m, __shfl_xor_sync(mask, m, off, L));
+    }
+    float sum = expf(__fsub_rn(x, m));
+    sum = __fadd_rn(sum, __shfl_xor_sync(mask, sum, 4, L));
+    sum = __fadd_rn(sum, __shfl_xor_sync(mask, sum, 2, L));
+    sum = __fadd_rn(sum, __shfl_xor_sync(mask, sum, 1, L));
+    arg = __shfl_sync(mask, arg, 0, L);  // lane 0's, so that the group steps one action
+    const float x_arg = __shfl_sync(mask, x, arg, L);
+    log_prob = __fsub_rn(__fsub_rn(x_arg, m), logf(sum));
+    return arg;
+  }
+}
+
 // L lanes an env (kThreads / L envs a block); with kObs the observation of
 // the stored state is written to obs int8[B, HEIGHT, WIDTH], staged in the
 // block's dynamic shared memory (kThreads / L frames) and stored with
-// 16-byte words.
-template <int L, bool kObs>
+// 16-byte words; with kSample (and kObs) the action is sampled from the
+// logits of `smp` and written there with its log-prob.
+template <int L, bool kObs, bool kSample = false>
 __global__ void __launch_bounds__(kThreads) turbo_step_kernel(
     StatePtrs in, StatePtrs out, const int32_t* __restrict__ action, float* __restrict__ reward_out,
     uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
     const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
-    int8_t* __restrict__ obs, int B, StepParams p) {
+    int8_t* __restrict__ obs, int B, StepParams p, SampleArgs smp) {
+  static_assert(!kSample || kObs, "the sample is built with the observation only");
   constexpr int E = kThreads / L;  // envs a block
   extern __shared__ __align__(16) int8_t frames[];  // kObs: E frames of kFrame bytes
   __shared__ uint32_t scratch[L > 1 ? E : 1][HEIGHT][NW];  // the line clear's rows, a group each
@@ -265,8 +402,15 @@ __global__ void __launch_bounds__(kThreads) turbo_step_kernel(
     int lines;
     bool done;
     float reward;
-    const int a = action[b];
+    int a;
+    float log_prob = 0.0f;
+    Draw<L> draw;  // kSample: the sample's first half, before the state's loads
+    if constexpr (kSample) sample_draw<L>(draw, smp, b, threadIdx.x % L);
+    else a = action[b];
     if constexpr (L == 1) {
+      // one thread's whole sample before the state's loads: its sixteen
+      // draws die here, and ptxas still issues the loads beside it
+      if constexpr (kSample) a = sample_reduce<1>(draw, 0, 0u, log_prob);
       load_env(e, in, b, B);
       reward = step_env<1>(e, e.rows, a, p, packed, box, nullptr, done, lines);
       store_env(e, out, b, B);
@@ -277,6 +421,7 @@ __global__ void __launch_bounds__(kThreads) turbo_step_kernel(
       bd.mask = (L == 32 ? 0xFFFFFFFFu : (1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
       load_scalars(e, in, b, B);
       load_band(bd, in.rows, b, B);
+      if constexpr (kSample) a = sample_reduce<L>(draw, bd.lane, bd.mask, log_prob);
       reward = step_env<L>(e, bd, a, p, packed, box, scratch[t], done, lines);
       store_band(bd, out.rows, b, B);
       if (bd.lane == 0) store_scalars(e, out, b, B);
@@ -287,6 +432,10 @@ __global__ void __launch_bounds__(kThreads) turbo_step_kernel(
       reward_out[b] = reward;
       done_out[b] = done ? 1 : 0;
       lines_out[b] = lines;
+      if constexpr (kSample) {
+        smp.action[b] = a;
+        smp.log_prob[b] = log_prob;
+      }
     }
   }
   if constexpr (kObs) {
@@ -305,49 +454,59 @@ __global__ void __launch_bounds__(kThreads) turbo_init_kernel(
   store_env(e, out, b, B);
 }
 
-template <int L, bool kObs>
+template <int L, bool kObs, bool kSample>
 int launch_step(const StatePtrs* in, const StatePtrs* out, const void* action, void* reward,
                 void* done, void* lines, const void* packed, const void* box, void* obs, int B,
-                const StepParams* params, cudaStream_t stream) {
+                const StepParams* params, const SampleArgs& smp, cudaStream_t stream) {
   constexpr int E = kThreads / L;
   constexpr int kStatic = (L > 1 ? E : 1) * HEIGHT * NW * 4;  // the line clear's scratch
   const int smem = kObs ? E * kFrame : 0;
   if (smem + kStatic > 48 * 1024) {  // past 48 KB in all, the dynamic part needs the attribute
     const cudaError_t err = cudaFuncSetAttribute(
-        turbo_step_kernel<L, kObs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        turbo_step_kernel<L, kObs, kSample>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  turbo_step_kernel<L, kObs><<<(B + E - 1) / E, kThreads, smem, stream>>>(
+  turbo_step_kernel<L, kObs, kSample><<<(B + E - 1) / E, kThreads, smem, stream>>>(
       *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
       static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
       static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
-      static_cast<int8_t*>(obs), B, *params);
+      static_cast<int8_t*>(obs), B, *params, smp);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int L>
 int launch_lanes(const StatePtrs* in, const StatePtrs* out, const void* action, void* reward,
                  void* done, void* lines, const void* packed, const void* box, void* obs, int B,
-                 const StepParams* params, cudaStream_t stream) {
-  return obs ? launch_step<L, true>(in, out, action, reward, done, lines, packed, box, obs, B,
-                                    params, stream)
-             : launch_step<L, false>(in, out, action, reward, done, lines, packed, box, obs, B,
-                                     params, stream);
+                 const StepParams* params, const SampleArgs* sample, cudaStream_t stream) {
+  if (sample != nullptr)
+    return obs ? launch_step<L, true, true>(in, out, action, reward, done, lines, packed, box,
+                                            obs, B, params, *sample, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
+  const SampleArgs none{};
+  return obs ? launch_step<L, true, false>(in, out, action, reward, done, lines, packed, box, obs,
+                                           B, params, none, stream)
+             : launch_step<L, false, false>(in, out, action, reward, done, lines, packed, box,
+                                            obs, B, params, none, stream);
 }
 
 }  // namespace
 
-// lanes: 1 or 8 (kernels.py:step_lanes); obs: int8[B, HEIGHT, WIDTH] or null.
+// lanes: 1 or 8 (kernels.py:step_lanes); obs: int8[B, HEIGHT, WIDTH] or null;
+// sample: null, or (with obs) the logits and key to sample the action from,
+// where `action` is then unused.
 extern "C" int turbo_step_launch(const StatePtrs* in, const StatePtrs* out, const void* action,
                                  void* reward, void* done, void* lines, const void* packed,
                                  const void* box, void* obs, int B, int lanes,
-                                 const StepParams* params, void* stream) {
+                                 const StepParams* params, const SampleArgs* sample,
+                                 void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (lanes) {
     case 1:
-      return launch_lanes<1>(in, out, action, reward, done, lines, packed, box, obs, B, params, s);
+      return launch_lanes<1>(in, out, action, reward, done, lines, packed, box, obs, B, params,
+                             sample, s);
     case 8:
-      return launch_lanes<8>(in, out, action, reward, done, lines, packed, box, obs, B, params, s);
+      return launch_lanes<8>(in, out, action, reward, done, lines, packed, box, obs, B, params,
+                             sample, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,12 +20,14 @@ Kernels, with the JAX function each replaces:
   ``_clear_lines_wide :326`` (``ops/bitboard_wide.py:108-215`` in the turbo
   layout) at any geometry, one thread or a group of lanes an env
   (:func:`step_lanes`), and with an ``obs`` output also ``observe_board
-  :738`` of the state it stores, in the same launch;
+  :738`` of the state it stores, in the same launch; with ``logits`` too,
+  ``ppo_sample``'s work (the action sampled in the launch, PPO's rollout);
 * ``turbo_init`` (``csrc/turbo_step.cu``): ``core/turbo.py:_init_from_key :440``,
   reached through ``init :497``;
 * ``observe_board`` (``csrc/observe_board.cu``): ``core/turbo.py:observe_board :738``;
 * ``heights`` (``csrc/heights.cu``): ``core/turbo.py:heights :760``;
-* ``gae`` (``csrc/gae.cu``): ``rl/ppo.py:_gae :147``;
+* ``gae`` (``csrc/gae.cu``): ``rl/ppo.py:_gae :147``, in two builds
+  (:func:`gae_build`);
 * ``ppo_sample`` (``csrc/ppo_sample.cu``): the sampling tail of
   ``rl/ppo.py:policy_step :184-187``;
 * ``grouped_placements`` (``csrc/grouped_placements.cu``):
@@ -66,8 +68,8 @@ Kernels, with the JAX function each replaces:
   ``ops/image.py:grayscale_u8_exact :176`` with ``_gray_tables :125``.
 
 ``csrc/threefry.cuh`` holds JAX's threefry blocks and random bits for
-``ppo_sample``, ``grouped_act``, ``replay_sample``, ``replay_sample_stacked``,
-``dqn_act`` and the ``fn_*`` kernels;
+``ppo_sample``, ``turbo_step``'s sample, ``grouped_act``, ``replay_sample``,
+``replay_sample_stacked``, ``dqn_act`` and the ``fn_*`` kernels;
 ``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
 ``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``;
 ``csrc/id_image.cuh`` the id image of the observation, shared by
@@ -145,14 +147,16 @@ NVCC_FLAGS = [
 
 # Launch counts, one per kernel: added to where a wrapper launches, nowhere
 # else; "turbo_step_obs" counts the turbo_step launches that also wrote the
-# board observation.
+# board observation, "turbo_step_sample" those that also sampled the action
+# from PPO's logits (ppo_sample's work in the step's launch).
 LAUNCHES = {
-    "turbo_step": 0, "turbo_step_obs": 0, "turbo_init": 0, "observe_board": 0, "gae": 0,
-    "ppo_sample": 0, "grouped_placements": 0, "grouped_act": 0, "replay_add": 0, "replay_sample": 0,
-    "replay_sample_stacked": 0, "framestack_push": 0, "dqn_act": 0, "flagship_step": 0,
-    "flagship_init": 0, "flagship_observe_board": 0, "render_rgb84": 0, "grouped_flagship": 0,
-    "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0, "heights": 0,
-    "fn_reset": 0, "fn_step": 0, "fn_observe": 0, "grayscale_u8_exact": 0,
+    "turbo_step": 0, "turbo_step_obs": 0, "turbo_step_sample": 0, "turbo_init": 0,
+    "observe_board": 0, "gae": 0, "ppo_sample": 0, "grouped_placements": 0, "grouped_act": 0,
+    "replay_add": 0, "replay_sample": 0, "replay_sample_stacked": 0, "framestack_push": 0,
+    "dqn_act": 0, "flagship_step": 0, "flagship_init": 0, "flagship_observe_board": 0,
+    "render_rgb84": 0, "grouped_flagship": 0, "feature_vector": 0, "observe_dict": 0,
+    "compose_rgb": 0, "heights": 0, "fn_reset": 0, "fn_step": 0, "fn_observe": 0,
+    "grayscale_u8_exact": 0,
 }
 
 _LIBS: dict = {}
@@ -297,6 +301,16 @@ class _StepParams(ctypes.Structure):
     ]
 
 
+class _SampleArgs(ctypes.Structure):  # csrc/turbo_step.cu:SampleArgs
+    _fields_ = [
+        ("logits", ctypes.c_void_p),
+        ("action", ctypes.c_void_p),
+        ("log_prob", ctypes.c_void_p),
+        ("k0", ctypes.c_uint32),
+        ("k1", ctypes.c_uint32),
+    ]
+
+
 class _ObsGeometry(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_int)
@@ -395,7 +409,7 @@ _ENTRY_POINTS = {
     "turbo_step": {
         "turbo_step_launch": [ctypes.POINTER(_StatePtrs), ctypes.POINTER(_StatePtrs),
                               _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.POINTER(_StepParams),
-                              _P],
+                              ctypes.POINTER(_SampleArgs), _P],
         "turbo_init_launch": [_P, ctypes.POINTER(_StatePtrs), _P, _I, _I, _P],
     },
     "observe_board": {
@@ -406,7 +420,7 @@ _ENTRY_POINTS = {
         "heights_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
     },
     "gae": {
-        "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P],
+        "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     },
     "ppo_sample": {
         "ppo_sample_launch": [_P, _P, _P, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _P],
@@ -686,18 +700,38 @@ def _check_obs(obs: torch.Tensor, config: EngineConfig, B: int, device) -> None:
 
 def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConfig,
                pieces: PieceSet, rewards: RewardsMapping, max_clear: int = 4,
-               obs: torch.Tensor = None, lanes: int = None):
+               obs: torch.Tensor = None, lanes: int = None, logits: torch.Tensor = None,
+               act_key=None):
     """Launch ``turbo_step``: returns ``(new_state, reward f32[B], done bool[B], lines int32[B])``.
 
     The new state is in new buffers; ``state`` is left as it was.  With
     ``obs``, an ``int8[B, height, width]`` tensor, the same launch also
     writes ``observe_board`` of the new state (after auto-reset) into it.
-    ``lanes`` (one of ``STEP_LANES``) overrides :func:`step_lanes`' choice.
+    With ``logits`` (``f32[B, 8]``, only together with ``obs``) and
+    ``act_key`` (the step's ``uint32[2]`` key on the host), the launch
+    samples each env's action as :func:`sample_actions` does and steps with
+    it: ``action`` is ignored (pass None) and ``(action int32[B], log_prob
+    f32[B])`` are returned after ``lines``.  ``lanes`` (one of
+    ``STEP_LANES``) overrides :func:`step_lanes`' choice.
     """
     if lanes is not None and lanes not in STEP_LANES:
         raise ValueError(f"lanes must be one of {STEP_LANES}, got {lanes}")
     device = state.rows.device
     B = state.piece.shape[0]
+    sample = logits is not None
+    if sample:
+        if obs is None:
+            raise ValueError("turbo_step samples its action only together with obs")
+        if act_key is None:
+            raise ValueError("logits need act_key")
+        _check_tensor(logits, "logits", torch.float32, (B, 8), device)
+        if B * 8 >= 2**31:
+            raise ValueError(f"batch {B} too large for 32-bit counters")
+        key = np.asarray(act_key, dtype=np.uint32)
+        if key.shape != (2,):
+            raise ValueError(f"act_key: want a uint32[2] key, got shape {key.shape}")
+    elif act_key is not None:
+        raise ValueError("act_key without logits")
     if obs is not None:
         _check_obs(obs, config, B, device)
     t, packed, box = turbo.tables_for(pieces, device)
@@ -711,30 +745,39 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
             f"turbo_step stages {_STEP_THREADS // lanes} observations of {frame} bytes a block in "
             f"{_MAX_SMEM} bytes of shared memory")
     _check_state(state, config, t.n_pieces, device)
-    if not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
+    if sample:
+        action = torch.empty((B,), dtype=torch.int32, device=device)
+        log_prob = torch.empty((B,), dtype=torch.float32, device=device)
+    elif not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
             or not action.is_contiguous() or action.device != device:
         raise ValueError(f"action: want a contiguous int32[{B}] tensor on {device}")
     out = _empty_state(config, t.n_pieces, B, device)
     reward = torch.empty((B,), dtype=torch.float32, device=device)
     done = torch.empty((B,), dtype=torch.bool, device=device)
     lines = torch.empty((B,), dtype=torch.int32, device=device)
+    result = (out, reward, done, lines) + ((action, log_prob) if sample else ())
     if B == 0:
-        return out, reward, done, lines
+        return result
     params = _StepParams(
         int(config.gravity_enabled), int(config.auto_reset), int(config.queue_kind == "uniform"),
         int(max_clear), float(np.float32(rewards.alife)), float(np.float32(rewards.game_over)),
     )
     in_p, out_p = _ptrs(state), _ptrs(out)
+    smp = _SampleArgs(logits.data_ptr(), action.data_ptr(), log_prob.data_ptr(), int(key[0]),
+                      int(key[1])) if sample else None
     rc = _lib("turbo_step", defines).turbo_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
         done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
-        None if obs is None else obs.data_ptr(), B, lanes, ctypes.byref(params), _stream(device),
+        None if obs is None else obs.data_ptr(), B, lanes, ctypes.byref(params),
+        None if smp is None else ctypes.byref(smp), _stream(device),
     )
     _check(rc, "turbo_step")
     LAUNCHES["turbo_step"] += 1
     if obs is not None:
         LAUNCHES["turbo_step_obs"] += 1
-    return out, reward, done, lines
+    if sample:
+        LAUNCHES["turbo_step_sample"] += 1
+    return result
 
 
 def turbo_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet) -> turbo.TurboState:
@@ -821,14 +864,33 @@ def _check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         )
 
 
+# The builds of csrc/gae.cu: TMA tensor copies where every row of every
+# [T, B] array lies on 16 bytes, else a cp.async a word.
+GAE_BUILDS = ("tma", "cp_async")
+
+
+def gae_build(B: int, *tensors: torch.Tensor) -> str:
+    """The build of ``gae`` that the wrapper takes for batch ``B`` and its
+    ``[T, B]`` tensors (inputs and outputs): ``"tma"`` where ``B % 16 ==
+    0`` and every tensor starts on 16 bytes, so that each array is a TMA
+    tensor (its rows' stride a multiple of 16 bytes), else ``"cp_async"``."""
+    if B % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "tma"
+    return "cp_async"
+
+
 def gae(reward: torch.Tensor, value: torch.Tensor, done: torch.Tensor, last_value: torch.Tensor,
-        gamma: float, gae_lambda: float):
+        gamma: float, gae_lambda: float, build: str = None):
     """Launch ``gae``: returns ``(advantages f32[T, B], targets f32[T, B])``.
 
     ``reward`` and ``value`` are ``f32[T, B]``, ``done`` is ``bool[T, B]``,
     ``last_value`` is ``f32[B]``.  ``gamma`` and ``gamma * gae_lambda`` (the
     product formed in double) are rounded to float32 once, as JAX does.
+    ``build`` (one of ``GAE_BUILDS``) overrides :func:`gae_build`'s choice;
+    ``"tma"`` raises where the rows do not lie on 16 bytes.
     """
+    if build is not None and build not in GAE_BUILDS:
+        raise ValueError(f"build must be one of {GAE_BUILDS}, got {build!r}")
     device = reward.device
     if reward.ndim != 2:
         raise ValueError(f"reward: want [T, B], got {tuple(reward.shape)}")
@@ -841,10 +903,16 @@ def gae(reward: torch.Tensor, value: torch.Tensor, done: torch.Tensor, last_valu
     targets = torch.empty((T, B), dtype=torch.float32, device=device)
     if T * B == 0:
         return advantages, targets
+    fits = gae_build(B, reward, value, done, advantages, targets)
+    if build == "tma" and fits != "tma":
+        raise ValueError(f"gae's tma build needs B % 16 == 0 and 16-byte aligned tensors, "
+                         f"got B = {B}")
+    build = fits if build is None else build
     rc = _lib("gae").gae_launch(
         reward.data_ptr(), value.data_ptr(), done.data_ptr(), last_value.data_ptr(),
         advantages.data_ptr(), targets.data_ptr(), T, B,
-        float(np.float32(gamma)), float(np.float32(gamma * gae_lambda)), _stream(device),
+        float(np.float32(gamma)), float(np.float32(gamma * gae_lambda)), int(build == "tma"),
+        _stream(device),
     )
     _check(rc, "gae")
     LAUNCHES["gae"] += 1

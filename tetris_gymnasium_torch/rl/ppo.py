@@ -8,10 +8,12 @@ iteration into one XLA program; here the host runs the loops and enqueues
 work on the card without waiting for it:
 
 * the rollout steps ``rollout_len`` times under ``torch.no_grad()``: the
-  policy network (PyTorch operators), the ``ppo_sample`` kernel for the
-  action and its log-prob, the ``turbo_step`` (or ``flagship_step``)
-  kernel with auto-reset, the ``observe_board`` (or
-  ``flagship_observe_board``) kernel and, with ``frame_stack`` K > 1, the
+  policy network (PyTorch operators), then on the turbo engine one
+  ``turbo_step`` launch that samples the action and its log-prob from the
+  logits, steps with auto-reset and writes the board observation
+  (:func:`turbo_sample_step`); on the flagship engine the ``ppo_sample``
+  kernel, then ``flagship_step`` and ``flagship_observe_board``
+  (:func:`sample_step_fn` picks the route); with ``frame_stack`` K > 1 then the
   ``framestack_push`` kernel (the policy reads ``[B, K, H, W]`` windows);
 * GAE is the ``gae`` kernel, one launch per train step;
 * the update is ``update_epochs`` passes over block-shuffled minibatches:
@@ -33,6 +35,7 @@ of the parameters and Adam moments); the returned state shares them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
@@ -40,7 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tetris_gymnasium_torch.config import EngineConfig
+from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+from tetris_gymnasium_torch.core import turbo
 from tetris_gymnasium_torch.models.convert import from_flax_params
 from tetris_gymnasium_torch.models.init import init_actor_critic_
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN
@@ -277,18 +281,79 @@ def sample_actions(logits: torch.Tensor, act_key):
     return sample_actions_plain(logits, act_key)
 
 
+def turbo_sample_step(state: turbo.TurboState, logits: torch.Tensor, act_key,
+                      config: EngineConfig, rewards: RewardsMapping = turbo.REWARDS):
+    """The turbo engine's rollout step with the board observation: sample
+    each env's action from ``logits`` ``f32[B, 8]`` with the step's
+    ``uint32[2]`` key ``act_key`` (as :func:`sample_actions`), step with it
+    and observe.
+
+    Returns ``(state, obs, reward, done, info, action int32[B], log_prob
+    f32[B])``.  On CUDA tensors it is one ``turbo_step`` launch, which
+    samples, steps and writes the observation; on CPU tensors it is
+    :func:`sample_actions_plain`, ``turbo.step_plain`` and
+    ``turbo.observe_board_plain`` in turn.
+    """
+    if state.rows.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        B = state.piece.shape[0]
+        obs = torch.empty((B, config.height, config.width), dtype=torch.int8,
+                          device=state.rows.device)
+        stepped, reward, done, lines, action, log_prob = kernels.turbo_step(
+            state, None, config, turbo.PIECES, rewards, obs=obs, logits=logits, act_key=act_key)
+    else:
+        action, log_prob = sample_actions_plain(logits, act_key)
+        stepped, reward, done, lines = turbo.step_plain(state, action, config, turbo.PIECES,
+                                                        rewards)
+        obs = turbo.observe_board_plain(stepped, config)
+    info = {"lines_cleared": lines, "score": stepped.score, "steps": stepped.steps}
+    return stepped, obs, reward, done, info, action, log_prob
+
+
+def composed_sample_step(env_step: Callable, observe: Callable) -> Callable:
+    """A rollout step of :func:`sample_actions`, then ``env_step`` (from
+    ``rl.engines.env_fns``), then ``observe`` where the step gave no
+    observation; it returns what :func:`turbo_sample_step` returns."""
+
+    def sample_step(state, logits, act_key):
+        action, log_prob = sample_actions(logits, act_key)
+        state, raw, reward, done, info = env_step(state, action)
+        raw = observe(state) if raw is None else raw
+        return state, raw, reward, done, info, action, log_prob
+
+    return sample_step
+
+
+def sample_step_fn(env_config: EngineConfig, impl: str = "turbo",
+                   rewards: Optional[RewardsMapping] = None, obs: str = "board") -> Callable:
+    """The rollout step ``sample_step(state, logits, act_key) -> (state,
+    obs, reward, done, info, action, log_prob)`` of an engine route: one
+    call of :func:`turbo_sample_step` on the turbo engine with the board
+    observation, :func:`composed_sample_step` on every other route.  It
+    runs where the state lies."""
+    rkw = {} if rewards is None else {"rewards": rewards}
+    if impl == "turbo" and obs == "board":
+        return functools.partial(turbo_sample_step, config=env_config, **rkw)
+    # step and observe run where the state lies; the device only binds init
+    _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu")
+    return composed_sample_step(env_step, observe)
+
+
 # ---------------------------------------------------------------------------
 # Rollout, loss and minibatches
 # ---------------------------------------------------------------------------
 
 
-def rollout(ts: TrainState, ppo: PPOConfig, env_step: Callable, observe: Callable):
+def rollout(ts: TrainState, ppo: PPOConfig, sample_step: Callable):
     """``rollout_len`` policy steps from ``ts``, with no gradient.
 
-    Returns ``(traj, env_states, last_obs, key)``: the :class:`Transition`
-    stacked over time, the env batch and observation (or window, pushed
-    with each step's ``done``, ``ppo.py:180-190``) after the last step, and
-    the carried key after one ``split`` per step.
+    Each step samples the action from the policy's logits and steps the
+    envs with ``sample_step`` (:func:`sample_step_fn`).  Returns ``(traj,
+    env_states, last_obs, key)``: the :class:`Transition` stacked over time,
+    the env batch and observation (or window, pushed with each step's
+    ``done``, ``ppo.py:180-190``) after the last step, and the carried key
+    after one ``split`` per step.
     """
     key = ts.key
     act_keys = []
@@ -300,10 +365,9 @@ def rollout(ts: TrainState, ppo: PPOConfig, env_step: Callable, observe: Callabl
     with torch.no_grad():
         for act_key in act_keys:
             logits, value = ts.net(window)
-            action, log_prob = sample_actions(logits, act_key)
-            env_states, raw, reward, done, _ = env_step(env_states, action)
+            env_states, raw, reward, done, _, action, log_prob = sample_step(
+                env_states, logits, act_key)
             steps.append((window, action, log_prob, value, reward, done))
-            raw = observe(env_states) if raw is None else raw
             window = raw if ppo.frame_stack == 1 else framestack.push(window, raw, done)
     traj = Transition(*(torch.stack(field) for field in zip(*steps)))
     return traj, env_states, window, key
@@ -410,15 +474,13 @@ def make_train_step(
     with ``"start"``, ``"rollout"``, ``"gae"`` and ``"update"`` as each phase
     has been enqueued (a caller can record CUDA events there).
     """
-    # step and observe run where the state lies; the device only binds init
-    _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu",
-                                   step_obs=True)
+    sample_step = sample_step_fn(env_config, impl, rewards, obs=obs)
     mark = marks or (lambda _name: None)
 
     def train_step(ts: TrainState):
         mark("start")
         ent_coef = ent_coef_at(ppo, ts.update_i)
-        traj, env_states, last_obs, key = rollout(ts, ppo, env_step, observe)
+        traj, env_states, last_obs, key = rollout(ts, ppo, sample_step)
         with torch.no_grad():
             _, last_value = ts.net(last_obs)
         mark("rollout")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device ms of ``turbo_step`` and ``observe_board`` for the port found
-under ``--repo``, at the main paths' batches:
+"""Device ms of ``turbo_step``, ``observe_board``, PPO's sampling step and
+``gae`` for the port found under ``--repo``, at the main paths' batches:
 
     python tools/time_turbo_kernels.py [--repo DIR] [--label NAME] [--batches 512,1024,8192,65536]
 
@@ -11,13 +11,24 @@ with the observation written in the same launch (where the tree's
 the least launch the card takes (a CUDA graph of ``torch.cuda._sleep(0)``),
 on mid-game states (40 random steps in, auto-reset on; the evaluation's B =
 512 without it, as ``chip_smoke.py`` phase 6 times them), beside the byte
-bound at 3.35 TB/s.  Then ``flagship_step`` (B = 512), ``grouped_placements``
-(features, B = 1024, no gravity) and ``grouped_flagship`` (features, B =
-4096), whose sources share ``csrc/engine_common.cuh``.  Each time is the
+bound at 3.35 TB/s.  PPO's rollout step at each B: the sampling step (one
+``turbo_step`` launch that samples the action from logits ``f32[B, 8]``,
+steps and observes; as the wrapper launches it and each lanes build, where
+the tree's ``kernels.turbo_step`` takes ``logits``) beside ``ppo_sample``
+alone and ``ppo_sample`` + ``turbo_step`` with the observation (the two
+launches a rollout step takes without it, in one graph), and ``gae`` at T =
+128 (as the wrapper launches it, and each build of ``kernels.GAE_BUILDS``
+where the tree has them), each beside its byte bound, and ``gae`` again
+on inputs read from HBM (``_cold``: a read of 128 MiB before each launch
+evicts the L2, and that read's own time is taken off), as the path gives
+them after the policy's forward pass.  Then
+``flagship_step`` (B = 512), ``grouped_placements`` (features, B = 1024, no
+gravity) and ``grouped_flagship`` (features, B = 4096), whose sources share
+``csrc/engine_common.cuh``.  Each time is the
 median over 7 replays of a CUDA graph of 200 launches (50 at 65536).  With
 ``--ptxas`` it first builds ``turbo_step`` for the default board and
-``chip_smoke.py``'s wide geometries and prints each build's registers and
-spills.  Prints one JSON line with the card's name and power limit.  To
+``chip_smoke.py``'s wide geometries, and ``gae``, and prints each build's
+registers and spills.  Prints one JSON line with the card's name and power limit.  To
 compare two trees on one card, unpack the other into a directory that
 ``.gitignore`` lists and run both in one call, in turns: A, B, B, A.  Needs
 a card; builds the kernels of ``DIR`` into its own ``build/``.
@@ -33,6 +44,7 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+L2_FLUSH_BYTES = 128 * 2**20  # over twice the H100's 50 MB L2
 
 
 def main() -> None:
@@ -57,7 +69,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     fused = "obs" in inspect.signature(kernels.turbo_step).parameters
+    sampled = "logits" in inspect.signature(kernels.turbo_step).parameters
     lanes_all = getattr(kernels, "STEP_LANES", ())
+    gae_builds = getattr(kernels, "GAE_BUILDS", ())
     builds = {}
     if args.ptxas:
         from concurrent.futures import ThreadPoolExecutor
@@ -70,9 +84,10 @@ def main() -> None:
             defines = kernels.engine_defines(cfg, bb.turbo_tables(P))
             if defines not in jobs.values():
                 jobs[name] = defines
-        jobs = list(jobs.items())
+        jobs = list(jobs.items()) + [("gae", ())]
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            facts = list(pool.map(lambda job: kernels._compile("turbo_step", job[1]), jobs))
+            facts = list(pool.map(lambda job: kernels._compile(
+                "gae" if job[0] == "gae" else "turbo_step", job[1]), jobs))
         builds = {name: {"seconds": f["seconds"], "extra_flags": f.get("extra_flags"),
                          "ptxas": [l.strip() for l in f["ptxas"].splitlines()
                                    if "registers" in l or "spill" in l or "Compiling" in l]}
@@ -87,6 +102,15 @@ def main() -> None:
         torch.cuda._sleep(0)
 
     out["launch_floor_ms"] = device_ms(floor, 200)
+    flush_buf = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+    sink = torch.empty((), device=dev)
+
+    def flush():
+        torch.sum(flush_buf, dim=0, out=sink)
+
+    def cold_ms(fn, n):
+        return device_ms(lambda: (flush(), fn()), n) - device_ms(flush, n)
+
     for B in (int(b) for b in args.batches.split(",")):
         cfg = EngineConfig(auto_reset=B != 512)
         n = 50 if B >= 65536 else 200
@@ -113,8 +137,41 @@ def main() -> None:
                     lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, rw, lanes=L), n)
                 row[f"turbo_step_obs_L{L}"] = device_ms(
                     lambda: kernels.turbo_step(s, a, cfg, turbo.PIECES, rw, obs=obs, lanes=L), n)
+            # PPO's rollout step: the sample and the step in one launch, or two
+            x = torch.randn((B, 8), generator=g, device=dev) * 3
+            key = prng_key(7)
+            sample_bytes = B * (8 * 4 + 4 + 4)
+            row["ppo_sample"] = device_ms(lambda: kernels.sample_actions(x, key), n)
+            row["ppo_sample_then_turbo_step_obs"] = device_ms(
+                lambda: kernels.turbo_step(s, kernels.sample_actions(x, key)[0], cfg,
+                                           turbo.PIECES, rw, obs=obs), n)
+            row["sample_step_bound_ms"] = 1e3 * (step_bytes + obs_bytes + sample_bytes) \
+                / HBM_BYTES_PER_S
+            if sampled:
+                row["sample_step"] = device_ms(lambda: kernels.turbo_step(
+                    s, None, cfg, turbo.PIECES, rw, obs=obs, logits=x, act_key=key), n)
+                for L in lanes_all:
+                    row[f"sample_step_L{L}"] = device_ms(lambda: kernels.turbo_step(
+                        s, None, cfg, turbo.PIECES, rw, obs=obs, lanes=L, logits=x,
+                        act_key=key), n)
+        # GAE over a rollout of 128 steps at this batch
+        T = 128
+        reward = torch.randn((T, B), generator=g, device=dev)
+        value = torch.randn((T, B), generator=g, device=dev)
+        done = torch.rand((T, B), generator=g, device=dev) < 1 / 200
+        last = torch.randn((B,), generator=g, device=dev)
+        row["gae"] = device_ms(lambda: kernels.gae(reward, value, done, last, 0.999, 0.95), n)
+        row["gae_cold"] = cold_ms(lambda: kernels.gae(reward, value, done, last, 0.999, 0.95), n)
+        row["gae_bound_ms"] = 1e3 * (17 * T * B + 4 * B) / HBM_BYTES_PER_S
+        if gae_builds:
+            row["gae_build"] = kernels.gae_build(B, reward, value, done, reward, value)
+            for build in gae_builds:
+                row[f"gae_{build}"] = device_ms(
+                    lambda: kernels.gae(reward, value, done, last, 0.999, 0.95, build=build), n)
+                row[f"gae_{build}_cold"] = cold_ms(
+                    lambda: kernels.gae(reward, value, done, last, 0.999, 0.95, build=build), n)
         out[B] = row
-        del s, a, obs
+        del s, a, obs, reward, value, done
     P = engine.PIECES
     fcfg = EngineConfig(auto_reset=True)
     fs = kernels.flagship_init(batch_keys(prng_key(31), 512, device=dev), fcfg, P)
