@@ -134,7 +134,9 @@ Phases, each printing one JSON line:
     its plain version on the trained state at the path's shapes (B = 1024,
     the full wrapped 262,144-entry buffer).
 20. The new kernels' times beside their bounds, at the path's shapes and at
-    B = 65536, and the DQN path's replay kernels at its shapes.
+    B = 65536, and the DQN path's replay kernels at its shapes; ``dqn_act``'s
+    greedy launch (the evaluations' argmax) beside ``torch.argmax(q, -1)``
+    (also at B = 512 in phase 25).
 
 21. The flagship engine: ``flagship_init`` against ``core.engine.init_plain``
     at B = 512, 1 and 1001 (bag and uniform), and ``flagship_step`` against
@@ -267,18 +269,53 @@ Phases, each printing one JSON line:
     at 2**24 pixels and ``[512, 84, 84, 3]``, beside their bounds and
     plain versions.
 
+44. A small fp32 PPO train step on the pixel chain (32 envs, 8 steps, K =
+    4, 2 epochs of 2 minibatches, ``AtariActorCritic`` from
+    ``results/atari_actor_critic_k4_init_seed1.npz``) on the card under
+    cuDNN's deterministic algorithms against the same step on the CPU: the
+    rollout (windows, actions, rewards, dones), the env states and the
+    window bit-equal, through ``ppo_sample``, ``flagship_step``,
+    ``render_rgb84`` and ``framestack_push`` on the card (exact launch
+    counts) and their plain versions on the CPU; the card's log-probs
+    within ``LOG_PROB_ULPS`` of ``sample_actions_plain`` on its own
+    logits; values and log-probs within ``SMALL_PIX_PPO_OUT_TOL`` of their
+    scale card against CPU; each parameter leaf's change within
+    ``SMALL_PIX_PARAM_TOL`` of its norm.
+45. The pixel PPO path: ``examples/train_ppo.py --obs rgb84 --frame-stack
+    4`` at the JAX example's defaults (2048 envs x 128 steps, 6 epochs of 8
+    minibatches, bf16 trunk) for 3 train steps in one chunk from the JAX
+    run's initial weights: exact launch counts (a train step 128 each of
+    ``ppo_sample``, ``flagship_step``, ``render_rgb84`` and
+    ``framestack_push``, 1 ``gae``, no ``turbo_step``), finite metrics,
+    weights that move, the train step split into rollout, GAE and update
+    with CUDA events, env-steps/s, the policy forward's device ms, peak
+    memory, then 512 greedy games (K = 4, seed 0) of the initial and the
+    trained weights with exact launch counts (lines/episode reported, not
+    gated).
+46. The pixel PPO path's kernels at its batch (B = 2048; T = 128 for
+    ``gae``, on one more rollout) on the trained state, bit-equal to their
+    plain versions, and their device ms beside their bounds and plain
+    versions.
+47. The board PPO trainer from scratch: ``examples/train_ppo.py`` at the
+    settings of ``results/ppo.jsonl`` (2048 envs x 128 steps, seed 1) for
+    10 iterations from that JAX run's initial weights
+    (``results/ppo_init_seed1.npz``): iteration 1's reward per step within
+    ``CURVE_START_TOL`` of the record's, iteration 10's at least
+    ``CURVE_GATE`` times iteration 1's.
+
 Then the kernels line (25 kernels; ``turbo_step``'s time is its launch
 with the observation, as the paths take it, with its sampling builds' and
 ``gae``'s builds' times at B = 8192 beside it; each with the launch counts of
 the first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
-else PPO, else the grouped engine, else the shell, else the compat
-rollout; times at the shape of that path; ``heights``, ``fn_observe``,
-``grayscale_u8_exact`` and ``ppo_sample`` (the flagship route's, not
-driven), which no path calls, with 0 launches and their times at 30x20 and
-B = 4096, at B = 65536, over 2**24 pixels and at B = 8192; each with
-its builds, one a geometry, and the six surface kernels with their
-phase-39 times) and, last, the device line.
+else PPO, else pixel PPO (``ppo_sample``), else the grouped engine, else
+the shell, else the compat rollout; times at the shape of that path;
+``heights``, ``fn_observe`` and ``grayscale_u8_exact``, which no path
+calls, with 0 launches and their times at 30x20 and B = 4096, at B =
+65536 and over 2**24 pixels; ``dqn_act`` with its greedy launch's time
+and ``torch.argmax``'s as its library time; each with its builds, one a
+geometry, and the six surface kernels with their phase-39 times) and,
+last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -393,6 +430,7 @@ SMALL_DQN_STEPS = 40
 SMALL_DQN_PARAM_TOL = SMALL_TRAIN_PARAM_TOL
 # dqn_act: three threefry blocks (~75 each), the argmax over 8 (~16) and the select
 DQN_ACT_OPS_PER_ENV = 250
+DQN_ARGMAX_OPS_PER_ENV = 16  # its greedy launch: the argmax alone
 # replay_sample_stacked: per anchor and frame, the lookback's index and flag test
 STACK_OPS_PER_FRAME = 10
 DQN_TIME_B = (512, 1024, 65536)
@@ -1068,6 +1106,12 @@ def main() -> None:
     fn_path = run_fn_path(dev, smi)
     fn_times = time_fn_kernels(dev, smi)
 
+    # -- 44.-47. PPO on the pixel chain; the from-scratch PPO curve --------------------------
+    check_small_pixel_ppo()
+    pix_ppo = train_pixel_ppo_full_width(dev, smi)
+    pix_ppo_times = pixel_ppo_path_kernels(dev, smi, pix_ppo.pop("ts"))
+    check_ppo_curve(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -1118,13 +1162,13 @@ def main() -> None:
     # Each kernel's launches and time come from one path: the first below
     # that runs it (the pixel DQN, else the flagship engine's board
     # evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped
-    # DQN, else PPO, else the batched flagship grouped engine, else the
-    # Gymnasium shell and its grouped wrapper), its time at that path's shapes:
-    # the pixel DQN's 512 envs (7056-byte frames, 512 samples of the
-    # 262,144-entry buffer), the evaluation's 512, the board DQN's 1024 envs
-    # with gravity (512 samples), the grouped step's 1024 envs without
-    # gravity (256 samples), the PPO step's B = 8192, the grouped engine's
-    # 4096 envs (features), the shell's B = 1.
+    # DQN, else PPO, else pixel PPO, else the batched flagship grouped
+    # engine, else the Gymnasium shell and its grouped wrapper), its time at
+    # that path's shapes: the pixel DQN's 512 envs (7056-byte frames, 512
+    # samples of the 262,144-entry buffer), the evaluation's 512, the board
+    # DQN's 1024 envs with gravity (512 samples), the grouped step's 1024 envs
+    # without gravity (256 samples), the PPO step's B = 8192, the pixel PPO
+    # step's 2048, the grouped engine's 4096 envs (features), the shell's B = 1.
     pix_at = {name: pix_times[name][PIX_ENVS] for name in
               ("flagship_step", "flagship_init", "render_rgb84", "framestack_push", "dqn_act")}
     pix_at.update(replay_add=pix_times["replay_add"],
@@ -1146,6 +1190,7 @@ def main() -> None:
              ("ppo_train", train["launches"], TRAIN_STEPS,
               {**times[TRAIN_ENVS], "turbo_step": times[TRAIN_ENVS]["turbo_step_obs"],
                **ppo_times[TRAIN_ENVS]}),
+             ("ppo_rgb84", pix_ppo["launches"], PIX_PPO_STEPS, pix_ppo_times),
              ("grouped_engine", grouped_engine["launches"], grouped_engine["steps"],
               {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
              ("shell", shell["launches"], shell["steps"],
@@ -1157,16 +1202,12 @@ def main() -> None:
              ("fn_rollout", fn_path["launches"], fn_path["steps"],
               {k: fn_times[k][FN_PATH_B] for k in ("fn_reset", "fn_step")}),
              # heights, fn_observe (fn_step and fn_reset write their own
-             # observations), grayscale_u8_exact and ppo_sample (the turbo
-             # engine's PPO rollout samples in turbo_step's launch; the
-             # flagship route, which launches it, is not driven here): no
-             # path calls them; heights' time is at 30x20, B = 4096,
-             # fn_observe's at B = 65536, grayscale_u8_exact's over 2**24
-             # pixels, ppo_sample's at the training's B = 8192, their launches 0
+             # observations) and grayscale_u8_exact: no path calls them;
+             # heights' time is at 30x20, B = 4096, fn_observe's at B =
+             # 65536, grayscale_u8_exact's over 2**24 pixels, their launches 0
              ("none", {k: 0 for k in kernels.LAUNCHES}, 1,
               {"heights": wide_times["30x20"]["heights"][4096], "fn_observe": fn_times["fn_observe"][FN_PATH_B],
-               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL],
-               "ppo_sample": ppo_times[TRAIN_ENVS]["ppo_sample"]})]
+               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL]})]
     # the builds inside a library: turbo_step's lanes, observation and
     # sample; gae's two copy schemes (times at the training's B = 8192)
     variants = {
@@ -1199,6 +1240,7 @@ def main() -> None:
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
             "library_ms": at[name].get("library_ms"), "launch_floor_ms": floor_ms,
+            **({"greedy_ms": at[name]["greedy_ms"]} if "greedy_ms" in at[name] else {}),
             "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
             **({"wide": wide_at[name]} if name in wide_at else {}),
             **({"variants_ms_at_8192": variants[name]} if name in variants else {}),
@@ -2358,6 +2400,22 @@ def _stacked_sample_bytes(buf, key, n, B, K) -> int:
     return reads + 2 * n * (K * frame + fields + flag)
 
 
+def greedy_times(q) -> dict:
+    """``dqn_act``'s greedy launch (no keys: the argmax, as the DQN
+    evaluations launch it) beside ``torch.argmax(q, -1)``, the one PyTorch
+    call that computes the same function (``library_ms``), and its bound."""
+    from tetris_gymnasium_torch import kernels
+
+    greedy = _bound(nbytes(q) + q.shape[0] * 4, q.shape[0] * DQN_ARGMAX_OPS_PER_ENV)
+    kernel = kernels.dqn_act(q)
+    library = torch.argmax(q, -1)
+    if not torch.equal(kernel.long(), library):
+        raise AssertionError("dqn_act's argmax differs from torch.argmax")
+    return {"greedy_ms": device_ms(lambda: kernels.dqn_act(q), 100),
+            "library_ms": device_ms(lambda: torch.argmax(q, -1), 100),
+            "greedy_bound_ms": greedy["bound_ms"], "greedy_bound_by": greedy["bound_by"]}
+
+
 def time_dqn_kernels(dev, smi) -> dict:
     """Phase 20: the DQN path's new kernels, and its replay kernels, beside their bounds."""
     from tetris_gymnasium_torch import kernels
@@ -2386,6 +2444,7 @@ def time_dqn_kernels(dev, smi) -> dict:
             lambda: kernels.dqn_act(q, act_key, eps_key, 0.3),
             lambda: dqn.act_plain(q, act_key, eps_key, 0.3), 100, 10,
             nbytes(q) + B * 4, B * DQN_ACT_OPS_PER_ENV)
+        out["dqn_act"][B].update(greedy_times(q))
 
     # the replay at the path's shape: 1024 envs, the full 262,144 entries
     B = DQN_ENVS
@@ -2888,6 +2947,7 @@ def time_pixel_kernels(dev, smi) -> dict:
         lambda: kernels.dqn_act(q, act_key, eps_key, 0.3),
         lambda: dqn.act_plain(q, act_key, eps_key, 0.3), 100, 10, nbytes(q) + PIX_ENVS * 4,
         PIX_ENVS * DQN_ACT_OPS_PER_ENV)
+    out["dqn_act"][PIX_ENVS].update(greedy_times(q))
 
     B = PIX_ENVS
     window = torch.randint(0, 256, (B, K, 84, 84), generator=g, device=dev, dtype=torch.uint8)
@@ -4688,6 +4748,341 @@ def time_fn_kernels(dev, smi) -> dict:
         emit({"phase": "gray_times", "shape": list(shape), "kernels": {"grayscale_u8_exact": entry},
               "nvidia_smi": smi})
     return out
+
+
+# ---------------------------------------------------------------------------
+# 44.-47. PPO on the pixel chain, and the from-scratch PPO curve
+# ---------------------------------------------------------------------------
+
+# Phase 44: a small fp32 pixel PPO on the card and on the CPU from the JAX
+# run's initial weights, held as phase 23 holds the pixel DQN (each leaf's
+# change within SMALL_PIX_PARAM_TOL of its norm).
+SMALL_PIX_PPO_ENVS = 32
+SMALL_PIX_PPO_CFG = dict(rollout_len=8, update_epochs=2, n_minibatches=2, frame_stack=4)
+# its values and log-probs, card against CPU: float32 sums of up to 3136
+# terms in another order, the bound the CPU tests hold the port to against JAX
+SMALL_PIX_PPO_OUT_TOL = 1e-5
+# Phase 45: examples/train_ppo.py --obs rgb84 --frame-stack 4 at the JAX
+# example's defaults (2048 envs x 128 steps, 6 epochs of 8 minibatches,
+# AtariActorCritic with a bf16 trunk, ent-coef 0.01), 3 train steps in one
+# chunk, from the JAX run's initial weights (tools/export_grouped_init_params.py
+# --net atari_actor_critic --frame-stack 4 --seed 1).
+PIX_PPO_INIT = os.path.join(REPO, "results", "atari_actor_critic_k4_init_seed1.npz")
+PIX_PPO_ENVS, PIX_PPO_T, PIX_PPO_STEPS, PIX_PPO_K = 2048, 128, 3, 4
+PIX_PPO_ARGV = [
+    "--obs", "rgb84", "--frame-stack", str(PIX_PPO_K), "--n-envs", str(PIX_PPO_ENVS),
+    "--rollout-len", str(PIX_PPO_T), "--update-epochs", "6", "--n-minibatches", "8",
+    "--iterations", str(PIX_PPO_STEPS), "--chunk", str(PIX_PPO_STEPS), "--seed", "1",
+    "--init-params", PIX_PPO_INIT,
+]
+# Phase 47: examples/train_ppo.py at its defaults (board observations, the
+# turbo engine, 2048 envs x 128 steps, 6 epochs of 8 minibatches, ent-coef
+# 0.01, lr 2.5e-4, seed 1), the settings of the repo's from-scratch PPO
+# record results/ppo.jsonl, from that JAX run's initial weights
+# (tools/export_grouped_init_params.py --net actor_critic --seed 1).
+# Iteration 1's reward per step is the rollout of the initial weights with
+# the record's keys: within CURVE_START_TOL of the record's 0.1586.
+# Iteration 10's must be at least CURVE_GATE times iteration 1's (the
+# record: 0.5002 / 0.1586 = 3.15x).
+PPO_INIT = os.path.join(REPO, "results", "ppo_init_seed1.npz")
+PPO_CURVE = os.path.join(REPO, "results", "ppo.jsonl")
+CURVE_ITERATIONS, CURVE_START_TOL, CURVE_GATE = 10, 0.005, 2.5
+CURVE_ARGV = ["--n-envs", "2048", "--rollout-len", "128", "--iterations", str(CURVE_ITERATIONS),
+              "--seed", "1", "--init-params", PPO_INIT]
+
+
+def _rel_to_scale(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.double() - b.double()).abs().max()) / max(float(b.double().abs().max()), 1e-30)
+
+
+def check_small_pixel_ppo() -> dict:
+    """Phase 44: a small fp32 pixel PPO train step on the card (cuDNN's
+    deterministic algorithms) against the same step on the CPU."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.models.networks import AtariActorCritic
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.rl import ppo
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat
+
+    t0 = time.perf_counter()
+    cfg = ppo.PPOConfig(**SMALL_PIX_PPO_CFG)
+    env_config = EngineConfig(auto_reset=True)
+    sample_step = ppo.sample_step_fn(env_config, "flagship", obs="rgb84")
+    start = load_flat(PIX_PPO_INIT)
+    out = {}
+    with deterministic_cudnn():
+        for where in ("cuda", "cpu"):
+            kernels.reset_launches()
+            ts = ppo.init_train_state(threefry.prng_key(4), SMALL_PIX_PPO_ENVS, env_config, cfg,
+                                      net=AtariActorCritic(in_channels=cfg.frame_stack,
+                                                           dtype=torch.float32),
+                                      impl="flagship", obs="rgb84", device=where, params=start)
+            key0 = ts.key
+            traj = ppo.rollout(ts, cfg, sample_step)[0]
+            if where == "cuda":
+                # the sampling kernel against its plain version on the card's own logits
+                key, worst_ulps, lp_bit_equal = key0, 0, True
+                with torch.no_grad():
+                    for t in range(cfg.rollout_len):
+                        key, act_key = threefry.split(key)
+                        pa, plp = ppo.sample_actions_plain(ts.net(traj.obs[t])[0], act_key)
+                        diff("ppo_sample", traj.action[t], pa, f"small pixel PPO step {t} actions")
+                        err = (traj.log_prob[t].double() - plp.double()).abs()
+                        ulp = torch.from_numpy(np.spacing(plp.abs().cpu().numpy())).to(err.device)
+                        if bool((err > 2.0**-22 + LOG_PROB_ULPS * ulp.double()).any()):
+                            raise AssertionError(f"small pixel PPO step {t}: log_prob off the "
+                                                 f"plain one by {float(err.max())}")
+                        worst_ulps = max(worst_ulps, float((err / ulp.double()).max()))
+                        lp_bit_equal &= torch.equal(bits(traj.log_prob[t]), bits(plp))
+            ts, metrics = ppo.make_train_step(env_config, cfg, impl="flagship", obs="rgb84")(ts)
+            out[where] = (traj, ts, to_flax_params(ts.net.state_dict(), "atari_actor_critic"),
+                          {k: float(v) for k, v in metrics.items()}, dict(kernels.LAUNCHES))
+    (tc, sc, pc, mc, lc), (tp, sp, pp, mp, _) = out["cuda"], out["cpu"]
+    n = 2 * cfg.rollout_len  # the rollout above and the train step's own
+    want = {**{k: 0 for k in lc}, "flagship_init": 1, "ppo_sample": n, "flagship_step": n,
+            "render_rgb84": n + 1, "framestack_push": n, "gae": 1}
+    if lc != want:
+        raise AssertionError(f"small pixel PPO launch counts {lc}, want {want}")
+    for k in ("obs", "action", "reward", "done"):
+        if not torch.equal(bits(getattr(tc, k).cpu()), bits(getattr(tp, k))):
+            raise AssertionError(f"small pixel PPO: rollout {k} differs between card and CPU")
+    for k in engine.FIELDS:
+        if not torch.equal(bits(getattr(sc.env_states, k).cpu()), bits(getattr(sp.env_states, k))):
+            raise AssertionError(f"small pixel PPO: env {k} differs between card and CPU")
+    if not torch.equal(sc.last_obs.cpu(), sp.last_obs):
+        raise AssertionError("small pixel PPO: the window differs between card and CPU")
+    out_rel = {k: _rel_to_scale(getattr(tc, k).cpu(), getattr(tp, k)) for k in ("value", "log_prob")}
+    if max(out_rel.values()) > SMALL_PIX_PPO_OUT_TOL:
+        raise AssertionError(f"small pixel PPO: values or log-probs differ by {out_rel} of "
+                             "their scale between card and CPU")
+    norm_worst, elem_worst = param_change_diff("small pixel PPO", start, pc, pp, SMALL_PIX_PARAM_TOL)
+    result = {"phase": "small_pixel_ppo", "rollout_bit_equal": True, "env_bit_equal": True,
+              "window_bit_equal": True, "envs": SMALL_PIX_PPO_ENVS, **SMALL_PIX_PPO_CFG,
+              "launches_cuda": lc, "log_prob_max_ulps_vs_plain": worst_ulps,
+              "log_prob_bit_equal_plain": lp_bit_equal, "card_vs_cpu_rel_to_scale": out_rel,
+              "episodes_done": int(tc.done.sum()), "param_change_max_norm_rel_diff": norm_worst,
+              "param_change_max_elem_rel_diff": elem_worst, "metrics_cuda": mc, "metrics_cpu": mp,
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+def train_pixel_ppo_full_width(dev, smi) -> dict:
+    """Phase 45: ``examples/train_ppo.py --obs rgb84 --frame-stack 4`` at the
+    JAX example's defaults, 3 train steps, then the trained weights' greedy
+    evaluation."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.examples import train_ppo
+    from tetris_gymnasium_torch.models.convert import to_flax_params
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.rl.evaluate import evaluate_policy, greedy_logits
+    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic, load_flat
+
+    args = train_ppo.parse_args(PIX_PPO_ARGV)
+    events = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.setdefault(name, []).append(ev)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, records = train_ppo.train(args, marks=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    n = PIX_PPO_STEPS * PIX_PPO_T  # a train step: T of each rollout kernel, one gae
+    want = {**{k: 0 for k in launches}, "flagship_init": 1, "ppo_sample": n, "flagship_step": n,
+            "render_rgb84": n + 1, "framestack_push": n, "gae": PIX_PPO_STEPS}
+    if launches != want:
+        raise AssertionError(f"pixel PPO launch counts {launches}, want {want}")
+    rec = records[-1]
+    for k, v in rec.items():
+        if not np.isfinite(v):
+            raise AssertionError(f"pixel PPO metric {k} is not finite: {v}")
+    start = load_flat(PIX_PPO_INIT)
+    trained = to_flax_params(ts.net.state_dict(), "atari_actor_critic")
+    moved = {k: float(np.abs(trained[k] - start[k]).max()) for k in start}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"some parameters did not move: {moved}")
+    steps = []
+    for i in range(PIX_PPO_STEPS):
+        split = {"rollout_ms": events["start"][i].elapsed_time(events["rollout"][i]),
+                 "gae_ms": events["rollout"][i].elapsed_time(events["gae"][i]),
+                 "update_ms": events["gae"][i].elapsed_time(events["update"][i])}
+        split["step_ms"] = events["start"][i].elapsed_time(events["update"][i])
+        split["env_steps_per_s"] = PIX_PPO_ENVS * PIX_PPO_T / (split["step_ms"] * 1e-3)
+        steps.append(split)
+    obs = ts.last_obs
+    with torch.no_grad():
+        policy_ms = device_ms(lambda: ts.net(obs), 20)
+        policy_call = call_ms(lambda: ts.net(obs), 20)
+    emit({"phase": "pixel_ppo_train", "n_envs": PIX_PPO_ENVS, "rollout_len": PIX_PPO_T,
+          "frame_stack": PIX_PPO_K, "train_steps": PIX_PPO_STEPS, "record": rec,
+          "launches": launches, "wall_s_with_setup": wall, "steps": steps,
+          "policy_forward_device_ms": policy_ms, "policy_forward_call_ms": policy_call,
+          "param_max_change": moved, "peak_mem_gib": peak / 2**30,
+          "rollout_obs_gib": PIX_PPO_T * PIX_PPO_ENVS * PIX_PPO_K * 84 * 84 / 2**30,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    evals = {}
+    for name, net in (("untrained", load_actor_critic(PIX_PPO_INIT, device=dev)), ("trained", ts.net)):
+        kernels.reset_launches()
+        evals[name] = evaluate_policy(greedy_logits(net), EVAL_EPISODES, EngineConfig(),
+                                      prng_key(EVAL_SEED), impl="flagship",
+                                      max_steps=EVAL_MAX_STEPS, frame_stack=PIX_PPO_K, obs="rgb84",
+                                      device=dev)
+        torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)  # the trained net's evaluation
+    it = evals["trained"]["iterations"]
+    want = {**{k: 0 for k in launches}, "flagship_init": 1, "flagship_step": it,
+            "render_rgb84": it + 1, "framestack_push": it}
+    if eval_launches != want:
+        raise AssertionError(f"pixel PPO evaluation launch counts {eval_launches}, want {want}")
+    for name, st in evals.items():
+        for k, v in st.items():
+            if v != v or abs(v) == float("inf"):
+                raise AssertionError(f"pixel PPO evaluation ({name}): {k} is not finite: {v}")
+    emit({"phase": "pixel_ppo_eval", "episodes": EVAL_EPISODES, "max_steps": EVAL_MAX_STEPS,
+          "frame_stack": PIX_PPO_K, **evals, "launches_trained": eval_launches,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return {"launches": launches, "steps": steps, "ts": ts}
+
+
+def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
+    """Phase 46: the pixel PPO path's kernels at its batch (B = 2048; T = 128
+    for ``gae``) on its trained state, bit-equal to their plain versions
+    (``ppo_sample``'s log-probs within ``LOG_PROB_ULPS``), then their device
+    ms beside their bounds and plain versions."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops import framestack, threefry
+    from tetris_gymnasium_torch.rl import ppo
+
+    t0 = time.perf_counter()
+    B, T = PIX_PPO_ENVS, PIX_PPO_T
+    cfg = EngineConfig(auto_reset=True)
+    ppo_cfg = ppo.PPOConfig(rollout_len=T, frame_stack=PIX_PPO_K)
+    window, s = ts.last_obs, ts.env_states
+    with torch.no_grad():
+        logits = ts.net(window)[0]
+    key = threefry.fold_in(threefry.prng_key(46), 0)
+    a, lp = kernels.sample_actions(logits, key)
+    pa, plp = ppo.sample_actions_plain(logits, key)
+    diff("ppo_sample", a, pa, "pixel PPO actions")
+    err = (lp.double() - plp.double()).abs()
+    MAX_ERR["ppo_sample"] = max(MAX_ERR["ppo_sample"], float(err.max()))
+    ulp = torch.from_numpy(np.spacing(plp.abs().cpu().numpy())).to(dev).double()
+    if bool((err > 2.0**-22 + LOG_PROB_ULPS * ulp).any()):
+        raise AssertionError(f"pixel PPO log_prob: max error {float(err.max())}")
+    ks, kr, kd, kl = kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping())
+    want = engine.step_plain(s, a, cfg)
+    for k in engine.FIELDS:
+        diff("flagship_step", getattr(ks, k), getattr(want[0], k), f"pixel PPO step {k}")
+    for got, w, name in zip((kr, kd, kl), want[1:], ("reward", "done", "lines")):
+        diff("flagship_step", got, w, f"pixel PPO step {name}")
+    raw = kernels.render_rgb84(ks, cfg, engine.PIECES)
+    diff("render_rgb84", raw, engine.render_rgb84_plain(ks, cfg), "pixel PPO frame")
+    diff("framestack_push", kernels.framestack_push(window, raw, kd),
+         framestack.push_plain(window, raw, kd), "pixel PPO window push")
+    # gae on one more rollout of the trained policy, the path's own inputs
+    traj, _, last_obs, _ = ppo.rollout(ts, ppo_cfg, ppo.sample_step_fn(cfg, "flagship", obs="rgb84"))
+    with torch.no_grad():
+        last_value = ts.net(last_obs)[1]
+    reward, value, done = traj.reward.contiguous(), traj.value.contiguous(), traj.done.contiguous()
+    del traj, last_obs
+    torch.cuda.empty_cache()
+    got = kernels.gae(reward, value, done, last_value, ppo_cfg.gamma, ppo_cfg.gae_lambda)
+    plain = ppo.gae_plain(reward, value, done, last_value, ppo_cfg.gamma, ppo_cfg.gae_lambda)
+    diff("gae", got[0], plain[0], "pixel PPO advantages")
+    diff("gae", got[1], plain[1], "pixel PPO targets")
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+
+    kept = (B - int(kd.sum())) * nbytes(window[0, 1:])
+    state_bytes = nbytes(*(getattr(s, k) for k in engine.FIELDS))
+    entries = {
+        "ppo_sample": (lambda: kernels.sample_actions(logits, key),
+                       lambda: ppo.sample_actions_plain(logits, key), nbytes(logits) + B * (4 + 4),
+                       SAMPLE_OPS_PER_ELEMENT * B * 8),
+        "flagship_step": (lambda: kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping()),
+                          lambda: engine.step_plain(s, a, cfg),
+                          2 * state_bytes + nbytes(a) + B * (4 + 1 + 4),
+                          B * FLAGSHIP_STEP_OPS_PER_ENV),
+        "render_rgb84": (lambda: kernels.render_rgb84(ks, cfg, engine.PIECES),
+                         lambda: engine.render_rgb84_plain(ks, cfg), _render_bytes(ks, B),
+                         B * 84 * 84 * RENDER_OPS_PER_PIXEL),
+        "framestack_push": (lambda: kernels.framestack_push(window, raw, kd),
+                            lambda: framestack.push_plain(window, raw, kd),
+                            kept + nbytes(raw, kd, window), 0),
+        "gae": (lambda: kernels.gae(reward, value, done, last_value, ppo_cfg.gamma,
+                                    ppo_cfg.gae_lambda),
+                lambda: ppo.gae_plain(reward, value, done, last_value, ppo_cfg.gamma,
+                                      ppo_cfg.gae_lambda),
+                nbytes(reward, value, done, last_value) + 2 * nbytes(reward),
+                GAE_OPS_PER_ELEMENT * T * B),
+    }
+    out = {}
+    for name, (kernel_fn, plain_fn, io, ops) in entries.items():
+        out[name] = timed_pair(kernel_fn, plain_fn, 100, 3 if name in ("gae", "render_rgb84") else 10,
+                               io, ops)
+        out[name]["library_ms"] = None  # no one PyTorch call computes any of these
+    out["gae"]["build"] = kernels.gae_build(B, reward, value, done, reward, value)
+    emit({"phase": "pixel_ppo_kernels", "B": B, "T": T, "bit_equal": True,
+          "log_prob_bit_equal_plain": bool(torch.equal(bits(lp), bits(plp))),
+          "episodes_ended": int(kd.sum()), "rollout_done_share": float(done.float().mean()),
+          "check_seconds": checked_s, "kernels": out, "nvidia_smi": smi})
+    return out
+
+
+def check_ppo_curve(dev, smi) -> dict:
+    """Phase 47: the board PPO trainer from the JAX run's initial weights at
+    the settings of ``results/ppo.jsonl``, held to that record."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.examples import train_ppo
+
+    with open(PPO_CURVE) as f:
+        record = {r["iteration"]: r for r in map(json.loads, f)}
+    if record[1]["env_steps"] != 2048 * 128:
+        raise AssertionError(f"{PPO_CURVE} is not a 2048 x 128 run: {record[1]}")
+    args = train_ppo.parse_args(CURVE_ARGV)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, records = train_ppo.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {r["iteration"]: r for r in records}
+    first, last = got[1]["reward_per_step"], got[CURVE_ITERATIONS]["reward_per_step"]
+    want_first = record[1]["reward_per_step"]
+    result = {"phase": "ppo_curve", "iterations": CURVE_ITERATIONS, "wall_s_with_setup": wall,
+              "reward_per_step": {i: r["reward_per_step"] for i, r in got.items()},
+              "record_reward_per_step": {i: record[i]["reward_per_step"] for i in got},
+              "steps_per_episode": {i: r["steps_per_episode"] for i, r in got.items()},
+              "record_steps_per_episode": {i: record[i]["steps_per_episode"] for i in got},
+              "ratio": last / first, "record_ratio": record[CURVE_ITERATIONS]["reward_per_step"] / want_first,
+              "gate": CURVE_GATE, "start_tol": CURVE_START_TOL, "launches": dict(kernels.LAUNCHES),
+              "nvidia_smi": smi}
+    emit(result)
+    if abs(first - want_first) > CURVE_START_TOL:
+        raise AssertionError(f"PPO curve: iteration 1 gives {first} reward per step, the record "
+                             f"{want_first}; want within {CURVE_START_TOL}")
+    if not last >= CURVE_GATE * first:
+        raise AssertionError(f"PPO curve: iteration {CURVE_ITERATIONS} gives {last} reward per "
+                             f"step, {last / first:.3f}x iteration 1's; want {CURVE_GATE}x")
+    return result
 
 
 if __name__ == "__main__":

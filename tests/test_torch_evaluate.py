@@ -87,17 +87,21 @@ def test_stats_of_frozen_states():
 
 
 def test_unported_paths_raise():
-    """The flagship engine and its rgb84 frames are ported; the frames stay
-    flagship-only (a ValueError, as in JAX) and PPO on them (the
-    AtariActorCritic) is not ported yet."""
+    """The flagship engine and its rgb84 frames are ported, and PPO on them
+    (the AtariActorCritic) builds; the frames stay flagship-only (a
+    ValueError, as in JAX) and unknown observation kinds raise."""
+    from tetris_gymnasium_torch.models.networks import AtariActorCritic
     from tetris_gymnasium_torch.rl import ppo
     from tetris_gymnasium_torch.rl.engines import env_fns
 
     assert len(env_fns(EngineConfig(), "flagship", obs="rgb84", device="cpu")) == 3
     with pytest.raises(ValueError, match="flagship"):
         env_fns(EngineConfig(), "turbo", obs="rgb84", device="cpu")
-    with pytest.raises(NotImplementedError, match="AtariActorCritic"):
+    ts = ppo.init_train_state(prng_key(0), 4, EngineConfig(auto_reset=True), ppo.PPOConfig(),
+                              impl="flagship", obs="rgb84", device="cpu")
+    assert isinstance(ts.net, AtariActorCritic) and ts.last_obs.shape == (4, 84, 84)
+    with pytest.raises(ValueError, match="flagship"):
         ppo.init_train_state(prng_key(0), 4, EngineConfig(auto_reset=True), ppo.PPOConfig(),
-                             impl="flagship", obs="rgb84", device="cpu")
+                             impl="turbo", obs="rgb84", device="cpu")
     with pytest.raises(ValueError):
         env_fns(EngineConfig(), "turbo", obs="pixels", device="cpu")

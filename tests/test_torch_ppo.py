@@ -445,9 +445,11 @@ def test_cli_chunk_divisibility_errors(argv):
 ])
 def test_cli_unported_options_raise(argv, item):
     """The options still unported raise, naming their ROADMAP.md item;
-    ``--impl flagship`` (item 9) is ported and parses."""
-    if item == "item 9":
-        assert train_ppo.parse_args(argv).impl == "flagship"
+    ``--impl flagship`` (item 9) is ported and parses, and ``--obs rgb84``
+    (item 10) is ported, parses and selects the flagship engine."""
+    if item in ("item 9", "item 10"):
+        args = train_ppo.parse_args(argv)
+        assert args.impl == "flagship" and args.obs == ("rgb84" if item == "item 10" else "board")
         return
     with pytest.raises(NotImplementedError, match=item):
         train_ppo.parse_args(argv)

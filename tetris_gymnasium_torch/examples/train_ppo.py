@@ -1,11 +1,15 @@
 """PPO with the PyTorch port: envs, rollout and learner on the card.
 
-Twin of ``examples/train_ppo.py`` with board observations, on the turbo
-engine or (``--impl flagship``) the flagship engine (``ActorCriticCNN`` with
-a bf16 trunk; ``--frame-stack K`` feeds it ``[B, K, H, W]`` windows).  One iteration is ``rollout_len * n_envs`` env steps; the host loop
-calls the train step and reads the metrics every ``--chunk`` iterations::
+Twin of ``examples/train_ppo.py``: board observations on the turbo engine
+or (``--impl flagship``) the flagship engine (``ActorCriticCNN`` with a bf16
+trunk), or with ``--obs rgb84`` the reference's 84x84 gray frames on the
+flagship engine (``AtariActorCritic`` with a bf16 trunk); ``--frame-stack
+K`` feeds the net ``[B, K, H, W]`` windows.  One iteration is
+``rollout_len * n_envs`` env steps; the host loop calls the train step and
+reads the metrics every ``--chunk`` iterations::
 
     python -m tetris_gymnasium_torch.examples.train_ppo --n-envs 8192 --iterations 100
+    python -m tetris_gymnasium_torch.examples.train_ppo --obs rgb84 --frame-stack 4
     python -m tetris_gymnasium_torch.examples.train_ppo --device cpu --n-envs 8 \\
         --rollout-len 4 --iterations 2
 
@@ -23,7 +27,7 @@ import time
 import torch
 
 from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-from tetris_gymnasium_torch.models.networks import ActorCriticCNN
+from tetris_gymnasium_torch.models.networks import ActorCriticCNN, AtariActorCritic
 from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.rl import evaluate, ppo
 from tetris_gymnasium_torch.utils.checkpoint import load_flat, save_actor_critic
@@ -32,8 +36,6 @@ from tetris_gymnasium_torch.utils.device import resolve_device
 # options of the JAX script that this port does not have yet, with the
 # ROADMAP.md queue 1 item that brings each
 _NOT_PORTED = {
-    "obs": "--obs rgb84 (AtariActorCritic over the pixel chain) is not ported yet: a "
-           "candidate for the next slice (ROADMAP.md queue 1 item 10)",
     "wandb": "--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12",
     "video_every": "--video-every (utils/video) comes with ROADMAP.md queue 1 item 12",
 }
@@ -67,7 +69,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--net", choices=("default", "fullres"), default="default",
         help="actor-critic trunk: default (strided 32-64-128) or fullres (stride-1 convs)",
     )
-    p.add_argument("--obs", choices=("board", "rgb84"), default="board")
+    p.add_argument(
+        "--obs", choices=("board", "rgb84"), default="board",
+        help="observation: the board, or the reference's RGB -> 84x84 -> gray frames "
+        "(selects the flagship engine and AtariActorCritic)",
+    )
     p.add_argument("--frame-stack", type=int, default=1)
     p.add_argument("--save-params", type=str, default=None,
                    help="save the final actor-critic parameters here (.npz)")
@@ -94,10 +100,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                 p.error(f"--{name.replace('_', '-')} {v} must be a multiple of --chunk {args.chunk}")
     if args.frame_stack < 1:
         p.error(f"--frame-stack must be >= 1, got {args.frame_stack}")
-    defaults = {"obs": "board", "wandb": False, "video_every": 0}
+    defaults = {"wandb": False, "video_every": 0}
     for name, default in defaults.items():
         if getattr(args, name) != default:
             raise NotImplementedError(_NOT_PORTED[name])
+    if args.obs == "rgb84" and args.impl != "flagship":
+        print("obs=rgb84 needs id boards; switching --impl to flagship", flush=True)
+        args.impl = "flagship"
     return args
 
 
@@ -120,11 +129,14 @@ def setup(args: argparse.Namespace, marks=None):
         frame_stack=args.frame_stack,
     )
     rewards = RewardsMapping(alife=args.alife, game_over=args.game_over_reward)
-    strides = ((1, 1), (1, 1), (1, 1)) if args.net == "fullres" else None
+    if args.obs == "rgb84":
+        net = AtariActorCritic(in_channels=args.frame_stack)
+    else:
+        strides = ((1, 1), (1, 1), (1, 1)) if args.net == "fullres" else None
+        net = ActorCriticCNN(strides=strides, in_channels=args.frame_stack)
     params = load_flat(args.init_params) if args.init_params else None
     ts = ppo.init_train_state(
-        prng_key(args.seed), args.n_envs, env_config, ppo_cfg,
-        net=ActorCriticCNN(strides=strides, in_channels=args.frame_stack), impl=args.impl,
+        prng_key(args.seed), args.n_envs, env_config, ppo_cfg, net=net, impl=args.impl,
         obs=args.obs, device=device, params=params,
     )
     if params is not None:
@@ -171,8 +183,8 @@ def train(args: argparse.Namespace, marks=None):
             if args.eval_every and it % args.eval_every == 0:
                 ev = evaluate.evaluate_policy(
                     evaluate.greedy_logits(ts.net), args.eval_episodes, env_config,
-                    prng_key(1000 + it), max_steps=args.eval_max_steps,
-                    frame_stack=args.frame_stack, device=args.device,
+                    prng_key(1000 + it), impl=args.impl, max_steps=args.eval_max_steps,
+                    frame_stack=args.frame_stack, obs=args.obs, device=args.device,
                 )
                 rec.update(
                     eval_return=round(ev["return_mean"], 3),

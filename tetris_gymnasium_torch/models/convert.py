@@ -13,7 +13,11 @@ the Flax parameter paths joined by ``/``, as
   head ``Dense_0``);
 * ``"q_cnn"``: :class:`QNetworkCNN`, the same map as ``"grouped_cnn"``;
 * ``"atari_q"``: :class:`AtariQNetwork` (``Conv_0`` .. ``Conv_2``, the
-  dense layer ``Dense_0`` and the head ``Dense_1``).
+  dense layer ``Dense_0`` and the head ``Dense_1``);
+* ``"atari_actor_critic"``: :class:`AtariActorCritic` (``Conv_0`` ..
+  ``Conv_2``, the trunk's dense layer ``Dense_0``, the policy head
+  ``Dense_1`` and the value head ``Dense_2``; unlike ``"actor_critic"``,
+  where ``Dense_0`` is the policy head).
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ import numpy as np
 import torch
 
 _ENC = "params/BoardEncoder_0/"
-KINDS = ("actor_critic", "qmlp", "grouped_cnn", "q_cnn", "atari_q")
+KINDS = ("actor_critic", "qmlp", "grouped_cnn", "q_cnn", "atari_q", "atari_actor_critic")
+_ATARI = ("atari_q", "atari_actor_critic")
 
 
 def _encoder_map(n_convs: int) -> Dict[str, str]:
@@ -48,11 +53,13 @@ def _key_map(kind: str, n_layers: int) -> Dict[str, str]:
         return {**_encoder_map(n_layers), **_dense("Dense_0", "policy"), **_dense("Dense_1", "value")}
     if kind in ("grouped_cnn", "q_cnn"):
         return {**_encoder_map(n_layers), **_dense("Dense_0", "head")}
-    if kind == "atari_q":
+    if kind in _ATARI:
         m = {}
         for i in range(n_layers):
             m.update(_dense(f"Conv_{i}", f"convs.{i}"))
-        return {**m, **_dense("Dense_0", "dense"), **_dense("Dense_1", "head")}
+        heads = ({**_dense("Dense_1", "head")} if kind == "atari_q"
+                 else {**_dense("Dense_1", "policy"), **_dense("Dense_2", "value")})
+        return {**m, **_dense("Dense_0", "dense"), **heads}
     if kind == "qmlp":
         m = {}
         for i in range(n_layers - 1):
@@ -62,14 +69,15 @@ def _key_map(kind: str, n_layers: int) -> Dict[str, str]:
 
 
 def _n_layers_flax(flat, kind: str) -> int:
-    prefix = {"qmlp": "params/Dense_", "atari_q": "params/Conv_"}.get(kind, f"{_ENC}Conv_")
+    prefix = ("params/Dense_" if kind == "qmlp" else "params/Conv_" if kind in _ATARI
+              else f"{_ENC}Conv_")
     return sum(1 for k in flat if k.startswith(prefix) and k.endswith("/kernel"))
 
 
 def _n_layers_torch(state_dict, kind: str) -> int:
     if kind == "qmlp":
         return sum(1 for k in state_dict if k.startswith("hidden.") and k.endswith(".weight")) + 1
-    prefix = "convs." if kind == "atari_q" else "encoder.convs."
+    prefix = "convs." if kind in _ATARI else "encoder.convs."
     return sum(1 for k in state_dict if k.startswith(prefix) and k.endswith(".weight"))
 
 

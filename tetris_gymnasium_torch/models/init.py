@@ -6,8 +6,8 @@ Port of the initialisers the networks get in the JAX package
 * every convolution and dense kernel: Flax's default ``lecun_normal``, a
   normal truncated at two standard deviations and rescaled so that its
   variance is ``1 / fan_in``, except
-* ``ActorCriticCNN``'s policy head, ``orthogonal(0.01)``, and value head,
-  ``orthogonal(1.0)`` (``:146-171``);
+* ``ActorCriticCNN``'s and ``AtariActorCritic``'s policy heads,
+  ``orthogonal(0.01)``, and value heads, ``orthogonal(1.0)`` (``:108-171``);
 * every bias: zero.
 
 ``QNetworkCNN`` (``:61``), ``AtariQNetwork`` (``:76``), ``QMLP`` (``:174``)
@@ -35,16 +35,18 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Ten
 
 
 def init_actor_critic_(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise an :class:`ActorCriticCNN` in place as Flax would; returns it.
+    """Initialise an :class:`ActorCriticCNN` or an :class:`AtariActorCritic`
+    in place as Flax would; returns it.
 
     PyTorch's ``orthogonal_`` makes the rows of an ``[out, in]`` weight
     orthonormal, which are the columns of Flax's ``[in, out]`` kernel.
     """
-    for layer in (*net.encoder.convs, net.encoder.dense):
+    trunk = getattr(net, "encoder", net)  # the BoardEncoder, or the Atari net's own layers
+    for layer in (*trunk.convs, trunk.dense):
         lecun_normal_(layer.weight, generator)
     nn.init.orthogonal_(net.policy.weight, 0.01, generator=generator)
     nn.init.orthogonal_(net.value.weight, 1.0, generator=generator)
-    for layer in (*net.encoder.convs, net.encoder.dense, net.policy, net.value):
+    for layer in (*trunk.convs, trunk.dense, net.policy, net.value):
         nn.init.zeros_(layer.bias)
     return net
 

@@ -1,10 +1,11 @@
 """Networks: the conv trunk, the PPO actor-critic and the Q-nets.
 
 Port of ``tetris_gymnasium_tpu/models/networks.py`` (``BoardEncoder :25``,
-``QNetworkCNN :61``, ``AtariQNetwork :76``, ``ActorCriticCNN :146``,
-``QMLP :174``, ``QGroupedBoardsCNN :193``).  As in the JAX package, parameters are float32
-and the trunk computes in ``dtype`` (bfloat16 by default) while both heads
-compute in float32.  Two details keep the outputs equal to Flax's:
+``QNetworkCNN :61``, ``AtariQNetwork :76``, ``AtariActorCritic :108``,
+``ActorCriticCNN :146``, ``QMLP :174``, ``QGroupedBoardsCNN :193``).  As in
+the JAX package, parameters are float32 and the trunk computes in ``dtype``
+(bfloat16 by default) while the heads compute in float32.  Two details
+keep the outputs equal to Flax's:
 
 * Flax ``padding="SAME"`` pads a stride-2 convolution asymmetrically (the
   extra row or column goes at the end), so each convolution pads
@@ -102,21 +103,20 @@ class QNetworkCNN(nn.Module):
         return self.head(self.encoder(boards).to(torch.float32))
 
 
-class AtariQNetwork(nn.Module):
-    """The reference CNN workload's Q-net over 84x84 gray frames: ``[B, 84,
-    84]`` or a ``[B, K, 84, 84]`` window (uint8) -> Q ``f32[B, n_actions]``.
+class _AtariTrunk(nn.Module):
+    """The Atari trunk over 84x84 gray frames that :class:`AtariQNetwork`
+    and :class:`AtariActorCritic` share (JAX ``networks.py:105-141``).
 
     Convolutions 32@8x8/4, 64@4x4/2 and 64@3x3/1 with VALID padding, each
-    followed by ReLU, a 512-wide dense layer with ReLU, all in ``dtype``,
-    then a float32 head.  The input is scaled as ``frames.to(dtype) /
-    255`` in ``dtype``, as Flax divides by a bf16 255; the dense layer reads
-    the features in NHWC order.
+    followed by ReLU, then a 512-wide dense layer with ReLU, all in
+    ``dtype``.  The input, ``[B, 84, 84]`` or a ``[B, K, 84, 84]`` window
+    (uint8), is scaled as ``frames.to(dtype) / 255`` in ``dtype``, as Flax
+    divides by a bf16 255; the dense layer reads the features in NHWC order.
     """
 
     PLAN = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 
-    def __init__(self, n_actions: int = 8, in_channels: int = 1, frame_shape=(84, 84),
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, in_channels: int, frame_shape, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
         h, w = frame_shape
@@ -127,9 +127,9 @@ class AtariQNetwork(nn.Module):
             h, w, c = (h - k) // stride + 1, (w - k) // stride + 1, feat
         self.convs = nn.ModuleList(convs)
         self.dense = nn.Linear(c * h * w, 512)
-        self.head = nn.Linear(512, n_actions)
 
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+    def trunk(self, frames: torch.Tensor) -> torch.Tensor:
+        """The 512 features ``[B, 512]`` in ``dtype``."""
         x = frames.to(self.dtype)
         if x.ndim == 3:
             x = x[:, None]
@@ -137,8 +137,43 @@ class AtariQNetwork(nn.Module):
         for conv in self.convs:
             x = F.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype), conv.stride))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten, as Flax
-        x = F.relu(F.linear(x, self.dense.weight.to(self.dtype), self.dense.bias.to(self.dtype)))
-        return self.head(x.to(torch.float32))
+        return F.relu(F.linear(x, self.dense.weight.to(self.dtype), self.dense.bias.to(self.dtype)))
+
+
+class AtariQNetwork(_AtariTrunk):
+    """The reference CNN workload's Q-net over 84x84 gray frames: ``[B, 84,
+    84]`` or a ``[B, K, 84, 84]`` window (uint8) -> Q ``f32[B, n_actions]``.
+
+    The Atari trunk in ``dtype``, then a float32 head.
+    """
+
+    def __init__(self, n_actions: int = 8, in_channels: int = 1, frame_shape=(84, 84),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_channels, frame_shape, dtype)
+        self.head = nn.Linear(512, n_actions)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        return self.head(self.trunk(frames).to(torch.float32))
+
+
+class AtariActorCritic(_AtariTrunk):
+    """The reference PPO workload's agent over 84x84 gray frames (JAX
+    ``networks.py:108``): ``[B, 84, 84]`` or a ``[B, K, 84, 84]`` window
+    (uint8) -> ``(logits f32[B, n_actions], value f32[B])``.
+
+    The Atari trunk in ``dtype``, then a float32 policy head and a float32
+    value head over the float32 cast of its features.
+    """
+
+    def __init__(self, n_actions: int = 8, in_channels: int = 1, frame_shape=(84, 84),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_channels, frame_shape, dtype)
+        self.policy = nn.Linear(512, n_actions)
+        self.value = nn.Linear(512, 1)
+
+    def forward(self, frames: torch.Tensor):
+        h = self.trunk(frames).to(torch.float32)
+        return self.policy(h), self.value(h).squeeze(-1)
 
 
 class ActorCriticCNN(nn.Module):

@@ -12,10 +12,11 @@ same.
 
 Run as a script it evaluates an exported checkpoint, the twin of
 ``examples/evaluate_checkpoint.py``: an actor-critic (``--net
-actor-critic``, the default) or a Q-net (``--net q``: a :class:`QNetworkCNN`
-over boards, or with ``--obs rgb84`` an :class:`AtariQNetwork` over the
-flagship engine's 84x84 frames; ``--frame-stack K`` for a net that reads
-K-frame windows)::
+actor-critic``, the default: an :class:`ActorCriticCNN` over boards, or with
+``--obs rgb84`` an :class:`AtariActorCritic` over the flagship engine's
+84x84 frames) or a Q-net (``--net q``: a :class:`QNetworkCNN` over boards,
+or with ``--obs rgb84`` an :class:`AtariQNetwork`); ``--frame-stack K`` for
+a net that reads K-frame windows::
 
     python -m tetris_gymnasium_torch.rl.evaluate \\
         --checkpoint results/ppo_lines_params.npz --episodes 512 --seed 0 --max-steps 2000
@@ -23,6 +24,8 @@ K-frame windows)::
         --checkpoint q.npz --episodes 512
     python -m tetris_gymnasium_torch.rl.evaluate --net q --obs rgb84 --frame-stack 4 \\
         --checkpoint results/atari_q_k4_init_seed1.npz --episodes 512
+    python -m tetris_gymnasium_torch.rl.evaluate --obs rgb84 --frame-stack 4 \\
+        --checkpoint results/atari_actor_critic_k4_init_seed1.npz --episodes 512
 """
 from __future__ import annotations
 
@@ -205,8 +208,8 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", required=True, help="exported .npz (tools/export_torch_params.py)")
     p.add_argument("--net", choices=("actor-critic", "q"), default="actor-critic",
-                   help="the checkpoint's network: ActorCriticCNN, or QNetworkCNN "
-                   "(AtariQNetwork with --obs rgb84)")
+                   help="the checkpoint's network: ActorCriticCNN or QNetworkCNN "
+                   "(AtariActorCritic or AtariQNetwork with --obs rgb84)")
     p.add_argument("--impl", choices=("flagship", "turbo"), default="turbo",
                    help="engine (--obs rgb84 selects flagship)")
     p.add_argument("--obs", choices=("board", "rgb84"), default="board")
@@ -231,10 +234,7 @@ def main(argv=None) -> dict:
     if args.net == "q":
         kind = "atari_q" if args.obs == "rgb84" else "q_cnn"
         act = greedy_q(load_q_net(args.checkpoint, kind, device=device, dtype=dtype))
-    elif args.obs == "rgb84":
-        raise NotImplementedError("--net actor-critic --obs rgb84 (AtariActorCritic) is not "
-                                  "ported yet (ROADMAP.md queue 1 item 10)")
-    else:
+    else:  # the kind, ActorCriticCNN or AtariActorCritic, is read from the weights
         act = greedy_logits(load_actor_critic(args.checkpoint, device=device, dtype=dtype))
     stats = evaluate_policy(
         act, args.episodes, EngineConfig(), prng_key(args.seed), impl=impl,

@@ -1,7 +1,9 @@
 """PPO: envs, rollout buffer, policy and learner on one card.
 
 Port of ``tetris_gymnasium_tpu/rl/ppo.py`` with board observations, on the
-turbo or the flagship engine (``impl``), with or without a frame stack.  The
+turbo or the flagship engine (``impl``), or with the reference's 84x84 gray
+frames (``obs="rgb84"``, flagship engine, :class:`AtariActorCritic`), with or
+without a frame stack.  The
 algorithm, the hyperparameters and the random draws are the JAX package's;
 what changes is the execution.  JAX traces a whole rollout-plus-update
 iteration into one XLA program; here the host runs the loops and enqueues
@@ -12,9 +14,10 @@ work on the card without waiting for it:
   ``turbo_step`` launch that samples the action and its log-prob from the
   logits, steps with auto-reset and writes the board observation
   (:func:`turbo_sample_step`); on the flagship engine the ``ppo_sample``
-  kernel, then ``flagship_step`` and ``flagship_observe_board``
-  (:func:`sample_step_fn` picks the route); with ``frame_stack`` K > 1 then the
-  ``framestack_push`` kernel (the policy reads ``[B, K, H, W]`` windows);
+  kernel, then ``flagship_step`` and ``flagship_observe_board`` (or
+  ``render_rgb84`` for 84x84 frames; :func:`sample_step_fn` picks the
+  route); with ``frame_stack`` K > 1 then the ``framestack_push`` kernel
+  (the policy reads ``[B, K, H, W]`` windows);
 * GAE is the ``gae`` kernel, one launch per train step;
 * the update is ``update_epochs`` passes over block-shuffled minibatches:
   the loss, its backward pass and Adam are PyTorch operators, as the JAX
@@ -37,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,10 +50,11 @@ from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
 from tetris_gymnasium_torch.core import turbo
 from tetris_gymnasium_torch.models.convert import from_flax_params
 from tetris_gymnasium_torch.models.init import init_actor_critic_
-from tetris_gymnasium_torch.models.networks import ActorCriticCNN
+from tetris_gymnasium_torch.models.networks import ActorCriticCNN, AtariActorCritic
 from tetris_gymnasium_torch.ops import framestack, threefry
 from tetris_gymnasium_torch.parallel.mesh import batch_keys
 from tetris_gymnasium_torch.rl.engines import env_fns
+from tetris_gymnasium_torch.utils.checkpoint import actor_critic_kind
 from tetris_gymnasium_torch.utils.device import resolve_device
 
 class PPOConfig(NamedTuple):
@@ -77,7 +81,7 @@ class PPOConfig(NamedTuple):
 
 class Transition(NamedTuple):
     """One rollout, every field ``[T, B, ...]`` (``obs`` is ``int8[T, B, H, W]``, or
-    ``int8[T, B, K, H, W]`` with a frame stack)."""
+    ``int8[T, B, K, H, W]`` with a frame stack; frames are ``uint8[T, B, (K,) 84, 84]``)."""
 
     obs: torch.Tensor
     action: torch.Tensor
@@ -149,10 +153,10 @@ def make_optimizer(ppo: PPOConfig, params) -> ClippedAdam:
 class TrainState:
     """Everything a PPO iteration carries."""
 
-    net: ActorCriticCNN
+    net: torch.nn.Module  # ActorCriticCNN, or AtariActorCritic over 84x84 frames
     optimizer: ClippedAdam
     env_states: object  # turbo.TurboState or engine.EngineState
-    last_obs: torch.Tensor  # int8 [B, H, W], or the window [B, K, H, W] with frame_stack K > 1
+    last_obs: torch.Tensor  # [B, H, W], or the window [B, K, H, W] with frame_stack K > 1
     key: np.ndarray  # uint32[2], on the host
     update_i: int = 0  # train steps taken; drives the annealing schedules
 
@@ -165,7 +169,7 @@ def init_train_state(
     n_envs: int,
     env_config: EngineConfig,
     ppo: PPOConfig,
-    net: Optional[ActorCriticCNN] = None,
+    net: Optional[torch.nn.Module] = None,
     impl: str = "turbo",
     obs: str = "board",
     device="cuda",
@@ -175,30 +179,29 @@ def init_train_state(
 
     As in JAX, the key splits three ways into the carried key, the network's
     key and the env key, and env ``i`` starts from ``fold_in(env_key, i)``.
-    ``net`` gives the architecture (default :class:`ActorCriticCNN`, bf16
-    trunk, over ``ppo.frame_stack`` channels); with ``frame_stack`` K > 1
-    the carried observation is the first board repeated K times
-    (``ppo.py:138``).  Its weights are drawn with Flax's initialisers from a
-    ``torch.Generator`` seeded with the network key, unless ``params``, flat
-    Flax parameters (``{flax/path: array}``, e.g. from a JAX state or an
-    ``.npz``), are given.
+    ``net`` gives the architecture (default :class:`ActorCriticCNN`, or with
+    ``obs="rgb84"`` :class:`AtariActorCritic`, bf16 trunks, over
+    ``ppo.frame_stack`` channels); with ``frame_stack`` K > 1 the carried
+    observation is the first one repeated K times (``ppo.py:138``).  Its
+    weights are drawn with Flax's initialisers from a ``torch.Generator``
+    seeded with the network key, unless ``params``, flat Flax parameters
+    (``{flax/path: array}``, e.g. from a JAX state or an ``.npz``), are given.
     """
-    if obs != "board":
-        raise NotImplementedError(f"PPO on obs={obs!r} (AtariActorCritic) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 10)")
     device = resolve_device(device)
     env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
     key, net_key, env_key = threefry.split(np.asarray(key, dtype=np.uint32), 3)
     env_states = env_init(batch_keys(env_key, n_envs, device=device))
     raw = env_observe(env_states)
     obs_0 = raw if ppo.frame_stack == 1 else framestack.init(raw, ppo.frame_stack)
-    net = (ActorCriticCNN(in_channels=ppo.frame_stack) if net is None else net).cpu()
+    if net is None:
+        net = (AtariActorCritic if obs == "rgb84" else ActorCriticCNN)(in_channels=ppo.frame_stack)
+    net = net.cpu()
     if params is None:
         gen = torch.Generator()
         gen.manual_seed((int(net_key[0]) << 32) | int(net_key[1]))
         init_actor_critic_(net, gen)
     else:
-        net.load_state_dict(from_flax_params(params))
+        net.load_state_dict(from_flax_params(params, actor_critic_kind(net)))
     net = net.to(device)
     return TrainState(
         net=net, optimizer=make_optimizer(ppo, net.parameters()), env_states=env_states,
@@ -350,10 +353,13 @@ def rollout(ts: TrainState, ppo: PPOConfig, sample_step: Callable):
 
     Each step samples the action from the policy's logits and steps the
     envs with ``sample_step`` (:func:`sample_step_fn`).  Returns ``(traj,
-    env_states, last_obs, key)``: the :class:`Transition` stacked over time,
-    the env batch and observation (or window, pushed with each step's
-    ``done``, ``ppo.py:180-190``) after the last step, and the carried key
-    after one ``split`` per step.
+    env_states, last_obs, key)``: the :class:`Transition` over time, the env
+    batch and observation (or window, pushed with each step's ``done``,
+    ``ppo.py:180-190``) after the last step, and the carried key after one
+    ``split`` per step.  Each step's fields are copied into ``[T, ...]``
+    tensors allocated at the first step, so the rollout's windows are held
+    once (T x B x K x 7056 bytes of 84x84 frames), not twice as a list and
+    its stack.
     """
     key = ts.key
     act_keys = []
@@ -361,15 +367,18 @@ def rollout(ts: TrainState, ppo: PPOConfig, sample_step: Callable):
         key, act_key = threefry.split(key)
         act_keys.append(act_key)
     env_states, window = ts.env_states, ts.last_obs
-    steps: List[Tuple] = []
+    traj: Optional[Transition] = None
     with torch.no_grad():
-        for act_key in act_keys:
+        for t, act_key in enumerate(act_keys):
             logits, value = ts.net(window)
             env_states, raw, reward, done, _, action, log_prob = sample_step(
                 env_states, logits, act_key)
-            steps.append((window, action, log_prob, value, reward, done))
+            step = (window, action, log_prob, value, reward, done)
+            if traj is None:
+                traj = Transition(*(x.new_empty((ppo.rollout_len,) + x.shape) for x in step))
+            for field, x in zip(traj, step):
+                field[t] = x
             window = raw if ppo.frame_stack == 1 else framestack.push(window, raw, done)
-    traj = Transition(*(torch.stack(field) for field in zip(*steps)))
     return traj, env_states, window, key
 
 
