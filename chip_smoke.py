@@ -302,6 +302,27 @@ Phases, each printing one JSON line:
     (``results/ppo_init_seed1.npz``): iteration 1's reward per step within
     ``CURVE_START_TOL`` of the record's, iteration 10's at least
     ``CURVE_GATE`` times iteration 1's.
+48. ``ppo_sample``, ``turbo_step``'s sampling build (each lanes build) and
+    ``dqn_act`` at B = 2048 and 8192 and the global counter offsets 0, B
+    and 3B: bit-equal to their plain versions at that offset and to the
+    slice ``[offset, offset + B)`` of one launch over 4B envs; their
+    device ms at offsets 0 and 3B.
+49.-51. The multi-device paths (:func:`run_sharded`): ranks of the
+    launcher's process groups, started as ``chip_smoke.py --rank-worker``
+    processes, at W = 1 over NCCL and W = 2 over gloo on CUDA tensors
+    (both ranks on this card), against unsharded runs in this process.
+    ``launch.run`` at the JAX launcher's defaults (65536 x 256 x 4,
+    flagship) and a compat rollout (65536 x 64): checksums, Σreward and
+    Σdone equal everywhere; env-steps/s of each.  The main path's PPO
+    (phase 9's shape, 3 train steps, cuDNN's deterministic algorithms):
+    the first step's env checksum equal everywhere and its loss terms
+    within ``SHARD_LOSS_TOL``, each world's ranks equal in every step and
+    in their parameters, exact launches; the later steps' checksums and
+    the envs that differ from the unsharded run's reported; the step split
+    into rollout, update and collectives by CUDA events.  ``launch.main
+    --train dqn`` (65536 envs) and ``--train ppo`` (flagship, 8192 envs),
+    3 iterations each: env and replay checksums equal at W = 1 and 2 and
+    on every rank, each world's ranks holding equal parameters.
 
 Then the kernels line (25 kernels; ``turbo_step``'s time is its launch
 with the observation, as the paths take it, with its sampling builds' and
@@ -314,8 +335,11 @@ the shell, else the compat rollout; times at the shape of that path;
 calls, with 0 launches and their times at 30x20 and B = 4096, at B =
 65536 and over 2**24 pixels; ``dqn_act`` with its greedy launch's time
 and ``torch.argmax``'s as its library time; each with its builds, one a
-geometry, and the six surface kernels with their phase-39 times) and,
-last, the device line.
+geometry, and the six surface kernels with their phase-39 times; every
+kernel with a rank's launches on the sharded paths at W = 2, and
+``ppo_sample``, ``turbo_step`` (its sampling build) and ``dqn_act`` with
+their times at global counter offsets 0 and 3B) and, last, the device
+line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -1112,6 +1136,12 @@ def main() -> None:
     pix_ppo_times = pixel_ppo_path_kernels(dev, smi, pix_ppo.pop("ts"))
     check_ppo_curve(dev, smi)
 
+    # -- 48.-51. multi-device: the three sampling kernels at a global counter
+    # offset; the sharded rollouts, PPO and DQN at W = 1 (NCCL) and W = 2
+    # (gloo, both ranks on this card) against the unsharded runs ----------------
+    offset_times = check_offset_kernels(dev, smi)
+    sharded = run_sharded(dev, smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -1247,6 +1277,13 @@ def main() -> None:
         })
         if name == "turbo_step":  # its sampling build on the PPO path (phase 9)
             entries[-1]["launches_sample_ppo_train"] = train["launches"]["turbo_step_sample"]
+        # launches a rank made on the sharded paths (phases 49-51, W = 2)
+        entries[-1].update({f"launches_{p}": c[name] for p, c in sharded["launches"].items()})
+        timed = {"turbo_step": "turbo_step_sample"}.get(name, name)
+        if timed in offset_times:  # phase 48: at global counter offsets 0 and 3B
+            entries[-1]["offset_ms"] = {
+                B: {k: v["ms"] for k, v in by_off.items()}
+                for B, by_off in offset_times[timed].items()}
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5085,5 +5122,489 @@ def check_ppo_curve(dev, smi) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# 48.-51. multi-device: the env-sharded rollout, PPO and DQN over torch.distributed
+# ---------------------------------------------------------------------------
+
+OFFSET_B = (2048, 8192)  # the flagship PPO's and the main path's batch
+ROLLOUT = dict(n_envs=65536, horizon=256, repeats=4)  # the JAX launcher's defaults
+FN_ROLLOUT = dict(n_envs=65536, horizon=64, repeats=1)
+SHARD_DQN_ENVS, SHARD_PPO_ENVS, SHARD_ITERS = 65536, 8192, 3
+SHARD_TRAIN = dict(rollout_len=TRAIN_T, update_epochs=6, n_minibatches=8, learning_rate=4e-5,
+                   ent_coef=0.004)  # phase 9's PPOConfig (TRAIN_ARGV)
+# Phase 50: the first train step's last-minibatch loss terms, sharded
+# against unsharded, within this share of max(|term|, 1) (pg_loss is a mean
+# of unit-scale normalised advantages, near 0): the update's float32 sums
+# run in another order on each world size, and Adam magnifies that over the
+# step's 48 minibatches (5e-4 of v_loss at W = 1, 1.7e-3 at W = 2 in this
+# phase on an H100 80GB HBM3 at 700 W)
+SHARD_LOSS_TOL = 5e-3
+WORKER_TIMEOUT_S = 600
+# the groups a sharded phase runs in: (world size, launcher backend)
+GROUPS = ((1, "auto"), (2, "gloo-cuda"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_offset_kernels(dev, smi) -> dict:
+    """Phase 48: ``ppo_sample``, ``turbo_step``'s sampling build (each lanes
+    build) and ``dqn_act`` at B = 2048 and 8192 and the global counter
+    offsets 0, B and 3B: each bit-equal to its plain version at the same
+    offset and to the slice ``[offset, offset + B)`` of one launch over 4B
+    envs; then their times at offsets 0 and 3B."""
+    import dataclasses
+
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.rl import dqn, ppo
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(48)
+    cfg, rw = EngineConfig(auto_reset=True), RewardsMapping()
+    key, eps_key = prng_key(11), prng_key(12)
+    checked, times = 0, {}
+    for B in OFFSET_B:
+        full = 4 * B
+        logits = torch.randn((full, 8), generator=g, device=dev) * 3
+        q = torch.randn((full, 8), generator=g, device=dev)
+        s = kernels.turbo_init(batch_keys(prng_key(13), full, device=dev), cfg, turbo.PIECES)
+        for _ in range(30):  # a state in mid-game
+            a = torch.randint(0, 8, (full,), generator=g, device=dev, dtype=torch.int32)
+            s = kernels.turbo_step(s, a, cfg, turbo.PIECES, rw)[0]
+        obs_full = torch.empty((full, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+        whole = {
+            "ppo_sample": kernels.sample_actions(logits, key),
+            "turbo_step": kernels.turbo_step(s, None, cfg, turbo.PIECES, rw, obs=obs_full,
+                                             logits=logits, act_key=key),
+            "dqn_act": kernels.dqn_act(q, key, eps_key, 0.5, return_draws=True),
+        }
+        for off in (0, B, 3 * B):
+            x, qx = logits[off:off + B].contiguous(), q[off:off + B].contiguous()
+            part = dataclasses.replace(s, **{k: getattr(s, k)[..., off:off + B].contiguous()
+                                             for k in turbo.FIELDS})
+            what = f"B={B} offset={off}"
+            got = kernels.sample_actions(x, key, env_offset=off)
+            plain = ppo.sample_actions_plain(x, key, off)
+            for i, name in enumerate(("action", "log_prob")):
+                diff("ppo_sample", got[i], plain[i], f"ppo_sample {what} {name} vs plain")
+                diff("ppo_sample", got[i], whole["ppo_sample"][i][off:off + B],
+                     f"ppo_sample {what} {name} vs the full launch")
+            pa, plp = plain
+            ps, pr, pd, pl = turbo.step_plain(part, pa, cfg, rewards=rw)
+            pobs = turbo.observe_board_plain(ps, cfg)
+            ws, wr, wd, wl, wa, wlp = whole["turbo_step"]
+            for lanes in (None,) + tuple(kernels.STEP_LANES):
+                obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+                ks, kr, kd, kl, ka, klp = kernels.turbo_step(
+                    part, None, cfg, turbo.PIECES, rw, obs=obs, lanes=lanes, logits=x,
+                    act_key=key, env_offset=off)
+                tag = f"turbo_step sample {what} lanes={lanes}"
+                for k in turbo.FIELDS:
+                    diff("turbo_step", getattr(ks, k), getattr(ps, k), f"{tag} {k} vs plain")
+                    diff("turbo_step", getattr(ks, k), getattr(ws, k)[..., off:off + B],
+                         f"{tag} {k} vs the full launch")
+                for name, a1, a2, a3 in (("reward", kr, pr, wr), ("done", kd, pd, wd),
+                                         ("lines", kl, pl, wl), ("action", ka, pa, wa),
+                                         ("log_prob", klp, plp, wlp), ("obs", obs, pobs, obs_full)):
+                    diff("turbo_step", a1, a2, f"{tag} {name} vs plain")
+                    diff("turbo_step", a1, a3[off:off + B], f"{tag} {name} vs the full launch")
+            got = kernels.dqn_act(qx, key, eps_key, 0.5, return_draws=True, env_offset=off)
+            diff("dqn_act", got[0], dqn.act_plain(qx, key, eps_key, 0.5, env_offset=off),
+                 f"dqn_act {what} vs plain")
+            for i, name in enumerate(("action", "randint", "uniform")):
+                diff("dqn_act", got[i], whole["dqn_act"][i][off:off + B],
+                     f"dqn_act {what} {name} vs the full launch")
+            checked += 1
+        # times at offsets 0 and 3B, the kernels as the paths launch them
+        s_b = dataclasses.replace(s, **{k: getattr(s, k)[..., :B].contiguous()
+                                        for k in turbo.FIELDS})
+        x, qx = logits[:B].contiguous(), q[:B].contiguous()
+        obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+        step_io = (2 * nbytes(*(getattr(s_b, k) for k in turbo.FIELDS)) + B * (4 + 1 + 4)
+                   + nbytes(obs))
+        sample_io = nbytes(x) + B * (4 + 4)
+        for off in (0, 3 * B):
+            fns = {
+                "ppo_sample": (lambda: kernels.sample_actions(x, key, env_offset=off),
+                               lambda: ppo.sample_actions_plain(x, key, off), sample_io,
+                               SAMPLE_OPS_PER_ELEMENT * B * 8),
+                "turbo_step_sample": (
+                    lambda: kernels.turbo_step(s_b, None, cfg, turbo.PIECES, rw, obs=obs, logits=x,
+                                               act_key=key, env_offset=off),
+                    lambda: turbo.observe_board_plain(turbo.step_plain(
+                        s_b, ppo.sample_actions_plain(x, key, off)[0], cfg)[0], cfg),
+                    step_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
+                "dqn_act": (lambda: kernels.dqn_act(qx, key, eps_key, 0.5, env_offset=off),
+                            lambda: dqn.act_plain(qx, key, eps_key, 0.5, env_offset=off),
+                            nbytes(qx) + 4 * B, DQN_ACT_OPS_PER_ENV * B),
+            }
+            for name, (kernel_fn, plain_fn, io, ops) in fns.items():
+                times.setdefault(name, {}).setdefault(B, {})[f"offset_{off}"] = {
+                    **timed_pair(kernel_fn, plain_fn, 100, 10, io, ops), "offset": off}
+        del s, s_b, obs_full, whole
+    emit({"phase": "offset_kernels", "bit_equal": True, "batches": list(OFFSET_B),
+          "offsets": "0, B, 3B", "comparisons": checked, "times": times, "nvidia_smi": smi})
+    return times
+
+
+def _rollout_unsharded(dev, config, n_envs, horizon, repeats, engine_kind) -> dict:
+    """JAX's ``launch.run`` sequence with no mesh at all: one batch of
+    ``n_envs`` envs from keys ``fold_in(0, i)``, random actions ``randint``
+    over the whole batch, the same keys as the sharded runs."""
+    from tetris_gymnasium_torch.core import engine, fn_env
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys, env_mesh, state_checksum
+
+    keys = batch_keys(threefry.prng_key(0), n_envs, device=dev)
+    if engine_kind == "fn_env":
+        _, states, _ = fn_env.reset(keys, config, device=dev)
+        step, n_actions, kw = fn_env.step, 7, {}
+    else:
+        states = engine.init(keys, config, device=dev)
+        step, n_actions, kw = engine.step, 8, {"obs_fn": engine.no_obs}
+    sum_r = torch.zeros((), dtype=torch.float64, device=dev)
+    sum_d = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(1 + repeats):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        key = threefry.prng_key(1 + i)
+        for _ in range(horizon):
+            key, sub = threefry.split(key)
+            a = threefry.randint_lanes(sub, n_envs, n_actions, dev).to(torch.int32)
+            states, _, r, d, _ = step(states, a, config, **kw)
+            sum_r += r.sum(dtype=torch.float64)
+            sum_d += d.sum()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"steps_per_sec": n_envs * horizon * repeats / dt, "sum_reward": float(sum_r),
+            "sum_done": int(sum_d), "checksum": state_checksum(states, env_mesh(dev))}
+
+
+def env_hashes(state) -> list:
+    """A fingerprint of each env of a turbo state: the wraparound sum of its
+    words, each field weighted by another odd number."""
+    from tetris_gymnasium_torch.core import turbo
+
+    B = state.piece.shape[0]
+    h = torch.zeros(B, dtype=torch.int64, device=state.piece.device)
+    for i, k in enumerate(turbo.FIELDS):
+        x = getattr(state, k)
+        x = x.view(torch.int32) if x.dtype in (torch.uint32, torch.float32) else x
+        h = (h + (2 * i + 1) * (x.reshape(-1, B).to(torch.int64) & 0xFFFFFFFF).sum(0)) & 0xFFFFFFFF
+    return h.tolist()
+
+
+def forward_batch_invariance(dev) -> list:
+    """Whether a network's rows come out the same from one forward pass of
+    B rows and from two of B / 2 (what each of two ranks runs): the
+    sharded paths' trajectories equal the unsharded ones only where they
+    do.  Raises unless they do at the shapes phases 49-51 run (the main
+    path's 8192 and the DQN's 65536 envs); reports the rest."""
+    from tetris_gymnasium_torch.models.networks import ActorCriticCNN, QNetworkCNN
+
+    out = []
+    gate = {("ActorCriticCNN", TRAIN_ENVS), ("QNetworkCNN", SHARD_DQN_ENVS)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for cls, B in ((ActorCriticCNN, TRAIN_ENVS), (QNetworkCNN, SHARD_DQN_ENVS),
+                       (ActorCriticCNN, 2048)):
+            torch.manual_seed(0)
+            net = cls(dtype=dtype).to(dev)
+            g = torch.Generator(device=dev)
+            g.manual_seed(1)
+            x = torch.randint(-1, 2, (B, 20, 10), generator=g, device=dev).to(torch.int8)
+            with torch.no_grad(), deterministic_cudnn():
+                def first(y):
+                    return y[0] if isinstance(y, tuple) else y
+                whole = first(net(x))
+                halves = torch.cat([first(net(x[:B // 2])), first(net(x[B // 2:]))])
+            equal = torch.equal(whole, halves)
+            out.append({"net": cls.__name__, "dtype": str(dtype), "B": B, "equal": equal,
+                        "max_abs_diff": float((whole - halves).abs().max())})
+            if (cls.__name__, B) in gate and not equal:
+                raise AssertionError(f"{cls.__name__} at B = {B}: rows differ between one "
+                                     f"forward and two halves: {out[-1]}")
+    return out
+
+
+def sharded_ppo_main(dev, mesh=None) -> dict:
+    """Phase 50's run: the main path's PPO (``ActorCriticCNN`` on the turbo
+    engine with board observations, phase 9's 8192 x 128, 6 epochs of 8
+    minibatches, from ``results/ppo_lines_params.npz``) for ``TRAIN_STEPS``
+    train steps under cuDNN's deterministic algorithms; sharded over
+    ``mesh``, or with no mesh (today's unsharded path).  Returns each
+    step's env checksum, loss terms and times (rollout, update and the
+    collectives in it, by CUDA events), the final parameters' checksum and
+    the launches."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import env_mesh, state_checksum
+    from tetris_gymnasium_torch.rl import ppo
+    from tetris_gymnasium_torch.utils.checkpoint import load_flat
+
+    cfg = EngineConfig(auto_reset=True)
+    pcfg = ppo.PPOConfig(**SHARD_TRAIN)
+    events = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.setdefault(name, []).append(ev)
+
+    check_mesh = mesh or env_mesh(dev)
+    steps = []
+    with deterministic_cudnn():
+        kernels.reset_launches()
+        ts = ppo.init_train_state(prng_key(1), TRAIN_ENVS, cfg, pcfg, device=dev,
+                                  params=load_flat(PARAMS), mesh=mesh)
+        train_step = ppo.make_train_step(cfg, pcfg, marks=mark, mesh=mesh)
+        for _ in range(TRAIN_STEPS):
+            if mesh is not None:
+                mesh.events = []
+            ts, m = train_step(ts)
+            torch.cuda.synchronize()
+            i = len(steps)
+            coll = mesh.collective_ms() if mesh is not None else 0.0
+            steps.append({
+                "rollout_ms": events["start"][i].elapsed_time(events["rollout"][i]),
+                "update_ms": events["gae"][i].elapsed_time(events["update"][i]),
+                "step_ms": events["start"][i].elapsed_time(events["update"][i]),
+                "collective_ms": coll,
+                "losses": {k: float(m[k]) for k in ("pg_loss", "v_loss", "entropy")},
+                "env_checksum": state_checksum(ts.env_states, check_mesh),
+                "env_hashes": env_hashes(ts.env_states)})
+            if mesh is not None:
+                mesh.events = None
+    launches = dict(kernels.LAUNCHES)
+    params = state_checksum(dict(ts.net.state_dict()), check_mesh, sharded=False)
+    return {"steps": steps, "param_checksum": params, "launches": launches}
+
+
+def rank_worker(spec_path: str) -> None:
+    """One rank of phases 49-51 (``chip_smoke.py --rank-worker spec.json``):
+    brings its process group up through the launcher, runs the sharded
+    rollouts, the sharded main-path PPO and ``launch.main --train dqn`` and
+    ``--train ppo``, and writes what each gave, with its launches, to the
+    spec's ``out``."""
+    sys.path.insert(0, REPO)
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, EnvConfig
+    from tetris_gymnasium_torch.parallel import launch
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = ["--backend", spec["backend"], "--coordinator", f"localhost:{spec['port']}",
+            "--num-processes", str(spec["world"]), "--process-id", str(spec["rank"]),
+            "--timeout", "300"]
+    mesh = launch.setup(launch.parse_args(base))
+    dev = mesh.device
+    out = {}
+
+    def counted(name, fn):
+        kernels.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = {**result, "launches": dict(kernels.LAUNCHES)}
+
+    counted("rollout", lambda: launch.run(mesh, EngineConfig(auto_reset=True), **ROLLOUT))
+    counted("fn_rollout", lambda: launch.run(mesh, EnvConfig(), **FN_ROLLOUT, engine_kind="fn_env"))
+    out["collectives_rollouts"] = dict(mesh.counts)
+    ppo_main = sharded_ppo_main(dev, mesh)
+    out["ppo_main"] = {**ppo_main, "collectives": dict(mesh.counts)}
+    with deterministic_cudnn():  # so that a run repeats bit for bit
+        counted("dqn", lambda: launch.main(base + ["--train", "dqn", "--n-envs",
+                                                   str(SHARD_DQN_ENVS), "--train-iters",
+                                                   str(SHARD_ITERS)]))
+        counted("ppo_flagship", lambda: launch.main(
+            base + ["--train", "ppo", "--n-envs", str(SHARD_PPO_ENVS), "--train-iters",
+                    str(SHARD_ITERS)]))
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_groups(tmp: str) -> dict:
+    """Each group of ``GROUPS`` in turn: its ranks started together as
+    ``rank_worker`` processes; returns ``{world: [each rank's output]}``.
+    A rank that fails or outlives ``WORKER_TIMEOUT_S`` fails the phase, and
+    every process started here is ended."""
+    results = {}
+    for world, backend in GROUPS:
+        port = _free_port()
+        procs, outs = [], []
+        for rank in range(world):
+            spec = os.path.join(tmp, f"w{world}_r{rank}.json")
+            out = os.path.join(tmp, f"w{world}_r{rank}_out.json")
+            with open(spec, "w") as f:
+                json.dump({"backend": backend, "port": port, "world": world, "rank": rank,
+                           "out": out}, f)
+            outs.append(out)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker", spec], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {rank} of {world} ({backend}) exited "
+                                     f"{p.returncode}:\n{log[-4000:]}")
+        results[world] = []
+        for out in outs:
+            with open(out) as f:
+                results[world].append(json.load(f))
+    return results
+
+
+def _same(what, values) -> None:
+    """Raises unless every value of ``values`` (name -> value) is equal."""
+    first_name, first = next(iter(values.items()))
+    for name, v in values.items():
+        if v != first:
+            raise AssertionError(f"{what}: {name} gives {v}, {first_name} {first}")
+
+
+def run_sharded(dev, smi) -> dict:
+    """Phases 49-51: the sharded paths at world size 1 over NCCL and 2 over
+    gloo on CUDA tensors (both ranks on this card), against the unsharded
+    runs of the same keys in this process.
+
+    49. ``launch.run`` at the JAX launcher's defaults (flagship, 65536 x
+        256 x 4) and a compat rollout at 65536 x 64: checksums, Σreward and
+        Σdone equal at W = 1, W = 2 and unsharded, on every rank.
+    50. PPO on the main path (:func:`sharded_ppo_main`) unsharded, at W = 1
+        and W = 2: each step's env checksum equal across the three and on
+        every rank, the loss terms within ``SHARD_LOSS_RTOL`` of the
+        unsharded run's, every rank's parameter checksum equal.
+    51. ``launch.main --train dqn`` (65536 envs) and ``--train ppo``
+        (flagship, 8192 envs), 3 iterations each: env and replay-buffer
+        checksums equal at W = 1 and W = 2 and on every rank, and each
+        world's ranks holding the same parameters.
+    """
+    import tempfile
+
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig, EnvConfig
+
+    t0 = time.perf_counter()
+    invariance = forward_batch_invariance(dev)
+    ref = {"rollout": _rollout_unsharded(dev, EngineConfig(auto_reset=True), **ROLLOUT,
+                                         engine_kind="engine"),
+           "fn_rollout": _rollout_unsharded(dev, EnvConfig(), **FN_ROLLOUT, engine_kind="fn_env")}
+    ref["ppo_main"] = sharded_ppo_main(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        got = run_groups(tmp)
+    wall = time.perf_counter() - t0
+
+    # 49. the rollouts
+    rollouts = {}
+    for name in ("rollout", "fn_rollout"):
+        for field in ("checksum", "sum_reward", "sum_done"):
+            _same(f"{name} {field}", {"unsharded": ref[name][field],
+                                      **{f"W={w} rank {i}": r[name][field]
+                                         for w, rs in got.items() for i, r in enumerate(rs)}})
+        if not ref[name]["sum_done"] > 0:
+            raise AssertionError(f"{name}: no episode ended")
+        rollouts[name] = {"unsharded_steps_per_s": ref[name]["steps_per_sec"],
+                          **{f"w{w}_steps_per_s": rs[0][name]["steps_per_sec"]
+                             for w, rs in got.items()},
+                          "sum_reward": ref[name]["sum_reward"], "sum_done": ref[name]["sum_done"],
+                          "launches_w1": got[1][0][name]["launches"]}
+    emit({"phase": "sharded_rollout", "equal": True, "rollout": ROLLOUT, "fn_rollout": FN_ROLLOUT,
+          "runs": rollouts, "collectives_w2": got[2][0]["collectives_rollouts"],
+          "nvidia_smi": smi})
+
+    # 50. PPO on the main path: the first step rolls out the same weights
+    # everywhere, so its envs must agree bit for bit; the later steps roll
+    # out each run's own update, which sums in another order (reported)
+    runs = {"unsharded": ref["ppo_main"],
+            **{f"W={w} rank {i}": r["ppo_main"] for w, rs in got.items() for i, r in enumerate(rs)}}
+    hashes = {"unsharded": [s["env_hashes"] for s in ref["ppo_main"]["steps"]],
+              **{f"W={w}": [sum((r["ppo_main"]["steps"][i]["env_hashes"] for r in rs), [])
+                            for i in range(TRAIN_STEPS)] for w, rs in got.items()}}
+    differing = {k: [int(sum(a != b for a, b in zip(h, hashes["unsharded"][i])))
+                     for i, h in enumerate(v)] for k, v in hashes.items()}
+    for w, rs in got.items():
+        for i in range(TRAIN_STEPS):
+            _same(f"sharded PPO W={w} step {i + 1} env checksum",
+                  {f"rank {j}": r["ppo_main"]["steps"][i]["env_checksum"]
+                   for j, r in enumerate(rs)})
+    _same("sharded PPO step 1 env checksum",
+          {k: v["steps"][0]["env_checksum"] for k, v in runs.items()})
+    if any(d[0] for d in differing.values()):
+        raise AssertionError(f"sharded PPO step 1: envs differing from unsharded {differing}")
+    for term in ("pg_loss", "v_loss", "entropy"):
+        want = ref["ppo_main"]["steps"][0]["losses"][term]
+        for k, v in runs.items():
+            have = v["steps"][0]["losses"][term]
+            if not abs(have - want) <= SHARD_LOSS_TOL * max(abs(want), 1.0):
+                raise AssertionError(f"sharded PPO step 1 {term}: {k} {have}, unsharded {want}")
+            for step in v["steps"]:
+                if not np.isfinite(step["losses"][term]):
+                    raise AssertionError(f"sharded PPO {k} {term} is not finite: {step}")
+    for w, rs in got.items():
+        _same(f"W={w} PPO parameter checksum",
+              {f"rank {i}": r["ppo_main"]["param_checksum"] for i, r in enumerate(rs)})
+    want_launches = {**{k: 0 for k in kernels.LAUNCHES}, "turbo_init": 1, "observe_board": 1,
+                     "turbo_step": TRAIN_STEPS * TRAIN_T, "turbo_step_obs": TRAIN_STEPS * TRAIN_T,
+                     "turbo_step_sample": TRAIN_STEPS * TRAIN_T, "gae": TRAIN_STEPS}
+    for k, v in runs.items():
+        if v["launches"] != want_launches:
+            raise AssertionError(f"sharded PPO {k}: launches {v['launches']}, want {want_launches}")
+    ppo_main = {k: {"steps": [{f: s[f] for f in ("rollout_ms", "update_ms", "step_ms",
+                                                   "collective_ms", "losses")} for s in v["steps"]]}
+                for k, v in runs.items()}
+    equal = [all(v["steps"][i]["env_checksum"] == ref["ppo_main"]["steps"][i]["env_checksum"]
+                 for v in runs.values()) for i in range(TRAIN_STEPS)]
+    emit({"phase": "sharded_ppo", "n_envs": TRAIN_ENVS, "rollout_len": TRAIN_T,
+          "train_steps": TRAIN_STEPS, "env_checksums_equal_by_step": equal,
+          "envs_differing_from_unsharded_by_step": differing, "runs": ppo_main,
+          "collectives_w2": got[2][0]["ppo_main"]["collectives"],
+          "forward_batch_invariance": invariance, "nvidia_smi": smi})
+
+    # 51. the launcher's sharded DQN and flagship PPO
+    train = {}
+    for name, fields in (("dqn", ("env_checksum", "buffer_checksum")),
+                         ("ppo_flagship", ("env_checksum",))):
+        for field in fields:
+            _same(f"launch --train {name} {field}",
+                  {f"W={w} rank {i}": r[name][field] for w, rs in got.items()
+                   for i, r in enumerate(rs)})
+        for w, rs in got.items():
+            _same(f"launch --train {name} W={w} param_checksum",
+                  {f"rank {i}": r[name]["param_checksum"] for i, r in enumerate(rs)})
+        train[name] = {f"w{w}": {k: rs[0][name][k] for k in rs[0][name]
+                                 if k not in ("env_checksum", "buffer_checksum", "param_checksum")}
+                       for w, rs in got.items()}
+    emit({"phase": "sharded_train", "equal": True, "runs": train,
+          "peak_mem_gib": {f"w{w}": [r["peak_mem_gib"] for r in rs] for w, rs in got.items()},
+          "seconds": wall, "nvidia_smi": smi})
+    return {"rollouts": rollouts, "ppo_main": ppo_main, "train": train,
+            "launches": {f"{name}_w2": got[2][0][name]["launches"]
+                         for name in ("rollout", "fn_rollout", "ppo_main", "dqn", "ppo_flagship")}}
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(sys.argv[2])
+    else:
+        main()

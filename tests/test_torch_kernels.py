@@ -1091,3 +1091,64 @@ def test_fn_kernel_wrappers_refuse_cpu_tensors_and_named_limits():
     assert kernels.fn_defines(EnvConfig(width=8, height=12, padding=2), turbo.PIECES) == (
         ("TETRIS_HEIGHT", 12), ("TETRIS_WIDTH", 8), ("TETRIS_PAD", 2), ("TETRIS_QS", 7), ("TETRIS_NP", 7),
         ("TETRIS_S", 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 1001])
+def test_sampling_kernels_at_a_global_counter_offset(cuda, B):
+    """``ppo_sample``, ``turbo_step``'s sampling build and ``dqn_act`` at env
+    offsets 0, B and 3B: equal to their plain versions at that offset and to
+    the slice of one launch over 4B envs (a rank's share of a larger batch)."""
+    import dataclasses
+
+    config, rw = EngineConfig(auto_reset=True), RewardsMapping()
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    full = 4 * B
+    logits = torch.randn((full, 8), generator=g, device=cuda) * 3
+    q = torch.randn((full, 8), generator=g, device=cuda)
+    key, eps_key = prng_key(7), prng_key(8)
+    s = turbo.init(batch_keys(prng_key(6), full, device=cuda), config, device=cuda)
+    obs_full = torch.empty((full, 20, 10), dtype=torch.int8, device=cuda)
+    whole = (kernels.sample_actions(logits, key),
+             kernels.turbo_step(s, None, config, turbo.PIECES, rw, obs=obs_full, logits=logits,
+                                act_key=key),
+             kernels.dqn_act(q, key, eps_key, 0.5))
+    for off in (0, B, 3 * B):
+        x, qx = logits[off:off + B].contiguous(), q[off:off + B].contiguous()
+        got = kernels.sample_actions(x, key, env_offset=off)
+        plain = ppo.sample_actions_plain(x, key, off)
+        for i in range(2):
+            _assert_equal(got[i], plain[i], f"ppo_sample @ {off}")
+            _assert_equal(got[i], whole[0][i][off:off + B], f"ppo_sample slice @ {off}")
+        part = dataclasses.replace(s, **{k: getattr(s, k)[..., off:off + B].contiguous()
+                                         for k in turbo.FIELDS})
+        obs = torch.empty((B, 20, 10), dtype=torch.int8, device=cuda)
+        ks, kr, kd, kl, ka, klp = kernels.turbo_step(part, None, config, turbo.PIECES, rw, obs=obs,
+                                                     logits=x, act_key=key, env_offset=off)
+        ws, wr, wd, wl, wa, wlp = whole[1]
+        for k in turbo.FIELDS:
+            _assert_equal(getattr(ks, k), getattr(ws, k)[..., off:off + B], f"turbo {k} @ {off}")
+        for a, b, what in ((kr, wr, "reward"), (kd, wd, "done"), (kl, wl, "lines"),
+                           (ka, wa, "action"), (klp, wlp, "log_prob"), (obs, obs_full, "obs")):
+            _assert_equal(a, b[off:off + B], f"turbo {what} @ {off}")
+        _assert_equal(ka, plain[0], f"turbo action vs plain @ {off}")
+        act = kernels.dqn_act(qx, key, eps_key, 0.5, env_offset=off)
+        _assert_equal(act, dqn.act_plain(qx, key, eps_key, 0.5, env_offset=off), f"dqn_act @ {off}")
+        _assert_equal(act, whole[2][off:off + B], f"dqn_act slice @ {off}")
+
+
+def test_sampling_kernels_check_their_global_counters():
+    kernels._check_counters(0, 2**28 - 1, 8)
+    kernels._check_counters(2**28 - 2, 1, 8)
+    kernels._check_counters(2**31 - 5, 4, 1)
+    for args in ((2**28 - 1, 1, 8), (2**31 - 4, 4, 1)):
+        with pytest.raises(ValueError, match="32-bit counters"):
+            kernels._check_counters(*args)
+    with pytest.raises(ValueError, match="env_offset must be >= 0"):
+        kernels._check_counters(-1, 4, 8)
+    config = EngineConfig()
+    s = turbo.init(batch_keys(prng_key(0), 4, device="cpu"), config, device="cpu")
+    with pytest.raises(ValueError, match="env_offset without logits"):
+        kernels.turbo_step(s, torch.zeros(4, dtype=torch.int32), config, turbo.PIECES,
+                           RewardsMapping(), env_offset=4)

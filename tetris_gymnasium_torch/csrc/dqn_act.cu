@@ -14,9 +14,10 @@
 //
 // The random bits are JAX's (threefry.cuh).  randint splits act_key in two
 // (the host passes both halves), draws 32 bits hi and lo of each half at
-// counter b, and returns ((hi % A) * m + lo % A) % A in wrapping uint32
+// counter env_offset + b (the global env index; env_offset is a rank's first
+// env, 0 on one device), and returns ((hi % A) * m + lo % A) % A in wrapping uint32
 // arithmetic, m = (2**16 % A)**2 % A (0 for A = 8); the exploration draw is
-// JAX's uniform in [0, 1) of eps_key at counter b.  The argmax keeps the
+// JAX's uniform in [0, 1) of eps_key at that counter.  The argmax keeps the
 // lowest index on ties and lets a NaN win, as jnp.argmax and torch.argmax do.
 //
 // Bound on this card: operations, ~250 32-bit operations an env (three
@@ -37,6 +38,7 @@ struct DqnActParams {
   uint32_t multiplier;      // (2**16 % A)**2 % A, the square wrapping in uint32
   uint32_t eps_k0, eps_k1;  // key of the exploration draw
   float epsilon;            // explore where uniform < epsilon
+  uint32_t env_offset;      // global index of env 0: draws at counter env_offset + b
 };
 
 namespace {
@@ -66,7 +68,7 @@ __global__ void __launch_bounds__(kThreads) dqn_act_kernel(
   }
   int out = arg;
   if (p.explore) {
-    const uint32_t c = static_cast<uint32_t>(b);
+    const uint32_t c = p.env_offset + static_cast<uint32_t>(b);
     const uint32_t span = static_cast<uint32_t>(p.A);
     const uint32_t hi = tf::bits(p.hi_k0, p.hi_k1, 0u, c);
     const uint32_t lo = tf::bits(p.lo_k0, p.lo_k1, 0u, c);

@@ -11,7 +11,9 @@
 // tetris_gymnasium_torch/rl/ppo.py:sample_actions_plain.
 //
 // The noise is JAX's, bit for bit: element (b, a) takes threefry-2x32 of
-// the step's key at counter [0, b*8 + a] (jax_threefry_partitionable),
+// the step's key at counter [0, (env_offset + b)*8 + a]
+// (jax_threefry_partitionable; env_offset is the global index of the batch's
+// env 0, a rank's first env, 0 on one device),
 // bits = y0 ^ y1, JAX's float32 uniform in [tiny, 1), and -log(-log(u))
 // (threefry.cuh).  The argmax keeps the lowest index on ties, as jnp.argmax.  The
 // log-softmax is (x - max) - log(sum exp(x - max)) with the sum taken as the
@@ -37,7 +39,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads) ppo_sample_kernel(
     const float* __restrict__ logits, int32_t* __restrict__ action, float* __restrict__ log_prob,
-    float* __restrict__ uniform_out, long long n, uint32_t k0, uint32_t k1) {
+    float* __restrict__ uniform_out, long long n, long long base, uint32_t k0, uint32_t k1) {
   // Every lane runs to the end (the shuffles need full warps); lanes past n
   // compute on a zero logit and store nothing.  n = B * 8, so an env's 8
   // lanes are all in range or all out of it.
@@ -47,8 +49,9 @@ __global__ void __launch_bounds__(kThreads) ppo_sample_kernel(
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const float x = valid ? logits[t] : 0.0f;
 
+  const long long c = base + t;  // the global counter, env_offset * 8 + t
   const float u = tf::gumbel_uniform(
-      tf::bits(k0, k1, static_cast<uint32_t>(t >> 32), static_cast<uint32_t>(t)));
+      tf::bits(k0, k1, static_cast<uint32_t>(c >> 32), static_cast<uint32_t>(c)));
   const float g = tf::gumbel(u);
   if (uniform_out != nullptr && valid) uniform_out[t] = u;  // for checks against JAX's bits
 
@@ -85,14 +88,15 @@ __global__ void __launch_bounds__(kThreads) ppo_sample_kernel(
 
 // logits: float32[B, 8]; action: int32[B] and log_prob: float32[B] outputs;
 // uniform_out: float32[B, 8] or null, the uniforms behind the noise;
-// (k0, k1): the step's key.
+// (k0, k1): the step's key; env_offset: the global index of env 0.
 extern "C" int ppo_sample_launch(const void* logits, void* action, void* log_prob,
                                  void* uniform_out, int B, uint32_t k0, uint32_t k1,
-                                 void* stream) {
+                                 int env_offset, void* stream) {
   const long long n = static_cast<long long>(B) * kActions;
   const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);
   ppo_sample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(logits), static_cast<int32_t*>(action),
-      static_cast<float*>(log_prob), static_cast<float*>(uniform_out), n, k0, k1);
+      static_cast<float*>(log_prob), static_cast<float*>(uniform_out), n,
+      static_cast<long long>(env_offset) * kActions, k0, k1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -132,6 +132,7 @@ struct SampleArgs {
   int32_t* action;      // [B], the sampled action
   float* log_prob;      // [B], its log-prob
   uint32_t k0, k1;      // the step's key
+  uint32_t env_offset;  // global index of env 0 of this batch (a rank's lo)
 };
 
 struct StepParams {
@@ -295,7 +296,8 @@ __device__ __forceinline__ void sample_draw(Draw<L>& d, const SampleArgs& s, int
 #pragma unroll
   for (int i = 0; i < Draw<L>::N; ++i) {
     const int a = L == 1 ? i : lane;
-    const uint32_t c = static_cast<uint32_t>(b * kActions + a);  // B * 8 < 2**31 (kernels.py)
+    // the global env's counter: (env_offset + B) * 8 < 2**31 (kernels.py)
+    const uint32_t c = (s.env_offset + static_cast<uint32_t>(b)) * kActions + a;
     d.x[i] = s.logits[b * kActions + a];
     d.best[i] = __fadd_rn(tf::gumbel(tf::gumbel_uniform(tf::bits(s.k0, s.k1, 0u, c))), d.x[i]);
   }

@@ -308,6 +308,7 @@ class _SampleArgs(ctypes.Structure):  # csrc/turbo_step.cu:SampleArgs
         ("log_prob", ctypes.c_void_p),
         ("k0", ctypes.c_uint32),
         ("k1", ctypes.c_uint32),
+        ("env_offset", ctypes.c_uint32),
     ]
 
 
@@ -368,6 +369,7 @@ class _DqnActParams(ctypes.Structure):
         ("hi_k0", ctypes.c_uint32), ("hi_k1", ctypes.c_uint32),
         ("lo_k0", ctypes.c_uint32), ("lo_k1", ctypes.c_uint32), ("multiplier", ctypes.c_uint32),
         ("eps_k0", ctypes.c_uint32), ("eps_k1", ctypes.c_uint32), ("epsilon", ctypes.c_float),
+        ("env_offset", ctypes.c_uint32),
     ]
 
 
@@ -423,7 +425,7 @@ _ENTRY_POINTS = {
         "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     },
     "ppo_sample": {
-        "ppo_sample_launch": [_P, _P, _P, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _P],
+        "ppo_sample_launch": [_P, _P, _P, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _P],
     },
     "grouped_placements": {
         "grouped_placements_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -701,7 +703,7 @@ def _check_obs(obs: torch.Tensor, config: EngineConfig, B: int, device) -> None:
 def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConfig,
                pieces: PieceSet, rewards: RewardsMapping, max_clear: int = 4,
                obs: torch.Tensor = None, lanes: int = None, logits: torch.Tensor = None,
-               act_key=None):
+               act_key=None, env_offset: int = 0):
     """Launch ``turbo_step``: returns ``(new_state, reward f32[B], done bool[B], lines int32[B])``.
 
     The new state is in new buffers; ``state`` is left as it was.  With
@@ -711,8 +713,10 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
     ``act_key`` (the step's ``uint32[2]`` key on the host), the launch
     samples each env's action as :func:`sample_actions` does and steps with
     it: ``action`` is ignored (pass None) and ``(action int32[B], log_prob
-    f32[B])`` are returned after ``lines``.  ``lanes`` (one of
-    ``STEP_LANES``) overrides :func:`step_lanes`' choice.
+    f32[B])`` are returned after ``lines``; ``env_offset`` is the global
+    index of env 0 (a rank's first env), so env ``b`` draws at the global
+    env's counters.  ``lanes`` (one of ``STEP_LANES``) overrides
+    :func:`step_lanes`' choice.
     """
     if lanes is not None and lanes not in STEP_LANES:
         raise ValueError(f"lanes must be one of {STEP_LANES}, got {lanes}")
@@ -725,13 +729,14 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
         if act_key is None:
             raise ValueError("logits need act_key")
         _check_tensor(logits, "logits", torch.float32, (B, 8), device)
-        if B * 8 >= 2**31:
-            raise ValueError(f"batch {B} too large for 32-bit counters")
+        _check_counters(env_offset, B, 8)
         key = np.asarray(act_key, dtype=np.uint32)
         if key.shape != (2,):
             raise ValueError(f"act_key: want a uint32[2] key, got shape {key.shape}")
     elif act_key is not None:
         raise ValueError("act_key without logits")
+    elif env_offset:
+        raise ValueError("env_offset without logits")
     if obs is not None:
         _check_obs(obs, config, B, device)
     t, packed, box = turbo.tables_for(pieces, device)
@@ -764,7 +769,7 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
     )
     in_p, out_p = _ptrs(state), _ptrs(out)
     smp = _SampleArgs(logits.data_ptr(), action.data_ptr(), log_prob.data_ptr(), int(key[0]),
-                      int(key[1])) if sample else None
+                      int(key[1]), int(env_offset)) if sample else None
     rc = _lib("turbo_step", defines).turbo_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
         done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
@@ -855,6 +860,14 @@ def heights(state: turbo.TurboState, config: EngineConfig) -> torch.Tensor:
     return out
 
 
+def _check_counters(env_offset: int, B: int, per_env: int) -> None:
+    """The global counters ``[env_offset * per_env, (env_offset + B) * per_env)`` fit in 31 bits."""
+    if env_offset < 0:
+        raise ValueError(f"env_offset must be >= 0, got {env_offset}")
+    if (env_offset + B) * per_env >= 2**31:
+        raise ValueError(f"envs [{env_offset}, {env_offset + B}) too many for 32-bit counters")
+
+
 def _check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if not t.is_cuda or t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
@@ -919,11 +932,14 @@ def gae(reward: torch.Tensor, value: torch.Tensor, done: torch.Tensor, last_valu
     return advantages, targets
 
 
-def sample_actions(logits: torch.Tensor, act_key, return_uniforms: bool = False):
+def sample_actions(logits: torch.Tensor, act_key, return_uniforms: bool = False,
+                   env_offset: int = 0):
     """Launch ``ppo_sample``: returns ``(action int32[B], log_prob f32[B])``.
 
     ``logits`` is ``f32[B, 8]``; ``act_key`` is the step's ``uint32[2]``
-    key on the host (``jax.random.categorical``'s key).  With
+    key on the host (``jax.random.categorical``'s key); ``env_offset`` is
+    the global index of env 0, so row ``b`` draws at the counters of global
+    env ``env_offset + b``.  With
     ``return_uniforms`` the kernel also writes the uniforms ``f32[B, 8]``
     behind its Gumbel noise, returned third, so that a check can hold them
     against JAX's bits.
@@ -933,8 +949,7 @@ def sample_actions(logits: torch.Tensor, act_key, return_uniforms: bool = False)
         raise NotImplementedError(f"ppo_sample is built for [B, 8] logits, got {tuple(logits.shape)}")
     B = logits.shape[0]
     _check_tensor(logits, "logits", torch.float32, (B, 8), device)
-    if B * 8 >= 2**31:
-        raise ValueError(f"batch {B} too large for 32-bit counters")
+    _check_counters(env_offset, B, 8)
     key = np.asarray(act_key, dtype=np.uint32)
     action = torch.empty((B,), dtype=torch.int32, device=device)
     log_prob = torch.empty((B,), dtype=torch.float32, device=device)
@@ -945,7 +960,7 @@ def sample_actions(logits: torch.Tensor, act_key, return_uniforms: bool = False)
     rc = _lib("ppo_sample").ppo_sample_launch(
         logits.data_ptr(), action.data_ptr(), log_prob.data_ptr(),
         uniforms.data_ptr() if return_uniforms else None, B, int(key[0]), int(key[1]),
-        _stream(device),
+        int(env_offset), _stream(device),
     )
     _check(rc, "ppo_sample")
     LAUNCHES["ppo_sample"] += 1
@@ -1246,13 +1261,14 @@ def framestack_push(stack: torch.Tensor, obs: torch.Tensor, done: torch.Tensor) 
 
 
 def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
-            return_draws: bool = False):
+            return_draws: bool = False, env_offset: int = 0):
     """Launch ``dqn_act``: epsilon-greedy actions ``int32[B]`` from ``q`` ``f32[B, A]``.
 
     With ``act_key`` and ``eps_key`` (host ``uint32[2]`` keys) an env takes
     ``randint(act_key, (B,), 0, A)`` where ``uniform(eps_key, (B,))`` is
     below ``epsilon`` (a float32 value), and the argmax of its row
-    otherwise; without them the action is the argmax.  With
+    otherwise; without them the action is the argmax.  Both draws of row
+    ``b`` are at counter ``env_offset + b``, the global env index.  With
     ``return_draws`` the randint draws ``int32[B]`` and the uniforms
     ``f32[B]`` come back too.
     """
@@ -1268,8 +1284,7 @@ def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
         raise ValueError("act_key and eps_key go together")
     if return_draws and not explore:
         raise ValueError("return_draws needs the random keys")
-    if B >= 2**31:
-        raise ValueError(f"batch {B} too large for 32-bit counters")
+    _check_counters(env_offset, B, 1)
     k_hi, k_lo = threefry.split(np.asarray(act_key if explore else (0, 0), dtype=np.uint32))
     ek = np.asarray(eps_key if explore else (0, 0), dtype=np.uint32)
     _, multiplier = threefry.randint_span(A)
@@ -1281,7 +1296,7 @@ def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
         return out
     params = _DqnActParams(A, int(explore), int(k_hi[0]), int(k_hi[1]), int(k_lo[0]),
                            int(k_lo[1]), multiplier, int(ek[0]), int(ek[1]),
-                           float(np.float32(epsilon)))
+                           float(np.float32(epsilon)), int(env_offset))
     rc = _lib("dqn_act").dqn_act_launch(
         q.data_ptr(), action.data_ptr(), random_a.data_ptr() if return_draws else None,
         eps_u.data_ptr() if return_draws else None, B, ctypes.byref(params), _stream(device),

@@ -188,14 +188,22 @@ def bits_to_uniform_lanes(bits: torch.Tensor, minval: float = 0.0, maxval: float
     return torch.clamp_min(f * scale + lo, lo)
 
 
+def uniform_lanes(key, n: int, device, start: int = 0) -> torch.Tensor:
+    """Elements ``[start, start + n)`` of :func:`uniform` (``[0, 1)``) over
+    a larger batch, computed on ``device``: ``float32[n]``."""
+    counters = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    return bits_to_uniform_lanes(random_bits32_lanes(key, counters))
+
+
 def gumbel_lanes(key, counters: torch.Tensor) -> torch.Tensor:
     """Gumbel noise (mode ``"low"``) at the flat indices ``counters``."""
     u = bits_to_uniform_lanes(random_bits32_lanes(key, counters), TINY, 1.0)
     return -torch.log(-torch.log(u))
 
 
-def randint_lanes(key, n: int, maxval: int, device) -> torch.Tensor:
-    """:func:`randint` computed on ``device``: ``int64[n]`` in ``[0, maxval)``.
+def randint_lanes(key, n: int, maxval: int, device, start: int = 0) -> torch.Tensor:
+    """Elements ``[start, start + n)`` of :func:`randint` over a larger
+    batch, computed on ``device``: ``int64[n]`` in ``[0, maxval)``.
 
     The two halves of the key come from the host.  The products stay below
     ``2**62`` (both factors are below ``span <= 2**31``), so int64 lanes
@@ -203,7 +211,7 @@ def randint_lanes(key, n: int, maxval: int, device) -> torch.Tensor:
     """
     span, m = randint_span(maxval)
     k_hi, k_lo = split(key)
-    counters = torch.arange(n, dtype=torch.int64, device=device)
+    counters = torch.arange(start, start + n, dtype=torch.int64, device=device)
     hi = random_bits32_lanes(k_hi, counters)
     lo = random_bits32_lanes(k_lo, counters)
     off = ((hi % span) * m + lo % span) & _MASK32

@@ -83,31 +83,33 @@ class DQNState:
         return dataclasses.replace(self, **kw)
 
 
-def act_plain(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0) -> torch.Tensor:
+def act_plain(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
+              env_offset: int = 0) -> torch.Tensor:
     """Plain version of the ``dqn_act`` kernel: actions ``int32[B]`` from ``q`` ``[B, A]``.
 
     Without keys the argmax; with them an env takes ``randint(act_key, (B,),
     0, A)`` where ``uniform(eps_key, (B,)) < epsilon`` (``train_step
-    :143-147``), JAX's draws bit for bit.
+    :143-147``), JAX's draws bit for bit.  Row ``b`` is global env
+    ``env_offset + b``: its draws are elements ``env_offset + b`` of JAX's.
     """
     action = torch.argmax(q, dim=-1)
     if act_key is not None:
         B, A = q.shape
-        random_a = threefry.randint_lanes(act_key, B, A, q.device)
-        u = threefry.bits_to_uniform_lanes(
-            threefry.random_bits32_lanes(eps_key, torch.arange(B, dtype=torch.int64, device=q.device)))
+        random_a = threefry.randint_lanes(act_key, B, A, q.device, start=env_offset)
+        u = threefry.uniform_lanes(eps_key, B, q.device, start=env_offset)
         action = torch.where(u < float(np.float32(epsilon)), random_a, action)
     return action.to(torch.int32)
 
 
-def act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0) -> torch.Tensor:
+def act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
+        env_offset: int = 0) -> torch.Tensor:
     """Epsilon-greedy actions: the ``dqn_act`` kernel on CUDA tensors,
     :func:`act_plain` on CPU tensors."""
     if q.is_cuda:
         from tetris_gymnasium_torch import kernels
 
-        return kernels.dqn_act(q, act_key, eps_key, epsilon)
-    return act_plain(q, act_key, eps_key, epsilon)
+        return kernels.dqn_act(q, act_key, eps_key, epsilon, env_offset=env_offset)
+    return act_plain(q, act_key, eps_key, epsilon, env_offset)
 
 
 def init_dqn_state(
@@ -120,6 +122,7 @@ def init_dqn_state(
     obs: str = "board",
     device="cuda",
     params: Optional[Dict[str, np.ndarray]] = None,
+    mesh=None,
 ) -> DQNState:
     """Fresh networks, empty buffer and a fresh env batch, from a ``uint32[2]`` key.
 
@@ -132,11 +135,18 @@ def init_dqn_state(
     unless ``params``, flat Flax parameters (e.g. from a JAX state or an
     ``.npz``), are given.  The replay stores single frames even when the net
     reads windows.
+
+    With ``mesh`` (:class:`~tetris_gymnasium_torch.parallel.mesh.EnvMesh`)
+    ``n_envs`` is the global count: the env state holds this rank's envs
+    ``[lo, hi)`` on the mesh's device (``device`` is ignored), while the
+    networks, the optimizer and the replay buffer, shaped for the global
+    batch, are replicated (``dqn_state_shardings :202``).
     """
-    device = resolve_device(device)
+    lo, hi = (0, n_envs) if mesh is None else mesh.env_slice(n_envs)
+    device = resolve_device(device if mesh is None else mesh.device)
     env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
     key, net_key, env_key = threefry.split(np.asarray(key, dtype=np.uint32), 3)
-    env_states = env_init(batch_keys(env_key, n_envs, device=device))
+    env_states = env_init(batch_keys(env_key, hi - lo, device=device, start=lo))
     raw_obs = env_observe(env_states)
     window = raw_obs if cfg.frame_stack == 1 else framestack.init(raw_obs, cfg.frame_stack)
     if net is None and obs == "rgb84":
@@ -153,7 +163,7 @@ def init_dqn_state(
         net.load_state_dict(from_flax_params(params, net_kind(net)))
     net = net.to(device)
     example = {
-        "obs": raw_obs,
+        "obs": raw_obs.new_empty((n_envs,) + tuple(raw_obs.shape[1:])),
         "action": torch.zeros((n_envs,), dtype=torch.int32, device=device),
         "reward": torch.zeros((n_envs,), dtype=torch.float32, device=device),
         "done": torch.zeros((n_envs,), dtype=torch.bool, device=device),
@@ -176,11 +186,13 @@ def net_kind(net: nn.Module) -> str:
 
 
 def td_loss(net: nn.Module, target_net: nn.Module, batch: Dict[str, torch.Tensor],
-            next_obs: torch.Tensor, gamma: float) -> torch.Tensor:
+            next_obs: torch.Tensor, gamma: float, count: Optional[int] = None) -> torch.Tensor:
     """Mean squared TD error of the sampled transitions (``make_train_step :127-136``).
 
     ``next_obs`` is the same env's observation one step later; on a terminal
-    transition it is the next episode's, masked out by ``not_done``.
+    transition it is the next episode's, masked out by ``not_done``.  With
+    ``count`` the mean is the sum over ``count``: a rank's part of a global
+    batch of ``count`` transitions.
     """
     q = net(batch["obs"])
     q_taken = q.gather(1, batch["action"].long()[:, None]).squeeze(1)
@@ -188,7 +200,24 @@ def td_loss(net: nn.Module, target_net: nn.Module, batch: Dict[str, torch.Tensor
         q_next = target_net(next_obs).max(dim=-1).values
         not_done = 1.0 - batch["done"].to(torch.float32)
         target = batch["reward"] + gamma * not_done * q_next
-    return torch.mean((q_taken - target) ** 2)
+    sq = (q_taken - target) ** 2
+    return torch.mean(sq) if count is None else sq.sum() / count
+
+
+def _sharded_backward(net: nn.Module, target_net: nn.Module, batch: Dict[str, torch.Tensor],
+                      next_obs: torch.Tensor, cfg: DQNConfig, mesh) -> torch.Tensor:
+    """This rank's rows of the global batch through :func:`td_loss`, then
+    one ``all_reduce`` of the flattened gradients with the loss appended;
+    leaves the summed gradient in each parameter's ``.grad`` and returns
+    the global loss."""
+    size = cfg.batch_size
+    if size % mesh.world:
+        raise ValueError(f"batch_size {size} does not split evenly over {mesh.world} ranks")
+    lo, hi = mesh.env_slice(size)
+    part = {key: v[lo:hi] for key, v in batch.items()}
+    loss = td_loss(net, target_net, part, next_obs[lo:hi], cfg.gamma, count=size)
+    loss.backward()
+    return mesh.sum_gradients(net.parameters(), loss.detach().reshape(1))[0]
 
 
 def make_train_step(
@@ -197,6 +226,7 @@ def make_train_step(
     impl: str = "turbo",
     obs: str = "board",
     marks: Optional[Callable[[str], None]] = None,
+    mesh=None,
 ):
     """The DQN step: act, env step, replay add, learner update, target sync.
 
@@ -206,6 +236,16 @@ def make_train_step(
     the card.  ``marks``, if given, is called with ``"start"``, ``"act"``,
     ``"env"``, ``"add"``, ``"update"`` and ``"sync"`` as each part has been
     enqueued (a caller can record CUDA events there).
+
+    With ``mesh`` (the state from :func:`init_dqn_state` with the same mesh)
+    each rank acts and steps its envs ``[lo, hi)`` at the global envs'
+    counters, ``all_gather`` makes the step's global transition block, which
+    every rank adds to its replicated buffer, and every rank samples the
+    same global batch with the replicated key.  Each rank then takes its
+    ``batch_size / world`` rows of it; one ``all_reduce`` sums the
+    flattened gradients (and the loss), so every replica takes the same
+    Adam step from the same summed gradient instead of recomputing it.  The
+    metrics are the global ones.
     """
     # step and observe run where the state lies; the device only binds init
     _, env_step, observe = env_fns(env_config, impl, obs=obs, device="cpu", step_obs=True)
@@ -216,10 +256,11 @@ def make_train_step(
         mark("start")
         key, eps_key, act_key, sample_key = threefry.split(ts.key, 4)
         n = ts.obs.shape[0]
+        world = 1 if mesh is None else mesh.world
         eps = epsilon_at(cfg, ts.step)
         with torch.no_grad():
             q = ts.net(ts.obs)
-        action = act(q, act_key, eps_key, eps)
+        action = act(q, act_key, eps_key, eps, env_offset=0 if mesh is None else mesh.rank * n)
         mark("act")
         env_states, raw_next, reward, done, _ = env_step(ts.env_states, action)
         raw_next = observe(env_states) if raw_next is None else raw_next
@@ -227,20 +268,26 @@ def make_train_step(
         mark("env")
         # single frames: the window's newest frame, a strided view
         stored = ts.obs if k == 1 else ts.obs[:, -1]
-        buffer = buffers.add(ts.buffer, {"obs": stored, "action": action, "reward": reward,
-                                         "done": done})
+        block = {"obs": stored, "action": action, "reward": reward, "done": done}
+        if mesh is not None:  # the global block, in global env order
+            block = {k: mesh.all_gather(v) for k, v in block.items()}
+        buffer = buffers.add(ts.buffer, block)
         mark("add")
         # enough blocks must be resident for the successor and lookback links
         learn = ts.step >= cfg.learning_starts and ts.step >= k
         if learn:
             if k == 1:
-                batch, nxt = buffers.sample_with_next(buffer, sample_key, cfg.batch_size, n)
+                batch, nxt = buffers.sample_with_next(buffer, sample_key, cfg.batch_size,
+                                                      n * world)
             else:
                 batch, nxt = buffers.sample_with_next_stacked(buffer, sample_key, cfg.batch_size,
-                                                              n, k)
-            loss = td_loss(ts.net, ts.target_net, batch, nxt["obs"], cfg.gamma)
+                                                              n * world, k)
             ts.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if mesh is None:
+                loss = td_loss(ts.net, ts.target_net, batch, nxt["obs"], cfg.gamma)
+                loss.backward()
+            else:
+                loss = _sharded_backward(ts.net, ts.target_net, batch, nxt["obs"], cfg, mesh)
             ts.optimizer.step()
             loss = loss.detach()
         else:
@@ -249,12 +296,21 @@ def make_train_step(
         if learn and ts.step % cfg.target_update_every == 0:
             ts.target_net.load_state_dict(ts.net.state_dict())
         mark("sync")
+        if mesh is None:
+            mean_q, mean_reward, episodes_done = q.mean(), reward.mean(), done.sum()
+        else:  # one all_reduce for the global sums
+            sums = mesh.all_reduce(torch.stack([
+                q.sum(dtype=torch.float64), reward.sum(dtype=torch.float64),
+                done.sum().double()]))
+            mean_q = (sums[0] / q.numel() / world).float()
+            mean_reward = (sums[1] / (n * world)).float()
+            episodes_done = sums[2].to(torch.int64)
         metrics = {
             "loss": loss,
-            "mean_q": q.mean(),
+            "mean_q": mean_q,
             "epsilon": torch.full((), float(eps), dtype=torch.float32, device=reward.device),
-            "mean_reward": reward.mean(),
-            "episodes_done": done.sum(),
+            "mean_reward": mean_reward,
+            "episodes_done": episodes_done,
         }
         new_ts = ts.replace(buffer=buffer, env_states=env_states, obs=next_obs, step=ts.step + 1,
                             key=key)

@@ -174,6 +174,7 @@ def init_train_state(
     obs: str = "board",
     device="cuda",
     params: Optional[Dict[str, np.ndarray]] = None,
+    mesh=None,
 ) -> TrainState:
     """Parameters, optimizer and a fresh env batch, from a ``uint32[2]`` key.
 
@@ -186,11 +187,17 @@ def init_train_state(
     weights are drawn with Flax's initialisers from a ``torch.Generator``
     seeded with the network key, unless ``params``, flat Flax parameters
     (``{flax/path: array}``, e.g. from a JAX state or an ``.npz``), are given.
+
+    With ``mesh`` (:class:`~tetris_gymnasium_torch.parallel.mesh.EnvMesh`)
+    ``n_envs`` is the global count: the state holds this rank's envs ``[lo,
+    hi)`` on the mesh's device (``device`` is ignored), and the network,
+    drawn from the same key on every rank, is replicated.
     """
-    device = resolve_device(device)
+    lo, hi = (0, n_envs) if mesh is None else mesh.env_slice(n_envs)
+    device = resolve_device(device if mesh is None else mesh.device)
     env_init, _, env_observe = env_fns(env_config, impl, obs=obs, device=device)
     key, net_key, env_key = threefry.split(np.asarray(key, dtype=np.uint32), 3)
-    env_states = env_init(batch_keys(env_key, n_envs, device=device))
+    env_states = env_init(batch_keys(env_key, hi - lo, device=device, start=lo))
     raw = env_observe(env_states)
     obs_0 = raw if ppo.frame_stack == 1 else framestack.init(raw, ppo.frame_stack)
     if net is None:
@@ -251,16 +258,20 @@ def gae(ppo: PPOConfig, traj: Transition, last_value: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def sample_actions_plain(logits: torch.Tensor, act_key):
+def sample_actions_plain(logits: torch.Tensor, act_key, env_offset: int = 0):
     """Plain version of the ``ppo_sample`` kernel: ``(action int32[B], log_prob f32[B])``.
 
     ``jax.random.categorical(act_key, logits)`` (Gumbel-max, JAX's bits) and
-    ``log_softmax(logits)[b, action]`` (``ppo.py:186-187``).  The sum of the
-    log-softmax is taken pairwise (halves added, as the kernel's butterfly
-    adds), so that on the card the two agree bit for bit.
+    ``log_softmax(logits)[b, action]`` (``ppo.py:186-187``).  Row ``b`` is
+    global env ``env_offset + b`` of a larger batch: its noise is at counters
+    ``(env_offset + b) * A + a``, the rows of JAX's draw over the whole
+    batch.  The sum of the log-softmax is taken pairwise (halves added, as
+    the kernel's butterfly adds), so that on the card the two agree bit for
+    bit.
     """
     B, A = logits.shape
-    counters = torch.arange(B * A, dtype=torch.int64, device=logits.device).reshape(B, A)
+    counters = torch.arange(env_offset * A, (env_offset + B) * A, dtype=torch.int64,
+                            device=logits.device).reshape(B, A)
     action = torch.argmax(threefry.gumbel_lanes(act_key, counters) + logits, dim=-1)
     m = logits.max(dim=-1, keepdim=True).values
     z = logits - m
@@ -274,22 +285,23 @@ def sample_actions_plain(logits: torch.Tensor, act_key):
     return action.to(torch.int32), log_prob
 
 
-def sample_actions(logits: torch.Tensor, act_key):
+def sample_actions(logits: torch.Tensor, act_key, env_offset: int = 0):
     """Sampled actions and their log-probs: the ``ppo_sample`` kernel on CUDA
     tensors, :func:`sample_actions_plain` on CPU tensors."""
     if logits.is_cuda:
         from tetris_gymnasium_torch import kernels
 
-        return kernels.sample_actions(logits, act_key)
-    return sample_actions_plain(logits, act_key)
+        return kernels.sample_actions(logits, act_key, env_offset=env_offset)
+    return sample_actions_plain(logits, act_key, env_offset)
 
 
 def turbo_sample_step(state: turbo.TurboState, logits: torch.Tensor, act_key,
-                      config: EngineConfig, rewards: RewardsMapping = turbo.REWARDS):
+                      config: EngineConfig, rewards: RewardsMapping = turbo.REWARDS,
+                      env_offset: int = 0):
     """The turbo engine's rollout step with the board observation: sample
     each env's action from ``logits`` ``f32[B, 8]`` with the step's
-    ``uint32[2]`` key ``act_key`` (as :func:`sample_actions`), step with it
-    and observe.
+    ``uint32[2]`` key ``act_key`` (as :func:`sample_actions`, env ``b``
+    being global env ``env_offset + b``), step with it and observe.
 
     Returns ``(state, obs, reward, done, info, action int32[B], log_prob
     f32[B])``.  On CUDA tensors it is one ``turbo_step`` launch, which
@@ -304,9 +316,10 @@ def turbo_sample_step(state: turbo.TurboState, logits: torch.Tensor, act_key,
         obs = torch.empty((B, config.height, config.width), dtype=torch.int8,
                           device=state.rows.device)
         stepped, reward, done, lines, action, log_prob = kernels.turbo_step(
-            state, None, config, turbo.PIECES, rewards, obs=obs, logits=logits, act_key=act_key)
+            state, None, config, turbo.PIECES, rewards, obs=obs, logits=logits, act_key=act_key,
+            env_offset=env_offset)
     else:
-        action, log_prob = sample_actions_plain(logits, act_key)
+        action, log_prob = sample_actions_plain(logits, act_key, env_offset)
         stepped, reward, done, lines = turbo.step_plain(state, action, config, turbo.PIECES,
                                                         rewards)
         obs = turbo.observe_board_plain(stepped, config)
@@ -314,13 +327,13 @@ def turbo_sample_step(state: turbo.TurboState, logits: torch.Tensor, act_key,
     return stepped, obs, reward, done, info, action, log_prob
 
 
-def composed_sample_step(env_step: Callable, observe: Callable) -> Callable:
+def composed_sample_step(env_step: Callable, observe: Callable, env_offset: int = 0) -> Callable:
     """A rollout step of :func:`sample_actions`, then ``env_step`` (from
     ``rl.engines.env_fns``), then ``observe`` where the step gave no
     observation; it returns what :func:`turbo_sample_step` returns."""
 
     def sample_step(state, logits, act_key):
-        action, log_prob = sample_actions(logits, act_key)
+        action, log_prob = sample_actions(logits, act_key, env_offset)
         state, raw, reward, done, info = env_step(state, action)
         raw = observe(state) if raw is None else raw
         return state, raw, reward, done, info, action, log_prob
@@ -329,18 +342,21 @@ def composed_sample_step(env_step: Callable, observe: Callable) -> Callable:
 
 
 def sample_step_fn(env_config: EngineConfig, impl: str = "turbo",
-                   rewards: Optional[RewardsMapping] = None, obs: str = "board") -> Callable:
+                   rewards: Optional[RewardsMapping] = None, obs: str = "board",
+                   env_offset: int = 0) -> Callable:
     """The rollout step ``sample_step(state, logits, act_key) -> (state,
     obs, reward, done, info, action, log_prob)`` of an engine route: one
     call of :func:`turbo_sample_step` on the turbo engine with the board
     observation, :func:`composed_sample_step` on every other route.  It
-    runs where the state lies."""
+    runs where the state lies; ``env_offset`` is the global index of the
+    batch's env 0 (a rank's first env), where the sampling counters start."""
     rkw = {} if rewards is None else {"rewards": rewards}
     if impl == "turbo" and obs == "board":
-        return functools.partial(turbo_sample_step, config=env_config, **rkw)
+        return functools.partial(turbo_sample_step, config=env_config, env_offset=env_offset,
+                                 **rkw)
     # step and observe run where the state lies; the device only binds init
     _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu")
-    return composed_sample_step(env_step, observe)
+    return composed_sample_step(env_step, observe, env_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -382,26 +398,38 @@ def rollout(ts: TrainState, ppo: PPOConfig, sample_step: Callable):
     return traj, env_states, window, key
 
 
-def loss_fn(net, ppo: PPOConfig, batch: Transition, advantages, targets, ent_coef: float):
+def loss_fn(net, ppo: PPOConfig, batch: Transition, advantages, targets, ent_coef: float,
+            adv_stats=None, count: Optional[int] = None):
     """Clipped surrogate, clipped value loss and entropy bonus (``ppo.py:194-214``).
 
     Returns ``(total, (pg_loss, v_loss, entropy))``.  Advantages are
     normalised with the population std (``jnp.std`` is ddof=0).
+
+    A rank of a sharded update holds part of a global minibatch: it passes
+    the global minibatch's advantage ``(mean, std)`` as ``adv_stats`` and
+    its sample count as ``count``, and each mean becomes this part's sum
+    over ``count``, so the ranks' losses (and gradients) add up to the
+    global minibatch's.
     """
     logits, value = net(batch.obs)
     log_probs = F.log_softmax(logits, dim=-1)
     log_prob = log_probs.gather(1, batch.action.long()[:, None]).squeeze(1)
     ratio = torch.exp(log_prob - batch.log_prob)
 
-    adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    if adv_stats is None:
+        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        mean = torch.mean
+    else:
+        adv = (advantages - adv_stats[0]) / (adv_stats[1] + 1e-8)
+        mean = lambda x: x.sum() / count  # noqa: E731
     pg1 = -adv * ratio
     pg2 = -adv * torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps)
-    pg_loss = torch.maximum(pg1, pg2).mean()
+    pg_loss = mean(torch.maximum(pg1, pg2))
 
     v_clipped = batch.value + torch.clamp(value - batch.value, -ppo.clip_eps, ppo.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - targets) ** 2, (v_clipped - targets) ** 2).mean()
+    v_loss = 0.5 * mean(torch.maximum((value - targets) ** 2, (v_clipped - targets) ** 2))
 
-    entropy = -torch.sum(torch.exp(log_probs) * log_probs, dim=-1).mean()
+    entropy = mean(-torch.sum(torch.exp(log_probs) * log_probs, dim=-1))
     total = pg_loss + ppo.vf_coef * v_loss - ent_coef * entropy
     return total, (pg_loss, v_loss, entropy)
 
@@ -422,6 +450,39 @@ def epoch_keys(key, n_epochs: int):
         key, perm_key = threefry.split(key)
         perm_keys.append(perm_key)
     return key, perm_keys
+
+
+def shard_minibatches(n_local_envs: int, T: int, ppo: PPOConfig, perm_keys, mesh) -> list:
+    """This rank's blocks of every global minibatch of the update, in order.
+
+    The global rollout is ``T x B`` samples with ``B = world * n_local_envs``;
+    a block is ``block`` adjacent global envs at one timestep, so block ``k``
+    holds envs ``(k % (B // block)) * block + [0, block)`` at timestep
+    ``k // (B // block)``.  Each epoch permutes the global blocks as
+    :func:`minibatches` does (the permutation computed on the host, the
+    same on every rank); this returns, for each minibatch, an int64 array
+    of the indices into this rank's ``[T * n_local_envs // block, block]``
+    blocks of those global blocks that lie in ``[lo, hi)``, in the
+    minibatch's order.  A rank may hold none of a minibatch's blocks.
+    Raises ``ValueError`` unless ``block`` divides ``n_local_envs``.
+    """
+    B = n_local_envs * mesh.world
+    n = T * B
+    block = shuffle_block(ppo, n)
+    if n_local_envs % block:
+        raise ValueError(
+            f"shuffle blocks of {block} envs do not tile a rank's {n_local_envs} envs; "
+            f"pick n_envs so that {block} divides n_envs / world")
+    per_t, local_per_t = B // block, n_local_envs // block
+    k = np.arange(T * per_t)
+    owner = (k % per_t) // local_per_t
+    local = (k // per_t) * local_per_t + (k % per_t) % local_per_t
+    out = []
+    for perm_key in perm_keys:
+        perm = threefry.permutation(perm_key, T * per_t)
+        for bidx in perm.reshape(ppo.n_minibatches, -1):
+            out.append(local[bidx[owner[bidx] == mesh.rank]])
+    return out
 
 
 def minibatches(traj: Transition, advantages, targets, ppo: PPOConfig,
@@ -451,6 +512,60 @@ def minibatches(traj: Transition, advantages, targets, ppo: PPOConfig,
                    merge(tgt_f[bidx]))
 
 
+def _sharded_update(ts: TrainState, ppo: PPOConfig, traj: Transition, advantages, targets,
+                    perm_keys, ent_coef: float, mesh):
+    """The update on this rank's part of each global minibatch
+    (:func:`shard_minibatches`); returns the last minibatch's local loss
+    terms, which add up over the ranks to the global ones.
+
+    Two ``all_reduce`` calls give every minibatch's advantage mean and
+    (ddof 0) std over the whole global minibatch, sums taken in float64;
+    then each minibatch's gradient, flattened, is summed over the ranks by
+    one ``all_reduce`` before :class:`ClippedAdam` clips it by its global
+    norm.  A rank that holds none of a minibatch's blocks adds zeros, and
+    still joins its collectives.
+    """
+    T, b = traj.reward.shape
+    dev = traj.reward.device
+    count = T * b * mesh.world // ppo.n_minibatches  # samples of a global minibatch
+    parts = shard_minibatches(b, T, ppo, perm_keys, mesh)
+    block = shuffle_block(ppo, T * b * mesh.world)
+    n_blocks = T * b // block
+    flat = Transition(*(x.reshape((n_blocks, block) + x.shape[2:]) for x in traj))
+    adv_f = advantages.reshape(n_blocks, block)
+    tgt_f = targets.reshape(n_blocks, block)
+    host = torch.from_numpy(np.concatenate(parts).astype(np.int64))
+    if dev.type == "cuda":
+        host = host.pin_memory()
+    idx = host.to(dev, non_blocking=True).split([len(p) for p in parts])
+
+    def merge(x):
+        return x.reshape((-1,) + x.shape[2:])
+
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    sums = mesh.all_reduce(torch.stack([adv_f[i].sum(dtype=torch.float64) if len(p) else zero
+                                        for p, i in zip(parts, idx)]))
+    means = sums / count
+    sq = mesh.all_reduce(torch.stack([((adv_f[i].double() - m) ** 2).sum() if len(p) else zero
+                                      for p, i, m in zip(parts, idx, means)]))
+    stds = torch.sqrt(sq / count)
+    means, stds = means.float(), stds.float()
+
+    aux = None
+    for j, (p, i) in enumerate(zip(parts, idx)):
+        ts.optimizer.zero_grad()
+        if len(p):
+            batch = Transition(*(merge(x[i]) for x in flat))
+            total, aux = loss_fn(ts.net, ppo, batch, merge(adv_f[i]), merge(tgt_f[i]), ent_coef,
+                                 (means[j], stds[j]), count)
+            total.backward()
+        else:
+            aux = tuple(torch.zeros((), dtype=torch.float32, device=dev) for _ in range(3))
+        mesh.sum_gradients(ts.optimizer.params)
+        ts.optimizer.step()
+    return aux
+
+
 def ent_coef_at(ppo: PPOConfig, update_i: int) -> float:
     """The entropy coefficient of train step ``update_i``, in float32 (``ppo.py:220-226``)."""
     if ppo.total_iterations <= 0:
@@ -472,6 +587,7 @@ def make_train_step(
     rewards=None,
     obs: str = "board",
     marks: Optional[Callable[[str], None]] = None,
+    mesh=None,
 ):
     """The PPO iteration: rollout ``rollout_len`` steps, GAE, then the update.
 
@@ -482,36 +598,61 @@ def make_train_step(
     the only thing that waits for the card.  ``marks``, if given, is called
     with ``"start"``, ``"rollout"``, ``"gae"`` and ``"update"`` as each phase
     has been enqueued (a caller can record CUDA events there).
+
+    With ``mesh`` (the state from :func:`init_train_state` with the same
+    mesh) each rank rolls out its envs ``[lo, hi)``, sampling at the global
+    envs' counters, computes GAE on them, and takes part in every global
+    minibatch through :func:`_sharded_update`; the metrics are the global
+    ones, the same on every rank.
     """
-    sample_step = sample_step_fn(env_config, impl, rewards, obs=obs)
     mark = marks or (lambda _name: None)
+    sample_steps: dict = {}  # env_offset -> the rollout step
 
     def train_step(ts: TrainState):
         mark("start")
         ent_coef = ent_coef_at(ppo, ts.update_i)
-        traj, env_states, last_obs, key = rollout(ts, ppo, sample_step)
+        lo = 0 if mesh is None else mesh.rank * ts.last_obs.shape[0]
+        if lo not in sample_steps:
+            sample_steps[lo] = sample_step_fn(env_config, impl, rewards, obs=obs, env_offset=lo)
+        traj, env_states, last_obs, key = rollout(ts, ppo, sample_steps[lo])
         with torch.no_grad():
             _, last_value = ts.net(last_obs)
         mark("rollout")
         advantages, targets = gae(ppo, traj, last_value)
         mark("gae")
         key, perm_keys = epoch_keys(key, ppo.update_epochs)
-        for batch, adv, tgt in minibatches(traj, advantages, targets, ppo, perm_keys):
-            total, aux = loss_fn(ts.net, ppo, batch, adv, tgt, ent_coef)
-            ts.optimizer.zero_grad()
-            total.backward()
-            ts.optimizer.step()
+        if mesh is None:
+            for batch, adv, tgt in minibatches(traj, advantages, targets, ppo, perm_keys):
+                total, aux = loss_fn(ts.net, ppo, batch, adv, tgt, ent_coef)
+                ts.optimizer.zero_grad()
+                total.backward()
+                ts.optimizer.step()
+        else:
+            aux = _sharded_update(ts, ppo, traj, advantages, targets, perm_keys, ent_coef, mesh)
         mark("update")
         pg_loss, v_loss, entropy = (x.detach() for x in aux)  # the last minibatch's
         device = traj.reward.device
+        if mesh is None:
+            mean_reward, episodes_done = traj.reward.mean(), traj.done.sum()
+            mean_score = ts.env_states.score.mean()
+        else:  # one all_reduce for the global terms and sums
+            sums = mesh.all_reduce(torch.stack([
+                pg_loss.double(), v_loss.double(), entropy.double(),
+                traj.reward.sum(dtype=torch.float64), traj.done.sum().double(),
+                ts.env_states.score.sum(dtype=torch.float64)]))
+            pg_loss, v_loss, entropy = sums[:3].float()
+            n_global = traj.reward.numel() * mesh.world
+            mean_reward = (sums[3] / n_global).float()
+            episodes_done = sums[4].to(torch.int64)
+            mean_score = (sums[5] / (ts.last_obs.shape[0] * mesh.world)).float()
         metrics = {
             "pg_loss": pg_loss,
             "v_loss": v_loss,
             "entropy": entropy,
             "ent_coef": torch.full((), ent_coef, dtype=torch.float32, device=device),
-            "mean_reward": traj.reward.mean(),
-            "episodes_done": traj.done.sum(),
-            "mean_score": ts.env_states.score.mean(),
+            "mean_reward": mean_reward,
+            "episodes_done": episodes_done,
+            "mean_score": mean_score,
         }
         new_ts = ts.replace(env_states=env_states, last_obs=last_obs, key=key,
                             update_i=ts.update_i + 1)
