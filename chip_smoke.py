@@ -324,6 +324,32 @@ Phases, each printing one JSON line:
     3 iterations each: env and replay checksums equal at W = 1 and 2 and
     on every rank, each world's ranks holding equal parameters.
 
+52. ``utils/video.py`` on the card: the random policy's episodes (seeds
+    0-3, the default board and 30x20) bit-equal to the same calls on the
+    CPU, each frame exactly one ``flagship_step``, ``flagship_observe_board``,
+    ``observe_dict`` and ``compose_rgb`` and an episode one
+    ``flagship_init``; a greedy episode of the committed policy (fp32,
+    cuDNN's deterministic algorithms) equal to the CPU's, its length and
+    lines, its GIF under ``build/``; the host ms a frame.
+53. ``examples/evaluate_checkpoint.py --net actor-critic`` on the committed
+    policy (512 episodes, seed 0) prints exactly what ``rl.evaluate.main``
+    gives for the same arguments, with phase 5's launches, beside phase 5's
+    lines/episode.
+54. Whole-state checkpoints at the main path's width: PPO at 8192 x 128
+    from the committed weights (cuDNN's deterministic algorithms), a train
+    step, ``save`` of the whole ``TrainState``, a second step; ``restore``
+    into a fresh template, one step: bit-equal to the second (env checksum
+    and fields, every parameter, Adam's moments, metrics), with a train
+    step's launches.  A CNN DQN state (K = 4) with its full 262,144-entry
+    buffer round-trips, and a step from each copy is equal.  Seconds and
+    bytes of each save and restore.
+55. ``train_ppo --n-envs 2048 --iterations 2 --video-every 1 --wandb``
+    (wandb hidden: no network here) writes two GIFs, warns once, and its
+    JSONL without ``sps`` equals a run without the flags; one main-path
+    train step inside ``utils.profiling.trace`` (128 ``turbo_step``
+    launches and one ``gae`` by the wrappers' counts) gives a trace that
+    names both kernels.
+
 Then the kernels line (25 kernels; ``turbo_step``'s time is its launch
 with the observation, as the paths take it, with its sampling builds' and
 ``gae``'s builds' times at B = 8192 beside it; each with the launch counts of
@@ -336,7 +362,8 @@ calls, with 0 launches and their times at 30x20 and B = 4096, at B =
 65536 and over 2**24 pixels; ``dqn_act`` with its greedy launch's time
 and ``torch.argmax``'s as its library time; each with its builds, one a
 geometry, and the six surface kernels with their phase-39 times; every
-kernel with a rank's launches on the sharded paths at W = 2, and
+kernel with a rank's launches on the sharded paths at W = 2 and on the
+utilities' paths (phases 52-54), and
 ``ppo_sample``, ``turbo_step`` (its sampling build) and ``dqn_act`` with
 their times at global counter offsets 0 and 3B) and, last, the device
 line.
@@ -1142,6 +1169,13 @@ def main() -> None:
     offset_times = check_offset_kernels(dev, smi)
     sharded = run_sharded(dev, smi)
 
+    # -- 52.-55. the utilities: video, checkpoint evaluation, whole-state
+    # checkpoints, the trainers' logging flags and the profiler -----------------
+    videos = check_video(dev, smi)
+    eval_ckpt = check_evaluate_checkpoint(dev, smi, stats)
+    resumed = check_resume(dev, smi)
+    check_trainer_flags(dev, smi, resumed.pop("ts"), resumed.pop("train_step"))
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -1279,6 +1313,13 @@ def main() -> None:
             entries[-1]["launches_sample_ppo_train"] = train["launches"]["turbo_step_sample"]
         # launches a rank made on the sharded paths (phases 49-51, W = 2)
         entries[-1].update({f"launches_{p}": c[name] for p, c in sharded["launches"].items()})
+        # the utilities' paths: one recorded episode (seed 0, the default
+        # board, phase 52), the checkpoint evaluation (phase 53) and the
+        # resumed PPO step (phase 54)
+        entries[-1].update(launches_video_episode=videos["launches"][name],
+                           video_episode_frames=videos["frames"],
+                           launches_evaluate_checkpoint=eval_ckpt["launches"][name],
+                           launches_ppo_resumed_step=resumed["launches"][name])
         timed = {"turbo_step": "turbo_step_sample"}.get(name, name)
         if timed in offset_times:  # phase 48: at global counter offsets 0 and 3B
             entries[-1]["offset_ms"] = {
@@ -5601,6 +5642,344 @@ def run_sharded(dev, smi) -> dict:
     return {"rollouts": rollouts, "ppo_main": ppo_main, "train": train,
             "launches": {f"{name}_w2": got[2][0][name]["launches"]
                          for name in ("rollout", "fn_rollout", "ppo_main", "dqn", "ppo_flagship")}}
+
+# ---------------------------------------------------------------------------
+# 52.-55. The utilities: video capture, checkpoint evaluation, whole-state
+# checkpoints and the trainers' logging flags
+# ---------------------------------------------------------------------------
+
+VIDEO_SEEDS = (0, 1, 2, 3)
+VIDEO_GEOMETRIES = (("10x20", {}), ("30x20", dict(width=30, height=20)))
+VIDEO_MAX_STEPS = 400  # record_training_video's cap
+OUT_DIR = os.path.join(REPO, "build", "chip_smoke_utils")  # gitignored
+PHASE5_LINES_H100 = 10.6035  # phase 5's lines/episode, H100 80GB HBM3 at 700.00 W (PERF.md)
+FLAG_ARGV = ["--n-envs", "2048", "--iterations", "2", "--seed", "1"]  # the JAX defaults, 2 iterations
+RESUME_DQN_LEARNING_STARTS = 64  # Adam holds moments by the time the buffer is full
+
+
+def _frame_launches(frames) -> dict:
+    """A recorded episode's launches: per frame ``observe_dict`` and
+    ``compose_rgb`` (the frame) and ``flagship_observe_board`` (the
+    policy's board), per step ``flagship_step``, one ``flagship_init``."""
+    from tetris_gymnasium_torch import kernels
+
+    return {**{k: 0 for k in kernels.LAUNCHES}, "flagship_init": 1, "flagship_step": frames - 1,
+            "flagship_observe_board": frames, "observe_dict": frames, "compose_rgb": frames}
+
+
+def check_video(dev, smi) -> dict:
+    """Phase 52: ``utils/video.py`` on the card.  The random policy's episodes
+    at seeds 0-3 on the default board and at 30x20, bit-equal to the same
+    calls on the CPU, with exact launches; one greedy episode of the
+    committed PPO policy in fp32 under cuDNN's deterministic algorithms,
+    its frames equal to the CPU's, written as a GIF under ``build/``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.utils import video
+    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic
+
+    def recorded(policy, cfg, seed, device):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = video.record_episode(policy, config=cfg, seed=seed, max_steps=VIDEO_MAX_STEPS,
+                                      device=device)
+        return frames, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    t_phase = time.perf_counter()
+    runs = []
+    for geo, kw in VIDEO_GEOMETRIES:
+        cfg = EngineConfig(**kw)
+        for seed in VIDEO_SEEDS:
+            card, wall, launches = recorded(None, cfg, seed, dev)
+            cpu = video.record_episode(config=cfg, seed=seed, max_steps=VIDEO_MAX_STEPS,
+                                       device="cpu")
+            if card.shape != cpu.shape or not np.array_equal(card, cpu):
+                raise AssertionError(f"video {geo} seed {seed}: card frames differ from the CPU's")
+            if launches != _frame_launches(len(card)):
+                raise AssertionError(f"video {geo} seed {seed}: launches {launches}, want "
+                                     f"{_frame_launches(len(card))}")
+            runs.append({"geometry": geo, "seed": seed, "frames": len(card),
+                         "frame_shape": list(card.shape[1:]), "host_ms_per_frame":
+                         1e3 * wall / len(card), "launches": {k: v for k, v in launches.items() if v}})
+
+    # a greedy episode of the committed policy; its actions replayed on the
+    # CPU engine give its length and lines
+    actions = []
+
+    def logged(policy):
+        def play(obs, key):
+            a = policy(obs, key)
+            actions.append(a)
+            return a
+        return play
+
+    greedy = {}
+    with deterministic_cudnn():
+        for where in ("cuda", "cpu"):
+            net = load_actor_critic(PARAMS, device=where, dtype=torch.float32)
+            actions.clear()
+            greedy[where] = recorded(logged(video.greedy_policy_fn(net)), EngineConfig(), 0, where)
+    (card, wall, launches), (cpu, _, _) = greedy["cuda"], greedy["cpu"]
+    if card.shape != cpu.shape or not np.array_equal(card, cpu):
+        raise AssertionError("greedy video: card frames differ from the CPU's")
+    if launches != _frame_launches(len(card)):
+        raise AssertionError(f"greedy video: launches {launches}")
+    cfg = EngineConfig()
+    state = engine.init_state(threefry.fold_in(threefry.prng_key(0), 0), cfg, device="cpu")
+    for a in actions:
+        state = engine.step(state, torch.tensor([a], dtype=torch.int32), cfg,
+                            obs_fn=engine.no_obs)[0]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    path = video.write_video(card, os.path.join(OUT_DIR, "ppo_lines_seed0.gif"))
+    write_s = time.perf_counter() - t0
+    if not os.path.getsize(path) > 0:
+        raise AssertionError(f"no GIF at {path}")
+    out = {"phase": "video", "bit_equal_cpu": True, "runs": runs,
+           "greedy": {"frames": len(card), "length": len(actions), "lines": int(state.lines[0]),
+                      "score": float(state.score[0]), "game_over": bool(state.game_over[0]),
+                      "host_ms_per_frame": 1e3 * wall / len(card), "gif": os.path.relpath(path, REPO),
+                      "gif_bytes": os.path.getsize(path), "gif_write_s": write_s},
+           "launches_per_frame": {"flagship_step": 1, "flagship_observe_board": 1,
+                                  "observe_dict": 1, "compose_rgb": 1},
+           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(out)
+    return {"launches": runs[0]["launches"] | {k: 0 for k in kernels.LAUNCHES
+                                               if k not in runs[0]["launches"]},
+            "frames": runs[0]["frames"]}
+
+
+def check_evaluate_checkpoint(dev, smi, phase5_stats) -> dict:
+    """Phase 53: ``examples/evaluate_checkpoint.py --net actor-critic`` on the
+    committed policy (512 episodes, seed 0) prints exactly what
+    ``rl.evaluate.main`` gives for the same arguments, rounded as the JAX
+    example rounds; its launches are phase 5's."""
+    import io
+
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.examples import evaluate_checkpoint
+    from tetris_gymnasium_torch.rl import evaluate
+
+    argv = ["--checkpoint", PARAMS, "--episodes", str(EVAL_EPISODES), "--seed", str(EVAL_SEED)]
+    printed = io.StringIO()
+    with deterministic_cudnn():
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            got = evaluate_checkpoint.main(["--net", "actor-critic"] + argv)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = evaluate.main(argv)
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    rounded = {k: round(float(v), 4) for k, v in want.items()}
+    if not line == got == rounded:
+        raise AssertionError(f"evaluate_checkpoint printed {line}, rl.evaluate.main gives {rounded}")
+    it = want["iterations"]
+    if launches != {**{k: 0 for k in launches}, "turbo_step": it, "turbo_step_obs": it,
+                    "observe_board": 1, "turbo_init": 1}:
+        raise AssertionError(f"evaluate_checkpoint launches {launches} for {it} iterations")
+    emit({"phase": "evaluate_checkpoint", "equal_rl_evaluate_main": True, "printed": line,
+          "phase5_lines_mean": phase5_stats["lines_mean"],
+          "phase5_lines_h100_pr13": PHASE5_LINES_H100, "launches": launches, "seconds": wall,
+          "nvidia_smi": smi})
+    return {"launches": launches}
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _state_equal(what, a, b) -> None:
+    for f in a.__dataclass_fields__:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.shape != y.shape or not torch.equal(bits(x), bits(y)):
+            raise AssertionError(f"{what}: field {f} differs")
+
+
+def _adam_equal(what, a, b) -> None:
+    for i, (sa, sb) in enumerate(zip(a.state.values(), b.state.values())):
+        for k in sb:
+            if not torch.equal(sa[k], sb[k]):
+                raise AssertionError(f"{what}: Adam {k} of parameter {i} differs")
+
+
+def check_resume(dev, smi) -> dict:
+    """Phase 54: ``utils/checkpoint.py`` at the main path's width.  PPO at
+    8192 x 128 from the committed weights under cuDNN's deterministic
+    algorithms: run A takes a train step, saves the whole ``TrainState``
+    and takes another; run B restores it into a freshly built template and
+    takes one step.  A's second step and B's step must be bit-equal: the env
+    batch (``state_checksum`` and every field), every parameter and Adam's
+    moments.  Then a CNN DQN state (K = 4) with its full 262,144-entry
+    replay buffer round-trips, and one more step from each copy is equal."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.examples import train_cnn, train_ppo
+    from tetris_gymnasium_torch.parallel.mesh import env_mesh, state_checksum
+    from tetris_gymnasium_torch.utils import checkpoint
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    args = train_ppo.parse_args(TRAIN_ARGV)
+    io_s = {}
+    with deterministic_cudnn():
+        ts, train_step, _ = train_ppo.setup(args)
+        ts, _ = train_step(ts)
+        path = os.path.join(OUT_DIR, "ppo_state")
+        _, io_s["ppo_save_s"] = _timed(lambda: checkpoint.save(path, ts))
+        io_s["ppo_bytes"] = _dir_bytes(path)
+        a, ma = train_step(ts)
+        template, _, _ = train_ppo.setup(args)
+        b0, io_s["ppo_restore_s"] = _timed(lambda: checkpoint.restore(path, template))
+        kernels.reset_launches()
+        b, mb = train_step(b0)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    mesh = env_mesh(dev)
+    checksums = [state_checksum(s.env_states, mesh) for s in (a, b)]
+    if checksums[0] != checksums[1]:
+        raise AssertionError("resumed PPO: the env batch's checksum differs")
+    _state_equal("resumed PPO env batch", a.env_states, b.env_states)
+    for (k, x), y in zip(a.net.state_dict().items(), b.net.state_dict().values()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"resumed PPO: parameter {k} differs")
+    _adam_equal("resumed PPO", a.optimizer.adam, b.optimizer.adam)
+    if not (np.array_equal(a.key, b.key) and {k: float(v) for k, v in ma.items()}
+            == {k: float(v) for k, v in mb.items()}):
+        raise AssertionError("resumed PPO: key or metrics differ")
+    want = {**{k: 0 for k in launches}, "turbo_step": TRAIN_T, "turbo_step_obs": TRAIN_T,
+            "turbo_step_sample": TRAIN_T, "gae": 1}
+    if launches != want:
+        raise AssertionError(f"resumed PPO step launches {launches}, want {want}")
+
+    # the CNN DQN (phase 19's K = 4 shape) once its buffer is full
+    dargv = dqn_argv(4)
+    dargv[dargv.index("--learning-starts") + 1] = str(RESUME_DQN_LEARNING_STARTS)
+    dargs = train_cnn.parse_args(dargv)
+    with deterministic_cudnn():
+        ds, dstep, _, dcfg = train_cnn.setup(dargs)
+        while ds.buffer.size < ds.buffer.capacity:
+            ds, _ = dstep(ds)
+        dpath = os.path.join(OUT_DIR, "dqn_state")
+        _, io_s["dqn_save_s"] = _timed(lambda: checkpoint.save(dpath, ds))
+        io_s["dqn_bytes"] = _dir_bytes(dpath)
+        dtemplate = train_cnn.setup(dargs)[0]
+        back, io_s["dqn_restore_s"] = _timed(lambda: checkpoint.restore(dpath, dtemplate))
+        for k, v in ds.buffer.data.items():
+            if not torch.equal(back.buffer.data[k], v):
+                raise AssertionError(f"DQN round trip: buffer field {k} differs")
+        if (back.buffer.pos, back.buffer.size, back.step) != (ds.buffer.pos, ds.buffer.size, ds.step):
+            raise AssertionError("DQN round trip: buffer position, size or step differs")
+        _state_equal("DQN round trip env batch", back.env_states, ds.env_states)
+        if not torch.equal(bits(back.obs), bits(ds.obs)):
+            raise AssertionError("DQN round trip: the window differs")
+        _adam_equal("DQN round trip", back.optimizer, ds.optimizer)
+        da, ma = dstep(ds)
+        db, mb = dstep(back)
+    for net in ("net", "target_net"):
+        for x, y in zip(getattr(da, net).parameters(), getattr(db, net).parameters()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"DQN: one step after the round trip, {net} differs")
+    if float(ma["loss"]) != float(mb["loss"]):
+        raise AssertionError("DQN: one step after the round trip, the loss differs")
+    emit({"phase": "resume", "ppo_bit_equal": True, "n_envs": TRAIN_ENVS, "rollout_len": TRAIN_T,
+          "env_checksum": checksums[1], "launches_resumed_step": launches,
+          "dqn_round_trip_equal": True, "dqn_buffer_entries": ds.buffer.capacity,
+          "dqn_step": ds.step, **io_s,
+          "ppo_save_mb_per_s": io_s["ppo_bytes"] / io_s["ppo_save_s"] / 1e6,
+          "dqn_save_mb_per_s": io_s["dqn_bytes"] / io_s["dqn_save_s"] / 1e6,
+          "dqn_restore_mb_per_s": io_s["dqn_bytes"] / io_s["dqn_restore_s"] / 1e6,
+          "nvidia_smi": smi})
+    return {"launches": launches, "ts": b, "train_step": train_step}
+
+
+def check_trainer_flags(dev, smi, ts, train_step) -> dict:
+    """Phase 55: the trainers' new flags on the card.  ``train_ppo --n-envs
+    2048 --iterations 2 --video-every 1 --wandb`` (wandb hidden: this
+    machine has no network, and ``wandb.init`` would try its server) writes
+    two GIFs and prints one "wandb requested" warning, and its JSONL
+    without ``sps`` equals a run without the two flags.  Then one main-path
+    train step inside ``profiling.trace``: the trace holds CUDA kernel
+    events of ``turbo_step`` and ``gae`` (how many of the step's 128 and 1
+    launches it holds is reported)."""
+    import io
+
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.examples import train_ppo
+    from tetris_gymnasium_torch.utils import profiling
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    logs = {name: os.path.join(OUT_DIR, f"{name}.jsonl") for name in ("flags", "plain")}
+    for f in os.listdir(OUT_DIR):
+        if f.startswith(("flags", "plain")):
+            os.remove(os.path.join(OUT_DIR, f))
+    err, out, saved = io.StringIO(), io.StringIO(), sys.modules.get("wandb")
+    sys.modules["wandb"] = None  # forces the tracker's ImportError
+    try:
+        with deterministic_cudnn(), contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            train_ppo.main(FLAG_ARGV + ["--video-every", "1", "--wandb", "--log-json", logs["flags"]])
+            flagged_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            train_ppo.main(FLAG_ARGV + ["--log-json", logs["plain"]])
+            plain_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved
+    warnings = err.getvalue().count("wandb requested")
+    if warnings != 1:
+        raise AssertionError(f"{warnings} 'wandb requested' warnings, want 1: {err.getvalue()!r}")
+    gifs = [os.path.join(OUT_DIR, f"flags_it{it}.gif") for it in (1, 2)]
+    if not all(os.path.isfile(g) and os.path.getsize(g) > 0 for g in gifs):
+        raise AssertionError(f"missing GIFs: {gifs}")
+
+    def records(path):
+        with open(path) as f:
+            return [{k: v for k, v in json.loads(line).items() if k != "sps"} for line in f]
+
+    # train_ppo logs iteration 1 and every fifth: one record here
+    if records(logs["flags"]) != records(logs["plain"]) or len(records(logs["plain"])) != 1:
+        raise AssertionError(f"--video-every --wandb changed the records: {records(logs['flags'])} "
+                             f"against {records(logs['plain'])}")
+
+    # the profiler may drop a kernel record (CUPTI's buffers; PR 14 saw 127
+    # of 128 once), so the trace must name both kernels, and the wrappers'
+    # counts say how many launches there were
+    trace_dir = os.path.join(OUT_DIR, "trace")
+    kernels.reset_launches()
+    with profiling.trace(trace_dir):
+        ts, _ = train_step(ts)
+    launched = {k: kernels.LAUNCHES[k] for k in ("turbo_step", "gae")}
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(f"{k}_kernel" in n for n in kernel_names) for k in ("turbo_step", "gae")}
+    if not (found["turbo_step"] >= 1 and found["gae"] >= 1):
+        raise AssertionError(f"trace kernel events {found}: turbo_step and gae must both show")
+    if launched != {"turbo_step": TRAIN_T, "gae": 1}:
+        raise AssertionError(f"the traced step launched {launched}")
+    device_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    emit({"phase": "trainer_flags", "wandb_warnings": warnings,
+          "gifs": [os.path.relpath(g, REPO) for g in gifs],
+          "gif_bytes": [os.path.getsize(g) for g in gifs], "records_equal": True,
+          "seconds_with_flags": flagged_s, "seconds_without": plain_s,
+          "trace_kernel_events": {"turbo_step": found["turbo_step"], "gae": found["gae"],
+                                  "all": len(kernel_names)}, "traced_step_launches": launched,
+          "trace_kernel_ms": device_us / 1e3, "nvidia_smi": smi})
+    return {"trace_kernel_events": found}
 
 
 if __name__ == "__main__":

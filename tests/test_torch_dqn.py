@@ -24,7 +24,9 @@ initial weights and the command line.
 import functools
 import importlib.util
 import os
+import sys
 
+import imageio
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -316,15 +318,35 @@ def test_cli_trains_on_cpu_and_saves(tmp_path, capsys):
     (["--wandb"], "item 12"),
     (["--video-every", "5"], "item 12"),
 ])
-def test_cli_unported_options_raise(argv, item):
-    """``--wandb`` and ``--video-every`` raise, naming their ROADMAP.md item;
-    ``--obs rgb84`` (item 10) and ``--impl flagship`` (item 9) are ported
-    and parse, the pixel frames selecting the flagship engine as in JAX."""
+def test_cli_unported_options_raise(argv, item, tmp_path, monkeypatch, capsys):
+    """Every option of the JAX script is ported and parses: ``--obs rgb84``
+    (item 10) and ``--impl flagship`` (item 9), the pixel frames selecting
+    the flagship engine as in JAX; ``--wandb`` (item 12), which without
+    wandb warns once and leaves the records as they are; ``--video-every``
+    (item 12), which writes a greedy GIF beside the log and leaves the
+    records as they are."""
+    args = train_cnn.parse_args(argv)
     if item in ("item 9", "item 10"):
-        assert train_cnn.parse_args(argv).impl == "flagship"
+        assert args.impl == "flagship"
         return
-    with pytest.raises(NotImplementedError, match=item):
-        train_cnn.parse_args(argv)
+    tiny = ["--device", "cpu", "--n-envs", "8", "--steps", "5", "--chunk", "5",
+            "--learning-starts", "2", "--frame-stack", "4"]
+
+    def no_sps(records):
+        return [{k: v for k, v in r.items() if k != "sps"} for r in records]
+
+    if argv == ["--wandb"]:
+        assert args.wandb
+        monkeypatch.setitem(sys.modules, "wandb", None)  # forces ImportError
+        _, flagged = train_cnn.main(tiny + argv)
+        assert capsys.readouterr().err.count("wandb requested") == 1
+    else:
+        assert args.video_every == 5
+        _, flagged = train_cnn.main(tiny + argv + ["--log-json", str(tmp_path / "dqn.jsonl")])
+        assert "recorded greedy episode" in capsys.readouterr().out
+        assert len(imageio.mimread(str(tmp_path / "dqn_ep5.gif"))) > 1
+    _, plain = train_cnn.main(tiny)
+    assert no_sps(flagged) == no_sps(plain)
 
 
 def test_cli_defaults_match_jax_and_the_card():

@@ -19,6 +19,7 @@ and ``tests/test_learning.py:110-141`` on the port alone, and covers the
 converters, the checkpoint files and the command line.
 """
 import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -383,7 +384,7 @@ def test_init_state_is_seeded():
 # ---------------------------------------------------------------------------
 
 
-def test_cli_trains_on_cpu_and_saves(tmp_path, capsys):
+def test_cli_trains_on_cpu_and_saves(tmp_path, capsys, monkeypatch):
     params, log = str(tmp_path / "q.npz"), str(tmp_path / "log.jsonl")
     ts, records = train_lin_grouped.main([
         "--device", "cpu", "--n-envs", "8", "--steps", "6", "--chunk", "3",
@@ -398,8 +399,14 @@ def test_cli_trains_on_cpu_and_saves(tmp_path, capsys):
                                        "--chunk", "3", "--init-params", params])
     assert "warm-started params" in capsys.readouterr().out and len(again) == 1
     assert sorted(load_flat(params)) == sorted(to_flax_params(ts.net.state_dict(), "qmlp"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_lin_grouped.parse_args(["--wandb"])
+    # --wandb (item 12) parses; without wandb it warns once and the records are unchanged
+    assert train_lin_grouped.parse_args(["--wandb"]).wandb
+    monkeypatch.setitem(sys.modules, "wandb", None)  # forces ImportError
+    _, flagged = train_lin_grouped.main(["--device", "cpu", "--n-envs", "8", "--steps", "3",
+                                         "--chunk", "3", "--init-params", params, "--wandb"])
+    assert capsys.readouterr().err.count("wandb requested") == 1
+    assert [{k: v for k, v in r.items() if k != "sps"} for r in flagged] == \
+        [{k: v for k, v in r.items() if k != "sps"} for r in again]
     assert train_lin_grouped.parse_args([]).device == "cuda"
 
 

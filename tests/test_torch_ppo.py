@@ -26,7 +26,9 @@ import copy
 import inspect
 import json
 import os
+import sys
 
+import imageio
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -443,16 +445,34 @@ def test_cli_chunk_divisibility_errors(argv):
     (["--wandb"], "item 12"),
     (["--video-every", "5"], "item 12"),
 ])
-def test_cli_unported_options_raise(argv, item):
-    """The options still unported raise, naming their ROADMAP.md item;
-    ``--impl flagship`` (item 9) is ported and parses, and ``--obs rgb84``
-    (item 10) is ported, parses and selects the flagship engine."""
+def test_cli_unported_options_raise(argv, item, tmp_path, monkeypatch, capsys):
+    """Every option of the JAX script is ported and parses: ``--impl
+    flagship`` (item 9); ``--obs rgb84`` (item 10), which selects the
+    flagship engine; ``--wandb`` (item 12), which without wandb warns once
+    and leaves the records as they are; ``--video-every`` (item 12), which
+    writes a greedy GIF beside the log and leaves the records as they are."""
+    args = train_ppo.parse_args(argv)
     if item in ("item 9", "item 10"):
-        args = train_ppo.parse_args(argv)
         assert args.impl == "flagship" and args.obs == ("rgb84" if item == "item 10" else "board")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        train_ppo.parse_args(argv)
+    tiny = ["--device", "cpu", "--n-envs", "8", "--rollout-len", "4", "--iterations", "5",
+            "--update-epochs", "1", "--n-minibatches", "2"]
+
+    def no_sps(records):
+        return [{k: v for k, v in r.items() if k != "sps"} for r in records]
+
+    if argv == ["--wandb"]:
+        assert args.wandb
+        monkeypatch.setitem(sys.modules, "wandb", None)  # forces ImportError
+        _, flagged = train_ppo.main(tiny + argv)
+        assert capsys.readouterr().err.count("wandb requested") == 1
+    else:
+        assert args.video_every == 5
+        _, flagged = train_ppo.main(tiny + argv + ["--log-json", str(tmp_path / "ppo.jsonl")])
+        assert "recorded greedy episode" in capsys.readouterr().out
+        assert len(imageio.mimread(str(tmp_path / "ppo_it5.gif"))) > 1
+    _, plain = train_ppo.main(tiny)
+    assert no_sps(flagged) == no_sps(plain)
 
 
 def test_cli_defaults_to_the_card():

@@ -195,6 +195,14 @@ def init(keys, config: EngineConfig, pieces: PieceSet = PIECES, device="cuda") -
     return init_plain(keys, config, pieces)
 
 
+def init_state(key, config: EngineConfig, pieces: PieceSet = PIECES, device="cuda") -> EngineState:
+    """A fresh episode from one env's key ``uint32[2]`` (``init_state :131``),
+    as a batch of one (the port's states are batched)."""
+    if isinstance(key, torch.Tensor):
+        return init(key.reshape(1, 2), config, pieces, device=device)
+    return init(np.asarray(key, dtype=np.uint32).reshape(1, 2), config, pieces, device=device)
+
+
 def reset(keys, config: EngineConfig, pieces: PieceSet = PIECES,
           obs_fn: Optional[Callable] = None, device="cuda"):
     """Fresh batch and its observation (``:512``): ``(state, obs)``, by default the Dict obs."""

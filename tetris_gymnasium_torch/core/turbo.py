@@ -30,6 +30,7 @@ left shift back to 32 bits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -613,17 +614,21 @@ def step(
 # ---------------------------------------------------------------------------
 
 
-def _unpack_playfield(rows: torch.Tensor, config: EngineConfig) -> torch.Tensor:
-    """Packed rows ``[H, B]`` or ``[H, NW, B]`` (int64 lanes) -> playfield
-    bits ``int8[B, height, W]`` (``unpack_playfield :702``): the packed words
-    move batch-first, then each word's bits unpack along a new axis."""
+def unpack_playfield(rows: torch.Tensor, config: EngineConfig, dtype=torch.int8) -> torch.Tensor:
+    """Packed rows ``[H, *batch]`` or ``[H, NW, *batch]`` (``uint32``, or
+    int64 lanes) -> playfield bits ``dtype[*reversed(batch), height, W]``
+    (``unpack_playfield :702``): the packed words move batch-first, then
+    each word's bits unpack along a new axis."""
     H, pad, W = config.height, config.padding, config.width
+    if rows.dtype == torch.uint32:
+        rows = u32_to_lanes(rows)
     if not bw.wide(config.padded_width):
+        words = rows[:H].permute(*range(rows.ndim - 1, 0, -1), 0)  # [*rev(batch), height]
         shifts = torch.arange(pad, pad + W, device=rows.device)
-        return ((rows[:H].T[..., None] >> shifts) & 1).to(torch.int8)  # [B, height, W]
-    words = rows[:H].permute(2, 0, 1)  # [B, height, NW]
+        return ((words[..., None] >> shifts) & 1).to(dtype)
+    words = rows[:H].permute(*range(rows.ndim - 1, 1, -1), 0, 1)  # [*rev(batch), height, NW]
     bits = (words[..., None] >> torch.arange(32, device=rows.device)) & 1
-    return bits.flatten(-2)[..., pad : pad + W].to(torch.int8)
+    return bits.flatten(-2)[..., pad : pad + W].to(dtype)
 
 
 def observe_board_plain(state: TurboState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
@@ -634,7 +639,7 @@ def observe_board_plain(state: TurboState, config: EngineConfig, pieces: PieceSe
     ap = _project(torch.zeros_like(rows), sp, state.y, t.size)
     ap = torch.where(state.game_over, 0, ap)
     # the active piece is stamped by addition: overlap gives 0, not -1
-    return _unpack_playfield(rows, config) - _unpack_playfield(ap, config)
+    return unpack_playfield(rows, config) - unpack_playfield(ap, config)
 
 
 def observe_board(state: TurboState, config: EngineConfig, pieces: PieceSet = PIECES) -> torch.Tensor:
@@ -709,3 +714,21 @@ def rollout(state: TurboState, actions: torch.Tensor, config: EngineConfig,
         outs.append((o, r, d, info["lines_cleared"]))
     obs = None if obs_fn is None else torch.stack([o[0] for o in outs])
     return state, (obs,) + tuple(torch.stack(xs) for xs in list(zip(*outs))[1:])
+
+
+# ---------------------------------------------------------------------------
+# Cached entry points (``:819-829``): plain callables, one per config
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def jit_step(config: EngineConfig, rewards: RewardsMapping = REWARDS):
+    """Cached batched step (no obs) for the default piece set:
+    ``(state, action int32[B]) -> (state, obs, reward, done, info)``."""
+    return functools.partial(step, config=config, rewards=rewards)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_init(config: EngineConfig, device="cuda"):
+    """Cached batched init for the default piece set: ``keys uint32[B, 2] -> state``."""
+    return functools.partial(init, config=config, device=device)

@@ -32,6 +32,7 @@ illegal-terminated games through :func:`turbo.init_from_key`
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -155,7 +156,7 @@ def placement_boards_plain(state: turbo.TurboState, config: EngineConfig, pieces
     """Plain version of :func:`placement_boards`, on any device."""
     cleared, frame_hit, stack_hit, lines = _candidate_rows(state, config, pieces, max_clear)
     A, B = cleared.shape[-2:]
-    bits = turbo._unpack_playfield(cleared.flatten(-2), config)  # [A*B, height, W]
+    bits = turbo.unpack_playfield(cleared.flatten(-2), config)  # [A*B, height, W]
     boards = bits.reshape((A, B) + bits.shape[1:]).transpose(0, 1).to(torch.float32)
     boards = torch.where(frame_hit.T[:, :, None, None], 1.0, boards)
     boards = torch.where(stack_hit.T[:, :, None, None], 0.0, boards)
@@ -276,3 +277,23 @@ def step(
     new_gstate = TurboGroupedState(env=new_env, mask=mask)
     info = {"lines_cleared": lines, "action_mask": mask, "score": new_env.score}
     return new_gstate, obs, reward, done, info
+
+
+# ---------------------------------------------------------------------------
+# Cached entry points (``:315-340``): plain callables, one per config
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def jit_step(config: EngineConfig, terminate_on_illegal: bool = True, mode: str = "features",
+             max_clear: int = 4):
+    """Cached batched grouped step for the default piece set:
+    ``(state, action int32[B]) -> (state, obs, reward, done, info)``."""
+    return functools.partial(step, config=config, mode=mode,
+                             terminate_on_illegal=terminate_on_illegal, max_clear=max_clear)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_reset(config: EngineConfig, mode: str = "features", max_clear: int = 4, device="cuda"):
+    """Cached batched grouped reset for the default piece set: ``keys uint32[B, 2] -> (state, obs)``."""
+    return functools.partial(reset, config=config, mode=mode, max_clear=max_clear, device=device)

@@ -21,7 +21,10 @@ script's keys::
 learning signals.  Warm-start from an ``.npz`` of flat Flax parameters with
 ``--init-params`` (``tools/export_grouped_init_params.py --net q_cnn`` or
 ``--net atari_q`` writes the JAX run's initial weights); save with
-``--save-params``.
+``--save-params``.  ``--wandb`` mirrors the records to Weights & Biases (one
+warning and no-op without wandb); ``--video-every N`` writes a greedy
+episode every N steps to ``<log-json base>_ep{N}.gif`` (board observations
+only).
 """
 from __future__ import annotations
 
@@ -37,13 +40,7 @@ from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.rl import dqn, evaluate
 from tetris_gymnasium_torch.utils.checkpoint import load_flat, save_q_net
 from tetris_gymnasium_torch.utils.device import resolve_device
-
-# options of the JAX script that this port does not have yet, with the
-# ROADMAP.md queue 1 item that brings each
-_NOT_PORTED = {
-    "wandb": "--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12",
-    "video_every": "--video-every (utils/video) comes with ROADMAP.md queue 1 item 12",
-}
+from tetris_gymnasium_torch.utils.tracking import Tracker
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -61,10 +58,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-every", type=int, default=0,
                    help="batched steps between greedy policy evals (0 = off)")
     p.add_argument("--eval-episodes", type=int, default=256)
-    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror the JSONL records to Weights & Biases (no-op without wandb)")
     p.add_argument("--wandb-project", type=str, default="tetris-gymnasium-tpu")
     p.add_argument("--run-name", type=str, default=None)
-    p.add_argument("--video-every", type=int, default=0)
+    p.add_argument("--video-every", type=int, default=0,
+                   help="steps between greedy-episode GIF captures (0 = off)")
     p.add_argument("--log-json", type=str, default=None, help="append JSONL here")
     p.add_argument("--save-params", type=str, default=None,
                    help="save the final Q-net parameters here (.npz)")
@@ -74,10 +73,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.frame_stack < 1:
         p.error(f"--frame-stack must be >= 1, got {args.frame_stack}")
-    defaults = {"wandb": False, "video_every": 0}
-    for name, default in defaults.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(_NOT_PORTED[name])
     if args.obs == "rgb84" and args.impl != "flagship":
         print("obs=rgb84 needs id boards; switching --impl to flagship", flush=True)
         args.impl = "flagship"
@@ -109,6 +104,20 @@ def train(args: argparse.Namespace, marks=None):
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         log_f = open(args.log_json, "a")
+    tracker = Tracker(args.wandb, args.wandb_project, args.run_name, vars(args))
+
+    def capture_video(step_i):
+        if args.obs == "rgb84":
+            print("(--video-every is board-policy only; skipped for rgb84)")
+            return
+        from tetris_gymnasium_torch.utils import video
+
+        base = os.path.splitext(args.log_json)[0] if args.log_json else "results/dqn"
+        path = video.record_training_video(ts.net, f"{base}_ep{step_i}.gif", env_config,
+                                           frame_stack=args.frame_stack, seed=args.seed + step_i)
+        print(f"recorded greedy episode -> {path}", flush=True)
+        tracker.log_video(path, step_i)
+
     records = []
     t0 = time.perf_counter()
     for it in range(args.steps // args.chunk):
@@ -142,11 +151,15 @@ def train(args: argparse.Namespace, marks=None):
             )
         records.append(rec)
         print(json.dumps(rec), flush=True)
+        tracker.log(rec, step)
+        if args.video_every and step % args.video_every == 0:
+            capture_video(step)
         if log_f:
             log_f.write(json.dumps(rec) + "\n")
             log_f.flush()
     if log_f:
         log_f.close()
+    tracker.finish()
     if args.save_params:
         save_q_net(args.save_params, ts.net, dqn.net_kind(ts.net))
         print(f"saved params to {args.save_params}", flush=True)

@@ -14,7 +14,8 @@ JAX script's keys::
 
 ``lines_per_step`` is the line-clear rate per env step, the learning signal.
 Warm-start from an ``.npz`` of flat Flax parameters with ``--init-params``;
-save with ``--save-params``.
+save with ``--save-params``.  ``--wandb`` mirrors the records to Weights &
+Biases (one warning and no-op without wandb).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.rl import evaluate, grouped_dqn
 from tetris_gymnasium_torch.utils.checkpoint import load_flat, save_q_net
 from tetris_gymnasium_torch.utils.device import resolve_device
+from tetris_gymnasium_torch.utils.tracking import Tracker
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,7 +47,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-every", type=int, default=0,
                    help="batched steps between greedy policy evals (0 = off)")
     p.add_argument("--eval-episodes", type=int, default=256)
-    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror the JSONL records to Weights & Biases (no-op without wandb)")
     p.add_argument("--wandb-project", type=str, default="tetris-gymnasium-tpu")
     p.add_argument("--run-name", type=str, default=None)
     p.add_argument("--log-json", type=str, default=None, help="append JSONL here")
@@ -56,10 +59,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--init-params", type=str, default=None,
                    help="warm-start from an .npz of flat parameters (fresh optimizer and envs)")
     p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    if args.wandb:
-        raise NotImplementedError("--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12")
-    return args
+    return p.parse_args(argv)
 
 
 def setup(args: argparse.Namespace, marks=None):
@@ -92,6 +92,7 @@ def train(args: argparse.Namespace, marks=None):
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         log_f = open(args.log_json, "a")
+    tracker = Tracker(args.wandb, args.wandb_project, args.run_name, vars(args))
     records = []
     t0 = time.perf_counter()
     for it in range(args.steps // args.chunk):
@@ -125,6 +126,7 @@ def train(args: argparse.Namespace, marks=None):
             )
         records.append(rec)
         print(json.dumps(rec), flush=True)
+        tracker.log(rec, step)
         if log_f:
             log_f.write(json.dumps(rec) + "\n")
             log_f.flush()
@@ -133,6 +135,7 @@ def train(args: argparse.Namespace, marks=None):
         print(f"saved params to {args.save_params}", flush=True)
     if log_f:
         log_f.close()
+    tracker.finish()
     return ts, records
 
 

@@ -15,7 +15,10 @@ reads the metrics every ``--chunk`` iterations::
 
 Warm-start from an exported ``.npz`` (``tools/export_torch_params.py``, or a
 file this script saved) with ``--init-params``; save with ``--save-params``.
-Records go to stdout and, with ``--log-json``, to a JSONL file.
+Records go to stdout and, with ``--log-json``, to a JSONL file; ``--wandb``
+mirrors them to Weights & Biases (one warning and no-op without wandb).
+``--video-every N`` writes a greedy episode of the current policy every N
+iterations to ``<log-json base>_it{N}.gif`` (board observations only).
 """
 from __future__ import annotations
 
@@ -32,13 +35,7 @@ from tetris_gymnasium_torch.ops.threefry import prng_key
 from tetris_gymnasium_torch.rl import evaluate, ppo
 from tetris_gymnasium_torch.utils.checkpoint import load_flat, save_actor_critic
 from tetris_gymnasium_torch.utils.device import resolve_device
-
-# options of the JAX script that this port does not have yet, with the
-# ROADMAP.md queue 1 item that brings each
-_NOT_PORTED = {
-    "wandb": "--wandb (utils/tracking) comes with ROADMAP.md queue 1 item 12",
-    "video_every": "--video-every (utils/video) comes with ROADMAP.md queue 1 item 12",
-}
+from tetris_gymnasium_torch.utils.tracking import Tracker
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -83,8 +80,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-every", type=int, default=0,
                    help="iterations between greedy policy evals (0 = off)")
     p.add_argument("--eval-episodes", type=int, default=256)
-    p.add_argument("--wandb", action="store_true")
-    p.add_argument("--video-every", type=int, default=0)
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror the JSONL records to Weights & Biases (no-op without wandb)")
+    p.add_argument("--wandb-project", type=str, default="tetris-gymnasium-tpu")
+    p.add_argument("--run-name", type=str, default=None)
+    p.add_argument("--video-every", type=int, default=0,
+                   help="iterations between greedy-episode GIF captures (0 = off)")
     p.add_argument("--log-json", type=str, default=None, help="append JSONL here")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -100,10 +101,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                 p.error(f"--{name.replace('_', '-')} {v} must be a multiple of --chunk {args.chunk}")
     if args.frame_stack < 1:
         p.error(f"--frame-stack must be >= 1, got {args.frame_stack}")
-    defaults = {"wandb": False, "video_every": 0}
-    for name, default in defaults.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(_NOT_PORTED[name])
     if args.obs == "rgb84" and args.impl != "flagship":
         print("obs=rgb84 needs id boards; switching --impl to flagship", flush=True)
         args.impl = "flagship"
@@ -154,6 +151,7 @@ def train(args: argparse.Namespace, marks=None):
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         log_f = open(args.log_json, "a")
+    tracker = Tracker(args.wandb, args.wandb_project, args.run_name, vars(args))
     steps_per_iter = args.n_envs * args.rollout_len
     records = []
     rewards, episodes = [], 0
@@ -194,15 +192,26 @@ def train(args: argparse.Namespace, marks=None):
                 )
             records.append(rec)
             print(json.dumps(rec), flush=True)
+            tracker.log(rec, it)
             if log_f:
                 log_f.write(json.dumps(rec) + "\n")
                 log_f.flush()
         rewards, episodes = [], 0
+        if args.video_every and it % args.video_every == 0 and args.obs != "rgb84":
+            from tetris_gymnasium_torch.utils import video
+
+            base = os.path.splitext(args.log_json)[0] if args.log_json else "results/ppo"
+            # the net's own frame stack, which the JAX script does not pass
+            path = video.record_training_video(ts.net, f"{base}_it{it}.gif", env_config,
+                                               frame_stack=args.frame_stack, seed=args.seed + it)
+            print(f"recorded greedy episode -> {path}", flush=True)
+            tracker.log_video(path, it)
     if args.save_params:
         save_actor_critic(args.save_params, ts.net)
         print(f"saved params to {args.save_params}", flush=True)
     if log_f:
         log_f.close()
+    tracker.finish()
     return ts, records
 
 

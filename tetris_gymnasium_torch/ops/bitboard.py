@@ -164,6 +164,14 @@ def drop_from_map(hm: torch.Tensor, y: torch.Tensor, size: int = 4) -> torch.Ten
     return torch.where(first_hit == 0, 0, dist).to(torch.int32)
 
 
+def drop_distance(rows: torch.Tensor, rb: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  width: int) -> torch.Tensor:
+    """Hard-drop distance ``int32[B]`` of the piece rows ``rb`` at window
+    (x, y) (``drop_distance :138``): the hit map of the shifted piece, then
+    its first hit at or after ``clip(y + 1)``."""
+    return drop_from_map(hit_map(rows, shift_piece(rb, x, width)), y, rb.shape[-1])
+
+
 def project(rows: torch.Tensor, rb: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
             width: int) -> torch.Tensor:
     """OR the piece into the rows at the clamped window (x, y)."""
@@ -214,3 +222,6 @@ def compact_ids(inner: torch.Tensor, filled: torch.Tensor) -> torch.Tensor:
     """The compaction of ``filled`` applied to id images ``[B, height, W]``;
     cleared rows come back as zeros at the top."""
     return _compact(inner, filled)
+
+
+ROW_BITS = row_bits_table(PIECES)  # uint32[7, 4, 4] of the default pieces (``:255``)

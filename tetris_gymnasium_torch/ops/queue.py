@@ -18,19 +18,28 @@ draw the queue themselves.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from tetris_gymnasium_torch.config import EnvConfig
 from tetris_gymnasium_torch.ops import threefry
+
+# (config, keys) -> (queue, queue_index)
+CreateQueueFn = Callable[[EnvConfig, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+# (config, queue, queue_index, keys) -> (piece, queue, queue_index, keys)
+NextPieceFn = Callable[
+    [EnvConfig, torch.Tensor, torch.Tensor, torch.Tensor],
+    Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+]
 
 
 class QueueFns(NamedTuple):
     """A queue strategy: ``create(config, keys) -> (queue, queue_index)`` and
     ``next_piece(config, queue, queue_index, keys) -> (piece, queue, queue_index, keys)``."""
 
-    create: Callable
-    next_piece: Callable
+    create: CreateQueueFn
+    next_piece: NextPieceFn
 
 
 def create_bag(config, key: torch.Tensor):

@@ -1,6 +1,6 @@
 """Counter-based per-env RNG, plain PyTorch version.
 
-Port of ``tetris_gymnasium_tpu/ops/rng.py:48-114``.  The per-env state is a
+Port of ``tetris_gymnasium_tpu/ops/rng.py:48-126``.  The per-env state is a
 pair ``(counter, stream)`` of 32-bit words advanced as one 64-bit Weyl
 sequence, whitened by the murmur3 finalizer.  The same arithmetic runs as
 device functions inside the ``turbo_step`` CUDA kernel
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -39,6 +40,11 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     x = mul32(x, M2)
     x = x ^ (x >> 16)
     return x
+
+
+def seed_key(word0: int, word1: int = 0, device=None) -> torch.Tensor:
+    """An engine RNG state ``[2]`` (int64 lanes) from two integer words (``:59``)."""
+    return torch.tensor([int(word0) & MASK32, int(word1) & MASK32], dtype=torch.int64, device=device)
 
 
 def next_bits(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,3 +80,15 @@ def shuffle(key: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
         perm = torch.where(oh_j, vi, perm)
         perm[i] = vj
     return key, perm
+
+
+def uniform(key: torch.Tensor, shape=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform float32 in ``[0, 1)`` (``:117``): ``prod(shape)`` words drawn
+    one after another, each converted to float32 and scaled by ``2**-32``."""
+    count = int(np.prod(shape)) if shape else 1
+    outs = []
+    for _ in range(count):
+        key, bits = next_bits(key)
+        outs.append(bits)
+    vals = torch.stack(outs).to(torch.float32) * (1.0 / 4294967296.0)
+    return key, vals.reshape(shape) if shape else vals[0]

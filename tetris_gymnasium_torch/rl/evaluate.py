@@ -16,7 +16,8 @@ actor-critic``, the default: an :class:`ActorCriticCNN` over boards, or with
 ``--obs rgb84`` an :class:`AtariActorCritic` over the flagship engine's
 84x84 frames) or a Q-net (``--net q``: a :class:`QNetworkCNN` over boards,
 or with ``--obs rgb84`` an :class:`AtariQNetwork`); ``--frame-stack K`` for
-a net that reads K-frame windows::
+a net that reads K-frame windows; ``--width`` and ``--height`` for another
+board::
 
     python -m tetris_gymnasium_torch.rl.evaluate \\
         --checkpoint results/ppo_lines_params.npz --episodes 512 --seed 0 --max-steps 2000
@@ -204,6 +205,45 @@ def greedy_logits(net) -> Callable[[torch.Tensor], torch.Tensor]:
     return act
 
 
+def evaluate_file(
+    checkpoint: str,
+    net: str = "actor-critic",
+    impl: str = "turbo",
+    obs: str = "board",
+    frame_stack: int = 1,
+    episodes: int = 512,
+    seed: int = 0,
+    max_steps: int = 2000,
+    width: int = 10,
+    height: int = 20,
+    dtype: str = "bfloat16",
+    device="cuda",
+) -> dict:
+    """Greedy statistics of an exported ``.npz`` (``net`` ``"actor-critic"``
+    or ``"q"``) over ``episodes`` fresh games from ``prng_key(seed)`` on a
+    ``width`` x ``height`` board: what :func:`main` and
+    ``examples/evaluate_checkpoint.py`` run."""
+    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic, load_q_net
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype)
+    if obs == "rgb84":
+        impl = "flagship"
+    if net == "q":
+        kind = "atari_q" if obs == "rgb84" else "q_cnn"
+        act = greedy_q(load_q_net(checkpoint, kind, device=device, dtype=dtype,
+                                  board_shape=(height, width)))
+    else:  # the kind, ActorCriticCNN or AtariActorCritic, is read from the weights
+        act = greedy_logits(load_actor_critic(checkpoint, device=device, dtype=dtype))
+    return evaluate_policy(
+        act, episodes, EngineConfig(width=width, height=height), prng_key(seed), impl=impl,
+        max_steps=max_steps, frame_stack=frame_stack, obs=obs, device=device,
+    )
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", required=True, help="exported .npz (tools/export_torch_params.py)")
@@ -218,27 +258,15 @@ def main(argv=None) -> dict:
     p.add_argument("--episodes", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-steps", type=int, default=2000)
+    p.add_argument("--width", type=int, default=10)
+    p.add_argument("--height", type=int, default=20)
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                    help="compute type of the conv trunk (the heads are float32)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-
-    from tetris_gymnasium_torch.utils.checkpoint import load_actor_critic, load_q_net
-
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dtype = getattr(torch, args.dtype)
-    impl = "flagship" if args.obs == "rgb84" else args.impl
-    if args.net == "q":
-        kind = "atari_q" if args.obs == "rgb84" else "q_cnn"
-        act = greedy_q(load_q_net(args.checkpoint, kind, device=device, dtype=dtype))
-    else:  # the kind, ActorCriticCNN or AtariActorCritic, is read from the weights
-        act = greedy_logits(load_actor_critic(args.checkpoint, device=device, dtype=dtype))
-    stats = evaluate_policy(
-        act, args.episodes, EngineConfig(), prng_key(args.seed), impl=impl,
-        max_steps=args.max_steps, frame_stack=args.frame_stack, obs=args.obs, device=device,
+    stats = evaluate_file(
+        args.checkpoint, args.net, args.impl, args.obs, args.frame_stack, args.episodes,
+        args.seed, args.max_steps, args.width, args.height, args.dtype, args.device,
     )
     print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()}))
     return stats

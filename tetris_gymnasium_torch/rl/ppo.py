@@ -143,6 +143,14 @@ class ClippedAdam:
         self.adam.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """Adam's state and the update count (the schedule's position)."""
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
 
 def make_optimizer(ppo: PPOConfig, params) -> ClippedAdam:
     """Adam with global-norm clipping and the optional linear decay of the learning rate."""
