@@ -147,7 +147,9 @@ Phases, each printing one JSON line:
     each trajectory equal to ``turbo_step``'s on the same keys and actions
     (occupancy, piece, bag, queue, holder, score, lines, reward, done); and
     300 steps from hand-built stacks with up to six full rows, which clear
-    more rows at once than the turbo engine's envelope.
+    more rows at once than the turbo engine's envelope; every build of
+    ``flagship_step`` (each lanes count of ``kernels.FLAGSHIP_LANES``,
+    ``flagship_builds_diff``) at every step.
 22. ``flagship_observe_board`` against its plain version and the turbo
     ``observe_board``, and ``render_rgb84`` against
     ``preprocess_rgb84(render_rgb(state))``, on every state of phase 21.
@@ -173,9 +175,11 @@ Phases, each printing one JSON line:
     the trained and the untrained net, and every kernel of the path against
     its plain version on the trained state at its shapes (B = 512, the full
     wrapped buffer).
-25. The new kernels' times beside their bounds at B = 512 and 65536 (the
-    plain versions at most at B = 4096, scaled), and the reused kernels at
-    the 7056-byte frame.
+25. The flagship kernels' and ``render_rgb84``'s times beside their bounds
+    and the launch floor at B = 512, 2048 and 65536, each ``flagship_step``
+    build's, and ``render_rgb84``'s bound under the earlier 2-D count
+    too (the plain versions at most at B = 4096, scaled), and the reused
+    kernels at the 7056-byte frame (B = 512 and 65536).
 
 26. The Gymnasium surface's kernels against their plain versions, bit for
     bit: ``grouped_flagship`` (ids, boards, features under all 16 flag
@@ -213,7 +217,8 @@ Phases, each printing one JSON line:
     trajectories at B = 4096, 1001 and 1, on hand-built stacks with up to
     six full rows, and on drops that clear rows whose gaps straddle the word
     boundary (columns 0, 12, 14, 26; one and two rows) at 30x20; the
-    sampling builds of ``turbo_step`` as in phase 3 at every geometry.
+    sampling builds of ``turbo_step`` as in phase 3 and every build of
+    ``flagship_step`` as in phase 21 at every geometry.
 32. The turbo engine equal to the flagship engine at 30x20 and 61x12, 120
     steps at 4096 envs.
 33. The slice's path: ``TetrisVectorEnv`` at width 30, height 20 as in
@@ -222,7 +227,8 @@ Phases, each printing one JSON line:
 34. The engine kernels' device ms at B = 4096 and 65536 at 30x20 and 61x12
     (``turbo_step`` also with the observation), and ``turbo_step`` (both
     ways), ``observe_board``, ``flagship_step`` and ``heights`` at the
-    default geometry at 65536, beside their bounds and plain versions.
+    default geometry at 65536, beside their bounds and plain versions, and
+    each ``flagship_step`` build's.
 
 35. The six surface kernels at every geometry of phase 31 and at a holder
     longer than the queue (queue 1, holder 2), each built for it in phase
@@ -231,7 +237,9 @@ Phases, each printing one JSON line:
     ``feature_vector`` bit-equal to their plain versions on 200-step
     flagship trajectories at B = 1001 and 1, ``grouped_flagship`` (ids,
     boards, features) and ``grouped_placements`` (features, boards) on every
-    25th state and on hand-built stacks with up to six full rows.
+    25th state and on hand-built stacks with up to six full rows; every
+    build of ``flagship_step`` against the plain step at every step of the
+    trajectories and on the stacks.
 36. The turbo grouped engine equal to the flagship grouped engine on the
     card at 30x14 without gravity, 4096 envs, 50 masked-random steps
     (features, masks, rewards, dones, lines, env fields).
@@ -294,8 +302,9 @@ Phases, each printing one JSON line:
     gated).
 46. The pixel PPO path's kernels at its batch (B = 2048; T = 128 for
     ``gae``, on one more rollout) on the trained state, bit-equal to their
-    plain versions, and their device ms beside their bounds and plain
-    versions.
+    plain versions (every ``flagship_step`` build), and their device ms
+    beside their bounds, the launch floor and plain versions, each
+    ``flagship_step`` build's too.
 47. The board PPO trainer from scratch: ``examples/train_ppo.py`` at the
     settings of ``results/ppo.jsonl`` (2048 envs x 128 steps, seed 1) for
     10 iterations from that JAX run's initial weights
@@ -517,17 +526,32 @@ PIX_JAX_CURVE = os.path.join(REPO, "results", "dqn_rgb84.jsonl")
 # curve gives 2.43x), and steps 1-500 within 0.01 of the JAX curve's
 PIX_GATE, PIX_START_TOL = 1.8, 0.01
 PIX_TIME_B = (512, 65536)
+PIX_FLAGSHIP_TIME_B = (512, 2048, 65536)  # the flagship kernels' builds and render_rgb84 (phase 25)
 PIX_PLAIN_MAX_B = 4096  # the plain chain's float64 temporaries at larger B pass 10 GB
 # 32-bit operations the kernels do, by their own count: flagship_step packs
 # 432 cells (3 each), builds up to four 21-window hit maps (8 each) and on a
 # lock compacts 20 rows (20 each); flagship_init shuffles 7 pieces (~100)
 # and writes 432 cells; flagship_observe_board 200 cells (6 each);
-# render_rgb84 per output pixel 4 tap weights, 12 multiply-adds, 3 rounds
-# and clips (4 each) and the gray (7)
+# render_rgb84 JAX's two passes (csrc/render_rgb84.cu): per output pixel and
+# channel the vertical pass's 2 multiply-adds (cv2's rounding constant the
+# first one's addend), the shift and the clip (its upper half: the sum is
+# never negative), and the gray's multiply, 2 multiply-adds and shift; per
+# source row, output column and channel the horizontal pass's multiply and
+# multiply-add (render_ops).  The earlier 2-D form counted 47 a pixel (4 tap
+# weights, 12 multiply-adds, the rounds, both clips and the gray), kept as
+# RENDER_OPS_PER_PIXEL_2D beside the bound.
 FLAGSHIP_STEP_OPS_PER_ENV = 3 * 432 + 4 * 21 * 8 + 20 * 20
 FLAGSHIP_INIT_OPS_PER_ENV = 100 + 432
 FLAGSHIP_OBS_OPS_PER_ENV = 6 * 200
-RENDER_OPS_PER_PIXEL = 4 + 2 * 12 + 3 * 4 + 7
+RENDER_OPS_PER_PIXEL = 3 * (2 + 2) + 4
+RENDER_OPS_PER_ROW_PIXEL = 3 * 2
+RENDER_OPS_PER_PIXEL_2D = 4 + 2 * 12 + 3 * 4 + 7
+
+
+def render_ops(padded_height: int) -> int:
+    """32-bit operations of one env's ``render_rgb84`` frame: 124,992 at
+    10x20 (17.7 a pixel)."""
+    return 84 * 84 * RENDER_OPS_PER_PIXEL + padded_height * 84 * RENDER_OPS_PER_ROW_PIXEL
 
 
 def emit(obj) -> None:
@@ -751,6 +775,35 @@ def step_variants_diff(s, a, cfg, pieces, rw, max_clear, want, what, want_obs=No
         if with_obs:
             diff("turbo_step", obs, want_obs, f"{tag} obs")
     raise AssertionError(f"{what}: a build differs from the plain step")
+
+
+def flagship_builds_diff(parts, cfg, pieces, rw, want, what) -> list:
+    """Every build of ``flagship_step`` (each lanes count of
+    ``kernels.FLAGSHIP_LANES``) on each ``(state, action)`` of ``parts``,
+    their outputs side by side against the plain step's ``want = (state,
+    reward, done, lines)`` of the parts side by side, bit for bit; returns
+    each part's outputs from the build that ``kernels.flagship_step_lanes``
+    takes at its batch."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import engine
+
+    want_all = flat_bytes([getattr(want[0], k) for k in engine.FIELDS] + list(want[1:]))
+    runs, differs = {}, []
+    for lanes in kernels.FLAGSHIP_LANES:
+        outs = [kernels.flagship_step(s, a, cfg, pieces, rw, lanes=lanes) for s, a in parts]
+        got = (_cat_flagship([o[0] for o in outs]), *(torch.cat([o[j] for o in outs]) for j in (1, 2, 3)))
+        differs.append((flat_bytes([getattr(got[0], k) for k in engine.FIELDS] + list(got[1:]))
+                        != want_all).any())
+        runs[lanes] = (outs, got)
+    if bool(torch.stack(differs).any()):
+        for lanes, (_, got) in runs.items():  # diff raises at the first difference
+            for k in engine.FIELDS:
+                diff("flagship_step", getattr(got[0], k), getattr(want[0], k), f"{what} (lanes {lanes}) {k}")
+            for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
+                diff("flagship_step", got[j], want[j], f"{what} (lanes {lanes}) {out}")
+        raise AssertionError(f"{what}: a flagship_step build differs from the plain step")
+    return [runs[kernels.flagship_step_lanes(s.piece.shape[0], cfg.padded_height)][0][i]
+            for i, (s, _) in enumerate(parts)]
 
 
 def sample_variants_diff(s, x, key, cfg, pieces, rw, what) -> tuple:
@@ -1281,6 +1334,10 @@ def main() -> None:
                for L in kernels.STEP_LANES}},
         "gae": {b: ppo_times[TRAIN_ENVS][f"gae_{b}"]["ms"] for b in kernels.GAE_BUILDS},
     }
+    # flagship_step's lanes builds at the pixel DQN's B = 512 (phase 25) and
+    # pixel PPO's 2048 (phase 46)
+    flagship_builds = {PIX_ENVS: {"flagship_step": pix_times["flagship_step"][PIX_ENVS]["builds_ms"]},
+                       PIX_PPO_ENVS: {"flagship_step": pix_ppo_times["flagship_step"]["builds_ms"]}}
     # each kernel's builds (phase 2: one library per geometry for the
     # sources of kernels.GEOMETRY_SOURCES and features.cu), and the surface
     # kernels' times at 30x20 and 61x12 (phase 39)
@@ -1308,6 +1365,8 @@ def main() -> None:
             "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
             **({"wide": wide_at[name]} if name in wide_at else {}),
             **({"variants_ms_at_8192": variants[name]} if name in variants else {}),
+            **({f"variants_ms_at_{B}": {f"lanes{L}": ms for L, ms in by_b[name].items()}
+                for B, by_b in flagship_builds.items() if name in by_b}),
         })
         if name == "turbo_step":  # its sampling build on the PPO path (phase 9)
             entries[-1]["launches_sample_ppo_train"] = train["launches"]["turbo_step_sample"]
@@ -2643,7 +2702,7 @@ def check_flagship(dev) -> None:
         ("uniform-frozen", 1, EngineConfig(queue_kind="uniform"), RewardsMapping()),
     ]
     summary = []
-    counts = {"steps": 0, "obs": 0, "holder_full": 0, "game_over_frames": 0}
+    counts = {"steps": 0, "obs": 0, "holder_full": 0, "game_over_frames": 0, "builds": 0}
     for name, B, cfg, rw in runs:
         keys = batch_keys(prng_key(7), B, device=dev)
         s = kernels.flagship_init(keys, cfg, engine.PIECES)
@@ -2653,11 +2712,10 @@ def check_flagship(dev) -> None:
             obs_checks(s, cfg, f"{name} @ {i}", ts)
             counts["obs"] += 1
             a = _flagship_actions(B, g, dev)
-            ks, kr, kd, kl = kernels.flagship_step(s, a, cfg, engine.PIECES, rw)
-            ps, pr, pd, pl = engine.step_plain(s, a, cfg, rewards=rw)
-            state_diff("flagship_step", ks, ps, f"{name} step {i}")
-            for got, want, what in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
-                diff("flagship_step", got, want, f"{name} {what} @ {i}")
+            want = engine.step_plain(s, a, cfg, rewards=rw)
+            ks, kr, kd, kl = flagship_builds_diff([(s, a)], cfg, engine.PIECES, rw, want,
+                                                  f"{name} step {i}")[0]
+            counts["builds"] += len(kernels.FLAGSHIP_LANES)
             ts, tr, td, tl = kernels.turbo_step(ts, a, cfg, turbo.PIECES, rw)
             _flagship_vs_turbo(ks, ts, f"{name} step {i}")
             for got, want, what in ((kr, tr, "reward"), (kd, td, "done"), (kl, tl, "lines")):
@@ -2683,11 +2741,9 @@ def check_flagship(dev) -> None:
         a = _flagship_actions(PIX_ENVS, g, dev)
         if i == 0:
             a = torch.full_like(a, 5)  # hard drops onto the full rows
-        ks, kr, kd, kl = kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping())
-        ps, pr, pd, pl = engine.step_plain(s, a, cfg)
-        state_diff("flagship_step", ks, ps, f"surgery step {i}")
-        for got, want, what in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
-            diff("flagship_step", got, want, f"surgery {what} @ {i}")
+        ks, kr, kd, kl = flagship_builds_diff([(s, a)], cfg, engine.PIECES, RewardsMapping(),
+                                              engine.step_plain(s, a, cfg), f"surgery step {i}")[0]
+        counts["builds"] += len(kernels.FLAGSHIP_LANES)
         clears += torch.bincount(kl.long().cpu(), minlength=16)[:16]
         s = ks
     torch.cuda.synchronize()
@@ -2696,6 +2752,7 @@ def check_flagship(dev) -> None:
     if counts["holder_full"] == 0 or counts["game_over_frames"] == 0:
         raise AssertionError(f"the trajectories missed a full holder or a game-over frame: {counts}")
     emit({"phase": "flagship_engine", "bit_equal": True, "turbo_equal": True, "runs": summary,
+          "flagship_step_lanes": list(kernels.FLAGSHIP_LANES),
           "surgery_lines_per_lock": {n: int(c) for n, c in enumerate(clears.tolist()) if c},
           **counts, "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_init", "flagship_step")},
           "seconds": time.perf_counter() - t0})
@@ -2900,12 +2957,8 @@ def check_pixel_path_shapes(dev, ts, cfg) -> None:
     a = kernels.dqn_act(q, act_key, eps_key, 0.5)
     diff("dqn_act", a, dqn.act_plain(q, act_key, eps_key, 0.5), "trained state actions")
     s = ts.env_states
-    ks, kr, kd, kl = kernels.flagship_step(s, a, env_config, engine.PIECES, RewardsMapping())
-    ps, pr, pd, pl = engine.step_plain(s, a, env_config)
-    for k in engine.FIELDS:
-        diff("flagship_step", getattr(ks, k), getattr(ps, k), f"trained step {k}")
-    for got, want, name in ((kr, pr, "reward"), (kd, pd, "done"), (kl, pl, "lines")):
-        diff("flagship_step", got, want, f"trained step {name}")
+    ks, kr, kd, kl = flagship_builds_diff([(s, a)], env_config, engine.PIECES, RewardsMapping(),
+                                          engine.step_plain(s, a, env_config), "trained step")[0]
     raw = kernels.render_rgb84(ks, env_config, engine.PIECES)
     diff("render_rgb84", raw, engine.render_rgb84_plain(ks, env_config), "trained frame")
     diff("flagship_observe_board", kernels.flagship_observe_board(ks, env_config, engine.PIECES),
@@ -2951,8 +3004,10 @@ def _render_bytes(s, B) -> int:
 
 
 def time_pixel_kernels(dev, smi) -> dict:
-    """Phase 25: the new kernels beside their bounds at the path's shape (B =
-    512) and at B = 65536, and the reused kernels at the 7056-byte frame."""
+    """Phase 25: the flagship kernels beside their bounds and the launch
+    floor at the path's shape (B = 512), pixel PPO's (2048) and 65536, with
+    each ``flagship_step`` build and ``render_rgb84``'s bound under the 2-D
+    count too, and the reused kernels at the 7056-byte frame (512, 65536)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine
@@ -2970,7 +3025,8 @@ def time_pixel_kernels(dev, smi) -> dict:
     def state_bytes(s):
         return nbytes(*(getattr(s, k) for k in engine.FIELDS))
 
-    for B in PIX_TIME_B:
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
+    for B in PIX_FLAGSHIP_TIME_B:
         big = B >= 65536
         keys = batch_keys(prng_key(B), B, device=dev)
         s = kernels.flagship_init(keys, cfg, engine.PIECES)
@@ -2998,13 +3054,20 @@ def time_pixel_kernels(dev, smi) -> dict:
                 B * FLAGSHIP_OBS_OPS_PER_ENV),
             "render_rgb84": (lambda: kernels.render_rgb84(s, cfg, engine.PIECES),
                              lambda: engine.render_rgb84_plain(ps, cfg),
-                             _render_bytes(s, B), B * 84 * 84 * RENDER_OPS_PER_PIXEL),
+                             _render_bytes(s, B), B * render_ops(cfg.padded_height)),
         }
         for name, (kernel_fn, plain_fn, io, ops) in entries.items():
             entry = timed_pair(kernel_fn, plain_fn, 20 if big else 100, 2 if big else 10, io, ops)
-            entry.update(plain_ms=entry["plain_ms"] * scale, plain_B=pb)
+            entry.update(plain_ms=entry["plain_ms"] * scale, plain_B=pb, floor_ms=floor_ms)
             entry["env_steps_per_s" if name == "flagship_step" else "envs_per_s"] = B / (entry["ms"] * 1e-3)
             out[name][B] = entry
+        out["flagship_step"][B]["lanes"] = kernels.flagship_step_lanes(B, cfg.padded_height)
+        out["flagship_step"][B]["builds_ms"] = {
+            lanes: device_ms(lambda: kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping(),
+                                                           lanes=lanes), 20 if big else 100)
+            for lanes in kernels.FLAGSHIP_LANES}
+        out["render_rgb84"][B]["bound_ms_2d"] = _bound(
+            _render_bytes(s, B), B * 84 * 84 * RENDER_OPS_PER_PIXEL_2D)["bound_ms"]
 
     # the reused kernels at the pixel path's 7056-byte frame
     K = 4
@@ -3816,7 +3879,7 @@ def check_wide_kernels(dev) -> dict:
                      f"{name} init")
         _fields_diff("flagship_init", _cat_flagship(fs), engine.init_plain(all_keys, cfg, P),
                      engine.FIELDS, f"{name} flagship init")
-        n_done = n_lines = n_flines = n_variants = 0
+        n_done = n_lines = n_flines = n_variants = n_fbuilds = 0
         t_all, f_all = _cat_turbo(ts), _cat_flagship(fs)
         a_all = torch.zeros((sum(WIDE_B),), dtype=torch.int32, device=dev)
         plain = {
@@ -3840,13 +3903,11 @@ def check_wide_kernels(dev) -> dict:
             kt = [kernels.turbo_step(s, a, cfg, P, rw) for s, a in zip(ts, acts)]
             pt = plain["step"](t_all, a_all)
             _fields_diff("turbo_step", _cat_turbo([o[0] for o in kt]), pt[0], turbo.FIELDS, f"{what} step")
-            kf = [kernels.flagship_step(s, a, cfg, P, rw) for s, a in zip(fs, acts)]
             pf = plain["flagship_step"](f_all, a_all)
-            _fields_diff("flagship_step", _cat_flagship([o[0] for o in kf]), pf[0], engine.FIELDS,
-                         f"{what} flagship step")
+            kf = flagship_builds_diff(list(zip(fs, acts)), cfg, P, rw, pf, f"{what} flagship step")
+            n_fbuilds += len(kernels.FLAGSHIP_LANES)
             for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
                 diff("turbo_step", torch.cat([o[j] for o in kt]), pt[j], f"{what} {out}")
-                diff("flagship_step", torch.cat([o[j] for o in kf]), pf[j], f"{what} flagship {out}")
             # every lanes count, with and without the observation, on each batch
             pobs, off = plain["obs"](pt[0]), 0
             for s_, a_, B in zip(ts, acts, WIDE_B):
@@ -3875,10 +3936,9 @@ def check_wide_kernels(dev) -> dict:
         diff("observe_board", kernels.observe_board(t, cfg, P), turbo.observe_board_plain(t, cfg, P),
              f"{name} stacks obs")
         diff("heights", kernels.heights(t, cfg), turbo.heights_plain(t, cfg), f"{name} stacks heights")
-        kf1, pf1 = kernels.flagship_step(s, a, cfg, P, rw), engine.step_plain(s, a, cfg, P)
-        _fields_diff("flagship_step", kf1[0], pf1[0], engine.FIELDS, f"{name} flagship stacks")
-        for j in (1, 2, 3):
-            diff("flagship_step", kf1[j], pf1[j], f"{name} flagship stacks output {j}")
+        pf1 = engine.step_plain(s, a, cfg, P)
+        flagship_builds_diff([(s, a)], cfg, P, rw, pf1, f"{name} flagship stacks")
+        n_fbuilds += len(kernels.FLAGSHIP_LANES)
         diff("flagship_observe_board", kernels.flagship_observe_board(s, cfg, P),
              engine.observe_board_plain(s, cfg, P), f"{name} flagship stacks obs")
         stack_lines["flagship"] = int(pf1[3].max())
@@ -3889,6 +3949,7 @@ def check_wide_kernels(dev) -> dict:
                      "piece_side": int(P.matrices.shape[-1]), "steps": WIDE_STEPS, "B": list(WIDE_B),
                      "episodes_ended": n_done, "lines": n_lines, "flagship_lines": n_flines,
                      "stacks_max_lines": stack_lines, "turbo_step_builds_compared": n_variants,
+                     "flagship_step_builds_compared": n_fbuilds,
                      "sample": sampled})
         emit({"phase": "wide_kernels", **runs[-1], "seconds": time.perf_counter() - t0})
     # drops into gaps that straddle the word boundary, on both engines
@@ -3900,14 +3961,13 @@ def check_wide_kernels(dev) -> dict:
             t = turbo.from_flagship(s, cfg)
             a = torch.full((WIDE_B[0],), 5, dtype=torch.int32, device=dev)
             kt1, pt1 = kernels.turbo_step(t, a, cfg, turbo.PIECES, rw), turbo.step_plain(t, a, cfg)
-            kf1, pf1 = kernels.flagship_step(s, a, cfg, engine.PIECES, rw), engine.step_plain(s, a, cfg)
             what = f"gap {gap} rows {n_rows}"
+            pf1 = engine.step_plain(s, a, cfg)
+            kf1 = flagship_builds_diff([(s, a)], cfg, engine.PIECES, rw, pf1, f"flagship {what}")[0]
             step_variants_diff(t, a, cfg, turbo.PIECES, rw, 4, pt1, what)
             _fields_diff("turbo_step", kt1[0], pt1[0], turbo.FIELDS, what)
-            _fields_diff("flagship_step", kf1[0], pf1[0], engine.FIELDS, f"flagship {what}")
             for j in (1, 2, 3):
                 diff("turbo_step", kt1[j], pt1[j], f"{what} output {j}")
-                diff("flagship_step", kf1[j], pf1[j], f"flagship {what} output {j}")
             _flagship_vs_turbo(kf1[0], kt1[0], what, cfg)
             if not (bool((pt1[3] == 1).all()) and bool((pf1[3] == 1).all())):
                 raise AssertionError(f"{what}: the drop did not clear exactly one row")
@@ -4035,6 +4095,10 @@ def time_wide_kernels(dev, smi) -> dict:
                 entry.update(plain_ms=entry["plain_ms"] * B / pb, plain_B=pb, library_ms=None,
                              envs_per_s=B / (entry["ms"] * 1e-3))
                 out.setdefault(name, {}).setdefault(kname, {})[B] = entry
+            out[name]["flagship_step"][B]["lanes"] = kernels.flagship_step_lanes(B, cfg.padded_height)
+            out[name]["flagship_step"][B]["builds_ms"] = {
+                lanes: device_ms(lambda: kernels.flagship_step(f, a, cfg, P, rw, lanes=lanes),
+                                 20 if big else 100) for lanes in kernels.FLAGSHIP_LANES}
             emit({"phase": "wide_times", "geometry": name, "B": B, "words_per_row": nw,
                   "kernels": {k: v[B] for k, v in out[name].items()}, "nvidia_smi": smi})
             del t, f, pt, pf, obs
@@ -4124,7 +4188,9 @@ def _check_grouped_surface(s, cfg, P, what, stacks=False) -> dict:
 def check_surface_geometries(dev) -> dict:
     """Phase 35: the six surface kernels bit-equal to their plain versions
     at every geometry of :func:`surface_geometries`, each built for it in
-    phase 2: ``observe_dict`` (and its strips), ``compose_rgb``,
+    phase 2, and every build of ``flagship_step`` against the plain step
+    at each step of the trajectories and on the stacks:
+    ``observe_dict`` (and its strips), ``compose_rgb``,
     ``render_rgb84`` (wherever JAX's resize takes the composite) and
     ``feature_vector`` (all 16 flag sets on the first state) on 200-step
     flagship trajectories at B = 1001 and 1 (the plain versions on the two
@@ -4159,6 +4225,9 @@ def check_surface_geometries(dev) -> dict:
             return out
 
         grouped_stats = []
+        # the plain step on both batches side by side, replayed from a CUDA graph
+        plain_step = _graphed(lambda f, a: engine.step_plain(f, a, cfg, P, rw), _cat_flagship(fs),
+                              torch.zeros((sum(SURF_GEO_B),), dtype=torch.int32, device=dev))
         for i in range(SURF_GEO_STEPS + 1):
             what = f"{name} @ {i}"
             f_all = _cat_flagship(fs)
@@ -4187,8 +4256,10 @@ def check_surface_geometries(dev) -> dict:
                     grouped_stats.append(_check_grouped_surface(s, cfg, P, f"{what} B={s.board.shape[0]}"))
             if i == SURF_GEO_STEPS:
                 break
-            fs = [kernels.flagship_step(s, _flagship_actions(s.board.shape[0], g, dev), cfg, P, rw)[0]
-                  for s in fs]
+            acts = [_flagship_actions(s.board.shape[0], g, dev) for s in fs]
+            fs = [o[0] for o in flagship_builds_diff(list(zip(fs, acts)), cfg, P, rw,
+                                                     plain_step(f_all, torch.cat(acts)), f"{what} step")]
+        del plain_step
         # hand-built stacks: up to six full rows, pieces at random windows,
         # full holders, and a quarter of the envs stacked to the ceiling
         s, _ = _wide_stacks(cfg, P, SURF_GEO_B[0], g, dev, seed=350)
@@ -4208,13 +4279,18 @@ def check_surface_geometries(dev) -> dict:
         crop = s.board[:, :-pad, pad:-pad]
         diff("feature_vector", kernels.feature_vector(crop, FeatureFlags()), feature_vector_plain(crop),
              f"{name} stacks features")
+        drops = torch.where(torch.rand((SURF_GEO_B[0],), generator=g, device=dev) < 0.5, 5,
+                            torch.randint(0, 8, (SURF_GEO_B[0],), generator=g, device=dev)).to(torch.int32)
+        stack_step = engine.step_plain(s, drops, cfg, P, rw)
+        flagship_builds_diff([(s, drops)], cfg, P, rw, stack_step, f"{name} stacks step")
         stacks = _check_grouped_surface(s, cfg, P, f"{name} stacks", stacks=True)
+        stacks["step_max_lines"] = int(stack_step[3].max())
         if stacks["max_lines"] < 2 or stacks["illegal"] == 0 or stacks["game_over"] == 0:
             raise AssertionError(f"{name}: the hand-built stacks made no multi-line, illegal or "
                                  f"game-over candidate: {stacks}")
         runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
                      "piece_side": _side(P), "B": list(SURF_GEO_B), "steps": SURF_GEO_STEPS,
-                     "render_rgb84": rgb84,
+                     "render_rgb84": rgb84, "flagship_step_lanes": list(kernels.FLAGSHIP_LANES),
                      "grouped_states": len(grouped_stats),
                      "illegal_candidates": sum(x["illegal"] for x in grouped_stats),
                      "game_over_candidates": sum(x["game_over"] for x in grouped_stats),
@@ -4368,8 +4444,8 @@ def _surface_ops(cfg, P) -> dict:
     candidate of ``grouped_placements`` (phase 16's count with 8 a window
     and word), an env of ``feature_vector`` (3 a cell, 15 a row, the
     read-out) and ``observe_dict`` (10 a board cell, 8 a mask cell, 10 a
-    strip cell), a pixel of ``compose_rgb`` (12) and an output pixel of
-    ``render_rgb84`` (phase 25's 47)."""
+    strip cell), a pixel of ``compose_rgb`` (12) and an env of
+    ``render_rgb84`` (:func:`render_ops`)."""
     H, PW, W, h, S = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height, _side(P)
     nw, nwf = (PW + 31) // 32, (W + 31) // 32
     planes = max(1, int(h).bit_length())
@@ -4384,7 +4460,7 @@ def _surface_ops(cfg, P) -> dict:
             "grouped_placements_boards": place + 2 * h * W,
             "feature_vector": h * (3 * W + 15) + 6 * W,
             "observe_dict": 18 * H * PW + 10 * strips, "compose_rgb": 12 * H * (PW + side),
-            "render_rgb84": 84 * 84 * RENDER_OPS_PER_PIXEL}
+            "render_rgb84": render_ops(H)}
 
 
 def time_surface_wide(dev, smi) -> dict:
@@ -5041,8 +5117,9 @@ def train_pixel_ppo_full_width(dev, smi) -> dict:
 def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
     """Phase 46: the pixel PPO path's kernels at its batch (B = 2048; T = 128
     for ``gae``) on its trained state, bit-equal to their plain versions
-    (``ppo_sample``'s log-probs within ``LOG_PROB_ULPS``), then their device
-    ms beside their bounds and plain versions."""
+    (``ppo_sample``'s log-probs within ``LOG_PROB_ULPS``; every
+    ``flagship_step`` build), then their device ms beside their bounds, the
+    launch floor and plain versions, and each ``flagship_step`` build's."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine
@@ -5065,12 +5142,8 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
     ulp = torch.from_numpy(np.spacing(plp.abs().cpu().numpy())).to(dev).double()
     if bool((err > 2.0**-22 + LOG_PROB_ULPS * ulp).any()):
         raise AssertionError(f"pixel PPO log_prob: max error {float(err.max())}")
-    ks, kr, kd, kl = kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping())
-    want = engine.step_plain(s, a, cfg)
-    for k in engine.FIELDS:
-        diff("flagship_step", getattr(ks, k), getattr(want[0], k), f"pixel PPO step {k}")
-    for got, w, name in zip((kr, kd, kl), want[1:], ("reward", "done", "lines")):
-        diff("flagship_step", got, w, f"pixel PPO step {name}")
+    ks, kr, kd, kl = flagship_builds_diff([(s, a)], cfg, engine.PIECES, RewardsMapping(),
+                                          engine.step_plain(s, a, cfg), "pixel PPO step")[0]
     raw = kernels.render_rgb84(ks, cfg, engine.PIECES)
     diff("render_rgb84", raw, engine.render_rgb84_plain(ks, cfg), "pixel PPO frame")
     diff("framestack_push", kernels.framestack_push(window, raw, kd),
@@ -5101,7 +5174,7 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
                           B * FLAGSHIP_STEP_OPS_PER_ENV),
         "render_rgb84": (lambda: kernels.render_rgb84(ks, cfg, engine.PIECES),
                          lambda: engine.render_rgb84_plain(ks, cfg), _render_bytes(ks, B),
-                         B * 84 * 84 * RENDER_OPS_PER_PIXEL),
+                         B * render_ops(cfg.padded_height)),
         "framestack_push": (lambda: kernels.framestack_push(window, raw, kd),
                             lambda: framestack.push_plain(window, raw, kd),
                             kept + nbytes(raw, kd, window), 0),
@@ -5118,6 +5191,16 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
                                io, ops)
         out[name]["library_ms"] = None  # no one PyTorch call computes any of these
     out["gae"]["build"] = kernels.gae_build(B, reward, value, done, reward, value)
+    out["flagship_step"]["lanes"] = kernels.flagship_step_lanes(B, cfg.padded_height)
+    out["flagship_step"]["builds_ms"] = {
+        lanes: device_ms(lambda: kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping(),
+                                                       lanes=lanes), 100)
+        for lanes in kernels.FLAGSHIP_LANES}
+    out["render_rgb84"]["bound_ms_2d"] = _bound(
+        _render_bytes(ks, B), B * 84 * 84 * RENDER_OPS_PER_PIXEL_2D)["bound_ms"]
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
+    for v in out.values():
+        v["floor_ms"] = floor_ms
     emit({"phase": "pixel_ppo_kernels", "B": B, "T": T, "bit_equal": True,
           "log_prob_bit_equal_plain": bool(torch.equal(bits(lp), bits(plp))),
           "episodes_ended": int(kd.sum()), "rollout_done_share": float(done.float().mean()),

@@ -480,7 +480,9 @@ def step(state: EngineState, action: torch.Tensor, config: EngineConfig, pieces:
     Returns ``(state, obs, reward, done, info)`` like the JAX ``step``, with
     ``obs = obs_fn(state, config, pieces)``, by default the Dict obs
     (:func:`observe_dict`); pass ``obs_fn=no_obs`` to build none.  On CUDA
-    tensors the ``flagship_step`` kernel computes it into new buffers.
+    tensors the ``flagship_step`` kernel computes it into new buffers, in
+    the build that ``kernels.flagship_step_lanes`` picks for the batch and
+    the board.
     """
     if state.board.is_cuda:
         from tetris_gymnasium_torch import kernels

@@ -8,26 +8,47 @@
 // observe_board_plain; every output is bit-equal to them.
 //
 // On the TPU the step is one straight-line masked program per env under
-// vmap, with every candidate outcome computed and selected.  Here one
-// thread owns one env and branches.  The state is batch-leading: the id
-// board int8[B, H, PW] (432 bytes an env at 10x20, 912 at 30x20) and small
-// per-env fields.  A block of 32 envs first copies its 32 boards
-// (contiguous in memory) into shared memory with 16-byte loads,
-// neighbouring threads on neighbouring words; each thread then packs its
-// board into H x NW occupancy words in registers and runs the turbo
-// engine's bit logic on them (engine_common.cuh).  Only a lock writes the
-// id board: the piece's id is ADDED into its S x S window (the JAX project
-// adds), full rows go and the kept rows move down row by row in shared
-// memory, the cleared rows at the top become zeros and the pad columns and
-// bottom rows are rewritten as bedrock.  The block then stores its boards
-// back with 16-byte stores.
+// vmap, with every candidate outcome computed and selected.  Here an env
+// branches.  The state is batch-leading: the id board int8[B, H, PW] (432
+// bytes an env at 10x20, 912 at 30x20) and small per-env fields.
+//
+// The step runs a group of L lanes an env (L = 8 or 16, 16 envs a block;
+// kernels.py:flagship_step_lanes picks L from B and the padded height), as
+// the turbo engine's band builds (turbo_band.cuh): every lane runs the
+// env's scalar logic the same way, so the RNG stream cannot diverge, and
+// holds only a band of R = ceil(H / L) rows.
+//   - The block's boards come into shared memory at an env stride chosen at
+//     compile time (board_stride) so that the lanes' word reads of their
+//     rows meet the fewest bank conflicts, every thread's loads issued
+//     before its stores.  Each lane reads its env's ~100 bytes of fields
+//     itself (the group's lanes read the same words, one request a warp):
+//     a first version that staged them through shared memory, field by
+//     field, coalesced, was slower on the card (PERF.md).
+//   - A lane packs its band from 32-bit reads: each row's bytes are
+//     funnel-shifted to the row's start and a byte compare and a multiply
+//     turn four cells into four bits (pack_band), bit w - 32 j of word j of
+//     the row; the rows below the band that a window reaches come from the
+//     next lanes by shuffles.
+//   - The hit maps, the line clear (any number of rows: the flagship engine
+//     has no envelope) and the spawn test are turbo_band.cuh's, with the
+//     flagship engine's piece lookup (piece_word_2d).
+//   - On a lock each lane ADDS the piece's id to the cells of its own rows
+//     (the JAX project adds), then rewrites its playfield rows: zeros for
+//     the top n rows, else the kept row that lands there, read from the
+//     step's input board in global memory with the id added again, so no
+//     lane reads a row of shared memory that another lane writes; then its
+//     pad columns and bottom rows become bedrock.  Auto-reset empties its
+//     rows.
+//   - Lane 0 stores the env's fields; the block stores the boards
+//     coalesced.
 //
 // Bound on this card: bytes.  A step reads the board and ~80 bytes of
 // other state and the action, and writes the same plus reward, done and
 // lines: ~1.06 KB an env at 10x20 (0.16 us at B = 512, 21 us at B = 65536
 // at 3.35 TB/s), ~2.03 KB at 30x20.  The integer work per env (a few
 // hundred instructions, more on a lock) is below that at full occupancy.
-// flagship_init writes a fresh state (~0.53 KB an env at 10x20);
+// flagship_init writes a fresh state (~0.53 KB an env at 10x20), one
+// thread an env, 32 envs a block, the boards staged in shared memory;
 // flagship_observe_board reads the board and writes the cropped
 // int8[HEIGHT, WIDTH] frame (432 + 200 bytes an env at 10x20), 32 envs a
 // block, one thread per (env, row), the frames staged in shared memory and
@@ -35,24 +56,25 @@
 //
 // Geometry is fixed at compile time by the TETRIS_* defines
 // (engine_common.cuh, kernels.py:engine_defines), one library per
-// geometry.  What other geometries change here:
-//   - pack_rows builds each row word by word, bit w - 32 j of word j, so no
-//     shift reaches 32 (the default build's 1u << w does not generalise);
+// geometry with the two step builds.  What other geometries change here:
 //   - BOARD = H * PW need not be a multiple of 16 (648 bytes at 28x14, 924
-//     for the 6x6 pieces at 30x16): 32 boards always are, so every block's
-//     boards start on a 16-byte boundary, and block_copy16 moves the
-//     bytes of a ragged tail one a thread;
-//   - the boards of a block (and the observation's frames) live in dynamic
-//     shared memory: 32 envs a block always, kEnvs * BOARD bytes for the
-//     step and the init, kObsEnvs * (BOARD + OBS) for the observation (29 KB
-//     and 48 KB at 30x20, 35 KB and 58 KB at 61x12), opted in above 48 KB;
-//     engine_defines keeps BOARD <= 3072 so that the observation's 196 KB
-//     stays inside the 227 KB a block may have.
+//     for the 6x6 pieces at 30x16): 32 boards always are, so every block of
+//     the init and the observation starts on a 16-byte boundary, and
+//     block_copy16 moves the bytes of a ragged tail one a thread; a band
+//     build stages its boards in 16-, 4- or 1-byte words, the widest that
+//     BOARD is a multiple of;
+//   - the boards of a block live in dynamic shared memory: kEnvs * BOARD
+//     bytes for the init, kObsEnvs * (BOARD + OBS) for the observation (48
+//     KB at 30x20, 58 KB at 61x12), the band builds' stride-padded boards
+//     and line-clear rows (BandSmem), opted in above 48 KB; engine_defines
+//     keeps BOARD <= 3072 so that the observation's 196 KB stays inside the
+//     227 KB a block may have.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "engine_common.cuh"
+#include "turbo_band.cuh"
 
 using namespace engine;
 
@@ -88,15 +110,15 @@ struct FlagshipParams {
 namespace {
 
 constexpr int BOARD = H * PW;  // bytes of a board: 432 at 10x20
-constexpr int kEnvs = 32;      // envs (threads) a block of the step and the init
+constexpr int kEnvs = 32;      // envs (threads) a block of the init
 constexpr int kObsEnvs = 32;   // envs a block of the observation
 constexpr int kObsThreads = 256;
 constexpr int OBS = HEIGHT * WIDTH;  // bytes of a cropped frame: 200 at 10x20
-constexpr int kStepSmem = kEnvs * BOARD;
+constexpr int kInitSmem = kEnvs * BOARD;
 constexpr int kObsSmem = kObsEnvs * (BOARD + OBS);
 static_assert((kEnvs * BOARD) % 16 == 0 && (kObsEnvs * BOARD) % 16 == 0 &&
               (kObsEnvs * OBS) % 16 == 0, "each block's boards and frames start 16-byte aligned");
-static_assert(kObsSmem <= 227 * 1024 && kStepSmem <= 227 * 1024, "shared memory of a block");
+static_assert(kObsSmem <= 227 * 1024 && kInitSmem <= 227 * 1024, "shared memory of a block");
 
 __device__ __forceinline__ void load_env(Env& e, const FlagshipPtrs& p, int b, int B) {
   e.k0 = p.key[b];
@@ -149,22 +171,6 @@ __device__ __forceinline__ void store_env(const Env& e, const FlagshipPtrs& p, i
   p.steps[b] = e.steps;
 }
 
-// pack_board: bit w % 32 of word w / 32 of row h is set iff the cell id is
-// > 0 (signed).
-__device__ __forceinline__ void pack_rows(Env& e, const int8_t* bd) {
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      uint32_t r = 0;
-#pragma unroll
-      for (int w = 32 * j; w < PW && w < 32 * j + 32; ++w)
-        r |= (bd[h * PW + w] > 0 ? 1u : 0u) << (w - 32 * j);
-      e.rows[h][j] = r;
-    }
-  }
-}
-
 // create_board: zeros inside, bedrock on the left, right and bottom.
 __device__ __forceinline__ void empty_board(int8_t* bd) {
   for (int h = 0; h < H; ++h)
@@ -172,126 +178,10 @@ __device__ __forceinline__ void empty_board(int8_t* bd) {
       bd[h * PW + w] = (h >= HEIGHT || w < PAD || w >= PAD + WIDTH) ? 1 : 0;
 }
 
-// ops/board.py:project with the piece's id: ADD it into the clamped window
-// (int8 wrap, as the JAX sum in int8).
-__device__ __forceinline__ void stamp_ids(int8_t* bd, const PieceWord& word, int x, int y, int id) {
-  const int xc = clamp_start(x, PW - S, PW);
-  const int yc = clamp_start(y, H - S, H);
-  for (int i = 0; i < S; ++i) {
-    const uint32_t row = piece_row(word, i);
-    for (int j = 0; j < S; ++j) {
-      if ((row >> j) & 1u) {
-        int8_t& c = bd[(yc + i) * PW + xc + j];
-        c = static_cast<int8_t>(c + id);
-      }
-    }
-  }
-}
-
-// compact_ids and the re-pad of _commit: kept playfield rows move down past
-// the full rows below them (bottom-up, so each source row is read before it
-// is overwritten), the top rows become zeros, the pad columns and the
-// bottom rows bedrock.
-__device__ __forceinline__ void compact_ids(int8_t* bd, FillMask filled) {
-  int s = HEIGHT - 1;
-  for (int d = HEIGHT - 1; d >= 0; --d) {
-    while (s >= 0 && ((filled >> s) & 1u)) --s;
-    int8_t* dst = bd + d * PW;
-    if (s >= 0) {
-      if (s != d)
-        for (int w = PAD; w < PAD + WIDTH; ++w) dst[w] = bd[s * PW + w];
-      --s;
-    } else {
-      for (int w = PAD; w < PAD + WIDTH; ++w) dst[w] = 0;
-    }
-    for (int w = 0; w < PAD; ++w) {
-      dst[w] = 1;
-      dst[PAD + WIDTH + w] = 1;
-    }
-  }
-  for (int i = HEIGHT * PW; i < BOARD; ++i) bd[i] = 1;
-}
-
-__global__ void __launch_bounds__(kEnvs) flagship_step_kernel(
-    FlagshipPtrs in, FlagshipPtrs out, const int32_t* __restrict__ action,
-    float* __restrict__ reward_out, uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
-    const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
-    const int32_t* __restrict__ ids, int B, FlagshipParams p) {
-  extern __shared__ __align__(16) int8_t boards[];  // kStepSmem bytes
-  const int base = blockIdx.x * kEnvs;
-  const int n = min(kEnvs, B - base);
-  block_copy16(boards, in.board + static_cast<size_t>(base) * BOARD, n * BOARD);
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  if (t < n) {
-    const int b = base + t;
-    const bool uniform = p.uniform != 0;
-    int8_t* bd = boards + t * BOARD;
-    Env e;
-    load_env(e, in, b, B);
-    pack_rows(e, bd);
-    float reward = 0.0f;
-    int lines = 0;
-
-    if (!e.game_over) {  // a finished game freezes: the input state, reward 0
-      const int a = action[b];
-      // -- phase 1: the action's direct effect, tested against the pre-step rows
-      apply_action<true>(e, a, uniform, packed, box);
-      // -- phase 2: gravity, then commit on rest or hard drop
-      const PieceWord w1 = piece_word_2d(packed, e.piece, e.rotation);
-      const HitMask hm1 = hit_map(e.rows, w1, e.x);
-      const bool is_drop = a == kDrop;
-      const bool grav_free = !collision_at(hm1, e.y + 1);
-      const bool fall = p.gravity ? (!is_drop && grav_free) : false;
-      const bool commit_now = p.gravity ? (is_drop || !grav_free) : is_drop;
-      e.y += fall ? 1 : 0;
-      if (commit_now) {
-        if (collision_at(hm1, e.y)) {  // pre_over: only game_over changes
-          e.game_over = true;
-          reward = p.r_game_over;
-        } else {
-          const int y_f = e.y + drop_from_map(hm1, e.y);
-          stamp_ids(bd, w1, e.x, y_f, piece_entry(ids, e.piece));
-          project(e.rows, w1, e.x, y_f);
-          const FillMask filled = filled_mask(e.rows);
-          const int nl = clear_lines(e.rows, HEIGHT);  // no envelope: any number of rows
-          compact_ids(bd, filled);
-          const int new_piece = queue_draw(e, uniform);
-          const int sx = spawn_x(box, new_piece);
-          const bool spawn_over = spawn_overlap(e.rows, piece_word_2d(packed, new_piece, 0), sx);
-          reward = spawn_over ? p.r_game_over : static_cast<float>(nl * nl * WIDTH) + p.r_alife;
-          e.piece = new_piece;
-          e.rotation = 0;
-          e.x = sx;
-          e.y = 0;
-          e.has_swapped = false;
-          e.game_over = spawn_over;
-          e.lines += nl;
-          lines = nl;
-        }
-      }
-      e.score = e.score + reward;
-      e.steps += 1;
-    }
-    const bool done = e.game_over;
-    if (p.auto_reset && done) {  // the counter key keeps streaming
-      init_env(e, e.k0, e.k1, uniform, box);
-      empty_board(bd);
-    }
-    store_env(e, out, b, B);
-    reward_out[b] = reward;
-    done_out[b] = done ? 1 : 0;
-    lines_out[b] = lines;
-  }
-  __syncthreads();
-  block_copy16(out.board + static_cast<size_t>(base) * BOARD, boards, n * BOARD);
-}
-
 __global__ void __launch_bounds__(kEnvs) flagship_init_kernel(
     const uint32_t* __restrict__ keys, FlagshipPtrs out, const int32_t* __restrict__ box, int B,
     int uniform) {
-  extern __shared__ __align__(16) int8_t boards[];  // kStepSmem bytes
+  extern __shared__ __align__(16) int8_t boards[];  // kInitSmem bytes
   const int base = blockIdx.x * kEnvs;
   const int n = min(kEnvs, B - base);
   const int t = threadIdx.x;
@@ -341,6 +231,291 @@ __global__ void __launch_bounds__(kObsThreads) flagship_observe_board_kernel(
   block_copy16(out + static_cast<size_t>(base) * OBS, out_s, n * OBS);
 }
 
+constexpr int kBandEnvs = 16;  // envs a block of a band build (16 * L threads)
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) / 16 * 16; }
+
+// The env stride of a band build's boards in shared memory, in bytes: of
+// the eight multiples of 16 from BOARD (their word counts cover every
+// residue mod 32 that a 16-byte multiple has), the one whose first word
+// reads of a row (pack_band: lane l of the warp's 32 / L envs at row
+// l * R + r, every r) meet the fewest bank conflicts.
+__host__ __device__ constexpr int board_stride(int L) {
+  const int R = (H + L - 1) / L;
+  int best = 0, best_cost = 1 << 30;
+  for (int c = 0; c < 8; ++c) {
+    const int es = align16(BOARD) + 16 * c;
+    int cost = 0;
+    for (int r = 0; r < R; ++r) {
+      int count[32] = {};
+      for (int g = 0; g < 32 / L; ++g)
+        for (int l = 0; l < L; ++l)
+          if (l * R + r < H) ++count[((g * es + (l * R + r) * PW) / 4) % 32];
+      int worst = 0;
+      for (int k = 0; k < 32; ++k) worst = count[k] > worst ? count[k] : worst;
+      cost += worst;
+    }
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = es;
+    }
+  }
+  return best;
+}
+
+// Dynamic shared memory of a band build, in bytes: the boards (a word of
+// slack past the last, which pack_band's last funnel read reaches), then
+// the line clear's rows of each group.
+template <int L>
+struct BandSmem {
+  static constexpr int ES = board_stride(L);
+  static constexpr int BITS = align16(kBandEnvs * ES + 16);
+  static constexpr int BYTES = BITS + kBandEnvs * HEIGHT * NW * 4;
+  static_assert(BYTES <= 227 * 1024, "shared memory of a block");
+};
+
+// The block's n boards, global (contiguous, 16-byte aligned: a block starts
+// at env 16k) <-> shared at env stride ES, in the widest of 16-, 4- or
+// 1-byte words that BOARD is a multiple of.  Inward, a thread issues the
+// loads of up to 8 words before it stores them.
+template <int L, int ES>
+__device__ __forceinline__ void stage_boards_in(const int8_t* global, int8_t* shared, int n) {
+  constexpr int U = BOARD % 16 == 0 ? 16 : (BOARD % 4 == 0 ? 4 : 1);
+  using W = std::conditional_t<U == 16, uint4, std::conditional_t<U == 4, uint32_t, uint8_t>>;
+  constexpr int PER = BOARD / U;  // words a board
+  constexpr int T = kBandEnvs * L, IT = (kBandEnvs * PER + T - 1) / T, CHUNK = 8;
+  const W* g = reinterpret_cast<const W*>(global);
+#pragma unroll
+  for (int c = 0; c < IT; c += CHUNK) {
+    W v[CHUNK];
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      const int i = threadIdx.x + (c + j) * T;
+      if (c + j < IT && i < n * PER) v[j] = g[i];
+    }
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      const int i = threadIdx.x + (c + j) * T;
+      if (c + j < IT && i < n * PER) reinterpret_cast<W*>(shared + (i / PER) * ES)[i % PER] = v[j];
+    }
+  }
+}
+
+template <int ES>
+__device__ __forceinline__ void stage_boards_out(int8_t* global, const int8_t* shared, int n) {
+  constexpr int U = BOARD % 16 == 0 ? 16 : (BOARD % 4 == 0 ? 4 : 1);
+  using W = std::conditional_t<U == 16, uint4, std::conditional_t<U == 4, uint32_t, uint8_t>>;
+  constexpr int PER = BOARD / U;
+  W* g = reinterpret_cast<W*>(global);
+  for (int i = threadIdx.x; i < n * PER; i += blockDim.x)
+    g[i] = reinterpret_cast<const W*>(shared + (i / PER) * ES)[i % PER];
+}
+
+// pack_board on the lane's band: row h's PW id bytes are read as aligned
+// words from the env's board in shared memory, funnel-shifted to the row's
+// start, and each word's four signed bytes > 0 become four bits (a byte
+// compare, then a multiply that gathers the four 0/1 bytes into a nibble).
+template <int L>
+__device__ __forceinline__ void pack_band(Band<L>& bd, const int8_t* board) {
+  constexpr int NQ = (PW + 3) / 4;  // words of a row
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(board);
+#pragma unroll
+  for (int r = 0; r < Band<L>::R; ++r) {
+    const int h = bd.row0() + r;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) bd.rows[r][j] = 0u;
+    if (h < H) {
+      const int o = h * PW, a = o >> 2, sh = (o & 3) * 8;
+      uint32_t lo = w[a];
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) {
+        const uint32_t hi = w[a + k + 1];
+        const uint32_t pos = __vcmpgts4(__funnelshift_r(lo, hi, sh), 0u) & 0x01010101u;
+        lo = hi;
+        bd.rows[r][(4 * k) / 32] |= (((pos * 0x00204081u) >> 21) & 0xFu) << ((4 * k) % 32);
+      }
+#pragma unroll
+      for (int j = 0; j < NW; ++j) bd.rows[r][j] &= full_word(j);
+    }
+  }
+}
+
+// stamp_ids on the lane's band: the piece's id ADDED (int8 wrap) under its
+// cells in the rows the lane holds.
+template <int L>
+__device__ __forceinline__ void band_stamp_ids(int8_t* board, const Band<L>& bd,
+                                               const PieceWord& word, int xc, int yc, int id) {
+#pragma unroll
+  for (int r = 0; r < Band<L>::R; ++r) {
+    const int h = bd.row0() + r, i = h - yc;
+    if (h < H && i >= 0 && i < S) {
+      const uint32_t row = piece_row(word, i);
+      for (int j = 0; j < S; ++j) {
+        if ((row >> j) & 1u) {
+          int8_t& c = board[h * PW + xc + j];
+          c = static_cast<int8_t>(c + id);
+        }
+      }
+    }
+  }
+}
+
+// compact_ids and the re-pad of _commit on the lane's band.  With n full
+// rows, playfield row d < n becomes zeros and row d >= n takes the kept row
+// s that lands on it, the one with HEIGHT - d kept rows at or below it.  A
+// row it takes is read from the step's input board in global memory with
+// the piece's id added again, so no lane reads a row of shared memory that
+// another lane writes.  Then the pad columns and the bottom rows become
+// bedrock.
+template <int L>
+__device__ __forceinline__ void band_commit_ids(int8_t* board, const int8_t* in_board,
+                                                const Band<L>& bd, FillMask full, int n,
+                                                const PieceWord& word, int xc, int yc, int id) {
+  const FillMask kept = ~full & (~FillMask{0} >> (8 * sizeof(FillMask) - HEIGHT));
+#pragma unroll
+  for (int r = 0; r < Band<L>::R; ++r) {
+    const int h = bd.row0() + r;
+    if (h >= H) continue;
+    int8_t* dst = board + h * PW;
+    if (h >= HEIGHT) {
+      for (int w = 0; w < PW; ++w) dst[w] = 1;
+      continue;
+    }
+    if (n > 0) {
+      if (h < n) {
+        for (int w = PAD; w < PAD + WIDTH; ++w) dst[w] = 0;
+      } else {
+        int s = h;
+        while (popcount(kept >> s) < HEIGHT - h) --s;
+        if (s != h) {
+          const int8_t* src = in_board + s * PW;
+          const int i = s - yc;
+          const uint32_t prow = (i >= 0 && i < S) ? piece_row(word, i) : 0u;
+          for (int w = PAD; w < PAD + WIDTH; ++w) {
+            const int j = w - xc;
+            const bool on = j >= 0 && j < S && ((prow >> j) & 1u);
+            dst[w] = static_cast<int8_t>(src[w] + (on ? id : 0));
+          }
+        }
+      }
+    }
+    for (int w = 0; w < PAD; ++w) {
+      dst[w] = 1;
+      dst[PAD + WIDTH + w] = 1;
+    }
+  }
+}
+
+// empty_board on the lane's band.
+template <int L>
+__device__ __forceinline__ void band_empty_ids(int8_t* board, const Band<L>& bd) {
+#pragma unroll
+  for (int r = 0; r < Band<L>::R; ++r) {
+    const int h = bd.row0() + r;
+    if (h < H)
+      for (int w = 0; w < PW; ++w)
+        board[h * PW + w] = (h >= HEIGHT || w < PAD || w >= PAD + WIDTH) ? 1 : 0;
+  }
+}
+
+// L lanes an env, kBandEnvs envs a block: the boards come into shared
+// memory coalesced, each lane packs its band, the group runs the step with
+// turbo_band.cuh's helpers, lane 0 stores the env's fields, and the block
+// stores the boards coalesced.
+template <int L>
+__global__ void __launch_bounds__(kBandEnvs * L) flagship_step_band_kernel(
+    FlagshipPtrs in, FlagshipPtrs out, const int32_t* __restrict__ action,
+    float* __restrict__ reward_out, uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
+    const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
+    const int32_t* __restrict__ ids, int B, FlagshipParams p) {
+  using Smem = BandSmem<L>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int8_t* boards = reinterpret_cast<int8_t*>(smem);
+  auto bits = reinterpret_cast<uint32_t(*)[HEIGHT][NW]>(smem + Smem::BITS);
+  const int base = blockIdx.x * kBandEnvs;
+  const int n = min(kBandEnvs, B - base);
+  const int t = threadIdx.x / L;
+  const int b = base + t;
+  // every lane of a group reads its env's fields (the same words: one
+  // request a warp), issued beside the boards' loads
+  Env e;
+  int a = 0;
+  if (t < n) {
+    load_env(e, in, b, B);
+    a = action[b];
+  }
+  stage_boards_in<L, Smem::ES>(in.board + static_cast<size_t>(base) * BOARD, boards, n);
+  __syncthreads();
+
+  if (t < n) {
+    const bool uniform = p.uniform != 0;
+    int8_t* bd_ids = boards + t * Smem::ES;
+    Band<L> bd;
+    bd.lane = threadIdx.x % L;
+    bd.mask = (L == 32 ? 0xFFFFFFFFu : (1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+    pack_band(bd, bd_ids);
+    band_load_below(bd);
+    float reward = 0.0f;
+    int lines = 0;
+
+    if (!e.game_over) {  // a finished game freezes: the input state, reward 0
+      // -- phase 1: the action's direct effect, tested against the pre-step rows
+      band_apply_action<L, true>(e, bd, a, uniform, packed, box);
+      // -- phase 2: gravity, then commit on rest or hard drop
+      const PieceWord w1 = piece_word_2d(packed, e.piece, e.rotation);
+      const HitMask hm1 = band_hit_map(bd, w1, e.x);
+      const bool is_drop = a == kDrop;
+      const bool grav_free = !collision_at(hm1, e.y + 1);
+      const bool fall = p.gravity ? (!is_drop && grav_free) : false;
+      const bool commit_now = p.gravity ? (is_drop || !grav_free) : is_drop;
+      e.y += fall ? 1 : 0;
+      if (commit_now) {
+        if (collision_at(hm1, e.y)) {  // pre_over: only game_over changes
+          e.game_over = true;
+          reward = p.r_game_over;
+        } else {
+          const int y_f = e.y + drop_from_map(hm1, e.y);
+          const int id = piece_entry(ids, e.piece);
+          const int xc = clamp_start(e.x, PW - S, PW), yc = clamp_start(y_f, H - S, H);
+          band_stamp_ids(bd_ids, bd, w1, xc, yc, id);
+          band_project(bd, w1, e.x, y_f);
+          FillMask full = 0;
+          const int nl = band_clear_lines(bd, HEIGHT, bits[t], &full);  // any number of rows
+          band_commit_ids(bd_ids, in.board + static_cast<size_t>(b) * BOARD, bd, full, nl, w1, xc,
+                          yc, id);
+          const int new_piece = queue_draw(e, uniform);
+          const int sx = spawn_x(box, new_piece);
+          const bool spawn_over = band_spawn_overlap(bd, piece_word_2d(packed, new_piece, 0), sx);
+          reward = spawn_over ? p.r_game_over : static_cast<float>(nl * nl * WIDTH) + p.r_alife;
+          e.piece = new_piece;
+          e.rotation = 0;
+          e.x = sx;
+          e.y = 0;
+          e.has_swapped = false;
+          e.game_over = spawn_over;
+          e.lines += nl;
+          lines = nl;
+        }
+      }
+      e.score = e.score + reward;
+      e.steps += 1;
+    }
+    const bool done = e.game_over;
+    if (p.auto_reset && done) {  // the counter key keeps streaming
+      init_env(e, e.k0, e.k1, uniform, box);
+      band_empty_ids(bd_ids, bd);
+    }
+    if (bd.lane == 0) {
+      store_env(e, out, b, B);
+      reward_out[b] = reward;
+      done_out[b] = done ? 1 : 0;
+      lines_out[b] = lines;
+    }
+  }
+  __syncthreads();
+  stage_boards_out<Smem::ES>(out.board + static_cast<size_t>(base) * BOARD, boards, n);
+}
+
 // Opts a kernel in to more than 48 KB of dynamic shared memory, once.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
@@ -349,16 +524,15 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-}  // namespace
 
-extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* out,
-                                    const void* action, void* reward, void* done, void* lines,
-                                    const void* packed, const void* box, const void* ids, int B,
-                                    const FlagshipParams* params, void* stream) {
+template <int L>
+int launch_band(const FlagshipPtrs* in, const FlagshipPtrs* out, const void* action, void* reward,
+                void* done, void* lines, const void* packed, const void* box, const void* ids,
+                int B, const FlagshipParams* params, cudaStream_t stream) {
+  constexpr int smem = BandSmem<L>::BYTES;
   static bool opted = false;
-  if (const cudaError_t err = allow_smem(flagship_step_kernel, kStepSmem, opted)) return err;
-  const int blocks = (B + kEnvs - 1) / kEnvs;
-  flagship_step_kernel<<<blocks, kEnvs, kStepSmem, static_cast<cudaStream_t>(stream)>>>(
+  if (const cudaError_t err = allow_smem(flagship_step_band_kernel<L>, smem, opted)) return err;
+  flagship_step_band_kernel<L><<<(B + kBandEnvs - 1) / kBandEnvs, kBandEnvs * L, smem, stream>>>(
       *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
       static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
       static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
@@ -366,13 +540,32 @@ extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* 
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// lanes: 8 or 16 lanes an env (kernels.py:FLAGSHIP_LANES,
+// flagship_step_lanes).
+extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* out,
+                                    const void* action, void* reward, void* done, void* lines,
+                                    const void* packed, const void* box, const void* ids, int B,
+                                    int lanes, const FlagshipParams* params, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 8:
+      return launch_band<8>(in, out, action, reward, done, lines, packed, box, ids, B, params, st);
+    case 16:
+      return launch_band<16>(in, out, action, reward, done, lines, packed, box, ids, B, params, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // keys: uint32[B, 2] (mesh.batch_keys layout).
 extern "C" int flagship_init_launch(const void* keys, const FlagshipPtrs* out, const void* box,
                                     int B, int uniform, void* stream) {
   static bool opted = false;
-  if (const cudaError_t err = allow_smem(flagship_init_kernel, kStepSmem, opted)) return err;
+  if (const cudaError_t err = allow_smem(flagship_init_kernel, kInitSmem, opted)) return err;
   const int blocks = (B + kEnvs - 1) / kEnvs;
-  flagship_init_kernel<<<blocks, kEnvs, kStepSmem, static_cast<cudaStream_t>(stream)>>>(
+  flagship_init_kernel<<<blocks, kEnvs, kInitSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), *out, static_cast<const int32_t*>(box), B, uniform);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
-// Band helpers of turbo_step.cu's lanes-per-env instantiations: a group of
-// L lanes of one warp (L a power of two, 2..32) steps one env.  Every lane
-// of the group runs the env's scalar logic (piece, x, y, rotation, holder,
-// bag, queue, key) the same way, with engine_common.cuh's helpers, so
-// nothing needs broadcasting and the RNG stream cannot diverge; only the
-// rows are split.  Lane l holds band l, the R = ceil(H / L) padded rows
+// Band helpers of the lanes-per-env instantiations of turbo_step.cu and
+// flagship_step.cu: a group of L lanes of one warp (L a power of two,
+// 2..32) steps one env.  Every lane of the group runs the env's scalar
+// logic (piece, x, y, rotation, holder, bag, queue, key) the same way, with
+// engine_common.cuh's helpers, so nothing needs broadcasting and the RNG
+// stream cannot diverge; only the rows are split.  Lane l holds band l, the R = ceil(H / L) padded rows
 // [l * R, l * R + R) (the last bands ragged where L does not divide H), and
 // the S - 1 rows below it, which a window starting in its band reaches.
 // What the whole group needs is OR-reduced with shuffles inside the group
@@ -52,6 +52,19 @@ __device__ __forceinline__ uint32_t band_row(const Band<L>& bd, int i, int j) {
   return i < R ? bd.rows[i < R ? i : 0][j] : bd.below[i >= R ? i - R : 0][j];
 }
 
+// The rows below the lane's band, from the lanes that hold them: row
+// (lane + 1) * R + k is slot k % R of lane lane + 1 + k / R; past the
+// group's last lane it lies past H, where no window that is read reaches.
+template <int L>
+__device__ __forceinline__ void band_load_below(Band<L>& bd) {
+  constexpr int R = Band<L>::R;
+#pragma unroll
+  for (int k = 0; k < Band<L>::X; ++k)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      bd.below[k][j] = __shfl_down_sync(bd.mask, bd.rows[k % R][j], 1 + k / R, L);
+}
+
 // The lane's band of rows uint32[H, NW, B] for env b, and the rows below it
 // from the lanes that hold them.
 template <int L>
@@ -63,13 +76,7 @@ __device__ __forceinline__ void load_band(Band<L>& bd, const uint32_t* rows, int
 #pragma unroll
     for (int j = 0; j < NW; ++j) bd.rows[r][j] = h < H ? rows[(h * NW + j) * B + b] : 0u;
   }
-  // row (lane + 1) * R + k is slot k % R of lane lane + 1 + k / R; past the
-  // group's last lane it lies past H, where no window that is read reaches
-#pragma unroll
-  for (int k = 0; k < Band<L>::X; ++k)
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-      bd.below[k][j] = __shfl_down_sync(bd.mask, bd.rows[k % R][j], 1 + k / R, L);
+  band_load_below(bd);
 }
 
 template <int L>
@@ -125,10 +132,11 @@ __device__ __forceinline__ void band_project(Band<L>& bd, const PieceWord& p, in
 // HEIGHT x NW words of shared memory) starts as the empty row, then each
 // kept row whose shift, the count of full rows below it, is <= max_clear
 // lands at its row plus that shift, and each lane reads its band back.
-// Returns the count of full rows.
+// Returns the count of full rows; `full_out`, where given, takes their mask.
 template <int L>
 __device__ __forceinline__ int band_clear_lines(Band<L>& bd, int max_clear,
-                                                uint32_t (*scratch)[NW]) {
+                                                uint32_t (*scratch)[NW],
+                                                FillMask* full_out = nullptr) {
   constexpr int R = Band<L>::R;
   FillMask mine = 0;
 #pragma unroll
@@ -137,6 +145,7 @@ __device__ __forceinline__ int band_clear_lines(Band<L>& bd, int max_clear,
     if (h < HEIGHT && row_full(bd.rows[r])) mine |= FillMask{1} << h;
   }
   const FillMask full = group_or<L>(mine, bd.mask);
+  if (full_out != nullptr) *full_out = full;
   const int n = popcount(full);
   if (n == 0) return 0;
 #pragma unroll
@@ -197,15 +206,16 @@ __device__ __forceinline__ void band_empty(Band<L>& bd) {
   }
 }
 
-// apply_action<false> (the turbo engine's piece lookup) on the band.
-template <int L>
+// apply_action<kOneHot> on the band: the turbo engine's piece lookup
+// (piece_word) or, with kOneHot, the flagship engine's (piece_word_2d).
+template <int L, bool kOneHot = false>
 __device__ __forceinline__ void band_apply_action(Env& e, const Band<L>& bd, int a, bool uniform,
                                                   const uint32_t* packed, const int32_t* box) {
   if (a == kSwap && !e.has_swapped) {
     swap_piece(e, uniform, box);
     return;
   }
-  const PieceWord w = piece_word(packed, e.piece, e.rotation);
+  const PieceWord w = word_of<kOneHot>(packed, e.piece, e.rotation);
   const int dx = a == kLeft ? -1 : (a == kRight ? 1 : 0);
   int x = e.x;
   if (dx != 0 && !collision_at(band_hit_map(bd, w, e.x + dx), e.y)) x = e.x + dx;
@@ -214,7 +224,7 @@ __device__ __forceinline__ void band_apply_action(Env& e, const Band<L>& bd, int
   const int rot_dir = a == kCw ? 1 : (a == kCcw ? -1 : 0);
   if (rot_dir != 0) {
     const int rot_cand = (e.rotation + rot_dir) & 3;
-    if (!collision_at(band_hit_map(bd, piece_word(packed, e.piece, rot_cand), x), y))
+    if (!collision_at(band_hit_map(bd, word_of<kOneHot>(packed, e.piece, rot_cand), x), y))
       e.rotation = rot_cand;
   }
   e.x = x;

@@ -47,10 +47,12 @@ Kernels, with the JAX function each replaces:
   (``csrc/flagship_step.cu``): the flagship engine's ``core/engine.py:step
   :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230`` or
   ``ops/bitboard_wide.py:108-215``), ``init_state :131`` and
-  ``observe_board :274``;
+  ``observe_board :274``; the step a group of 8 or 16 lanes an env
+  (:func:`flagship_step_lanes`);
 * ``render_rgb84`` (``csrc/render_rgb84.cu``): ``core/engine.py:render_rgb
   :529`` with ``ops/observations.py:compose_rgb :84`` and
-  ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame;
+  ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame, the
+  resize as JAX's two passes in shared memory (its table: :func:`pack_taps`);
 * ``grouped_flagship`` (``csrc/grouped_flagship.cu``): the flagship grouped
   engine's ``core/grouped.py:placements :98`` (``_candidate :68``,
   ``_frame_overlap :57``) and ``grouped_observation :113``;
@@ -71,9 +73,11 @@ Kernels, with the JAX function each replaces:
 ``ppo_sample``, ``turbo_step``'s sample, ``grouped_act``, ``replay_sample``,
 ``replay_sample_stacked``, ``dqn_act`` and the ``fn_*`` kernels;
 ``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
-``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``;
-``csrc/id_image.cuh`` the id image of the observation, shared by
-``render_rgb84.cu`` and ``observe_dict.cu``; ``csrc/features.cuh`` the
+``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``, and
+``csrc/turbo_band.cuh`` the band helpers of the lanes builds of
+``turbo_step.cu`` and ``flagship_step.cu``; ``csrc/id_image.cuh`` the id
+image of the observation, shared by ``render_rgb84.cu`` and
+``observe_dict.cu``; ``csrc/features.cuh`` the
 feature vector, shared by ``features.cu`` and ``grouped_flagship.cu``.
 
 Every kernel takes any geometry within the static limits that
@@ -450,8 +454,8 @@ _ENTRY_POINTS = {
     },
     "flagship_step": {
         "flagship_step_launch": [ctypes.POINTER(_FlagshipPtrs), ctypes.POINTER(_FlagshipPtrs),
-                                 _P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_FlagshipParams),
-                                 _P],
+                                 _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 ctypes.POINTER(_FlagshipParams), _P],
         "flagship_init_launch": [_P, ctypes.POINTER(_FlagshipPtrs), _P, _I, _I, _P],
         "flagship_observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
@@ -1355,12 +1359,34 @@ def _ids_for(pieces: PieceSet, device) -> torch.Tensor:
     return hit
 
 
+# Lanes an env of flagship_step's builds (csrc/flagship_step.cu:
+# flagship_step_launch): a group of 8 or 16 lanes sharing an env's rows in
+# bands, 16 envs a block.  On an H100 (PERF.md, each build's times at B =
+# 512-65536 and at three geometries) 16 lanes are the fastest below
+# FLAGSHIP_EIGHT_LANES_FROM_B envs; from there 8 lanes are where 16 lanes
+# would hold more than one row each (padded height above 16: at 24, 2 rows
+# on 12 of the 16 lanes against 3 rows on each of 8), and 16 stay where
+# each of their lanes holds one row.
+FLAGSHIP_LANES = (8, 16)
+FLAGSHIP_EIGHT_LANES_FROM_B = 4096
+
+
+def flagship_step_lanes(B: int, padded_height: int) -> int:
+    """The lanes an env that ``flagship_step`` takes at batch ``B`` on a
+    board of ``padded_height`` rows: 8 from ``FLAGSHIP_EIGHT_LANES_FROM_B``
+    envs up where the padded height passes 16, else 16."""
+    return 8 if B >= FLAGSHIP_EIGHT_LANES_FROM_B and padded_height > 16 else 16
+
+
 def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: PieceSet,
-                  rewards: RewardsMapping):
+                  rewards: RewardsMapping, lanes: int = None):
     """Launch ``flagship_step``: returns ``(new_state, reward f32[B], done bool[B], lines int32[B])``.
 
-    The new state is in new buffers; ``state`` is left as it was.
+    The new state is in new buffers; ``state`` is left as it was.  ``lanes``
+    (one of ``FLAGSHIP_LANES``) overrides :func:`flagship_step_lanes`' choice.
     """
+    if lanes is not None and lanes not in FLAGSHIP_LANES:
+        raise ValueError(f"lanes must be one of {FLAGSHIP_LANES}, got {lanes}")
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t, flagship=True)
@@ -1382,7 +1408,9 @@ def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: Pie
     rc = _lib("flagship_step", defines).flagship_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
         done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
-        _ids_for(pieces, device).data_ptr(), B, ctypes.byref(params), _stream(device),
+        _ids_for(pieces, device).data_ptr(), B,
+        flagship_step_lanes(B, config.padded_height) if lanes is None else lanes,
+        ctypes.byref(params), _stream(device),
     )
     _check(rc, "flagship_step")
     LAUNCHES["flagship_step"] += 1
@@ -1435,9 +1463,27 @@ def flagship_observe_board(state, config: EngineConfig, pieces: PieceSet) -> tor
 RGB84 = 84  # csrc/render_rgb84.cu:OUT
 
 
+def pack_taps(src: np.ndarray, coef: np.ndarray) -> np.ndarray:
+    """The 84 taps of :func:`ops.image.area_zoom_taps` packed one word an
+    output, as ``csrc/render_rgb84.cu`` reads them: ``s | c0 << 8 | c1 <<
+    20``, source ``s`` with coefficient ``c0`` and ``s + 1`` with ``c1`` (0
+    where the output has one tap), as int32 bits.  An enlargement's outputs
+    take two adjacent sources at most, and the next output's first source
+    is the same or the next one (the kernel's vertical pass relies on it)."""
+    src, coef = np.asarray(src, np.int64), np.asarray(coef, np.int64)
+    two = coef[:, 1] != 0
+    step = np.diff(src[:, 0])
+    if (two & (src[:, 1] != src[:, 0] + 1)).any() or (coef < 0).any() or (coef >= 1 << 12).any() \
+            or (src < 0).any() or (src[:, 0] >= 1 << 8).any() or (step < 0).any() or (step > 1).any():
+        raise AssertionError("an area zoom's taps are two adjacent sources with 11-bit coefficients, "
+                             "each output's first source the last one's or the next")
+    return (src[:, 0] | coef[:, 0] << 8 | coef[:, 1] << 20).astype(np.uint32).view(np.int32)
+
+
 def _render_table(config: EngineConfig, pieces: PieceSet, device) -> torch.Tensor:
-    """The int32 table ``render_rgb84`` reads (cached): the 84-row taps of
-    the id image's height and width, the palette and the gray weights, in
+    """The int32 table ``render_rgb84`` reads (cached): the 84 packed taps
+    (:func:`pack_taps`) of the output rows over the id image's height and of
+    the output columns over its width, the palette and the gray weights, in
     the order of ``csrc/render_rgb84.cu:T_*``.  The id image is the
     composite's: the padded board and a sidebar of ``S * max(queue, holder)``
     columns, ``S`` the pieces' side (``engine.render_rgb`` composites the
@@ -1455,9 +1501,9 @@ def _render_table(config: EngineConfig, pieces: PieceSet, device) -> torch.Tenso
     hit = _DEVICE_TABLES.get(ck)
     if hit is None:
         img_w = config.padded_width + S * max(config.queue_size, config.holder_size)
-        sy, cy = image.area_zoom_taps(config.padded_height, RGB84)
-        sx, cx = image.area_zoom_taps(img_w, RGB84)
-        parts = [sy, cy, sx, cx, pieces.palette.astype(np.int32), np.asarray(image._W22)]
+        rows = pack_taps(*image.area_zoom_taps(config.padded_height, RGB84))
+        cols = pack_taps(*image.area_zoom_taps(img_w, RGB84))
+        parts = [rows, cols, pieces.palette.astype(np.int32), np.asarray(image._W22)]
         flat = np.concatenate([np.asarray(x, dtype=np.int32).ravel() for x in parts])
         hit = _DEVICE_TABLES[ck] = torch.as_tensor(flat, device=device)
     return hit
