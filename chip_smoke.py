@@ -358,6 +358,15 @@ Phases, each printing one JSON line:
     train step inside ``utils.profiling.trace`` (128 ``turbo_step``
     launches and one ``gae`` by the wrappers' counts) gives a trace that
     names both kernels.
+56. The port's wheel: the tree's sources copied under
+    ``build/wheel_smoke/``, ``pip wheel --no-deps --no-build-isolation
+    --no-index`` there; the wheel holds every file of
+    ``tetris_gymnasium_torch/csrc/``; installed with ``pip install
+    --target``, ``tools/wheel_smoke_torch.py`` runs in a subprocess from a
+    directory outside the package with its per-user cache under
+    ``build/wheel_smoke/``: the installed package builds ``fn_step`` at
+    10x20 from its own ``csrc/`` into that cache (not into the install),
+    launches it and holds 32 steps of 4096 envs to ``step_plain``.
 
 Then the kernels line (25 kernels; ``turbo_step``'s time is its launch
 with the observation, as the paths take it, with its sampling builds' and
@@ -386,6 +395,7 @@ import copy
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1229,6 +1239,9 @@ def main() -> None:
     resumed = check_resume(dev, smi)
     check_trainer_flags(dev, smi, resumed.pop("ts"), resumed.pop("train_step"))
 
+    # -- 56. the port's wheel, installed outside the tree ------------------------------------
+    check_wheel(smi)
+
     sources = {
         "turbo_step": ("tetris_gymnasium_torch/csrc/turbo_step.cu",
                        "tetris_gymnasium_tpu/core/turbo.py:639"),
@@ -1361,6 +1374,7 @@ def main() -> None:
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
             "library_ms": at[name].get("library_ms"), "launch_floor_ms": floor_ms,
+            **({"builds_ms_on_path": at[name]["builds_ms"]} if "builds_ms" in at[name] else {}),
             **({"greedy_ms": at[name]["greedy_ms"]} if "greedy_ms" in at[name] else {}),
             "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
             **({"wide": wide_at[name]} if name in wide_at else {}),
@@ -2218,6 +2232,31 @@ def time_grouped_kernels(dev, smi) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def stacked_builds(data, k, obs_key="obs") -> list:
+    """The builds of ``replay_sample_stacked`` that the obs store takes:
+    both where its frames fit the bulk copies (``kernels.replay_stacked_build``),
+    else the words build."""
+    from tetris_gymnasium_torch import kernels
+
+    store = data[obs_key]
+    row = store[0].numel() * store.element_size()
+    return [b for b in kernels.REPLAY_STACKED_BUILDS
+            if b == "words" or kernels.replay_stacked_build(row, k, store) == "bulk"]
+
+
+def stacked_builds_diff(buf, key, n, B, K, want, what) -> None:
+    """Every build of ``replay_sample_stacked`` that the buffer takes, bit-equal to ``want``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.rl import buffers
+
+    start, n_valid = buffers._stacked_window(buf, B, K)
+    for b in stacked_builds(buf.data, K):
+        kc, kn = kernels.replay_sample_stacked(buf.data, key, n, n_valid, start, B, K, build=b)
+        for k in buf.data:
+            diff("replay_sample_stacked", kc[k], want[0][k], f"{what} ({b}) sample {k}")
+            diff("replay_sample_stacked", kn[k], want[1][k], f"{what} ({b}) successor {k}")
+
+
 def _dqn_block(B, window, g, dev):
     """One transition batch whose stored frame is the window's newest, a strided view."""
     return {"obs": window[:, -1],
@@ -2276,6 +2315,7 @@ def check_dqn_kernels(dev) -> None:
             for k in example:
                 diff("replay_sample_stacked", kc[k], pc[k], f"B={B} K={K} sample {t} {k}")
                 diff("replay_sample_stacked", kn[k], pn[k], f"B={B} K={K} successor {t} {k}")
+            stacked_builds_diff(kbuf, key, n, B, K, (pc, pn), f"B={B} K={K} {t}")
             diff("replay_sample_stacked", off.long(), threefry.randint_lanes(key, n, n_valid, dev),
                  f"B={B} K={K} offsets {t}")
             if not np.array_equal(off.cpu().numpy(), threefry.randint(key, n, n_valid)):
@@ -2511,6 +2551,7 @@ def check_dqn_path_shapes(dev, ts, cfg) -> None:
         name = "replay_sample_stacked"
         kc, kn = buffers.sample_with_next_stacked(kbuf, key, cfg.batch_size, DQN_ENVS, K)
         pc, pn = buffers.sample_with_next_stacked_plain(pbuf, key, cfg.batch_size, DQN_ENVS, K)
+        stacked_builds_diff(kbuf, key, cfg.batch_size, DQN_ENVS, K, (pc, pn), "full buffer")
     for k in buf.data:
         diff(name, kc[k], pc[k], f"full buffer sample {k}")
         diff(name, kn[k], pn[k], f"full buffer successor {k}")
@@ -2518,6 +2559,17 @@ def check_dqn_path_shapes(dev, ts, cfg) -> None:
     emit({"phase": "dqn_path_shapes", "frame_stack": K, "bit_equal": True, "B": DQN_ENVS,
           "episodes_ended": n_done, "buffer_capacity": buf.capacity, "buffer_pos": buf.pos,
           "samples": cfg.batch_size, "seconds": time.perf_counter() - t0})
+
+
+def stacked_builds_ms(buf, key, n, B, K, reps) -> dict:
+    """Device ms of each build of ``replay_sample_stacked`` that the buffer takes."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.rl import buffers
+
+    start, n_valid = buffers._stacked_window(buf, B, K)
+    return {b: device_ms(lambda: kernels.replay_sample_stacked(buf.data, key, n, n_valid, start, B, K,
+                                                               build=b), reps)
+            for b in stacked_builds(buf.data, K)}
 
 
 def _stacked_sample_bytes(buf, key, n, B, K) -> int:
@@ -2600,6 +2652,7 @@ def time_dqn_kernels(dev, smi) -> dict:
             lambda: buffers.sample_with_next_stacked_plain(buf, key, n, B, K), 100, 5 if n > B else 20,
             _stacked_sample_bytes(buf, key, n, B, K),
             n * (SAMPLE_INDEX_OPS + 2 * K * STACK_OPS_PER_FRAME))
+        out["replay_sample_stacked"][n]["builds_ms"] = stacked_builds_ms(buf, key, n, B, K, 100)
     out["replay_sample"] = timed_pair(
         lambda: buffers.sample_with_next(buf, key, DQN_BATCH, B),
         lambda: buffers.sample_with_next_plain(buf, key, DQN_BATCH, B), 100, 20,
@@ -2984,6 +3037,9 @@ def check_pixel_path_shapes(dev, ts, cfg) -> None:
     for k in buf.data:
         diff("replay_sample_stacked", kc[k], pc[k], f"full buffer sample {k}")
         diff("replay_sample_stacked", kn[k], pn[k], f"full buffer successor {k}")
+    if stacked_builds(kbuf.data, K) != ["bulk", "words"]:
+        raise AssertionError("the pixel buffer's 7056-byte frames do not take the bulk build")
+    stacked_builds_diff(kbuf, key, cfg.batch_size, PIX_ENVS, K, (pc, pn), "full buffer")
     del kbuf, pbuf
     torch.cuda.synchronize()
     emit({"phase": "pixel_path_shapes", "bit_equal": True, "B": PIX_ENVS, "episodes_ended": n_done,
@@ -3115,6 +3171,8 @@ def time_pixel_kernels(dev, smi) -> dict:
             lambda: buffers.sample_with_next_stacked_plain(buf, key, n, B, K), 20 if n > B else 100,
             3 if n > B else 20, _stacked_sample_bytes(buf, key, n, B, K),
             n * (SAMPLE_INDEX_OPS + 2 * K * STACK_OPS_PER_FRAME))
+        out["replay_sample_stacked"][n]["builds_ms"] = stacked_builds_ms(buf, key, n, B, K,
+                                                                         20 if n > B else 100)
     emit({"phase": "pixel_times", **out, "buffer_capacity": buf.capacity,
           "buffer_gib": sum(nbytes(x) for x in buf.data.values()) / 2**30, "nvidia_smi": smi})
     del buf
@@ -4619,6 +4677,14 @@ def _fn_diff(kernel, got, want, what):
         diff(kernel, got, want, what)
 
 
+def fn_step_builds(cfg, board) -> list:
+    """The builds of ``fn_step`` that a board of ``cfg`` at ``board``'s address takes: both where the
+    bulk copies fit (``kernels.fn_step_build``), else the words build."""
+    from tetris_gymnasium_torch import kernels
+
+    return [b for b in kernels.FN_STEP_BUILDS if b == "words" or kernels.fn_step_build(cfg, board) == "bulk"]
+
+
 def check_gray_exact(dev) -> dict:
     """Phase 40: ``grayscale_u8_exact`` bit-equal to its plain version over
     all 2**24 RGB triples and on a random ``[512, 84, 84, 3]`` batch; the
@@ -4715,15 +4781,24 @@ def check_fn_kernels(dev) -> dict:
             return p[1]
 
         s = reset_both(keys_at(100 * gi), "reset")
+        builds = fn_step_builds(cfg, s.board)
+        if builds[0] != kernels.fn_step_build(cfg, s.board):
+            raise AssertionError(f"{name}: the wrapper takes {kernels.fn_step_build(cfg, s.board)}")
         plain_step = _graphed(lambda st, a: fn_env.step_plain(st, a, cfg, PIECES, qf), s,
                               torch.zeros((total,), dtype=torch.int32, device=dev))
         ended = lines = live = 0
         for i in range(FN_STEPS):
             a = torch.randint(0, 8, (total,), generator=g, device=dev, dtype=torch.int32)
-            k = [kernels.fn_step(_fn_rows(s, o, B), a[o : o + B], cfg, PIECES, kind) for o, B in spans]
+            # the wrapper's build first, then the others; all before the plain
+            # step's replay, which overwrites s (the graph's own outputs)
+            ks = {b: [kernels.fn_step(_fn_rows(s, o, B), a[o : o + B], cfg, PIECES, kind,
+                                      build=None if b == builds[0] else b) for o, B in spans]
+                  for b in builds}
             p = plain_step(s, a)
-            for part, want, field in zip(zip(*k), p, ("state", "obs", "reward", "terminated", "lines")):
-                _fn_diff("fn_step", _fn_cat(part), want, f"{name} step {i} {field}")
+            for b, k in ks.items():
+                for part, want, field in zip(zip(*k), p, ("state", "obs", "reward", "terminated", "lines")):
+                    _fn_diff("fn_step", _fn_cat(part), want, f"{name} step {i} {field} ({b})")
+            k = ks[builds[0]]
             obs = [kernels.fn_observe(part[0], cfg, PIECES) for part in k]
             _fn_diff("fn_observe", _fn_cat(obs), p[1], f"{name} observe {i}")
             live += int((~s.game_over).sum())
@@ -4737,10 +4812,11 @@ def check_fn_kernels(dev) -> dict:
 
         st, a = _fn_stacks(cfg, kind, FN_STACKS, dev, 41 + gi)
         diff("fn_observe", kernels.fn_observe(st, cfg, PIECES), fn_env.observe_plain(st, cfg), f"{name} stacks obs")
-        k = kernels.fn_step(st, a, cfg, PIECES, kind)
         p = fn_env.step_plain(st, a, cfg, PIECES, qf)
-        for got, want, field in zip(k, p, ("state", "obs", "reward", "terminated", "lines")):
-            _fn_diff("fn_step", got, want, f"{name} stacks {field}")
+        for b in builds:
+            k = kernels.fn_step(st, a, cfg, PIECES, kind, build=b)
+            for got, want, field in zip(k, p, ("state", "obs", "reward", "terminated", "lines")):
+                _fn_diff("fn_step", got, want, f"{name} stacks {field} ({b})")
         new, pad, W = p[0], cfg.padding, cfg.width
         row0 = (new.board[:, 0, pad : pad + W] > 0).any(dim=1)
         shown = {"row0_copies": int(((p[4] > 0) & row0 & ~st.game_over).sum()),
@@ -4754,7 +4830,7 @@ def check_fn_kernels(dev) -> dict:
         if min(shown["row0_copies"], shown["refills"], shown["frozen"]) == 0:
             raise AssertionError(f"{name}: the hand-built states did not show every case: {shown}")
         summary[name] = {"steps": FN_STEPS, "B": list(FN_B), "live_env_steps": live, "games_ended": ended,
-                         "lines": lines, "stacks": shown}
+                         "lines": lines, "stacks": shown, "fn_step_builds": builds}
     torch.cuda.synchronize()
     out = {"phase": "fn_kernels", "bit_equal": True, "geometries": summary,
            "max_abs_err": {k: MAX_ERR[k] for k in ("fn_reset", "fn_step", "fn_observe")},
@@ -4887,11 +4963,18 @@ def time_fn_kernels(dev, smi) -> dict:
         for name, (kernel_fn, plain_fn, io, ops) in entries.items():
             entry = timed_pair(kernel_fn, plain_fn, 20 if big else 100, 2 if big else 10, io, ops)
             entry.update(library_ms=None, envs_per_s=B / (entry["ms"] * 1e-3), live_share=live)
+            if name.startswith("fn_step"):  # each build (bulk copies or words) on the same states
+                st = frozen if name == "fn_step_frozen" else s
+                entry["builds_ms"] = {b: device_ms(lambda: kernels.fn_step(st, a, cfg, PIECES, build=b),
+                                                   20 if big else 100)
+                                      for b in fn_step_builds(cfg, st.board)}
             out.setdefault(name, {})[B] = entry
         emit({"phase": "fn_times", "B": B, "live_share": live,
               "kernels": {k: v[B] for k, v in out.items()}, "nvidia_smi": smi})
         del s, frozen
         torch.cuda.empty_cache()
+    emit({"phase": "fn_step_occupancy", "nvidia_smi": smi,  # cudaOccupancyMaxActiveBlocksPerMultiprocessor
+          "builds": [kernels.fn_step_occupancy(cfg, PIECES, b) for b in kernels.FN_STEP_BUILDS]})
     for shape in ((GRAY_ALL, 3), GRAY_BATCH):
         rgb = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
         n = rgb.numel() // 3
@@ -6063,6 +6146,70 @@ def check_trainer_flags(dev, smi, ts, train_step) -> dict:
                                   "all": len(kernel_names)}, "traced_step_launches": launched,
           "trace_kernel_ms": device_us / 1e3, "nvidia_smi": smi})
     return {"trace_kernel_events": found}
+
+
+# ---------------------------------------------------------------------------
+# 56. The port's wheel
+# ---------------------------------------------------------------------------
+
+WHEEL_TREE = ("pyproject.toml", "README.md", "LICENSE", "tetris_gymnasium_tpu", "tetris_gymnasium_torch")
+
+
+def check_wheel(smi) -> dict:
+    """Phase 56: the wheel built from a copy of the tree under
+    ``build/wheel_smoke/`` holds every kernel source; installed with
+    ``--target``, ``tools/wheel_smoke_torch.py`` (in a subprocess whose
+    working directory is outside the package, its cache inside
+    ``build/wheel_smoke/``) builds ``fn_step`` from the installed ``csrc/``
+    into the cache, launches it and holds it to ``step_plain``."""
+    import zipfile
+
+    from tetris_gymnasium_torch import kernels
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "wheel_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    src, dist, site, run, cache = (os.path.join(root, d) for d in ("src", "dist", "site", "run", "cache"))
+    for d in (src, run):
+        os.makedirs(d)
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc")
+    for name in WHEEL_TREE:
+        path = os.path.join(REPO, name)
+        if os.path.isdir(path):
+            shutil.copytree(path, os.path.join(src, name), ignore=ignore)
+        else:
+            shutil.copy(path, os.path.join(src, name))
+    pip = [sys.executable, "-m", "pip"]
+    subprocess.run(pip + ["wheel", ".", "--no-deps", "--no-build-isolation", "--no-index", "-q", "-w", dist],
+                   cwd=src, check=True, capture_output=True, text=True, timeout=300)
+    (wheel,) = [os.path.join(dist, f) for f in os.listdir(dist) if f.endswith(".whl")]
+    names = set(zipfile.ZipFile(wheel).namelist())
+    csrc = sorted(os.listdir(os.path.join(REPO, "tetris_gymnasium_torch", "csrc")))
+    missing = [f for f in csrc if f"tetris_gymnasium_torch/csrc/{f}" not in names]
+    if missing:
+        raise AssertionError(f"the wheel lacks the kernel sources {missing}")
+    subprocess.run(pip + ["install", "--no-deps", "--no-index", "-q", "--target", site, wheel],
+                   cwd=root, check=True, capture_output=True, text=True, timeout=300)
+    env = {k: v for k, v in os.environ.items() if k != kernels.BUILD_DIR_ENV}
+    env.update(PYTHONPATH=site, XDG_CACHE_HOME=cache, HOME=os.path.join(root, "home"))
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "wheel_smoke_torch.py")], cwd=run,
+                          env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or proc.stdout.splitlines()[-1:] != ["wheel smoke (torch) OK"]:
+        raise AssertionError(f"the wheel smoke failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    facts = json.loads(proc.stdout.splitlines()[-2])
+    want_dir = os.path.realpath(os.path.join(cache, "tetris_gymnasium_torch", "kernels"))
+    if os.path.realpath(facts["build_dir"]) != want_dir or not facts["library"].startswith(want_dir):
+        raise AssertionError(f"the installed port built into {facts['build_dir']}, not {want_dir}")
+    if os.path.realpath(facts["package"]) != os.path.realpath(os.path.join(site, "tetris_gymnasium_torch")):
+        raise AssertionError(f"the smoke imported {facts['package']}, not the installed wheel")
+    if facts.get("fn_step_equal_steps") != 32 or facts.get("fn_step_launches") != 32 or not facts["built"]:
+        raise AssertionError(f"the installed fn_step did not build, launch and match: {facts}")
+    out = {"phase": "wheel", "wheel": os.path.basename(wheel), "wheel_bytes": os.path.getsize(wheel),
+           "csrc_files": len(csrc), **{k: facts[k] for k in ("build_dir", "build_seconds", "fn_step_launches",
+                                                              "fn_step_equal_steps", "card")},
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(out)
+    return out
 
 
 if __name__ == "__main__":

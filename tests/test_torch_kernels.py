@@ -198,7 +198,7 @@ def test_library_names_cover_included_headers(tmp_path):
     after = kernels._lib_path(source)
     assert after != before and after.name.startswith("ppo_sample_")
     assert [p.name for p in kernels._sources_of(kernels.SOURCES["replay"])] == \
-        ["replay.cu", "threefry.cuh"]
+        ["replay.cu", "bulk.cuh", "threefry.cuh"]
 
 
 # ---------------------------------------------------------------------------

@@ -10,16 +10,40 @@
 //
 // On the TPU the step is one straight-line masked program per env under
 // vmap: every window is a one-hot contraction, every branch is computed and
-// selected.  Here one thread owns one env and branches, reading only the
-// S x S windows that a test needs.  The state is batch-leading: the id
-// board int8[B, H, PW] (432 bytes an env at 10x20) and small per-env
-// fields, the key uint32[B, 2].  A block of 256 threads takes kEnvs envs
-// (64 at 10x20): it copies their boards (contiguous in memory) into shared
-// memory with 16-byte loads, thread e plays env e on its board there, and
-// the block stores the boards back with 16-byte stores; the observation
-// int8[B, HEIGHT, WIDTH] is then written in 4-byte words, neighbouring
-// threads on neighbouring words, from the boards in shared memory and each
-// env's active window.
+// selected.  The state is batch-leading: the id board int8[B, H, PW] (432
+// bytes an env at 10x20) and small per-env fields, the key uint32[B, 2].
+//
+// fn_step (a group of kLanes = 8 lanes an env, kStepEnvs = 16 envs in a
+// block of 128 threads): the block's boards, contiguous in memory, come
+// into shared memory with one cp.async.bulk completing on an mbarrier (the
+// bulk build, where the span is a multiple of 16 bytes on 16-byte
+// boundaries) or with the block's 16-byte or byte words (the words build,
+// e.g. 8x12 with padding 2, 168 bytes a board); the envs' fields load
+// meanwhile.  The group turns its board into one 64-bit bit row of
+// occupancy a padded row (lane l rows l, l + 8, ..) and plays the env:
+// every lane runs the env's scalar logic, the same on each, so nothing
+// needs broadcasting; a window test is S row tests at the clamped start,
+// lane s on row s, voted with __any_sync; the drop tests 8 window starts at
+// a time, a lane a start, and a ballot takes the least that collides; a
+// lock stamps the window's rows a lane a row, finds the full rows by an OR
+// over the group, and moves each kept row down by the count of full rows
+// below it, a lane a column.  Threefry and the queue run on the group's
+// first lane, which hands the new piece and key to the others by shuffles.
+// The boards go back with one bulk store (or the words), and the block
+// writes the observation int8[B, HEIGHT, WIDTH] in 4-byte words from the
+// boards in shared memory and each env's active window.  fn_reset and
+// fn_observe keep their first design: a block of 256 threads takes kEnvs
+// envs (64 at 10x20), thread e an env.
+//
+// What held the step's first design back (one thread an env in that
+// layout): at B = 65536 its 1024 blocks ran in 1.11 waves (7 blocks an SM
+// by their 27 KB of boards), six of a block's eight warps waited at its
+// barriers, each thread walked byte windows, a drop and a 20-row
+// compaction serially, and the observation took ~30 instructions a byte.  Here 4096 blocks of 128
+// threads run 12 an SM (40 registers, no spill), the window tests are a
+// word each, the observation is built from bit maps of the cells (4 bytes
+// from two nibbles), and a lane holds its share of the queue from the
+// start, so a lock reads no queue entry from global memory.
 //
 // What the reference's quirks ask of the code:
 //   - every window start is clamped as lax.dynamic_slice clamps it (a
@@ -56,11 +80,13 @@
 // (kernels.py:fn_defines), one library per geometry and piece set: the
 // boards of a block live in kEnvs * CELLS bytes of shared memory, which
 // with their windows stay within 48 KB (CELLS <= 3056 at 16 envs a block),
-// and a piece's S x S matrix is one 64-bit mask (S <= 8).
+// a piece's S x S matrix is one 64-bit mask (S <= 8), and the step's bit
+// rows and maps of window starts are 64-bit words (H <= 64, PW <= 64).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
 #include "threefry.cuh"
 
 #ifndef TETRIS_HEIGHT
@@ -101,6 +127,7 @@ struct FnPtrs {
 struct FnParams {
   int gravity;
   int uniform;
+  int bulk;  // fn_step: the bulk-copy build
 };
 
 namespace {
@@ -150,69 +177,6 @@ __device__ __forceinline__ uint64_t piece_mask(const uint64_t* masks, int p, int
 __device__ __forceinline__ int clamp_start(int v, int limit, int dim) {
   if (v < 0) v += dim;
   return min(max(v, 0), limit);
-}
-
-// A filled cell of the piece over a cell > 0 of the window at (xc, yc).
-__device__ __forceinline__ bool window_hits(const int8_t* b, uint64_t m, int xc, int yc) {
-  for (; m; m &= m - 1) {
-    const int k = __ffsll(static_cast<long long>(m)) - 1;
-    if (b[(yc + k / S) * PW + xc + k % S] > 0) return true;
-  }
-  return false;
-}
-
-__device__ __forceinline__ bool collides(const int8_t* b, uint64_t m, int x, int y) {
-  return window_hits(b, m, clamp_start(x, PW - S, PW), clamp_start(y, H - S, H));
-}
-
-// drop_distance: free window offsets d = 0, 1, .. before the first hit, the
-// row start clipped (no wrap) to [0, H - S], at most H.  Past the clip the
-// window no longer moves, so a miss there is a miss to the end.
-__device__ int drop_distance(const int8_t* b, uint64_t m, int x, int y) {
-  const int xc = clamp_start(x, PW - S, PW);
-  for (int d = 0; d < H; ++d) {
-    const int row = y + 1 + d;
-    if (window_hits(b, m, xc, min(max(row, 0), H - S))) return d;
-    if (row >= H - S) break;
-  }
-  return H;
-}
-
-// project: ADD id into the piece's cells of the clamped window (int8 wraps).
-__device__ void stamp(int8_t* b, uint64_t m, int x, int y, int id) {
-  const int xc = clamp_start(x, PW - S, PW), yc = clamp_start(y, H - S, H);
-  for (; m; m &= m - 1) {
-    const int k = __ffsll(static_cast<long long>(m)) - 1;
-    int8_t* cell = b + (yc + k / S) * PW + xc + k % S;
-    *cell = static_cast<int8_t>(*cell + id);
-  }
-}
-
-// clear_lines_compat in place: the full playfield rows go, the others move
-// down in order, the n top rows become copies of the pre-clear row 0, and
-// the frame is bedrock again.  Returns n.
-__device__ int clear_lines_compat(int8_t* b) {
-  int w = HEIGHT - 1;
-  for (int r = HEIGHT - 1; r >= 0; --r) {
-    const int8_t* row = b + r * PW + PAD;
-    bool full = true;
-    for (int c = 0; c < WIDTH && full; ++c) full = row[c] > 0;
-    if (full) continue;
-    if (w != r) {
-      for (int c = 0; c < WIDTH; ++c) b[w * PW + PAD + c] = row[c];
-    }
-    --w;
-  }
-  const int n = w + 1;
-  for (int r = 1; r < n; ++r) {
-    for (int c = 0; c < WIDTH; ++c) b[r * PW + PAD + c] = b[PAD + c];
-  }
-  for (int r = 0; r < H; ++r) {
-    for (int c = 0; c < PW; ++c) {
-      if (r >= HEIGHT || c < PAD || c >= PAD + WIDTH) b[r * PW + c] = BEDROCK;
-    }
-  }
-  return n;
 }
 
 // score_fn: 1 -> 100, 2 -> 300, 3 -> 500, 4 -> 800.
@@ -302,47 +266,338 @@ __device__ __forceinline__ Active active(const uint64_t* masks, int piece, int r
           over ? 0ull : piece_mask(masks, piece, rot)};
 }
 
-__global__ void __launch_bounds__(kThreads) fn_step_kernel(FnPtrs in, FnPtrs out,
-                                                        const int32_t* __restrict__ action,
-                                                        int8_t* __restrict__ obs,
-                                                        float* __restrict__ reward,
-                                                        uint8_t* __restrict__ terminated,
-                                                        int32_t* __restrict__ lines,
-                                                        const uint64_t* __restrict__ masks,
-                                                        const int32_t* __restrict__ ids, int B,
-                                                        FnParams p) {
-  extern __shared__ __align__(16) int8_t boards[];
-  __shared__ Active act[kEnvs];
-  const int e0 = blockIdx.x * kEnvs, nb = min(kEnvs, B - e0), t = threadIdx.x;
-  block_copy(boards, in.board + static_cast<long long>(e0) * CELLS, nb * CELLS);
-  __syncthreads();
-  if (t < nb) {
-    const int e = e0 + t;
-    int8_t* b = boards + t * CELLS;
-    const bool over_in = in.game_over[e];
-    const int piece = in.piece[e];
-    int rot = in.rotation[e], x = in.x[e], y = in.y[e], qi = in.queue_index[e];
-    const float score = in.score[e];
-    uint32_t k0 = in.rng_key[2 * e], k1 = in.rng_key[2 * e + 1];
-    int32_t q[QS];
+// ---------------------------------------------------------------------------
+// fn_step: a group of kLanes lanes an env
+// ---------------------------------------------------------------------------
+
+constexpr int kLanes = 8;                         // lanes an env
+constexpr int kStepEnvs = 16;                     // envs a block
+constexpr int kStepThreads = kStepEnvs * kLanes;  // 128
+constexpr int kQueueSlots = (QS + kLanes - 1) / kLanes;  // queue entries a lane holds
+constexpr int kFlatWords = (CELLS + 31) / 32;  // the board's occupancy, 32 bytes a word
+constexpr int kObsWords = (OBS + 31) / 32;     // the observation's cells, 32 a word
+// Shared memory of a block: the boards, then a board each of bit rows, of
+// flat occupancy (2 words past the end, read and masked off) and of the
+// observation's two bit maps (occupied, active).
+constexpr int kBoardBytes = (kStepEnvs * CELLS + 15) / 16 * 16;
+constexpr int kOccBytes = kStepEnvs * H * 8;
+constexpr int kFlatBytes = kStepEnvs * (kFlatWords + 2) * 4;
+constexpr int kStepSmem = kBoardBytes + kOccBytes + kFlatBytes + kStepEnvs * 2 * kObsWords * 4;
+constexpr uint64_t kWidthMask = WIDTH >= 64 ? ~0ull : (1ull << WIDTH) - 1;
+static_assert(S <= kLanes, "a window's rows are tested a lane each");
+static_assert(H <= 64 && PW <= 64, "a bit row and a map of window starts are 64-bit words");
+
+// The lanes of one env: its index in the group, the group's lanes in the
+// warp and the first of them.
+struct Group {
+  int lane, base;
+  unsigned mask;
+};
+
+// Row s of a piece's S x S mask, S bits.
+__device__ __forceinline__ uint64_t piece_row(uint64_t m, int s) {
+  return (m >> (s * S)) & ((1ull << S) - 1);
+}
+
+// The occupancy of a padded row: bit c is cell c > 0.
+__device__ __forceinline__ uint64_t row_bits(const int8_t* row) {
+  uint64_t v = 0;
+#pragma unroll 8
+  for (int c = 0; c < PW; ++c) v |= static_cast<uint64_t>(row[c] > 0) << c;
+  return v;
+}
+
+// Bit k of the result: byte k of w, an int8, is > 0 (nonzero, sign clear).
+__device__ __forceinline__ uint32_t positive_bits4(uint32_t w) {
+  const uint32_t nonzero = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+  return (((nonzero & ~w) >> 7) * 0x10204080u) >> 28;
+}
+
+// Flat occupancy word j of a board that is whole 4-byte words: bit k is
+// byte 32 j + k > 0.  Bytes past the board (another board's, or the next
+// region of shared memory) are read and masked off.
+__device__ __forceinline__ uint32_t flat_word(const int8_t* b, int j) {
+  uint32_t v = 0;
+  if constexpr (CELLS % 16 == 0) {
+    const uint4* q = reinterpret_cast<const uint4*>(b) + 2 * j;
+    const uint4 lo = q[0], hi = q[1];
+    v = positive_bits4(lo.x) | positive_bits4(lo.y) << 4 | positive_bits4(lo.z) << 8 |
+        positive_bits4(lo.w) << 12 | positive_bits4(hi.x) << 16 | positive_bits4(hi.y) << 20 |
+        positive_bits4(hi.z) << 24 | positive_bits4(hi.w) << 28;
+  } else {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(b) + 8 * j;
 #pragma unroll
-    for (int i = 0; i < QS; ++i) q[i] = in.queue[static_cast<long long>(e) * QS + i];
+    for (int k = 0; k < 8; ++k) v |= positive_bits4(q[k]) << (4 * k);
+  }
+  const int valid = CELLS - 32 * j;
+  return valid >= 32 ? v : v & ((1u << valid) - 1u);
+}
+
+// Bit row r cut from the board's flat words (2 words past the end readable).
+__device__ __forceinline__ uint64_t cut_row(const uint32_t* flat, int r) {
+  const int bit = r * PW, w0 = bit >> 5, sh = bit & 31;
+  uint64_t v = (static_cast<uint64_t>(flat[w0 + 1]) << 32 | flat[w0]) >> sh;
+  if (sh + PW > 64) v |= static_cast<uint64_t>(flat[w0 + 2]) << (64 - sh);
+  return PW == 64 ? v : v & ((1ull << (PW % 64)) - 1);
+}
+
+// The bit rows occ[0 .. H) of the group's board.  Where the board is whole
+// 4-byte words, lane l first packs bytes 32 j .. 32 j + 31 (j = l, l + 8,
+// ..) into flat word j, then cuts rows l, l + 8, .. from the flat words;
+// else a row's bytes are read one by one.
+__device__ void build_occ(const Group& g, const int8_t* b, uint32_t* flat, uint64_t* occ) {
+  if constexpr (CELLS % 4 == 0) {
+    for (int j = g.lane; j < kFlatWords; j += kLanes) flat[j] = flat_word(b, j);
+    __syncwarp(g.mask);
+    for (int r = g.lane; r < H; r += kLanes) occ[r] = cut_row(flat, r);
+  } else {
+    for (int r = g.lane; r < H; r += kLanes) occ[r] = row_bits(b + r * PW);
+  }
+  __syncwarp(g.mask);
+}
+
+// Byte k of the result: bit k of the nibble n.
+__device__ __forceinline__ uint32_t spread4(uint32_t n) { return (n * 0x00204081u) & 0x01010101u; }
+
+// Row r of the observation: the playfield's occupancy, WIDTH bits.
+__device__ __forceinline__ uint64_t obs_row(const uint64_t* occ, int r) {
+  return (occ[r] >> PAD) & kWidthMask;
+}
+
+// Row r of the observation: the active piece's cells (mask m at the
+// clamped window (xc, yc)), WIDTH bits.
+__device__ __forceinline__ uint64_t act_row(uint64_t m, int xc, int yc, int r) {
+  const int ar = r - yc;
+  return ar >= 0 && ar < S ? ((piece_row(m, ar) << xc) >> PAD) & kWidthMask : 0ull;
+}
+
+// observe of the group's env as two bit maps of its HEIGHT x WIDTH cells
+// (cell i is bit i % 32 of word i / 32): the playfield's occupancy from the
+// bit rows and the active piece's cells (m is 0 once the game is over).
+// Lane l builds words l, l + 8, .., each from the rows it spans.
+__device__ void group_obs_maps(const Group& g, uint32_t* maps, const uint64_t* occ, uint64_t m, int xc,
+                               int yc) {
+  for (int k = g.lane; k < kObsWords; k += kLanes) {
+    uint32_t o = 0, a = 0;
+    int r = 32 * k / WIDTH, c = 32 * k - r * WIDTH;
+    for (int got = 0; got < 32 && r < HEIGHT; ++r, c = 0) {
+      const int n = min(32 - got, WIDTH - c);
+      const uint32_t low = n == 32 ? ~0u : (1u << n) - 1u;
+      o |= (static_cast<uint32_t>(obs_row(occ, r) >> c) & low) << got;
+      a |= (static_cast<uint32_t>(act_row(m, xc, yc, r) >> c) & low) << got;
+      got += n;
+    }
+    maps[k] = o;
+    maps[kObsWords + k] = a;
+  }
+}
+
+// observe of the block's nb envs from their bit maps: occupied minus
+// active, 4 bytes a word (nibble i / 4 of the maps) where an observation is
+// whole words, else a byte at a time; neighbouring threads on neighbouring
+// words.
+__device__ void write_obs_maps(int8_t* obs, const uint32_t* maps, int nb) {
+  if constexpr (OBS % 4 == 0) {
+    constexpr int kWords = OBS / 4;
+    for (int w = threadIdx.x; w < nb * kWords; w += blockDim.x) {
+      const int e = w / kWords, i = 4 * (w - e * kWords);
+      const uint32_t* mp = maps + e * 2 * kObsWords + (i >> 5);
+      const uint32_t o = spread4((mp[0] >> (i & 31)) & 0xFu);
+      const uint32_t a = spread4((mp[kObsWords] >> (i & 31)) & 0xFu);
+      reinterpret_cast<uint32_t*>(obs)[w] = (o & ~a) | ((a & ~o) * 0xFFu);  // 1, 0 or -1 a byte
+    }
+  } else {
+    for (int j = threadIdx.x; j < nb * OBS; j += blockDim.x) {
+      const int e = j / OBS, i = j - e * OBS;
+      const uint32_t* mp = maps + e * 2 * kObsWords + (i >> 5);
+      obs[j] = static_cast<int8_t>(static_cast<int>((mp[0] >> (i & 31)) & 1u) -
+                                   static_cast<int>((mp[kObsWords] >> (i & 31)) & 1u));
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T group_or(T v, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) v |= __shfl_xor_sync(mask, v, o, kLanes);
+  return v;
+}
+
+// A filled cell of the piece over an occupied cell of the window at (xc,
+// yc): S row tests, lane s on window row s.
+__device__ __forceinline__ bool group_hits(const Group& g, const uint64_t* occ, uint64_t m, int xc,
+                                           int yc) {
+  const bool hit = g.lane < S && ((occ[yc + g.lane] >> xc) & piece_row(m, g.lane)) != 0;
+  return __any_sync(g.mask, hit);
+}
+
+__device__ __forceinline__ bool group_collides(const Group& g, const uint64_t* occ, uint64_t m, int x,
+                                               int y) {
+  return group_hits(g, occ, m, clamp_start(x, PW - S, PW), clamp_start(y, H - S, H));
+}
+
+// drop_distance over the group: the window starts r0, r0 + 1, .. (the row
+// y + 1 + d clipped without the wrap to [0, H - S]) are tested kLanes at a
+// time, a lane a start, and a ballot takes the least that collides.  Offset
+// d tests start clip(y + 1 + d): the least colliding start r gives d = 0 if
+// r is the first start tested, else r - (y + 1); none, or d >= H, gives H.
+__device__ int group_drop(const Group& g, const uint64_t* occ, uint64_t m, int x, int y) {
+  const int xc = clamp_start(x, PW - S, PW);
+  const int r0 = min(max(y + 1, 0), H - S);
+  for (int first = r0; first <= H - S; first += kLanes) {
+    const int r = first + g.lane;
+    bool hit = false;
+    if (r <= H - S) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) hit |= ((occ[r + s] >> xc) & piece_row(m, s)) != 0;
+    }
+    const unsigned hits = (__ballot_sync(g.mask, hit) >> g.base) & ((1u << kLanes) - 1);
+    if (hits != 0) {
+      const int least = first + __ffs(hits) - 1;
+      if (least == r0) return 0;
+      const int d = least - (y + 1);
+      return d < H ? d : H;
+    }
+  }
+  return H;
+}
+
+// The lock's board work over the group: ADD id into the piece's cells of the
+// clamped window (a lane a window row), the window rows' occupancy anew,
+// the full playfield rows by ballot, each kept row moved down by the count
+// of full rows below it (a lane a column, bottom up, so a cell is read
+// before it is written), the n top rows set to the pre-clear row 0, and the
+// frame rewritten as bedrock.  Returns n.
+__device__ int group_lock(const Group& g, int8_t* b, uint64_t* occ, uint64_t m, int x, int y, int id) {
+  const int xc = clamp_start(x, PW - S, PW), yc = clamp_start(y, H - S, H);
+  if (g.lane < S) {
+    int8_t* row = b + (yc + g.lane) * PW + xc;
+    for (uint64_t r = piece_row(m, g.lane); r; r &= r - 1) {
+      const int j = __ffsll(static_cast<long long>(r)) - 1;
+      row[j] = static_cast<int8_t>(row[j] + id);
+    }
+    occ[yc + g.lane] = row_bits(b + (yc + g.lane) * PW);
+  }
+  __syncwarp(g.mask);
+  uint64_t mine = 0;
+  for (int r = g.lane; r < HEIGHT; r += kLanes)
+    if (((occ[r] >> PAD) & kWidthMask) == kWidthMask) mine |= 1ull << r;
+  const uint64_t full = group_or(mine, g.mask);
+  const int n = __popcll(full);
+  if (n > 0) {
+    for (int c = PAD + g.lane; c < PAD + WIDTH; c += kLanes) {
+      const int8_t top = b[c];
+      int k = 0;
+      for (int r = HEIGHT - 1; r >= 0; --r) {
+        if ((full >> r) & 1u) ++k;
+        else if (k > 0) b[(r + k) * PW + c] = b[r * PW + c];
+      }
+      for (int r = 1; r < n; ++r) b[r * PW + c] = top;
+    }
+  }
+  for (int r = g.lane; r < HEIGHT; r += kLanes) {
+#pragma unroll
+    for (int c = 0; c < PAD; ++c) {
+      b[r * PW + c] = BEDROCK;
+      b[r * PW + PAD + WIDTH + c] = BEDROCK;
+    }
+  }
+  for (int i = g.lane; i < PAD * PW; i += kLanes) b[HEIGHT * PW + i] = BEDROCK;
+  __syncwarp(g.mask);
+  return n;
+}
+
+// The spawn test on the bytes of rows 0 .. S - 1 after the lock.
+__device__ __forceinline__ bool group_spawn_hits(const Group& g, const int8_t* b, uint64_t m) {
+  bool hit = false;
+  if (g.lane < S) {
+    const int8_t* row = b + g.lane * PW + clamp_start(SPAWN_X, PW - S, PW);
+    for (uint64_t r = piece_row(m, g.lane); r; r &= r - 1)
+      hit |= row[__ffsll(static_cast<long long>(r)) - 1] > 0;
+  }
+  return __any_sync(g.mask, hit);
+}
+
+// kBulk: the block's boards (nb * CELLS contiguous bytes, a multiple of
+// 16 on 16-byte boundaries) come in with one cp.async.bulk completing on an
+// mbarrier, and go out with one bulk store; else the block copies them in
+// 16-byte or single-byte words (block_copy).  kernels.py:fn_step_build
+// picks the build from the geometry and the pointers.
+template <bool kBulk>
+__global__ void __launch_bounds__(kStepThreads) fn_step_kernel(FnPtrs in, FnPtrs out,
+                                                            const int32_t* __restrict__ action,
+                                                            int8_t* __restrict__ obs,
+                                                            float* __restrict__ reward,
+                                                            uint8_t* __restrict__ terminated,
+                                                            int32_t* __restrict__ lines,
+                                                            const uint64_t* __restrict__ masks,
+                                                            const int32_t* __restrict__ ids, int B,
+                                                            FnParams p) {
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ uint64_t bar;
+  int8_t* boards = smem;
+  uint32_t* maps = reinterpret_cast<uint32_t*>(smem + kBoardBytes + kOccBytes + kFlatBytes);
+  const int e0 = blockIdx.x * kStepEnvs, nb = min(kStepEnvs, B - e0), t = threadIdx.x;
+  const uint32_t span = static_cast<uint32_t>(nb * CELLS);
+  if constexpr (kBulk) {
+    if (t == 0) {  // the other threads wait on the barrier after the __syncthreads below
+      bulk::barrier_init(&bar, 1);
+      bulk::arrive_expect(&bar, span);
+      bulk::load(boards, in.board + static_cast<long long>(e0) * CELLS, span, &bar);
+    }
+  } else {
+    block_copy(boards, in.board + static_cast<long long>(e0) * CELLS, span);
+  }
+  const int ge = t / kLanes;
+  const Group g{t % kLanes, (t % 32) / kLanes * kLanes, ((1u << kLanes) - 1) << ((t % 32) / kLanes * kLanes)};
+  const int e = e0 + ge;
+  // the env's fields, read by every lane of its group (one address a group)
+  bool over_in = true;
+  int piece = 0, rot = 0, x = 0, y = 0, qi = 0, a = 0;
+  float score = 0.0f;
+  uint32_t k0 = 0, k1 = 0;
+  int32_t qv[kQueueSlots];  // queue entries lane + 8 i, in flight with the boards
+  if (ge < nb) {
+#pragma unroll
+    for (int i = 0; i < kQueueSlots; ++i) {
+      const int j = g.lane + i * kLanes;
+      qv[i] = j < QS ? in.queue[static_cast<long long>(e) * QS + j] : 0;
+    }
+    over_in = in.game_over[e];
+    piece = in.piece[e];
+    rot = in.rotation[e];
+    x = in.x[e];
+    y = in.y[e];
+    qi = in.queue_index[e];
+    score = in.score[e];
+    k0 = in.rng_key[2 * e];
+    k1 = in.rng_key[2 * e + 1];
+    a = action[e];
+  }
+  __syncthreads();
+  if constexpr (kBulk) bulk::wait(&bar, 0);
+  if (ge < nb) {
+    int8_t* b = boards + ge * CELLS;
+    uint64_t* occ = reinterpret_cast<uint64_t*>(smem + kBoardBytes) + ge * H;
+    uint32_t* flat = reinterpret_cast<uint32_t*>(smem + kBoardBytes + kOccBytes) + ge * (kFlatWords + 2);
     int cur = piece, n = 0;
-    bool over = over_in;
+    bool over = over_in, refill = false;
     float new_score = score;
+    build_occ(g, b, flat, occ);
     if (!over_in) {
-      const int a = action[e];
       uint64_t m = piece_mask(masks, piece, rot);
       // the horizontal move, with the old rotation
       const int dx = a == 0 ? -1 : a == 1 ? 1 : 0;
-      if (dx != 0 && !collides(b, m, x + dx, y)) x += dx;
+      if (dx != 0 && !group_collides(g, occ, m, x + dx, y)) x += dx;
       // down or hard drop, at the new x
       int y_new = y, move = 0;
-      if (a == 2 && !collides(b, m, x, y + 1)) {
-        y_new = y + 1;
-        move = 1;
+      if (a == 2) {
+        if (!group_collides(g, occ, m, x, y + 1)) {
+          y_new = y + 1;
+          move = 1;
+        }
       } else if (a == 6) {
-        const int d = drop_distance(b, m, x, y);
+        const int d = group_drop(g, occ, m, x, y);
         y_new = y + d;
         move = 2 * d;
       }
@@ -350,37 +605,52 @@ __global__ void __launch_bounds__(kThreads) fn_step_kernel(FnPtrs in, FnPtrs out
       const int rd = a == 3 ? -1 : a == 4 ? 1 : 0;
       if (rd != 0) {
         const int rc = ((rot + rd) % 4 + 4) % 4;
-        if (!collides(b, piece_mask(masks, piece, rc), x, y_new)) rot = rc;
+        if (!group_collides(g, occ, piece_mask(masks, piece, rc), x, y_new)) rot = rc;
       }
       m = piece_mask(masks, piece, rot);
       // gravity, with the new rotation; a lock on a blocked fall or a hard drop
       int y_g = y_new;
       bool lock = a == 6;
       if (p.gravity) {
-        if (collides(b, m, x, y_new + 1)) lock = true;
+        if (group_collides(g, occ, m, x, y_new + 1)) lock = true;
         else y_g = y_new + 1;
       }
       int lock_reward = 0;
       if (lock) {
         const int at_id = min(max(piece < 0 ? piece + NP : piece, 0), NP - 1);
-        stamp(b, m, x, y_g, __ldg(ids + at_id));
-        n = clear_lines_compat(b);
+        n = group_lock(g, b, occ, m, x, y_g, __ldg(ids + at_id));
+        build_occ(g, b, flat, occ);  // the board after the clear, for the observation
         lock_reward = score_fn(n);
-        const uint2 next = tf::block(k0, k1, 0u, 0u);
-        int idx = qi;
-        if (qi >= QS) {
-          const uint2 sub = tf::block(k0, k1, 0u, 1u);
-          fresh_queue(sub.x, sub.y, p.uniform != 0, q);
-          idx = 0;
+        // the key and the queue, on the group's first lane
+        refill = qi >= QS;
+        if (!refill) {  // queue entry idx from the lane that holds it
+          const int idx = min(max(qi < 0 ? qi + QS : qi, 0), QS - 1);
+          int32_t v = 0;
+#pragma unroll
+          for (int i = 0; i < kQueueSlots; ++i) v = i == idx / kLanes ? qv[i] : v;
+          cur = __shfl_sync(g.mask, v, idx % kLanes, kLanes);
         }
-        cur = q[min(max(idx < 0 ? idx + QS : idx, 0), QS - 1)];
-        qi = idx + 1;
-        k0 = next.x;
-        k1 = next.y;
+        if (g.lane == 0) {
+          const uint2 next = tf::block(k0, k1, 0u, 0u);
+          if (refill) {
+            const uint2 sub = tf::block(k0, k1, 0u, 1u);
+            int32_t q[QS];
+            fresh_queue(sub.x, sub.y, p.uniform != 0, q);
+#pragma unroll
+            for (int i = 0; i < QS; ++i) out.queue[static_cast<long long>(e) * QS + i] = q[i];
+            cur = q[0];
+          }
+          k0 = next.x;
+          k1 = next.y;
+        }
+        if (refill) cur = __shfl_sync(g.mask, cur, 0, kLanes);
+        k0 = __shfl_sync(g.mask, k0, 0, kLanes);
+        k1 = __shfl_sync(g.mask, k1, 0, kLanes);
+        qi = refill ? 1 : qi + 1;
         rot = 0;
         x = SPAWN_X;
         y = 0;
-        over = collides(b, piece_mask(masks, cur, 0), SPAWN_X, 0);
+        over = group_spawn_hits(g, b, piece_mask(masks, cur, 0));
       } else {
         y = y_g;
         over = false;
@@ -388,25 +658,45 @@ __global__ void __launch_bounds__(kThreads) fn_step_kernel(FnPtrs in, FnPtrs out
       new_score = __fadd_rn(__fadd_rn(score, static_cast<float>(move)),
                             static_cast<float>(lock_reward));
     }
-    out.rng_key[2 * e] = k0;
-    out.rng_key[2 * e + 1] = k1;
-    out.piece[e] = cur;
-    out.rotation[e] = rot;
-    out.x[e] = x;
-    out.y[e] = y;
+    if (!refill) {
 #pragma unroll
-    for (int i = 0; i < QS; ++i) out.queue[static_cast<long long>(e) * QS + i] = q[i];
-    out.queue_index[e] = qi;
-    out.game_over[e] = over;
-    out.score[e] = new_score;
-    reward[e] = __fsub_rn(new_score, score);
-    terminated[e] = over;
-    lines[e] = n;
-    act[t] = active(masks, cur, rot, x, y, over);
+      for (int i = 0; i < kQueueSlots; ++i) {
+        const int j = g.lane + i * kLanes;
+        if (j < QS) out.queue[static_cast<long long>(e) * QS + j] = qv[i];
+      }
+    }
+    if (g.lane == 0) {
+      out.rng_key[2 * e] = k0;
+      out.rng_key[2 * e + 1] = k1;
+      out.piece[e] = cur;
+      out.rotation[e] = rot;
+      out.x[e] = x;
+      out.y[e] = y;
+      out.queue_index[e] = qi;
+      out.game_over[e] = over;
+      out.score[e] = new_score;
+      reward[e] = __fsub_rn(new_score, score);
+      terminated[e] = over;
+      lines[e] = n;
+    }
+    group_obs_maps(g, maps + ge * 2 * kObsWords, occ, over ? 0ull : piece_mask(masks, cur, rot),
+                   clamp_start(x, PW - S, PW), clamp_start(y, H - S, H));
   }
+  if constexpr (kBulk) bulk::fence_shared();
   __syncthreads();
-  block_copy(out.board + static_cast<long long>(e0) * CELLS, boards, nb * CELLS);
-  write_obs(obs + static_cast<long long>(e0) * OBS, boards, act, nb);
+  int8_t* board_out = out.board + static_cast<long long>(e0) * CELLS;
+  if constexpr (kBulk) {
+    if (t == 0) {
+      bulk::store(board_out, boards, span);
+      bulk::commit();
+    }
+  } else {
+    block_copy(board_out, boards, span);
+  }
+  write_obs_maps(obs + static_cast<long long>(e0) * OBS, maps, nb);
+  if constexpr (kBulk) {
+    if (t == 0) bulk::wait_read();
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) fn_reset_kernel(const uint32_t* __restrict__ keys,
@@ -468,16 +758,44 @@ __global__ void __launch_bounds__(kThreads) fn_observe_kernel(
 
 int blocks_for(int B) { return (B + kEnvs - 1) / kEnvs; }
 
+// The step's two builds: params->bulk picks the bulk copies of the boards
+// (kernels.py:fn_step_build).  Shared memory past 48 KB is opted into once.
+template <bool kBulk>
+int launch_step(const FnPtrs* in, const FnPtrs* out, const void* action, void* obs, void* reward,
+                void* terminated, void* lines, const void* masks, const void* ids, int B,
+                const FnParams* params, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      fn_step_kernel<kBulk>, cudaFuncAttributeMaxDynamicSharedMemorySize, kStepSmem);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  fn_step_kernel<kBulk><<<(B + kStepEnvs - 1) / kStepEnvs, kStepThreads, kStepSmem, stream>>>(
+      *in, *out, static_cast<const int32_t*>(action), static_cast<int8_t*>(obs),
+      static_cast<float*>(reward), static_cast<uint8_t*>(terminated), static_cast<int32_t*>(lines),
+      static_cast<const uint64_t*>(masks), static_cast<const int32_t*>(ids), B, *params);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int fn_step_launch(const FnPtrs* in, const FnPtrs* out, const void* action, void* obs,
                               void* reward, void* terminated, void* lines, const void* masks,
                               const void* ids, int B, const FnParams* params, void* stream) {
-  fn_step_kernel<<<blocks_for(B), kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      *in, *out, static_cast<const int32_t*>(action), static_cast<int8_t*>(obs),
-      static_cast<float*>(reward), static_cast<uint8_t*>(terminated), static_cast<int32_t*>(lines),
-      static_cast<const uint64_t*>(masks), static_cast<const int32_t*>(ids), B, *params);
-  return static_cast<int>(cudaGetLastError());
+  auto* launch = params->bulk ? launch_step<true> : launch_step<false>;
+  return launch(in, out, action, obs, reward, terminated, lines, masks, ids, B, params,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the step's build an SM can hold (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// and its envs a block, threads a block and dynamic shared memory.
+extern "C" int fn_step_occupancy(int bulk, int* blocks, int* envs, int* threads, int* smem) {
+  *envs = kStepEnvs;
+  *threads = kStepThreads;
+  *smem = kStepSmem;
+  const void* kernel = bulk ? reinterpret_cast<const void*>(fn_step_kernel<true>)
+                            : reinterpret_cast<const void*>(fn_step_kernel<false>);
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStepSmem);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kStepThreads, kStepSmem);
+  return static_cast<int>(rc);
 }
 
 extern "C" int fn_reset_launch(const void* keys, void* keys_out, const FnPtrs* out, void* obs,

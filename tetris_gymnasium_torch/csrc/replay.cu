@@ -28,12 +28,29 @@
 // field comes back as K-frame windows [n, K, ...], rebuilt from the single
 // frames the buffer stores (the same env's previous frame is batch entries
 // earlier).  The host folds the (K - 1) * batch entries that sampling skips
-// into start.  For an anchor a (the entry and its successor), the thread of
-// that anchor reads the done flags of transitions a - j * batch, j = 1 ..
-// K - 1; the lookback depth m is the number of them before the first set
-// flag; frame j (newest first) is entry (a - min(j, m) * batch) mod
-// capacity, written oldest first.  So a window never crosses into a previous
-// episode: its deeper frames repeat the episode's first one.
+// into start.  For an anchor a (the entry and its successor), the lookback
+// depth m is the number of the done flags of transitions a - j * batch, j =
+// 1 .. K - 1, before the first set one; frame j (newest first) is entry (a
+// - min(j, m) * batch) mod capacity, written oldest first.  So a window
+// never crosses into a previous episode: its deeper frames repeat the
+// episode's first one.  A warp takes a sample (stage_map below): it loads
+// the K flags that both windows read at once, a lane each, and takes both
+// depths from one ballot; the two windows use at most K + 1 distinct
+// entries.  Two builds, picked by kernels.py:replay_stacked_build:
+//   bulk (an obs row of a multiple of 16 bytes on 16-byte boundaries, K + 1
+//     rows within 200 KB, the pixel DQN's 7056-byte frames): a block of one
+//     warp; lane 0 stages the <= K + 1 distinct frames in shared memory
+//     with one cp.async.bulk each on one mbarrier, then writes the 2K
+//     output frames with bulk stores, while the other lanes copy the other
+//     fields.  The first design (a block of 256 threads on 4 samples, one
+//     16-byte word a thread an iteration, a 64-bit / and % each, the store
+//     waiting on its load) held ~4 KB in flight an SM: 29% of the bound at
+//     n = 512.  Here each sample's K + 1 frames (35 KB at K = 4) are in
+//     flight at once and no division runs in a per-word loop;
+//   words (any other row, the board DQN's 200-byte int8 frames): a warp a
+//     sample, 4 samples a block, each output frame copied in the field's
+//     words straight from the store, four frames' loads in flight before
+//     their stores.
 //
 // Bound on this card: bytes, and at the DQN's shapes launch latency.  add
 // moves B entries in and out (2 * 2,249 bytes an env for the grouped
@@ -48,6 +65,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
 #include "threefry.cuh"
 
 constexpr int kMaxFields = 8;
@@ -83,6 +101,7 @@ struct StackParams {
   const bool* done;  // the done store, bool[capacity]
   int obs_field;     // index of the field gathered as windows
   int k;             // frames a window, 1 .. kMaxStack
+  int bulk;          // the bulk build: the obs field's frames staged by cp.async.bulk
 };
 
 namespace {
@@ -126,26 +145,38 @@ __global__ void __launch_bounds__(kThreads) replay_add_kernel(ReplayFields field
 
 template <typename T>
 __device__ __forceinline__ void gather_rows(const ReplayField& f, const long long* rows,
-                                            long long first, int n_rows, int per, int n) {
-  // rows[(h * kSamplesPerBlock + s) * per + p] is row p of sample first + s
-  // in out_cur (h = 0) or out_nxt (h = 1); a sample has per rows
+                                            long long first, int n_rows, int n) {
+  // rows[h * kSamplesPerBlock + s] is the row of sample first + s in out_cur
+  // (h = 0) or out_nxt (h = 1)
   const long long wpr = f.row_bytes / static_cast<long long>(sizeof(T));
   const T* store = static_cast<const T*>(f.store);
   for (long long i = threadIdx.x; i < n_rows * wpr; i += blockDim.x) {
     const int r = static_cast<int>(i / wpr);
     const long long w = i % wpr;
-    const int s = (r / per) % kSamplesPerBlock;
+    const int s = r % kSamplesPerBlock;
     if (first + s >= n) continue;
-    T* out = static_cast<T*>(r < kSamplesPerBlock * per ? f.out_cur : f.out_nxt);
-    out[((first + s) * per + r % per) * wpr + w] = store[rows[r] * wpr + w];
+    T* out = static_cast<T*>(r < kSamplesPerBlock ? f.out_cur : f.out_nxt);
+    out[(first + s) * wpr + w] = store[rows[r] * wpr + w];
   }
 }
 
 __device__ __forceinline__ void gather_field(const ReplayField& f, const long long* rows,
-                                             long long first, int n_rows, int per, int n) {
-  if (f.word == 16) gather_rows<uint4>(f, rows, first, n_rows, per, n);
-  else if (f.word == 4) gather_rows<uint32_t>(f, rows, first, n_rows, per, n);
-  else gather_rows<uint8_t>(f, rows, first, n_rows, per, n);
+                                             long long first, int n_rows, int n) {
+  if (f.word == 16) gather_rows<uint4>(f, rows, first, n_rows, n);
+  else if (f.word == 4) gather_rows<uint32_t>(f, rows, first, n_rows, n);
+  else gather_rows<uint8_t>(f, rows, first, n_rows, n);
+}
+
+// Sample s's entry: JAX's randint draw at counter s (the host splits the
+// key), (start + off) mod capacity; off goes to offsets[s] unless null.
+__device__ __forceinline__ long long draw_anchor(const SampleParams& p, long long s,
+                                                 int32_t* offsets) {
+  const uint32_t c = static_cast<uint32_t>(s);
+  const uint32_t hi = tf::bits(p.hi_k0, p.hi_k1, 0u, c);
+  const uint32_t lo = tf::bits(p.lo_k0, p.lo_k1, 0u, c);
+  const uint32_t off = ((hi % p.span) * p.multiplier + lo % p.span) % p.span;  // wraps as uint32
+  if (offsets != nullptr) offsets[s] = static_cast<int32_t>(off);
+  return (p.start + off) % p.capacity;
 }
 
 // rows[s] = idx and rows[kSamplesPerBlock + s] = its successor for the
@@ -154,15 +185,7 @@ __device__ __forceinline__ void draw_rows(const SampleParams& p, long long first
                                           int32_t* offsets, long long* rows) {
   if (threadIdx.x < kSamplesPerBlock) {
     const long long s = first + threadIdx.x;
-    long long idx = 0;
-    if (s < p.n) {
-      const uint32_t c = static_cast<uint32_t>(s);
-      const uint32_t hi = tf::bits(p.hi_k0, p.hi_k1, 0u, c);
-      const uint32_t lo = tf::bits(p.lo_k0, p.lo_k1, 0u, c);
-      const uint32_t off = ((hi % p.span) * p.multiplier + lo % p.span) % p.span;  // wraps as uint32
-      if (offsets != nullptr) offsets[s] = static_cast<int32_t>(off);
-      idx = (p.start + off) % p.capacity;
-    }
+    const long long idx = s < p.n ? draw_anchor(p, s, offsets) : 0;
     rows[threadIdx.x] = idx;
     rows[kSamplesPerBlock + threadIdx.x] = (idx + p.batch) % p.capacity;
   }
@@ -176,42 +199,165 @@ __global__ void __launch_bounds__(kThreads) replay_sample_kernel(ReplayFields fi
   draw_rows(p, first, offsets, rows);
   __syncthreads();
   const int n_rows = p.batch > 0 ? 2 * kSamplesPerBlock : kSamplesPerBlock;
-  for (int j = 0; j < fields.n; ++j) gather_field(fields.f[j], rows, first, n_rows, 1, p.n);
+  for (int j = 0; j < fields.n; ++j) gather_field(fields.f[j], rows, first, n_rows, p.n);
 }
 
-__global__ void __launch_bounds__(kThreads) replay_sample_stacked_kernel(
-    ReplayFields fields, SampleParams p, StackParams st, int32_t* __restrict__ offsets) {
-  __shared__ long long rows[2 * kSamplesPerBlock];
-  __shared__ long long frames[2 * kSamplesPerBlock * kMaxStack];
-  const long long first = static_cast<long long>(blockIdx.x) * kSamplesPerBlock;
-  draw_rows(p, first, offsets, rows);
-  __syncthreads();
-  if (threadIdx.x < 2 * kSamplesPerBlock) {
-    // one thread per anchor: the sample's entry or its successor
-    const long long anchor = rows[threadIdx.x];
-    int m = st.k - 1;
-    for (int j = 1; j < st.k; ++j) {
-      long long d = (anchor - j * p.batch) % p.capacity;
-      d += d < 0 ? p.capacity : 0;
-      if (st.done[d]) {
-        m = j - 1;
-        break;
-      }
-    }
-    long long* out = frames + threadIdx.x * st.k;
-    for (int j = 0; j < st.k; ++j) {
-      long long e = (anchor - (j < m ? j : m) * p.batch) % p.capacity;
-      e += e < 0 ? p.capacity : 0;
-      out[st.k - 1 - j] = e;  // newest first -> oldest first
-    }
+// ---------------------------------------------------------------------------
+// replay_sample_stacked: a warp a sample
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsWords = 4;  // the words build: samples (warps) a block
+constexpr int kMaxStage = 200 * 1024;  // the bulk build: shared memory for a sample's K + 1 frames
+
+// Entry a - i * batch of the ring for -1 <= i < K (the caller checks
+// capacity >= (K + 1) * batch, so one correction suffices).
+__device__ __forceinline__ long long back(long long a, int i, const SampleParams& p) {
+  long long e = a - i * p.batch;
+  if (e < 0) e += p.capacity;
+  if (e >= p.capacity) e -= p.capacity;
+  return e;
+}
+
+// The staging map of one sample whose entry is a.  Entry i of the map is
+// E_i = a - i * batch; the successor's anchor is E_{-1}.  The warp loads the
+// K done flags f_i = done[E_i], i = 0 .. K - 1, a lane each, and a ballot
+// gives both windows' lookback depths: the entry's window looks at f_1 ..
+// f_{K-1} (depth mc, the flags before the first set one), the successor's
+// at f_0 .. f_{K-2} (depth mn).  Slot 0 holds E_{-1}, slot 1 + i holds E_i
+// for i <= max(mc, mn - 1): at most K + 1 distinct entries.  Frame j
+// (newest first) of the entry's window is slot 1 + min(j, mc), of the
+// successor's slot min(j, mn).
+struct StageMap {
+  long long a;   // the entry
+  int mc, mn;    // lookback depths of the entry's and the successor's windows
+  int slots;     // entries staged: 2 + max(mc, mn - 1)
+};
+
+__device__ __forceinline__ StageMap stage_map(const SampleParams& p, const StackParams& st,
+                                              long long s, int32_t* offsets) {
+  const int lane = threadIdx.x % 32;
+  long long a = 0;
+  if (lane == 0) a = draw_anchor(p, s, offsets);
+  a = __shfl_sync(0xffffffffu, a, 0);
+  const bool f = lane < st.k && st.done[back(a, lane, p)];
+  const unsigned flags = __ballot_sync(0xffffffffu, f);
+  const unsigned low = (1u << (st.k - 1)) - 1u;  // K - 1 flags
+  const unsigned cur = (flags >> 1) & low, nxt = flags & low;
+  StageMap m;
+  m.a = a;
+  m.mc = cur ? __ffs(cur) - 1 : st.k - 1;
+  m.mn = nxt ? __ffs(nxt) - 1 : st.k - 1;
+  m.slots = 2 + max(m.mc, m.mn - 1);
+  return m;
+}
+
+// The other fields' entry and successor rows, a lane a word.
+template <typename T>
+__device__ __forceinline__ void copy_pair(const ReplayField& f, long long s, long long a,
+                                          long long a_next) {
+  const int lane = threadIdx.x % 32;
+  const long long wpr = f.row_bytes / static_cast<long long>(sizeof(T));
+  const T* store = static_cast<const T*>(f.store);
+  T* cur = static_cast<T*>(f.out_cur) + s * wpr;
+  T* nxt = static_cast<T*>(f.out_nxt) + s * wpr;
+  for (long long w = lane; w < wpr; w += 32) {
+    cur[w] = store[a * wpr + w];
+    nxt[w] = store[a_next * wpr + w];
   }
-  __syncthreads();
+}
+
+__device__ __forceinline__ void copy_other_fields(const ReplayFields& fields, int obs_field,
+                                                  long long s, long long a, long long a_next) {
   for (int j = 0; j < fields.n; ++j) {
-    if (j == st.obs_field)
-      gather_field(fields.f[j], frames, first, 2 * kSamplesPerBlock * st.k, st.k, p.n);
-    else
-      gather_field(fields.f[j], rows, first, 2 * kSamplesPerBlock, 1, p.n);
+    if (j == obs_field) continue;
+    const ReplayField& f = fields.f[j];
+    if (f.word == 16) copy_pair<uint4>(f, s, a, a_next);
+    else if (f.word == 4) copy_pair<uint32_t>(f, s, a, a_next);
+    else copy_pair<uint8_t>(f, s, a, a_next);
   }
+}
+
+// The bulk build (an obs row of a multiple of 16 bytes on 16-byte
+// boundaries): one block, one warp, a sample.  Lane 0 stages the <= K + 1
+// distinct frames with one cp.async.bulk each, completing on one mbarrier,
+// then writes the 2K output frames from shared memory with bulk stores
+// while the other lanes copy the other fields.
+__global__ void __launch_bounds__(32) replay_sample_stacked_bulk_kernel(
+    ReplayFields fields, SampleParams p, StackParams st, int32_t* __restrict__ offsets) {
+  extern __shared__ __align__(16) uint8_t stage[];
+  __shared__ uint64_t bar;
+  const long long s = blockIdx.x;
+  const int lane = threadIdx.x;
+  if (lane == 0) bulk::barrier_init(&bar, 1);
+  __syncwarp();
+  const StageMap m = stage_map(p, st, s, offsets);
+  const ReplayField& f = fields.f[st.obs_field];
+  const uint32_t row = static_cast<uint32_t>(f.row_bytes);
+  const uint8_t* store = static_cast<const uint8_t*>(f.store);
+  if (lane == 0) {
+    bulk::arrive_expect(&bar, m.slots * row);
+    for (int i = 0; i < m.slots; ++i)
+      bulk::load(stage + i * row, store + back(m.a, i - 1, p) * f.row_bytes, row, &bar);
+  }
+  const long long a_next = back(m.a, -1, p);
+  copy_other_fields(fields, st.obs_field, s, m.a, a_next);
+  bulk::wait(&bar, 0);
+  if (lane == 0) {
+    uint8_t* cur = static_cast<uint8_t*>(f.out_cur) + s * st.k * f.row_bytes;
+    uint8_t* nxt = static_cast<uint8_t*>(f.out_nxt) + s * st.k * f.row_bytes;
+    for (int j = 0; j < st.k; ++j) {  // frame j, newest first, at position K - 1 - j
+      const long long at = static_cast<long long>(st.k - 1 - j) * f.row_bytes;
+      bulk::store(cur + at, stage + (1 + min(j, m.mc)) * row, row);
+      bulk::store(nxt + at, stage + min(j, m.mn) * row, row);
+    }
+    bulk::commit();
+    bulk::wait_read();
+  }
+}
+
+// The words build (any other obs row, e.g. the board DQN's 200-byte int8
+// frames): a warp a sample, kWarpsWords samples a block; the warp copies the
+// 2K output frames from the store in the obs field's words, four frames'
+// loads in flight before their stores.
+template <typename T>
+__device__ __forceinline__ void copy_windows(const ReplayField& f, const StackParams& st,
+                                             const SampleParams& p, const StageMap& m, long long s) {
+  const int lane = threadIdx.x % 32;
+  const long long wpr = f.row_bytes / static_cast<long long>(sizeof(T));
+  const T* store = static_cast<const T*>(f.store);
+  T* outs[2] = {static_cast<T*>(f.out_cur) + s * st.k * wpr, static_cast<T*>(f.out_nxt) + s * st.k * wpr};
+  const int frames = 2 * st.k;  // frame q: window q / K's frame j = q % K, newest first
+  for (int q0 = 0; q0 < frames; q0 += 4) {
+    const T* src[4];
+    T* dst[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int q = min(q0 + u, frames - 1), h = q >= st.k, j = q - h * st.k;
+      const int slot = h ? min(j, m.mn) : 1 + min(j, m.mc);
+      src[u] = store + back(m.a, slot - 1, p) * wpr;
+      dst[u] = outs[h] + (st.k - 1 - j) * wpr;
+    }
+    for (long long w = lane; w < wpr; w += 32) {
+      T v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = src[u][w];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (q0 + u < frames) dst[u][w] = v[u];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWarpsWords) replay_sample_stacked_words_kernel(
+    ReplayFields fields, SampleParams p, StackParams st, int32_t* __restrict__ offsets) {
+  const long long s = static_cast<long long>(blockIdx.x) * kWarpsWords + threadIdx.x / 32;
+  if (s >= p.n) return;  // a whole warp: the shuffles below see every lane
+  const StageMap m = stage_map(p, st, s, offsets);
+  const ReplayField& f = fields.f[st.obs_field];
+  if (f.word == 16) copy_windows<uint4>(f, st, p, m, s);
+  else if (f.word == 4) copy_windows<uint32_t>(f, st, p, m, s);
+  else copy_windows<uint8_t>(f, st, p, m, s);
+  copy_other_fields(fields, st.obs_field, s, m.a, back(m.a, -1, p));
 }
 
 }  // namespace
@@ -243,13 +389,25 @@ extern "C" int replay_sample_launch(const ReplayFields* fields, const SamplePara
 
 // n samples of every field and their successors, the obs_field gathered as
 // K-frame windows; offsets: int32[n] (the randint draws) or null.
+// stack->bulk picks the bulk build (kernels.py:replay_stacked_build).
 extern "C" int replay_sample_stacked_launch(const ReplayFields* fields,
                                             const SampleParams* params,
                                             const StackParams* stack, void* offsets,
                                             void* stream) {
   if (stack->k < 1 || stack->k > kMaxStack) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (params->n + kSamplesPerBlock - 1) / kSamplesPerBlock;
-  replay_sample_stacked_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *fields, *params, *stack, static_cast<int32_t*>(offsets));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stack->bulk) {
+    const long long smem = (stack->k + 1) * fields->f[stack->obs_field].row_bytes;
+    if (smem > kMaxStage) return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        replay_sample_stacked_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStage);
+    if (opted != cudaSuccess) return static_cast<int>(opted);
+    replay_sample_stacked_bulk_kernel<<<params->n, 32, static_cast<size_t>(smem), s>>>(
+        *fields, *params, *stack, static_cast<int32_t*>(offsets));
+  } else {
+    const int blocks = (params->n + kWarpsWords - 1) / kWarpsWords;
+    replay_sample_stacked_words_kernel<<<blocks, 32 * kWarpsWords, 0, s>>>(
+        *fields, *params, *stack, static_cast<int32_t*>(offsets));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,17 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-Sources live in ``csrc/``; each is compiled on first use by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface under
-``build/torch_kernels/`` (gitignored), named by the hash of its source, its
-headers, its flags and its defines, and loaded with ``ctypes``.  Every
+Sources live in ``csrc/`` (shipped in the wheel as package data); each is
+compiled on first use by ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface, named by the hash of its source, its headers, its flags
+and its defines, and loaded with ``ctypes``.  The libraries go to
+``BUILD_DIR`` (:func:`build_dir`): ``build/torch_kernels/`` beside the
+package in a source tree (the directory that holds ``pyproject.toml``;
+gitignored), else the per-user cache
+``$XDG_CACHE_HOME/tetris_gymnasium_torch/kernels`` (``~/.cache/...`` without
+``XDG_CACHE_HOME``), so that an installed package never writes into
+``site-packages``.  The environment variable
+``TETRIS_GYMNASIUM_TORCH_BUILD_DIR`` overrides both.  Only the sources in
+the package's own ``csrc/`` are ever built.  Every
 source that reads an engine state or a board is built once for each
 geometry it is called at (``GEOMETRY_SOURCES``): :func:`engine_defines`
 turns a config into the ``TETRIS_*`` defines of
@@ -38,8 +46,11 @@ Kernels, with the JAX function each replaces:
   ``rl/evaluate.py:greedy_masked_q :141``;
 * ``replay_add`` and ``replay_sample`` (``csrc/replay.cu``):
   ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``;
-* ``replay_sample_stacked`` (``csrc/replay.cu``):
-  ``rl/buffers.py:sample_with_next_stacked :111``;
+* ``replay_sample_stacked`` (``csrc/replay.cu`` with ``csrc/bulk.cuh``):
+  ``rl/buffers.py:sample_with_next_stacked :111``, a warp a sample, in two
+  builds (:func:`replay_stacked_build`): the sample's <= K + 1 distinct
+  frames staged in shared memory by bulk asynchronous copies, or word
+  copies for frames that are not whole 16-byte words;
 * ``framestack_push`` (``csrc/framestack.cu``): ``ops/framestack.py:push :37``;
 * ``dqn_act`` (``csrc/dqn_act.cu``): the epsilon-greedy of
   ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``;
@@ -65,13 +76,17 @@ Kernels, with the JAX function each replaces:
   compat engine's ``core/fn_env.py:reset :210``, ``step :189`` (with
   ``_update :124``, ``_lock_piece :80``, ``ops/board.py:clear_lines_compat
   :203`` and the queues of ``ops/queue.py``) and ``observe :64``, built for
-  each geometry (:func:`fn_defines`);
+  each geometry (:func:`fn_defines`); the step a group of 8 lanes an env
+  over bit rows of occupancy, its boards staged by bulk asynchronous copies
+  or word copies (:func:`fn_step_build`);
 * ``grayscale_u8_exact`` (``csrc/gray_exact.cu``):
   ``ops/image.py:grayscale_u8_exact :176`` with ``_gray_tables :125``.
 
-``csrc/threefry.cuh`` holds JAX's threefry blocks and random bits for
-``ppo_sample``, ``turbo_step``'s sample, ``grouped_act``, ``replay_sample``,
-``replay_sample_stacked``, ``dqn_act`` and the ``fn_*`` kernels;
+``csrc/bulk.cuh`` holds the bulk-copy and mbarrier helpers of ``fn_step``
+and ``replay_sample_stacked``; ``csrc/threefry.cuh`` JAX's threefry blocks
+and random bits for ``ppo_sample``, ``turbo_step``'s sample,
+``grouped_act``, ``replay_sample``, ``replay_sample_stacked``, ``dqn_act``
+and the ``fn_*`` kernels;
 ``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
 ``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``, and
 ``csrc/turbo_band.cuh`` the band helpers of the lanes builds of
@@ -124,7 +139,25 @@ from tetris_gymnasium_torch.ops import bitboard_wide as bbw
 from tetris_gymnasium_torch.pieces import PieceSet
 
 PACKAGE_DIR = Path(__file__).resolve().parent
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+BUILD_DIR_ENV = "TETRIS_GYMNASIUM_TORCH_BUILD_DIR"
+
+
+def build_dir() -> Path:
+    """Where the kernels' libraries go: ``$TETRIS_GYMNASIUM_TORCH_BUILD_DIR``
+    if set; ``build/torch_kernels/`` of the source tree when the package
+    lies in one (its parent holds ``pyproject.toml``); else the per-user
+    cache ``$XDG_CACHE_HOME/tetris_gymnasium_torch/kernels``, ``XDG_CACHE_HOME``
+    defaulting to ``~/.cache``."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    if override:
+        return Path(override).expanduser().resolve()
+    if (PACKAGE_DIR.parent / "pyproject.toml").is_file():
+        return PACKAGE_DIR.parent / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache).expanduser().resolve() / "tetris_gymnasium_torch" / "kernels"
+
+
+BUILD_DIR = build_dir()
 SOURCES = {
     "turbo_step": PACKAGE_DIR / "csrc" / "turbo_step.cu",
     "observe_board": PACKAGE_DIR / "csrc" / "observe_board.cu",
@@ -364,7 +397,8 @@ class _SampleParams(ctypes.Structure):
 
 
 class _StackParams(ctypes.Structure):
-    _fields_ = [("done", ctypes.c_void_p), ("obs_field", ctypes.c_int), ("k", ctypes.c_int)]
+    _fields_ = [("done", ctypes.c_void_p), ("obs_field", ctypes.c_int), ("k", ctypes.c_int),
+                ("bulk", ctypes.c_int)]
 
 
 class _DqnActParams(ctypes.Structure):
@@ -404,7 +438,7 @@ class _FnPtrs(ctypes.Structure):
 
 
 class _FnParams(ctypes.Structure):
-    _fields_ = [("gravity", ctypes.c_int), ("uniform", ctypes.c_int)]
+    _fields_ = [("gravity", ctypes.c_int), ("uniform", ctypes.c_int), ("bulk", ctypes.c_int)]
 
 
 _P = ctypes.c_void_p
@@ -475,6 +509,7 @@ _ENTRY_POINTS = {
     "fn_env": {
         "fn_step_launch": [ctypes.POINTER(_FnPtrs), ctypes.POINTER(_FnPtrs), _P, _P, _P, _P, _P,
                            _P, _P, _I, ctypes.POINTER(_FnParams), _P],
+        "fn_step_occupancy": [_I, _P, _P, _P, _P],
         "fn_reset_launch": [_P, _P, ctypes.POINTER(_FnPtrs), _P, _P, _I, _I, _P],
         "fn_observe_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
@@ -1197,9 +1232,29 @@ def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: i
     return out
 
 
+# The builds of replay_sample_stacked: the bulk build stages a sample's
+# <= K + 1 distinct frames in shared memory with bulk asynchronous copies
+# (frames of a multiple of 16 bytes on 16-byte boundaries, K + 1 of them in
+# 200 KB), the words build copies each output frame in the field's words.
+REPLAY_STACKED_BUILDS = ("bulk", "words")
+_MAX_STAGE_BYTES = 200 * 1024  # csrc/replay.cu:kMaxStage
+
+
+def replay_stacked_build(row_bytes: int, k: int, *tensors: torch.Tensor) -> str:
+    """The build of ``replay_sample_stacked`` that the wrapper takes for an
+    obs entry of ``row_bytes`` bytes, ``k``-frame windows and the obs
+    field's store and outputs: ``"bulk"`` where ``row_bytes`` is a multiple
+    of 16, every tensor starts on 16 bytes and ``k + 1`` frames fit the
+    stage, else ``"words"``."""
+    if row_bytes % 16 == 0 and (k + 1) * row_bytes <= _MAX_STAGE_BYTES \
+            and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "bulk"
+    return "words"
+
+
 def replay_sample_stacked(data: dict, key, n: int, maxval: int, start: int, batch: int, k: int,
                           obs_key: str = "obs", done_key: str = "done",
-                          return_offsets: bool = False):
+                          return_offsets: bool = False, build: str = None):
     """Launch ``replay_sample_stacked``: ``n`` entries and their successors,
     the ``obs_key`` field rebuilt as ``k``-frame windows, drawn on the card.
 
@@ -1209,8 +1264,12 @@ def replay_sample_stacked(data: dict, key, n: int, maxval: int, start: int, batc
     entries a frame and stops at the first ``done`` (``done_key``, a bool
     store), repeating the episode's first frame from there; it comes oldest
     first, ``[n, k, ...]``.  Returns ``(cur, nxt)`` dicts, and the offsets
-    ``int32[n]`` third with ``return_offsets``.
+    ``int32[n]`` third with ``return_offsets``.  ``build`` (one of
+    ``REPLAY_STACKED_BUILDS``) overrides :func:`replay_stacked_build`'s
+    choice; ``"bulk"`` raises where the frames do not allow it.
     """
+    if build is not None and build not in REPLAY_STACKED_BUILDS:
+        raise ValueError(f"build must be one of {REPLAY_STACKED_BUILDS}, got {build!r}")
     capacity = next(iter(data.values())).shape[0]
     if not 1 <= k <= _MAX_STACK:
         raise NotImplementedError(f"replay_sample_stacked takes 1 <= k <= {_MAX_STACK}, got {k}")
@@ -1227,7 +1286,16 @@ def replay_sample_stacked(data: dict, key, n: int, maxval: int, start: int, batc
         window=(obs_key, k))
     if n == 0:
         return out
-    stack = _StackParams(done.data_ptr(), names.index(obs_key), int(k))
+    obs_store = data[obs_key]
+    cur, nxt = out[0], out[1]
+    row_bytes = obs_store[0].numel() * obs_store.element_size()
+    fits = replay_stacked_build(row_bytes, k, obs_store, cur[obs_key], nxt[obs_key])
+    if build == "bulk" and fits != "bulk":
+        raise ValueError(f"replay_sample_stacked's bulk build needs frames of a multiple of 16 bytes "
+                         f"on 16-byte boundaries, K + 1 of them in {_MAX_STAGE_BYTES} bytes; got "
+                         f"{row_bytes} bytes, k {k}")
+    build = fits if build is None else build
+    stack = _StackParams(done.data_ptr(), names.index(obs_key), int(k), int(build == "bulk"))
     _check(_lib("replay").replay_sample_stacked_launch(fields, params, ctypes.byref(stack), offsets,
                                                        stream), "replay_sample_stacked")
     LAUNCHES["replay_sample_stacked"] += 1
@@ -1690,6 +1758,7 @@ def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: to
 # ---------------------------------------------------------------------------
 
 MAX_FN_BOARD_CELLS = 3056  # csrc/fn_env.cu: 16 boards and their windows in 48 KB of shared memory
+MAX_FN_PADDED_SIDE = 64  # csrc/fn_env.cu: fn_step's bit rows and maps of window starts are 64-bit words
 MAX_FN_QUEUE = 32  # csrc/fn_env.cu: the queue lives in registers
 _FN_DTYPES = {"rng_key": torch.uint32, "board": torch.int8, "game_over": torch.bool,
               "score": torch.float32}
@@ -1700,7 +1769,8 @@ def fn_defines(config: EnvConfig, pieces: PieceSet) -> tuple:
     and ``pieces``, or ``NotImplementedError`` naming the static limit
     passed: a padding of at least 1 (JAX's crop of padding 0 is empty), a
     padded board of at most 3056 cells (16 boards of a block in 48 KB of
-    shared memory), a piece box side of at most 8 inside the padded board
+    shared memory) and at most 64 rows and 64 columns (``fn_step``'s bit
+    rows are 64-bit words), a piece box side of at most 8 inside the padded board
     (a matrix is one 64-bit mask), binary piece matrices, and a queue of 1
     to 32 that is no longer than the piece set (the bag draws ``arange(
     queue_size)`` as piece indices)."""
@@ -1713,6 +1783,8 @@ def fn_defines(config: EnvConfig, pieces: PieceSet) -> tuple:
          "non-empty playfield are built (JAX's crop of padding 0 is empty)"),
         (H * PW <= MAX_FN_BOARD_CELLS, f"padded board of {H * PW} cells > {MAX_FN_BOARD_CELLS}: a "
                                        "block keeps 16 boards in 48 KB of shared memory"),
+        (max(H, PW) <= MAX_FN_PADDED_SIDE, f"padded board {H}x{PW}: at most {MAX_FN_PADDED_SIDE} "
+                                           "rows and columns (fn_step's bit rows are 64-bit words)"),
         (S <= 8 and S <= min(H, PW), f"piece box side {S}: at most 8 (a 64-bit mask) and inside the "
                                      f"padded board {H}x{PW}"),
         (bool(np.isin(mats, (0, 1)).all()), "piece matrices must be binary"),
@@ -1756,10 +1828,48 @@ def _queue_uniform(queue_kind: str) -> int:
     return int(queue_kind == "uniform")
 
 
-def fn_step(state, action: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind: str = "bag"):
+# The builds of fn_step: the block's boards staged by bulk asynchronous
+# copies (cp.async.bulk) where a board's bytes are a multiple of 16 and both
+# board tensors start on 16 bytes, else by the block's 16-byte or byte words.
+FN_STEP_BUILDS = ("bulk", "words")
+
+
+def fn_step_build(config: EnvConfig, *boards: torch.Tensor) -> str:
+    """The build of ``fn_step`` that the wrapper takes for ``config`` and its
+    input and output boards: ``"bulk"`` where a padded board's bytes are a
+    multiple of 16 (so every block's span is) and every board starts on 16
+    bytes, else ``"words"``."""
+    cells = config.padded_height * config.padded_width
+    if cells % 16 == 0 and all(b.data_ptr() % 16 == 0 for b in boards):
+        return "bulk"
+    return "words"
+
+
+def fn_step_occupancy(config: EnvConfig, pieces: PieceSet, build: str = "bulk") -> dict:
+    """Blocks an SM holds of ``fn_step``'s ``build`` at ``config``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), with its envs and
+    threads a block and dynamic shared memory; needs a card."""
+    if build not in FN_STEP_BUILDS:
+        raise ValueError(f"build must be one of {FN_STEP_BUILDS}, got {build!r}")
+    vals = [ctypes.c_int() for _ in range(4)]
+    rc = _lib("fn_env", fn_defines(config, pieces)).fn_step_occupancy(
+        int(build == "bulk"), *(ctypes.addressof(v) for v in vals))
+    _check(rc, "fn_step_occupancy")
+    blocks, envs, threads, smem = (v.value for v in vals)
+    return {"build": build, "blocks_per_sm": blocks, "envs_per_block": envs,
+            "threads_per_block": threads, "dynamic_smem_bytes": smem,
+            "threads_per_sm": blocks * threads}
+
+
+def fn_step(state, action: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind: str = "bag",
+            build: str = None):
     """Launch ``fn_step``: ``(new_state, obs int8[B, height, width], reward
     f32[B], terminated bool[B], lines int32[B])`` of one compat step; the new
-    state is in new buffers, ``state`` is left as it was."""
+    state is in new buffers, ``state`` is left as it was.  ``build`` (one of
+    ``FN_STEP_BUILDS``) overrides :func:`fn_step_build`'s choice; ``"bulk"``
+    raises where the boards do not allow it."""
+    if build is not None and build not in FN_STEP_BUILDS:
+        raise ValueError(f"build must be one of {FN_STEP_BUILDS}, got {build!r}")
     device = state.board.device
     defines = fn_defines(config, pieces)
     uniform = _queue_uniform(queue_kind)
@@ -1773,7 +1883,12 @@ def fn_step(state, action: torch.Tensor, config: EnvConfig, pieces: PieceSet, qu
     lines = torch.empty((B,), dtype=torch.int32, device=device)
     if B == 0:
         return out, obs, reward, terminated, lines
-    params = _FnParams(int(config.gravity_enabled), uniform)
+    fits = fn_step_build(config, state.board, out.board)
+    if build == "bulk" and fits != "bulk":
+        raise ValueError(f"fn_step's bulk build needs boards of a multiple of 16 bytes on 16-byte "
+                         f"boundaries, got {config.padded_height}x{config.padded_width}")
+    build = fits if build is None else build
+    params = _FnParams(int(config.gravity_enabled), uniform, int(build == "bulk"))
     in_p, out_p = _fn_ptrs(state), _fn_ptrs(out)
     rc = _lib("fn_env", defines).fn_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), obs.data_ptr(),

@@ -1,0 +1,262 @@
+#!/usr/bin/env python3
+"""Device ms of ``fn_step`` (with ``fn_reset`` and ``fn_observe``) and
+``replay_sample_stacked`` at the shapes the earlier slices time them, for
+the port found under ``--repo``:
+
+    python tools/time_fn_replay_kernels.py [--repo DIR] [--label NAME] [--ptxas] [--ablate]
+
+``fn_step`` at 10x20 on live states (8 steps into a fresh rollout, as
+``chip_smoke.py`` phase 43) and on frozen ones, ``fn_reset`` and
+``fn_observe``, at B = 1, 8192 and 65536, and ``fn_step`` at 30x20 and 8x12
+with padding 2 at 8192 and 65536; ``replay_sample_stacked`` (K = 4) on a
+full 262,144-entry buffer of 84x84 pixel frames (512 envs a block, the
+pixel DQN's, phase 25) and of 20x10 board frames (1024 envs a block, the
+board DQN's, phase 20), at n = 512 and 65536.  Each as the wrapper takes
+it, and each build of ``kernels.FN_STEP_BUILDS`` and
+``kernels.REPLAY_STACKED_BUILDS`` that fits where the tree has them.  As a
+yardstick for the replay's gather alone, ``torch.index_select`` of the
+same 2nK frame rows given their indices (no single call draws the entries
+and walks the windows, so it is no library time of the kernel).  Each the
+median over 7 replays of a CUDA graph of 100 launches (10 at 65536, 5 for
+the pixel replay at 65536).  What the other tree lacks is skipped.
+
+With ``--ptxas`` it first builds ``fn_env.cu`` at 10x20, 30x20 and 8x12
+with padding 2 and ``replay.cu``, and prints each kernel's registers,
+spills and shared memory, and each ``fn_step`` build's blocks an SM
+(``kernels.fn_step_occupancy``).  With ``--ablate`` it times, in place of
+all that, ``fn_step`` at 10x20 (B = 1, 8192, 65536) and the pixel replay (n =
+512, 65536) beside patched copies of their sources that each skip one part
+(``ABLATIONS``, built under ``DIR/build/ablate/``): their games and frames
+are wrong by design, only their times mean anything.  Prints one JSON line
+with the card's name and power limit.  To compare two trees on one card,
+unpack the other into a directory that ``.gitignore`` lists and run both in
+one call, in turns: A, B, B, A.  Needs a card; builds the kernels of
+``DIR`` into its own ``build/``.
+"""
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FN_B = (1, 8192, 65536)
+FN_WIDE_B = (8192, 65536)
+REPLAY_N = (512, 65536)
+REPLAY_CAPACITY = 262_144
+K = 4
+LIVE_STEPS = 8
+
+# --ablate's patched copies: (source, variant, [(text, replacement), ...]).
+_NO_LOGIC = ("    if (!over_in) {\n      uint64_t m = ", "    if (false) {\n      uint64_t m = ")
+ABLATIONS = [
+    # fn_step: the fields, the boards' round trip, the bit rows and the observation stay
+    ("fn_env", "no_logic", [_NO_LOGIC]),
+    # fn_step: no observation
+    ("fn_env", "no_obs", [("    group_obs_maps(g, maps", "    if (false) group_obs_maps(g, maps"),
+                          ("  write_obs_maps(obs + ", "  if (false) write_obs_maps(obs + ")]),
+    # fn_step: the boards neither come in nor go out (the game reads garbage)
+    ("fn_env", "no_staging", [("      bulk::arrive_expect(&bar, span);\n      bulk::load(boards,",
+                               "      bulk::arrive_expect(&bar, 0);\n      if (false) bulk::load(boards,"),
+                              ("      bulk::store(board_out, boards, span);",
+                               "      if (false) bulk::store(board_out, boards, span);")]),
+    # fn_step: at most 32 registers a thread, 16 blocks an SM
+    ("fn_env", "bounds16", [("__launch_bounds__(kStepThreads) fn_step_kernel",
+                             "__launch_bounds__(kStepThreads, 16) fn_step_kernel")]),
+    # replay: no done flag is read, every window is K deep
+    ("replay", "no_lookback", [("  const bool f = lane < st.k && st.done[back(a, lane, p)];",
+                                "  const bool f = false;")]),
+    # replay: the frames are not staged, the stores write whatever shared memory holds
+    ("replay", "no_staging", [("    bulk::arrive_expect(&bar, m.slots * row);\n    for (int i = 0; i < m.slots; ++i)",
+                               "    bulk::arrive_expect(&bar, 0);\n    for (int i = 0; i < 0; ++i)")]),
+]
+
+
+def _patched_libs(repo, kernels, jobs):
+    """Build each ``(source, variant, patches, defines)`` of ``jobs`` from a
+    patched copy of ``DIR``'s ``csrc/``; returns the libraries' paths."""
+    csrc = os.path.join(repo, "tetris_gymnasium_torch", "csrc")
+
+    def build(job):
+        source, variant, patches, defines = job
+        with open(os.path.join(csrc, f"{source}.cu")) as f:
+            text = f.read()
+        for old, new in patches:
+            if text.count(old) != 1:
+                raise SystemExit(f"time_fn_replay_kernels: {source}.cu does not hold {old!r} once")
+            text = text.replace(old, new)
+        d = os.path.join(repo, "build", "ablate", f"{source}_{variant}")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        path, so = os.path.join(d, f"{source}.cu"), os.path.join(d, f"{source}.so")
+        with open(path, "w") as f:
+            f.write(text)
+        r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, *kernels._define_flags(defines),
+                            "-o", so, path], capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed for {source} {variant}:\n{r.stderr[-3000:]}")
+        return so
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return list(pool.map(build, jobs))
+
+
+def _load(kernels, so, source, defines):
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in kernels._ENTRY_POINTS[source].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    kernels._LIBS[(source, defines)] = lib
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repo", default=HERE)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--ablate", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_fn_replay_kernels: needs a CUDA card")
+    repo = os.path.abspath(args.repo)
+    sys.path.insert(0, repo)
+    from chip_smoke import device_ms
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import EnvConfig
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.pieces import PIECES
+    from tetris_gymnasium_torch.rl import buffers
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    geos = {"10x20": EnvConfig(), "30x20": EnvConfig(width=30),
+            "8x12-pad2": EnvConfig(width=8, height=12, padding=2)}
+    fn_builds = getattr(kernels, "FN_STEP_BUILDS", ())
+    replay_builds = getattr(kernels, "REPLAY_STACKED_BUILDS", ())
+    builds = {}
+    if args.ptxas:
+        jobs = [("fn_env", kernels.fn_defines(c, PIECES)) for c in geos.values()] + [("replay", ())]
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            facts = list(pool.map(lambda job: kernels._compile(*job), jobs))
+        for name, f in zip([*geos, "replay"], facts):
+            builds[name] = {"ptxas": [l.strip() for l in f["ptxas"].splitlines()
+                                      if "registers" in l or "spill" in l or "Compiling" in l
+                                      or "smem" in l]}
+            if name in geos and hasattr(kernels, "fn_step_occupancy"):
+                builds[name]["occupancy"] = [kernels.fn_step_occupancy(geos[name], PIECES, b)
+                                             for b in fn_builds]
+
+    def live(cfg, B):
+        s = kernels.fn_reset(batch_keys(prng_key(43), B, device=dev), cfg, PIECES)[1]
+        for _ in range(LIVE_STEPS):
+            s = kernels.fn_step(s, torch.randint(0, 7, (B,), generator=g, device=dev,
+                                                 dtype=torch.int32), cfg, PIECES)[0]
+        return s, torch.randint(0, 7, (B,), generator=g, device=dev, dtype=torch.int32)
+
+    def fn_times(cfg, s, a, tag, n, frozen=True):
+        out = {f"fn_step{tag}": device_ms(lambda: kernels.fn_step(s, a, cfg, PIECES), n)}
+        for b in fn_builds:
+            if b == "bulk" and kernels.fn_step_build(cfg, s.board, s.board) != "bulk":
+                continue
+            out[f"fn_step_{b}{tag}"] = device_ms(lambda: kernels.fn_step(s, a, cfg, PIECES, build=b), n)
+        if frozen:
+            f = s.replace(game_over=torch.ones_like(s.game_over))
+            out[f"fn_step_frozen{tag}"] = device_ms(lambda: kernels.fn_step(f, a, cfg, PIECES), n)
+        return out
+
+    def replay_buffer(frame, dtype, B):
+        cap = REPLAY_CAPACITY
+        if dtype == torch.uint8:
+            obs = torch.randint(0, 256, (cap, *frame), generator=g, device=dev, dtype=dtype)
+        else:
+            obs = torch.randint(-1, 2, (cap, *frame), generator=g, device=dev, dtype=dtype)
+        data = {"obs": obs, "action": torch.randint(0, 8, (cap,), generator=g, device=dev, dtype=torch.int32),
+                "reward": torch.randn((cap,), generator=g, device=dev),
+                "done": torch.rand((cap,), generator=g, device=dev) < 0.15}
+        return buffers.ReplayBuffer(data, pos=(cap // 3) // B * B, size=cap)
+
+    def replay_times(buf, B, n, tag, reps, yardstick=True):
+        key = prng_key(3)
+        out = {f"replay_sample_stacked{tag}": device_ms(
+            lambda: buffers.sample_with_next_stacked(buf, key, n, B, K), reps)}
+        start, n_valid = buffers._stacked_window(buf, B, K)
+        for b in replay_builds:
+            row = buf.data["obs"][0].numel()
+            if b == "bulk" and kernels.replay_stacked_build(row, K, buf.data["obs"]) != "bulk":
+                continue
+            out[f"replay_sample_stacked_{b}{tag}"] = device_ms(
+                lambda: kernels.replay_sample_stacked(buf.data, key, n, n_valid, start, B, K, build=b), reps)
+        if yardstick:
+            _, windows, _ = buffers.stacked_sample_rows(buf, key, n, B, K)
+            rows = windows.flatten()
+            out[f"index_select{tag}"] = device_ms(lambda: torch.index_select(buf.data["obs"], 0, rows), reps)
+        return out
+
+    out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
+    if args.ablate:
+        cfg = geos["10x20"]
+        fn_def = kernels.fn_defines(cfg, PIECES)
+        pix = replay_buffer((84, 84), torch.uint8, 512)
+        cases = {B: live(cfg, B) for B in FN_B}
+
+        def time_all(variant):
+            res = {}
+            for B, (s, a) in cases.items():
+                res[f"fn_step_{variant}@{B}"] = device_ms(
+                    lambda: kernels.fn_step(s, a, cfg, PIECES), 10 if B >= 65536 else 100)
+            for n in REPLAY_N:
+                res.update({f"{k}_{variant}": v for k, v in replay_times(
+                    pix, 512, n, f"@{n}", 5 if n >= 65536 else 100, yardstick=False).items()
+                    if k == f"replay_sample_stacked@{n}"})
+            return res
+
+        out.update(time_all("full"))
+        jobs = [(src, variant, patches, fn_def if src == "fn_env" else ())
+                for src, variant, patches in ABLATIONS]
+        for (src, variant, _, defines), so in zip(jobs, _patched_libs(repo, kernels, jobs)):
+            _load(kernels, so, src, defines)
+            res = time_all(variant)
+            out.update({k: v for k, v in res.items() if k.startswith("fn_step" if src == "fn_env" else "replay")})
+            kernels._LIBS.pop((src, defines))  # back to the unpatched build
+        print(json.dumps({"label": args.label, "nvidia_smi": smi, "ablate_ms": out}), flush=True)
+        return
+
+    cfg = geos["10x20"]
+    for B in FN_B:
+        n = 10 if B >= 65536 else 100
+        s, a = live(cfg, B)
+        keys = batch_keys(prng_key(43), B, device=dev)
+        out.update(fn_times(cfg, s, a, f"@10x20@{B}", n))
+        out[f"fn_reset@10x20@{B}"] = device_ms(lambda: kernels.fn_reset(keys, cfg, PIECES), n)
+        out[f"fn_observe@10x20@{B}"] = device_ms(lambda: kernels.fn_observe(s, cfg, PIECES), n)
+        out[f"live_share@{B}"] = float((~s.game_over).float().mean())
+        del s, a
+    for name in ("30x20", "8x12-pad2"):
+        for B in FN_WIDE_B:
+            s, a = live(geos[name], B)
+            out.update(fn_times(geos[name], s, a, f"@{name}@{B}", 10 if B >= 65536 else 100, frozen=False))
+            del s, a
+    torch.cuda.empty_cache()
+    for kind, frame, dtype, B in (("pixel", (84, 84), torch.uint8, 512), ("board", (20, 10), torch.int8, 1024)):
+        buf = replay_buffer(frame, dtype, B)
+        for n in REPLAY_N:
+            reps = 5 if (kind == "pixel" and n >= 65536) else 10 if n >= 65536 else 100
+            out.update(replay_times(buf, B, n, f"@{kind}@{n}", reps))
+        del buf
+        torch.cuda.empty_cache()
+    print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "fn_step_builds": list(fn_builds),
+                      "replay_builds": list(replay_builds), "builds": builds, "ms": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
