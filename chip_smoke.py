@@ -75,7 +75,8 @@ Phases, each printing one JSON line:
 12. ``grouped_act`` against ``rl.grouped_dqn.act_plain`` (actions equal; the
     uniforms behind the noise and the exploration draw bit-equal to JAX's
     mapping) at B = 1024, 4096, 1 and 1001 with envs that have no legal
-    candidate, and ``replay_sample``'s offsets against JAX's ``randint``
+    candidate, near-ties and NaNs, as the wrapper picks its lanes and at
+    every width of ``kernels.GROUPED_ACT_LANES``, and ``replay_sample``'s offsets against JAX's ``randint``
     (card and host) for spans 1 .. 2**31 - 1.
 13. ``replay_add`` and ``replay_sample`` against the plain buffer, bit for
     bit, across the buffer's wrap-around.
@@ -100,7 +101,8 @@ Phases, each printing one JSON line:
     131,072-entry buffer against their plain versions.
 16. The grouped kernels' times beside their bounds (``grouped_placements``
     in both modes at B = 512, 1024, 4096 and 65536; ``grouped_act`` at 1024
-    and 4096; ``replay_add`` at 1024; ``replay_sample`` at 256 samples of the
+    and 4096, each lane width held to its plain version and timed, its
+    greedy launch beside ``torch.where`` + ``argmax``; ``replay_add`` at 1024; ``replay_sample`` at 256 samples of the
     full buffer) and the grouped step's placements per second.
 
 17. ``framestack_push`` against ``ops.framestack.push_plain`` (random
@@ -198,14 +200,17 @@ Phases, each printing one JSON line:
     launch counts a step.
 28. The batched flagship grouped engine at 4096 envs, 32 steps of random
     legal placements in features and boards mode: placements/s, exact
-    launch counts, the step's parts with CUDA events.
+    launch counts, the step's parts with CUDA events; ``grouped_flagship``
+    in its three modes bit-equal to its plain version on each run's last
+    state.
 29. ``TetrisVectorEnv`` at 8192 envs x 64 steps, ``impl="turbo"`` and
     ``"flagship"``, numpy in and out: env-steps/s, exact launch counts, the
     first 16 steps (mostly hard drops, so episodes end in them) equal to a
     CPU run, ``final_obs`` included.
-30. The new kernels' device ms at B = 1, 4096 and 65536 (the grouped boards
-    mode at 4096) beside their bounds and plain versions, and one shell
-    step's host ms at B = 1.
+30. The new kernels' device ms at B = 1, 4096 and 65536 (``grouped_flagship``
+    in its three modes, held to its plain version on the timed state first,
+    its operations counted from the launch's own lines) beside their bounds
+    and plain versions, and one shell step's host ms at B = 1.
 
 31. The engine kernels at other geometries (``wide_geometries``: 30x20 with
     and without gravity, 61x12 with a queue of 3, 28x14 with bit 31 of word
@@ -242,15 +247,19 @@ Phases, each printing one JSON line:
     trajectories and on the stacks.
 36. The turbo grouped engine equal to the flagship grouped engine on the
     card at 30x14 without gravity, 4096 envs, 50 masked-random steps
-    (features, masks, rewards, dones, lines, env fields).
+    (features, masks, rewards, dones, lines, env fields); ``grouped_flagship``
+    bit-equal to its plain version on the last state.
 37. The slice's path at 30x20: ``Tetris(width=30, height=20)`` on the card
     against the CPU as in phase 27 (20 episodes, the grouped wrapper in
     every mode), ``RgbObservation`` and ``FeatureVectorObservation`` card
     against CPU, exact launch counts, and a shell step's host ms.
 38. The flagship and the turbo grouped engine at 30x20, 4096 envs, features
-    mode: step ms, placements/s, exact launch counts.
+    mode: step ms, placements/s, exact launch counts; ``grouped_flagship``
+    bit-equal to its plain version on the flagship run's last state.
 39. The six surface kernels' device ms at 30x20 and 61x12, B = 4096 and
-    65536 (the board modes at 4096), beside their bounds and plain versions.
+    65536 (the board modes at 4096; ``grouped_flagship``'s ids mode at both),
+    beside their bounds and plain versions, ``grouped_flagship`` held to its
+    plain version on each timed state first.
 
 40. ``grayscale_u8_exact`` bit-equal to its plain version over all 2**24
     RGB triples and on a random ``[512, 84, 84, 3]`` batch; the triples
@@ -1866,20 +1875,29 @@ def check_act_and_randint(dev) -> None:
             mask_ab = (torch.rand((A, B), generator=g, device=dev) < 0.5).float()
             mask_ab[:, :: 7] = 0.0  # every seventh env has no legal candidate
             counters = torch.arange(B * A, dtype=torch.int64, device=dev).reshape(B, A)
+            if trial == 2:  # NaNs among the candidates
+                q[::3, ::7] = float("nan")
+            # every lane width (and the wrapper's own choice), on the
+            # engine's [A, B] mask transposed
+            builds = (None,) + kernels.GROUPED_ACT_LANES
             for eps in (0.0, 0.3, 1.0):
                 act_key, eps_key = threefry.split(threefry.fold_in(threefry.prng_key(B), trial))
-                a, nu, eu = kernels.grouped_act(q, mask_ab.T, act_key, eps_key, eps,
-                                                return_uniforms=True)
-                what = f"B={B} q={scale} eps={eps}"
-                diff("grouped_act", a, act_plain(q, mask_ab.T, act_key, eps_key, eps), f"{what} actions")
-                diff("grouped_act", nu, threefry.bits_to_uniform_lanes(
-                    threefry.random_bits32_lanes(act_key, counters), threefry.TINY, 1.0),
-                    f"{what} noise uniforms")
-                diff("grouped_act", eu, threefry.bits_to_uniform_lanes(threefry.random_bits32_lanes(
-                    eps_key, torch.arange(B, dtype=torch.int64, device=dev))), f"{what} draw uniforms")
-            diff("grouped_act", kernels.grouped_act(q, mask_ab.T, fill=float("-inf")),
-                 act_plain(q, mask_ab.T, fill=float("-inf")), f"B={B} greedy")
-        act_runs.append({"B": B, "q_scales": 3, "epsilons": 3})
+                want = act_plain(q, mask_ab.T, act_key, eps_key, eps)
+                want_nu = threefry.bits_to_uniform_lanes(
+                    threefry.random_bits32_lanes(act_key, counters), threefry.TINY, 1.0)
+                want_eu = threefry.bits_to_uniform_lanes(threefry.random_bits32_lanes(
+                    eps_key, torch.arange(B, dtype=torch.int64, device=dev)))
+                for lanes in builds:
+                    a, nu, eu = kernels.grouped_act(q, mask_ab.T, act_key, eps_key, eps,
+                                                    return_uniforms=True, lanes=lanes)
+                    what = f"B={B} q={scale} eps={eps} lanes={lanes}"
+                    diff("grouped_act", a, want, f"{what} actions")
+                    diff("grouped_act", nu, want_nu, f"{what} noise uniforms")
+                    diff("grouped_act", eu, want_eu, f"{what} draw uniforms")
+            for lanes in builds:
+                diff("grouped_act", kernels.grouped_act(q, mask_ab.T, fill=float("-inf"), lanes=lanes),
+                     act_plain(q, mask_ab.T, fill=float("-inf")), f"B={B} greedy lanes={lanes}")
+        act_runs.append({"B": B, "q_scales": 3, "epsilons": 3, "builds": len(builds)})
 
     spans = (1, 7, 1000, 65536, 65537, 130_048, 2**31 - 1)
     store = {"x": torch.zeros((8,), dtype=torch.int32, device=dev)}
@@ -2205,6 +2223,24 @@ def time_grouped_kernels(dev, smi) -> dict:
         out["grouped_act"][B] = timed_pair(
             lambda: kernels.grouped_act(q, mask, act_key, eps_key, 0.3),
             lambda: grouped_dqn.act_plain(q, mask, act_key, eps_key, 0.3), 100, 10, io, ops)
+        # each lane width at the path's shapes, held to the plain version first
+        want = grouped_dqn.act_plain(q, mask, act_key, eps_key, 0.3)
+        lanes_ms = {}
+        for L in kernels.GROUPED_ACT_LANES:
+            diff("grouped_act", kernels.grouped_act(q, mask, act_key, eps_key, 0.3, lanes=L), want,
+                 f"phase 16 B={B} lanes={L}")
+            lanes_ms[f"lanes{L}"] = device_ms(lambda: kernels.grouped_act(q, mask, act_key, eps_key, 0.3,
+                                                                          lanes=L), 100)
+        out["grouped_act"][B]["builds_ms"] = lanes_ms
+        out["grouped_act"][B]["lanes"] = kernels.grouped_act_lanes(B)
+        # the greedy launch (the evaluation's), beside torch.where + argmax
+        # (two calls: a yardstick, not a library time)
+        fill = float("-inf")
+        diff("grouped_act", kernels.grouped_act(q, mask, fill=fill),
+             grouped_dqn.act_plain(q, mask, fill=fill), f"phase 16 B={B} greedy")
+        out["grouped_act"][B]["greedy_ms"] = device_ms(lambda: kernels.grouped_act(q, mask, fill=fill), 100)
+        out["grouped_act"][B]["where_argmax_ms"] = device_ms(
+            lambda: torch.where(mask > 0, q, fill).argmax(-1), 100)
 
     # the replay at the committed run's shape: 1024 envs, 131,072 entries
     B = GROUPED_ENVS
@@ -3200,18 +3236,10 @@ VECTOR_DROP_P = (0.02, 0.02, 0.02, 0.02, 0.02, 0.86, 0.02, 0.02)
 SURFACE_TIME_B = (1, 4096, 65536)
 SURFACE_PLAIN_MAX_B = 4096  # the plain versions' batch; larger B scaled from it
 SHELL_TIMED_STEPS = 200
-# 32-bit operations the functions need: grouped_flagship per candidate builds
-# a 21-window hit map (8 each), tests 16 frame cells (3 each), 16 staged rows
-# (2 each) and 4 window rows of 10 summed cells (4 each), and then either
-# tests the 16 other rows for fullness on their packed words (4 each), folds
-# each of the 20 rows into the height counters as one 10-bit mask (1 for the
-# mask, 15 for the accumulator) and reads them out (60), or rebuilds 432 cells
-# (12 each); feature_vector 20 rows of 10 cells (3 each, 15 a row) and the
-# read-out; observe_dict 432 board cells (10 each), 432 mask cells (8 each)
-# and 80 strip cells (10 each); compose_rgb 12 a pixel
-GROUPED_FLAGSHIP_OPS = 8 * 21 + 3 * 16 + 2 * 16 + 4 * 40
-GROUPED_FLAGSHIP_OPS_BY_MODE = {"features": GROUPED_FLAGSHIP_OPS + 4 * 16 + 20 * (1 + 15) + 60,
-                                "boards": GROUPED_FLAGSHIP_OPS + 12 * 432}
+# 32-bit operations the functions need (grouped_flagship's:
+# grouped_flagship_ops): feature_vector 20 rows of 10 cells (3 each, 15 a
+# row) and the read-out; observe_dict 432 board cells (10 each), 432 mask
+# cells (8 each) and 80 strip cells (10 each); compose_rgb 12 a pixel
 FEATURE_VECTOR_OPS_PER_ENV = 20 * (3 * 10 + 15) + 60
 OBSERVE_DICT_OPS_PER_ENV = 10 * 432 + 8 * 432 + 10 * 80
 COMPOSE_OPS_PER_PIXEL = 12
@@ -3613,6 +3641,7 @@ def run_grouped_engine(dev, smi) -> dict:
             total[k] += got[k]
         if not torch.isfinite(obs).all() or obs.shape[:2] != (B, 40):
             raise AssertionError(f"grouped engine ({mode}) observation {tuple(obs.shape)} not finite")
+        held = grouped_flagship_diff(gs.env, cfg, engine.PIECES, f"phase 28 {mode} final state")
         a = actions[-1]
         drop_a = torch.full_like(a, 5)
         parts = {
@@ -3626,7 +3655,7 @@ def run_grouped_engine(dev, smi) -> dict:
         parts["selects_and_rest_call"] = step_call - sum(parts.values())
         out[mode] = {"B": B, "steps": T, "wall_s": wall, "step_ms": 1e3 * wall / T,
                      "placements_per_s": B * T / wall, "candidates_per_s": 40 * B * T / wall,
-                     "step_call_ms": step_call, "parts_device_ms": parts}
+                     "step_call_ms": step_call, "parts_device_ms": parts, "bit_equal": held}
         emit({"phase": "grouped_engine", "mode": mode, **out[mode], "launches": want, "nvidia_smi": smi})
     return {"launches": total, "steps": 2 * T, "times": out}
 
@@ -3725,11 +3754,13 @@ def time_surface_kernels(dev, smi) -> dict:
         dp = {k: v[:pb].contiguous() for k, v in d.items()}
         crop, pcrop = s.board[:, :20, 4:14], ps.board[:, :20, 4:14]
         state_in = nbytes(s.board, s.piece, s.rotation)
+        held = grouped_flagship_diff(s, cfg, P, f"phase 30 B={B}", n=pb)
+        lines = kernels.grouped_flagship(s, cfg, P, "ids")[3]
         entries = {
             ("grouped_flagship", "features"): (
                 lambda: kernels.grouped_flagship(s, cfg, P, "features"),
                 lambda: _grouped_features_plain(grouped.placements_plain(ps, cfg)[0], flags),
-                state_in + B * 40 * (13 * 4 + 4 + 1 + 4), B * 40 * GROUPED_FLAGSHIP_OPS_BY_MODE["features"]),
+                state_in + B * 40 * (13 * 4 + 4 + 1 + 4), grouped_flagship_ops(cfg, P, "features", lines)),
             ("feature_vector", None): (
                 lambda: kernels.feature_vector(crop, flags), lambda: feature_vector_plain(pcrop, flags),
                 B * (200 + 13 * 4), B * FEATURE_VECTOR_OPS_PER_ENV),
@@ -3742,15 +3773,17 @@ def time_surface_kernels(dev, smi) -> dict:
                 lambda: compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P),
                 B * (432 + 80 + 24 * 34 * 3), B * 24 * 34 * COMPOSE_OPS_PER_PIXEL),
         }
-        if B == 4096:
-            entries[("grouped_flagship", "boards")] = (
-                lambda: kernels.grouped_flagship(s, cfg, P, "boards"),
-                lambda: grouped.placements_plain(ps, cfg)[0].float(),
-                state_in + B * 40 * (432 * 4 + 4 + 1 + 4), B * 40 * GROUPED_FLAGSHIP_OPS_BY_MODE["boards"])
+        for mode, cell in (("boards", 4), ("ids", 1)):  # both board modes at every B
+            entries[("grouped_flagship", mode)] = (
+                lambda m=mode: kernels.grouped_flagship(s, cfg, P, m),
+                lambda m=mode: grouped.placements_plain(ps, cfg)[0].to(torch.float32 if m == "boards" else torch.int8),
+                state_in + B * 40 * (432 * cell + 4 + 1 + 4), grouped_flagship_ops(cfg, P, mode, lines))
         for (name, mode), (kernel_fn, plain_fn, io, ops) in entries.items():
             entry = timed_pair(kernel_fn, plain_fn, 10 if big else 100, 1 if pb >= 4096 else 10, io, ops)
             entry.update(plain_ms=entry["plain_ms"] * scale, plain_B=pb, library_ms=None,
                          envs_per_s=B / (entry["ms"] * 1e-3))
+            if name == "grouped_flagship":
+                entry.update(held)
             out[name][f"{mode}@{B}" if mode else B] = entry
         del s, ps, d, dp
         torch.cuda.empty_cache()
@@ -4205,11 +4238,12 @@ def _rgb84_taken(cfg, pieces) -> bool:
 def _grouped_features_of(boards, cfg, flags):
     """The features mode of the flagship grouped engine, from the plain
     placements' id boards."""
-    from tetris_gymnasium_torch.ops.observations import feature_vector_plain
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, feature_vector_plain
 
     B, A = boards.shape[:2]
     pad = cfg.padding
     crop = boards[:, :, :-pad, pad:-pad].reshape(B * A, cfg.height, cfg.width)
+    flags = FeatureFlags() if flags is None else flags
     return feature_vector_plain(crop, flags).reshape(B, A, -1).to(torch.float32)
 
 
@@ -4241,6 +4275,29 @@ def _check_grouped_surface(s, cfg, P, what, stacks=False) -> dict:
             lines = max(lines, int(ref[3].max()))
     return {"illegal": int((want[1] == 0).sum()), "game_over": int(want[2].sum()),
             "max_lines": int(want[3].max()), "turbo_max_lines": lines}
+
+
+def grouped_flagship_diff(s, cfg, P, what, n=None) -> dict:
+    """``grouped_flagship`` in its three modes (features under all flags)
+    against ``placements_plain`` on the first ``n`` envs of the flagship
+    state ``s`` (all of them by default; the launch takes all), and the
+    share of candidates that clear rows (the kernel folds those; it patches
+    the env's features for the others)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import engine, grouped
+
+    n = s.board.shape[0] if n is None else n
+    head = engine.EngineState(**{k: (getattr(s, k)[:, :n] if k == "key" else getattr(s, k)[:n]).contiguous()
+                                 for k in engine.FIELDS})
+    want = grouped.placements_plain(head, cfg, P)
+    for k, (a, b) in enumerate(zip(kernels.grouped_flagship(s, cfg, P, "ids"), want)):
+        diff("grouped_flagship", a[:n], b, f"{what} ids output {k}")
+    diff("grouped_flagship", kernels.grouped_flagship(s, cfg, P, "boards")[0][:n], want[0].float(),
+         f"{what} boards")
+    diff("grouped_flagship", kernels.grouped_flagship(s, cfg, P, "features")[0][:n],
+         _grouped_features_of(want[0], cfg, None), f"{what} features")
+    return {"envs_checked": n, "clearing_share": float((want[3] > 0).float().mean()),
+            "illegal_share": float((want[1] == 0).float().mean())}
 
 
 def check_surface_geometries(dev) -> dict:
@@ -4410,8 +4467,10 @@ def check_grouped_engines_wide(dev) -> dict:
             "turbo_init": T + 1, "turbo_step": T, "grouped_placements": T + 1}
     if launches != want:
         raise AssertionError(f"phase 36 launches {launches}, want {want}")
+    held = grouped_flagship_diff(fgs.env, cfg, turbo.PIECES, "phase 36 last state", n=1024)
     out = {"config": GROUPED_WIDE, "B": GROUPED_WIDE_B, "steps": T, "lines": lines, "done": dones,
-           "illegal_actions": illegal, "launches": launches, "seconds": time.perf_counter() - t0}
+           "illegal_actions": illegal, "launches": launches, "seconds": time.perf_counter() - t0,
+           "bit_equal": held}
     if illegal == 0 or dones == 0:
         raise AssertionError(f"phase 36 took no illegal action or ended no episode: {out}")
     emit({"phase": "grouped_engines_wide", "equal": True, **out})
@@ -4464,6 +4523,8 @@ def run_grouped_engines_wide(dev, smi) -> dict:
         if obs.shape != (B, A, cfg.width + 3) or not torch.isfinite(obs).all():
             raise AssertionError(f"grouped engine ({impl}, 30x20) observation {tuple(obs.shape)} not finite")
         drop = torch.full((B,), 5, dtype=torch.int32, device=dev)
+        held = (grouped_flagship_diff(gs.env, cfg, engine.PIECES, "phase 38 final state", n=1024)
+                if impl == "flagship" else None)
         if impl == "flagship":
             parts = {
                 "grouped_flagship": device_ms(lambda: kernels.grouped_flagship(gs.env, cfg, engine.PIECES,
@@ -4485,21 +4546,45 @@ def run_grouped_engines_wide(dev, smi) -> dict:
         parts["selects_and_rest_call"] = step_call - sum(parts.values())
         out[impl] = {"B": B, "steps": T, "wall_s": wall, "step_ms": 1e3 * wall / T,
                      "placements_per_s": B * T / wall, "candidates_per_s": A * B * T / wall,
-                     "step_call_ms": step_call, "parts_device_ms": parts}
+                     "step_call_ms": step_call, "parts_device_ms": parts,
+                     **({"bit_equal": held} if held else {})}
         emit({"phase": "grouped_engines_wide_rate", "impl": impl, "config": GROUPED_RATE_WIDE, **out[impl],
               "launches": got, "nvidia_smi": smi})
     return {"launches": total, "steps": 2 * T, "times": out}
 
 
+def grouped_flagship_ops(cfg, P, mode, lines) -> int:
+    """32-bit operations of one ``grouped_flagship`` launch at ``cfg`` in
+    ``mode``, by the kernel's own count (csrc/grouped_flagship.cu), for the candidates
+    whose ``lines`` (int32[B, A], the launch's own) it got: an env's shared
+    work once over its A candidates (3 a padded cell for its words and
+    column tops, 2 a playfield cell for its filled tops in features mode),
+    then a candidate's drop from the column tops (4 a piece cell), its S
+    window rows (two cropped words, 8 a piece cell, 2 a word for fullness)
+    and 30 of setup and outputs; in features mode the S columns under the
+    window patched (3 + 3 S each), S + 1 bumpiness pairs (8 each), the
+    window rows' counts (2 + a word each) and the W heights copied (2 each),
+    and for each candidate that clears rows (this launch's data) the fold of
+    its rows (1 + 3 a plane and word, features.cuh) and its read-out (6 a
+    column); in the board modes 3.5 an output cell (its byte built in shared
+    memory, then 4 bytes converted and stored a word)."""
+    H, PW, W, h, S = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height, _side(P)
+    nw, nwf = (PW + 31) // 32, (W + 31) // 32
+    planes = max(1, int(h).bit_length())
+    n_cand, n_fold = lines.numel(), int((lines > 0).sum())
+    shared = (3 * H * PW + (2 * h * W if mode == "features" else 0)) // (4 * W)
+    base = shared + 4 * S * S + S * (4 * nw + 8 * S + 2 * nwf) + 30
+    if mode != "features":
+        return n_cand * (base + 7 * H * PW // 2)
+    patch = S * (3 + 3 * S) + 8 * (S + 1) + S * (2 + nwf) + 2 * W
+    return n_cand * (base + patch) + n_fold * (h * (1 + 3 * planes * nwf) + 6 * W)
+
+
 def _surface_ops(cfg, P) -> dict:
     """32-bit operations a unit of each surface function needs at ``cfg``,
-    by the kernels' own count, generalised from phases 16, 25 and 30: a
-    candidate of ``grouped_flagship`` (a hit map over the window starts, 8
-    a window and word; 16 frame cells; the staged rows; the window rows'
-    summed cells, 4 each; then either the other rows' fullness, 4 a word,
-    and each kept row folded into the height counters, 1 + 3 a plane and
-    word, with a 6-a-column read-out, or 12 a rebuilt board cell), a
-    candidate of ``grouped_placements`` (phase 16's count with 8 a window
+    by the kernels' own count, generalised from phases 16, 25 and 30 (for
+    ``grouped_flagship``: :func:`grouped_flagship_ops`): a candidate of
+    ``grouped_placements`` (phase 16's count with 8 a window
     and word), an env of ``feature_vector`` (3 a cell, 15 a row, the
     read-out) and ``observe_dict`` (10 a board cell, 8 a mask cell, 10 a
     strip cell), a pixel of ``compose_rgb`` (12) and an env of
@@ -4508,13 +4593,10 @@ def _surface_ops(cfg, P) -> dict:
     nw, nwf = (PW + 31) // 32, (W + 31) // 32
     planes = max(1, int(h).bit_length())
     hit = 8 * (H - S + 1) * nw
-    base = hit + 3 * S * S + 2 * (H - S) * nw + 4 * S * W
-    fold = 4 * (h - S) * nw + h * (1 + 3 * planes * nwf) + 6 * W
     place = hit + 6 * h * nw + 40
     strips = S * S * (cfg.queue_size + cfg.holder_size)
     side = S * max(cfg.queue_size, cfg.holder_size)
-    return {"grouped_flagship_features": base + fold, "grouped_flagship_boards": base + 12 * H * PW,
-            "grouped_placements_features": place + (2 + 3 * planes) * h * nwf + 18 * W,
+    return {"grouped_placements_features": place + (2 + 3 * planes) * h * nwf + 18 * W,
             "grouped_placements_boards": place + 2 * h * W,
             "feature_vector": h * (3 * W + 15) + 6 * W,
             "observe_dict": 18 * H * PW + 10 * strips, "compose_rgb": 12 * H * (PW + side),
@@ -4570,11 +4652,17 @@ def time_surface_wide(dev, smi) -> dict:
             dict_in = nbytes(s.board, s.piece, s.rotation, s.x, s.y, s.queue, s.holder_piece,
                              s.holder_rotation, s.holder_count)
             flag = 4 + 1 + 4  # mask, game over, lines
+            held = grouped_flagship_diff(s, cfg, P, f"phase 39 {name} B={B}", n=pg)
+            lines = kernels.grouped_flagship(s, cfg, P, "ids")[3]
             entries = {
                 ("grouped_flagship", "features"): (
                     lambda: kernels.grouped_flagship(s, cfg, P, "features"),
                     lambda: _grouped_features_of(grouped.placements_plain(sg, cfg, P)[0], cfg, flags),
-                    pg, board_in + B * A * (4 * (W + 3) + flag), B * A * ops["grouped_flagship_features"]),
+                    pg, board_in + B * A * (4 * (W + 3) + flag), grouped_flagship_ops(cfg, P, "features", lines)),
+                ("grouped_flagship", "ids"): (
+                    lambda: kernels.grouped_flagship(s, cfg, P, "ids"),
+                    lambda: grouped.placements_plain(sg, cfg, P)[0], pg,
+                    board_in + B * A * (H * PW + flag), grouped_flagship_ops(cfg, P, "ids", lines)),
                 ("grouped_placements", "features"): (
                     lambda: kernels.grouped_placements(t, cfg, P),
                     lambda: tg.placements_plain(tgp, cfg, P), pg,
@@ -4597,7 +4685,7 @@ def time_surface_wide(dev, smi) -> dict:
                 entries[("grouped_flagship", "boards")] = (
                     lambda: kernels.grouped_flagship(s, cfg, P, "boards"),
                     lambda: grouped.placements_plain(sg, cfg, P)[0].float(), pg,
-                    board_in + B * A * (4 * H * PW + flag), B * A * ops["grouped_flagship_boards"])
+                    board_in + B * A * (4 * H * PW + flag), grouped_flagship_ops(cfg, P, "boards", lines))
                 entries[("grouped_placements", "boards")] = (
                     lambda: kernels.grouped_placements(t, cfg, P, 4, "boards"),
                     lambda: tg.placement_boards_plain(tgp, cfg, P), pg,
@@ -4605,12 +4693,12 @@ def time_surface_wide(dev, smi) -> dict:
             for (kname, mode), (kernel_fn, plain_fn, pb, io, n_ops) in entries.items():
                 entry = timed_pair(kernel_fn, plain_fn, 10 if big else 50, 1 if pb >= 1024 else 5, io, n_ops)
                 entry.update(plain_ms=entry["plain_ms"] * B / pb, plain_B=pb, library_ms=None,
-                             envs_per_s=B / (entry["ms"] * 1e-3))
+                             envs_per_s=B / (entry["ms"] * 1e-3), **(held if kname == "grouped_flagship" else {}))
                 out.setdefault(name, {}).setdefault(kname, {})[f"{mode}@{B}" if mode else B] = entry
             emit({"phase": "surface_wide_times", "geometry": name, "B": B,
                   "kernels": {k: {m: e for m, e in v.items() if str(m).endswith(str(B))}
                               for k, v in out[name].items()}, "nvidia_smi": smi})
-            del s, t, d, crop, sg, so, tgp, dp, cp
+            del s, t, d, crop, sg, so, tgp, dp, cp, lines
             torch.cuda.empty_cache()
     return out
 

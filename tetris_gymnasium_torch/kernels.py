@@ -43,7 +43,8 @@ Kernels, with the JAX function each replaces:
   :65``, ``placements :152`` and ``placement_boards :177``;
 * ``grouped_act`` (``csrc/grouped_act.cu``): the masked epsilon-greedy of
   ``rl/grouped_dqn.py:train_step :165-174`` and ``_masked_random :78``, and
-  ``rl/evaluate.py:greedy_masked_q :141``;
+  ``rl/evaluate.py:greedy_masked_q :141``, a group of 8, 16 or 32 lanes an
+  env (:func:`grouped_act_lanes`);
 * ``replay_add`` and ``replay_sample`` (``csrc/replay.cu``):
   ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``;
 * ``replay_sample_stacked`` (``csrc/replay.cu`` with ``csrc/bulk.cuh``):
@@ -66,7 +67,10 @@ Kernels, with the JAX function each replaces:
   resize as JAX's two passes in shared memory (its table: :func:`pack_taps`);
 * ``grouped_flagship`` (``csrc/grouped_flagship.cu``): the flagship grouped
   engine's ``core/grouped.py:placements :98`` (``_candidate :68``,
-  ``_frame_overlap :57``) and ``grouped_observation :113``;
+  ``_frame_overlap :57``) and ``grouped_observation :113``, an env's shared
+  work (column tops, heights, full rows) built once for its candidates, the
+  boards built a row at a time in shared memory and streamed out
+  (:func:`grouped_flagship_occupancy`);
 * ``feature_vector`` (``csrc/features.cu``):
   ``ops/observations.py:feature_vector :57``;
 * ``observe_dict`` and ``compose_rgb`` (``csrc/observe_dict.cu``):
@@ -470,7 +474,8 @@ _ENTRY_POINTS = {
                                       ctypes.POINTER(_PlacementParams), _P],
     },
     "grouped_act": {
-        "grouped_act_launch": [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_ActParams), _P],
+        "grouped_act_launch": [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_ActParams), _I, _P],
+        "grouped_act_occupancy": [_P],
     },
     "replay": {
         "replay_add_launch": [ctypes.POINTER(_ReplayFields), ctypes.c_longlong, _I, _P],
@@ -498,6 +503,7 @@ _ENTRY_POINTS = {
     },
     "grouped_flagship": {
         "grouped_flagship_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "grouped_flagship_occupancy": [_P],
     },
     "features": {
         "feature_vector_launch": [_P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P, _P],
@@ -1049,8 +1055,37 @@ def grouped_placements(state: turbo.TurboState, config: EngineConfig, pieces: Pi
     return obs, mask, game_over, lines
 
 
+# Lanes an env of grouped_act's builds (csrc/grouped_act.cu): the A
+# candidates split across a group of 8, 16 or 32 lanes, whose running bests
+# a shuffle butterfly combines.  On an H100 (PERF.md; 40 candidates)
+# the widest group is the fastest while the batch's lanes stay within
+# GROUPED_ACT_LANE_BUDGET (32 at 1024 envs, 16 at 4096): below it one env's
+# chain of draws is the time, above it the idle lanes of a wide group (A = 40
+# over 32 lanes: 8 of them take two candidates) and its longer butterfly
+# (8 at 65536, 2.1x faster than 32).
+GROUPED_ACT_LANES = (8, 16, 32)
+GROUPED_ACT_LANE_BUDGET = 65536
+
+
+def grouped_act_lanes(B: int) -> int:
+    """The lanes an env that ``grouped_act`` takes at batch ``B``: the widest
+    of ``GROUPED_ACT_LANES`` whose ``B * lanes`` stays within
+    ``GROUPED_ACT_LANE_BUDGET``, else 8."""
+    fits = [L for L in GROUPED_ACT_LANES if B * L <= GROUPED_ACT_LANE_BUDGET]
+    return max(fits, default=min(GROUPED_ACT_LANES))
+
+
+def grouped_act_occupancy() -> dict:
+    """Blocks an SM holds of each ``grouped_act`` build
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), by lanes; needs a card."""
+    vals = (ctypes.c_int * len(GROUPED_ACT_LANES))()
+    _check(_lib("grouped_act").grouped_act_occupancy(ctypes.addressof(vals)), "grouped_act_occupancy")
+    return {f"lanes{L}": v for L, v in zip(GROUPED_ACT_LANES, vals)}
+
+
 def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
-                epsilon: float = 0.0, fill: float = -1e9, return_uniforms: bool = False):
+                epsilon: float = 0.0, fill: float = -1e9, return_uniforms: bool = False,
+                lanes: int = None):
     """Launch ``grouped_act``: masked epsilon-greedy actions ``int32[B]``.
 
     ``q`` is ``f32[B, A]``, contiguous; ``mask`` is ``f32[B, A]`` with any
@@ -1060,8 +1095,11 @@ def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
     the Gumbel-max of the legal candidates; without them the action is the
     greedy one.  ``fill`` is the value of an illegal candidate.  With
     ``return_uniforms`` the uniforms behind the noise ``f32[B, A]`` and the
-    exploration draw ``f32[B]`` come back too.
+    exploration draw ``f32[B]`` come back too.  ``lanes`` (one of
+    ``GROUPED_ACT_LANES``) overrides :func:`grouped_act_lanes`' choice.
     """
+    if lanes is not None and lanes not in GROUPED_ACT_LANES:
+        raise ValueError(f"lanes must be one of {GROUPED_ACT_LANES}, got {lanes}")
     device = q.device
     if q.ndim != 2:
         raise ValueError(f"q: want [B, A], got {tuple(q.shape)}")
@@ -1085,6 +1123,7 @@ def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
     out = (action, noise_u, eps_u) if return_uniforms else action
     if B == 0:
         return out
+    lanes = grouped_act_lanes(B) if lanes is None else lanes
     params = _ActParams(
         A, mask.stride(0), mask.stride(1), float(np.float32(fill)), int(explore),
         int(ak[0]), int(ak[1]), int(ek[0]), int(ek[1]), float(np.float32(epsilon)),
@@ -1092,7 +1131,8 @@ def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
     rc = _lib("grouped_act").grouped_act_launch(
         q.data_ptr(), mask.data_ptr(), action.data_ptr(),
         noise_u.data_ptr() if return_uniforms else None,
-        eps_u.data_ptr() if return_uniforms else None, B, ctypes.byref(params), _stream(device),
+        eps_u.data_ptr() if return_uniforms else None, B, ctypes.byref(params), int(lanes),
+        _stream(device),
     )
     _check(rc, "grouped_act")
     LAUNCHES["grouped_act"] += 1
@@ -1652,6 +1692,22 @@ def grouped_flagship(state, config: EngineConfig, pieces: PieceSet, mode: str = 
     _check(rc, "grouped_flagship")
     LAUNCHES["grouped_flagship"] += 1
     return obs, mask, game_over, lines
+
+
+def grouped_flagship_occupancy(config: EngineConfig, pieces: PieceSet) -> dict:
+    """The shape of ``grouped_flagship``'s build at ``config``: envs and
+    threads a block, static shared memory, candidates a boards chunk,
+    whether the features are staged, and for the features mode (all flags)
+    and the boards mode the dynamic shared memory and the blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
+    defines = engine_defines(config, turbo.tables_for(pieces, "cpu")[0], flagship=True)
+    vals = (ctypes.c_int * 9)()
+    _check(_lib("grouped_flagship", defines).grouped_flagship_occupancy(ctypes.addressof(vals)),
+           "grouped_flagship_occupancy")
+    keys = ("envs_per_block", "threads_per_block", "static_smem_bytes", "chunk_candidates",
+            "features_staged", "features_dynamic_smem_bytes", "features_blocks_per_sm",
+            "boards_dynamic_smem_bytes", "boards_blocks_per_sm")
+    return dict(zip(keys, list(vals)))
 
 
 def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
