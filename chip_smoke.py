@@ -102,8 +102,9 @@ Phases, each printing one JSON line:
 16. The grouped kernels' times beside their bounds (``grouped_placements``
     in both modes at B = 512, 1024, 4096 and 65536; ``grouped_act`` at 1024
     and 4096, each lane width held to its plain version and timed, its
-    greedy launch beside ``torch.where`` + ``argmax``; ``replay_add`` at 1024; ``replay_sample`` at 256 samples of the
-    full buffer) and the grouped step's placements per second.
+    greedy launch beside ``torch.where`` + ``argmax``; ``replay_add`` at 1024
+    beside the obs field's ``copy_``; ``replay_sample`` at 256
+    samples of the full buffer) and the grouped step's placements per second.
 
 17. ``framestack_push`` against ``ops.framestack.push_plain`` (random
     windows, ~15% ``done``, B = 1024 and 512 with K = 4, B = 1 and 1001 with
@@ -136,7 +137,8 @@ Phases, each printing one JSON line:
     its plain version on the trained state at the path's shapes (B = 1024,
     the full wrapped 262,144-entry buffer).
 20. The new kernels' times beside their bounds, at the path's shapes and at
-    B = 65536, and the DQN path's replay kernels at its shapes; ``dqn_act``'s
+    B = 65536, and the DQN path's replay kernels at its shapes
+    (``replay_add`` beside the obs field's ``copy_``); ``dqn_act``'s
     greedy launch (the evaluations' argmax) beside ``torch.argmax(q, -1)``
     (also at B = 512 in phase 25).
 
@@ -181,7 +183,9 @@ Phases, each printing one JSON line:
     and the launch floor at B = 512, 2048 and 65536, each ``flagship_step``
     build's, and ``render_rgb84``'s bound under the earlier 2-D count
     too (the plain versions at most at B = 4096, scaled), and the reused
-    kernels at the 7056-byte frame (B = 512 and 65536).
+    kernels at the 7056-byte frame (B = 512 and 65536; ``replay_add``
+    beside the obs field's ``copy_``, its library time, and the earlier
+    yardstick, ``index_copy_`` of every field).
 
 26. The Gymnasium surface's kernels against their plain versions, bit for
     bit: ``grouped_flagship`` (ids, boards, features under all 16 flag
@@ -1924,6 +1928,14 @@ def _replay_block(B, obs_shape, g, dev):
             "done": torch.rand((B,), generator=g, device=dev) < 0.05}
 
 
+def add_library_ms(data, block, pos, reps) -> float:
+    """Device ms of ``replay_add``'s library time: one PyTorch call that
+    writes the obs field alone (``store.narrow(0, pos, B).copy_(obs)``, the
+    largest field's write; the port never calls it)."""
+    dst = data["obs"].narrow(0, pos, block["obs"].shape[0])
+    return device_ms(lambda: dst.copy_(block["obs"]), reps)
+
+
 def check_replay(dev) -> None:
     """Phase 13: ``replay_add`` and ``replay_sample`` against their plain versions
     across the buffer's wrap-around."""
@@ -2158,14 +2170,43 @@ def _bound(io_bytes, ops):
 
 
 def placement_ops(cfg, mode) -> int:
-    """32-bit operations of one candidate in ``grouped_placements`` (the
-    kernel's own count: 8 per hit-map window, 6 per full-row test, 20 per
-    row of the compaction and counters or 2 per cell of a board, 18 per
-    column of the counter read-out, 40 of geometry and legality)."""
+    """32-bit operations of one candidate in the one-thread-a-candidate
+    design of ``grouped_placements`` (each thread with its env's rows: 8 per
+    hit-map window, 6 per full-row test, 20 per row of the compaction and
+    counters or 2 per cell of a board, 18 per column of the counter
+    read-out, 40 of geometry and legality), kept beside the bound that
+    :func:`grouped_placements_ops` counts."""
     H = cfg.padded_height
     per_row = 20 if mode == "features" else 2 * cfg.width
     tail = 18 * cfg.width if mode == "features" else 0
     return 8 * (H - 3) + 6 * cfg.height + per_row * cfg.height + tail + 40
+
+
+def grouped_placements_ops(cfg, P, mode, lines) -> int:
+    """32-bit operations of one ``grouped_placements`` launch at ``cfg`` in
+    ``mode``, by the kernel's own count (csrc/grouped_placements.cu), for
+    the candidates whose ``lines`` (int32[A, B], the launch's own) it got:
+    an env's shared pass once over its A candidates (4 a padded cell for
+    the column masks and tops, 2 a playfield cell for its top, count and
+    bumpiness term, 3 a row word for fullness), then a candidate's drop from
+    the column tops (4 a piece cell), its S window rows (6 and 4 a word:
+    frame, stack, lock, fullness) and 30 of setup and outputs; in features
+    mode the S columns under the window patched (3 + 2 S each), S + 1
+    bumpiness pairs (8 each) and the W heights copied (2 each), or for each
+    candidate that clears rows (this launch's data) the block's column pass,
+    a column's height twice (its own and its left neighbour's for the
+    bumpiness: 3 a piece row and 20 each); in boards mode 2.5
+    an output cell (its byte built in shared memory, then 4 bytes read as a
+    word, converted and stored) and 8 a row."""
+    H, PW, W, h, S = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height, _side(P)
+    nw, nwf = (PW + 31) // 32, (W + 31) // 32
+    n_cand, n_clear = lines.numel(), int((lines > 0).sum())
+    shared = (4 * H * PW + 2 * h * W + 3 * h * nw) // (4 * W)
+    base = shared + 4 * S * S + S * (6 + 4 * nw) + 30
+    if mode != "features":
+        return n_cand * (base + 5 * h * W // 2 + 8 * h * nwf)
+    patch = S * (3 + 2 * S) + 8 * (S + 1) + 2 * W
+    return n_cand * base + (n_cand - n_clear) * patch + n_clear * 2 * W * (3 * S + 20)
 
 
 def time_grouped_kernels(dev, smi) -> dict:
@@ -2193,14 +2234,19 @@ def time_grouped_kernels(dev, smi) -> dict:
             gs = tg.step(gs, _grouped_actions(gs, g, dev, wild=0.0), cfg)[0]
         s = gs.env
         big = B >= 65536
+        lines = kernels.grouped_placements(s, cfg, turbo.PIECES)[3]
         for mode in ("features", "boards"):
             obs_bytes = B * A * (cfg.width + 3 if mode == "features" else cfg.height * cfg.width) * 4
             io = nbytes(s.rows, s.piece, s.rotation) + obs_bytes + B * A * (4 + 1 + 4)
             plain = tg.placements_plain if mode == "features" else tg.placement_boards_plain
-            out["grouped_placements"][f"{mode}@{B}"] = timed_pair(
+            entry = out["grouped_placements"][f"{mode}@{B}"] = timed_pair(
                 lambda: kernels.grouped_placements(s, cfg, turbo.PIECES, 4, mode),
                 lambda: plain(s, cfg), 20 if big else 100, 1 if big else 3, io,
-                B * A * placement_ops(cfg, mode))
+                grouped_placements_ops(cfg, turbo.PIECES, mode, lines))
+            # the bound by the one-thread-a-candidate design's count, kept
+            # beside the restated one
+            entry["bound_ms_thread_per_candidate"] = _bound(io, B * A * placement_ops(cfg, mode))["bound_ms"]
+            entry["clearing_candidates"] = int((lines > 0).sum())
             a = _grouped_actions(gs, g, dev, wild=0.0)
             mode_gs = tg.TurboGroupedState(env=s, mask=gs.mask)
             step_ms = device_ms(lambda: tg.step(mode_gs, a, cfg, mode=mode), 5 if big else 20)
@@ -2252,6 +2298,7 @@ def time_grouped_kernels(dev, smi) -> dict:
     entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
     out["replay_add"][B] = timed_pair(lambda: buffers.add(buf, block), lambda: buffers.add_plain(buf, block),
                                  100, 20, 2 * B * entry, 0)
+    out["replay_add"][B]["library_ms"] = add_library_ms(buf.data, block, buf.pos, 100)
     key = prng_key(3)
     out["replay_sample"][256] = timed_pair(
         lambda: buffers.sample_with_next(buf, key, 256, B),
@@ -2681,6 +2728,7 @@ def time_dqn_kernels(dev, smi) -> dict:
     entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
     out["replay_add"] = timed_pair(lambda: buffers.add(buf, block),
                                    lambda: buffers.add_plain(buf, block), 100, 20, 2 * B * entry, 0)
+    out["replay_add"]["library_ms"] = add_library_ms(buf.data, block, buf.pos, 100)
     key = threefry.prng_key(3)
     for n in (DQN_BATCH, 65536):
         out["replay_sample_stacked"][n] = timed_pair(
@@ -3196,9 +3244,11 @@ def time_pixel_kernels(dev, smi) -> dict:
     entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
     out["replay_add"] = timed_pair(lambda: buffers.add(buf, blk), lambda: buffers.add_plain(buf, blk),
                                    100, 20, 2 * B * entry, 0)
-    # the library's ring write: one index_copy_ a field, the port never calls it
+    out["replay_add"]["library_ms"] = add_library_ms(buf.data, blk, buf.pos, 100)
+    # the earlier yardstick, the ring write as one index_copy_ a field (the
+    # port never calls it), kept beside the obs field's copy_
     ring = torch.arange(buf.pos, buf.pos + B, device=dev)
-    out["replay_add"]["library_ms"] = device_ms(
+    out["replay_add"]["index_copy_ms"] = device_ms(
         lambda: [store.index_copy_(0, ring, blk[k]) for k, store in buf.data.items()], 100)
     key = threefry.prng_key(3)
     for n in (PIX_BATCH, 65536):
@@ -4582,23 +4632,16 @@ def grouped_flagship_ops(cfg, P, mode, lines) -> int:
 
 def _surface_ops(cfg, P) -> dict:
     """32-bit operations a unit of each surface function needs at ``cfg``,
-    by the kernels' own count, generalised from phases 16, 25 and 30 (for
-    ``grouped_flagship``: :func:`grouped_flagship_ops`): a candidate of
-    ``grouped_placements`` (phase 16's count with 8 a window
-    and word), an env of ``feature_vector`` (3 a cell, 15 a row, the
+    by the kernels' own count, generalised from phases 25 and 30 (for
+    ``grouped_flagship`` and ``grouped_placements``: :func:`grouped_flagship_ops`
+    and :func:`grouped_placements_ops`): an env of ``feature_vector`` (3 a cell, 15 a row, the
     read-out) and ``observe_dict`` (10 a board cell, 8 a mask cell, 10 a
     strip cell), a pixel of ``compose_rgb`` (12) and an env of
     ``render_rgb84`` (:func:`render_ops`)."""
     H, PW, W, h, S = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height, _side(P)
-    nw, nwf = (PW + 31) // 32, (W + 31) // 32
-    planes = max(1, int(h).bit_length())
-    hit = 8 * (H - S + 1) * nw
-    place = hit + 6 * h * nw + 40
     strips = S * S * (cfg.queue_size + cfg.holder_size)
     side = S * max(cfg.queue_size, cfg.holder_size)
-    return {"grouped_placements_features": place + (2 + 3 * planes) * h * nwf + 18 * W,
-            "grouped_placements_boards": place + 2 * h * W,
-            "feature_vector": h * (3 * W + 15) + 6 * W,
+    return {"feature_vector": h * (3 * W + 15) + 6 * W,
             "observe_dict": 18 * H * PW + 10 * strips, "compose_rgb": 12 * H * (PW + side),
             "render_rgb84": render_ops(H)}
 
@@ -4654,6 +4697,7 @@ def time_surface_wide(dev, smi) -> dict:
             flag = 4 + 1 + 4  # mask, game over, lines
             held = grouped_flagship_diff(s, cfg, P, f"phase 39 {name} B={B}", n=pg)
             lines = kernels.grouped_flagship(s, cfg, P, "ids")[3]
+            tlines = kernels.grouped_placements(t, cfg, P)[3]
             entries = {
                 ("grouped_flagship", "features"): (
                     lambda: kernels.grouped_flagship(s, cfg, P, "features"),
@@ -4666,7 +4710,7 @@ def time_surface_wide(dev, smi) -> dict:
                 ("grouped_placements", "features"): (
                     lambda: kernels.grouped_placements(t, cfg, P),
                     lambda: tg.placements_plain(tgp, cfg, P), pg,
-                    rows_in + B * A * (4 * (W + 3) + flag), B * A * ops["grouped_placements_features"]),
+                    rows_in + B * A * (4 * (W + 3) + flag), grouped_placements_ops(cfg, P, "features", tlines)),
                 ("feature_vector", None): (
                     lambda: kernels.feature_vector(crop, flags), lambda: feature_vector_plain(cp, flags), po,
                     B * (h * W + 4 * (W + 3)), B * ops["feature_vector"]),
@@ -4689,7 +4733,7 @@ def time_surface_wide(dev, smi) -> dict:
                 entries[("grouped_placements", "boards")] = (
                     lambda: kernels.grouped_placements(t, cfg, P, 4, "boards"),
                     lambda: tg.placement_boards_plain(tgp, cfg, P), pg,
-                    rows_in + B * A * (4 * h * W + flag), B * A * ops["grouped_placements_boards"])
+                    rows_in + B * A * (4 * h * W + flag), grouped_placements_ops(cfg, P, "boards", tlines))
             for (kname, mode), (kernel_fn, plain_fn, pb, io, n_ops) in entries.items():
                 entry = timed_pair(kernel_fn, plain_fn, 10 if big else 50, 1 if pb >= 1024 else 5, io, n_ops)
                 entry.update(plain_ms=entry["plain_ms"] * B / pb, plain_B=pb, library_ms=None,
@@ -4698,7 +4742,7 @@ def time_surface_wide(dev, smi) -> dict:
             emit({"phase": "surface_wide_times", "geometry": name, "B": B,
                   "kernels": {k: {m: e for m, e in v.items() if str(m).endswith(str(B))}
                               for k, v in out[name].items()}, "nvidia_smi": smi})
-            del s, t, d, crop, sg, so, tgp, dp, cp, lines
+            del s, t, d, crop, sg, so, tgp, dp, cp, lines, tlines
             torch.cuda.empty_cache()
     return out
 

@@ -333,6 +333,28 @@ __device__ __forceinline__ FillMask filled_mask(const Rows& rows) {
   return m;
 }
 
+// Full rows of a FillMask (the grouped kernels' candidate boards), those at
+// or above row s (s < HEIGHT), and the kept row of rank k: the least fixed
+// point of s = k + full_upto(s), the row a cleared board's row n + k comes
+// from after n rows clear.
+__device__ __forceinline__ int popc_fill(FillMask m) {
+  if constexpr (sizeof(FillMask) == 4) return __popc(m);
+  else return __popcll(static_cast<unsigned long long>(m));
+}
+
+__device__ __forceinline__ int full_upto(FillMask filled, int s) {
+  return popc_fill(filled & ((FillMask{2} << s) - 1u));
+}
+
+__device__ __forceinline__ int kept_row(FillMask filled, int k) {
+  int s = k;
+  for (;;) {
+    const int t = k + full_upto(filled, s);
+    if (t == s) return s;
+    s = t;
+  }
+}
+
 // Line clear: full playfield rows go; a kept row moves down by the number
 // of full rows below it, if that shift is <= max_clear (HEIGHT: no limit).
 // Each row d takes the row d - k that moves onto it, or the empty row; rows

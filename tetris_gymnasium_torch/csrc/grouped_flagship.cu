@@ -163,26 +163,6 @@ __device__ __forceinline__ void crop(const uint32_t* row, uint32_t (&m)[NWF]) {
   features::crop_row<NW, PAD, WIDTH>(r, m);
 }
 
-__device__ __forceinline__ int popc_fill(FillMask m) {
-  if constexpr (sizeof(FillMask) == 4) return __popc(m);
-  else return __popcll(static_cast<unsigned long long>(m));
-}
-
-// Full rows at or above row s (s < HEIGHT).
-__device__ __forceinline__ int full_upto(FillMask filled, int s) {
-  return popc_fill(filled & ((FillMask{2} << s) - 1u));
-}
-
-// Row k of the kept rows, in order: the least fixed point of s = k + full_upto(s).
-__device__ __forceinline__ int kept_row(FillMask filled, int k) {
-  int s = k;
-  for (;;) {
-    const int t = k + full_upto(filled, s);
-    if (t == s) return s;
-    s = t;
-  }
-}
-
 __device__ __forceinline__ void fill_bytes(int8_t* dst, int8_t v) {
 #pragma unroll
   for (int c = 0; c < PW; ++c) dst[c] = v;

@@ -9,13 +9,26 @@
 // sample_with_next_stacked_plain, and every output is bit-equal to them.
 //
 // replay_add: one launch writes one env batch into every field at entry pos
-// (a multiple of the batch, so the block is contiguous).  blockIdx.y picks
-// the field; the threads copy 16-, 4- or 1-byte words, whichever the field's
-// entry size, alignment and source row stride allow.  A source row may lie
-// at any stride (the newest frame of the DQN's [B, K, H, W] window is a
-// strided [B, H, W] view), so no contiguous copy is made first.  A field may
-// also come batch-minor, [n, B] of 4-byte elements seen as [B, n] (the
-// engine's [A, B] mask): the kernel transposes it as it writes.
+// (a multiple of the batch, so the destination [pos, pos + B) of each store
+// is contiguous).  A source row may lie at any stride (the newest frame of
+// the DQN's [B, K, H, W] window is a strided [B, H, W] view), so no
+// contiguous copy is made first.  A field may also come batch-minor, [n, B]
+// of 4-byte elements seen as [B, n] (the engine's [A, B] mask): the kernel
+// transposes it as it writes.  The grid is one flat run of blocks that the
+// launcher apportions to the fields by their bytes (AddPlan), so that no
+// block is launched for nothing; each block copies its field's share:
+//   words: the 16-, 4- or 1-byte words that the field's entry size,
+//     alignment and source row stride allow, one a thread in runs of
+//     kThreads words, the row of a word found by one 32-bit division; a
+//     field takes at most kAddMaxRuns blocks, each every kAddMaxRuns-th run
+//     (2 and 4 loads in flight a thread were slower at the paths' batches);
+//   transposed: a 32 x 32 tile through shared memory (32 x 33 words, so
+//     that neither the column reads nor the row writes share a bank), the
+//     source read along b and the store written along its rows, both
+//     coalesced.
+// Runs of rows staged and stored by bulk copies (cp.async.bulk, one thread
+// a block) were slower at the DQN paths' batches (PERF.md): each
+// block is one serial round trip.
 //
 // replay_sample: one launch draws JAX's randint(key, (n,), 0, span) on the
 // card (threefry.cuh; the host splits the key and passes span and the
@@ -104,43 +117,72 @@ struct StackParams {
   int bulk;          // the bulk build: the obs field's frames staged by cp.async.bulk
 };
 
+// replay_add's grid: the first block of each field (first[n] is the
+// grid's size).
+struct AddPlan {
+  int first[kMaxFields + 1];
+};
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSamplesPerBlock = 4;
 constexpr int kMaxStack = 16;
+constexpr int kAddMaxRuns = 32768;       // words: blocks a field
+constexpr int kTile = 32;                // transposed: a 32 x 32 tile, 8 rows of it a pass
 
+// The field's batch in runs of kThreads words, runs block, block + blocks,
+// ...: word i is word i - row * wpr of row i / wpr; the source rows lie
+// src_wpr words apart.
 template <typename T>
-__device__ __forceinline__ void copy_words(char* dst, const char* src, long long n_words,
-                                           long long wpr, long long src_wpr, long long i,
-                                           long long stride) {
-  // word i of the block is word i % wpr of row i / wpr; the source rows lie
-  // src_wpr words apart
-  for (; i < n_words; i += stride)
-    reinterpret_cast<T*>(dst)[i] =
-        reinterpret_cast<const T*>(src)[(i / wpr) * src_wpr + i % wpr];
+__device__ __forceinline__ void add_words(const ReplayField& f, char* dst, int block, int blocks,
+                                          int B) {
+  const uint32_t wpr = static_cast<uint32_t>(f.row_bytes / static_cast<long long>(sizeof(T)));
+  const uint32_t n = static_cast<uint32_t>(B) * wpr;
+  const long long src_wpr = f.src_stride / static_cast<long long>(sizeof(T));
+  const T* src = static_cast<const T*>(f.src);
+  T* d = reinterpret_cast<T*>(dst);
+  for (uint32_t i = static_cast<uint32_t>(block) * kThreads + threadIdx.x; i < n;
+       i += static_cast<uint32_t>(blocks) * kThreads) {
+    const uint32_t row = wpr == 1 ? i : i / wpr;
+    d[i] = src[row * src_wpr + (i - row * wpr)];
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) replay_add_kernel(ReplayFields fields, long long pos,
-                                                              int B) {
-  const ReplayField& f = fields.f[blockIdx.y];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  char* dst = static_cast<char*>(f.store) + pos * f.row_bytes;
-  const char* src = static_cast<const char*>(f.src);
-  if (f.transposed) {
-    // dst[b, j] = src[j, b], 4-byte elements; i runs over the destination
-    const long long m = f.row_bytes / 4;
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-    for (long long i = i0; i < B * m; i += stride) d[i] = s[(i % m) * B + i / m];
-    return;
+// Tile `block` of a batch-minor [m, B] field of 4-byte elements, written
+// batch-major: dst[b, j] = src[j, b].
+__device__ __forceinline__ void add_transposed(const ReplayField& f, char* dst, int block, int B,
+                                               uint32_t (&tile)[kTile][kTile + 1]) {
+  const int m = static_cast<int>(f.row_bytes / 4);
+  const int tiles_b = (B + kTile - 1) / kTile;
+  const int b0 = (block % tiles_b) * kTile, j0 = (block / tiles_b) * kTile;
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  const uint32_t* s = static_cast<const uint32_t*>(f.src);
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  for (int k = ty; k < kTile; k += kThreads / kTile) {
+    const int j = j0 + k, b = b0 + tx;
+    if (j < m && b < B) tile[k][tx] = s[static_cast<long long>(j) * B + b];
   }
-  const long long n_words = B * f.row_bytes / f.word;
-  const long long wpr = f.row_bytes / f.word, src_wpr = f.src_stride / f.word;
-  if (f.word == 16) copy_words<uint4>(dst, src, n_words, wpr, src_wpr, i0, stride);
-  else if (f.word == 4) copy_words<uint32_t>(dst, src, n_words, wpr, src_wpr, i0, stride);
-  else copy_words<uint8_t>(dst, src, n_words, wpr, src_wpr, i0, stride);
+  __syncthreads();
+  for (int k = ty; k < kTile; k += kThreads / kTile) {
+    const int b = b0 + k, j = j0 + tx;
+    if (b < B && j < m) d[static_cast<long long>(b) * m + j] = tile[tx][k];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) replay_add_kernel(const __grid_constant__ ReplayFields fields,
+                                                              const __grid_constant__ AddPlan plan,
+                                                              long long pos, int B) {
+  __shared__ uint32_t tile[kTile][kTile + 1];
+  int k = 0;  // the block's field
+  while (k + 1 < fields.n && static_cast<int>(blockIdx.x) >= plan.first[k + 1]) ++k;
+  const ReplayField& f = fields.f[k];
+  const int block = blockIdx.x - plan.first[k], blocks = plan.first[k + 1] - plan.first[k];
+  char* dst = static_cast<char*>(f.store) + pos * f.row_bytes;
+  if (f.transposed) add_transposed(f, dst, block, B, tile);
+  else if (f.word == 16) add_words<uint4>(f, dst, block, blocks, B);
+  else if (f.word == 4) add_words<uint32_t>(f, dst, block, blocks, B);
+  else add_words<uint8_t>(f, dst, block, blocks, B);
 }
 
 template <typename T>
@@ -364,16 +406,22 @@ __global__ void __launch_bounds__(32 * kWarpsWords) replay_sample_stacked_words_
 
 // One env batch of B entries into every field at entry pos.
 extern "C" int replay_add_launch(const ReplayFields* fields, long long pos, int B, void* stream) {
-  long long most = 0;
+  AddPlan plan;
+  long long blocks = 0;
   for (int j = 0; j < fields->n; ++j) {
     const ReplayField& f = fields->f[j];
-    const long long words = f.transposed ? B * f.row_bytes / 4 : B * f.row_bytes / f.word;
-    most = words > most ? words : most;
+    plan.first[j] = static_cast<int>(blocks);
+    if (f.transposed) {
+      blocks += static_cast<long long>((B + kTile - 1) / kTile) * ((f.row_bytes / 4 + kTile - 1) / kTile);
+    } else {
+      const long long runs = (B * (f.row_bytes / f.word) + kThreads - 1) / kThreads;
+      blocks += runs < kAddMaxRuns ? runs : kAddMaxRuns;
+    }
   }
-  long long blocks = (most + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > 4096 ? 4096 : blocks);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(fields->n));
-  replay_add_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*fields, pos, B);
+  plan.first[fields->n] = static_cast<int>(blocks);
+  if (blocks < 1 || blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  replay_add_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *fields, plan, pos, B);
   return static_cast<int>(cudaGetLastError());
 }
 

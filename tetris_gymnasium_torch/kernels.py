@@ -40,13 +40,17 @@ Kernels, with the JAX function each replaces:
   ``rl/ppo.py:policy_step :184-187``;
 * ``grouped_placements`` (``csrc/grouped_placements.cu``):
   ``core/turbo_grouped.py:_candidate_rows :103`` with ``_features_from_rows
-  :65``, ``placements :152`` and ``placement_boards :177``;
+  :65``, ``placements :152`` and ``placement_boards :177``, an env's shared
+  work once a block, the boards built a row at a time in shared memory and
+  streamed out in 16-byte stores (:func:`grouped_placements_occupancy`);
 * ``grouped_act`` (``csrc/grouped_act.cu``): the masked epsilon-greedy of
   ``rl/grouped_dqn.py:train_step :165-174`` and ``_masked_random :78``, and
   ``rl/evaluate.py:greedy_masked_q :141``, a group of 8, 16 or 32 lanes an
   env (:func:`grouped_act_lanes`);
 * ``replay_add`` and ``replay_sample`` (``csrc/replay.cu``):
   ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``;
+  ``replay_add`` on one flat grid apportioned to the fields by their bytes,
+  a word a thread, a transposed field through a shared-memory tile;
 * ``replay_sample_stacked`` (``csrc/replay.cu`` with ``csrc/bulk.cuh``):
   ``rl/buffers.py:sample_with_next_stacked :111``, a warp a sample, in two
   builds (:func:`replay_stacked_build`): the sample's <= K + 1 distinct
@@ -472,6 +476,7 @@ _ENTRY_POINTS = {
     "grouped_placements": {
         "grouped_placements_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       ctypes.POINTER(_PlacementParams), _P],
+        "grouped_placements_occupancy": [_P],
     },
     "grouped_act": {
         "grouped_act_launch": [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_ActParams), _I, _P],
@@ -1055,6 +1060,23 @@ def grouped_placements(state: turbo.TurboState, config: EngineConfig, pieces: Pi
     return obs, mask, game_over, lines
 
 
+def grouped_placements_occupancy(config: EngineConfig, pieces: PieceSet) -> dict:
+    """The shape of ``grouped_placements``' build at ``config``: envs and
+    threads a block, static shared memory, candidates a boards chunk and
+    the chunk's buffers (2 where they fit in 227 KB), whether the features
+    are staged, and for the features and the boards mode the dynamic shared
+    memory and the blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
+    defines = engine_defines(config, turbo.tables_for(pieces, "cpu")[0])
+    vals = (ctypes.c_int * 10)()
+    _check(_lib("grouped_placements", defines).grouped_placements_occupancy(ctypes.addressof(vals)),
+           "grouped_placements_occupancy")
+    keys = ("envs_per_block", "threads_per_block", "static_smem_bytes", "chunk_candidates",
+            "chunk_buffers", "features_staged", "features_dynamic_smem_bytes",
+            "features_blocks_per_sm", "boards_dynamic_smem_bytes", "boards_blocks_per_sm")
+    return dict(zip(keys, list(vals)))
+
+
 # Lanes an env of grouped_act's builds (csrc/grouped_act.cu): the A
 # candidates split across a group of 8, 16 or 32 lanes, whose running bests
 # a shuffle butterfly combines.  On an H100 (PERF.md; 40 candidates)
@@ -1139,6 +1161,10 @@ def grouped_act(q: torch.Tensor, mask: torch.Tensor, act_key=None, eps_key=None,
     return out
 
 
+# replay_add's threads a block and most blocks a field of words (csrc/replay.cu)
+_ADD_THREADS, _ADD_MAX_RUNS = 256, 32768
+
+
 def _copy_word(row_bytes: int, *tensors, stride: int = 0) -> int:
     """The widest copy granule (16, 4 or 1 bytes) that the entry size, a
     source row stride in bytes and every pointer allow."""
@@ -1202,6 +1228,10 @@ def replay_add(data: dict, transitions: dict, pos: int) -> None:
                              f"contiguous [n, B] tensor of 4-byte elements")
         src_stride = row_bytes if transposed or B <= 1 else x.stride(0) * x.element_size()
         word = 4 if transposed else _copy_word(row_bytes, store, x, stride=src_stride)
+        if not transposed and B * (row_bytes // word) + _ADD_MAX_RUNS * _ADD_THREADS >= 2**32:
+            # the kernel counts a field's words in 32 bits (csrc/replay.cu:add_words)
+            raise NotImplementedError(f"replay_add: {name} holds {B * (row_bytes // word)} words of "
+                                      f"{word} bytes, past the kernel's 32-bit word index")
         fields.append(_ReplayField(store.data_ptr(), x.data_ptr(), None, None, row_bytes,
                                    src_stride, word, int(transposed)))
     if B == 0:

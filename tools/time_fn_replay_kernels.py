@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device ms of ``fn_step`` (with ``fn_reset`` and ``fn_observe``) and
-``replay_sample_stacked`` at the shapes the earlier slices time them, for
-the port found under ``--repo``:
+"""Device ms of ``fn_step`` (with ``fn_reset`` and ``fn_observe``),
+``replay_sample_stacked`` and ``replay_add`` at the shapes the earlier
+slices time them, for the port found under ``--repo``:
 
     python tools/time_fn_replay_kernels.py [--repo DIR] [--label NAME] [--ptxas] [--ablate]
+        [--kernels fn,stacked,add]
 
 ``fn_step`` at 10x20 on live states (8 steps into a fresh rollout, as
 ``chip_smoke.py`` phase 43) and on frozen ones, ``fn_reset`` and
@@ -16,18 +17,29 @@ it, and each build of ``kernels.FN_STEP_BUILDS`` and
 ``kernels.REPLAY_STACKED_BUILDS`` that fits where the tree has them.  As a
 yardstick for the replay's gather alone, ``torch.index_select`` of the
 same 2nK frame rows given their indices (no single call draws the entries
-and walks the windows, so it is no library time of the kernel).  Each the
+and walks the windows, so it is no library time of the kernel).
+``replay_add`` at each DQN path's shape: the pixel DQN's 512 envs (the
+newest 7056-byte frame of a ``[B, 4, 84, 84]`` window, a strided view, with
+action, reward and done) and 65536 such envs, the grouped DQN's 1024 envs
+(``[40, 13]`` float32 features, the engine's ``[A, B]`` mask transposed,
+action, reward, done) and the board DQN's 1024 envs (the newest 200-byte
+int8 frame of a ``[B, 4, 20, 10]`` window), into the paths' buffers
+(262,144 entries, 131,072 for the grouped DQN), beside the library's copy
+of the obs field alone, ``store.narrow(0, pos, B).copy_(obs)``.  Each the
 median over 7 replays of a CUDA graph of 100 launches (10 at 65536, 5 for
-the pixel replay at 65536).  What the other tree lacks is skipped.
+the pixel replay at 65536).  ``--kernels`` times only the kernels it names
+(all three by default).  What the other tree lacks is skipped.
 
 With ``--ptxas`` it first builds ``fn_env.cu`` at 10x20, 30x20 and 8x12
 with padding 2 and ``replay.cu``, and prints each kernel's registers,
 spills and shared memory, and each ``fn_step`` build's blocks an SM
 (``kernels.fn_step_occupancy``).  With ``--ablate`` it times, in place of
-all that, ``fn_step`` at 10x20 (B = 1, 8192, 65536) and the pixel replay (n =
-512, 65536) beside patched copies of their sources that each skip one part
-(``ABLATIONS``, built under ``DIR/build/ablate/``): their games and frames
-are wrong by design, only their times mean anything.  Prints one JSON line
+all that, ``fn_step`` at 10x20 (B = 1, 8192, 65536), the pixel replay (n =
+512, 65536) and ``replay_add`` at its four shapes beside patched copies of
+their sources that each skip one part (``ABLATIONS``, by kernel: the
+variants whose patches the tree at ``--repo`` holds; built under
+``DIR/build/ablate/``): their games and frames are wrong by design, only
+their times mean anything.  Prints one JSON line
 with the card's name and power limit.  To compare two trees on one card,
 unpack the other into a directory that ``.gitignore`` lists and run both in
 one call, in turns: A, B, B, A.  Needs a card; builds the kernels of
@@ -51,30 +63,53 @@ REPLAY_N = (512, 65536)
 REPLAY_CAPACITY = 262_144
 K = 4
 LIVE_STEPS = 8
+GROUPED_CAPACITY = 131_072
+ADD_CASES = (("pixel", 512), ("grouped", 1024), ("board", 1024), ("pixel", 65536))
 
-# --ablate's patched copies: (source, variant, [(text, replacement), ...]).
+# --ablate's patched copies: (kernel, source, variant, [(text, replacement), ...]);
+# a variant runs where the tree's source holds each of its texts once.
 _NO_LOGIC = ("    if (!over_in) {\n      uint64_t m = ", "    if (false) {\n      uint64_t m = ")
 ABLATIONS = [
     # fn_step: the fields, the boards' round trip, the bit rows and the observation stay
-    ("fn_env", "no_logic", [_NO_LOGIC]),
+    ("fn", "fn_env", "no_logic", [_NO_LOGIC]),
     # fn_step: no observation
-    ("fn_env", "no_obs", [("    group_obs_maps(g, maps", "    if (false) group_obs_maps(g, maps"),
-                          ("  write_obs_maps(obs + ", "  if (false) write_obs_maps(obs + ")]),
+    ("fn", "fn_env", "no_obs", [("    group_obs_maps(g, maps", "    if (false) group_obs_maps(g, maps"),
+                                ("  write_obs_maps(obs + ", "  if (false) write_obs_maps(obs + ")]),
     # fn_step: the boards neither come in nor go out (the game reads garbage)
-    ("fn_env", "no_staging", [("      bulk::arrive_expect(&bar, span);\n      bulk::load(boards,",
-                               "      bulk::arrive_expect(&bar, 0);\n      if (false) bulk::load(boards,"),
-                              ("      bulk::store(board_out, boards, span);",
-                               "      if (false) bulk::store(board_out, boards, span);")]),
+    ("fn", "fn_env", "no_staging", [("      bulk::arrive_expect(&bar, span);\n      bulk::load(boards,",
+                                     "      bulk::arrive_expect(&bar, 0);\n      if (false) bulk::load(boards,"),
+                                    ("      bulk::store(board_out, boards, span);",
+                                     "      if (false) bulk::store(board_out, boards, span);")]),
     # fn_step: at most 32 registers a thread, 16 blocks an SM
-    ("fn_env", "bounds16", [("__launch_bounds__(kStepThreads) fn_step_kernel",
-                             "__launch_bounds__(kStepThreads, 16) fn_step_kernel")]),
+    ("fn", "fn_env", "bounds16", [("__launch_bounds__(kStepThreads) fn_step_kernel",
+                                   "__launch_bounds__(kStepThreads, 16) fn_step_kernel")]),
     # replay: no done flag is read, every window is K deep
-    ("replay", "no_lookback", [("  const bool f = lane < st.k && st.done[back(a, lane, p)];",
-                                "  const bool f = false;")]),
+    ("stacked", "replay", "no_lookback", [("  const bool f = lane < st.k && st.done[back(a, lane, p)];",
+                                           "  const bool f = false;")]),
     # replay: the frames are not staged, the stores write whatever shared memory holds
-    ("replay", "no_staging", [("    bulk::arrive_expect(&bar, m.slots * row);\n    for (int i = 0; i < m.slots; ++i)",
-                               "    bulk::arrive_expect(&bar, 0);\n    for (int i = 0; i < 0; ++i)")]),
+    ("stacked", "replay", "no_staging", [
+        ("    bulk::arrive_expect(&bar, m.slots * row);\n    for (int i = 0; i < m.slots; ++i)",
+         "    bulk::arrive_expect(&bar, 0);\n    for (int i = 0; i < 0; ++i)")]),
+    # replay_add with a (blocks, fields) grid: the blocks of every field but
+    # the first return at once
+    ("add", "replay", "obs_only", [("  const ReplayField& f = fields.f[blockIdx.y];\n",
+                                    "  if (blockIdx.y != 0) return;\n  const ReplayField& f = fields.f[blockIdx.y];\n")]),
+    # replay_add on the flat grid: at most 2048 and 131072 blocks a field of words
+    ("add", "replay", "runs2048", [("constexpr int kAddMaxRuns = 32768;", "constexpr int kAddMaxRuns = 2048;")]),
+    ("add", "replay", "runs131072", [("constexpr int kAddMaxRuns = 32768;", "constexpr int kAddMaxRuns = 131072;")]),
 ]
+
+
+def _ablations(repo, chosen):
+    """The variants of ``ABLATIONS`` for the kernels in ``chosen`` whose
+    patches the tree at ``repo`` holds."""
+    out = []
+    for kernel, source, variant, patches in ABLATIONS:
+        with open(os.path.join(repo, "tetris_gymnasium_torch", "csrc", f"{source}.cu")) as f:
+            text = f.read()
+        if kernel in chosen and all(text.count(old) == 1 for old, _ in patches):
+            out.append((kernel, source, variant, patches))
+    return out
 
 
 def _patched_libs(repo, kernels, jobs):
@@ -120,9 +155,13 @@ def main() -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--kernels", default="fn,stacked,add")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_fn_replay_kernels: needs a CUDA card")
+    chosen = set(args.kernels.split(","))
+    if not chosen <= {"fn", "stacked", "add"}:
+        raise SystemExit("time_fn_replay_kernels: --kernels takes fn, stacked and add")
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
     from chip_smoke import device_ms
@@ -146,6 +185,10 @@ def main() -> None:
     builds = {}
     if args.ptxas:
         jobs = [("fn_env", kernels.fn_defines(c, PIECES)) for c in geos.values()] + [("replay", ())]
+        for job in jobs:  # ptxas speaks only when it compiles
+            path = kernels._lib_path(kernels.SOURCES[job[0]], job[1])
+            if path.exists():
+                path.unlink()
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             facts = list(pool.map(lambda job: kernels._compile(*job), jobs))
         for name, f in zip([*geos, "replay"], facts):
@@ -202,58 +245,100 @@ def main() -> None:
             out[f"index_select{tag}"] = device_ms(lambda: torch.index_select(buf.data["obs"], 0, rows), reps)
         return out
 
+    def add_case(kind, B):
+        """The buffer and one transition batch of a DQN path's replay_add."""
+        cap = REPLAY_CAPACITY if kind != "grouped" else GROUPED_CAPACITY
+        common = {"action": torch.randint(0, 8, (B,), generator=g, device=dev, dtype=torch.int32),
+                  "reward": torch.randn((B,), generator=g, device=dev),
+                  "done": torch.rand((B,), generator=g, device=dev) < 0.05}
+        if kind == "grouped":
+            A = 40
+            blk = {"obs": torch.randn((B, A, 13), generator=g, device=dev),
+                   "mask": (torch.rand((A, B), generator=g, device=dev) < 0.5).float().T, **common}
+        else:
+            frame, dtype = ((84, 84), torch.uint8) if kind == "pixel" else ((20, 10), torch.int8)
+            window = torch.randint(-1 if kind == "board" else 0, 2 if kind == "board" else 256,
+                                   (B, K, *frame), generator=g, device=dev, dtype=dtype)
+            blk = {"obs": window[:, -1], **common}
+        data = {k: torch.zeros((cap, *x.shape[1:]), dtype=x.dtype, device=dev) for k, x in blk.items()}
+        return buffers.ReplayBuffer(data, pos=(cap // 2) // B * B, size=cap), blk
+
+    def add_times(buf, blk, tag, reps, yardstick=True):
+        out = {f"replay_add{tag}": device_ms(lambda: kernels.replay_add(buf.data, blk, buf.pos), reps)}
+        if yardstick:
+            dst = buf.data["obs"].narrow(0, buf.pos, blk["obs"].shape[0])
+            out[f"obs_copy{tag}"] = device_ms(lambda: dst.copy_(blk["obs"]), reps)
+        return out
+
     out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
     if args.ablate:
         cfg = geos["10x20"]
         fn_def = kernels.fn_defines(cfg, PIECES)
-        pix = replay_buffer((84, 84), torch.uint8, 512)
-        cases = {B: live(cfg, B) for B in FN_B}
+        pix = replay_buffer((84, 84), torch.uint8, 512) if "stacked" in chosen else None
+        cases = {B: live(cfg, B) for B in FN_B} if "fn" in chosen else {}
+        adds = {(kind, B): add_case(kind, B) for kind, B in ADD_CASES} if "add" in chosen else {}
 
-        def time_all(variant):
+        def time_all(variant, kernel):
             res = {}
-            for B, (s, a) in cases.items():
-                res[f"fn_step_{variant}@{B}"] = device_ms(
-                    lambda: kernels.fn_step(s, a, cfg, PIECES), 10 if B >= 65536 else 100)
-            for n in REPLAY_N:
-                res.update({f"{k}_{variant}": v for k, v in replay_times(
-                    pix, 512, n, f"@{n}", 5 if n >= 65536 else 100, yardstick=False).items()
-                    if k == f"replay_sample_stacked@{n}"})
+            if kernel == "fn":
+                for B, (s, a) in cases.items():
+                    res[f"fn_step_{variant}@{B}"] = device_ms(
+                        lambda: kernels.fn_step(s, a, cfg, PIECES), 10 if B >= 65536 else 100)
+            elif kernel == "stacked":
+                for n in REPLAY_N:
+                    res.update({f"{k}_{variant}": v for k, v in replay_times(
+                        pix, 512, n, f"@{n}", 5 if n >= 65536 else 100, yardstick=False).items()
+                        if k == f"replay_sample_stacked@{n}"})
+            else:
+                for (kind, B), (buf, blk) in adds.items():
+                    res.update({f"replay_add_{variant}@{kind}@{B}": v for v in add_times(
+                        buf, blk, "", 10 if B >= 65536 else 100, yardstick=False).values()})
             return res
 
-        out.update(time_all("full"))
-        jobs = [(src, variant, patches, fn_def if src == "fn_env" else ())
-                for src, variant, patches in ABLATIONS]
-        for (src, variant, _, defines), so in zip(jobs, _patched_libs(repo, kernels, jobs)):
+        for kernel in ("fn", "stacked", "add"):
+            if kernel in chosen:
+                out.update(time_all("full", kernel))
+        jobs = [(kernel, src, variant, patches, fn_def if src == "fn_env" else ())
+                for kernel, src, variant, patches in _ablations(repo, chosen)]
+        libs = _patched_libs(repo, kernels, [j[1:] for j in jobs]) if jobs else []
+        for (kernel, src, variant, _, defines), so in zip(jobs, libs):
             _load(kernels, so, src, defines)
-            res = time_all(variant)
-            out.update({k: v for k, v in res.items() if k.startswith("fn_step" if src == "fn_env" else "replay")})
+            out.update(time_all(variant, kernel))
             kernels._LIBS.pop((src, defines))  # back to the unpatched build
         print(json.dumps({"label": args.label, "nvidia_smi": smi, "ablate_ms": out}), flush=True)
         return
 
-    cfg = geos["10x20"]
-    for B in FN_B:
-        n = 10 if B >= 65536 else 100
-        s, a = live(cfg, B)
-        keys = batch_keys(prng_key(43), B, device=dev)
-        out.update(fn_times(cfg, s, a, f"@10x20@{B}", n))
-        out[f"fn_reset@10x20@{B}"] = device_ms(lambda: kernels.fn_reset(keys, cfg, PIECES), n)
-        out[f"fn_observe@10x20@{B}"] = device_ms(lambda: kernels.fn_observe(s, cfg, PIECES), n)
-        out[f"live_share@{B}"] = float((~s.game_over).float().mean())
-        del s, a
-    for name in ("30x20", "8x12-pad2"):
-        for B in FN_WIDE_B:
-            s, a = live(geos[name], B)
-            out.update(fn_times(geos[name], s, a, f"@{name}@{B}", 10 if B >= 65536 else 100, frozen=False))
+    if "fn" in chosen:
+        cfg = geos["10x20"]
+        for B in FN_B:
+            n = 10 if B >= 65536 else 100
+            s, a = live(cfg, B)
+            keys = batch_keys(prng_key(43), B, device=dev)
+            out.update(fn_times(cfg, s, a, f"@10x20@{B}", n))
+            out[f"fn_reset@10x20@{B}"] = device_ms(lambda: kernels.fn_reset(keys, cfg, PIECES), n)
+            out[f"fn_observe@10x20@{B}"] = device_ms(lambda: kernels.fn_observe(s, cfg, PIECES), n)
+            out[f"live_share@{B}"] = float((~s.game_over).float().mean())
             del s, a
-    torch.cuda.empty_cache()
-    for kind, frame, dtype, B in (("pixel", (84, 84), torch.uint8, 512), ("board", (20, 10), torch.int8, 1024)):
-        buf = replay_buffer(frame, dtype, B)
-        for n in REPLAY_N:
-            reps = 5 if (kind == "pixel" and n >= 65536) else 10 if n >= 65536 else 100
-            out.update(replay_times(buf, B, n, f"@{kind}@{n}", reps))
-        del buf
+        for name in ("30x20", "8x12-pad2"):
+            for B in FN_WIDE_B:
+                s, a = live(geos[name], B)
+                out.update(fn_times(geos[name], s, a, f"@{name}@{B}", 10 if B >= 65536 else 100, frozen=False))
+                del s, a
         torch.cuda.empty_cache()
+    if "stacked" in chosen:
+        for kind, frame, dtype, B in (("pixel", (84, 84), torch.uint8, 512), ("board", (20, 10), torch.int8, 1024)):
+            buf = replay_buffer(frame, dtype, B)
+            for n in REPLAY_N:
+                reps = 5 if (kind == "pixel" and n >= 65536) else 10 if n >= 65536 else 100
+                out.update(replay_times(buf, B, n, f"@{kind}@{n}", reps))
+            del buf
+            torch.cuda.empty_cache()
+    if "add" in chosen:
+        for kind, B in ADD_CASES:
+            buf, blk = add_case(kind, B)
+            out.update(add_times(buf, blk, f"@{kind}@{B}", 10 if B >= 65536 else 100))
+            del buf, blk
+            torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "fn_step_builds": list(fn_builds),
                       "replay_builds": list(replay_builds), "builds": builds, "ms": out}), flush=True)
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device ms of ``grouped_act`` and ``grouped_flagship`` for the port found
-under ``--repo``:
+"""Device ms of ``grouped_act``, ``grouped_flagship`` and
+``grouped_placements`` for the port found under ``--repo``:
 
     python tools/time_grouped_kernels.py [--repo DIR] [--label NAME] [--ptxas] [--ablate]
+        [--kernels act,flagship,placements]
 
 ``grouped_act`` with exploration (epsilon 0.3) at B = 1024 (the grouped
 DQN's batch), 4096 and 65536, its greedy launch (fill -inf, no draws, the
@@ -14,21 +15,29 @@ each lane width of ``kernels.GROUPED_ACT_LANES``.  ``grouped_flagship`` in its
 three modes (features under all flags, boards, ids) at 10x20 for B = 1,
 4096 and 65536 and at 30x20 and 61x12 for B = 4096 and 65536, on mid-game
 states (40 random flagship steps in); float32 boards at 61x12 and 65536
-envs (70.6 GB) are left out.  Each the median over 7 replays of a CUDA
-graph of 100 launches (10 at 65536, 3 for wide boards at 65536).
+envs (70.6 GB) are left out.  ``grouped_placements``
+(the turbo grouped engine's) in both modes at 10x20 for B = 256, 512 (the
+grouped evaluation's episodes), 1024 (the grouped DQN's batch), 4096 and
+65536 and at 30x20, 61x12 and 30x14 (chip_smoke.py phase 36's geometry)
+for B = 4096 and 65536, on mid-game states (20 random legal placements
+in); float32 boards at 61x12 and 65536 envs (46.8 GB) are left out.  Each
+the median over 7 replays of a CUDA graph of 100 launches (10 at 65536, 3
+for wide boards at 65536).  ``--kernels`` times only the kernels it names
+(all three by default).
 
 With ``--ptxas`` it first builds both sources (``grouped_flagship.cu`` at
-the three geometries) and prints each kernel's registers, spills and shared
-memory, and, where the tree has them, each build's blocks an SM
-(``kernels.grouped_flagship_occupancy``, ``kernels.grouped_act_occupancy``).
+its three geometries, ``grouped_placements.cu`` at its four) and prints
+each kernel's registers, spills and shared memory, and, where the tree has
+them, each build's blocks an SM (``kernels.grouped_flagship_occupancy``,
+``kernels.grouped_placements_occupancy``, ``kernels.grouped_act_occupancy``).
 With ``--ablate`` it times, in place of all that, ``grouped_flagship`` at
-10x20 (its three modes, B = 1, 4096 and 65536) and ``grouped_act`` (B =
-1024, 4096 and 65536) beside patched copies of their sources that each skip
-or change one part (``ABLATIONS``: one list for the one-thread-a-candidate
-sources that rebuild every output cell, one for the sources with an env's
-shared pass, taken by which the tree at ``--repo`` holds; built under
-``DIR/build/ablate/``): their outputs are wrong by design, only their times
-mean anything.  Prints one JSON line with
+10x20 (its three modes, B = 1, 4096 and 65536), ``grouped_act`` (B =
+1024, 4096 and 65536) and ``grouped_placements`` (both modes, at 10x20 for
+B = 256, 512, 1024, 4096 and 65536 and at 61x12 for 4096) beside patched
+copies of this tree's sources that each skip or change one part
+(``ABLATIONS``; built under ``DIR/build/ablate/``): their outputs are
+wrong by design, only their times mean anything.  An older tree's ablation is
+that tree's own copy of this tool.  Prints one JSON line with
 the card's name and power limit.  To compare two trees on one card, unpack
 the other into a directory that ``.gitignore`` lists and run both in one
 call, in turns: A, B, B, A.  Needs a card; builds the kernels of ``DIR``
@@ -53,56 +62,73 @@ WIDE_B = (4096, 65536)
 WIDE = ("30x20", "61x12")
 MID_GAME_STEPS = 40
 EPSILON = 0.3
+PLACEMENT_B = (256, 512, 1024, 4096, 65536)
+PLACEMENT_WIDE = WIDE + ("30x14",)  # 30x14: the turbo grouped engine's wide path (chip_smoke.py phase 36)
+PLACEMENT_STEPS = 20
 
-# --ablate's patched copies, by the tree whose sources they patch (the first
-# list whose first patch the tree's grouped_flagship.cu holds):
-# (source, variant, [(text, replacement), ...]).
-_NO_THREEFRY = ("grouped_act", "no_threefry", [("tf::gumbel_uniform(tf::bits(p.act_k0, p.act_k1, 0u, c))",
-                                                 "tf::gumbel_uniform(c * 2654435761u)")])
+# --ablate's patched copies of this tree's sources: source -> [(variant,
+# [(text, replacement), ...]), ...].  An older tree's are in its own copy of
+# this tool (run it with --repo pointing at that tree).
 _BLOCKS = "constexpr int kEnvs = 256 / A > 1 ? 256 / A : 1;  // envs a block"
-ABLATIONS = [
-    [  # one thread a candidate, every output cell rebuilt
-        # every output cell a function of its index alone (no rebuild from the board)
-        ("grouped_flagship", "no_cells", [("    const int c = i / BOARD, rem = i % BOARD;\n",
-                                           "    return static_cast<int8_t>(i);\n"
-                                           "    const int c = i / BOARD, rem = i % BOARD;\n")]),
-        # the kept rows are not folded into the height counters
-        ("grouped_flagship", "no_fold", [("          acc.add_row(m);\n", "          if (false) acc.add_row(m);\n")]),
-        # a constant hit map (every piece lands on the same row)
-        ("grouped_flagship", "no_hit_map", [("    const HitMask hm = hit_map(rows, pword, x);\n",
-                                             "    const HitMask hm = HitMask{1} << (H - S);\n")]),
-        # the window rows are not summed cell by cell
-        ("grouped_flagship", "no_window_sums", [("      for (int c = 0; c < WIDTH; ++c) {\n        const int j = PAD + c - xc;\n",
-                                                 "      for (int c = 0; c < 0; ++c) {\n        const int j = PAD + c - xc;\n")]),
-        _NO_THREEFRY,
-    ],
-    [  # an env's shared pass, then the candidates
+ABLATIONS = {
+    "grouped_flagship": [
         # no shared pass (the candidates read whatever shared memory holds)
-        ("grouped_flagship", "no_shared_pass", [("  for (int i = threadIdx.x; i < o_full + n_env * HEIGHT; i += blockDim.x) {",
-                                                 "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {")]),
+        ("no_shared_pass", [("  for (int i = threadIdx.x; i < o_full + n_env * HEIGHT; i += blockDim.x) {",
+                             "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {")]),
         # no candidates (the staged vectors are written as they are)
-        ("grouped_flagship", "no_candidates", [("  if (e < n_env) {\n    const int b = b0 + e;",
-                                                "  if (false) {\n    const int b = b0 + e;")]),
+        ("no_candidates", [("  if (e < n_env) {\n    const int b = b0 + e;",
+                            "  if (false) {\n    const int b = b0 + e;")]),
         # every placed candidate folded into the height counters, none patched
-        ("grouped_flagship", "fold_all", [("      } else if (n == 0) {", "      } else if (n == 0 && false) {")]),
+        ("fold_all", [("      } else if (n == 0) {", "      } else if (n == 0 && false) {")]),
         # every window patched cell by cell
-        ("grouped_flagship", "cell_window", [("odd = pid8 <= 0;", "odd = true;")]),
+        ("cell_window", [("odd = pid8 <= 0;", "odd = true;")]),
         # blocks of 128 and of 64 threads' worth of envs
-        ("grouped_flagship", "blocks128", [(_BLOCKS, _BLOCKS.replace("256", "128"))]),
-        ("grouped_flagship", "blocks64", [(_BLOCKS, _BLOCKS.replace("256", "64"))]),
-        _NO_THREEFRY,
+        ("blocks128", [(_BLOCKS, _BLOCKS.replace("256", "128"))]),
+        ("blocks64", [(_BLOCKS, _BLOCKS.replace("256", "64"))]),
     ],
-]
+    "grouped_act": [
+        # the noise's threefry replaced by a multiplicative hash
+        ("no_threefry", [("tf::gumbel_uniform(tf::bits(p.act_k0, p.act_k1, 0u, c))",
+                          "tf::gumbel_uniform(c * 2654435761u)")]),
+    ],
+    "grouped_placements": [
+        # no shared pass (the candidates read whatever shared memory holds)
+        ("no_shared_pass", [("  for (int i = threadIdx.x; i < o_rows + n_env * HEIGHT; i += blockDim.x) {",
+                             "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {")]),
+        # the shared pass without the env's totals (sum, filled cells, maximum, bumpiness)
+        ("no_totals", [("        atomicAdd(&es.sum, HEIGHT - top);\n", "        if (false) {\n"),
+                       ("        if (col > PAD) atomicAdd(&es.bump, abs((lm ? first_bit(lm) : HEIGHT) - top));\n",
+                        "        }\n")]),
+        # no candidates (the staged vectors and chunks are written as they are)
+        ("no_candidates", [("  if (e < n_env) {\n    const EnvShared& es = senv[e];",
+                            "  if (false) {\n    const EnvShared& es = senv[e];")]),
+        # every placed candidate through the block's column pass, none patched
+        ("columns_all", [("      } else if (n == 0) {", "      } else if (n == 0 && false) {")]),
+        # the batch-minor mask, game_over and lines are not written out
+        ("no_ab_outputs", [("  for (int i = threadIdx.x; i < n_cand; i += blockDim.x) {\n    const int a = i / n_env",
+                            "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {\n    const int a = i / n_env")]),
+        # the staged features are not written out
+        ("no_features_write", [("  if (feat) {\n    if constexpr (kStageFeatures) {",
+                                "  if (feat) {\n    if constexpr (false) {")]),
+        # each thread stores its own features vector (none staged)
+        ("unstaged", [("constexpr bool kStageFeatures = kStatic",
+                       "constexpr bool kStageFeatures = false && kStatic")]),
+        # the boards chunks are not built (the stream writes what shared memory holds)
+        ("no_board_build", [("      build_row(buf + cr * WIDTH,", "      if (false) build_row(buf + cr * WIDTH,")]),
+        # the boards chunks are built but not written out
+        ("no_board_stream", [("    for (int i = threadIdx.x; i < nc * kCells / 4; i += blockDim.x) {",
+                              "    for (int i = threadIdx.x; i < 0; i += blockDim.x) {")]),
+        # every batch in blocks of the build's kEnvs envs, and of 128 threads' worth
+        ("envs_full", [("  return std::min(kEnvs, std::max(1, (B + sms - 1) / sms));", "  return kEnvs;")]),
+        ("blocks128", [(_BLOCKS, _BLOCKS.replace("256", "128"))]),
+    ],
+}
 
 
-def _ablations(repo):
-    """The list of ``ABLATIONS`` that patches the tree at ``repo``."""
-    with open(os.path.join(repo, "tetris_gymnasium_torch", "csrc", "grouped_flagship.cu")) as f:
-        text = f.read()
-    for variants in ABLATIONS:
-        if text.count(variants[0][2][0][0]) == 1:
-            return variants
-    raise SystemExit("time_grouped_kernels: no ablation list patches this tree's grouped_flagship.cu")
+# (geometry, B) of each source's ablation timings
+_ABLATED = {"grouped_flagship": [("10x20", B) for B in FLAGSHIP_B],
+            "grouped_act": [(None, B) for B in ACT_B],
+            "grouped_placements": [("10x20", B) for B in (256, 512, 1024, 4096, 65536)] + [("61x12", 4096)]}
 
 
 def _patched_libs(repo, kernels, jobs):
@@ -153,15 +179,20 @@ def main() -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--kernels", default="act,flagship,placements")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_grouped_kernels: needs a CUDA card")
+    chosen = {"grouped_" + k for k in args.kernels.split(",")}
+    if not chosen <= set(ABLATIONS):
+        raise SystemExit("time_grouped_kernels: --kernels takes act, flagship and placements")
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
-    from chip_smoke import _flagship_actions, device_ms, wide_geometries
+    from chip_smoke import GROUPED_WIDE, _flagship_actions, _grouped_actions, device_ms, wide_geometries
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.core import turbo_grouped as tg
     from tetris_gymnasium_torch.ops import threefry
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.parallel.mesh import batch_keys
@@ -174,32 +205,56 @@ def main() -> None:
     g.manual_seed(17)
     geos = {"10x20": (EngineConfig(auto_reset=True), PIECES)}
     geos.update({name: (cfg, P) for name, cfg, P in wide_geometries() if name in WIDE})
+    geos["30x14"] = (EngineConfig(**GROUPED_WIDE), PIECES)
     act_lanes = getattr(kernels, "GROUPED_ACT_LANES", ())
-    jobs = [("grouped_flagship", kernels.engine_defines(c, turbo.tables_for(P, "cpu")[0], flagship=True))
-            for c, P in geos.values()] + [("grouped_act", ())]
-    builds = {}
+
+    def defines(source, name):
+        cfg, P = geos[name]
+        return kernels.engine_defines(cfg, turbo.tables_for(P, "cpu")[0],
+                                      flagship=source in kernels.FLAGSHIP_SOURCES)
+
+    names = {"grouped_flagship": ("10x20",) + WIDE, "grouped_placements": ("10x20",) + PLACEMENT_WIDE}
+    jobs = [(src, defines(src, name)) for src in ("grouped_flagship", "grouped_placements")
+            if src in chosen for name in names[src]]
+    jobs += [("grouped_act", ())] if "grouped_act" in chosen else []
     if args.ptxas:
         for job in jobs:  # ptxas speaks only when it compiles
             path = kernels._lib_path(kernels.SOURCES[job[0]], job[1])
             if path.exists():
                 path.unlink()
-    # every library the run loads, built in parallel (flagship_step makes the states)
-    steps = [("flagship_step", d) for _, d in jobs[:-1]]
+    # every library the run loads, built in parallel (flagship_step and
+    # turbo_step make the states)
+    steps = [("flagship_step" if src == "grouped_flagship" else "turbo_step",
+              defines("flagship_step" if src == "grouped_flagship" else "turbo_step", name))
+             for src in ("grouped_flagship", "grouped_placements") if src in chosen for name in names[src]]
     with ThreadPoolExecutor(max_workers=len(jobs) + len(steps)) as pool:
         facts = list(pool.map(lambda job: kernels._compile(*job), jobs + steps))[:len(jobs)]
+    builds = {}
     if args.ptxas:
-        for name, f in zip([*geos, "grouped_act"], facts):
-            builds[name] = {"ptxas": _ptxas_lines(f["ptxas"]), "extra_flags": f.get("extra_flags", [])}
-            if name in geos and hasattr(kernels, "grouped_flagship_occupancy"):
-                builds[name]["occupancy"] = kernels.grouped_flagship_occupancy(*geos[name])
-        if hasattr(kernels, "grouped_act_occupancy"):
-            builds["grouped_act"]["occupancy"] = kernels.grouped_act_occupancy()
+        for (src, d), f in zip(jobs, facts):
+            name = src if src == "grouped_act" else next(n for n in geos if defines(src, n) == d)
+            entry = builds.setdefault(src, {})[name] = {"ptxas": _ptxas_lines(f["ptxas"]),
+                                                         "extra_flags": f.get("extra_flags", [])}
+            if src == "grouped_flagship" and hasattr(kernels, "grouped_flagship_occupancy"):
+                entry["occupancy"] = kernels.grouped_flagship_occupancy(*geos[name])
+            if src == "grouped_placements" and hasattr(kernels, "grouped_placements_occupancy"):
+                entry["occupancy"] = kernels.grouped_placements_occupancy(*geos[name])
+            if src == "grouped_act" and hasattr(kernels, "grouped_act_occupancy"):
+                entry["occupancy"] = kernels.grouped_act_occupancy()
 
     def mid_game(cfg, P, B):
         s = kernels.flagship_init(batch_keys(prng_key(17 + B), B, device=dev), cfg, P)
         for _ in range(MID_GAME_STEPS):
             s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P, RewardsMapping())[0]
         return s
+
+    def placement_state(name, B):
+        cfg, P = geos[name]
+        cfg = cfg._replace(gravity_enabled=False, auto_reset=True)
+        gs, _ = tg.reset(batch_keys(prng_key(18 + B), B, device=dev), cfg, P, device=dev)
+        for _ in range(PLACEMENT_STEPS):
+            gs = tg.step(gs, _grouped_actions(gs, g, dev, wild=0.0), cfg, P)[0]
+        return cfg, P, gs.env
 
     def act_inputs(B, A=40):
         q = torch.randn((B, A), generator=g, device=dev)
@@ -237,48 +292,87 @@ def main() -> None:
         torch.cuda.empty_cache()
         return out
 
+    def placement_times(name, B, modes, reps, tag=""):
+        cfg, P, s = placement_state(name, B)
+        out = {}
+        for mode in modes:
+            big = B >= 65536 and mode == "boards" and name != "10x20"
+            out[f"grouped_placements_{mode}{tag}@{name}@{B}"] = device_ms(
+                lambda: kernels.grouped_placements(s, cfg, P, 4, mode), 3 if big else reps)
+        del s
+        torch.cuda.empty_cache()
+        return out
+
     out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
     if args.ablate:
-        cfg, P = geos["10x20"]
-        defines = kernels.engine_defines(cfg, turbo.tables_for(P, "cpu")[0], flagship=True)
-        states = {B: mid_game(cfg, P, B) for B in FLAGSHIP_B}
-        acts = {B: (*act_inputs(B), *threefry.split(prng_key(B))) for B in ACT_B}
+        def ablation_inputs(src, name, B):
+            if src == "grouped_flagship":
+                return mid_game(*geos[name], B)
+            if src == "grouped_placements":
+                return placement_state(name, B)
+            return (*act_inputs(B), *threefry.split(prng_key(B)))
 
-        def time_all(variant, source):
+        inputs = {(src, name, B): ablation_inputs(src, name, B)
+                  for src in sorted(chosen) for name, B in _ABLATED[src]}
+
+        def time_all(variant, src, name):
             res = {}
-            if source == "grouped_flagship":
-                for B, s in states.items():
+            reps = lambda B: 10 if B >= 65536 else 100
+            for (s_, n_, B), x in inputs.items():
+                if s_ != src or n_ != name:
+                    continue
+                at = f"{name}@{B}" if name else f"{B}"
+                if src == "grouped_flagship":
+                    c, p = geos[name]
                     for mode in ("features", "boards", "ids"):
-                        res[f"grouped_flagship_{mode}_{variant}@{B}"] = device_ms(
-                            lambda: kernels.grouped_flagship(s, cfg, P, mode), 10 if B >= 65536 else 100)
-            else:
-                for B, (q, mask, ak, ek) in acts.items():
-                    res[f"grouped_act_{variant}@{B}"] = device_ms(
-                        lambda: kernels.grouped_act(q, mask, ak, ek, EPSILON), 10 if B >= 65536 else 100)
+                        res[f"grouped_flagship_{mode}_{variant}@{at}"] = device_ms(
+                            lambda: kernels.grouped_flagship(x, c, p, mode), reps(B))
+                elif src == "grouped_placements":
+                    c, p, st = x
+                    for mode in ("features", "boards"):
+                        res[f"grouped_placements_{mode}_{variant}@{at}"] = device_ms(
+                            lambda: kernels.grouped_placements(st, c, p, 4, mode), reps(B))
+                else:
+                    q, mask, ak, ek = x
+                    res[f"grouped_act_{variant}@{at}"] = device_ms(
+                        lambda: kernels.grouped_act(q, mask, ak, ek, EPSILON), reps(B))
             return res
 
-        out.update(time_all("full", "grouped_flagship"))
-        out.update(time_all("full", "grouped_act"))
-        jobs = [(src, variant, patches, defines if src == "grouped_flagship" else ())
-                for src, variant, patches in _ablations(repo)]
-        for (src, variant, _, d), so in zip(jobs, _patched_libs(repo, kernels, jobs)):
+        geo_names = {src: sorted({n for n, _ in _ABLATED[src]}, key=str) for src in chosen}
+        for src in sorted(chosen):
+            for name in geo_names[src]:
+                out.update(time_all("full", src, name))
+        jobs = [(src, variant, patches, name, defines(src, name) if name else ())
+                for src in sorted(chosen) for variant, patches in ABLATIONS[src] for name in geo_names[src]]
+        for (src, variant, _, name, d), so in zip(jobs, _patched_libs(repo, kernels, [
+                (src, f"{variant}_{name}" if name else variant, patches, d)
+                for src, variant, patches, name, d in jobs])):
             _load(kernels, so, src, d)
-            out.update(time_all(variant, src))
+            out.update(time_all(variant, src, name))
             kernels._LIBS.pop((src, d))  # back to the unpatched build
         print(json.dumps({"label": args.label, "nvidia_smi": smi, "builds": builds, "ablate_ms": out}),
               flush=True)
         return
 
-    for B in ACT_B:
-        out.update(act_times(B, f"@{B}", 10 if B >= 65536 else 100))
-    for B in GREEDY_B:
-        out.update(greedy_times(B, f"@{B}", 10 if B >= 65536 else 100))
-    for B in FLAGSHIP_B:
-        out.update(flagship_times("10x20", B, ("features", "boards", "ids"), 10 if B >= 65536 else 100))
-    for name in WIDE:
-        for B in WIDE_B:
-            modes = ("features", "ids") if (name == "61x12" and B >= 65536) else ("features", "boards", "ids")
-            out.update(flagship_times(name, B, modes, 10 if B >= 65536 else 100))
+    if "grouped_act" in chosen:
+        for B in ACT_B:
+            out.update(act_times(B, f"@{B}", 10 if B >= 65536 else 100))
+        for B in GREEDY_B:
+            out.update(greedy_times(B, f"@{B}", 10 if B >= 65536 else 100))
+    if "grouped_flagship" in chosen:
+        for B in FLAGSHIP_B:
+            out.update(flagship_times("10x20", B, ("features", "boards", "ids"), 10 if B >= 65536 else 100))
+        for name in WIDE:
+            for B in WIDE_B:
+                modes = ("features", "ids") if (name == "61x12" and B >= 65536) else ("features", "boards", "ids")
+                out.update(flagship_times(name, B, modes, 10 if B >= 65536 else 100))
+    if "grouped_placements" in chosen:
+        for B in PLACEMENT_B:
+            out.update(placement_times("10x20", B, ("features", "boards"), 10 if B >= 65536 else 100))
+        for name in PLACEMENT_WIDE:
+            for B in WIDE_B:
+                modes = ("features",) if (name == "61x12" and B >= 65536) else ("features", "boards")
+                out.update(placement_times(name, B, modes, 10 if B >= 65536 else 100))
     print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "act_lanes": list(act_lanes),
                       "builds": builds, "ms": out}), flush=True)
 
