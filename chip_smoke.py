@@ -156,10 +156,14 @@ Phases, each printing one JSON line:
     ``flagship_builds_diff``) at every step.
 22. ``flagship_observe_board`` against its plain version and the turbo
     ``observe_board``, and ``render_rgb84`` against
-    ``preprocess_rgb84(render_rgb(state))``, on every state of phase 21.
-    Then the ``--impl flagship --obs board`` path: the committed PPO
-    policy's 512 greedy games on the flagship engine, with exact launch
-    counts, must give phase 5's statistics.
+    ``preprocess_rgb84(render_rgb(state))``, on every state of phase 21;
+    ``observe_dict`` (and its strips-only mode) and
+    ``flagship_observe_board`` at B = 1 and at batches that give each of
+    their launches' envs-a-block choices, half the envs scrambled
+    (``observation_choices_diff``). Then the ``--impl flagship --obs
+    board`` path: the committed PPO policy's 512 greedy games on the
+    flagship engine, with exact launch counts, must give phase 5's
+    statistics.
 23. A small fp32 pixel DQN (32 envs, K = 4, buffer 32 x 16, batch 16,
     learning from step 8, a target sync every 16, 30 steps) on the card and
     on the CPU from the same weights: replay contents, env states and the
@@ -227,7 +231,8 @@ Phases, each printing one JSON line:
     six full rows, and on drops that clear rows whose gaps straddle the word
     boundary (columns 0, 12, 14, 26; one and two rows) at 30x20; the
     sampling builds of ``turbo_step`` as in phase 3 and every build of
-    ``flagship_step`` as in phase 21 at every geometry.
+    ``flagship_step`` as in phase 21 at every geometry;
+    ``flagship_observe_board`` at every envs-a-block choice as in phase 22.
 32. The turbo engine equal to the flagship engine at 30x20 and 61x12, 120
     steps at 4096 envs.
 33. The slice's path: ``TetrisVectorEnv`` at width 30, height 20 as in
@@ -236,7 +241,9 @@ Phases, each printing one JSON line:
 34. The engine kernels' device ms at B = 4096 and 65536 at 30x20 and 61x12
     (``turbo_step`` also with the observation), and ``turbo_step`` (both
     ways), ``observe_board``, ``flagship_step`` and ``heights`` at the
-    default geometry at 65536, beside their bounds and plain versions, and
+    default geometry at 65536, and ``TetrisVectorEnv``'s kernels at its B =
+    8192 at the default geometry and 30x20 (the ``vector_env`` paths'
+    times in the kernels line), beside their bounds and plain versions, and
     each ``flagship_step`` build's.
 
 35. The six surface kernels at every geometry of phase 31 and at a holder
@@ -248,7 +255,8 @@ Phases, each printing one JSON line:
     boards, features) and ``grouped_placements`` (features, boards) on every
     25th state and on hand-built stacks with up to six full rows; every
     build of ``flagship_step`` against the plain step at every step of the
-    trajectories and on the stacks.
+    trajectories and on the stacks; ``observe_dict`` at every envs-a-block
+    choice as in phase 22.
 36. The turbo grouped engine equal to the flagship grouped engine on the
     card at 30x14 without gravity, 4096 envs, 50 masked-random steps
     (features, masks, rewards, dones, lines, env fields); ``grouped_flagship``
@@ -1312,6 +1320,8 @@ def main() -> None:
     # DQN's 1024 envs with gravity (512 samples), the grouped step's 1024 envs
     # without gravity (256 samples), the PPO step's B = 8192, the pixel PPO
     # step's 2048, the grouped engine's 4096 envs (features), the shell's B = 1.
+    # TetrisVectorEnv's paths (8192 envs, 10x20 and 30x20) give their kernels'
+    # times too, so that each entry's on_paths counts their launches.
     pix_at = {name: pix_times[name][PIX_ENVS] for name in
               ("flagship_step", "flagship_init", "render_rgb84", "framestack_push", "dqn_act")}
     pix_at.update(replay_add=pix_times["replay_add"],
@@ -1338,8 +1348,10 @@ def main() -> None:
               {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
              ("shell", shell["launches"], shell["steps"],
               {k: surface_times[k][1] for k in ("observe_dict", "compose_rgb", "feature_vector")}),
-             ("vector_env", vector["launches"], vector["steps"], {}),
-             ("vector_env_wide", wide_vector["launches"], wide_vector["steps"], {}),
+             ("vector_env", vector["launches"], vector["steps"],
+              {k: wide_times["default"][k][VECTOR_B] for k in VECTOR_ENV_KERNELS}),
+             ("vector_env_wide", wide_vector["launches"], wide_vector["steps"],
+              {k: wide_times["30x20"][k][VECTOR_B] for k in VECTOR_ENV_KERNELS}),
              ("shell_wide", wide_shell["launches"], wide_shell["steps"], {}),
              ("grouped_engines_wide", wide_grouped["launches"], wide_grouped["steps"], {}),
              ("fn_rollout", fn_path["launches"], fn_path["steps"],
@@ -1384,6 +1396,11 @@ def main() -> None:
             "launches_eval": launches[name],
             "launches_dqn_eval_k4": dqn_runs[4]["eval_launches"][name],
             "launches_dqn_rgb84_eval": pix["eval_launches"][name],
+            # each path that runs the kernel and timed it: its launches a step
+            # (the vector env's steps are both engines' runs) and ms a launch
+            "on_paths": {p[0]: {"launches_per_step": p[1][name] / p[2], "ms": p[3][name].get("ms"),
+                                "bound_ms": p[3][name].get("bound_ms")}
+                         for p in paths if p[0] != "none" and p[1][name] and isinstance(p[3].get(name), dict)},
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
             "library_ms": at[name].get("library_ms"), "launch_floor_ms": floor_ms,
@@ -2797,11 +2814,92 @@ def _surgery_boards(s, g, dev):
     ), n_full
 
 
+def _scrambled(s, cfg, P, g, dev):
+    """``s`` with random id stacks (negative ids and ids past the palette
+    among them) in the first half of its envs, the piece anywhere (past the
+    walls and the floor, its id and rotation outside the table), odd
+    holder counts and ``game_over`` on some envs."""
+    B, H, PW = s.board.shape
+    S, n = _side(P), int(P.ids.shape[0])
+    half = (torch.arange(B, device=dev) < (B + 1) // 2)
+
+    def ints(lo, hi, shape=(B,)):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    stack = torch.where(torch.rand((B, H, PW), generator=g, device=dev) < 0.35,
+                        ints(-3, 12, (B, H, PW)).to(torch.int8), s.board)
+    pick = half[:, None, None]
+    return s.replace(
+        board=torch.where(pick, stack, s.board).contiguous(),
+        piece=torch.where(half, ints(-1, n + 2), s.piece), rotation=torch.where(half, ints(-1, 5), s.rotation),
+        x=torch.where(half, ints(-S - 2, PW + 2), s.x), y=torch.where(half, ints(-S - 2, H + 2), s.y),
+        holder_count=torch.where(half, ints(-1, cfg.holder_size + 2), s.holder_count),
+        game_over=torch.where(half, torch.rand((B,), generator=g, device=dev) < 0.3, s.game_over))
+
+
+def observation_choices_diff(dev, cfg, P, what, names=("observe_dict", "flagship_observe_board")) -> dict:
+    """``observe_dict`` (and its strips-only mode) and
+    ``flagship_observe_board`` against their plain versions at B = 1 and at
+    batches that give each of their launches' envs-a-block choices (1..8
+    envs or warps a block, the last block ragged; the observation's build of
+    one env a warp at each, its build of more at the batches past 16 warps
+    an SM): the states of 8 random steps, half their envs scrambled
+    (:func:`_scrambled`)."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import RewardsMapping
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    out = {}
+    for name in names:
+        batches = [1] + [sms * (k - 1) + 1 for k in range(2, 9)] + [sms * 8 + 3]
+        if name == "observe_dict":
+            def choice(B):
+                return 1, kernels.observe_dict_shape(cfg, P, B)["envs_per_block"]
+        else:
+            def choice(B):
+                shape = kernels.flagship_observe_board_shape(cfg, P, B)
+                return shape["envs_per_warp"], shape["warps_per_block"]
+            # past 16 warps an SM the observation's build of more envs a warp
+            big = choice(16 * sms + 1)[0]
+            batches += sorted({16 * sms + 1} | {b for b in (big * sms * (k - 1) + 1 for k in range(2, 9))
+                                                if b > 16 * sms} | {big * sms * 8 + 3} - set(batches))
+        chosen = []
+        for B in batches:
+            chosen.append(choice(B))
+            s = kernels.flagship_init(batch_keys(prng_key(220 + B), B, device=dev), cfg, P)
+            for _ in range(8):
+                s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P, RewardsMapping())[0]
+            s = _scrambled(s, cfg, P, g, dev)
+            at = f"{what} B={B} ({chosen[-1]}: envs a warp, a block)"
+            if name == "observe_dict":
+                d, dp = kernels.observe_dict(s, cfg, P), engine.observe_dict_plain(s, cfg, P)
+                for k in dp:
+                    diff("observe_dict", d[k], dp[k], f"{at} {k}")
+                strips = kernels.observe_dict(s, cfg, P, strips_only=True)
+                if sorted(strips) != ["holder", "queue"]:
+                    raise AssertionError(f"{at}: observe_dict strips_only wrote {sorted(strips)}")
+                for k in strips:
+                    diff("observe_dict", strips[k], dp[k], f"{at} strips_only {k}")
+            else:
+                diff("flagship_observe_board", kernels.flagship_observe_board(s, cfg, P),
+                     engine.observe_board_plain(s, cfg, P), at)
+        if sorted({w for e, w in chosen if e == 1}) != list(range(1, 9)):
+            raise AssertionError(f"{what} {name}: the batches chose {chosen}, not every count 1..8")
+        out[name] = {"batches": batches, "envs_per_warp_and_per_block": chosen}
+    return out
+
+
 def check_flagship(dev) -> None:
     """Phases 21-22: ``flagship_init``, ``flagship_step``,
     ``flagship_observe_board`` and ``render_rgb84`` against their plain
     versions, bit for bit, and the flagship trajectories against
-    ``turbo_step``'s on the same keys and actions."""
+    ``turbo_step``'s on the same keys and actions; both observation kernels
+    at every envs-a-block choice (:func:`observation_choices_diff`)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine, turbo
@@ -2883,6 +2981,7 @@ def check_flagship(dev) -> None:
         counts["builds"] += len(kernels.FLAGSHIP_LANES)
         clears += torch.bincount(kl.long().cpu(), minlength=16)[:16]
         s = ks
+    choices = observation_choices_diff(dev, EngineConfig(auto_reset=True), engine.PIECES, "phase 22")
     torch.cuda.synchronize()
     if int(clears[2:].sum()) == 0 or int(clears[5:].sum()) == 0:
         raise AssertionError(f"the hand-built boards cleared no multi-line stack: {clears.tolist()}")
@@ -2894,7 +2993,7 @@ def check_flagship(dev) -> None:
           **counts, "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_init", "flagship_step")},
           "seconds": time.perf_counter() - t0})
     emit({"phase": "flagship_obs", "bit_equal": True, "turbo_equal": True,
-          "comparisons": counts["obs"] + FLAGSHIP_STEPS + len(runs),
+          "comparisons": counts["obs"] + FLAGSHIP_STEPS + len(runs), "launch_choices": choices,
           "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_observe_board", "render_rgb84")}})
 
 
@@ -3281,6 +3380,9 @@ SHELL_ACTION_P = (0.02, 0.02, 0.02) + (0.1, 0.1, 0.08, 0.1, 0.07, 0.3, 0.07, 0.1
 WRAPPER_EPISODES, WRAPPER_MAX_STEPS = 3, 40
 GROUPED_ENGINE_B, GROUPED_ENGINE_STEPS = 4096, 32  # bench.py:402-406
 VECTOR_B, VECTOR_STEPS = 8192, 64  # bench.py:419
+# the kernels a TetrisVectorEnv step launches, both engines (phases 29 and 33; timed in phase 34)
+VECTOR_ENV_KERNELS = ("turbo_init", "turbo_step", "observe_board", "flagship_init", "flagship_step",
+                      "flagship_observe_board")
 VECTOR_CHECK_STEPS = 16  # against the CPU; hard drops end episodes from step ~10, so final_obs is checked
 VECTOR_DROP_P = (0.02, 0.02, 0.02, 0.02, 0.02, 0.86, 0.02, 0.02)
 SURFACE_TIME_B = (1, 4096, 65536)
@@ -4086,8 +4188,10 @@ def check_wide_kernels(dev) -> dict:
         if stack_lines["flagship"] < 5:
             raise AssertionError(f"{name}: no hand-built stack cleared five rows at once")
         sampled = check_sample_builds(dev, cfg, P, name, 311)
+        choices = observation_choices_diff(dev, cfg, P, f"phase 31 {name}", ("flagship_observe_board",))
         runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
                      "piece_side": int(P.matrices.shape[-1]), "steps": WIDE_STEPS, "B": list(WIDE_B),
+                     "observe_board_choices": choices["flagship_observe_board"],
                      "episodes_ended": n_done, "lines": n_lines, "flagship_lines": n_flines,
                      "stacks_max_lines": stack_lines, "turbo_step_builds_compared": n_variants,
                      "flagship_step_builds_compared": n_fbuilds,
@@ -4164,10 +4268,12 @@ def check_wide_cross_engine(dev) -> dict:
 
 def time_wide_kernels(dev, smi) -> dict:
     """Phase 34: device ms of every engine kernel at B = 4096 and 65536 at
-    30x20 and 61x12, and of ``turbo_step``, ``observe_board``,
-    ``flagship_step`` and ``heights`` at the default geometry at 65536,
-    beside their bounds and their plain versions (at most at B = 4096,
-    scaled), on mid-game states (40 random steps in)."""
+    30x20 and 61x12, of ``turbo_step``, ``observe_board``,
+    ``flagship_step`` and ``heights`` at the default geometry at 65536, and
+    of the kernels of ``TetrisVectorEnv``'s two engines
+    (``VECTOR_ENV_KERNELS``, phases 29 and 33) at its B = 8192 at the
+    default geometry and 30x20, beside their bounds and their plain versions
+    (at most at B = 4096, scaled), on mid-game states (40 random steps in)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine, turbo
@@ -4184,7 +4290,7 @@ def time_wide_kernels(dev, smi) -> dict:
         H, PW, S = cfg.padded_height, cfg.padded_width, int(P.matrices.shape[-1])
         nw, board = turbo.n_words(cfg), H * PW
         step_ops = 3 * board + 4 * (H - S + 1) * 2 * S * nw + cfg.height * cfg.height * nw
-        for B in (WIDE_TIME_B if name != "default" else (65536,)):
+        for B in {"default": (VECTOR_B, 65536), "30x20": (4096, VECTOR_B, 65536)}.get(name, WIDE_TIME_B):
             big = B >= 65536
             keys = batch_keys(prng_key(34 + B), B, device=dev)
             t, f = kernels.turbo_init(keys, cfg, P), kernels.flagship_init(keys, cfg, P)
@@ -4227,7 +4333,9 @@ def time_wide_kernels(dev, smi) -> dict:
                                                   f.game_over) + obs_out,
                                            B * 6 * cfg.height * cfg.width),
             }
-            if name == "default":
+            if B == VECTOR_B:
+                entries = {k: v for k, v in entries.items() if k in VECTOR_ENV_KERNELS}
+            elif name == "default":
                 entries = {k: v for k, v in entries.items()
                            if k in ("turbo_step", "turbo_step_obs", "observe_board", "flagship_step",
                                     "heights")}
@@ -4241,7 +4349,7 @@ def time_wide_kernels(dev, smi) -> dict:
                 lanes: device_ms(lambda: kernels.flagship_step(f, a, cfg, P, rw, lanes=lanes),
                                  20 if big else 100) for lanes in kernels.FLAGSHIP_LANES}
             emit({"phase": "wide_times", "geometry": name, "B": B, "words_per_row": nw,
-                  "kernels": {k: v[B] for k, v in out[name].items()}, "nvidia_smi": smi})
+                  "kernels": {k: v[B] for k, v in out[name].items() if B in v}, "nvidia_smi": smi})
             del t, f, pt, pf, obs
             torch.cuda.empty_cache()
     return out
@@ -4450,6 +4558,8 @@ def check_surface_geometries(dev) -> dict:
         flagship_builds_diff([(s, drops)], cfg, P, rw, stack_step, f"{name} stacks step")
         stacks = _check_grouped_surface(s, cfg, P, f"{name} stacks", stacks=True)
         stacks["step_max_lines"] = int(stack_step[3].max())
+        stacks["observe_dict_choices"] = observation_choices_diff(dev, cfg, P, f"phase 35 {name}",
+                                                                  ("observe_dict",))["observe_dict"]
         if stacks["max_lines"] < 2 or stacks["illegal"] == 0 or stacks["game_over"] == 0:
             raise AssertionError(f"{name}: the hand-built stacks made no multi-line, illegal or "
                                  f"game-over candidate: {stacks}")

@@ -48,31 +48,42 @@
 // at 3.35 TB/s), ~2.03 KB at 30x20.  The integer work per env (a few
 // hundred instructions, more on a lock) is below that at full occupancy.
 // flagship_init writes a fresh state (~0.53 KB an env at 10x20), one
-// thread an env, 32 envs a block, the boards staged in shared memory;
-// flagship_observe_board reads the board and writes the cropped
-// int8[HEIGHT, WIDTH] frame (432 + 200 bytes an env at 10x20), 32 envs a
-// block, one thread per (env, row), the frames staged in shared memory and
-// stored in 16-byte words.
+// thread an env, 32 envs a block, the boards staged in shared memory.
+// flagship_observe_board reads the playfield rows and writes the cropped
+// int8[HEIGHT, WIDTH] frame: the bound counts the 200 playfield cells in,
+// 17 bytes of fields and 200 out an env at 10x20; it reads 360 bytes of
+// rows, the padding columns with them.  A warp takes one env while the
+// batch gives the SMs at most 16 warps each, else 1-4 (kObsWarpEnvs), with
+// no block-wide barrier: the rows in whole words, an env's piece work once,
+// its rows and frames staged in the warp's own shared memory and stored in
+// 16-byte words; warps a block min(8, the batch's warps / SMs), so that the
+// evaluation's 512 envs spread over the card.
 //
 // Geometry is fixed at compile time by the TETRIS_* defines
 // (engine_common.cuh, kernels.py:engine_defines), one library per
 // geometry with the two step builds.  What other geometries change here:
 //   - BOARD = H * PW need not be a multiple of 16 (648 bytes at 28x14, 924
 //     for the 6x6 pieces at 30x16): 32 boards always are, so every block of
-//     the init and the observation starts on a 16-byte boundary, and
-//     block_copy16 moves the bytes of a ragged tail one a thread; a band
-//     build stages its boards in 16-, 4- or 1-byte words, the widest that
-//     BOARD is a multiple of;
+//     the init starts on a 16-byte boundary, and block_copy16 moves the
+//     bytes of a ragged tail one a thread; a band build stages its boards
+//     in 16-, 4- or 1-byte words, and the observation reads them in 16-, 8-,
+//     4-, 2- or 1-byte words, the widest that BOARD is a multiple of
+//     (board_words.cuh:word_bytes); the observation's frames of OBS bytes
+//     are stored in 16-byte words from the first 16-byte boundary on;
 //   - the boards of a block live in dynamic shared memory: kEnvs * BOARD
-//     bytes for the init, kObsEnvs * (BOARD + OBS) for the observation (48
-//     KB at 30x20, 58 KB at 61x12), the band builds' stride-padded boards
-//     and line-clear rows (BandSmem), opted in above 48 KB; engine_defines
-//     keeps BOARD <= 3072 so that the observation's 196 KB stays inside the
-//     227 KB a block may have.
+//     bytes for the init, the band builds' stride-padded boards and
+//     line-clear rows (BandSmem), the observation's rows and frames
+//     (ObsBuild<E>::WARP_SMEM a warp: 2288 bytes at 10x20 with four envs,
+//     592 with one), opted in above 48 KB; engine_defines keeps BOARD <=
+//     3072 so that the init's 96 KB stays inside the 227 KB a block may
+//     have.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
+#include "board_words.cuh"
 #include "engine_common.cuh"
 #include "turbo_band.cuh"
 
@@ -111,14 +122,56 @@ namespace {
 
 constexpr int BOARD = H * PW;  // bytes of a board: 432 at 10x20
 constexpr int kEnvs = 32;      // envs (threads) a block of the init
-constexpr int kObsEnvs = 32;   // envs a block of the observation
-constexpr int kObsThreads = 256;
-constexpr int OBS = HEIGHT * WIDTH;  // bytes of a cropped frame: 200 at 10x20
 constexpr int kInitSmem = kEnvs * BOARD;
-constexpr int kObsSmem = kObsEnvs * (BOARD + OBS);
-static_assert((kEnvs * BOARD) % 16 == 0 && (kObsEnvs * BOARD) % 16 == 0 &&
-              (kObsEnvs * OBS) % 16 == 0, "each block's boards and frames start 16-byte aligned");
-static_assert(kObsSmem <= 227 * 1024 && kInitSmem <= 227 * 1024, "shared memory of a block");
+static_assert((kEnvs * BOARD) % 16 == 0, "each block's boards start 16-byte aligned");
+static_assert(kInitSmem <= 227 * 1024, "shared memory of a block");
+
+// The observation's shape: each env's playfield rows (PLAY bytes) read as
+// NIW words of WI bytes, kObsWarpEnvs envs a warp for a large batch (of
+// 1-4, the count whose words fill the warp's rounds of 32 lanes best within
+// six rounds, the fewer on a tie: 4 at 10x20, 2 at 30x20, 3 at 61x12, 1 at
+// 28x14 and for the 6x6 pieces at 30x16) and one for a small one, at most
+// kObsWarps warps a block.
+constexpr int OBS = HEIGHT * WIDTH;  // bytes of a cropped frame: 200 at 10x20
+constexpr int PLAY = HEIGHT * PW;    // bytes of the playfield rows: 360 at 10x20
+constexpr int WI = word_bytes(BOARD);
+constexpr int NIW = (PLAY + WI - 1) / WI;  // 23 at 10x20; never past the board's end
+
+__host__ __device__ constexpr int obs_warp_envs() {
+  int best = 1, best_words = 0, best_lanes = 1;
+  for (int e = 1; e <= 4; ++e) {
+    const int words = e * NIW, lanes = 32 * ((words + 31) / 32);
+    if (lanes <= 6 * 32 && words * best_lanes > best_words * lanes)
+      best = e, best_words = words, best_lanes = lanes;
+  }
+  return best;
+}
+
+constexpr int kObsWarpEnvs = obs_warp_envs();
+constexpr int kObsWarps = 8;
+// One env a warp while the batch gives the SMs at most this many warps
+// each: there a shorter chain a warp beats fuller lanes (PERF.md).
+constexpr int kObsOneEnvWarpsPerSM = 16;
+constexpr int SPLAY = NIW * WI;  // bytes of an env's staged playfield rows: 368 at 10x20
+
+// The build of E envs a warp (1 or kObsWarpEnvs): a lane's rounds of words,
+// whether they are all loaded up front, and a warp's shared memory: its
+// envs' playfield rows, then its frames (15 bytes more, so that they lie as
+// aligned as in the output).
+template <int E>
+struct ObsBuild {
+  static constexpr int ROUNDS = (E * NIW + 31) / 32;
+  static constexpr bool HELD = ROUNDS <= 6;
+  static constexpr int ROWS_SMEM = (E * SPLAY + 15) / 16 * 16;
+  static constexpr int WARP_SMEM = ROWS_SMEM + (E * OBS + 15 + 15) / 16 * 16;
+  static_assert(kObsWarps * WARP_SMEM <= 227 * 1024, "shared memory of a block");
+};
+// a frame row's bytes move in words of G bytes: the widest of 4, 2 and 1
+// that a row's start in the board and in the frame are multiples of (2 at
+// 10x20 and 30x20, 1 at 61x12, 4 at 28x14)
+constexpr int G = (PW % 4 == 0 && PAD % 4 == 0 && WIDTH % 4 == 0) ? 4
+                  : (PW % 2 == 0 && PAD % 2 == 0 && WIDTH % 2 == 0) ? 2 : 1;
+using Granule = std::conditional_t<G == 4, uint32_t, std::conditional_t<G == 2, uint16_t, uint8_t>>;
 
 __device__ __forceinline__ void load_env(Env& e, const FlagshipPtrs& p, int b, int B) {
   e.k0 = p.key[b];
@@ -197,38 +250,104 @@ __global__ void __launch_bounds__(kEnvs) flagship_init_kernel(
 }
 
 // observe_board: occupancy 0/1 with the active piece ADDED as -1 unless the
-// game is over, cropped to the playfield.
-__global__ void __launch_bounds__(kObsThreads) flagship_observe_board_kernel(
+// game is over, cropped to the playfield.  A warp takes kObsWarpEnvs envs:
+// lane l + 32 k loads word l + 32 k of the envs' playfield rows laid end to
+// end (the rows the crop keeps, in the board's widest words: 16 bytes at
+// 10x20, 30x20 and 61x12), lane e < kObsWarpEnvs computes env e's piece
+// word (from the packed table held across the warp, board_words.cuh:
+// LaneTable) and clamped window once and the lanes take them by shuffle; each
+// lane makes its word's output bytes four at a time (__vcmpgts4, __vsub4)
+// and stores the word into the warp's rows in shared memory; after
+// __syncwarp a lane a frame row copies its WIDTH bytes from column PAD in
+// words of G bytes into the warp's frames (putting each cell there from its
+// word's lane, a byte at a time, was slower than the one-thread-a-row
+// kernel it replaces: PERF.md); after __syncwarp the warp stores its
+// frames, contiguous in the output, in 16-byte words.
+template <int E>
+__global__ void __launch_bounds__(32 * kObsWarps) flagship_observe_board_kernel(
     const int8_t* __restrict__ board, const int32_t* __restrict__ piece,
     const int32_t* __restrict__ rotation, const int32_t* __restrict__ xs,
     const int32_t* __restrict__ ys, const uint8_t* __restrict__ game_over,
     const uint32_t* __restrict__ packed, int8_t* __restrict__ out, int B) {
-  extern __shared__ __align__(16) int8_t in_s[];  // kObsSmem bytes: the boards, then the frames
-  int8_t* out_s = in_s + kObsEnvs * BOARD;
-  const int base = blockIdx.x * kObsEnvs;
-  const int n = min(kObsEnvs, B - base);
-  block_copy16(in_s, board + static_cast<size_t>(base) * BOARD, n * BOARD);
-  __syncthreads();
-  for (int item = threadIdx.x; item < n * HEIGHT; item += blockDim.x) {
-    const int t = item / HEIGHT;
-    const int r = item % HEIGHT;
-    const int b = base + t;
-    const PieceWord word = game_over[b] ? no_piece() : piece_word_2d(packed, piece[b], rotation[b]);
-    const int xc = clamp_start(xs[b], PW - S, PW);
-    const int off = r - clamp_start(ys[b], H - S, H);
-    uint32_t prow[NW];
-    shift_row((off >= 0 && off < S) ? piece_row(word, off) : 0u, xc, prow);
-    const int8_t* src = in_s + t * BOARD + r * PW;
-    int8_t* dst = out_s + t * OBS + r * WIDTH;
+  extern __shared__ __align__(16) int8_t obs_s[];  // ObsBuild<E>::WARP_SMEM bytes a warp
+  constexpr unsigned kAll = 0xffffffffu;
+  using Build = ObsBuild<E>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e0 = (blockIdx.x * (blockDim.x >> 5) + warp) * E;  // the warp's first env
+  if (e0 >= B) return;  // the whole warp
+  const int n = min(E, B - e0);
+
+  // slot l + 32 k: word w of env e; loaded up front where they fit in
+  // registers (Build::HELD), else a round at a time
+  auto load = [&](int k) {
+    const int e = (lane + 32 * k) / NIW, w = (lane + 32 * k) % NIW;
+    return load_word<WI>(board + static_cast<size_t>(e0 + e) * BOARD + w * WI);
+  };
+  Word<WI> in[Build::HELD ? Build::ROUNDS : 1];
+  if constexpr (Build::HELD) {
 #pragma unroll
-    for (int c = 0; c < WIDTH; ++c) {
-      const int col = c + PAD;
-      dst[c] = static_cast<int8_t>((src[col] > 0 ? 1 : 0) -
-                                   static_cast<int>((prow[col >> 5] >> (col & 31)) & 1u));
+    for (int k = 0; k < Build::ROUNDS; ++k)
+      if ((lane + 32 * k) / NIW < n) in[k] = load(k);
+  }
+  // env lane e < n: env e's piece word and clamped window, the piece word
+  // by shuffles from the packed table held across the warp
+  LaneTable<NP * 4 * TW> tpacked;
+  tpacked.load(packed, lane);
+  int pc = -1, rot = 0, win = 0;  // win: the clamped window, x | y << 8
+  if (lane < n) {
+    const int b = e0 + lane;
+    // every field loaded at once: a piece read only once game_over says so
+    // waits on a second round trip (a third of the time at 65536, PERF.md)
+    const int x = xs[b], y = ys[b], p = piece[b], r = rotation[b];
+    const bool over = game_over[b] != 0;
+    pc = over ? -1 : p;
+    rot = r;
+    win = clamp_start(x, PW - S, PW) | clamp_start(y, H - S, H) << 8;
+  }
+  const PieceWord word = piece_word_lanes(tpacked, pc, rot);
+
+  const size_t o0 = static_cast<size_t>(e0) * OBS;  // the warp's frames in the output
+  const int off = static_cast<int>((reinterpret_cast<uintptr_t>(out) + o0) & 15u);
+  int8_t* rows = obs_s + warp * Build::WARP_SMEM;     // the envs' playfield rows, SPLAY bytes each
+  int8_t* frames = rows + Build::ROWS_SMEM + off;     // as aligned as out + o0
+#pragma unroll
+  for (int k = 0; k < Build::ROUNDS; ++k) {
+    const int e = (lane + 32 * k) / NIW, i0 = (lane + 32 * k) % NIW * WI;
+    const int src = min(e, E - 1);
+    PieceWord pw;
+#pragma unroll
+    for (int t = 0; t < TW; ++t) pw.w[t] = __shfl_sync(kAll, word.w[t], src);
+    const int wn = __shfl_sync(kAll, win, src);
+    if (e < n) {
+      Word<WI> v;
+      if constexpr (Build::HELD) v = in[k];
+      else v = load(k);
+      const uint32_t pb = piece_bits<WI>(pw, wn & 0xFF, wn >> 8, i0);
+#pragma unroll
+      for (int g = 0; g < Word<WI>::N; ++g)
+        v.v[g] = __vsub4(__vcmpgts4(v.v[g], 0u) & 0x01010101u, bit_bytes(pb, g));
+      store_word<WI>(rows + e * SPLAY + i0, v);
     }
   }
-  __syncthreads();
-  block_copy16(out + static_cast<size_t>(base) * OBS, out_s, n * OBS);
+  __syncwarp();
+  // the crop: a frame row a lane, WIDTH bytes from column PAD of its row
+  for (int item = lane; item < n * HEIGHT; item += 32) {
+    const int e = item / HEIGHT, r = item % HEIGHT;
+    const Granule* from = reinterpret_cast<const Granule*>(rows + e * SPLAY + r * PW + PAD);
+    Granule* to = reinterpret_cast<Granule*>(frames + e * OBS + r * WIDTH);
+#pragma unroll
+    for (int c = 0; c < WIDTH / G; ++c) to[c] = from[c];
+  }
+  __syncwarp();
+  // n * OBS bytes: up to the first 16-byte boundary, 16-byte words, the tail
+  int8_t* dst = out + o0;
+  const int nbytes = n * OBS;
+  const int lead = min((16 - off) & 15, nbytes);
+  const int words = (nbytes - lead) / 16;
+  for (int t = lane; t < lead; t += 32) dst[t] = frames[t];
+  for (int q = lane; q < words; q += 32)
+    reinterpret_cast<uint4*>(dst + lead)[q] = reinterpret_cast<const uint4*>(frames + lead)[q];
+  for (int t = lead + 16 * words + lane; t < nbytes; t += 32) dst[t] = frames[t];
 }
 
 constexpr int kBandEnvs = 16;  // envs a block of a band build (16 * L threads)
@@ -570,17 +689,57 @@ extern "C" int flagship_init_launch(const void* keys, const FlagshipPtrs* out, c
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int flagship_observe_board_launch(const void* board, const void* piece,
-                                             const void* rotation, const void* x, const void* y,
-                                             const void* game_over, const void* packed, void* out,
-                                             int B, void* stream) {
+// Envs a warp of the observation for a batch of B: one while B gives the
+// card's SMs at most kObsOneEnvWarpsPerSM warps each, else kObsWarpEnvs.
+static int obs_envs_per_warp(int B) {
+  return B <= kObsOneEnvWarpsPerSM * sm_count() ? 1 : kObsWarpEnvs;
+}
+
+// Warps a block of the observation for a batch of B: kObsWarps, or where
+// B's warps give the card's SMs fewer than kObsWarps each, as many as give
+// every SM a block.
+static int obs_warps_per_block(int B) {
+  const int warps = (B + obs_envs_per_warp(B) - 1) / obs_envs_per_warp(B);
+  return std::min(kObsWarps, std::max(1, (warps + sm_count() - 1) / sm_count()));
+}
+
+template <int E>
+static int launch_observe_board(const void* board, const void* piece, const void* rotation,
+                                const void* x, const void* y, const void* game_over,
+                                const void* packed, void* out, int B, cudaStream_t stream) {
   static bool opted = false;
-  if (const cudaError_t err = allow_smem(flagship_observe_board_kernel, kObsSmem, opted)) return err;
-  const int blocks = (B + kObsEnvs - 1) / kObsEnvs;
-  flagship_observe_board_kernel<<<blocks, kObsThreads, kObsSmem, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int smem = ObsBuild<E>::WARP_SMEM;
+  if (const cudaError_t err = allow_smem(flagship_observe_board_kernel<E>, kObsWarps * smem, opted))
+    return err;
+  const int warps = obs_warps_per_block(B);
+  const int blocks = ((B + E - 1) / E + warps - 1) / warps;
+  flagship_observe_board_kernel<E><<<blocks, 32 * warps, warps * smem, stream>>>(
       static_cast<const int8_t*>(board), static_cast<const int32_t*>(piece),
       static_cast<const int32_t*>(rotation), static_cast<const int32_t*>(x),
       static_cast<const int32_t*>(y), static_cast<const uint8_t*>(game_over),
       static_cast<const uint32_t*>(packed), static_cast<int8_t*>(out), B);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flagship_observe_board_launch(const void* board, const void* piece,
+                                             const void* rotation, const void* x, const void* y,
+                                             const void* game_over, const void* packed, void* out,
+                                             int B, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  return obs_envs_per_warp(B) == 1
+             ? launch_observe_board<1>(board, piece, rotation, x, y, game_over, packed, out, B, st)
+             : launch_observe_board<kObsWarpEnvs>(board, piece, rotation, x, y, game_over, packed, out,
+                                                  B, st);
+}
+
+// The observation's shape for a batch of B: out = [envs a warp, warps a
+// block, words of an env, bytes of a word, rounds a lane].
+extern "C" int flagship_observe_board_shape(int B, int* out) {
+  const int E = obs_envs_per_warp(B);
+  out[0] = E;
+  out[1] = obs_warps_per_block(B);
+  out[2] = NIW;
+  out[3] = WI;
+  out[4] = E == 1 ? ObsBuild<1>::ROUNDS : ObsBuild<kObsWarpEnvs>::ROUNDS;
+  return 0;
 }

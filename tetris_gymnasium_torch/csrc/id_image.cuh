@@ -1,9 +1,11 @@
 // The id image of the flagship engine's observation, as device code shared
-// by render_rgb84.cu, observe_dict.cu (observe_dict and compose_rgb): the
-// board with the active piece added unless it collides
-// (tetris_gymnasium_tpu/core/engine.py:project_active :227), the queue and
-// holder thumbnails (_strip :202, queue_holder_strips :239) and the
-// composite's sidebar layout (ops/observations.py:compose_rgb :84).
+// by render_rgb84.cu and observe_dict.cu (observe_dict and compose_rgb):
+// the fields it reads (RenderPtrs), a cell of the board with the active
+// piece added unless it collides (tetris_gymnasium_tpu/core/engine.py:
+// project_active :227; render_rgb84's) and the composite's sidebar layout
+// (ops/observations.py:compose_rgb :84).  observe_dict.cu builds the queue
+// and holder thumbnails (_strip :202, queue_holder_strips :239) a row at a
+// time itself.
 //
 // The geometry is engine_common.cuh's, fixed at compile time by the
 // TETRIS_* defines (kernels.py:engine_defines, one library per geometry):
@@ -42,28 +44,6 @@ constexpr int SIDE = S * (QS > HS ? QS : HS);  // sidebar width: 16 by default
 constexpr int IW = PW + SIDE;                   // id image width: 34 by default
 constexpr int NPAL = NP + 2;                    // palette entries: empty, bedrock, the pieces
 
-// A thumbnail cell (_strip): the piece's id where its matrix at rot is
-// filled, else 0; 0 for a piece outside the table.
-__device__ __forceinline__ uint8_t thumb(const uint32_t* packed, const int32_t* ids, int piece,
-                                         int rot, int i, int j) {
-  const uint32_t bit = (piece_row(piece_word_2d(packed, piece, rot), i) >> j) & 1u;
-  return bit ? static_cast<uint8_t>(piece_entry(ids, piece)) : 0;
-}
-
-// project_active's test: a filled piece cell over a cell > 0 of the board
-// in the clamped window (xc, yc).
-__device__ __forceinline__ bool active_collides(const int8_t* board, const PieceWord& word, int xc,
-                                                int yc) {
-  bool hit = false;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const uint32_t prow = piece_row(word, i);
-#pragma unroll
-    for (int j = 0; j < S; ++j) hit |= ((prow >> j) & 1u) && board[(yc + i) * PW + xc + j] > 0;
-  }
-  return hit;
-}
-
 // Cell (r, c) of project_active's board: `pid` (0 where the piece collides)
 // added under the piece's cells as an int8 sum, then viewed as uint8.
 __device__ __forceinline__ uint8_t active_cell(const int8_t* board, int r, int c, const PieceWord& word,
@@ -82,21 +62,6 @@ __device__ __forceinline__ uint8_t sidebar_cell(int r, int sc, Q queue, Hd holde
   if (r < S) return sc < QS * S ? queue(r, sc) : 1;
   if (r >= H - S && sc < HS * S) return holder(r - (H - S), sc);
   return 1;
-}
-
-// The queue strip's cell (i, j): slot j / S at rotation 0, every slot shown.
-__device__ __forceinline__ uint8_t queue_cell(const uint32_t* packed, const int32_t* ids,
-                                              const int32_t* queue, int i, int j) {
-  return thumb(packed, ids, queue[j / S], 0, i, j % S);
-}
-
-// The holder strip's cell (i, j): slot j / S at its stored rotation,
-// bedrock while the slot is empty.
-__device__ __forceinline__ uint8_t holder_cell(const uint32_t* packed, const int32_t* ids,
-                                               const int32_t* hp, const int32_t* hr, int count,
-                                               int i, int j) {
-  const int slot = j / S;
-  return slot < count ? thumb(packed, ids, hp[slot], hr[slot], i, j % S) : 1;
 }
 
 }  // namespace engine

@@ -22,89 +22,240 @@
 // core/engine.py:observe_dict_plain and ops/observations.py:compose_rgb_plain;
 // the outputs are bit-equal.
 //
-// On the TPU both are one-hot contractions over the batch.  Here the id
-// image is built by the same device code as render_rgb84.cu's
-// (id_image.cuh).  observe_dict takes 8 envs a block of 256 threads: it
-// stages their boards in shared memory (16-byte loads where the block's
-// boards start on a 16-byte boundary, engine_common.cuh:block_copy), one
-// thread an env tests the piece's collision, and the block writes the
-// outputs of its envs, which are contiguous, neighbouring threads on
-// neighbouring bytes.  compose_rgb takes one thread a pixel and writes its
-// 3 bytes.
+// On the TPU both are one-hot contractions over the batch.  Here
+// observe_dict runs a warp an env, with no block-wide barrier, so that a
+// small batch spreads over the SMs (envs a block min(kWarps, ceil(B /
+// SMs)), envs_per_block) and a large one streams:
+//   - each lane loads its words of the env's board first (the widest words
+//     that BOARD is a whole number of: 16 bytes at 10x20, 30x20 and 61x12,
+//     8 at 28x14; board_words.cuh), lane w + 32 k word w + 32 k;
+//   - in the same round each lane loads one field for the env: lane s < QS
+//     the queue slot s, the next HS lanes the holder slots (and their
+//     rotations), then the active piece (and its rotation), x, y and the
+//     holder count; and the warp loads the piece tables (the packed piece
+//     words, the ids, the box sides), a lane an entry (LaneTable); each of
+//     the first QS + HS + 1 lanes then looks up its piece's entries by
+//     shuffles, not by a load that waits on the field's, so the env's piece
+//     work is done once, and the warp hands them round by shuffles;
+//   - each board lane finds the piece's cells and the box's cells among its
+//     word's cells as bits (the clamped window for the piece, the unclamped
+//     x and y for the box, board_words.cuh:piece_bits, rows_bits), tests
+//     the piece's cells against the board four bytes at a time
+//     (__vcmpgts4), and the warp votes on the collision (__any_sync);
+//   - each board lane then adds the id under the piece's cells (__vadd4: the
+//     int8 sum, wrapping) unless the warp found a collision, and stores its
+//     board and mask words (held in registers up to six words a lane, every
+//     board of 16-byte words; a board of narrower words, such as the 6x6
+//     pieces' 924 bytes at 30x16, is read again after the vote);
+//   - lanes 0..S-1 write the queue strip's rows and lanes S..2S-1 the holder
+//     strip's, a row a lane in the widest words that a row's S * QS (S * HS)
+//     bytes are a whole number of, the slots' columns known at compile time
+//     (four columns of a slot at a time where S is a multiple of 4).
+// With null board and mask outputs it writes the strips alone.
+// compose_rgb takes one thread a pixel and writes its 3 bytes.
 //
 // The geometry is fixed at compile time by the TETRIS_* defines
 // (kernels.py:engine_defines with flagship=True, one library per geometry;
 // compose_rgb's from the shapes of its inputs, kernels.py:compose_defines):
 // padded height <= 64, padded width <= 128, piece side <= 8, 1-32 pieces,
-// queue <= 16, holder <= 8, a padded board of <= 3072 cells, so that the 8
-// staged boards take at most 24 KB of static shared memory; the composite
-// needs H >= 2 S (id_image.cuh).
+// queue <= 16, holder <= 8, a padded board of <= 3072 cells; the
+// composite needs H >= 2 S (id_image.cuh).
 //
-// Bound on this card: bytes.  observe_dict reads ~500 bytes an env and
-// writes 944 at 10x20 (~1.0 KB and 1.9 KB at 30x20); compose_rgb reads
-// H * PW + the strips a board and writes 3 H * IW (2448 at 10x20, 3888 at
-// 30x20).
+// Bound on this card: bytes.  observe_dict reads the board and ~50 bytes of
+// fields an env and writes the board, the mask and the strips: 484 bytes in
+// and 944 out at 10x20 (~0.43 ns an env at 3.35 TB/s), ~0.96 KB and 1.9 KB
+// at 30x20; at B = 1 the launch floor is the bound.  compose_rgb reads H *
+// PW + the strips a board and writes 3 H * IW (2448 at 10x20, 3888 at 30x20).
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "id_image.cuh"
+#include "board_words.cuh"
 
 using namespace engine;
 
 namespace {
 
 constexpr int BOARD = H * PW;        // 432 by default
-constexpr int QSTRIP = S * QS * S;   // bytes of a queue strip: 64 by default
-constexpr int HSTRIP = S * HS * S;   // bytes of a holder strip: 16 by default
-constexpr int kEnvs = 8;             // envs a block of observe_dict
-constexpr int kThreads = 256;
+constexpr int QSW = S * QS;          // bytes of a queue strip's row: 16 by default
+constexpr int HSW = S * HS;          // bytes of a holder strip's row: 4 by default
+constexpr int QSTRIP = S * QSW;      // bytes of a queue strip: 64 by default
+constexpr int HSTRIP = S * HSW;      // bytes of a holder strip: 16 by default
+constexpr int WB = word_bytes(BOARD);  // bytes of a board word: 16 by default
+constexpr int NBW = BOARD / WB;        // words of a board: 27 by default
+constexpr int kRounds = (NBW + 31) / 32;  // board words a lane
+constexpr bool kHeld = kRounds <= 6;      // they stay in registers (every board of 16-byte words)
+constexpr int kWarps = 8;              // envs (warps) a block of observe_dict at most
+constexpr int kThreads = 256;          // threads a block of compose_rgb
+// the lanes of an env's warp by the field each loads: the queue slots, the
+// holder slots, the active piece, x, y, the holder count
+constexpr int L_HOLD = QS, L_ACTIVE = QS + HS, L_X = L_ACTIVE + 1, L_Y = L_X + 1, L_COUNT = L_Y + 1;
+static_assert(L_COUNT < 32 && 2 * S <= 32, "an env's fields and strip rows fit a warp");
 
-__global__ void __launch_bounds__(kThreads) observe_dict_kernel(
+// Word q of W bytes of a row of bytes held as 32-bit lanes.
+template <int W, int N>
+__device__ __forceinline__ Word<W> word_at(const uint32_t (&bytes)[N], int q) {
+  Word<W> w;
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int g = 0; g < W / 4; ++g) w.v[g] = bytes[q * (W / 4) + g];
+  } else {
+    w.v[0] = (bytes[q * W / 4] >> (8 * (q * W % 4))) & ((1u << (8 * W)) - 1u);
+  }
+  return w;
+}
+
+// Row i of a strip of NS slots, S columns each: slot s's row bits `rows[s]`
+// (bit j: column s * S + j) as its byte `idb[s]`, 0 elsewhere, stored at dst
+// in words of the widest size that NS * S bytes are a whole number of.
+template <int NS>
+__device__ __forceinline__ void strip_row(uint8_t* dst, const uint32_t (&rows)[NS],
+                                          const uint32_t (&idb)[NS]) {
+  constexpr int ROW = NS * S;
+  constexpr int W = word_bytes(ROW);
+  uint32_t bytes[(ROW + 3) / 4];
+  if constexpr (S % 4 == 0) {  // four columns of a slot a 32-bit lane
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int q = 0; q < S / 4; ++q) bytes[s * (S / 4) + q] = expand4((rows[s] >> (4 * q)) & 15u) * idb[s];
+  } else {
+#pragma unroll
+    for (int g = 0; g < (ROW + 3) / 4; ++g) bytes[g] = 0u;
+#pragma unroll
+    for (int j = 0; j < ROW; ++j)
+      bytes[j / 4] |= (((rows[j / S] >> (j % S)) & 1u) * idb[j / S]) << (8 * (j % 4));
+  }
+#pragma unroll
+  for (int q = 0; q < ROW / W; ++q) store_word<W>(dst + q * W, word_at<W>(bytes, q));
+}
+
+__global__ void __launch_bounds__(32 * kWarps) observe_dict_kernel(
     RenderPtrs p, const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
     const int32_t* __restrict__ ids, uint8_t* __restrict__ board_out, uint8_t* __restrict__ mask_out,
     uint8_t* __restrict__ holder_out, uint8_t* __restrict__ queue_out, int B) {
-  __shared__ __align__(16) int8_t sboard[kEnvs * BOARD];
-  __shared__ int spid[kEnvs];
-  const int b0 = blockIdx.x * kEnvs;
-  const int n = min(kEnvs, B - b0);
-  if (board_out != nullptr) {  // else the strips alone (the same for the whole grid)
-    block_copy(sboard, p.board + static_cast<size_t>(b0) * BOARD, n * BOARD);
-    __syncthreads();
-    if (threadIdx.x < n) {
-      const int b = b0 + threadIdx.x;
-      const int piece = p.piece[b];
-      const PieceWord word = piece_word_2d(packed, piece, p.rotation[b]);
-      const bool hit = active_collides(sboard + threadIdx.x * BOARD, word,
-                                       clamp_start(p.x[b], PW - S, PW), clamp_start(p.y[b], H - S, H));
-      spid[threadIdx.x] = hit ? 0 : piece_entry(ids, piece);
-    }
-    __syncthreads();
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  const bool boards = board_out != nullptr;  // else the strips alone (the same for the whole grid)
 
-    const size_t base = static_cast<size_t>(b0) * BOARD;
-    for (int i = threadIdx.x; i < n * BOARD; i += blockDim.x) {
-      const int e = i / BOARD, cell = i % BOARD;
-      const int b = b0 + e;
-      const int r = cell / PW, c = cell % PW;
-      const int piece = p.piece[b];
-      const int x = p.x[b], y = p.y[b];
-      const PieceWord word = piece_word_2d(packed, piece, p.rotation[b]);
-      board_out[base + i] = active_cell(sboard + e * BOARD, r, c, word, clamp_start(x, PW - S, PW),
-                                        clamp_start(y, H - S, H), spid[e]);
-      const int bx = piece_entry(box, piece);
-      mask_out[base + i] = (r >= y && r < y + bx && c >= x && c < x + bx) ? 1 : 0;
+  // the board's words: nothing they need is loaded yet; held in registers
+  // up to kHeld rounds, else read again for the stores
+  const int8_t* src = p.board + static_cast<size_t>(b) * BOARD;
+  Word<WB> in[kHeld ? kRounds : 1];
+  auto board_word = [&](int k) {
+    if constexpr (kHeld) return in[k];
+    else return load_word<WB>(src + (lane + 32 * k) * WB);
+  };
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k)
+      if (boards && lane + 32 * k < NBW) in[k] = load_word<WB>(src + (lane + 32 * k) * WB);
+  }
+
+  // the piece tables across the warp, then one field a lane, then each
+  // subject lane's table entries
+  LaneTable<NP * 4 * TW> tpacked;
+  LaneTable<NP> tids, tbox;
+  tpacked.load(packed, lane);
+  tids.load(ids, lane);
+  tbox.load(box, lane);
+  const int32_t* fp = lane < L_HOLD     ? p.queue + b * QS + lane
+                      : lane < L_ACTIVE ? p.holder_piece + b * HS + (lane - L_HOLD)
+                      : lane == L_ACTIVE ? p.piece + b
+                      : lane == L_X     ? p.x + b
+                      : lane == L_Y     ? p.y + b
+                                        : p.holder_count + b;
+  const int f = lane <= L_COUNT ? __ldg(fp) : 0;
+  const int rot = lane >= L_HOLD && lane < L_ACTIVE ? __ldg(p.holder_rotation + b * HS + (lane - L_HOLD))
+                  : lane == L_ACTIVE               ? __ldg(p.rotation + b)
+                                                   : 0;
+  const bool subject = lane <= L_ACTIVE;
+  const PieceWord word = piece_word_lanes(tpacked, subject ? f : -1, rot);
+  const int id = static_cast<int>(tids.get(subject ? f : -1));
+  const int side = static_cast<int>(tbox.get(lane == L_ACTIVE ? f : -1));
+
+  // handed round: the active piece's, x, y and the holder count to every lane
+  PieceWord aw;
+#pragma unroll
+  for (int t = 0; t < TW; ++t) aw.w[t] = __shfl_sync(kAll, word.w[t], L_ACTIVE);
+  const int pid = __shfl_sync(kAll, id, L_ACTIVE);
+  const int bx = __shfl_sync(kAll, side, L_ACTIVE);
+  const int x = __shfl_sync(kAll, f, L_X), y = __shfl_sync(kAll, f, L_Y);
+  const int count = __shfl_sync(kAll, f, L_COUNT);
+  // ... and the slots' piece words and id bytes
+  PieceWord qw[QS], hw[HS];
+  uint32_t qid[QS], hid[HS];
+#pragma unroll
+  for (int s = 0; s < QS; ++s) {
+#pragma unroll
+    for (int t = 0; t < TW; ++t) qw[s].w[t] = __shfl_sync(kAll, word.w[t], s);
+    qid[s] = static_cast<uint32_t>(__shfl_sync(kAll, id, s)) & 0xFFu;
+  }
+#pragma unroll
+  for (int s = 0; s < HS; ++s) {
+#pragma unroll
+    for (int t = 0; t < TW; ++t) hw[s].w[t] = __shfl_sync(kAll, word.w[t], L_HOLD + s);
+    hid[s] = static_cast<uint32_t>(__shfl_sync(kAll, id, L_HOLD + s)) & 0xFFu;
+  }
+
+  if (boards) {
+    const int xc = clamp_start(x, PW - S, PW), yc = clamp_start(y, H - S, H);
+    // the box's columns cut to the board (at most S of them), its rows y..y + bx - 1
+    const int mlo = max(x, 0), mhi = min(x + bx, PW);
+    const uint32_t mcols = mhi > mlo ? (1u << (mhi - mlo)) - 1u : 0u;
+    bool hit = false;
+    uint32_t pbits[kHeld ? kRounds : 1];  // the piece's cells of each held word
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      if (lane + 32 * k < NBW) {
+        const Word<WB> v = board_word(k);
+        const uint32_t pb = piece_bits<WB>(aw, xc, yc, (lane + 32 * k) * WB);
+        if constexpr (kHeld) pbits[k] = pb;
+#pragma unroll
+        for (int g = 0; g < Word<WB>::N; ++g) hit |= (__vcmpgts4(v.v[g], 0u) & bit_bytes(pb, g)) != 0u;
+      }
+    }
+    const uint32_t add = __any_sync(kAll, hit) ? 0u : static_cast<uint32_t>(pid) & 0xFFu;
+    const size_t base = static_cast<size_t>(b) * BOARD;
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const int i0 = (lane + 32 * k) * WB;
+      if (lane + 32 * k < NBW) {
+        const Word<WB> v = board_word(k);
+        uint32_t pb;
+        if constexpr (kHeld) pb = pbits[k];
+        else pb = piece_bits<WB>(aw, xc, yc, i0);
+        const uint32_t mb = rows_bits<WB>(mcols, mlo, y, bx, i0);
+        Word<WB> o, m;
+#pragma unroll
+        for (int g = 0; g < Word<WB>::N; ++g) {
+          o.v[g] = __vadd4(v.v[g], bit_bytes(pb, g) * add);
+          m.v[g] = bit_bytes(mb, g);
+        }
+        store_word<WB>(board_out + base + i0, o);
+        store_word<WB>(mask_out + base + i0, m);
+      }
     }
   }
-  for (int i = threadIdx.x; i < n * QSTRIP; i += blockDim.x) {
-    const int b = b0 + i / QSTRIP, cell = i % QSTRIP;
-    queue_out[static_cast<size_t>(b0) * QSTRIP + i] =
-        queue_cell(packed, ids, p.queue + b * QS, cell / (QS * S), cell % (QS * S));
-  }
-  for (int i = threadIdx.x; i < n * HSTRIP; i += blockDim.x) {
-    const int b = b0 + i / HSTRIP, cell = i % HSTRIP;
-    holder_out[static_cast<size_t>(b0) * HSTRIP + i] =
-        holder_cell(packed, ids, p.holder_piece + b * HS, p.holder_rotation + b * HS,
-                    p.holder_count[b], cell / (HS * S), cell % (HS * S));
+
+  if (lane < S) {  // the queue strip's row `lane`, every slot at rotation 0
+    uint32_t rows[QS];
+#pragma unroll
+    for (int s = 0; s < QS; ++s) rows[s] = piece_row(qw[s], lane);
+    strip_row<QS>(queue_out + static_cast<size_t>(b) * QSTRIP + lane * QSW, rows, qid);
+  } else if (lane < 2 * S) {  // the holder strip's row lane - S, bedrock (1) where a slot is empty
+    const int i = lane - S;
+    uint32_t rows[HS], idb[HS];
+#pragma unroll
+    for (int s = 0; s < HS; ++s) {
+      rows[s] = s < count ? piece_row(hw[s], i) : (1u << S) - 1u;
+      idb[s] = s < count ? hid[s] : 1u;
+    }
+    strip_row<HS>(holder_out + static_cast<size_t>(b) * HSTRIP + i * HSW, rows, idb);
   }
 }
 
@@ -133,22 +284,38 @@ __global__ void __launch_bounds__(kThreads) compose_rgb_kernel(
   }
 }
 
+// Envs (warps) a block for a batch of B: kWarps, or where B gives the
+// card's SMs fewer than kWarps each, ceil(B / SMs), so that every SM takes
+// a block.
+int envs_per_block(int B) { return std::min(kWarps, std::max(1, (B + sm_count() - 1) / sm_count())); }
+
 }  // namespace
 
 // board: int8[B, H, PW] (16-byte aligned); the other fields of RenderPtrs
 // int32; packed: uint32[NP * 4 * TW]; box, ids: int32[NP]; board_out,
 // mask_out: uint8[B, H, PW], or both null for the strips alone; holder_out:
-// uint8[B, S, S * HS]; queue_out: uint8[B, S, S * QS].
+// uint8[B, S, S * HS]; queue_out: uint8[B, S, S * QS] (each output 16-byte
+// aligned).
 extern "C" int observe_dict_launch(const RenderPtrs* ptrs, const void* packed, const void* box,
                                    const void* ids, void* board_out, void* mask_out,
                                    void* holder_out, void* queue_out, int B, void* stream) {
-  const int blocks = (B + kEnvs - 1) / kEnvs;
-  observe_dict_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int envs = envs_per_block(B);
+  const int blocks = (B + envs - 1) / envs;
+  observe_dict_kernel<<<blocks, 32 * envs, 0, static_cast<cudaStream_t>(stream)>>>(
       *ptrs, static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
       static_cast<const int32_t*>(ids), static_cast<uint8_t*>(board_out),
       static_cast<uint8_t*>(mask_out), static_cast<uint8_t*>(holder_out),
       static_cast<uint8_t*>(queue_out), B);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The build's shape for a batch of B: out = [envs (warps) a block, bytes
+// of a board word, board words a lane].
+extern "C" int observe_dict_shape(int B, int* out) {
+  out[0] = envs_per_block(B);
+  out[1] = WB;
+  out[2] = kRounds;
+  return 0;
 }
 
 // board: uint8[N, H, PW]; queue: uint8[N / group, S, S * QS]; holder:

@@ -64,7 +64,10 @@ Kernels, with the JAX function each replaces:
   :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230`` or
   ``ops/bitboard_wide.py:108-215``), ``init_state :131`` and
   ``observe_board :274``; the step a group of 8 or 16 lanes an env
-  (:func:`flagship_step_lanes`);
+  (:func:`flagship_step_lanes`), the observation one env a warp for a
+  small batch and 1-4 for a large one, their playfield rows in whole words
+  and their frames staged in the warp's own shared memory
+  (:func:`flagship_observe_board_shape`);
 * ``render_rgb84`` (``csrc/render_rgb84.cu``): ``core/engine.py:render_rgb
   :529`` with ``ops/observations.py:compose_rgb :84`` and
   ``ops/image.py:preprocess_rgb84 :197``, state to 84x84 gray frame, the
@@ -79,7 +82,9 @@ Kernels, with the JAX function each replaces:
   ``ops/observations.py:feature_vector :57``;
 * ``observe_dict`` and ``compose_rgb`` (``csrc/observe_dict.cu``):
   ``core/engine.py:observe_dict :257`` and ``ops/observations.py:compose_rgb
-  :84`` (``render_rgb :529`` is the two in turn);
+  :84`` (``render_rgb :529`` is the two in turn); ``observe_dict`` a warp an
+  env, the env's piece work once, one vote on the collision, the board and
+  mask in whole words (:func:`observe_dict_shape`);
 * ``fn_reset``, ``fn_step`` and ``fn_observe`` (``csrc/fn_env.cu``): the
   compat engine's ``core/fn_env.py:reset :210``, ``step :189`` (with
   ``_update :124``, ``_lock_piece :80``, ``ops/board.py:clear_lines_compat
@@ -100,7 +105,8 @@ and the ``fn_*`` kernels;
 ``csrc/turbo_band.cuh`` the band helpers of the lanes builds of
 ``turbo_step.cu`` and ``flagship_step.cu``; ``csrc/id_image.cuh`` the id
 image of the observation, shared by ``render_rgb84.cu`` and
-``observe_dict.cu``; ``csrc/features.cuh`` the
+``observe_dict.cu``; ``csrc/board_words.cuh`` the whole-word board helpers
+of ``observe_dict`` and ``flagship_observe_board``; ``csrc/features.cuh`` the
 feature vector, shared by ``features.cu`` and ``grouped_flagship.cu``.
 
 Every kernel takes any geometry within the static limits that
@@ -502,6 +508,7 @@ _ENTRY_POINTS = {
                                  ctypes.POINTER(_FlagshipParams), _P],
         "flagship_init_launch": [_P, ctypes.POINTER(_FlagshipPtrs), _P, _I, _I, _P],
         "flagship_observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "flagship_observe_board_shape": [_I, _P],
     },
     "render_rgb84": {
         "render_rgb84_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _I, _P],
@@ -516,6 +523,7 @@ _ENTRY_POINTS = {
     "observe_dict": {
         "observe_dict_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _P, _P, _P, _I, _P],
         "compose_rgb_launch": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P],
+        "observe_dict_shape": [_I, _P],
     },
     "fn_env": {
         "fn_step_launch": [ctypes.POINTER(_FnPtrs), ctypes.POINTER(_FnPtrs), _P, _P, _P, _P, _P,
@@ -564,7 +572,7 @@ MAX_PIECE_SIDE = 8  # a piece table entry is 2 words at most
 MAX_PIECES = 32  # the bag lives in registers
 MAX_QUEUE = 16
 MAX_HOLDER = 8
-MAX_BOARD_CELLS = 3072  # flagship: 32 boards and frames of a block in 227 KB of shared memory
+MAX_BOARD_CELLS = 3072  # flagship: flagship_init's 32 boards of a block in 227 KB of shared memory
 MAX_FEATURE_HEIGHT = 64  # feature_vector: 7 bit planes of height counters
 MAX_FEATURE_WIDTH = 128  # feature_vector: 4 words a row
 _STATE_DTYPES = {
@@ -606,9 +614,9 @@ def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -
     * 1 to 32 pieces, a queue of 1 to 16 and a holder of 1 to 8: the bag,
       queue and holder live in registers;
     * with ``flagship``, a padded board of at most 3072 cells: the flagship
-      kernels keep the boards (and the observation's frames) of a block of
-      32 envs in shared memory, 227 KB at most, and ``grouped_flagship``,
-      ``observe_dict`` and ``render_rgb84`` keep theirs in 48 KB;
+      init keeps the boards of a block of 32 envs in shared memory, 227 KB
+      at most, and ``grouped_flagship`` and ``render_rgb84`` keep theirs in
+      48 KB;
     * ``queue_kind`` ``"bag"`` or ``"uniform"``.
 
     Every geometry of the JAX package's tests is inside them.
@@ -633,7 +641,7 @@ def _defines(config: EngineConfig, n_pieces: int, S: int, flagship: bool) -> tup
                                                 f"{MAX_HOLDER} are built"),
         (not flagship or H * PW <= MAX_BOARD_CELLS,
          f"padded board of {H * PW} cells > {MAX_BOARD_CELLS}: the flagship kernels keep a "
-         "block's 32 boards and frames in 227 KB of shared memory"),
+         "block's 32 boards in 227 KB of shared memory"),
         (config.queue_kind in ("bag", "uniform"), f"queue_kind {config.queue_kind!r} has no kernel"),
     ):
         if not ok:
@@ -1579,7 +1587,9 @@ def flagship_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet):
 
 def flagship_observe_board(state, config: EngineConfig, pieces: PieceSet) -> torch.Tensor:
     """Launch ``flagship_observe_board``: ``int8[B, height, width]``, the
-    occupancy with the active piece added as -1 unless the game is over."""
+    occupancy with the active piece added as -1 unless the game is over;
+    envs a warp and warps a block from B
+    (:func:`flagship_observe_board_shape`)."""
     device = state.board.device
     t, packed, _ = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t, flagship=True)
@@ -1596,6 +1606,27 @@ def flagship_observe_board(state, config: EngineConfig, pieces: PieceSet) -> tor
     _check(rc, "flagship_observe_board")
     LAUNCHES["flagship_observe_board"] += 1
     return out
+
+
+def _shape_of(source: str, fn: str, keys: tuple, config: EngineConfig, pieces: PieceSet,
+              B: int) -> dict:
+    """``{keys[i]: out[i]}`` of the C function ``fn(B, out)`` of ``source``'s build at ``config``."""
+    defines = engine_defines(config, turbo.tables_for(pieces, "cpu")[0], flagship=True)
+    vals = (ctypes.c_int * len(keys))()
+    _check(getattr(_lib(source, defines), fn)(B, ctypes.addressof(vals)), fn)
+    return dict(zip(keys, list(vals)))
+
+
+def flagship_observe_board_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:
+    """The shape of ``flagship_observe_board``'s launch for a batch of B at
+    ``config``: envs a warp (one while B gives the card's SMs at most 16
+    warps each, else 1-4, the count whose playfield words fill the warp's
+    rounds best), warps a block (8, or where the batch's warps give the
+    card's SMs fewer each, as many as give every SM a block), words of an
+    env's playfield rows, bytes of a word, words a lane; needs a card."""
+    return _shape_of("flagship_step", "flagship_observe_board_shape",
+                     ("envs_per_warp", "warps_per_block", "words_per_env", "word_bytes",
+                      "words_per_lane"), config, pieces, B)
 
 
 RGB84 = 84  # csrc/render_rgb84.cu:OUT
@@ -1775,7 +1806,8 @@ def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: boo
     ``uint8[B, S, S * holder_size]``, ``queue`` ``uint8[B, S, S *
     queue_size]`` (``S`` the pieces' side); with ``strips_only`` the holder
     and queue strips alone (``engine.queue_holder_strips``).  Built for each
-    geometry within :func:`engine_defines`' flagship limits."""
+    geometry within :func:`engine_defines`' flagship limits; a warp an env,
+    envs a block from B (:func:`observe_dict_shape`)."""
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t, flagship=True)
@@ -1800,6 +1832,15 @@ def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: boo
     _check(rc, "observe_dict")
     LAUNCHES["observe_dict"] += 1
     return out
+
+
+def observe_dict_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:
+    """The shape of ``observe_dict``'s launch for a batch of B at ``config``:
+    envs (warps) a block, ``min(8, ceil(B / SMs))``, bytes of a board word
+    (the widest of 16, 8, 4, 2 and 1 that the padded board is a whole
+    number of) and board words a lane; needs a card."""
+    return _shape_of("observe_dict", "observe_dict_shape", ("envs_per_block", "word_bytes", "words_per_lane"),
+                     config, pieces, B)
 
 
 def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: torch.Tensor,

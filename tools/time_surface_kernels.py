@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
 """Device ms of the six surface kernels' default builds (10x20, the 7
-standard pieces) at the shapes the earlier slices time them, and of the
-pixel path's two redesigned kernels, for the port found under ``--repo``:
+standard pieces) at the shapes the earlier slices time them, of the pixel
+path's two redesigned kernels, and of the two observation kernels, for the
+port found under ``--repo``:
 
     python tools/time_surface_kernels.py [--repo DIR] [--label NAME] [--ptxas]
                                          [--batches 512,2048,65536] [--ablate]
+                                         [--kernels surface|obs]
 
-``grouped_flagship`` features at B = 4096 (``chip_smoke.py`` phase 30),
-``grouped_placements`` features at B = 1024 (phase 16), ``feature_vector``,
-``observe_dict`` and ``compose_rgb`` at B = 1, 4096 and 65536 (phase 30);
-``render_rgb84`` and ``flagship_step`` (as the wrapper takes it, and each
-build of ``kernels.FLAGSHIP_LANES`` where the tree has them) at B = 512,
-2048 and 65536 at 10x20 (phases 24-25, 45-46; ``--batches`` sets these)
-and at B = 4096 and 65536 at 30x20 and 61x12 (phases 34, 39), beside the
-launch floor.  Each on mid-game states, as the median over 7 replays of a
-CUDA graph of 100 launches (10 at 65536).  What the other tree lacks is skipped.  With
-``--ptxas`` it first builds ``render_rgb84`` and ``flagship_step`` at the
-three geometries and prints each build's registers, spills and shared
-memory.  With ``--ablate`` it times, in place of all that, the two pixel
-kernels at 10x20 and ``--batches`` beside patched copies of their sources
-that each skip one part (``ABLATIONS``, built under ``DIR/build/ablate/``):
-the copies compute wrong frames and games by design, only their times mean
-anything.  Prints one JSON line with the card's name and power limit.  To
-compare two trees on one card, unpack the other into a directory that
-``.gitignore`` lists and run both in one call, in turns: A, B, B, A.  Needs
-a card; builds the kernels of ``DIR`` into its own ``build/``.
+``--kernels surface`` (the default): ``grouped_flagship`` features at B =
+4096 (``chip_smoke.py`` phase 30), ``grouped_placements`` features at B =
+1024 (phase 16), ``feature_vector``, ``observe_dict`` and ``compose_rgb`` at
+B = 1, 4096 and 65536 (phase 30); ``render_rgb84`` and ``flagship_step`` (as
+the wrapper takes it, and each build of ``kernels.FLAGSHIP_LANES`` where the
+tree has them) at B = 512, 2048 and 65536 at 10x20 (phases 24-25, 45-46;
+``--batches`` sets these) and at B = 4096 and 65536 at 30x20 and 61x12
+(phases 34, 39), beside the launch floor.  With ``--ptxas`` it first builds
+``render_rgb84`` and ``flagship_step`` at the three geometries and prints
+each build's registers, spills and shared memory.  With ``--ablate`` it
+times, in place of all that, the two pixel kernels at 10x20 and
+``--batches`` beside patched copies of their sources that each skip one
+part (``ABLATIONS``).
+
+``--kernels obs``: ``observe_dict`` (and its strips-only mode, the grouped
+rgb mode's) at ``OBS_DICT_SHAPES`` (the Gymnasium shell's B = 1 at 10x20
+and 30x20, phases 27 and 37; 4096 and 65536, phases 30 and 39) and
+``flagship_observe_board`` at ``OBS_BOARD_SHAPES`` (the flagship
+evaluation's 512, ``TetrisVectorEnv``'s 8192 at 10x20 and 30x20, phases 22,
+29 and 33; 2048, 4096 and 65536, phases 25 and 34).  ``--ptxas`` builds
+``observe_dict.cu`` and ``flagship_step.cu`` at ``OBS_PTXAS`` first;
+``--ablate`` times both at 10x20 beside patched copies of the tree's
+sources (``OBS_ABLATIONS``: one list for each design, taken by which the
+tree holds, with other shapes of the observation).
+
+Each time is taken on mid-game states (40 random steps from a reset), as the
+median over 7 replays of a CUDA graph of 100 launches (10 at 65536).  What
+the other tree lacks is skipped.  Patched copies are built under
+``DIR/build/ablate/``: they compute wrong frames and games by design, only
+their times mean anything.  Prints one JSON line with the card's name and
+power limit.  To compare two trees on one card, unpack the other into a
+directory that ``.gitignore`` lists and run both in one call, in turns: A,
+B, B, A.  Needs a card; builds the kernels of ``DIR`` into its own
+``build/``.
 """
 import argparse
 import ctypes
@@ -64,21 +81,120 @@ ABLATIONS = [
 ]
 
 
-def ablate(repo, kernels, defines, cases, time_both) -> dict:
-    """Device ms of each ``ABLATIONS`` copy and of the unpatched build
-    ("full") on each ``B: (state, action)`` of ``cases``, made beforehand by
-    the unpatched build; ``time_both(state, action)`` times the two kernels
-    as the loaded libraries have them."""
+# --kernels obs: the shapes (geometry, B) of each kernel, the geometries
+# whose builds --ptxas reports, and --ablate's patched copies of each
+# design's sources, (source, variant, [(text, replacement), ...]) as above.
+OBS_DICT_SHAPES = [("10x20", 1), ("10x20", 4096), ("10x20", 65536), ("30x20", 1), ("30x20", 4096),
+                   ("30x20", 65536), ("61x12", 4096), ("61x12", 65536)]
+OBS_BOARD_SHAPES = [("10x20", 512), ("10x20", 2048), ("10x20", 8192), ("10x20", 65536), ("30x20", 4096),
+                    ("30x20", 8192), ("30x20", 65536), ("61x12", 4096), ("61x12", 65536)]
+OBS_DICT_ABLATE_B = (1, 4096, 65536)
+OBS_BOARD_ABLATE_B = (512, 2048, 4096, 8192, 65536)
+OBS_PTXAS = ("10x20", "30x20", "61x12", "28x14")
+OBS_ABLATIONS = {
+    # a block of 8 envs staging their boards, a thread an env testing the
+    # collision, every board cell reloading the piece (PRs 6-18); the
+    # observation's 32 boards and frames staged, a thread an (env, row)
+    "block": [
+        ("observe_dict", "no_staging",
+         [("    block_copy(sboard, p.board", "    if (false) block_copy(sboard, p.board")]),
+        ("observe_dict", "no_collision",
+         [("      const bool hit = active_collides(", "      const bool hit = false && active_collides(")]),
+        ("observe_dict", "no_mask",
+         [("      mask_out[base + i] = (r >= y", "      mask_out[base + i] = 0 * (r >= y")]),
+        ("observe_dict", "no_strips",
+         [("i < n * QSTRIP; i += blockDim.x", "i < 0; i += blockDim.x"),
+          ("i < n * HSTRIP; i += blockDim.x", "i < 0; i += blockDim.x")]),
+        ("observe_dict", "no_item_piece_word",
+         [("      const PieceWord word = piece_word_2d(packed, piece, p.rotation[b]);\n      board_out",
+           "      const PieceWord word = no_piece();\n      board_out"),
+          ("      const int bx = piece_entry(box, piece);", "      const int bx = S;")]),
+        ("observe_dict", "no_board_stores",
+         [("      board_out[base + i] = active_cell(", "      if (i < 0) board_out[base + i] = active_cell("),
+          ("      mask_out[base + i] = (r >= y", "      if (i < 0) mask_out[base + i] = (r >= y")]),
+        ("flagship_step", "obs_no_staging",
+         [("  block_copy16(in_s, board + static_cast<size_t>(base) * BOARD, n * BOARD);",
+           "  if (false) block_copy16(in_s, board + static_cast<size_t>(base) * BOARD, n * BOARD);")]),
+        ("flagship_step", "obs_no_item_piece_word",
+         [("    const PieceWord word = game_over[b] ? no_piece() : piece_word_2d(packed, piece[b], rotation[b]);",
+           "    const PieceWord word = no_piece();")]),
+        ("flagship_step", "obs_no_rows",
+         [("item < n * HEIGHT; item += blockDim.x", "item < 0; item += blockDim.x")]),
+        ("flagship_step", "obs_no_stores",
+         [("  block_copy16(out + static_cast<size_t>(base) * OBS, out_s, n * OBS);",
+           "  if (false) block_copy16(out + static_cast<size_t>(base) * OBS, out_s, n * OBS);")]),
+    ],
+    # a warp an env (observe_dict) or 1-4 envs a warp (the observation),
+    # whole words, each env's piece work once, no block-wide barrier
+    "warp": [
+        ("observe_dict", "no_vote", [("  const uint32_t add = __any_sync(kAll, hit) ? 0u",
+                                      "  const uint32_t add = false ? 0u")]),
+        ("observe_dict", "no_piece_lookups",
+         [("  const PieceWord word = piece_word_lanes(tpacked, subject ? f : -1, rot);",
+           "  const PieceWord word = no_piece();")]),
+        ("observe_dict", "no_piece_bits",
+         [("        const uint32_t pb = piece_bits<WB>(aw, xc, yc, (lane + 32 * k) * WB);",
+           "        const uint32_t pb = 0u;"),
+          ("        else pb = piece_bits<WB>(aw, xc, yc, i0);", "        else pb = 0u;")]),
+        ("observe_dict", "no_mask", [("          m.v[g] = bit_bytes(mb, g);", "          m.v[g] = 0u;")]),
+        ("observe_dict", "no_strips", [("  if (lane < S) {  // the queue strip", "  if (false) {  // the queue strip"),
+                                       ("  } else if (lane < 2 * S) {  // the holder",
+                                        "  } else if (false) {  // the holder")]),
+        ("observe_dict", "no_board_stores", [("        store_word<WB>(board_out + base + i0, o);",
+                                              "        if (i0 < 0) store_word<WB>(board_out + base + i0, o);"),
+                                             ("        store_word<WB>(mask_out + base + i0, m);",
+                                              "        if (i0 < 0) store_word<WB>(mask_out + base + i0, m);")]),
+        ("flagship_step", "obs_no_piece", [("    pc = over ? -1 : p;", "    pc = -1;")]),
+        ("flagship_step", "obs_no_shuffles",
+         [("    for (int t = 0; t < TW; ++t) pw.w[t] = __shfl_sync(kAll, word.w[t], src);",
+           "    for (int t = 0; t < TW; ++t) pw.w[t] = word.w[t];"),
+          ("    const int wn = __shfl_sync(kAll, win, src);", "    const int wn = win;")]),
+        ("flagship_step", "obs_no_crop", [("    for (int c = 0; c < WIDTH / G; ++c) to[c] = from[c];",
+                                           "    for (int c = 0; c < 0; ++c) to[c] = from[c];")]),
+        ("flagship_step", "obs_no_store", [("  for (int q = lane; q < words; q += 32)",
+                                            "  for (int q = lane; q < 0; q += 32)")]),
+        ("flagship_step", "obs_no_fields", [("  if (lane < n) {\n    const int b = e0 + lane;",
+                                             "  if (false) {\n    const int b = e0 + lane;")]),
+        ("flagship_step", "obs_no_loads", [("      if ((lane + 32 * k) / NIW < n) in[k] = load(k);",
+                                            "      in[k] = Word<WI>{};")]),
+        # other shapes, not ablations (their frames are right): one env a
+        # warp at every B, never, or up to 32 warps an SM
+        ("flagship_step", "obs_envs1", [("constexpr int kObsWarpEnvs = obs_warp_envs();",
+                                         "constexpr int kObsWarpEnvs = 1;")]),
+        ("flagship_step", "obs_one_env_never", [("constexpr int kObsOneEnvWarpsPerSM = 16;",
+                                                 "constexpr int kObsOneEnvWarpsPerSM = 0;")]),
+        ("flagship_step", "obs_one_env_to32", [("constexpr int kObsOneEnvWarpsPerSM = 16;",
+                                                "constexpr int kObsOneEnvWarpsPerSM = 32;")]),
+    ],
+}
+# which kernels a patched source changes
+_ABLATED_KERNELS = {"observe_dict": ("observe_dict",), "flagship_step": ("flagship_step", "flagship_observe_board"),
+                    "render_rgb84": ("render_rgb84",)}
+
+
+def _patched(csrc, source, patches):
+    with open(os.path.join(csrc, f"{source}.cu")) as f:
+        text = f.read()
+    for old, new in patches:
+        if old not in text:
+            return None
+        text = text.replace(old, new)
+    return text
+
+
+def ablate(repo, kernels, defines, cases, time_fn, ablations) -> dict:
+    """Device ms of each copy of ``ablations`` and of the unpatched build
+    ("full") on each ``label: case`` of ``cases``, made beforehand by the
+    unpatched build; ``time_fn(case)`` gives ``{kernel: ms}`` as the loaded
+    libraries have them, and a copy's times are those of the kernels of
+    its source (``_ABLATED_KERNELS``)."""
     csrc = os.path.join(repo, "tetris_gymnasium_torch", "csrc")
 
     def build(job):
         source, variant, patches = job
-        with open(os.path.join(csrc, f"{source}.cu")) as f:
-            text = f.read()
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"time_surface_kernels: {source}.cu no longer holds {old!r}")
-            text = text.replace(old, new)
+        text = _patched(csrc, source, patches)
+        if text is None:
+            raise SystemExit(f"time_surface_kernels: {source}.cu no longer holds a patch of {variant}")
         d = os.path.join(repo, "build", "ablate", f"{source}_{variant}")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d)
@@ -91,22 +207,42 @@ def ablate(repo, kernels, defines, cases, time_both) -> dict:
             raise RuntimeError(f"nvcc failed for {source} {variant}:\n{r.stderr[-3000:]}")
         return so
 
-    with ThreadPoolExecutor(max_workers=len(ABLATIONS)) as pool:
-        libs = list(pool.map(build, ABLATIONS))
+    with ThreadPoolExecutor(max_workers=len(ablations)) as pool:
+        libs = list(pool.map(build, ablations))
     out = {}
-    for B, case in cases.items():
-        out.update({f"{k}_full@{B}": v for k, v in time_both(*case).items()})
-    for (source, variant, _), so in zip(ABLATIONS, libs):
+    for label, case in cases.items():
+        out.update({f"{k}_full@{label}": v for k, v in time_fn(case).items()})
+    for (source, variant, _), so in zip(ablations, libs):
         lib = ctypes.CDLL(so)
         for fn, argtypes in kernels._ENTRY_POINTS[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         kernels._LIBS[(source, defines)] = lib
-        for B, case in cases.items():
-            out.update({f"{k}_{variant}@{B}": v for k, v in time_both(*case).items()
-                        if k.startswith(source)})
+        for label, case in cases.items():
+            out.update({f"{k}_{variant}@{label}": v for k, v in time_fn(case).items()
+                        if k.startswith(_ABLATED_KERNELS[source])})
         kernels._LIBS.pop((source, defines))  # back to the unpatched build
     return out
+
+
+def obs_ablations(repo):
+    """The list of ``OBS_ABLATIONS`` whose patches all apply to the tree at ``repo``."""
+    csrc = os.path.join(repo, "tetris_gymnasium_torch", "csrc")
+    for design, jobs in OBS_ABLATIONS.items():
+        if all(_patched(csrc, src, patches) is not None for src, _, patches in jobs):
+            return design, jobs
+    raise SystemExit("time_surface_kernels: no OBS_ABLATIONS list matches the sources")
+
+
+def build_facts(kernels, jobs) -> dict:
+    """Builds ``(label, source, defines)`` in parallel; each one's nvcc
+    seconds and ptxas lines (registers, spills, shared memory)."""
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        facts = list(pool.map(lambda job: kernels._compile(job[1], job[2]), jobs))
+    return {f"{src}@{name}": {"seconds": f["seconds"], "extra_flags": f.get("extra_flags"),
+                              "ptxas": [l.strip() for l in f["ptxas"].splitlines()
+                                        if "registers" in l or "spill" in l or "Compiling" in l]}
+            for (name, src, _), f in zip(jobs, facts)}
 
 
 def main() -> None:
@@ -117,11 +253,13 @@ def main() -> None:
     ap.add_argument("--batches", default="512,2048,65536",
                     help="B of the two pixel kernels at 10x20")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--kernels", choices=("surface", "obs"), default="surface")
     args = ap.parse_args()
     pixel_b = tuple(int(x) for x in args.batches.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("time_surface_kernels: needs a CUDA card")
-    sys.path.insert(0, os.path.abspath(args.repo))
+    repo = os.path.abspath(args.repo)
+    sys.path.insert(0, repo)
     from chip_smoke import _flagship_actions, _grouped_actions, device_ms
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
@@ -137,18 +275,22 @@ def main() -> None:
     P, rw = engine.PIECES, RewardsMapping()
     geos = {"10x20": EngineConfig(auto_reset=True),
             "30x20": EngineConfig(width=30, height=20, auto_reset=True),
-            "61x12": EngineConfig(width=61, height=12, queue_size=3, auto_reset=True)}
+            "61x12": EngineConfig(width=61, height=12, queue_size=3, auto_reset=True),
+            "28x14": EngineConfig(width=28, height=14, auto_reset=True)}
+
+    def defines(name):
+        return kernels.engine_defines(geos[name], bb.turbo_tables(P), flagship=True)
+
     builds = {}
     if args.ptxas:
-        jobs = [(name, src, kernels.engine_defines(cfg, bb.turbo_tables(P), flagship=True))
-                for name, cfg in geos.items() for src in ("render_rgb84", "flagship_step")]
-        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            facts = list(pool.map(lambda job: kernels._compile(job[1], job[2]), jobs))
-        builds = {f"{src}@{name}": {"seconds": f["seconds"], "extra_flags": f.get("extra_flags"),
-                                    "ptxas": [l.strip() for l in f["ptxas"].splitlines()
-                                              if "registers" in l or "spill" in l or "Compiling" in l]}
-                  for (name, src, _), f in zip(jobs, facts)}
-    kernels.build([] if args.ablate else [(geos["30x20"], P), (geos["61x12"], P)])
+        names, sources = ((OBS_PTXAS, ("observe_dict", "flagship_step")) if args.kernels == "obs" else
+                          (("10x20", "30x20", "61x12"), ("render_rgb84", "flagship_step")))
+        builds = build_facts(kernels, [(n, src, defines(n)) for n in names for src in sources])
+    if args.kernels == "obs":
+        build_facts(kernels, [(n, src, defines(n)) for n in ("10x20", "30x20", "61x12")
+                              for src in ("observe_dict", "flagship_step")])
+    else:
+        kernels.build([] if args.ablate else [(geos["30x20"], P), (geos["61x12"], P)])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(30)
@@ -162,8 +304,37 @@ def main() -> None:
             s = kernels.flagship_step(s, _flagship_actions(B, g, dev), c, P, rw)[0]
         return s
 
+    if args.kernels == "obs":
+        def time_obs(case):
+            kind, c, s = case
+            n = 10 if s.piece.shape[0] >= 65536 else 100
+            if kind == "dict":
+                return {"observe_dict": device_ms(lambda: kernels.observe_dict(s, c, P), n),
+                        "observe_dict_strips": device_ms(
+                            lambda: kernels.observe_dict(s, c, P, strips_only=True), n)}
+            return {"flagship_observe_board": device_ms(lambda: kernels.flagship_observe_board(s, c, P), n)}
+
+        if args.ablate:
+            design, jobs = obs_ablations(repo)
+            cases = {**{f"dict@{B}": ("dict", cfg, flagship_states(B)) for B in OBS_DICT_ABLATE_B},
+                     **{f"board@{B}": ("board", cfg, flagship_states(B)) for B in OBS_BOARD_ABLATE_B}}
+            out = ablate(repo, kernels, defines("10x20"), cases, time_obs, jobs)
+            print(json.dumps({"label": args.label, "repo": repo, "design": design, "nvidia_smi": smi,
+                              "ablate_ms": out}), flush=True)
+            return
+        for name, B in sorted(set(OBS_DICT_SHAPES) | set(OBS_BOARD_SHAPES), key=lambda x: (x[0], x[1])):
+            s = flagship_states(B, geos[name])
+            if (name, B) in OBS_DICT_SHAPES:
+                out.update({f"{k}@{name}@{B}": v for k, v in time_obs(("dict", geos[name], s)).items()})
+            if (name, B) in OBS_BOARD_SHAPES:
+                out.update({f"{k}@{name}@{B}": v for k, v in time_obs(("board", geos[name], s)).items()})
+            del s
+        print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "builds": builds, "ms": out}),
+              flush=True)
+        return
     if args.ablate:
-        def time_both(s, a):
+        def time_both(case):
+            s, a = case
             n = 10 if a.shape[0] >= 65536 else 100
             return {"render_rgb84": device_ms(lambda: kernels.render_rgb84(s, cfg, P), n),
                     **{f"flagship_step_lanes{L}": device_ms(
@@ -171,8 +342,7 @@ def main() -> None:
                        for L in lanes_builds}}
 
         cases = {B: (flagship_states(B), _flagship_actions(B, g, dev)) for B in pixel_b}
-        out = ablate(os.path.abspath(args.repo), kernels,
-                     kernels.engine_defines(cfg, bb.turbo_tables(P), flagship=True), cases, time_both)
+        out = ablate(repo, kernels, defines("10x20"), cases, time_both, ABLATIONS)
         print(json.dumps({"label": args.label, "nvidia_smi": smi, "builds": builds, "ablate_ms": out}),
               flush=True)
         return
