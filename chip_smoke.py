@@ -79,7 +79,10 @@ Phases, each printing one JSON line:
     every width of ``kernels.GROUPED_ACT_LANES``, and ``replay_sample``'s offsets against JAX's ``randint``
     (card and host) for spans 1 .. 2**31 - 1.
 13. ``replay_add`` and ``replay_sample`` against the plain buffer, bit for
-    bit, across the buffer's wrap-around.
+    bit, across the buffer's wrap-around; ``replay_sample`` also at n = 1,
+    3, 256, 512 and 65536 with and without successors, its offsets against
+    the host's randint (``REPLAY_EDGE_N``; in phases 15 and 19 too, on the
+    full buffers).
 14. A small fp32 grouped DQN (64 envs, the micro-gate configuration of
     ``tests/test_learning.py`` on the 10x20 board, 70 steps: learning from
     step 64 and a target sync) on the card and on the CPU from the same
@@ -104,7 +107,8 @@ Phases, each printing one JSON line:
     and 4096, each lane width held to its plain version and timed, its
     greedy launch beside ``torch.where`` + ``argmax``; ``replay_add`` at 1024
     beside the obs field's ``copy_``; ``replay_sample`` at 256
-    samples of the full buffer) and the grouped step's placements per second.
+    samples of the full buffer, with its launch's shape) and the grouped
+    step's placements per second.
 
 17. ``framestack_push`` against ``ops.framestack.push_plain`` (random
     windows, ~15% ``done``, B = 1024 and 512 with K = 4, B = 1 and 1001 with
@@ -143,7 +147,10 @@ Phases, each printing one JSON line:
     (also at B = 512 in phase 25).
 
 21. The flagship engine: ``flagship_init`` against ``core.engine.init_plain``
-    at B = 512, 1 and 1001 (bag and uniform), and ``flagship_step`` against
+    at B = 512, 1 and 1001 (bag and uniform) and at the edges of its blocks
+    (``init_edges_diff``: B = 1, 31, 33, part-full last blocks of a few
+    envs and of 256, and 8192; in phase 31 at every geometry, in phases
+    29, 33 and 34 at the vector env's 8192), and ``flagship_step`` against
     ``step_plain`` along 300-step random trajectories biased towards hard
     drops and swaps (B = 512 with auto-reset, B = 512 without gravity or
     auto-reset and with custom rewards, B = 1001 uniform with auto-reset,
@@ -1334,7 +1341,8 @@ def main() -> None:
               "replay_sample_stacked": dqn_times["replay_sample_stacked"][DQN_BATCH],
               "replay_sample": dqn_times["replay_sample"]}
     grouped_at = {"grouped_placements": grouped_times["grouped_placements"][f"features@{GROUPED_ENVS}"],
-                  "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS]}
+                  "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS],
+                  "replay_sample": grouped_times["replay_sample"][256]}
     paths = [("dqn_rgb84", pix["launches"], PIX_STEPS, pix_at),
              ("flagship_eval", flag_eval["launches"], flag_eval["iterations"], flag_at),
              ("dqn_k4", dqn_runs[4]["launches"], DQN_STEPS, dqn_at),
@@ -1953,9 +1961,41 @@ def add_library_ms(data, block, pos, reps) -> float:
     return device_ms(lambda: dst.copy_(block["obs"]), reps)
 
 
+REPLAY_EDGE_N = (1, 3, 256, 512, 65536)  # replay_sample: edge counts and the DQN paths' 256 and 512
+
+
+def replay_sample_edges_diff(kbuf, pbuf, batch, seed, what) -> int:
+    """``replay_sample`` on ``kbuf`` against its plain twins on ``pbuf`` (the
+    same stores) at ``REPLAY_EDGE_N`` samples, with successors (``batch``
+    entries on) and without, its offsets against the host's randint; returns
+    the launches compared."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.rl import buffers
+
+    start, n_valid = buffers._successor_window(kbuf, batch)
+    span = max(kbuf.size, 1)
+    for n in REPLAY_EDGE_N:
+        key = threefry.fold_in(threefry.prng_key(seed), n)
+        kc, kn, off = kernels.replay_sample(kbuf.data, key, n, n_valid, start=start, batch=batch,
+                                            return_offsets=True)
+        ks, _, soff = kernels.replay_sample(kbuf.data, key, n, span, return_offsets=True)
+        pc, pn = buffers.sample_with_next_plain(pbuf, key, n, batch)
+        ps = buffers.sample_plain(pbuf, key, n)
+        if not (np.array_equal(off.cpu().numpy(), threefry.randint(key, n, n_valid))
+                and np.array_equal(soff.cpu().numpy(), threefry.randint(key, n, span))):
+            raise AssertionError(f"{what} n={n}: replay_sample's offsets differ from the host's randint")
+        for k in kbuf.data:
+            diff("replay_sample", kc[k], pc[k], f"{what} n={n} sample {k}")
+            diff("replay_sample", kn[k], pn[k], f"{what} n={n} successor {k}")
+            diff("replay_sample", ks[k], ps[k], f"{what} n={n} without successors {k}")
+    return 2 * len(REPLAY_EDGE_N)
+
+
 def check_replay(dev) -> None:
     """Phase 13: ``replay_add`` and ``replay_sample`` against their plain versions
-    across the buffer's wrap-around."""
+    across the buffer's wrap-around, and ``replay_sample`` at the edge counts
+    of ``REPLAY_EDGE_N`` on each last buffer."""
     from tetris_gymnasium_torch.ops import threefry
     from tetris_gymnasium_torch.rl import buffers
 
@@ -1982,9 +2022,12 @@ def check_replay(dev) -> None:
                     diff("replay_sample", kc[k], pc[k], f"B={B} sample {t} {k}")
                     diff("replay_sample", kn[k], pn[k], f"B={B} successor {t} {k}")
                     diff("replay_sample", ks[k], ps[k], f"B={B} plain sample {t} {k}")
-        runs.append({"B": B, "capacity": blocks * B, "obs": list(obs_shape), "adds": blocks + 4})
+        edges = replay_sample_edges_diff(kbuf, pbuf, B, 130 + B, f"phase 13 B={B}")
+        runs.append({"B": B, "capacity": blocks * B, "obs": list(obs_shape), "adds": blocks + 4,
+                     "edge_launches": edges})
     torch.cuda.synchronize()
-    emit({"phase": "replay", "bit_equal": True, "runs": runs, "seconds": time.perf_counter() - t0})
+    emit({"phase": "replay", "bit_equal": True, "runs": runs, "edge_samples": list(REPLAY_EDGE_N),
+          "seconds": time.perf_counter() - t0})
 
 
 def check_small_grouped() -> None:
@@ -2174,6 +2217,7 @@ def check_grouped_path_shapes(dev, ts, cfg) -> None:
     for k in buf.data:
         diff("replay_sample", kc[k], pc[k], f"full buffer sample {k}")
         diff("replay_sample", kn[k], pn[k], f"full buffer successor {k}")
+    replay_sample_edges_diff(kbuf, pbuf, GROUPED_ENVS, 150, "phase 15 full buffer")
     torch.cuda.synchronize()
     emit({"phase": "grouped_path_shapes", "bit_equal": True, "B": GROUPED_ENVS,
           "illegal_actions": n_illegal, "buffer_capacity": buf.capacity, "buffer_pos": buf.pos,
@@ -2321,6 +2365,7 @@ def time_grouped_kernels(dev, smi) -> dict:
         lambda: buffers.sample_with_next(buf, key, 256, B),
         lambda: buffers.sample_with_next_plain(buf, key, 256, B), 100, 20, 4 * 256 * entry,
         2 * 256 * SAMPLE_INDEX_OPS)
+    out["replay_sample"][256]["shape"] = kernels.replay_sample_shape(buf.data, 256, B)
     emit({"phase": "grouped_times", "grouped_act": out["grouped_act"], "replay_add": out["replay_add"],
           "replay_sample": out["replay_sample"], "buffer_capacity": buf.capacity,
           "buffer_mib": sum(nbytes(x) for x in buf.data.values()) / 2**20, "nvidia_smi": smi})
@@ -2655,6 +2700,8 @@ def check_dqn_path_shapes(dev, ts, cfg) -> None:
     for k in buf.data:
         diff(name, kc[k], pc[k], f"full buffer sample {k}")
         diff(name, kn[k], pn[k], f"full buffer successor {k}")
+    if K == 1:
+        replay_sample_edges_diff(kbuf, pbuf, DQN_ENVS, 190, "phase 19 full buffer")
     torch.cuda.synchronize()
     emit({"phase": "dqn_path_shapes", "frame_stack": K, "bit_equal": True, "B": DQN_ENVS,
           "episodes_ended": n_done, "buffer_capacity": buf.capacity, "buffer_pos": buf.pos,
@@ -2894,6 +2941,27 @@ def observation_choices_diff(dev, cfg, P, what, names=("observe_dict", "flagship
     return out
 
 
+def init_edges_diff(dev, cfg, P, what) -> list:
+    """``flagship_init`` against ``engine.init_plain`` in both queue kinds at
+    B = 1, 31 and 33, at batches that leave a part-full last block of a few
+    envs and of 256 (``kernels.flagship_init_shape``), and at the vector
+    env's 8192; returns the batches."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    batches = (1, 31, 33, 4 * sms + 3, 256 * sms + 5, VECTOR_B)
+    for kind in ("bag", "uniform"):
+        c = cfg._replace(queue_kind=kind)
+        for B in batches:
+            keys = batch_keys(prng_key(B + 21), B, device=dev)
+            got, want = kernels.flagship_init(keys, c, P), engine.init_plain(keys, c, P)
+            _fields_diff("flagship_init", got, want, engine.FIELDS, f"{what} {kind} B={B}")
+    return list(batches)
+
+
 def check_flagship(dev) -> None:
     """Phases 21-22: ``flagship_init``, ``flagship_step``,
     ``flagship_observe_board`` and ``render_rgb84`` against their plain
@@ -2927,6 +2995,7 @@ def check_flagship(dev) -> None:
             keys = batch_keys(prng_key(B), B, device=dev)
             state_diff("flagship_init", kernels.flagship_init(keys, cfg, engine.PIECES),
                        engine.init_plain(keys, cfg), f"init B={B} {kind}")
+    init_batches = init_edges_diff(dev, EngineConfig(), engine.PIECES, "phase 21 init")
 
     runs = [
         ("autoreset", PIX_ENVS, EngineConfig(auto_reset=True), RewardsMapping()),
@@ -2990,7 +3059,8 @@ def check_flagship(dev) -> None:
     emit({"phase": "flagship_engine", "bit_equal": True, "turbo_equal": True, "runs": summary,
           "flagship_step_lanes": list(kernels.FLAGSHIP_LANES),
           "surgery_lines_per_lock": {n: int(c) for n, c in enumerate(clears.tolist()) if c},
-          **counts, "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_init", "flagship_step")},
+          **counts, "init_edge_batches": init_batches,
+          "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_init", "flagship_step")},
           "seconds": time.perf_counter() - t0})
     emit({"phase": "flagship_obs", "bit_equal": True, "turbo_equal": True,
           "comparisons": counts["obs"] + FLAGSHIP_STEPS + len(runs), "launch_choices": choices,
@@ -3820,7 +3890,10 @@ def run_vector_env(dev, smi, geometry=None) -> dict:
     B and seed, ``final_obs`` included."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig
+    from tetris_gymnasium_torch.core import engine
     from tetris_gymnasium_torch.envs import TetrisVectorEnv
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
 
     config = EngineConfig(**(geometry or {}))
     rng = np.random.default_rng(29)
@@ -3828,6 +3901,10 @@ def run_vector_env(dev, smi, geometry=None) -> dict:
     p = np.asarray(FLAGSHIP_ACTION_P)
     out = {}
     total = {k: 0 for k in kernels.LAUNCHES}
+    keys = batch_keys(prng_key(29), B, device=dev)  # flagship_init at the path's shape
+    _fields_diff("flagship_init", kernels.flagship_init(keys, config, engine.PIECES),
+                 engine.init_plain(keys, config, engine.PIECES), engine.FIELDS,
+                 f"vector env {config.width}x{config.height} init B={B}")
     for impl in ("turbo", "flagship"):
         acts = [rng.choice(8, B, p=VECTOR_DROP_P if t < VECTOR_CHECK_STEPS else p) for t in range(T)]
         cpu = TetrisVectorEnv(B, config, impl=impl, seed=29, device="cpu")
@@ -4122,6 +4199,7 @@ def check_wide_kernels(dev) -> dict:
                      f"{name} init")
         _fields_diff("flagship_init", _cat_flagship(fs), engine.init_plain(all_keys, cfg, P),
                      engine.FIELDS, f"{name} flagship init")
+        init_edges_diff(dev, cfg, P, f"phase 31 {name} init")
         n_done = n_lines = n_flines = n_variants = n_fbuilds = 0
         t_all, f_all = _cat_turbo(ts), _cat_flagship(fs)
         a_all = torch.zeros((sum(WIDE_B),), dtype=torch.int32, device=dev)
@@ -4294,6 +4372,9 @@ def time_wide_kernels(dev, smi) -> dict:
             big = B >= 65536
             keys = batch_keys(prng_key(34 + B), B, device=dev)
             t, f = kernels.turbo_init(keys, cfg, P), kernels.flagship_init(keys, cfg, P)
+            if B == VECTOR_B:
+                _fields_diff("flagship_init", f, engine.init_plain(keys, cfg, P), engine.FIELDS,
+                             f"phase 34 {name} init B={B}")
             for _ in range(40):
                 a = _flagship_actions(B, g, dev)
                 t = kernels.turbo_step(t, a, cfg, P, rw)[0]
@@ -4345,6 +4426,8 @@ def time_wide_kernels(dev, smi) -> dict:
                              envs_per_s=B / (entry["ms"] * 1e-3))
                 out.setdefault(name, {}).setdefault(kname, {})[B] = entry
             out[name]["flagship_step"][B]["lanes"] = kernels.flagship_step_lanes(B, cfg.padded_height)
+            if "flagship_init" in out[name] and B in out[name]["flagship_init"]:
+                out[name]["flagship_init"][B]["shape"] = kernels.flagship_init_shape(cfg, P, B)
             out[name]["flagship_step"][B]["builds_ms"] = {
                 lanes: device_ms(lambda: kernels.flagship_step(f, a, cfg, P, rw, lanes=lanes),
                                  20 if big else 100) for lanes in kernels.FLAGSHIP_LANES}

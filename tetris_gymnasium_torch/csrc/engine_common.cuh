@@ -400,10 +400,11 @@ __device__ __forceinline__ bool spawn_overlap(const Rows& rows, const PieceWord&
   return over;
 }
 
-// A fresh episode from the key words (init_state / _init_from_key): the
-// bag, the active piece, the queue and an empty board's rows.
-__device__ __forceinline__ void init_env(Env& e, uint32_t k0, uint32_t k1, bool uniform,
-                                         const int32_t* box) {
+// A fresh episode from the key words (init_state / _init_from_key), all
+// but the board: the bag, the active piece, the queue and the zeroed
+// counters.
+__device__ __forceinline__ void init_pieces(Env& e, uint32_t k0, uint32_t k1, bool uniform,
+                                            const int32_t* box) {
   e.k0 = k0;
   e.k1 = k1;
   shuffle_bag(e);
@@ -419,10 +420,6 @@ __device__ __forceinline__ void init_env(Env& e, uint32_t k0, uint32_t k1, bool 
 #pragma unroll
     for (int i = 0; i < QS; ++i) e.queue[i] = draw(e, uniform);
   }
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) e.rows[h][j] = h < HEIGHT ? side_word(j) : full_word(j);
   e.piece = active;
   e.rotation = 0;
   e.x = spawn_x(box, active);
@@ -438,6 +435,16 @@ __device__ __forceinline__ void init_env(Env& e, uint32_t k0, uint32_t k1, bool 
   e.score = 0.0f;
   e.lines = 0;
   e.steps = 0;
+}
+
+// init_pieces and an empty board's rows.
+__device__ __forceinline__ void init_env(Env& e, uint32_t k0, uint32_t k1, bool uniform,
+                                         const int32_t* box) {
+  init_pieces(e, k0, k1, uniform, box);
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) e.rows[h][j] = h < HEIGHT ? side_word(j) : full_word(j);
 }
 
 // _swap from the pre-step state: with the holder full, key, bag and queue

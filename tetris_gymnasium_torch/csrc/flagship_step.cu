@@ -47,8 +47,11 @@
 // lines: ~1.06 KB an env at 10x20 (0.16 us at B = 512, 21 us at B = 65536
 // at 3.35 TB/s), ~2.03 KB at 30x20.  The integer work per env (a few
 // hundred instructions, more on a lock) is below that at full occupancy.
-// flagship_init writes a fresh state (~0.53 KB an env at 10x20), one
-// thread an env, 32 envs a block, the boards staged in shared memory.
+// flagship_init writes a fresh state (~0.53 KB an env at 10x20): the
+// boards as a stream of 16-byte words of their constant pattern, computed
+// where they are stored, beside one RNG chain a thread an env, up to 256
+// envs a block and no block-wide barrier; a full warp's row fields (bag,
+// queue, holder) go out coalesced through its tile in shared memory.
 // flagship_observe_board reads the playfield rows and writes the cropped
 // int8[HEIGHT, WIDTH] frame: the bound counts the 200 playfield cells in,
 // 17 bytes of fields and 200 out an env at 10x20; it reads 360 bytes of
@@ -63,20 +66,22 @@
 // (engine_common.cuh, kernels.py:engine_defines), one library per
 // geometry with the two step builds.  What other geometries change here:
 //   - BOARD = H * PW need not be a multiple of 16 (648 bytes at 28x14, 924
-//     for the 6x6 pieces at 30x16): 32 boards always are, so every block of
-//     the init starts on a 16-byte boundary, and block_copy16 moves the
-//     bytes of a ragged tail one a thread; a band build stages its boards
-//     in 16-, 4- or 1-byte words, and the observation reads them in 16-, 8-,
-//     4-, 2- or 1-byte words, the widest that BOARD is a multiple of
-//     (board_words.cuh:word_bytes); the observation's frames of OBS bytes
-//     are stored in 16-byte words from the first 16-byte boundary on;
-//   - the boards of a block live in dynamic shared memory: kEnvs * BOARD
-//     bytes for the init, the band builds' stride-padded boards and
-//     line-clear rows (BandSmem), the observation's rows and frames
-//     (ObsBuild<E>::WARP_SMEM a warp: 2288 bytes at 10x20 with four envs,
-//     592 with one), opted in above 48 KB; engine_defines keeps BOARD <=
-//     3072 so that the init's 96 KB stays inside the 227 KB a block may
-//     have.
+//     for the 6x6 pieces at 30x16): the init's words are those of the whole
+//     board tensor, each taking its pattern from its offset into a board,
+//     and only the tensor's last word can be ragged; a band build stages
+//     its boards in 16-, 4- or 1-byte words, and the observation reads
+//     them in 16-, 8-, 4-, 2- or 1-byte words, the widest that BOARD is a
+//     multiple of (board_words.cuh:word_bytes); the observation's frames
+//     of OBS bytes are stored in 16-byte words from the first 16-byte
+//     boundary on;
+//   - the boards of a block live in dynamic shared memory: the band
+//     builds' 16 stride-padded boards and line-clear rows (BandSmem), the
+//     observation's rows and frames (ObsBuild<E>::WARP_SMEM a warp: 2288
+//     bytes at 10x20 with four envs, 592 with one), opted in above 48 KB;
+//     the init keeps only its row-field tiles.  engine_defines keeps
+//     BOARD <= 3072 for the flagship sources, the size up to which the
+//     shared memory of the band builds, the observation, grouped_flagship
+//     and render_rgb84 is laid out and held by their static_asserts.
 
 #include <algorithm>
 #include <cstdint>
@@ -121,10 +126,17 @@ struct FlagshipParams {
 namespace {
 
 constexpr int BOARD = H * PW;  // bytes of a board: 432 at 10x20
-constexpr int kEnvs = 32;      // envs (threads) a block of the init
-constexpr int kInitSmem = kEnvs * BOARD;
-static_assert((kEnvs * BOARD) % 16 == 0, "each block's boards start 16-byte aligned");
-static_assert(kInitSmem <= 227 * 1024, "shared memory of a block");
+constexpr int kInitThreads = 256;  // threads a block of the init, and most envs
+constexpr int kInitWarps = kInitThreads / 32;
+// The init's board stream: the pattern of 16-byte words repeats every
+// kPeriod words (lcm(BOARD, 16) bytes); a 16-byte word touches at most
+// kWordRows rows.  An env's row fields (bag, queue, holder) are kRowInts
+// words, staged in its warp's tile of kInitSmem / kInitWarps bytes.
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+constexpr int kPeriod = BOARD / gcd(BOARD, 16);
+constexpr int kWordRows = 15 / PW + 2;
+constexpr int kRowInts = NP + QS + 2 * HS;
+constexpr int kInitSmem = kInitThreads * kRowInts * 4;
 
 // The observation's shape: each env's playfield rows (PLAY bytes) read as
 // NIW words of WI bytes, kObsWarpEnvs envs a warp for a large batch (of
@@ -224,29 +236,153 @@ __device__ __forceinline__ void store_env(const Env& e, const FlagshipPtrs& p, i
   p.steps[b] = e.steps;
 }
 
-// create_board: zeros inside, bedrock on the left, right and bottom.
-__device__ __forceinline__ void empty_board(int8_t* bd) {
-  for (int h = 0; h < H; ++h)
-    for (int w = 0; w < PW; ++w)
-      bd[h * PW + w] = (h >= HEIGHT || w < PAD || w >= PAD + WIDTH) ? 1 : 0;
+// create_board's cell c of a board: 1 on the bedrock (the pad columns and
+// the rows below the playfield), 0 inside.
+__device__ __forceinline__ int8_t board_cell(int c) {
+  const int r = c / PW, w = c % PW;
+  return (r >= HEIGHT || w < PAD || w >= PAD + WIDTH) ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kEnvs) flagship_init_kernel(
-    const uint32_t* __restrict__ keys, FlagshipPtrs out, const int32_t* __restrict__ box, int B,
-    int uniform) {
-  extern __shared__ __align__(16) int8_t boards[];  // kInitSmem bytes
-  const int base = blockIdx.x * kEnvs;
-  const int n = min(kEnvs, B - base);
-  const int t = threadIdx.x;
-  if (t < n) {
-    const int b = base + t;
-    Env e;
-    init_env(e, keys[2 * b], keys[2 * b + 1], uniform != 0, box);
-    empty_board(boards + t * BOARD);
-    store_env(e, out, b, B);
+// The 16 bytes of create_board's boards laid end to end from byte o of a
+// board (0 <= o < BOARD): byte i is cell (o + i) mod BOARD.  The word's
+// playfield cells are bits, an interval of each playfield row that it
+// touches (row r / PW of the stream is row r mod H of a board, BOARD being
+// H rows), and each 4 bits become a 32-bit lane of bytes (expand4).
+__device__ __forceinline__ uint4 board_word(int o) {
+  const int r0 = o / PW;
+  uint32_t play = 0u;
+#pragma unroll
+  for (int k = 0; k < kWordRows; ++k) {
+    const int r = r0 + k, at = r * PW + PAD - o;  // the row's first playfield cell, from o
+    const int lo = max(at, 0), hi = min(at + WIDTH, 16);
+    if (r % H < HEIGHT && lo < hi) play |= (0xFFFFu >> (16 - hi)) & ~((1u << lo) - 1u);
   }
-  __syncthreads();
-  block_copy16(out.board + static_cast<size_t>(base) * BOARD, boards, n * BOARD);
+  const uint32_t rock = ~play;
+  return make_uint4(expand4(rock & 15u), expand4((rock >> 4) & 15u), expand4((rock >> 8) & 15u),
+                    expand4((rock >> 12) & 15u));
+}
+
+// The block's words of the board tensor from thread si of S: the words
+// whose first byte lies in the block's boards, si, si + S, ...; each is
+// computed where it is stored (one word throughout where S is a multiple
+// of the period), the tensor's ragged last word byte by byte where
+// B * BOARD is no multiple of 16.
+__device__ __forceinline__ void stream_board(int8_t* board, long long base, int n, int B, int si, int S) {
+  const bool fixed = S % kPeriod == 0;
+  const int step = (16 * S) % BOARD;
+  const long long total = static_cast<long long>(B) * BOARD;
+  const long long w0 = (base * BOARD + 15) / 16;
+  const int words = static_cast<int>(((base + n) * BOARD + 15) / 16 - w0);
+  int o = static_cast<int>((16 * (w0 + si)) % BOARD);
+  const uint4 first = board_word(o);
+  uint4* dst = reinterpret_cast<uint4*>(board);
+  for (int i = si; i < words; i += S) {
+    const long long w = w0 + i;
+    if (16 * w + 16 <= total) {
+      dst[w] = fixed ? first : board_word(o);
+    } else {  // the tensor's ragged last word
+      for (int j = 0; j < total - 16 * w; ++j) board[16 * w + j] = board_cell((o + j) % BOARD);
+    }
+    o += step;
+    if (o >= BOARD) o -= BOARD;
+  }
+}
+
+// count words from a warp's tile to dst, in 16-byte words where dst lies on
+// a 16-byte boundary and count is a multiple of 4 (the tile's rows of each
+// field start on one: 32 * N words from the tile's start).
+__device__ __forceinline__ void store_tile(int32_t* dst, const int32_t* tile, int count, int lane) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0 && (count & 3) == 0) {
+    for (int f = lane; f < count / 4; f += 32)
+      reinterpret_cast<uint4*>(dst)[f] = reinterpret_cast<const uint4*>(tile)[f];
+  } else {
+    for (int f = lane; f < count; f += 32) dst[f] = tile[f];
+  }
+}
+
+// A warp's m envs from base b0: the lanes load their keys and the box
+// table, run their RNG chains (the bag's shuffle and the queue's draws) and
+// store their fields, the spawn column from the box table by shuffle (no
+// load in the chain).  A full warp puts its row fields (bag, queue,
+// holder) through its tile so that they go out coalesced, m * N
+// consecutive words each; a part-full one, the few envs of a small batch,
+// stores them as they are.
+__device__ __forceinline__ void init_warp(const uint32_t* keys, const FlagshipPtrs& out, const int32_t* box,
+                                          int B, long long b0, int m, int lane, bool uniform,
+                                          int32_t* tile) {
+  uint2 k = make_uint2(0u, 0u);
+  if (lane < m) k = __ldg(reinterpret_cast<const uint2*>(keys) + b0 + lane);
+  const int boxv = lane < NP ? __ldg(box + lane) : 0;
+  Env e;
+  int piece = 0;
+  if (lane < m) {
+    init_pieces(e, k.x, k.y, uniform, box);
+    piece = e.piece;
+  }
+  const int x = PW / 2 - __shfl_sync(0xffffffffu, boxv, piece) / 2;  // spawn_x
+  const bool staged = m == 32;
+  if (lane < m) {
+    const long long b = b0 + lane;
+    out.key[b] = e.k0;
+    out.key[B + b] = e.k1;
+    out.piece[b] = e.piece;
+    out.rotation[b] = e.rotation;
+    out.x[b] = x;
+    out.y[b] = e.y;
+    out.bag_index[b] = e.bag_index;
+    out.holder_count[b] = e.holder_count;
+    out.has_swapped[b] = e.has_swapped ? 1 : 0;
+    out.game_over[b] = e.game_over ? 1 : 0;
+    out.score[b] = e.score;
+    out.lines[b] = e.lines;
+    out.steps[b] = e.steps;
+    int32_t* bag = staged ? tile + lane * NP : out.bag + b * NP;
+    int32_t* queue = staged ? tile + 32 * NP + lane * QS : out.queue + b * QS;
+    int32_t* hp = staged ? tile + 32 * (NP + QS) + lane * HS : out.holder_piece + b * HS;
+    int32_t* hr = staged ? tile + 32 * (NP + QS + HS) + lane * HS : out.holder_rotation + b * HS;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) bag[i] = e.bag[i];
+#pragma unroll
+    for (int i = 0; i < QS; ++i) queue[i] = e.queue[i];
+#pragma unroll
+    for (int i = 0; i < HS; ++i) {
+      hp[i] = e.holder_piece[i];
+      hr[i] = e.holder_rotation[i];
+    }
+  }
+  if (!staged) return;
+  __syncwarp();  // the warp's tile of row fields
+  store_tile(out.bag + b0 * NP, tile, 32 * NP, lane);
+  store_tile(out.queue + b0 * QS, tile + 32 * NP, 32 * QS, lane);
+  store_tile(out.holder_piece + b0 * HS, tile + 32 * (NP + QS), 32 * HS, lane);
+  store_tile(out.holder_rotation + b0 * HS, tile + 32 * (NP + QS + HS), 32 * HS, lane);
+}
+
+// init_state for a block of up to E envs (kernels.py:flagship_init_shape:
+// E = min(kInitThreads, ceil(B / SMs)), so that a batch spreads over every
+// SM), kInitThreads threads, no block-wide barrier.  The board tensor is B
+// copies of one pattern known at compile time: threads stream their share
+// of its 16-byte words (stream_board), and the warps of the block's n envs
+// each init their envs (init_warp).  Where the envs leave two warps or more,
+// those warps stream while the env warps run their chains; else every
+// thread streams first, its stores draining while the chains run.
+__global__ void __launch_bounds__(kInitThreads) flagship_init_kernel(
+    const uint32_t* __restrict__ keys, FlagshipPtrs out, const int32_t* __restrict__ box, int B,
+    int E, int uniform) {
+  extern __shared__ int32_t tiles[];  // 32 * kRowInts words a warp
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const long long base = static_cast<long long>(blockIdx.x) * E;
+  const int n = static_cast<int>(min(static_cast<long long>(E), B - base));
+  const int env_warps = (n + 31) / 32;
+  const int first = env_warps <= kInitWarps - 2 ? 32 * env_warps : 0;  // the first streaming thread
+  const int avail = kInitThreads - first;
+  const int S = avail >= kPeriod ? avail / kPeriod * kPeriod : avail;  // a multiple of the period where it fits
+  if (first == 0 && t < S) stream_board(out.board, base, n, B, t, S);
+  if (warp < env_warps)
+    init_warp(keys, out, box, B, base + 32 * warp, min(32, n - 32 * warp), lane, uniform != 0,
+              tiles + warp * 32 * kRowInts);
+  else if (first > 0 && t - first < S)
+    stream_board(out.board, base, n, B, t - first, S);
 }
 
 // observe_board: occupancy 0/1 with the active piece ADDED as -1 unless the
@@ -525,7 +661,7 @@ __device__ __forceinline__ void band_commit_ids(int8_t* board, const int8_t* in_
   }
 }
 
-// empty_board on the lane's band.
+// create_board's cells (board_cell) on the lane's band.
 template <int L>
 __device__ __forceinline__ void band_empty_ids(int8_t* board, const Band<L>& bd) {
 #pragma unroll
@@ -678,15 +814,34 @@ extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* 
   }
 }
 
-// keys: uint32[B, 2] (mesh.batch_keys layout).
+// Envs a block of the init for a batch of B: kInitThreads, or where B's envs
+// give the card's SMs fewer than kInitThreads each, as many as give every
+// SM a block.  (Sharing 65536 envs evenly, 249 a block and two blocks an
+// SM, was 6% slower on an H100: PERF.md.)
+static int init_envs(int B) {
+  const int sms = sm_count();
+  return std::min(kInitThreads, std::max(1, (B + sms - 1) / sms));
+}
+
+// keys: uint32[B, 2] (mesh.batch_keys layout); out's board starts on a
+// 16-byte boundary.
 extern "C" int flagship_init_launch(const void* keys, const FlagshipPtrs* out, const void* box,
                                     int B, int uniform, void* stream) {
   static bool opted = false;
   if (const cudaError_t err = allow_smem(flagship_init_kernel, kInitSmem, opted)) return err;
-  const int blocks = (B + kEnvs - 1) / kEnvs;
-  flagship_init_kernel<<<blocks, kEnvs, kInitSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), *out, static_cast<const int32_t*>(box), B, uniform);
+  const int E = init_envs(B);
+  flagship_init_kernel<<<(B + E - 1) / E, kInitThreads, kInitSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), *out, static_cast<const int32_t*>(box), B, E, uniform);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The init's shape for a batch of B: out = [envs a block, threads a block,
+// bytes a board word].
+extern "C" int flagship_init_shape(int B, int* out) {
+  out[0] = init_envs(B);
+  out[1] = kInitThreads;
+  out[2] = 16;
+  return 0;
 }
 
 // Envs a warp of the observation for a batch of B: one while B gives the

@@ -35,7 +35,22 @@
 // multiplier, 2**16 % span squared in uint32, mod span), forms idx = (start + off) mod
 // capacity and, for sample_with_next, nxt = (idx + batch) mod capacity, and
 // gathers the entry (and its successor) of every field.  No index crosses
-// from the host, and one launch replaces a gather per field.
+// from the host, and one launch replaces a gather per field.  The fields'
+// words of the entry and the successor, laid end to end (widest words
+// first), are one item map (SamplePlan; no division runs a word).  A unit,
+// a chunk of a sample's items, goes to a group of 8, 16 or 32 lanes: a
+// warp while the samples' warps fit 16 an SM (a small n is a chain of
+// latencies that more lanes shorten), narrower for a large n (the CNN
+// DQN's 209-byte entries: 8 lanes, four samples a warp), and 4 words a
+// lane while the units still fit, else 16 (one chunk, one draw, a sample).
+// The group's first lane draws (both threefry blocks, the remainders by
+// Lemire's multiply) and shuffles the entry and successor to the group;
+// each lane loads its words into registers, reading each field from the
+// parameters, before it stores any.  No shared memory, no barrier.  The
+// first design (256 threads on 4 samples, the draw by 4 threads behind a
+// barrier, the fields one after another, each word a load then its store)
+// kept one or two loads in flight a thread; designs with a field table in
+// shared memory, or the rows staged by cp.async, were slower (PERF.md).
 //
 // replay_sample_stacked: replay_sample with successors whose observation
 // field comes back as K-frame windows [n, K, ...], rebuilt from the single
@@ -75,6 +90,7 @@
 // window shares K - 1 frames with the entry's), fewer where a window repeats
 // an episode's first frame or samples share entries.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -123,10 +139,37 @@ struct AddPlan {
   int first[kMaxFields + 1];
 };
 
+// replay_sample's plan (replay_sample_kernel).  A sample's item map: its
+// fields' words of the entry, then of the successor, field by field, at
+// table positions 0 .. n - 1 (16-byte words first, then 4-byte, then single
+// bytes): position t's field has wpr[t] words a row and items first[t] ..
+// first[t + 1] - 1 (first past the last field is items).
+// A unit is a chunk of chunk_items consecutive items of one sample, taken
+// by a group of group lanes; a block takes units_per_block samples' unit of
+// chunk blockIdx.y, of chunks a sample.  The fields come to the kernel in
+// table order (SampleFields).
+// span_magic is Lemire's constant for x mod span (2**64 - 1) / span + 1;
+// wrap_once where every offset and the batch lie below the capacity.
+struct SamplePlan {
+  int first[kMaxFields + 1];
+  int wpr[kMaxFields];
+  int items;
+  int group;
+  int slots;  // chunk_items / group: a lane's words in flight
+  int chunk_items;
+  int chunks;
+  int units_per_block;
+  int wrap_once;
+  unsigned long long span_magic;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSamplesPerBlock = 4;
+constexpr int kMaxGroupThreads = 256;  // replay_sample: most threads a block
+constexpr int kSlotsFew = 4;           // replay_sample: a lane's words for a small n (short chains)
+constexpr int kSlotsMany = 16;         // ... and for a large one (one draw a sample)
+constexpr int kWarpsPerSM = 16;        // replay_sample: groups widen, and chunks shrink, while the warps fit this
 constexpr int kMaxStack = 16;
 constexpr int kAddMaxRuns = 32768;       // words: blocks a field
 constexpr int kTile = 32;                // transposed: a 32 x 32 tile, 8 rows of it a pass
@@ -185,30 +228,6 @@ __global__ void __launch_bounds__(kThreads) replay_add_kernel(const __grid_const
   else add_words<uint8_t>(f, dst, block, blocks, B);
 }
 
-template <typename T>
-__device__ __forceinline__ void gather_rows(const ReplayField& f, const long long* rows,
-                                            long long first, int n_rows, int n) {
-  // rows[h * kSamplesPerBlock + s] is the row of sample first + s in out_cur
-  // (h = 0) or out_nxt (h = 1)
-  const long long wpr = f.row_bytes / static_cast<long long>(sizeof(T));
-  const T* store = static_cast<const T*>(f.store);
-  for (long long i = threadIdx.x; i < n_rows * wpr; i += blockDim.x) {
-    const int r = static_cast<int>(i / wpr);
-    const long long w = i % wpr;
-    const int s = r % kSamplesPerBlock;
-    if (first + s >= n) continue;
-    T* out = static_cast<T*>(r < kSamplesPerBlock ? f.out_cur : f.out_nxt);
-    out[(first + s) * wpr + w] = store[rows[r] * wpr + w];
-  }
-}
-
-__device__ __forceinline__ void gather_field(const ReplayField& f, const long long* rows,
-                                             long long first, int n_rows, int n) {
-  if (f.word == 16) gather_rows<uint4>(f, rows, first, n_rows, n);
-  else if (f.word == 4) gather_rows<uint32_t>(f, rows, first, n_rows, n);
-  else gather_rows<uint8_t>(f, rows, first, n_rows, n);
-}
-
 // Sample s's entry: JAX's randint draw at counter s (the host splits the
 // key), (start + off) mod capacity; off goes to offsets[s] unless null.
 __device__ __forceinline__ long long draw_anchor(const SampleParams& p, long long s,
@@ -221,27 +240,107 @@ __device__ __forceinline__ long long draw_anchor(const SampleParams& p, long lon
   return (p.start + off) % p.capacity;
 }
 
-// rows[s] = idx and rows[kSamplesPerBlock + s] = its successor for the
-// block's samples (threads 0 .. kSamplesPerBlock - 1).
-__device__ __forceinline__ void draw_rows(const SampleParams& p, long long first,
-                                          int32_t* offsets, long long* rows) {
-  if (threadIdx.x < kSamplesPerBlock) {
-    const long long s = first + threadIdx.x;
-    const long long idx = s < p.n ? draw_anchor(p, s, offsets) : 0;
-    rows[threadIdx.x] = idx;
-    rows[kSamplesPerBlock + threadIdx.x] = (idx + p.batch) % p.capacity;
-  }
+// x mod d for 32-bit x and d >= 1 from magic = (2**64 - 1) / d + 1
+// (Lemire, Kaser and Kurz, "Faster remainder by direct computation", 2019):
+// a multiply and a high multiply in place of a division.
+__device__ __forceinline__ uint32_t fast_mod(uint32_t x, unsigned long long magic, uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(magic * x, d));
 }
 
-__global__ void __launch_bounds__(kThreads) replay_sample_kernel(ReplayFields fields,
-                                                                 SampleParams p,
-                                                                 int32_t* __restrict__ offsets) {
-  __shared__ long long rows[2 * kSamplesPerBlock];
-  const long long first = static_cast<long long>(blockIdx.x) * kSamplesPerBlock;
-  draw_rows(p, first, offsets, rows);
-  __syncthreads();
-  const int n_rows = p.batch > 0 ? 2 * kSamplesPerBlock : kSamplesPerBlock;
-  for (int j = 0; j < fields.n; ++j) gather_field(fields.f[j], rows, first, n_rows, p.n);
+// A field as replay_sample reads it from its parameters (a compact
+// ReplayField: 32 bytes, so that the launch carries fewer), in table order.
+struct SampleField {
+  const char* store;
+  char* out[2];   // the entries, the successors
+  int row_bytes;  // below 2**31 (the launcher checks)
+  int word;
+};
+
+struct SampleFields {
+  SampleField f[kMaxFields];
+};
+
+// Item i of a sample: its table position (the fields after the first that
+// start at or before it), its row (0 the entry, 1 the successor) and word.
+struct ItemAt {
+  int q, h, w;
+};
+
+__device__ __forceinline__ ItemAt item_at(const SamplePlan& plan, int i) {
+  int q = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxFields; ++k) q += i >= plan.first[k] ? 1 : 0;
+  const int w = i - plan.first[q];
+  const int wpr = plan.wpr[q];
+  const int h = w >= wpr ? 1 : 0;
+  return {q, h, w - h * wpr};
+}
+
+// A group of plan.group lanes a unit (a chunk of a sample's items), no
+// shared memory and no barrier: a lane reads its items' fields from the
+// parameters (the constant cache) by their table position, the fields
+// handed over in table order.  The group's first lane draws the sample's
+// entry and successor (both threefry blocks, the remainders by
+// multiplication) and hands them to the group by shuffle; each lane then
+// loads its K words of the chunk
+// (items lane, lane + group, ...), every load before any store, and stores
+// them.  A small n takes K = kSlotsFew, so that each lane's chain of
+// loads is short and more warps share the work; a large one kSlotsMany, one
+// chunk (and one draw) a sample.
+template <int K>
+__global__ void __launch_bounds__(kMaxGroupThreads) replay_sample_kernel(
+    const __grid_constant__ SampleFields fields, const __grid_constant__ SampleParams p,
+    const __grid_constant__ SamplePlan plan, int32_t* __restrict__ offsets) {
+  const int G = plan.group;
+  const int lane = threadIdx.x & (G - 1);
+  const long long s = static_cast<long long>(blockIdx.x) * plan.units_per_block + threadIdx.x / G;
+  const int base = static_cast<int>(blockIdx.y) * plan.chunk_items;  // the unit's chunk
+  const bool live = s < p.n;
+  uint32_t row0 = 0u, row1 = 0u;  // the entry, its successor
+  if (lane == 0 && live) {
+    const uint32_t c = static_cast<uint32_t>(s);
+    const uint32_t hi = tf::bits(p.hi_k0, p.hi_k1, 0u, c);
+    const uint32_t lo = tf::bits(p.lo_k0, p.lo_k1, 0u, c);
+    const unsigned long long m = plan.span_magic;
+    const uint32_t off = fast_mod(fast_mod(hi, m, p.span) * p.multiplier + fast_mod(lo, m, p.span), m, p.span);
+    if (offsets != nullptr && base == 0) offsets[s] = static_cast<int32_t>(off);
+    // start, batch and capacity lie below 2**31 (the launcher checks), so
+    // these sums fit 32 bits; where off < capacity and batch < capacity
+    // (plan.wrap_once) each wraps at most once
+    const uint32_t cap = static_cast<uint32_t>(p.capacity);
+    row0 = static_cast<uint32_t>(p.start) + off;
+    row0 = plan.wrap_once ? (row0 >= cap ? row0 - cap : row0) : row0 % cap;
+    row1 = row0 + static_cast<uint32_t>(p.batch);
+    row1 = plan.wrap_once ? (row1 >= cap ? row1 - cap : row1) : row1 % cap;
+  }
+  row0 = __shfl_sync(0xffffffffu, row0, 0, G);
+  row1 = __shfl_sync(0xffffffffu, row1, 0, G);
+  if (!live) return;  // after the shuffles
+  uint4 v[K];
+  char* dst[K];  // where each word goes, and its size (0: none)
+  int size[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = base + lane + G * k;
+    size[k] = 0;
+    if (i < plan.items) {
+      const ItemAt it = item_at(plan, i);
+      const SampleField& f = fields.f[it.q];
+      const char* src = f.store + static_cast<long long>(it.h ? row1 : row0) * f.row_bytes +
+                        static_cast<long long>(it.w) * f.word;
+      dst[k] = f.out[it.h] + s * f.row_bytes + static_cast<long long>(it.w) * f.word;
+      size[k] = f.word;
+      if (f.word == 16) v[k] = __ldg(reinterpret_cast<const uint4*>(src));
+      else if (f.word == 4) v[k].x = __ldg(reinterpret_cast<const uint32_t*>(src));
+      else v[k].x = __ldg(reinterpret_cast<const uint8_t*>(src));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (size[k] == 16) *reinterpret_cast<uint4*>(dst[k]) = v[k];
+    else if (size[k] == 4) *reinterpret_cast<uint32_t*>(dst[k]) = v[k].x;
+    else if (size[k] == 1) *dst[k] = static_cast<char>(v[k].x);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -425,14 +524,110 @@ extern "C" int replay_add_launch(const ReplayFields* fields, long long pos, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The card's streaming multiprocessors (1 where it cannot be read).
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
+      sms = 1;
+  }
+  return sms;
+}
+
+// replay_sample's plan for n samples (with successors when batch > 0): the
+// item map (fields by word size, widest first), the lanes a unit (the
+// fewest of 8, 16 and 32 whose kSlotsMany words a lane cover a sample,
+// widened to a warp while n samples' warps give the SMs at most
+// kWarpsPerSM each: a small n is a chain of latencies that more lanes
+// shorten, a large one a stream in which narrow groups share a warp), the
+// words a lane (kSlotsFew while the units' warps still fit kWarpsPerSM an
+// SM, else kSlotsMany) and the units a block: as many as give every SM a
+// block, up to kMaxGroupThreads threads, in whole warps (the shuffles name
+// every lane of a warp).  ordered gets the fields in table order, as the
+// kernel reads them.
+static SamplePlan sample_plan(const ReplayFields& fields, const SampleParams& p, SampleFields& ordered) {
+  const int halves = p.batch > 0 ? 2 : 1;
+  SamplePlan plan{};
+  int at = 0, items = 0;
+  for (int word : {16, 4, 1}) {
+    for (int j = 0; j < fields.n; ++j) {
+      const ReplayField& f = fields.f[j];
+      if (f.word != word) continue;
+      ordered.f[at] = {static_cast<const char*>(f.store),
+                       {static_cast<char*>(f.out_cur), static_cast<char*>(f.out_nxt)},
+                       static_cast<int>(f.row_bytes), f.word};
+      plan.first[at] = items;
+      plan.wpr[at] = static_cast<int>(fields.f[j].row_bytes / word);
+      items += halves * plan.wpr[at++];
+    }
+  }
+  for (int q = at; q <= kMaxFields; ++q) plan.first[q] = items;
+  plan.items = items;
+  const long long room = 32ll * kWarpsPerSM * sm_count();  // lanes the card keeps busy
+  int g = 8;
+  while (g < 32 && items > g * kSlotsMany) g *= 2;
+  while (g < 32 && static_cast<long long>(p.n) * 2 * g <= room) g *= 2;
+  plan.group = g;
+  const int few = (items + g * kSlotsFew - 1) / (g * kSlotsFew);  // chunks a sample of kSlotsFew words a lane
+  plan.slots = static_cast<long long>(p.n) * few * g <= room ? kSlotsFew : kSlotsMany;
+  plan.chunk_items = g * plan.slots;
+  plan.chunks = std::max(1, (items + plan.chunk_items - 1) / plan.chunk_items);
+  plan.wrap_once = p.span <= p.capacity && p.batch < p.capacity;
+  plan.span_magic = ~0ull / (p.span > 0 ? p.span : 1) + 1;
+  const int sms = sm_count();
+  const int warp = 32 / g;  // units a warp
+  const long long units = static_cast<long long>(p.n) * plan.chunks;  // spread over every SM
+  const long long want = ((units + sms - 1) / sms + warp - 1) / warp * warp;
+  plan.units_per_block = static_cast<int>(std::min<long long>(kMaxGroupThreads / g, std::max<long long>(warp, want)));
+  return plan;
+}
+
 // n samples of every field (and their successors when batch > 0); offsets:
-// int32[n] (the randint draws) or null.
+// int32[n] (the randint draws) or null.  start and batch lie in [0, 2**31),
+// the capacity and every row's bytes below 2**31, every field's word is 16,
+// 4 or 1 bytes.
 extern "C" int replay_sample_launch(const ReplayFields* fields, const SampleParams* params,
                                     void* offsets, void* stream) {
-  const int blocks = (params->n + kSamplesPerBlock - 1) / kSamplesPerBlock;
-  replay_sample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *fields, *params, static_cast<int32_t*>(offsets));
+  const SampleParams& p = *params;
+  if (p.start < 0 || p.start >= (1ll << 31) || p.batch < 0 || p.batch >= (1ll << 31) ||
+      p.capacity < 1 || p.capacity >= (1ll << 31) || p.n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int j = 0; j < fields->n; ++j)
+    if ((fields->f[j].word != 16 && fields->f[j].word != 4 && fields->f[j].word != 1) ||
+        fields->f[j].row_bytes >= (1ll << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+  SampleFields ordered{};
+  const SamplePlan plan = sample_plan(*fields, p, ordered);
+  const dim3 grid(static_cast<unsigned>((p.n + plan.units_per_block - 1) / plan.units_per_block),
+                  static_cast<unsigned>(plan.chunks));
+  if (plan.chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = plan.units_per_block * plan.group;
+  const auto st = static_cast<cudaStream_t>(stream);
+  int32_t* off = static_cast<int32_t*>(offsets);
+  if (plan.slots == kSlotsFew)
+    replay_sample_kernel<kSlotsFew><<<grid, threads, 0, st>>>(ordered, p, plan, off);
+  else
+    replay_sample_kernel<kSlotsMany><<<grid, threads, 0, st>>>(ordered, p, plan, off);
   return static_cast<int>(cudaGetLastError());
+}
+
+// replay_sample's shape for n samples of these fields: out = [lanes a
+// unit, words a lane, units (chunks) a sample, units a block, a sample's
+// words].
+extern "C" int replay_sample_shape(const ReplayFields* fields, long long batch, int n, int* out) {
+  SampleParams p{};
+  p.batch = batch;
+  p.n = n;
+  SampleFields ordered{};
+  const SamplePlan plan = sample_plan(*fields, p, ordered);
+  out[0] = plan.group;
+  out[1] = plan.slots;
+  out[2] = plan.chunks;
+  out[3] = plan.units_per_block;
+  out[4] = plan.items;
+  return 0;
 }
 
 // n samples of every field and their successors, the obs_field gathered as

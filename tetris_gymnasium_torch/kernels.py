@@ -51,6 +51,9 @@ Kernels, with the JAX function each replaces:
   ``rl/buffers.py:add :46``, ``sample_with_next :70`` and ``sample :64``;
   ``replay_add`` on one flat grid apportioned to the fields by their bytes,
   a word a thread, a transposed field through a shared-memory tile;
+  ``replay_sample`` a group of 8, 16 or 32 lanes a chunk of a sample's
+  words, every field's and both rows' loads of a lane in flight before its
+  stores (:func:`replay_sample_shape`);
 * ``replay_sample_stacked`` (``csrc/replay.cu`` with ``csrc/bulk.cuh``):
   ``rl/buffers.py:sample_with_next_stacked :111``, a warp a sample, in two
   builds (:func:`replay_stacked_build`): the sample's <= K + 1 distinct
@@ -64,7 +67,9 @@ Kernels, with the JAX function each replaces:
   :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230`` or
   ``ops/bitboard_wide.py:108-215``), ``init_state :131`` and
   ``observe_board :274``; the step a group of 8 or 16 lanes an env
-  (:func:`flagship_step_lanes`), the observation one env a warp for a
+  (:func:`flagship_step_lanes`), the init its boards as a stream of
+  16-byte words of their constant pattern beside one RNG chain a thread
+  (:func:`flagship_init_shape`), the observation one env a warp for a
   small batch and 1-4 for a large one, their playfield rows in whole words
   and their frames staged in the warp's own shared memory
   (:func:`flagship_observe_board_shape`);
@@ -492,6 +497,7 @@ _ENTRY_POINTS = {
         "replay_add_launch": [ctypes.POINTER(_ReplayFields), ctypes.c_longlong, _I, _P],
         "replay_sample_launch": [ctypes.POINTER(_ReplayFields), ctypes.POINTER(_SampleParams),
                                  _P, _P],
+        "replay_sample_shape": [ctypes.POINTER(_ReplayFields), ctypes.c_longlong, _I, _P],
         "replay_sample_stacked_launch": [ctypes.POINTER(_ReplayFields),
                                          ctypes.POINTER(_SampleParams),
                                          ctypes.POINTER(_StackParams), _P, _P],
@@ -507,6 +513,7 @@ _ENTRY_POINTS = {
                                  _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  ctypes.POINTER(_FlagshipParams), _P],
         "flagship_init_launch": [_P, ctypes.POINTER(_FlagshipPtrs), _P, _I, _I, _P],
+        "flagship_init_shape": [_I, _P],
         "flagship_observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
         "flagship_observe_board_shape": [_I, _P],
     },
@@ -572,7 +579,8 @@ MAX_PIECE_SIDE = 8  # a piece table entry is 2 words at most
 MAX_PIECES = 32  # the bag lives in registers
 MAX_QUEUE = 16
 MAX_HOLDER = 8
-MAX_BOARD_CELLS = 3072  # flagship: flagship_init's 32 boards of a block in 227 KB of shared memory
+MAX_BOARD_CELLS = 3072  # flagship: the shared memory of the band steps, the observation,
+# grouped_flagship and render_rgb84 is laid out for boards up to this size
 MAX_FEATURE_HEIGHT = 64  # feature_vector: 7 bit planes of height counters
 MAX_FEATURE_WIDTH = 128  # feature_vector: 4 words a row
 _STATE_DTYPES = {
@@ -614,9 +622,9 @@ def engine_defines(config: EngineConfig, t: bb.Tables, flagship: bool = False) -
     * 1 to 32 pieces, a queue of 1 to 16 and a holder of 1 to 8: the bag,
       queue and holder live in registers;
     * with ``flagship``, a padded board of at most 3072 cells: the flagship
-      init keeps the boards of a block of 32 envs in shared memory, 227 KB
-      at most, and ``grouped_flagship`` and ``render_rgb84`` keep theirs in
-      48 KB;
+      step's band builds (16 boards a block), its observation,
+      ``grouped_flagship`` and ``render_rgb84`` lay out their shared memory
+      for boards up to that size;
     * ``queue_kind`` ``"bag"`` or ``"uniform"``.
 
     Every geometry of the JAX package's tests is inside them.
@@ -640,8 +648,8 @@ def _defines(config: EngineConfig, n_pieces: int, S: int, flagship: bool) -> tup
         (1 <= config.holder_size <= MAX_HOLDER, f"holder size {config.holder_size}: 1 to "
                                                 f"{MAX_HOLDER} are built"),
         (not flagship or H * PW <= MAX_BOARD_CELLS,
-         f"padded board of {H * PW} cells > {MAX_BOARD_CELLS}: the flagship kernels keep a "
-         "block's 32 boards in 227 KB of shared memory"),
+         f"padded board of {H * PW} cells > {MAX_BOARD_CELLS}: the flagship kernels lay out "
+         "their shared memory for boards up to that size"),
         (config.queue_kind in ("bag", "uniform"), f"queue_kind {config.queue_kind!r} has no kernel"),
     ):
         if not ok:
@@ -1301,6 +1309,8 @@ def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: i
     Returns ``(cur, nxt)`` dicts (``nxt`` None without successors), and the
     offsets ``int32[n]`` third with ``return_offsets``.
     """
+    if not (0 <= start < 2**31 and 0 <= batch < 2**31):
+        raise ValueError(f"start {start} and batch {batch} must lie in [0, 2**31)")
     out, fields, params, offsets, stream = _sample_setup(data, key, n, maxval, start, batch,
                                                          return_offsets)
     if n == 0:
@@ -1308,6 +1318,26 @@ def replay_sample(data: dict, key, n: int, maxval: int, start: int = 0, batch: i
     _check(_lib("replay").replay_sample_launch(fields, params, offsets, stream), "replay_sample")
     LAUNCHES["replay_sample"] += 1
     return out
+
+
+def replay_sample_shape(data: dict, n: int, batch: int = 0) -> dict:
+    """The shape of ``replay_sample``'s launch for ``n`` samples of the
+    stores ``data`` (with successors when ``batch > 0``): lanes a unit, a
+    chunk of a sample's words (the fewest of 8, 16 and 32 that cover a
+    sample at 16 words a lane, widened to 32 while n's warps give the
+    card's SMs at most 16 each), words a lane (4 while the units' warps
+    still fit 16 an SM, else 16), units (chunks) a sample, units a block
+    (as many as give every SM of the card a block, up to 256 threads, in
+    whole warps) and the sample's words; needs a card."""
+    fields = []
+    for store in data.values():
+        row_bytes = store[0].numel() * store.element_size()
+        fields.append(_ReplayField(store.data_ptr(), None, None, None, row_bytes, row_bytes,
+                                   _copy_word(row_bytes, store), 0))
+    vals = (ctypes.c_int * 5)()
+    _check(_lib("replay").replay_sample_shape(ctypes.byref(_replay_fields(fields)), int(batch), n,
+                                              ctypes.addressof(vals)), "replay_sample_shape")
+    return dict(zip(("lanes", "words_per_lane", "chunks", "units_per_block", "words"), list(vals)))
 
 
 # The builds of replay_sample_stacked: the bulk build stages a sample's
@@ -1564,13 +1594,19 @@ def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: Pie
 
 
 def flagship_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet):
-    """Launch ``flagship_init``: fresh episodes from per-env keys ``uint32[B, 2]``."""
+    """Launch ``flagship_init``: fresh episodes from per-env keys ``uint32[B, 2]``.
+
+    The kernel reads an env's key as one 8-byte word (a copy is made of keys
+    that do not start on an 8-byte boundary) and writes the new board, which
+    ``torch.empty`` starts on a 16-byte boundary, in 16-byte words."""
     device = keys.device
     t, _, box = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t, flagship=True)
     if not keys.is_cuda or keys.dtype != torch.uint32 or keys.ndim != 2 or keys.shape[1] != 2:
         raise ValueError(f"keys: want a CUDA uint32[B, 2] tensor, got {keys.dtype} {tuple(keys.shape)}")
     keys = keys.contiguous()
+    if keys.data_ptr() % 8:
+        keys = keys.clone()
     B = keys.shape[0]
     out = _empty_flagship_state(config, t.n_pieces, B, device)
     if B == 0:
@@ -1615,6 +1651,15 @@ def _shape_of(source: str, fn: str, keys: tuple, config: EngineConfig, pieces: P
     vals = (ctypes.c_int * len(keys))()
     _check(getattr(_lib(source, defines), fn)(B, ctypes.addressof(vals)), fn)
     return dict(zip(keys, list(vals)))
+
+
+def flagship_init_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:
+    """The shape of ``flagship_init``'s launch for a batch of B at
+    ``config``: envs a block (256, or where B gives the card's SMs fewer
+    each, as many as give every SM a block), threads a block, bytes of a
+    board word; needs a card."""
+    return _shape_of("flagship_step", "flagship_init_shape",
+                     ("envs_per_block", "threads_per_block", "word_bytes"), config, pieces, B)
 
 
 def flagship_observe_board_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Device ms of ``fn_step`` (with ``fn_reset`` and ``fn_observe``),
-``replay_sample_stacked`` and ``replay_add`` at the shapes the earlier
-slices time them, for the port found under ``--repo``:
+``replay_sample_stacked``, ``replay_add`` and ``replay_sample`` at the
+shapes the earlier slices time them, for the port found under ``--repo``:
 
     python tools/time_fn_replay_kernels.py [--repo DIR] [--label NAME] [--ptxas] [--ablate]
-        [--kernels fn,stacked,add]
+        [--kernels fn,stacked,add,sample]
 
 ``fn_step`` at 10x20 on live states (8 steps into a fresh rollout, as
 ``chip_smoke.py`` phase 43) and on frozen ones, ``fn_reset`` and
@@ -25,17 +25,27 @@ action, reward and done) and 65536 such envs, the grouped DQN's 1024 envs
 action, reward, done) and the board DQN's 1024 envs (the newest 200-byte
 int8 frame of a ``[B, 4, 20, 10]`` window), into the paths' buffers
 (262,144 entries, 131,072 for the grouped DQN), beside the library's copy
-of the obs field alone, ``store.narrow(0, pos, B).copy_(obs)``.  Each the
-median over 7 replays of a CUDA graph of 100 launches (10 at 65536, 5 for
-the pixel replay at 65536).  ``--kernels`` times only the kernels it names
-(all three by default).  What the other tree lacks is skipped.
+of the obs field alone, ``store.narrow(0, pos, B).copy_(obs)``.
+``replay_sample`` at ``SAMPLE_CASES``: the grouped DQN's 256 samples with
+their successors from its full 131,072-entry buffer of 2249-byte entries
+(1024 envs a block; ``chip_smoke.py`` phase 16), the CNN DQN's 512 of its
+262,144 entries of 209 bytes at K = 1 (phase 20), 65536 of each, and the
+grouped buffer's 256 without successors (``buffers.sample``), each beside
+its byte bound (every entry and successor read once and written once);
+as a yardstick, one ``torch.index_select`` of the obs field's rows given
+their indices.  Each
+the median over 7 replays of a CUDA graph of 100 launches (10 at 65536, 5
+for the pixel replay at 65536).  ``--kernels`` times only the kernels it
+names (all four by default).  What the other tree lacks is skipped.
 
 With ``--ptxas`` it first builds ``fn_env.cu`` at 10x20, 30x20 and 8x12
-with padding 2 and ``replay.cu``, and prints each kernel's registers,
-spills and shared memory, and each ``fn_step`` build's blocks an SM
+with padding 2 (where ``--kernels`` names fn) and ``replay.cu``, and
+prints each kernel's registers, spills and shared memory, and each
+``fn_step`` build's blocks an SM
 (``kernels.fn_step_occupancy``).  With ``--ablate`` it times, in place of
 all that, ``fn_step`` at 10x20 (B = 1, 8192, 65536), the pixel replay (n =
-512, 65536) and ``replay_add`` at its four shapes beside patched copies of
+512, 65536), ``replay_add`` at its four shapes and ``replay_sample`` at
+``SAMPLE_CASES`` beside patched copies of
 their sources that each skip one part (``ABLATIONS``, by kernel: the
 variants whose patches the tree at ``--repo`` holds; built under
 ``DIR/build/ablate/``): their games and frames are wrong by design, only
@@ -65,10 +75,45 @@ K = 4
 LIVE_STEPS = 8
 GROUPED_CAPACITY = 131_072
 ADD_CASES = (("pixel", 512), ("grouped", 1024), ("board", 1024), ("pixel", 65536))
+# replay_sample: (buffer, samples, with successors)
+SAMPLE_CASES = (("grouped", 256, True), ("board", 512, True), ("grouped", 65536, True),
+                ("board", 65536, True), ("grouped", 256, False))
 
 # --ablate's patched copies: (kernel, source, variant, [(text, replacement), ...]);
 # a variant runs where the tree's source holds each of its texts once.
 _NO_LOGIC = ("    if (!over_in) {\n      uint64_t m = ", "    if (false) {\n      uint64_t m = ")
+_SAMPLE_NO_DRAW = ("    const long long idx = s < p.n ? draw_anchor(p, s, offsets) : 0;",
+                   "    const long long idx = s < p.n ? s % p.capacity : 0;")
+_SAMPLE_OBS_ONLY = ("  for (int j = 0; j < fields.n; ++j) gather_field(fields.f[j], rows, first, n_rows, p.n);",
+                    "  for (int j = 0; j < 1; ++j) gather_field(fields.f[j], rows, first, n_rows, p.n);")
+# replay_sample, units of a sample's words: the draw, the loads (the stores
+# write what the address was), the stores or everything (the launch alone)
+# left out; and other shapes (not ablations: their samples are right): a
+# warp a unit at every n, narrow groups and 16 words a lane at every n, 4
+# or 16 words a lane always, one warp a block
+_GROUP_NO_DRAW = ("    const uint32_t off = fast_mod(fast_mod(hi, m, p.span) * p.multiplier + fast_mod(lo, m, p.span), m, p.span);",
+                  "    const uint32_t off = static_cast<uint32_t>(s);")
+_SLOTS = "  plan.slots = static_cast<long long>(p.n) * few * g <= room ? kSlotsFew : kSlotsMany;"
+_LOADS = ("      if (f.word == 16) v[k] = __ldg(reinterpret_cast<const uint4*>(src));\n"
+          "      else if (f.word == 4) v[k].x = __ldg(reinterpret_cast<const uint32_t*>(src));\n"
+          "      else v[k].x = __ldg(reinterpret_cast<const uint8_t*>(src));\n")
+_STORES = ("    if (size[k] == 16) *reinterpret_cast<uint4*>(dst[k]) = v[k];\n"
+           "    else if (size[k] == 4) *reinterpret_cast<uint32_t*>(dst[k]) = v[k].x;\n"
+           "    else if (size[k] == 1) *dst[k] = static_cast<char>(v[k].x);\n")
+_SAMPLE_GROUP_ABLATIONS = [
+    ("sample", "replay", "group_no_draw", [_GROUP_NO_DRAW]),
+    ("sample", "replay", "group_warp_always", [("  int g = 8;\n", "  int g = 32;\n")]),
+    ("sample", "replay", "group_narrow", [("constexpr int kWarpsPerSM = 16;", "constexpr int kWarpsPerSM = 0;")]),
+    ("sample", "replay", "group_slots_few", [(_SLOTS, "  plan.slots = kSlotsFew;")]),
+    ("sample", "replay", "group_slots_many", [(_SLOTS, "  plan.slots = kSlotsMany;")]),
+    ("sample", "replay", "group_one_warp_a_block",
+     [("constexpr int kMaxGroupThreads = 256;", "constexpr int kMaxGroupThreads = 32;")]),
+    ("sample", "replay", "group_no_loads", [(_LOADS, "      v[k] = make_uint4(static_cast<uint32_t>(reinterpret_cast<uintptr_t>(src)), 0u, 0u, 0u);\n")]),
+    ("sample", "replay", "group_no_stores", [(_STORES, "    if (v[k].x == 0x9e3779b9u && v[k].y == 1u) *dst[k] = 0;\n")]),
+    # the launch alone: every thread returns at once
+    ("sample", "replay", "group_empty", [("  const int G = plan.group;\n  const int lane = threadIdx.x & (G - 1);\n",
+                                          "  if (p.n > 0) return;\n  const int G = plan.group;\n  const int lane = threadIdx.x & (G - 1);\n")]),
+]
 ABLATIONS = [
     # fn_step: the fields, the boards' round trip, the bit rows and the observation stay
     ("fn", "fn_env", "no_logic", [_NO_LOGIC]),
@@ -97,7 +142,12 @@ ABLATIONS = [
     # replay_add on the flat grid: at most 2048 and 131072 blocks a field of words
     ("add", "replay", "runs2048", [("constexpr int kAddMaxRuns = 32768;", "constexpr int kAddMaxRuns = 2048;")]),
     ("add", "replay", "runs131072", [("constexpr int kAddMaxRuns = 32768;", "constexpr int kAddMaxRuns = 131072;")]),
-]
+    # replay_sample, a block of 4 samples: no threefry draw (entry s), then
+    # every field but obs left out, then both
+    ("sample", "replay", "no_draw", [_SAMPLE_NO_DRAW]),
+    ("sample", "replay", "obs_only", [_SAMPLE_OBS_ONLY]),
+    ("sample", "replay", "no_draw_obs_only", [_SAMPLE_NO_DRAW, _SAMPLE_OBS_ONLY]),
+] + _SAMPLE_GROUP_ABLATIONS
 
 
 def _ablations(repo, chosen):
@@ -155,19 +205,20 @@ def main() -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--kernels", default="fn,stacked,add")
+    ap.add_argument("--kernels", default="fn,stacked,add,sample")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_fn_replay_kernels: needs a CUDA card")
     chosen = set(args.kernels.split(","))
-    if not chosen <= {"fn", "stacked", "add"}:
-        raise SystemExit("time_fn_replay_kernels: --kernels takes fn, stacked and add")
+    if not chosen <= {"fn", "stacked", "add", "sample"}:
+        raise SystemExit("time_fn_replay_kernels: --kernels takes fn, stacked, add and sample")
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
     from chip_smoke import device_ms
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EnvConfig
     from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops import threefry
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.parallel.mesh import batch_keys
     from tetris_gymnasium_torch.pieces import PIECES
@@ -184,14 +235,15 @@ def main() -> None:
     replay_builds = getattr(kernels, "REPLAY_STACKED_BUILDS", ())
     builds = {}
     if args.ptxas:
-        jobs = [("fn_env", kernels.fn_defines(c, PIECES)) for c in geos.values()] + [("replay", ())]
+        jobs = [("fn_env", kernels.fn_defines(c, PIECES)) for c in geos.values()] if "fn" in chosen else []
+        jobs.append(("replay", ()))
         for job in jobs:  # ptxas speaks only when it compiles
             path = kernels._lib_path(kernels.SOURCES[job[0]], job[1])
             if path.exists():
                 path.unlink()
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             facts = list(pool.map(lambda job: kernels._compile(*job), jobs))
-        for name, f in zip([*geos, "replay"], facts):
+        for name, f in zip([*(geos if "fn" in chosen else ()), "replay"], facts):
             builds[name] = {"ptxas": [l.strip() for l in f["ptxas"].splitlines()
                                       if "registers" in l or "spill" in l or "Compiling" in l
                                       or "smem" in l]}
@@ -263,6 +315,39 @@ def main() -> None:
         data = {k: torch.zeros((cap, *x.shape[1:]), dtype=x.dtype, device=dev) for k, x in blk.items()}
         return buffers.ReplayBuffer(data, pos=(cap // 2) // B * B, size=cap), blk
 
+    def sample_case(kind):
+        """A full, wrapped buffer of a DQN path whose replay_sample is timed."""
+        buf, _ = add_case(kind, 1024)
+        for x in buf.data.values():  # entries of random bytes, done flags ~5%
+            if x.dtype == torch.bool:
+                x.copy_(torch.rand(x.shape, generator=g, device=dev) < 0.05)
+            elif x.dtype.is_floating_point:
+                x.normal_(generator=g)
+            else:
+                x.random_(-100, 100, generator=g)
+        return buf
+
+    def sample_times(buf, n, with_next, tag, reps, yardstick=True):
+        key = prng_key(5)
+        B = 1024
+        if with_next:
+            start, n_valid = buffers._successor_window(buf, B)
+            fn = lambda: kernels.replay_sample(buf.data, key, n, n_valid, start=start, batch=B)  # noqa: E731
+        else:
+            start, n_valid = 0, buf.size
+            fn = lambda: kernels.replay_sample(buf.data, key, n, n_valid)  # noqa: E731
+        out = {f"replay_sample{tag}": device_ms(fn, reps)}
+        if yardstick:
+            entry = sum(x[0].numel() * x.element_size() for x in buf.data.values())
+            halves = 2 if with_next else 1
+            out[f"bound{tag}"] = 1e3 * 2 * halves * n * entry / 3.35e12
+            off = torch.as_tensor(threefry.randint(key, n, n_valid).astype("int64"), device=dev)
+            rows = (start + off) % buf.capacity
+            if with_next:
+                rows = torch.cat([rows, (rows + B) % buf.capacity])
+            out[f"index_select{tag}"] = device_ms(lambda: torch.index_select(buf.data["obs"], 0, rows), reps)
+        return out
+
     def add_times(buf, blk, tag, reps, yardstick=True):
         out = {f"replay_add{tag}": device_ms(lambda: kernels.replay_add(buf.data, blk, buf.pos), reps)}
         if yardstick:
@@ -277,6 +362,7 @@ def main() -> None:
         pix = replay_buffer((84, 84), torch.uint8, 512) if "stacked" in chosen else None
         cases = {B: live(cfg, B) for B in FN_B} if "fn" in chosen else {}
         adds = {(kind, B): add_case(kind, B) for kind, B in ADD_CASES} if "add" in chosen else {}
+        samples = {kind: sample_case(kind) for kind in ("grouped", "board")} if "sample" in chosen else {}
 
         def time_all(variant, kernel):
             res = {}
@@ -284,6 +370,11 @@ def main() -> None:
                 for B, (s, a) in cases.items():
                     res[f"fn_step_{variant}@{B}"] = device_ms(
                         lambda: kernels.fn_step(s, a, cfg, PIECES), 10 if B >= 65536 else 100)
+            elif kernel == "sample":
+                for kind, n, with_next in SAMPLE_CASES:
+                    res.update({f"replay_sample_{variant}@{kind}@{n}{'' if with_next else '@nonext'}": v
+                                for v in sample_times(samples[kind], n, with_next, "", 10 if n >= 65536 else 100,
+                                                      yardstick=False).values()})
             elif kernel == "stacked":
                 for n in REPLAY_N:
                     res.update({f"{k}_{variant}": v for k, v in replay_times(
@@ -295,7 +386,7 @@ def main() -> None:
                         buf, blk, "", 10 if B >= 65536 else 100, yardstick=False).values()})
             return res
 
-        for kernel in ("fn", "stacked", "add"):
+        for kernel in ("fn", "stacked", "add", "sample"):
             if kernel in chosen:
                 out.update(time_all("full", kernel))
         jobs = [(kernel, src, variant, patches, fn_def if src == "fn_env" else ())
@@ -338,6 +429,15 @@ def main() -> None:
             buf, blk = add_case(kind, B)
             out.update(add_times(buf, blk, f"@{kind}@{B}", 10 if B >= 65536 else 100))
             del buf, blk
+            torch.cuda.empty_cache()
+    if "sample" in chosen:
+        for kind in ("grouped", "board"):
+            buf = sample_case(kind)
+            for k, n, with_next in SAMPLE_CASES:
+                if k == kind:
+                    out.update(sample_times(buf, n, with_next, f"@{kind}@{n}{'' if with_next else '@nonext'}",
+                                            10 if n >= 65536 else 100))
+            del buf
             torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "fn_step_builds": list(fn_builds),
                       "replay_builds": list(replay_builds), "builds": builds, "ms": out}), flush=True)

@@ -6,7 +6,7 @@ port found under ``--repo``:
 
     python tools/time_surface_kernels.py [--repo DIR] [--label NAME] [--ptxas]
                                          [--batches 512,2048,65536] [--ablate]
-                                         [--kernels surface|obs]
+                                         [--kernels surface|obs|init]
 
 ``--kernels surface`` (the default): ``grouped_flagship`` features at B =
 4096 (``chip_smoke.py`` phase 30), ``grouped_placements`` features at B =
@@ -32,6 +32,17 @@ evaluation's 512, ``TetrisVectorEnv``'s 8192 at 10x20 and 30x20, phases 22,
 ``--ablate`` times both at 10x20 beside patched copies of the tree's
 sources (``OBS_ABLATIONS``: one list for each design, taken by which the
 tree holds, with other shapes of the observation).
+
+``--kernels init``: ``flagship_init`` at ``INIT_SHAPES`` (10x20 at B = 1,
+a recorded episode; 512, the flagship evaluation; 8192, ``TetrisVectorEnv``,
+phase 29; 65536; 30x20 at 4096, 8192, the wide vector env of phase 33, and
+65536; 61x12 at 4096 and 65536; 28x14, whose 648-byte board is no multiple
+of 16, at 8192 and 65536), each beside its byte bound (the keys read once,
+the state written once).  ``--ptxas`` builds ``flagship_step.cu`` at
+``OBS_PTXAS`` first; ``--ablate`` times it at 10x20 (``INIT_ABLATE_B``) and
+30x20 (``INIT_ABLATE_WIDE_B``) beside patched copies of the tree's source
+(``INIT_ABLATIONS``: one list for each design, taken by which the tree
+holds).
 
 Each time is taken on mid-game states (40 random steps from a reset), as the
 median over 7 replays of a CUDA graph of 100 launches (10 at 65536).  What
@@ -167,8 +178,60 @@ OBS_ABLATIONS = {
                                                 "constexpr int kObsOneEnvWarpsPerSM = 32;")]),
     ],
 }
+# --kernels init: the shapes (geometry, B), the batches --ablate takes at
+# 10x20 and 30x20, and its patched copies of each design's source, as above.
+INIT_SHAPES = [("10x20", 1), ("10x20", 512), ("10x20", 8192), ("10x20", 65536), ("30x20", 4096),
+               ("30x20", 8192), ("30x20", 65536), ("61x12", 4096), ("61x12", 65536), ("28x14", 8192),
+               ("28x14", 65536)]
+INIT_ABLATE_B = (512, 8192, 65536)
+INIT_ABLATE_WIDE_B = (8192, 65536)
+_STAGED_NO_BOARD = ("    empty_board(boards + t * BOARD);\n", "")
+_STAGED_NO_CHAIN = ("    init_env(e, keys[2 * b], keys[2 * b + 1], uniform != 0, box);",
+                    "    e = Env{};\n    e.k0 = keys[2 * b];\n    e.k1 = keys[2 * b + 1];")
+_STREAM_NO_BOARD = ("  for (int i = si; i < words; i += S) {", "  for (int i = si; i < 0; i += S) {")
+_STREAM_NO_CHAIN = ("    init_pieces(e, k.x, k.y, uniform, box);",
+                    "    e = Env{};\n    e.k0 = k.x;\n    e.k1 = k.y;")
+INIT_ABLATIONS = {
+    # a block of 32 envs, a thread an env, each board written byte by byte
+    # into shared memory, then the block's boards copied out
+    "staged": [
+        ("flagship_step", "init_no_board_loop", [_STAGED_NO_BOARD]),
+        ("flagship_step", "init_no_chain", [_STAGED_NO_CHAIN]),
+        ("flagship_step", "init_no_board_loop_no_chain", [_STAGED_NO_BOARD, _STAGED_NO_CHAIN]),
+        ("flagship_step", "init_no_fields", [("    store_env(e, out, b, B);\n  }\n  __syncthreads();",
+                                              "    if (b < 0) store_env(e, out, b, B);\n  }\n  __syncthreads();")]),
+        ("flagship_step", "init_no_copy",
+         [("  block_copy16(out.board + static_cast<size_t>(base) * BOARD, boards, n * BOARD);",
+           "  if (n < 0) block_copy16(out.board + static_cast<size_t>(base) * BOARD, boards, n * BOARD);")]),
+    ],
+    # the boards as a stream of the constant pattern's words beside one RNG
+    # chain a thread, the row fields through a warp's tile
+    "stream": [
+        ("flagship_step", "init_no_board", [_STREAM_NO_BOARD]),
+        ("flagship_step", "init_no_chain", [_STREAM_NO_CHAIN]),
+        ("flagship_step", "init_no_board_no_chain", [_STREAM_NO_BOARD, _STREAM_NO_CHAIN]),
+        ("flagship_step", "init_no_row_fields", [("  __syncwarp();  // the warp's tile of row fields\n",
+                                                  "  return;\n")]),
+        ("flagship_step", "init_word_each", [("  const bool fixed = S % kPeriod == 0;", "  const bool fixed = false;")]),
+        # other shapes (their states are right): every thread streaming
+        # first, 128 threads a block, 256 envs a block at every B, the envs
+        # shared evenly among the fewest blocks an SM
+        ("flagship_step", "init_no_split", [("const int first = env_warps <= kInitWarps - 2 ? 32 * env_warps : 0;",
+                                             "const int first = 0;")]),
+        ("flagship_step", "init_threads128", [("constexpr int kInitThreads = 256;", "constexpr int kInitThreads = 128;")]),
+        ("flagship_step", "init_envs_full", [("  return std::min(kInitThreads, std::max(1, (B + sms - 1) / sms));",
+                                              "  return kInitThreads;")]),
+        ("flagship_step", "init_envs_even", [("  return std::min(kInitThreads, std::max(1, (B + sms - 1) / sms));",
+                                              "  const int per_sm = (B + sms * kInitThreads - 1) / (sms * kInitThreads);\n"
+                                              "  return std::max(1, (B + sms * per_sm - 1) / (sms * per_sm));")]),
+        # the launch alone: every thread returns at once
+        ("flagship_step", "init_empty", [("  extern __shared__ int32_t tiles[];  // 32 * kRowInts words a warp\n",
+                                          "  if (B > 0) return;\n  extern __shared__ int32_t tiles[];  // 32 * kRowInts words a warp\n")]),
+    ],
+}
 # which kernels a patched source changes
-_ABLATED_KERNELS = {"observe_dict": ("observe_dict",), "flagship_step": ("flagship_step", "flagship_observe_board"),
+_ABLATED_KERNELS = {"observe_dict": ("observe_dict",),
+                    "flagship_step": ("flagship_step", "flagship_observe_board", "flagship_init"),
                     "render_rgb84": ("render_rgb84",)}
 
 
@@ -195,7 +258,8 @@ def ablate(repo, kernels, defines, cases, time_fn, ablations) -> dict:
         text = _patched(csrc, source, patches)
         if text is None:
             raise SystemExit(f"time_surface_kernels: {source}.cu no longer holds a patch of {variant}")
-        d = os.path.join(repo, "build", "ablate", f"{source}_{variant}")
+        tag = "_".join(str(v) for _, v in defines)  # a library of its own a geometry
+        d = os.path.join(repo, "build", "ablate", f"{source}_{variant}_{tag}")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d)
         path, so = os.path.join(d, f"{source}.cu"), os.path.join(d, f"{source}.so")
@@ -225,13 +289,14 @@ def ablate(repo, kernels, defines, cases, time_fn, ablations) -> dict:
     return out
 
 
-def obs_ablations(repo):
-    """The list of ``OBS_ABLATIONS`` whose patches all apply to the tree at ``repo``."""
+def design_ablations(repo, lists=None):
+    """The list of ``lists`` (``OBS_ABLATIONS`` or ``INIT_ABLATIONS``) whose
+    patches all apply to the tree at ``repo``."""
     csrc = os.path.join(repo, "tetris_gymnasium_torch", "csrc")
-    for design, jobs in OBS_ABLATIONS.items():
+    for design, jobs in (OBS_ABLATIONS if lists is None else lists).items():
         if all(_patched(csrc, src, patches) is not None for src, _, patches in jobs):
             return design, jobs
-    raise SystemExit("time_surface_kernels: no OBS_ABLATIONS list matches the sources")
+    raise SystemExit("time_surface_kernels: no list of ablations matches the sources")
 
 
 def build_facts(kernels, jobs) -> dict:
@@ -245,6 +310,46 @@ def build_facts(kernels, jobs) -> dict:
             for (name, src, _), f in zip(jobs, facts)}
 
 
+def init_main(args, repo, kernels, geos, P, defines, smi, builds) -> None:
+    """``--kernels init``: ``flagship_init``'s device ms at ``INIT_SHAPES``
+    beside its byte bound, or with ``--ablate`` its patched copies'."""
+    from chip_smoke import device_ms
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    dev = torch.device("cuda")
+
+    def case(name, B):
+        return geos[name], batch_keys(prng_key(20 + B), B, device=dev)
+
+    def time_init(c):
+        cfg, keys = c
+        n = 10 if keys.shape[0] >= 65536 else 100
+        return {"flagship_init": device_ms(lambda: kernels.flagship_init(keys, cfg, P), n)}
+
+    if args.ablate:
+        design, jobs = design_ablations(repo, INIT_ABLATIONS)
+        out = {}
+        for name, batches in (("10x20", INIT_ABLATE_B), ("30x20", INIT_ABLATE_WIDE_B)):
+            res = ablate(repo, kernels, defines(name), {f"{name}@{B}": case(name, B) for B in batches},
+                         time_init, jobs)
+            out.update(res)
+        print(json.dumps({"label": args.label, "repo": repo, "design": design, "nvidia_smi": smi,
+                          "ablate_ms": out}), flush=True)
+        return
+    out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
+    for name, B in INIT_SHAPES:
+        c = case(name, B)
+        s = kernels.flagship_init(c[1], c[0], P)
+        io = c[1].numel() * 4 + sum(getattr(s, k).numel() * getattr(s, k).element_size() for k in engine.FIELDS)
+        out[f"flagship_init@{name}@{B}"] = time_init(c)["flagship_init"]
+        out[f"bound@{name}@{B}"] = 1e3 * io / 3.35e12
+        del s
+    print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "builds": builds, "ms": out}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=HERE)
@@ -253,7 +358,7 @@ def main() -> None:
     ap.add_argument("--batches", default="512,2048,65536",
                     help="B of the two pixel kernels at 10x20")
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--kernels", choices=("surface", "obs"), default="surface")
+    ap.add_argument("--kernels", choices=("surface", "obs", "init"), default="surface")
     args = ap.parse_args()
     pixel_b = tuple(int(x) for x in args.batches.split(","))
     if not torch.cuda.is_available():
@@ -283,9 +388,14 @@ def main() -> None:
 
     builds = {}
     if args.ptxas:
-        names, sources = ((OBS_PTXAS, ("observe_dict", "flagship_step")) if args.kernels == "obs" else
-                          (("10x20", "30x20", "61x12"), ("render_rgb84", "flagship_step")))
+        names, sources = {"obs": (OBS_PTXAS, ("observe_dict", "flagship_step")),
+                          "init": (OBS_PTXAS, ("flagship_step",))}.get(
+            args.kernels, (("10x20", "30x20", "61x12"), ("render_rgb84", "flagship_step")))
         builds = build_facts(kernels, [(n, src, defines(n)) for n in names for src in sources])
+    if args.kernels == "init":
+        build_facts(kernels, [(n, "flagship_step", defines(n)) for n in geos])
+        init_main(args, repo, kernels, geos, P, defines, smi, builds)
+        return
     if args.kernels == "obs":
         build_facts(kernels, [(n, src, defines(n)) for n in ("10x20", "30x20", "61x12")
                               for src in ("observe_dict", "flagship_step")])
@@ -315,7 +425,7 @@ def main() -> None:
             return {"flagship_observe_board": device_ms(lambda: kernels.flagship_observe_board(s, c, P), n)}
 
         if args.ablate:
-            design, jobs = obs_ablations(repo)
+            design, jobs = design_ablations(repo)
             cases = {**{f"dict@{B}": ("dict", cfg, flagship_states(B)) for B in OBS_DICT_ABLATE_B},
                      **{f"board@{B}": ("board", cfg, flagship_states(B)) for B in OBS_BOARD_ABLATE_B}}
             out = ablate(repo, kernels, defines("10x20"), cases, time_obs, jobs)
