@@ -21,6 +21,10 @@ Phases, each printing one JSON line:
    reward, done and lines bit-equal to ``sample_actions_plain`` +
    ``step_plain`` + ``observe_board_plain``, log-probs within
    ``LOG_PROB_ULPS`` of the plain one and bit-equal to ``ppo_sample``'s.
+   ``turbo_init`` also from the state's ``[2, B]`` key (``key_rows``, as
+   ``turbo.init_from_key`` passes it) at B = 1, 33, 1001, 1024, 8192 and at
+   batches that leave part-full blocks (``turbo_init_diff``; in phase 31 at
+   every geometry, in phase 34 at every timed batch).
 4. ``observe_board`` against its plain version on every state of phase 3.
 5. The main path: the committed PPO policy (``results/ppo_lines_params.npz``,
    bf16 trunk) plays 512 greedy games of at most 2000 steps through
@@ -61,7 +65,10 @@ Phases, each printing one JSON line:
     floor: ``gae`` (T = 128, the wrapper's build and both), ``ppo_sample``,
     the sampling step (the wrapper's lanes and both) and the two launches
     it replaces (``ppo_sample``, then ``turbo_step`` with the observation).
-    ``gae`` and the sampling step are timed twice: on inputs the previous
+    The flagship routes' sampling step (``flagship_step`` sampling and
+    stepping in one launch, the wrapper's lanes and both) beside the two
+    launches it replaces (``ppo_sample``, then ``flagship_step``).
+    ``gae`` and the sampling steps are timed twice: on inputs the previous
     launch left in the L2, and on inputs read from HBM (``cold_ms``: a read
     of 128 MiB before each launch, its own time taken off), as the path
     gives them after the policy's forward pass.
@@ -107,8 +114,9 @@ Phases, each printing one JSON line:
     and 4096, each lane width held to its plain version and timed, its
     greedy launch beside ``torch.where`` + ``argmax``; ``replay_add`` at 1024
     beside the obs field's ``copy_``; ``replay_sample`` at 256
-    samples of the full buffer, with its launch's shape) and the grouped
-    step's placements per second.
+    samples of the full buffer, with its launch's shape), ``turbo_init`` as
+    the grouped step re-initialises (``turbo.init_from_key`` on the state's
+    key, B = 1024) and the grouped step's placements per second.
 
 17. ``framestack_push`` against ``ops.framestack.push_plain`` (random
     windows, ~15% ``done``, B = 1024 and 512 with K = 4, B = 1 and 1001 with
@@ -160,7 +168,15 @@ Phases, each printing one JSON line:
     300 steps from hand-built stacks with up to six full rows, which clear
     more rows at once than the turbo engine's envelope; every build of
     ``flagship_step`` (each lanes count of ``kernels.FLAGSHIP_LANES``,
-    ``flagship_builds_diff``) at every step.
+    ``flagship_builds_diff``) at every step.  Then the sampling builds of
+    ``flagship_step`` (PPO's rollout step on the flagship routes: the
+    action sampled from logits in the launch, 8 and 16 lanes) at B = 8192,
+    4096, 1001 and 1 and the global env offsets 0 and 3B, 12 steps each
+    under logits scaled x0.1, x3, x30 and exact ties: actions, state,
+    reward, done and lines bit-equal to ``sample_actions_plain`` +
+    ``step_plain``, log-probs within ``LOG_PROB_ULPS`` of the plain one and
+    bit-equal to ``ppo_sample``'s (``flagship_sample_diff``; in phase 31 at
+    every geometry, B = 4096, 1001 and 1, 8 steps).
 22. ``flagship_observe_board`` against its plain version and the turbo
     ``observe_board``, and ``render_rgb84`` against
     ``preprocess_rgb84(render_rgb(state))``, on every state of phase 21;
@@ -238,7 +254,8 @@ Phases, each printing one JSON line:
     six full rows, and on drops that clear rows whose gaps straddle the word
     boundary (columns 0, 12, 14, 26; one and two rows) at 30x20; the
     sampling builds of ``turbo_step`` as in phase 3 and every build of
-    ``flagship_step`` as in phase 21 at every geometry;
+    ``flagship_step`` (its sampling builds too) as in phase 21 at every
+    geometry; ``turbo_init`` in both key layouts as in phase 3;
     ``flagship_observe_board`` at every envs-a-block choice as in phase 22.
 32. The turbo engine equal to the flagship engine at 30x20 and 61x12, 120
     steps at 4096 envs.
@@ -310,9 +327,10 @@ Phases, each printing one JSON line:
     ``results/atari_actor_critic_k4_init_seed1.npz``) on the card under
     cuDNN's deterministic algorithms against the same step on the CPU: the
     rollout (windows, actions, rewards, dones), the env states and the
-    window bit-equal, through ``ppo_sample``, ``flagship_step``,
+    window bit-equal, through ``flagship_step``'s sampling build,
     ``render_rgb84`` and ``framestack_push`` on the card (exact launch
-    counts) and their plain versions on the CPU; the card's log-probs
+    counts: no ``ppo_sample``) and their plain versions on the CPU; the
+    card's actions equal and its log-probs
     within ``LOG_PROB_ULPS`` of ``sample_actions_plain`` on its own
     logits; values and log-probs within ``SMALL_PIX_PPO_OUT_TOL`` of their
     scale card against CPU; each parameter leaf's change within
@@ -321,8 +339,9 @@ Phases, each printing one JSON line:
     4`` at the JAX example's defaults (2048 envs x 128 steps, 6 epochs of 8
     minibatches, bf16 trunk) for 3 train steps in one chunk from the JAX
     run's initial weights: exact launch counts (a train step 128 each of
-    ``ppo_sample``, ``flagship_step``, ``render_rgb84`` and
-    ``framestack_push``, 1 ``gae``, no ``turbo_step``), finite metrics,
+    ``flagship_step``, all of them its sampling build, ``render_rgb84`` and
+    ``framestack_push``, 1 ``gae``, no ``ppo_sample`` and no
+    ``turbo_step``), finite metrics,
     weights that move, the train step split into rollout, GAE and update
     with CUDA events, env-steps/s, the policy forward's device ms, peak
     memory, then 512 greedy games (K = 4, seed 0) of the initial and the
@@ -330,16 +349,18 @@ Phases, each printing one JSON line:
     gated).
 46. The pixel PPO path's kernels at its batch (B = 2048; T = 128 for
     ``gae``, on one more rollout) on the trained state, bit-equal to their
-    plain versions (every ``flagship_step`` build), and their device ms
-    beside their bounds, the launch floor and plain versions, each
-    ``flagship_step`` build's too.
+    plain versions (every ``flagship_step`` build, with the sample at
+    offsets 0 and 3B and without), and their device ms beside their bounds,
+    the launch floor and plain versions, each ``flagship_step`` build's too,
+    and the sampling step beside ``ppo_sample`` then ``flagship_step``.
 47. The board PPO trainer from scratch: ``examples/train_ppo.py`` at the
     settings of ``results/ppo.jsonl`` (2048 envs x 128 steps, seed 1) for
     10 iterations from that JAX run's initial weights
     (``results/ppo_init_seed1.npz``): iteration 1's reward per step within
     ``CURVE_START_TOL`` of the record's, iteration 10's at least
     ``CURVE_GATE`` times iteration 1's.
-48. ``ppo_sample``, ``turbo_step``'s sampling build (each lanes build) and
+48. ``ppo_sample``, ``turbo_step``'s and ``flagship_step``'s sampling
+    builds (each lanes build) and
     ``dqn_act`` at B = 2048 and 8192 and the global counter offsets 0, B
     and 3B: bit-equal to their plain versions at that offset and to the
     slice ``[offset, offset + B)`` of one launch over 4B envs; their
@@ -401,18 +422,21 @@ with the observation, as the paths take it, with its sampling builds' and
 ``gae``'s builds' times at B = 8192 beside it; each with the launch counts of
 the first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
-else PPO, else pixel PPO (``ppo_sample``), else the grouped engine, else
+else PPO, else pixel PPO, else the grouped engine, else
 the shell, else the compat rollout; times at the shape of that path;
-``heights``, ``fn_observe`` and ``grayscale_u8_exact``, which no path
-calls, with 0 launches and their times at 30x20 and B = 4096, at B =
-65536 and over 2**24 pixels; ``dqn_act`` with its greedy launch's time
+``heights``, ``fn_observe``, ``grayscale_u8_exact`` and ``ppo_sample``,
+which no path calls (every PPO route samples in its step's launch), with
+0 launches and their times at 30x20 and B = 4096, at B = 65536, over 2**24
+pixels and at pixel PPO's B = 2048; ``flagship_step`` with its sampling
+builds' launches and times on pixel PPO's path; ``turbo_init`` with the
+grouped DQN's launches and time in its ``on_paths``; ``dqn_act`` with its greedy launch's time
 and ``torch.argmax``'s as its library time; each with its builds, one a
 geometry, and the six surface kernels with their phase-39 times; every
 kernel with a rank's launches on the sharded paths at W = 2 and on the
 utilities' paths (phases 52-54), and
-``ppo_sample``, ``turbo_step`` (its sampling build) and ``dqn_act`` with
-their times at global counter offsets 0 and 3B) and, last, the device
-line.
+``ppo_sample``, ``turbo_step`` and ``flagship_step`` (their sampling
+builds) and ``dqn_act`` with their times at global counter offsets 0 and
+3B) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -623,6 +647,20 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """Convolutions and matmuls in full float32, restored after: PyTorch's
+    default lets cuDNN run float32 convolutions in TF32, which moved phase
+    44's values by 1.1e-3 of their scale against the CPU where a caller had
+    not turned it off as main() does."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def param_change_diff(what, start, card, cpu, tol) -> tuple:
@@ -934,6 +972,120 @@ def check_sample_builds(dev, cfg, pieces, name, seed) -> dict:
             "log_prob_bit_equal_plain": lp_bit_equal}
 
 
+def flagship_sample_diff(s, x, key, cfg, pieces, rw, what, env_offset=0) -> tuple:
+    """Both sampling builds of ``flagship_step`` (each lanes count of
+    ``kernels.FLAGSHIP_LANES``; the action sampled in the launch from logits
+    ``x`` and ``key``, env ``b`` drawing at global env ``env_offset + b``)
+    on ``s`` against ``sample_actions_plain`` + ``step_plain`` and the
+    stand-alone ``ppo_sample`` kernel at the same offset: actions, state,
+    reward, done and lines bit-equal to the plain versions, log-probs
+    bit-equal to ``ppo_sample``'s and within ``LOG_PROB_ULPS`` (and 2**-22)
+    of the plain one.  Returns ``(the plain step's state, the launches
+    compared, the largest log-prob error in ulps, whether every log-prob was
+    bit-equal to the plain one)``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.rl import ppo
+
+    pa, plp = ppo.sample_actions_plain(x, key, env_offset)
+    want = engine.step_plain(s, pa, cfg, pieces, rw)
+    want_all = flat_bytes([getattr(want[0], k) for k in engine.FIELDS] + list(want[1:]) + [pa])
+    ka, klp = kernels.sample_actions(x, key, env_offset=env_offset)
+    ulp = torch.nextafter(plp.abs(), torch.full_like(plp, float("inf"))) - plp.abs()
+    tol = 2.0**-22 + LOG_PROB_ULPS * ulp.double()
+    runs, differs = [], []
+    for lanes in kernels.FLAGSHIP_LANES:
+        got = kernels.flagship_step(s, None, cfg, pieces, rw, lanes=lanes, logits=x, act_key=key,
+                                    env_offset=env_offset)
+        err = (got[5].double() - plp.double()).abs()
+        differs += [(flat_bytes([getattr(got[0], k) for k in engine.FIELDS] + list(got[1:5]))
+                     != want_all).any(), (got[4] != ka).any(), (bits(got[5]) != bits(klp)).any(),
+                    (err > tol).any()]
+        runs.append((lanes, got, err))
+    if bool(torch.stack(differs).any()):  # one wait for every build
+        for lanes, got, err in runs:  # diff raises at the first difference
+            tag = f"{what} (sample, lanes {lanes}, offset {env_offset})"
+            diff("flagship_step", got[4], pa, f"{tag} action")
+            diff("ppo_sample", got[4], ka, f"{tag} action against ppo_sample")
+            for k in engine.FIELDS:
+                diff("flagship_step", getattr(got[0], k), getattr(want[0], k), f"{tag} {k}")
+            for j, out in ((1, "reward"), (2, "done"), (3, "lines")):
+                diff("flagship_step", got[j], want[j], f"{tag} {out}")
+            diff("ppo_sample", got[5], klp, f"{tag} log_prob against ppo_sample")
+            if bool((err > tol).any()):
+                raise AssertionError(f"{tag}: log_prob off the plain one by {float(err.max())}")
+        raise AssertionError(f"{what}: a flagship sampling build differs")
+    MAX_ERR["flagship_step"] = max(MAX_ERR["flagship_step"], max(float(r[2].max()) for r in runs))
+    worst = max(float((r[2] / ulp.double()).max()) for r in runs)
+    return want[0], len(runs), worst, bool(torch.equal(bits(runs[0][1][5]), bits(plp)))
+
+
+FLAGSHIP_SAMPLE_STEPS = 12
+
+
+def check_flagship_sample_builds(dev, cfg, pieces, name, seed, batches=SAMPLE_B,
+                                 steps=FLAGSHIP_SAMPLE_STEPS) -> dict:
+    """Both sampling builds of ``flagship_step`` (:func:`flagship_sample_diff`)
+    at ``batches`` and the global env offsets 0 and 3B along ``steps``
+    steps of the plain composition, the logits of
+    each step one of ``SAMPLE_KINDS`` in turn (hard drops favoured, so that
+    games end and reset within the run), the key drawn from ``seed``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import RewardsMapping
+    from tetris_gymnasium_torch.ops.threefry import fold_in, prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n = worst = ends = 0
+    lp_bit_equal = True
+    for B in batches:
+        for off in (0, 3 * B):
+            s = kernels.flagship_init(batch_keys(prng_key(seed + B + off), B, device=dev), cfg, pieces)
+            for i in range(steps):
+                kind = SAMPLE_KINDS[i % len(SAMPLE_KINDS)]
+                if kind == "ties":
+                    x = torch.randint(0, 3, (B, 8), generator=g, device=dev).float()
+                else:
+                    x = torch.randn((B, 8), generator=g, device=dev) * kind
+                x[:, 5] += 3.0
+                key = fold_in(prng_key(seed), B * steps + i)
+                s2, k, w, eq = flagship_sample_diff(s, x, key, cfg, pieces, RewardsMapping(),
+                                                    f"{name} B={B} step {i} logits {kind}", off)
+                ends += int((s2.game_over | (s2.steps < s.steps)).sum())
+                s = s2
+                n, worst, lp_bit_equal = n + k, max(worst, w), lp_bit_equal and eq
+    return {"geometry": name, "B": list(batches), "offsets": "0, 3B", "steps": steps,
+            "sample_builds_compared": n, "log_prob_max_ulps": worst,
+            "log_prob_bit_equal_plain": lp_bit_equal, "episodes_ended_or_reset": ends}
+
+
+def turbo_init_diff(dev, cfg, P, what, batches=None) -> list:
+    """``turbo_init`` against ``turbo.init_plain`` from keys ``[B, 2]`` and
+    from the state's ``[2, B]`` layout (``key_rows``, as
+    ``turbo.init_from_key`` passes it) in both queue kinds, at B = 1, 33,
+    1001 (row segments that straddle 16-byte words), the grouped DQN's 1024,
+    at batches that leave a part-full last block of a few envs and of 128,
+    and at the vector env's 8192; returns the batches."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    batches = batches or (1, 33, 1001, GROUPED_ENVS, 4 * sms + 3, 128 * sms + 5, VECTOR_B)
+    for kind in ("bag", "uniform"):
+        c = cfg._replace(queue_kind=kind)
+        for B in batches:
+            keys = batch_keys(prng_key(B + 3), B, device=dev)
+            want = turbo.init_plain(keys, c, P)
+            _fields_diff("turbo_init", kernels.turbo_init(keys, c, P), want, turbo.FIELDS,
+                         f"{what} {kind} B={B}")
+            _fields_diff("turbo_init", kernels.turbo_init(keys.T.contiguous(), c, P, key_rows=True),
+                         want, turbo.FIELDS, f"{what} {kind} B={B} [2, B] key")
+    return list(batches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -1064,11 +1216,13 @@ def main() -> None:
             raise AssertionError("max_clear=20 cleared no 5-row stack")
     # the sampling builds: PPO's rollout step, the action sampled in the launch
     sampled = check_sample_builds(dev, EngineConfig(auto_reset=True), turbo.PIECES, "10x20", 3)
+    # the init in both key layouts, at the edges of its blocks and the paths' batches
+    init_batches = turbo_init_diff(dev, EngineConfig(), turbo.PIECES, "phase 3 init")
     torch.cuda.synchronize()
     emit({"phase": "turbo_step", "bit_equal": True, "max_abs_err": MAX_ERR, "runs": summary,
           "surgery": surgery, "lanes": list(kernels.STEP_LANES), "sample": sampled,
-          "comparisons": checked["turbo_step"],
-          "init_comparisons": checked["turbo_init"], "seconds": time.perf_counter() - t0})
+          "comparisons": checked["turbo_step"], "init_comparisons": checked["turbo_init"],
+          "init_edge_batches": init_batches, "seconds": time.perf_counter() - t0})
     emit({"phase": "observe_board", "bit_equal": True, "comparisons": checked["observe_board"]})
 
     # -- 5. the main path --------------------------------------------------------
@@ -1342,6 +1496,7 @@ def main() -> None:
               "replay_sample": dqn_times["replay_sample"]}
     grouped_at = {"grouped_placements": grouped_times["grouped_placements"][f"features@{GROUPED_ENVS}"],
                   "grouped_act": grouped_times["grouped_act"][GROUPED_ENVS],
+                  "turbo_init": grouped_times["turbo_init"],
                   "replay_sample": grouped_times["replay_sample"][256]}
     paths = [("dqn_rgb84", pix["launches"], PIX_STEPS, pix_at),
              ("flagship_eval", flag_eval["launches"], flag_eval["iterations"], flag_at),
@@ -1351,7 +1506,9 @@ def main() -> None:
              ("ppo_train", train["launches"], TRAIN_STEPS,
               {**times[TRAIN_ENVS], "turbo_step": times[TRAIN_ENVS]["turbo_step_obs"],
                **ppo_times[TRAIN_ENVS]}),
-             ("ppo_rgb84", pix_ppo["launches"], PIX_PPO_STEPS, pix_ppo_times),
+             # pixel PPO launches flagship_step's sampling build
+             ("ppo_rgb84", pix_ppo["launches"], PIX_PPO_STEPS,
+              {**pix_ppo_times, "flagship_step": pix_ppo_times["flagship_step_sample"]}),
              ("grouped_engine", grouped_engine["launches"], grouped_engine["steps"],
               {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
              ("shell", shell["launches"], shell["steps"],
@@ -1365,12 +1522,15 @@ def main() -> None:
              ("fn_rollout", fn_path["launches"], fn_path["steps"],
               {k: fn_times[k][FN_PATH_B] for k in ("fn_reset", "fn_step")}),
              # heights, fn_observe (fn_step and fn_reset write their own
-             # observations) and grayscale_u8_exact: no path calls them;
+             # observations), grayscale_u8_exact and ppo_sample (every PPO
+             # route samples in its step's launch): no path calls them;
              # heights' time is at 30x20, B = 4096, fn_observe's at B =
-             # 65536, grayscale_u8_exact's over 2**24 pixels, their launches 0
+             # 65536, grayscale_u8_exact's over 2**24 pixels, ppo_sample's
+             # at pixel PPO's B = 2048, their launches 0
              ("none", {k: 0 for k in kernels.LAUNCHES}, 1,
               {"heights": wide_times["30x20"]["heights"][4096], "fn_observe": fn_times["fn_observe"][FN_PATH_B],
-               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL]})]
+               "grayscale_u8_exact": fn_times["grayscale_u8_exact"][GRAY_ALL],
+               "ppo_sample": pix_ppo_times["ppo_sample"]})]
     # the builds inside a library: turbo_step's lanes, observation and
     # sample; gae's two copy schemes (times at the training's B = 8192)
     variants = {
@@ -1381,7 +1541,7 @@ def main() -> None:
         "gae": {b: ppo_times[TRAIN_ENVS][f"gae_{b}"]["ms"] for b in kernels.GAE_BUILDS},
     }
     # flagship_step's lanes builds at the pixel DQN's B = 512 (phase 25) and
-    # pixel PPO's 2048 (phase 46)
+    # pixel PPO's 2048 (phase 46; with the sample too, "lanes16+sample")
     flagship_builds = {PIX_ENVS: {"flagship_step": pix_times["flagship_step"][PIX_ENVS]["builds_ms"]},
                        PIX_PPO_ENVS: {"flagship_step": pix_ppo_times["flagship_step"]["builds_ms"]}}
     # each kernel's builds (phase 2: one library per geometry for the
@@ -1422,6 +1582,8 @@ def main() -> None:
         })
         if name == "turbo_step":  # its sampling build on the PPO path (phase 9)
             entries[-1]["launches_sample_ppo_train"] = train["launches"]["turbo_step_sample"]
+        if name == "flagship_step":  # its sampling build on the pixel PPO path (phase 45)
+            entries[-1]["launches_sample_ppo_rgb84"] = pix_ppo["launches"]["flagship_step_sample"]
         # launches a rank made on the sharded paths (phases 49-51, W = 2)
         entries[-1].update({f"launches_{p}": c[name] for p, c in sharded["launches"].items()})
         # the utilities' paths: one recorded episode (seed 0, the default
@@ -1431,7 +1593,7 @@ def main() -> None:
                            video_episode_frames=videos["frames"],
                            launches_evaluate_checkpoint=eval_ckpt["launches"][name],
                            launches_ppo_resumed_step=resumed["launches"][name])
-        timed = {"turbo_step": "turbo_step_sample"}.get(name, name)
+        timed = {"turbo_step": "turbo_step_sample", "flagship_step": "flagship_step_sample"}.get(name, name)
         if timed in offset_times:  # phase 48: at global counter offsets 0 and 3B
             entries[-1]["offset_ms"] = {
                 B: {k: v["ms"] for k, v in by_off.items()}
@@ -1709,10 +1871,12 @@ def time_ppo_kernels(dev, smi) -> dict:
     PPO's sampling step (``turbo_step`` sampling, stepping and observing in
     one launch, as the wrapper takes it and each lanes build) and the two
     launches it replaces (``ppo_sample``, then ``turbo_step`` with the
-    observation, in one graph)."""
+    observation, in one graph); the same for the flagship routes' sampling
+    step (``flagship_step`` sampling and stepping in one launch) beside
+    ``ppo_sample`` then ``flagship_step``."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.core import engine, turbo
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.parallel.mesh import batch_keys
     from tetris_gymnasium_torch.rl import ppo
@@ -1739,6 +1903,17 @@ def time_ppo_kernels(dev, smi) -> dict:
                    + nbytes(obs))
         gae_io = nbytes(reward, value, done, last) + 2 * nbytes(reward)
         sample_io = nbytes(logits) + B * (4 + 4)
+        fs = kernels.flagship_init(batch_keys(prng_key(1), B, device=dev), cfg, engine.PIECES)
+        for _ in range(40):  # a state in mid-game
+            fs = kernels.flagship_step(fs, _flagship_actions(B, g, dev), cfg, engine.PIECES, rw)[0]
+        fstep_io = 2 * nbytes(*(getattr(fs, k) for k in engine.FIELDS)) + B * (4 + 1 + 4)
+
+        def flagship_sample_step(lanes=None):
+            return lambda: kernels.flagship_step(fs, None, cfg, engine.PIECES, rw, lanes=lanes,
+                                                 logits=logits, act_key=key)
+
+        def flagship_sample_step_plain():
+            return engine.step_plain(fs, ppo.sample_actions_plain(logits, key)[0], cfg)
 
         def gae_fn(build=None):
             return lambda: kernels.gae(reward, value, done, last, 0.999, 0.95, build=build)
@@ -1764,12 +1939,23 @@ def time_ppo_kernels(dev, smi) -> dict:
                 lambda: kernels.turbo_step(s, kernels.sample_actions(logits, key)[0], cfg,
                                            turbo.PIECES, rw, obs=obs),
                 None, step_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
+            # the flagship routes' sampling step, and the two launches it replaces
+            "flagship_sample_step": (flagship_sample_step(), flagship_sample_step_plain,
+                                     fstep_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
+            "ppo_sample_then_flagship_step": (
+                lambda: kernels.flagship_step(fs, kernels.sample_actions(logits, key)[0], cfg,
+                                              engine.PIECES, rw),
+                None, fstep_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
         }
         for build in kernels.GAE_BUILDS:
             fns[f"gae_{build}"] = (gae_fn(build), None, gae_io, GAE_OPS_PER_ELEMENT * T * B)
         for lanes in kernels.STEP_LANES:
             fns[f"sample_step_lanes{lanes}"] = (sample_step(lanes), None, step_io + sample_io,
                                                 SAMPLE_OPS_PER_ELEMENT * B * 8)
+        for lanes in kernels.FLAGSHIP_LANES:
+            fns[f"flagship_sample_step_lanes{lanes}"] = (flagship_sample_step(lanes), None,
+                                                         fstep_io + sample_io,
+                                                         SAMPLE_OPS_PER_ELEMENT * B * 8)
         out[B] = {}
         for name, (kernel_fn, plain_fn, io, ops) in fns.items():
             bytes_ms, ops_ms = 1e3 * io / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
@@ -1783,13 +1969,14 @@ def time_ppo_kernels(dev, smi) -> dict:
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "launch_floor_ms": floor_ms,
             }
-            if name.startswith(("gae", "sample_step", "ppo_sample_then")):
+            if name.startswith(("gae", "sample_step", "ppo_sample_then", "flagship_sample_step")):
                 out[B][name]["cold_ms"] = cold_device_ms(kernel_fn, 100, dev)
         out[B]["gae"]["build"] = kernels.gae_build(B, reward, value, done, reward, value)
         out[B]["sample_step"]["lanes"] = kernels.step_lanes(B, cfg.height * cfg.width)
+        out[B]["flagship_sample_step"]["lanes"] = kernels.flagship_step_lanes(B, cfg.padded_height)
         emit({"phase": "ppo_times", "B": B, "T": TRAIN_T, "kernels": out[B],
               "launch_floor_ms": floor_ms, "nvidia_smi": smi})
-        del reward, value, done, s, obs
+        del reward, value, done, s, obs, fs
     return out
 
 
@@ -2295,6 +2482,13 @@ def time_grouped_kernels(dev, smi) -> dict:
             gs = tg.step(gs, _grouped_actions(gs, g, dev, wild=0.0), cfg)[0]
         s = gs.env
         big = B >= 65536
+        if B == GROUPED_ENVS:  # the step's re-initialisation, from the state's [2, B] key as it lies
+            _fields_diff("turbo_init", turbo.init_from_key(s.key, cfg), turbo.init_plain(s.key.T, cfg),
+                         turbo.FIELDS, "phase 16 init_from_key")
+            out["turbo_init"] = timed_pair(
+                lambda: turbo.init_from_key(s.key, cfg), lambda: turbo.init_plain(s.key.T, cfg), 100, 10,
+                nbytes(s.key) + nbytes(*(getattr(s, k) for k in turbo.FIELDS)), 0)
+            out["turbo_init"].update(library_ms=None, shape=kernels.turbo_init_shape(cfg, turbo.PIECES, B))
         lines = kernels.grouped_placements(s, cfg, turbo.PIECES)[3]
         for mode in ("features", "boards"):
             obs_bytes = B * A * (cfg.width + 3 if mode == "features" else cfg.height * cfg.width) * 4
@@ -2367,7 +2561,8 @@ def time_grouped_kernels(dev, smi) -> dict:
         2 * 256 * SAMPLE_INDEX_OPS)
     out["replay_sample"][256]["shape"] = kernels.replay_sample_shape(buf.data, 256, B)
     emit({"phase": "grouped_times", "grouped_act": out["grouped_act"], "replay_add": out["replay_add"],
-          "replay_sample": out["replay_sample"], "buffer_capacity": buf.capacity,
+          "replay_sample": out["replay_sample"], "turbo_init_from_key": out["turbo_init"],
+          "buffer_capacity": buf.capacity,
           "buffer_mib": sum(nbytes(x) for x in buf.data.values()) / 2**20, "nvidia_smi": smi})
     return out
 
@@ -2996,6 +3191,8 @@ def check_flagship(dev) -> None:
             state_diff("flagship_init", kernels.flagship_init(keys, cfg, engine.PIECES),
                        engine.init_plain(keys, cfg), f"init B={B} {kind}")
     init_batches = init_edges_diff(dev, EngineConfig(), engine.PIECES, "phase 21 init")
+    # PPO's rollout step on this engine: the action sampled in the step's launch
+    sampled = check_flagship_sample_builds(dev, EngineConfig(auto_reset=True), engine.PIECES, "10x20", 21)
 
     runs = [
         ("autoreset", PIX_ENVS, EngineConfig(auto_reset=True), RewardsMapping()),
@@ -3059,7 +3256,7 @@ def check_flagship(dev) -> None:
     emit({"phase": "flagship_engine", "bit_equal": True, "turbo_equal": True, "runs": summary,
           "flagship_step_lanes": list(kernels.FLAGSHIP_LANES),
           "surgery_lines_per_lock": {n: int(c) for n, c in enumerate(clears.tolist()) if c},
-          **counts, "init_edge_batches": init_batches,
+          **counts, "init_edge_batches": init_batches, "sample": sampled,
           "max_abs_err": {k: MAX_ERR[k] for k in ("flagship_init", "flagship_step")},
           "seconds": time.perf_counter() - t0})
     emit({"phase": "flagship_obs", "bit_equal": True, "turbo_equal": True,
@@ -4200,6 +4397,7 @@ def check_wide_kernels(dev) -> dict:
         _fields_diff("flagship_init", _cat_flagship(fs), engine.init_plain(all_keys, cfg, P),
                      engine.FIELDS, f"{name} flagship init")
         init_edges_diff(dev, cfg, P, f"phase 31 {name} init")
+        turbo_init_diff(dev, cfg, P, f"phase 31 {name} init")
         n_done = n_lines = n_flines = n_variants = n_fbuilds = 0
         t_all, f_all = _cat_turbo(ts), _cat_flagship(fs)
         a_all = torch.zeros((sum(WIDE_B),), dtype=torch.int32, device=dev)
@@ -4266,6 +4464,8 @@ def check_wide_kernels(dev) -> dict:
         if stack_lines["flagship"] < 5:
             raise AssertionError(f"{name}: no hand-built stack cleared five rows at once")
         sampled = check_sample_builds(dev, cfg, P, name, 311)
+        flagship_sampled = check_flagship_sample_builds(dev, cfg, P, name, 312, batches=WIDE_B,
+                                                        steps=8)
         choices = observation_choices_diff(dev, cfg, P, f"phase 31 {name}", ("flagship_observe_board",))
         runs.append({"geometry": name, "config": cfg._asdict(), "pieces": int(P.ids.shape[0]),
                      "piece_side": int(P.matrices.shape[-1]), "steps": WIDE_STEPS, "B": list(WIDE_B),
@@ -4273,7 +4473,7 @@ def check_wide_kernels(dev) -> dict:
                      "episodes_ended": n_done, "lines": n_lines, "flagship_lines": n_flines,
                      "stacks_max_lines": stack_lines, "turbo_step_builds_compared": n_variants,
                      "flagship_step_builds_compared": n_fbuilds,
-                     "sample": sampled})
+                     "sample": sampled, "flagship_sample": flagship_sampled})
         emit({"phase": "wide_kernels", **runs[-1], "seconds": time.perf_counter() - t0})
     # drops into gaps that straddle the word boundary, on both engines
     cfg = EngineConfig(width=30, height=20)
@@ -4372,6 +4572,8 @@ def time_wide_kernels(dev, smi) -> dict:
             big = B >= 65536
             keys = batch_keys(prng_key(34 + B), B, device=dev)
             t, f = kernels.turbo_init(keys, cfg, P), kernels.flagship_init(keys, cfg, P)
+            _fields_diff("turbo_init", t, turbo.init_plain(keys, cfg, P), turbo.FIELDS,
+                         f"phase 34 {name} turbo init B={B}")
             if B == VECTOR_B:
                 _fields_diff("flagship_init", f, engine.init_plain(keys, cfg, P), engine.FIELDS,
                              f"phase 34 {name} init B={B}")
@@ -4428,6 +4630,8 @@ def time_wide_kernels(dev, smi) -> dict:
             out[name]["flagship_step"][B]["lanes"] = kernels.flagship_step_lanes(B, cfg.padded_height)
             if "flagship_init" in out[name] and B in out[name]["flagship_init"]:
                 out[name]["flagship_init"][B]["shape"] = kernels.flagship_init_shape(cfg, P, B)
+            if "turbo_init" in out[name] and B in out[name]["turbo_init"]:
+                out[name]["turbo_init"][B]["shape"] = kernels.turbo_init_shape(cfg, P, B)
             out[name]["flagship_step"][B]["builds_ms"] = {
                 lanes: device_ms(lambda: kernels.flagship_step(f, a, cfg, P, rw, lanes=lanes),
                                  20 if big else 100) for lanes in kernels.FLAGSHIP_LANES}
@@ -4782,8 +4986,8 @@ def run_grouped_engines_wide(dev, smi) -> dict:
                                                 20),
                 "hard_drop": device_ms(lambda: kernels.turbo_step(gs.env, drop, cfg, turbo.PIECES,
                                                                   RewardsMapping()), 20),
-                "auto_reset_init": device_ms(lambda: kernels.turbo_init(gs.env.key.T.contiguous(), cfg,
-                                                                        turbo.PIECES), 20)}
+                "auto_reset_init": device_ms(lambda: kernels.turbo_init(gs.env.key, cfg, turbo.PIECES,
+                                                                        key_rows=True), 20)}
         a = _surface_actions(mask_of(gs), g, dev, 0.0)
         step_call = call_ms(lambda: step(gs, a), 20)
         parts["selects_and_rest_call"] = step_call - sum(parts.values())
@@ -5360,7 +5564,7 @@ def _rel_to_scale(a, b) -> float:
 
 def check_small_pixel_ppo() -> dict:
     """Phase 44: a small fp32 pixel PPO train step on the card (cuDNN's
-    deterministic algorithms) against the same step on the CPU."""
+    deterministic algorithms, no TF32) against the same step on the CPU."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig
     from tetris_gymnasium_torch.core import engine
@@ -5376,7 +5580,7 @@ def check_small_pixel_ppo() -> dict:
     sample_step = ppo.sample_step_fn(env_config, "flagship", obs="rgb84")
     start = load_flat(PIX_PPO_INIT)
     out = {}
-    with deterministic_cudnn():
+    with deterministic_cudnn(), fp32_math():
         for where in ("cuda", "cpu"):
             kernels.reset_launches()
             ts = ppo.init_train_state(threefry.prng_key(4), SMALL_PIX_PPO_ENVS, env_config, cfg,
@@ -5386,13 +5590,13 @@ def check_small_pixel_ppo() -> dict:
             key0 = ts.key
             traj = ppo.rollout(ts, cfg, sample_step)[0]
             if where == "cuda":
-                # the sampling kernel against its plain version on the card's own logits
+                # the sampling build against its plain version on the card's own logits
                 key, worst_ulps, lp_bit_equal = key0, 0, True
                 with torch.no_grad():
                     for t in range(cfg.rollout_len):
                         key, act_key = threefry.split(key)
                         pa, plp = ppo.sample_actions_plain(ts.net(traj.obs[t])[0], act_key)
-                        diff("ppo_sample", traj.action[t], pa, f"small pixel PPO step {t} actions")
+                        diff("flagship_step", traj.action[t], pa, f"small pixel PPO step {t} actions")
                         err = (traj.log_prob[t].double() - plp.double()).abs()
                         ulp = torch.from_numpy(np.spacing(plp.abs().cpu().numpy())).to(err.device)
                         if bool((err > 2.0**-22 + LOG_PROB_ULPS * ulp.double()).any()):
@@ -5405,7 +5609,7 @@ def check_small_pixel_ppo() -> dict:
                           {k: float(v) for k, v in metrics.items()}, dict(kernels.LAUNCHES))
     (tc, sc, pc, mc, lc), (tp, sp, pp, mp, _) = out["cuda"], out["cpu"]
     n = 2 * cfg.rollout_len  # the rollout above and the train step's own
-    want = {**{k: 0 for k in lc}, "flagship_init": 1, "ppo_sample": n, "flagship_step": n,
+    want = {**{k: 0 for k in lc}, "flagship_init": 1, "flagship_step": n, "flagship_step_sample": n,
             "render_rgb84": n + 1, "framestack_push": n, "gae": 1}
     if lc != want:
         raise AssertionError(f"small pixel PPO launch counts {lc}, want {want}")
@@ -5464,8 +5668,9 @@ def train_pixel_ppo_full_width(dev, smi) -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.LAUNCHES)
     n = PIX_PPO_STEPS * PIX_PPO_T  # a train step: T of each rollout kernel, one gae
-    want = {**{k: 0 for k in launches}, "flagship_init": 1, "ppo_sample": n, "flagship_step": n,
-            "render_rgb84": n + 1, "framestack_push": n, "gae": PIX_PPO_STEPS}
+    want = {**{k: 0 for k in launches}, "flagship_init": 1, "flagship_step": n,
+            "flagship_step_sample": n, "render_rgb84": n + 1, "framestack_push": n,
+            "gae": PIX_PPO_STEPS}
     if launches != want:
         raise AssertionError(f"pixel PPO launch counts {launches}, want {want}")
     rec = records[-1]
@@ -5526,8 +5731,11 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
     """Phase 46: the pixel PPO path's kernels at its batch (B = 2048; T = 128
     for ``gae``) on its trained state, bit-equal to their plain versions
     (``ppo_sample``'s log-probs within ``LOG_PROB_ULPS``; every
-    ``flagship_step`` build), then their device ms beside their bounds, the
-    launch floor and plain versions, and each ``flagship_step`` build's."""
+    ``flagship_step`` build, with the sample as the path launches it and
+    without), then their device ms beside their bounds, the launch floor and
+    plain versions, each ``flagship_step`` build's, and the sampling step
+    beside the two launches it replaces (``ppo_sample`` then
+    ``flagship_step``)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine
@@ -5552,6 +5760,9 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
         raise AssertionError(f"pixel PPO log_prob: max error {float(err.max())}")
     ks, kr, kd, kl = flagship_builds_diff([(s, a)], cfg, engine.PIECES, RewardsMapping(),
                                           engine.step_plain(s, a, cfg), "pixel PPO step")[0]
+    for off in (0, 3 * B):
+        flagship_sample_diff(s, logits, key, cfg, engine.PIECES, RewardsMapping(),
+                             "pixel PPO sampling step", off)
     raw = kernels.render_rgb84(ks, cfg, engine.PIECES)
     diff("render_rgb84", raw, engine.render_rgb84_plain(ks, cfg), "pixel PPO frame")
     diff("framestack_push", kernels.framestack_push(window, raw, kd),
@@ -5580,6 +5791,13 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
                           lambda: engine.step_plain(s, a, cfg),
                           2 * state_bytes + nbytes(a) + B * (4 + 1 + 4),
                           B * FLAGSHIP_STEP_OPS_PER_ENV),
+        # the path's launch: the action sampled in the step's launch
+        "flagship_step_sample": (
+            lambda: kernels.flagship_step(s, None, cfg, engine.PIECES, RewardsMapping(), logits=logits,
+                                          act_key=key),
+            lambda: engine.step_plain(s, ppo.sample_actions_plain(logits, key)[0], cfg),
+            2 * state_bytes + B * (4 + 1 + 4) + nbytes(logits) + B * (4 + 4),
+            B * (FLAGSHIP_STEP_OPS_PER_ENV + 8 * SAMPLE_OPS_PER_ELEMENT)),
         "render_rgb84": (lambda: kernels.render_rgb84(ks, cfg, engine.PIECES),
                          lambda: engine.render_rgb84_plain(ks, cfg), _render_bytes(ks, B),
                          B * render_ops(cfg.padded_height)),
@@ -5604,6 +5822,13 @@ def pixel_ppo_path_kernels(dev, smi, ts) -> dict:
         lanes: device_ms(lambda: kernels.flagship_step(s, a, cfg, engine.PIECES, RewardsMapping(),
                                                        lanes=lanes), 100)
         for lanes in kernels.FLAGSHIP_LANES}
+    out["flagship_step"]["builds_ms"].update({
+        f"{lanes}+sample": device_ms(lambda: kernels.flagship_step(
+            s, None, cfg, engine.PIECES, RewardsMapping(), lanes=lanes, logits=logits, act_key=key), 100)
+        for lanes in kernels.FLAGSHIP_LANES})
+    out["flagship_step_sample"]["lanes"] = out["flagship_step"]["lanes"]
+    out["ppo_sample_then_flagship_step"] = {"ms": device_ms(lambda: kernels.flagship_step(
+        s, kernels.sample_actions(logits, key)[0], cfg, engine.PIECES, RewardsMapping()), 100)}
     out["render_rgb84"]["bound_ms_2d"] = _bound(
         _render_bytes(ks, B), B * 84 * 84 * RENDER_OPS_PER_PIXEL_2D)["bound_ms"]
     floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
@@ -5685,16 +5910,16 @@ def _free_port() -> int:
 
 
 def check_offset_kernels(dev, smi) -> dict:
-    """Phase 48: ``ppo_sample``, ``turbo_step``'s sampling build (each lanes
-    build) and ``dqn_act`` at B = 2048 and 8192 and the global counter
-    offsets 0, B and 3B: each bit-equal to its plain version at the same
-    offset and to the slice ``[offset, offset + B)`` of one launch over 4B
-    envs; then their times at offsets 0 and 3B."""
+    """Phase 48: ``ppo_sample``, ``turbo_step``'s and ``flagship_step``'s
+    sampling builds (each lanes build) and ``dqn_act`` at B = 2048 and 8192
+    and the global counter offsets 0, B and 3B: each bit-equal to its plain
+    version at the same offset and to the slice ``[offset, offset + B)`` of
+    one launch over 4B envs; then their times at offsets 0 and 3B."""
     import dataclasses
 
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-    from tetris_gymnasium_torch.core import turbo
+    from tetris_gymnasium_torch.core import engine, turbo
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.parallel.mesh import batch_keys
     from tetris_gymnasium_torch.rl import dqn, ppo
@@ -5713,10 +5938,15 @@ def check_offset_kernels(dev, smi) -> dict:
             a = torch.randint(0, 8, (full,), generator=g, device=dev, dtype=torch.int32)
             s = kernels.turbo_step(s, a, cfg, turbo.PIECES, rw)[0]
         obs_full = torch.empty((full, cfg.height, cfg.width), dtype=torch.int8, device=dev)
+        fs = kernels.flagship_init(batch_keys(prng_key(14), full, device=dev), cfg, engine.PIECES)
+        for _ in range(30):
+            fs = kernels.flagship_step(fs, _flagship_actions(full, g, dev), cfg, engine.PIECES, rw)[0]
         whole = {
             "ppo_sample": kernels.sample_actions(logits, key),
             "turbo_step": kernels.turbo_step(s, None, cfg, turbo.PIECES, rw, obs=obs_full,
                                              logits=logits, act_key=key),
+            "flagship_step": kernels.flagship_step(fs, None, cfg, engine.PIECES, rw, logits=logits,
+                                                   act_key=key),
             "dqn_act": kernels.dqn_act(q, key, eps_key, 0.5, return_draws=True),
         }
         for off in (0, B, 3 * B):
@@ -5749,6 +5979,26 @@ def check_offset_kernels(dev, smi) -> dict:
                                          ("log_prob", klp, plp, wlp), ("obs", obs, pobs, obs_full)):
                     diff("turbo_step", a1, a2, f"{tag} {name} vs plain")
                     diff("turbo_step", a1, a3[off:off + B], f"{tag} {name} vs the full launch")
+            fpart = fs.replace(**{k: (getattr(fs, k)[:, off:off + B] if k == "key"
+                                      else getattr(fs, k)[off:off + B]).contiguous()
+                                  for k in engine.FIELDS})
+            fps, fpr, fpd, fpl = engine.step_plain(fpart, pa, cfg, rewards=rw)
+            fws, fwr, fwd, fwl, fwa, fwlp = whole["flagship_step"]
+            for lanes in (None,) + tuple(kernels.FLAGSHIP_LANES):
+                ks, kr, kd, kl, ka, klp = kernels.flagship_step(
+                    fpart, None, cfg, engine.PIECES, rw, lanes=lanes, logits=x, act_key=key,
+                    env_offset=off)
+                tag = f"flagship_step sample {what} lanes={lanes}"
+                for k in engine.FIELDS:
+                    got = getattr(ks, k)
+                    cut = getattr(fws, k)[:, off:off + B] if k == "key" else getattr(fws, k)[off:off + B]
+                    diff("flagship_step", got, getattr(fps, k), f"{tag} {k} vs plain")
+                    diff("flagship_step", got, cut, f"{tag} {k} vs the full launch")
+                for name, a1, a2, a3 in (("reward", kr, fpr, fwr), ("done", kd, fpd, fwd),
+                                         ("lines", kl, fpl, fwl), ("action", ka, pa, fwa),
+                                         ("log_prob", klp, plp, fwlp)):
+                    diff("flagship_step", a1, a2, f"{tag} {name} vs plain")
+                    diff("flagship_step", a1, a3[off:off + B], f"{tag} {name} vs the full launch")
             got = kernels.dqn_act(qx, key, eps_key, 0.5, return_draws=True, env_offset=off)
             diff("dqn_act", got[0], dqn.act_plain(qx, key, eps_key, 0.5, env_offset=off),
                  f"dqn_act {what} vs plain")
@@ -5759,10 +6009,13 @@ def check_offset_kernels(dev, smi) -> dict:
         # times at offsets 0 and 3B, the kernels as the paths launch them
         s_b = dataclasses.replace(s, **{k: getattr(s, k)[..., :B].contiguous()
                                         for k in turbo.FIELDS})
+        f_b = fs.replace(**{k: (getattr(fs, k)[:, :B] if k == "key" else getattr(fs, k)[:B]).contiguous()
+                            for k in engine.FIELDS})
         x, qx = logits[:B].contiguous(), q[:B].contiguous()
         obs = torch.empty((B, cfg.height, cfg.width), dtype=torch.int8, device=dev)
         step_io = (2 * nbytes(*(getattr(s_b, k) for k in turbo.FIELDS)) + B * (4 + 1 + 4)
                    + nbytes(obs))
+        fstep_io = 2 * nbytes(*(getattr(f_b, k) for k in engine.FIELDS)) + B * (4 + 1 + 4)
         sample_io = nbytes(x) + B * (4 + 4)
         for off in (0, 3 * B):
             fns = {
@@ -5775,6 +6028,11 @@ def check_offset_kernels(dev, smi) -> dict:
                     lambda: turbo.observe_board_plain(turbo.step_plain(
                         s_b, ppo.sample_actions_plain(x, key, off)[0], cfg)[0], cfg),
                     step_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
+                "flagship_step_sample": (
+                    lambda: kernels.flagship_step(f_b, None, cfg, engine.PIECES, rw, logits=x, act_key=key,
+                                                  env_offset=off),
+                    lambda: engine.step_plain(f_b, ppo.sample_actions_plain(x, key, off)[0], cfg),
+                    fstep_io + sample_io, SAMPLE_OPS_PER_ELEMENT * B * 8),
                 "dqn_act": (lambda: kernels.dqn_act(qx, key, eps_key, 0.5, env_offset=off),
                             lambda: dqn.act_plain(qx, key, eps_key, 0.5, env_offset=off),
                             nbytes(qx) + 4 * B, DQN_ACT_OPS_PER_ENV * B),
@@ -5782,7 +6040,7 @@ def check_offset_kernels(dev, smi) -> dict:
             for name, (kernel_fn, plain_fn, io, ops) in fns.items():
                 times.setdefault(name, {}).setdefault(B, {})[f"offset_{off}"] = {
                     **timed_pair(kernel_fn, plain_fn, 100, 10, io, ops), "offset": off}
-        del s, s_b, obs_full, whole
+        del s, s_b, fs, f_b, obs_full, whole
     emit({"phase": "offset_kernels", "bit_equal": True, "batches": list(OFFSET_B),
           "offsets": "0, B, 3B", "comparisons": checked, "times": times, "nvidia_smi": smi})
     return times

@@ -188,11 +188,12 @@ def test_library_names_follow_the_sources():
 
 
 def test_library_names_cover_included_headers(tmp_path):
-    """An edit to a header that a source includes gives the source a new library."""
-    for name in ("ppo_sample.cu", "threefry.cuh"):
+    """An edit to a header that a source includes, directly or through
+    another header, gives the source a new library."""
+    for name in ("ppo_sample.cu", "sample_group.cuh", "threefry.cuh"):
         shutil.copy(kernels.PACKAGE_DIR / "csrc" / name, tmp_path / name)
     source, header = tmp_path / "ppo_sample.cu", tmp_path / "threefry.cuh"
-    assert kernels._sources_of(source) == [source, header]
+    assert kernels._sources_of(source) == [source, tmp_path / "sample_group.cuh", header]
     before = kernels._lib_path(source)
     header.write_text(header.read_text() + "\n// edited\n")
     after = kernels._lib_path(source)

@@ -13,8 +13,9 @@ board observation; on CPU tensors it runs ``ppo.sample_actions_plain``,
   numpy-seeded logits and keys, at 10x20, 30x20 and 61x12;
 * the PPO rollout through it against the rollout that samples and steps in
   two calls, and against JAX's env step on its actions, at K = 1 and 4;
-* ``sample_step_fn``'s step on every engine route against
-  ``sample_actions_plain``, the route's step and its observation;
+* ``sample_step_fn``'s step on every engine route (each sampling in its
+  step's call) against ``sample_actions_plain``, the route's step and its
+  observation;
 * ``gae_plain`` against JAX's ``_gae`` at the ragged shapes the ``gae``
   kernel's builds must take (T in {1, 7, 33}, B in {1, 17, 1001});
 * the wrappers' argument checks and ``gae``'s choice of build.
@@ -180,16 +181,18 @@ def test_rollout_sampling_step_equals_two_calls_and_jax(K):
 @pytest.mark.parametrize("rewards", [None, RewardsMapping(alife=0.5, clear_line=3, game_over=-2)],
                          ids=["default", "override"])
 @pytest.mark.parametrize("impl, obs, fused", [
-    ("turbo", "board", True), ("flagship", "board", False), ("flagship", "rgb84", False),
+    ("turbo", "board", True), ("flagship", "board", True), ("flagship", "rgb84", True),
 ])
 def test_sample_step_fn_routes(impl, obs, fused, rewards):
-    """Only the turbo engine's board route samples in its step's call; on
-    every route 12 steps of ``sample_step_fn``'s step equal
-    ``sample_actions_plain``, the route's step with the same rewards and
-    its observation, bit for bit."""
+    """Every route samples in its step's call (``turbo_sample_step`` on the
+    turbo engine, ``flagship_sample_step`` on the flagship engine's board
+    and 84x84 routes); on every route 12 steps of ``sample_step_fn``'s step
+    equal ``sample_actions_plain``, the route's step with the same rewards
+    and its observation, bit for bit."""
     config = EngineConfig(auto_reset=True)
     sample_step = ppo.sample_step_fn(config, impl, rewards, obs=obs)
-    assert (getattr(sample_step, "func", None) is ppo.turbo_sample_step) == fused
+    fused_step = ppo.turbo_sample_step if impl == "turbo" else ppo.flagship_sample_step
+    assert (getattr(sample_step, "func", None) is fused_step) == fused
     init, env_step, observe = engines.env_fns(config, impl, rewards, obs=obs, device=CPU)
     s = s2 = init(batch_keys(threefry.prng_key(5), 6, device=CPU))
     rng = np.random.default_rng(6)

@@ -388,14 +388,13 @@ def init_plain(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet = PIEC
 def init_from_key(key2b: torch.Tensor, config: EngineConfig, pieces: PieceSet = PIECES) -> TurboState:
     """Fresh episodes from per-env RNG states ``uint32[2, B]`` (``_init_from_key :440``).
 
-    On a CUDA tensor the ``turbo_init`` kernel makes them (it reads keys as
-    ``[B, 2]``, so the state's key goes in transposed); on a CPU tensor the
-    plain version does.
+    On a CUDA tensor the ``turbo_init`` kernel makes them, reading the keys
+    where they lie; on a CPU tensor the plain version does.
     """
     if key2b.is_cuda:
         from tetris_gymnasium_torch import kernels
 
-        return kernels.turbo_init(key2b.T.contiguous(), config, pieces)
+        return kernels.turbo_init(key2b, config, pieces, key_rows=True)
     return init_plain(key2b.T, config, pieces)
 
 

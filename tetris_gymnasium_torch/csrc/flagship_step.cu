@@ -41,6 +41,16 @@
 //     rows.
 //   - Lane 0 stores the env's fields; the block stores the boards
 //     coalesced.
+//   - With the sample (PPO's rollout on this engine: kSample, at L = 8 and
+//     16), the launch also takes the tail of rl/ppo.py:policy_step that
+//     ppo_sample.cu runs on its own (sample_group.cuh): lane l draws action
+//     l & 7 from the policy's logits before the fields' loads and the
+//     boards' staging, the argmax and log-sum-exp shuffles among the 8
+//     lanes of its eighth of the group run after the barrier, every lane
+//     steps with lane 0's action, and lane 0 writes the action and its
+//     log-prob; every output is bit-equal to sample_actions_plain and
+//     step_plain, and the log-prob to ppo_sample.cu's.  It adds 40 bytes an
+//     env (32 of logits read, 8 written) and saves ppo_sample's launch.
 //
 // Bound on this card: bytes.  A step reads the board and ~80 bytes of
 // other state and the action, and writes the same plus reward, done and
@@ -64,7 +74,8 @@
 //
 // Geometry is fixed at compile time by the TETRIS_* defines
 // (engine_common.cuh, kernels.py:engine_defines), one library per
-// geometry with the two step builds.  What other geometries change here:
+// geometry with the four step builds (L = 8 or 16, with or without the
+// sample).  What other geometries change here:
 //   - BOARD = H * PW need not be a multiple of 16 (648 bytes at 28x14, 924
 //     for the 6x6 pieces at 30x16): the init's words are those of the whole
 //     board tensor, each taking its pattern from its offset into a board,
@@ -90,9 +101,11 @@
 
 #include "board_words.cuh"
 #include "engine_common.cuh"
+#include "sample_group.cuh"
 #include "turbo_band.cuh"
 
 using namespace engine;
+using namespace sampling;
 
 // Pointers to the 17 fields of a flagship EngineState, in field order.
 struct FlagshipPtrs {
@@ -676,13 +689,16 @@ __device__ __forceinline__ void band_empty_ids(int8_t* board, const Band<L>& bd)
 // L lanes an env, kBandEnvs envs a block: the boards come into shared
 // memory coalesced, each lane packs its band, the group runs the step with
 // turbo_band.cuh's helpers, lane 0 stores the env's fields, and the block
-// stores the boards coalesced.
-template <int L>
+// stores the boards coalesced.  With kSample the action is sampled from the
+// logits of `smp` (sample_group.cuh) and written there with its log-prob:
+// each lane's draw is issued before the fields' loads and the boards'
+// staging, and the group's reductions run after the barrier.
+template <int L, bool kSample>
 __global__ void __launch_bounds__(kBandEnvs * L) flagship_step_band_kernel(
     FlagshipPtrs in, FlagshipPtrs out, const int32_t* __restrict__ action,
     float* __restrict__ reward_out, uint8_t* __restrict__ done_out, int32_t* __restrict__ lines_out,
     const uint32_t* __restrict__ packed, const int32_t* __restrict__ box,
-    const int32_t* __restrict__ ids, int B, FlagshipParams p) {
+    const int32_t* __restrict__ ids, int B, FlagshipParams p, SampleArgs smp) {
   using Smem = BandSmem<L>;
   extern __shared__ __align__(16) uint8_t smem[];
   int8_t* boards = reinterpret_cast<int8_t*>(smem);
@@ -695,9 +711,11 @@ __global__ void __launch_bounds__(kBandEnvs * L) flagship_step_band_kernel(
   // request a warp), issued beside the boards' loads
   Env e;
   int a = 0;
+  Draw<L> draw;  // kSample: the sample's first half, before the state's loads
   if (t < n) {
+    if constexpr (kSample) sample_draw<L>(draw, smp, b, threadIdx.x % L);
     load_env(e, in, b, B);
-    a = action[b];
+    if constexpr (!kSample) a = action[b];
   }
   stage_boards_in<L, Smem::ES>(in.board + static_cast<size_t>(base) * BOARD, boards, n);
   __syncthreads();
@@ -710,6 +728,8 @@ __global__ void __launch_bounds__(kBandEnvs * L) flagship_step_band_kernel(
     bd.mask = (L == 32 ? 0xFFFFFFFFu : (1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
     pack_band(bd, bd_ids);
     band_load_below(bd);
+    float log_prob = 0.0f;
+    if constexpr (kSample) a = sample_reduce<L>(draw, bd.lane, bd.mask, log_prob);
     float reward = 0.0f;
     int lines = 0;
 
@@ -765,6 +785,10 @@ __global__ void __launch_bounds__(kBandEnvs * L) flagship_step_band_kernel(
       reward_out[b] = reward;
       done_out[b] = done ? 1 : 0;
       lines_out[b] = lines;
+      if constexpr (kSample) {
+        smp.action[b] = a;
+        smp.log_prob[b] = log_prob;
+      }
     }
   }
   __syncthreads();
@@ -780,35 +804,54 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
 }
 
 
-template <int L>
+template <int L, bool kSample>
 int launch_band(const FlagshipPtrs* in, const FlagshipPtrs* out, const void* action, void* reward,
                 void* done, void* lines, const void* packed, const void* box, const void* ids,
-                int B, const FlagshipParams* params, cudaStream_t stream) {
+                int B, const FlagshipParams* params, const SampleArgs& smp, cudaStream_t stream) {
   constexpr int smem = BandSmem<L>::BYTES;
   static bool opted = false;
-  if (const cudaError_t err = allow_smem(flagship_step_band_kernel<L>, smem, opted)) return err;
-  flagship_step_band_kernel<L><<<(B + kBandEnvs - 1) / kBandEnvs, kBandEnvs * L, smem, stream>>>(
-      *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
-      static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
-      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
-      static_cast<const int32_t*>(ids), B, *params);
+  if (const cudaError_t err = allow_smem(flagship_step_band_kernel<L, kSample>, smem, opted))
+    return err;
+  flagship_step_band_kernel<L, kSample>
+      <<<(B + kBandEnvs - 1) / kBandEnvs, kBandEnvs * L, smem, stream>>>(
+          *in, *out, static_cast<const int32_t*>(action), static_cast<float*>(reward),
+          static_cast<uint8_t*>(done), static_cast<int32_t*>(lines),
+          static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(box),
+          static_cast<const int32_t*>(ids), B, *params, smp);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch_lanes(const FlagshipPtrs* in, const FlagshipPtrs* out, const void* action, void* reward,
+                 void* done, void* lines, const void* packed, const void* box, const void* ids,
+                 int B, const FlagshipParams* params, const SampleArgs* sample,
+                 cudaStream_t stream) {
+  if (sample != nullptr)
+    return launch_band<L, true>(in, out, action, reward, done, lines, packed, box, ids, B, params,
+                                *sample, stream);
+  const SampleArgs none{};
+  return launch_band<L, false>(in, out, action, reward, done, lines, packed, box, ids, B, params,
+                               none, stream);
 }
 
 }  // namespace
 
 // lanes: 8 or 16 lanes an env (kernels.py:FLAGSHIP_LANES,
-// flagship_step_lanes).
+// flagship_step_lanes); sample: null, or the logits and key to sample the
+// action from, where `action` is then unused.
 extern "C" int flagship_step_launch(const FlagshipPtrs* in, const FlagshipPtrs* out,
                                     const void* action, void* reward, void* done, void* lines,
                                     const void* packed, const void* box, const void* ids, int B,
-                                    int lanes, const FlagshipParams* params, void* stream) {
+                                    int lanes, const FlagshipParams* params,
+                                    const SampleArgs* sample, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   switch (lanes) {
     case 8:
-      return launch_band<8>(in, out, action, reward, done, lines, packed, box, ids, B, params, st);
+      return launch_lanes<8>(in, out, action, reward, done, lines, packed, box, ids, B, params,
+                             sample, st);
     case 16:
-      return launch_band<16>(in, out, action, reward, done, lines, packed, box, ids, B, params, st);
+      return launch_lanes<16>(in, out, action, reward, done, lines, packed, box, ids, B, params,
+                              sample, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,7 +8,10 @@
 // where XLA runs the noise, the argmax, the log-softmax and the gather as
 // separate passes over [B, 8].  Here one pass reads the logits once and
 // writes the action and its log-prob.  The plain PyTorch twin is
-// tetris_gymnasium_torch/rl/ppo.py:sample_actions_plain.
+// tetris_gymnasium_torch/rl/ppo.py:sample_actions_plain.  The arithmetic is
+// sample_group.cuh's group of 8 lanes an env, which PPO's rollouts run
+// inside their step's launch (the sampling builds of turbo_step.cu and
+// flagship_step.cu); this launch of its own is kernels.sample_actions.
 //
 // The noise is JAX's, bit for bit: element (b, a) takes threefry-2x32 of
 // the step's key at counter [0, (env_offset + b)*8 + a]
@@ -29,58 +32,33 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "threefry.cuh"
+#include "sample_group.cuh"
 
 namespace {
 
-constexpr int kActions = 8;
+constexpr int kActions = sampling::kActions;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads) ppo_sample_kernel(
-    const float* __restrict__ logits, int32_t* __restrict__ action, float* __restrict__ log_prob,
-    float* __restrict__ uniform_out, long long n, long long base, uint32_t k0, uint32_t k1) {
-  // Every lane runs to the end (the shuffles need full warps); lanes past n
-  // compute on a zero logit and store nothing.  n = B * 8, so an env's 8
-  // lanes are all in range or all out of it.
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool valid = t < n;
-  const int a = static_cast<int>(threadIdx.x) & (kActions - 1);
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const float x = valid ? logits[t] : 0.0f;
-
-  const long long c = base + t;  // the global counter, env_offset * 8 + t
-  const float u = tf::gumbel_uniform(
-      tf::bits(k0, k1, static_cast<uint32_t>(c >> 32), static_cast<uint32_t>(c)));
-  const float g = tf::gumbel(u);
-  if (uniform_out != nullptr && valid) uniform_out[t] = u;  // for checks against JAX's bits
-
-  // argmax of g + x over the env's 8 lanes, the lower index winning a tie
-  float best = __fadd_rn(g, x);
-  int arg = a;
-  float m = x;
-#pragma unroll
-  for (int off = 1; off < kActions; off <<= 1) {
-    const float ov = __shfl_xor_sync(kFull, best, off);
-    const int oa = __shfl_xor_sync(kFull, arg, off);
-    if (ov > best || (ov == best && oa < arg)) {
-      best = ov;
-      arg = oa;
-    }
-    m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-  }
-
-  // log-sum-exp, the butterfly's order: lanes a and a^4, then a^2, then a^1
-  float s = expf(__fsub_rn(x, m));
-  s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 4));
-  s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 2));
-  s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 1));
-  const float x_arg = __shfl_sync(kFull, x, (lane & ~(kActions - 1)) | arg);
-
-  if (valid && a == 0) {
-    const long long b = t / kActions;
-    action[b] = arg;
-    log_prob[b] = __fsub_rn(__fsub_rn(x_arg, m), logf(s));
+// sample_group.cuh's group of 8 lanes an env, the env b = t / 8 of thread t.
+// Every lane runs to the end (the shuffles need full warps); the lanes past
+// B draw from env B - 1's logits and store nothing (an env's 8 lanes are
+// all in range or all out of it).
+__global__ void __launch_bounds__(kThreads) ppo_sample_kernel(SampleArgs s,
+                                                              float* __restrict__ uniform_out,
+                                                              int B) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;  // B * 8 < 2**31 (kernels.py)
+  const bool valid = t / kActions < static_cast<uint32_t>(B);
+  const int b = valid ? static_cast<int>(t / kActions) : B - 1;
+  const int lane = static_cast<int>(threadIdx.x);
+  sampling::Draw<kActions> d;
+  sampling::sample_draw<kActions>(d, s, b, lane,
+                                  uniform_out != nullptr && valid ? uniform_out + t : nullptr);
+  float log_prob;
+  const int action = sampling::sample_reduce<kActions>(d, lane, kFull, log_prob);
+  if (valid && (lane & (kActions - 1)) == 0) {
+    s.action[b] = action;
+    s.log_prob[b] = log_prob;
   }
 }
 
@@ -94,9 +72,9 @@ extern "C" int ppo_sample_launch(const void* logits, void* action, void* log_pro
                                  int env_offset, void* stream) {
   const long long n = static_cast<long long>(B) * kActions;
   const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);
+  const SampleArgs s{static_cast<const float*>(logits), static_cast<int32_t*>(action),
+                     static_cast<float*>(log_prob), k0, k1, static_cast<uint32_t>(env_offset)};
   ppo_sample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<int32_t*>(action),
-      static_cast<float*>(log_prob), static_cast<float*>(uniform_out), n,
-      static_cast<long long>(env_offset) * kActions, k0, k1);
+      s, static_cast<float*>(uniform_out), B);
   return static_cast<int>(cudaGetLastError());
 }

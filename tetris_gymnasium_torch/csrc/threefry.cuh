@@ -1,7 +1,8 @@
 // JAX's random bits on the card: threefry-2x32 and its float32 uniform.
 //
-// Shared by ppo_sample.cu, turbo_step.cu (its sampling build),
-// grouped_act.cu, replay.cu, dqn_act.cu and fn_env.cu.  Under
+// Shared by sample_group.cuh (ppo_sample.cu and the sampling builds of
+// turbo_step.cu and flagship_step.cu), grouped_act.cu, replay.cu,
+// dqn_act.cu and fn_env.cu.  Under
 // jax_threefry_partitionable, jax.random.bits(key, shape) at row-major flat
 // index i is y0 ^ y1 of one 20-round threefry-2x32 block of the key at
 // counter [0, i] (i < 2**32 here), and jax.random.uniform puts the top 23

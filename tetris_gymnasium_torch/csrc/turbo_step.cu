@@ -58,24 +58,41 @@
 // With the sample (PPO's rollout on this engine: kSample, built only with
 // the observation, at L = 1 and 8), the launch also takes the tail of
 // tetris_gymnasium_tpu/rl/ppo.py:policy_step (:184-187) that ppo_sample.cu
-// runs on its own: it reads the policy's logits f32[B, 8] and the step's
-// key, draws JAX's Gumbel noise (threefry.cuh, counter b*8 + a), takes the
-// argmax of noise + logits (the lower index on a tie) and the log-prob
-// (x_a - m) - logf(sum exp(x - m)), the sum in the butterfly's order
-// ((e0+e4)+(e2+e6)) + ((e1+e5)+(e3+e7)) with _rn adds, writes the action
-// and the log-prob, and steps the env with that action.  At L = 8 lane a of
-// the group is action a and the reductions are shuffles inside the group;
-// at L = 1 one thread draws the eight and repeats each lane's arithmetic of
-// the butterfly, so both builds are bit-equal to ppo_sample.cu.  The logits
-// load and the eight threefry blocks do not depend on the env's state and
-// are issued before its loads; what the chain gains is the reductions and
-// a compare.  It adds 32 bytes of logits read and 8 bytes written an env
-// (641 bytes at 10x20 with the observation: 1.57 us at B = 8192, 0.0125 ms
-// at 65536, at 3.35 TB/s) and 8 threefry blocks (about 800 32-bit
-// operations an env, 0.20 us at 8192 at 33.5e12 a second), so bytes still
-// bound it; it saves ppo_sample's launch, which ran at about two launch
-// floors: on an H100 0.00590 ms at B = 8192 against 0.00750 for
-// ppo_sample and then this kernel with the observation (PERF.md).
+// runs on its own (sample_group.cuh, shared with flagship_step.cu's
+// sampling build): it reads the policy's logits f32[B, 8] and the step's
+// key, draws JAX's Gumbel noise, takes the argmax and the log-prob in
+// ppo_sample.cu's butterfly, writes the action and the log-prob, and steps
+// the env with that action.  At L = 8 lane a of the group is action a and
+// the reductions are shuffles inside the group; at L = 1 one thread draws
+// the eight and repeats each lane's arithmetic of the butterfly, so both
+// builds are bit-equal to ppo_sample.cu.  The logits load and the eight
+// threefry blocks do not depend on the env's state and are issued before
+// its loads; what the chain gains is the reductions and a compare.  It adds
+// 32 bytes of logits read and 8 bytes written an env (641 bytes at 10x20
+// with the observation: 1.57 us at B = 8192, 0.0125 ms at 65536, at 3.35
+// TB/s) and 8 threefry blocks (about 800 32-bit operations an env, 0.20 us
+// at 8192 at 33.5e12 a second), so bytes still bound it; it saves
+// ppo_sample's launch, which ran at about two launch floors: on an H100
+// 0.00590 ms at B = 8192 against 0.00750 for ppo_sample and then this
+// kernel with the observation (PERF.md).
+//
+// turbo_init writes a fresh batch (202 bytes an env at 10x20 with the keys
+// read: 0.49 us at B = 8192, 3.95 us at 65536, at 3.35 TB/s), a block for
+// up to 128 envs (min(128, ceil(B / SMs)) rounded up to whole warps, so that
+// the vector env's 8192 envs spread over the SMs) of 256 threads.  The rows tensor
+// [H, NW, B] holds one word per (h, j) across B, so the warps after the
+// envs' stream the block's share of it as 16-byte words, four envs a
+// store, beside the env warps' chains, each thread carrying its chunk's
+// segment from store to store.  An env's chain is short: its key is one
+// 8-byte load (or two coalesced 4-byte loads of the state's [2, B] key,
+// which turbo.init_from_key passes as it lies), draw i of the bag's shuffle
+// is next_bits at the 64-bit counter (k1:k0) + (i + 1) * GOLDEN so that all
+// NP - 1 draws mix at once, the bag is 4-bit entries of one word (NP <= 8)
+// so that a swap is a few shifts and masks, and the spawn column comes from
+// the box table by shuffle; then the scalar fields' coalesced stores.  The
+// launch alone takes ~0.0011 ms on an H100 and the key's round trip and the
+// field stores most of the rest below 65536 (PERF.md).  The auto-reset of
+// the steps keeps engine_common.cuh's init_env.
 //
 // Registers a thread (-Xptxas -v, CUDA 12.9; L = 8 without / with the
 // observation / with the sample, then L = 1 the same), no spill and no
@@ -99,11 +116,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "board_words.cuh"
 #include "engine_common.cuh"
-#include "threefry.cuh"
+#include "sample_group.cuh"
 #include "turbo_band.cuh"
 
 using namespace engine;
+using namespace sampling;
 
 // Pointers to the 17 batch-minor fields of a TurboState, in field order.
 struct StatePtrs {
@@ -124,15 +145,6 @@ struct StatePtrs {
   float* score;            // [B]
   int32_t* lines;          // [B]
   int32_t* steps;          // [B]
-};
-
-// PPO's sampling tail in the step's launch (kSample).
-struct SampleArgs {
-  const float* logits;  // [B, 8]
-  int32_t* action;      // [B], the sampled action
-  float* log_prob;      // [B], its log-prob
-  uint32_t k0, k1;      // the step's key
-  uint32_t env_offset;  // global index of env 0 of this batch (a rank's lo)
 };
 
 struct StepParams {
@@ -280,106 +292,6 @@ __device__ __forceinline__ float step_env(Env& e, Rows_& rows, int a, const Step
   return reward;
 }
 
-constexpr int kActions = 8;
-
-// The sample's first half, which needs nothing of the env's state: lane
-// `lane`'s logit x and noise + logit (L = 8), or all eight (L = 1).
-template <int L>
-struct Draw {
-  static constexpr int N = L == 1 ? kActions : 1;  // actions a thread draws
-  float x[N];
-  float best[N];
-};
-
-template <int L>
-__device__ __forceinline__ void sample_draw(Draw<L>& d, const SampleArgs& s, int b, int lane) {
-#pragma unroll
-  for (int i = 0; i < Draw<L>::N; ++i) {
-    const int a = L == 1 ? i : lane;
-    // the global env's counter: (env_offset + B) * 8 < 2**31 (kernels.py)
-    const uint32_t c = (s.env_offset + static_cast<uint32_t>(b)) * kActions + a;
-    d.x[i] = s.logits[b * kActions + a];
-    d.best[i] = __fadd_rn(tf::gumbel(tf::gumbel_uniform(tf::bits(s.k0, s.k1, 0u, c))), d.x[i]);
-  }
-}
-
-// The second half: the argmax, the max and the log-sum-exp in
-// ppo_sample.cu's butterfly (lanes a and a^1, a^2, a^4 for the argmax and
-// the max; a^4, a^2, a^1 for the sum), the result of the group's lane 0.
-// Every lane of a group returns the same action; log_prob is lane 0's.
-template <int L>
-__device__ __forceinline__ int sample_reduce(const Draw<L>& d, int lane, unsigned mask,
-                                             float& log_prob) {
-  if constexpr (L == 1) {
-    float best[kActions], m[kActions], sum[kActions];
-    int arg[kActions];
-#pragma unroll
-    for (int a = 0; a < kActions; ++a) {
-      best[a] = d.best[a];
-      arg[a] = a;
-      m[a] = d.x[a];
-    }
-#pragma unroll
-    for (int off = 1; off < kActions; off <<= 1) {
-      float nb[kActions], nm[kActions];
-      int na[kActions];
-#pragma unroll
-      for (int a = 0; a < kActions; ++a) {
-        const int o = a ^ off;
-        const bool take = best[o] > best[a] || (best[o] == best[a] && arg[o] < arg[a]);
-        nb[a] = take ? best[o] : best[a];
-        na[a] = take ? arg[o] : arg[a];
-        nm[a] = fmaxf(m[a], m[o]);
-      }
-#pragma unroll
-      for (int a = 0; a < kActions; ++a) {
-        best[a] = nb[a];
-        arg[a] = na[a];
-        m[a] = nm[a];
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < kActions; ++a) sum[a] = expf(__fsub_rn(d.x[a], m[a]));
-#pragma unroll
-    for (int off = kActions / 2; off >= 1; off >>= 1) {
-      float ns[kActions];
-#pragma unroll
-      for (int a = 0; a < kActions; ++a) ns[a] = __fadd_rn(sum[a], sum[a ^ off]);
-#pragma unroll
-      for (int a = 0; a < kActions; ++a) sum[a] = ns[a];
-    }
-    float x_arg = d.x[0];
-#pragma unroll
-    for (int a = 1; a < kActions; ++a) x_arg = arg[0] == a ? d.x[a] : x_arg;
-    log_prob = __fsub_rn(__fsub_rn(x_arg, m[0]), logf(sum[0]));
-    return arg[0];
-  } else {
-    static_assert(L == kActions, "a lane an action");
-    const float x = d.x[0];
-    float best = d.best[0];
-    int arg = lane;
-    float m = x;
-#pragma unroll
-    for (int off = 1; off < kActions; off <<= 1) {
-      const float ov = __shfl_xor_sync(mask, best, off, L);
-      const int oa = __shfl_xor_sync(mask, arg, off, L);
-      if (ov > best || (ov == best && oa < arg)) {
-        best = ov;
-        arg = oa;
-      }
-      m = fmaxf(m, __shfl_xor_sync(mask, m, off, L));
-    }
-    float sum = expf(__fsub_rn(x, m));
-    sum = __fadd_rn(sum, __shfl_xor_sync(mask, sum, 4, L));
-    sum = __fadd_rn(sum, __shfl_xor_sync(mask, sum, 2, L));
-    sum = __fadd_rn(sum, __shfl_xor_sync(mask, sum, 1, L));
-    arg = __shfl_sync(mask, arg, 0, L);  // lane 0's, so that the group steps one action
-    const float x_arg = __shfl_sync(mask, x, arg, L);
-    log_prob = __fsub_rn(__fsub_rn(x_arg, m), logf(sum));
-    return arg;
-  }
-}
-
 // L lanes an env (kThreads / L envs a block); with kObs the observation of
 // the stored state is written to obs int8[B, HEIGHT, WIDTH], staged in the
 // block's dynamic shared memory (kThreads / L frames) and stored with
@@ -446,14 +358,166 @@ __global__ void __launch_bounds__(kThreads) turbo_step_kernel(
                              min(E, B - base) * kFrame);
   }
 }
-__global__ void __launch_bounds__(kThreads) turbo_init_kernel(
+// ---- turbo_init ------------------------------------------------------------
+//
+// A fresh batch: the rows tensor uint32[H, NW, B] holds one word per (h, j)
+// across its B envs (the side walls, the bedrock), and each env's RNG chain
+// gives its scalar fields.  The block's threads split in two: the env warps
+// run one chain a thread, and the warps after them stream the block's share
+// of the rows tensor as 16-byte words (four envs a store), their stores
+// beside the chains.  Envs a block min(kInitEnvs, ceil(B / SMs)) rounded up
+// to whole warps, so that a batch spreads over the SMs.
+
+constexpr int kInitThreads = 256;            // threads a block of the init
+constexpr int kInitEnvs = kInitThreads / 2;  // envs a block at most: half the warps stream
+
+// Word seg of the rows' pattern: row h = seg / NW, word j = seg % NW (NW a
+// constant, j taken by selects from the constant words).
+__device__ __forceinline__ uint32_t init_row_word(uint32_t seg) {
+  const uint32_t h = seg / NW, j = seg % NW;
+  uint32_t v = 0u;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    if (j == static_cast<uint32_t>(k)) v = h < HEIGHT ? side_word(k) : full_word(k);
+  return v;
+}
+
+// The block's share of the rows tensor, words [4 q, 4 q + 4) of chunk q for
+// q in [q0, q1), from thread si of S: a chunk's four words share one row
+// word where they lie in one (h, j) segment of B words, and a chunk across
+// two (or, for B < 4, more) goes a word at a time.  A thread divides by B
+// twice and then carries its chunk's segment and offset from chunk to
+// chunk, so that its loop is a few adds a store.
+__device__ __forceinline__ void stream_rows(uint32_t* rows, uint32_t B, uint32_t q0, uint32_t q1,
+                                            int si, int S) {
+  const uint32_t words = static_cast<uint32_t>(H * NW) * B;
+  const uint32_t step = 4u * static_cast<uint32_t>(S), step_seg = step / B, step_off = step % B;
+  uint32_t q = q0 + static_cast<uint32_t>(si);
+  uint32_t seg = 4u * q / B, off = 4u * q - seg * B;  // chunk q's first word
+  for (; q < q1; q += S) {
+    if (off + 3u < B && 4u * q + 4u <= words) {
+      const uint32_t v = init_row_word(seg);
+      reinterpret_cast<uint4*>(rows)[q] = make_uint4(v, v, v, v);
+    } else {
+      for (uint32_t i = 4u * q; i < 4u * q + 4u && i < words; ++i) rows[i] = init_row_word(i / B);
+    }
+    seg += step_seg;
+    off += step_off;
+    if (off >= B) {
+      off -= B;
+      ++seg;
+    }
+  }
+}
+
+// next_bits as draw i (from 0) of a chain from key (k1:k0) sees it: the
+// 64-bit counter (k1:k0) + (i + 1) * GOLDEN, so every draw can be mixed at
+// once.
+__device__ __forceinline__ uint32_t bits_at(uint64_t key, int i) {
+  const uint64_t c = key + static_cast<uint64_t>(i + 1) * GOLDEN;
+  return fmix32(static_cast<uint32_t>(c) ^ fmix32(static_cast<uint32_t>(c >> 32)));
+}
+
+__device__ __forceinline__ int randint_bits(uint32_t bits, uint32_t n) {
+  return static_cast<int>(((bits >> 16) * n) >> 16);
+}
+
+// init_pieces from key (k0, k1), all but the spawn column: with NP <= 8 the
+// bag is 4-bit entries of one word, the shuffle's NP - 1 draws are mixed at
+// once and each swap is a few shifts and masks; the draws after it (a
+// uniform queue, or a bag queue that outlasts one bag) keep init_pieces'
+// order.  NP > 8 takes init_pieces itself.
+__device__ __forceinline__ void init_chain(Env& e, uint32_t k0, uint32_t k1, bool uniform,
+                                           const int32_t* box) {
+  if constexpr (NP > 8) {
+    init_pieces(e, k0, k1, uniform, box);
+  } else {
+    const uint64_t key = static_cast<uint64_t>(k1) << 32 | k0;
+    uint32_t bag = 0x76543210u & static_cast<uint32_t>((uint64_t{1} << (4 * NP)) - 1u);
+#pragma unroll
+    for (int i = NP - 1; i > 0; --i) {  // ops/rng.py:shuffle's order, draw NP - 1 - i
+      const int j = randint_bits(bits_at(key, NP - 1 - i), static_cast<uint32_t>(i + 1));
+      const uint32_t d = ((bag >> (4 * i)) ^ (bag >> (4 * j))) & 15u;
+      bag ^= d << (4 * i) | d << (4 * j);
+    }
+#pragma unroll
+    for (int l = 0; l < NP; ++l) e.bag[l] = static_cast<int>((bag >> (4 * l)) & 15u);
+    const uint64_t shuffled = key + static_cast<uint64_t>(NP - 1) * GOLDEN;
+    e.k0 = static_cast<uint32_t>(shuffled);
+    e.k1 = static_cast<uint32_t>(shuffled >> 32);
+    e.bag_index = 0;
+    if (!uniform && QS + 1 <= NP) {
+      e.piece = e.bag[0];
+#pragma unroll
+      for (int i = 0; i < QS; ++i) e.queue[i] = e.bag[(1 + i) % NP];
+      e.bag_index = QS + 1;
+    } else if (uniform) {
+      e.piece = randint_bits(bits_at(key, NP - 1), NP);
+#pragma unroll
+      for (int i = 0; i < QS; ++i) e.queue[i] = randint_bits(bits_at(key, NP + i), NP);
+      const uint64_t drawn = key + static_cast<uint64_t>(NP + QS) * GOLDEN;
+      e.k0 = static_cast<uint32_t>(drawn);
+      e.k1 = static_cast<uint32_t>(drawn >> 32);
+    } else {
+      e.piece = draw(e, false);
+#pragma unroll
+      for (int i = 0; i < QS; ++i) e.queue[i] = draw(e, false);
+    }
+    e.rotation = 0;
+    e.y = 0;
+#pragma unroll
+    for (int i = 0; i < HS; ++i) {
+      e.holder_piece[i] = 0;
+      e.holder_rotation[i] = 0;
+    }
+    e.holder_count = 0;
+    e.has_swapped = false;
+    e.game_over = false;
+    e.score = 0.0f;
+    e.lines = 0;
+    e.steps = 0;
+  }
+}
+
+// init for a block of up to E envs (kernels.py:turbo_init_shape), no
+// block-wide barrier: the env warps read their keys (one 8-byte word an env
+// from keys[B, 2], or the state's layout keys[2, B] with key_rows), run
+// their chains and store the scalar fields, the spawn column from the box
+// table by shuffle (no load in the chain); the other warps stream the
+// block's share of the rows tensor.
+__global__ void __launch_bounds__(kInitThreads) turbo_init_kernel(
     const uint32_t* __restrict__ keys, StatePtrs out, const int32_t* __restrict__ box, int B,
-    int uniform) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    int E, int uniform, int key_rows) {
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int base = blockIdx.x * E;
+  const int n = min(E, B - base);
+  const int env_warps = (n + 31) / 32;
+  if (warp >= env_warps) {
+    const uint32_t chunks = (static_cast<uint32_t>(H * NW) * B + 3) / 4;
+    const uint32_t per = (chunks + gridDim.x - 1) / gridDim.x;
+    const uint32_t q0 = min(chunks, blockIdx.x * per);
+    stream_rows(out.rows, B, q0, min(chunks, q0 + per), t - 32 * env_warps,
+                kInitThreads - 32 * env_warps);
+    return;
+  }
+  const int i = t;  // the env's slot in the block
+  const int b = base + i;
+  uint32_t k0 = 0u, k1 = 0u;
+  if (i < n) {
+    if (key_rows) {
+      k0 = keys[b];
+      k1 = keys[B + b];
+    } else {
+      const uint2 k = __ldg(reinterpret_cast<const uint2*>(keys) + b);
+      k0 = k.x;
+      k1 = k.y;
+    }
+  }
+  const int boxv = lane < NP ? __ldg(box + lane) : 0;
   Env e;
-  init_env(e, keys[2 * b], keys[2 * b + 1], uniform != 0, box);
-  store_env(e, out, b, B);
+  init_chain(e, k0, k1, uniform != 0, box);
+  e.x = PW / 2 - __shfl_sync(0xffffffffu, boxv, i < n ? e.piece : 0) / 2;  // spawn_x
+  if (i < n) store_scalars(e, out, b, B);
 }
 
 template <int L, bool kObs, bool kSample>
@@ -514,11 +578,29 @@ extern "C" int turbo_step_launch(const StatePtrs* in, const StatePtrs* out, cons
   }
 }
 
-// keys: uint32[B, 2] (mesh.batch_keys layout).
+// Envs a block of the init for a batch of B: kInitEnvs, or where B's envs
+// give the card's SMs fewer than kInitEnvs each, as many as give every SM a
+// block, rounded up to whole warps (a warp's field stores then start on
+// 128-byte lines).
+static int init_envs(int B) {
+  const int per_sm = (B + sm_count() - 1) / sm_count();
+  return std::min(kInitEnvs, (per_sm + 31) / 32 * 32);
+}
+
+// keys: uint32[B, 2] (mesh.batch_keys layout; 8-byte aligned), or with
+// key_rows uint32[2, B] (TurboState.key); out's rows on a 16-byte boundary.
 extern "C" int turbo_init_launch(const void* keys, const StatePtrs* out, const void* box, int B,
-                                 int uniform, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  turbo_init_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), *out, static_cast<const int32_t*>(box), B, uniform);
+                                 int uniform, int key_rows, void* stream) {
+  const int E = init_envs(B);
+  turbo_init_kernel<<<(B + E - 1) / E, kInitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), *out, static_cast<const int32_t*>(box), B, E, uniform,
+      key_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The init's shape for a batch of B: out = [envs a block, threads a block].
+extern "C" int turbo_init_shape(int B, int* out) {
+  out[0] = init_envs(B);
+  out[1] = kInitThreads;
+  return 0;
 }

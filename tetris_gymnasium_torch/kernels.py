@@ -104,7 +104,9 @@ Kernels, with the JAX function each replaces:
 and ``replay_sample_stacked``; ``csrc/threefry.cuh`` JAX's threefry blocks
 and random bits for ``ppo_sample``, ``turbo_step``'s sample,
 ``grouped_act``, ``replay_sample``, ``replay_sample_stacked``, ``dqn_act``
-and the ``fn_*`` kernels;
+and the ``fn_*`` kernels; ``csrc/sample_group.cuh`` PPO's sampling tail,
+shared by ``ppo_sample.cu`` and the sampling builds of ``turbo_step.cu``
+and ``flagship_step.cu``;
 ``csrc/engine_common.cuh`` the engines' RNG, draws and bit helpers, shared by
 ``turbo_step.cu``, ``flagship_step.cu`` and ``grouped_flagship.cu``, and
 ``csrc/turbo_band.cuh`` the band helpers of the lanes builds of
@@ -203,16 +205,17 @@ NVCC_FLAGS = [
 
 # Launch counts, one per kernel: added to where a wrapper launches, nowhere
 # else; "turbo_step_obs" counts the turbo_step launches that also wrote the
-# board observation, "turbo_step_sample" those that also sampled the action
-# from PPO's logits (ppo_sample's work in the step's launch).
+# board observation, "turbo_step_sample" and "flagship_step_sample" the
+# turbo_step and flagship_step launches that also sampled the action from
+# PPO's logits (ppo_sample's work in the step's launch).
 LAUNCHES = {
     "turbo_step": 0, "turbo_step_obs": 0, "turbo_step_sample": 0, "turbo_init": 0,
     "observe_board": 0, "gae": 0, "ppo_sample": 0, "grouped_placements": 0, "grouped_act": 0,
     "replay_add": 0, "replay_sample": 0, "replay_sample_stacked": 0, "framestack_push": 0,
-    "dqn_act": 0, "flagship_step": 0, "flagship_init": 0, "flagship_observe_board": 0,
-    "render_rgb84": 0, "grouped_flagship": 0, "feature_vector": 0, "observe_dict": 0,
-    "compose_rgb": 0, "heights": 0, "fn_reset": 0, "fn_step": 0, "fn_observe": 0,
-    "grayscale_u8_exact": 0,
+    "dqn_act": 0, "flagship_step": 0, "flagship_step_sample": 0, "flagship_init": 0,
+    "flagship_observe_board": 0, "render_rgb84": 0, "grouped_flagship": 0, "feature_vector": 0,
+    "observe_dict": 0, "compose_rgb": 0, "heights": 0, "fn_reset": 0, "fn_step": 0,
+    "fn_observe": 0, "grayscale_u8_exact": 0,
 }
 
 _LIBS: dict = {}
@@ -357,7 +360,7 @@ class _StepParams(ctypes.Structure):
     ]
 
 
-class _SampleArgs(ctypes.Structure):  # csrc/turbo_step.cu:SampleArgs
+class _SampleArgs(ctypes.Structure):  # csrc/sample_group.cuh:SampleArgs
     _fields_ = [
         ("logits", ctypes.c_void_p),
         ("action", ctypes.c_void_p),
@@ -469,7 +472,8 @@ _ENTRY_POINTS = {
         "turbo_step_launch": [ctypes.POINTER(_StatePtrs), ctypes.POINTER(_StatePtrs),
                               _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.POINTER(_StepParams),
                               ctypes.POINTER(_SampleArgs), _P],
-        "turbo_init_launch": [_P, ctypes.POINTER(_StatePtrs), _P, _I, _I, _P],
+        "turbo_init_launch": [_P, ctypes.POINTER(_StatePtrs), _P, _I, _I, _I, _P],
+        "turbo_init_shape": [_I, _P],
     },
     "observe_board": {
         "observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -511,7 +515,8 @@ _ENTRY_POINTS = {
     "flagship_step": {
         "flagship_step_launch": [ctypes.POINTER(_FlagshipPtrs), ctypes.POINTER(_FlagshipPtrs),
                                  _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 ctypes.POINTER(_FlagshipParams), _P],
+                                 ctypes.POINTER(_FlagshipParams), ctypes.POINTER(_SampleArgs),
+                                 _P],
         "flagship_init_launch": [_P, ctypes.POINTER(_FlagshipPtrs), _P, _I, _I, _P],
         "flagship_init_shape": [_I, _P],
         "flagship_observe_board_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -792,13 +797,7 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
     if sample:
         if obs is None:
             raise ValueError("turbo_step samples its action only together with obs")
-        if act_key is None:
-            raise ValueError("logits need act_key")
-        _check_tensor(logits, "logits", torch.float32, (B, 8), device)
-        _check_counters(env_offset, B, 8)
-        key = np.asarray(act_key, dtype=np.uint32)
-        if key.shape != (2,):
-            raise ValueError(f"act_key: want a uint32[2] key, got shape {key.shape}")
+        key = _sample_args(logits, act_key, env_offset, B, device)
     elif act_key is not None:
         raise ValueError("act_key without logits")
     elif env_offset:
@@ -851,22 +850,36 @@ def turbo_step(state: turbo.TurboState, action: torch.Tensor, config: EngineConf
     return result
 
 
-def turbo_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet) -> turbo.TurboState:
-    """Launch ``turbo_init``: fresh episodes from per-env keys ``uint32[B, 2]``."""
+def turbo_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet,
+               key_rows: bool = False) -> turbo.TurboState:
+    """Launch ``turbo_init``: fresh episodes from per-env keys ``uint32[B,
+    2]``, or with ``key_rows`` from the state's layout ``uint32[2, B]``
+    (``TurboState.key``), read where it lies.
+
+    The kernel reads an env's ``[B, 2]`` key as one 8-byte word (a copy is
+    made of keys that do not start on an 8-byte boundary); a copy is made
+    of keys that are not contiguous."""
     device = keys.device
     t, _, box = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t)
-    if not keys.is_cuda or keys.dtype != torch.uint32 or keys.ndim != 2 or keys.shape[1] != 2:
-        raise ValueError(f"keys: want a CUDA uint32[B, 2] tensor, got {keys.dtype} {tuple(keys.shape)}")
+    want = "[2, B]" if key_rows else "[B, 2]"
+    if not keys.is_cuda or keys.dtype != torch.uint32 or keys.ndim != 2 \
+            or keys.shape[0 if key_rows else 1] != 2:
+        raise ValueError(f"keys: want a CUDA uint32{want} tensor, got {keys.dtype} "
+                         f"{tuple(keys.shape)} on {keys.device}")
     keys = keys.contiguous()
-    B = keys.shape[0]
+    if not key_rows and keys.data_ptr() % 8:
+        keys = keys.clone()
+    B = keys.shape[1 if key_rows else 0]
+    if config.padded_height * turbo.n_words(config) * B >= 2**31:
+        raise ValueError(f"turbo_init: {B} envs' rows pass the kernel's 31-bit word index")
     out = _empty_state(config, t.n_pieces, B, device)
     if B == 0:
         return out
     out_p = _ptrs(out)
     rc = _lib("turbo_step", defines).turbo_init_launch(
         keys.data_ptr(), ctypes.byref(out_p), box.data_ptr(), B,
-        int(config.queue_kind == "uniform"), _stream(device),
+        int(config.queue_kind == "uniform"), int(key_rows), _stream(device),
     )
     _check(rc, "turbo_init")
     LAUNCHES["turbo_init"] += 1
@@ -1554,11 +1567,31 @@ def flagship_step_lanes(B: int, padded_height: int) -> int:
     return 8 if B >= FLAGSHIP_EIGHT_LANES_FROM_B and padded_height > 16 else 16
 
 
+def _sample_args(logits, act_key, env_offset: int, B: int, device):
+    """The host side of a step's sampling build: the checked ``act_key`` as
+    ``uint32[2]``, after the checks of the counters and of ``logits``."""
+    if act_key is None:
+        raise ValueError("logits need act_key")
+    key = np.asarray(act_key, dtype=np.uint32)
+    if key.shape != (2,):
+        raise ValueError(f"act_key: want a uint32[2] key, got shape {key.shape}")
+    _check_counters(env_offset, B, 8)
+    _check_tensor(logits, "logits", torch.float32, (B, 8), device)
+    return key
+
+
 def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: PieceSet,
-                  rewards: RewardsMapping, lanes: int = None):
+                  rewards: RewardsMapping, lanes: int = None, logits: torch.Tensor = None,
+                  act_key=None, env_offset: int = 0):
     """Launch ``flagship_step``: returns ``(new_state, reward f32[B], done bool[B], lines int32[B])``.
 
-    The new state is in new buffers; ``state`` is left as it was.  ``lanes``
+    The new state is in new buffers; ``state`` is left as it was.  With
+    ``logits`` (``f32[B, 8]``) and ``act_key`` (the step's ``uint32[2]`` key
+    on the host), the launch samples each env's action as
+    :func:`sample_actions` does and steps with it: ``action`` is ignored
+    (pass None) and ``(action int32[B], log_prob f32[B])`` are returned
+    after ``lines``; ``env_offset`` is the global index of env 0 (a rank's
+    first env), so env ``b`` draws at the global env's counters.  ``lanes``
     (one of ``FLAGSHIP_LANES``) overrides :func:`flagship_step_lanes`' choice.
     """
     if lanes is not None and lanes not in FLAGSHIP_LANES:
@@ -1566,31 +1599,47 @@ def flagship_step(state, action: torch.Tensor, config: EngineConfig, pieces: Pie
     device = state.board.device
     t, packed, box = turbo.tables_for(pieces, device)
     defines = engine_defines(config, t, flagship=True)
-    B = _check_flagship_state(state, config, t.n_pieces, device, engine.FIELDS)
-    if not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
+    B = state.piece.shape[0]
+    sample = logits is not None
+    if sample:
+        key = _sample_args(logits, act_key, env_offset, B, device)
+    elif act_key is not None:
+        raise ValueError("act_key without logits")
+    elif env_offset:
+        raise ValueError("env_offset without logits")
+    _check_flagship_state(state, config, t.n_pieces, device, engine.FIELDS)
+    if sample:
+        action = torch.empty((B,), dtype=torch.int32, device=device)
+        log_prob = torch.empty((B,), dtype=torch.float32, device=device)
+    elif not action.is_cuda or action.dtype != torch.int32 or tuple(action.shape) != (B,) \
             or not action.is_contiguous() or action.device != device:
         raise ValueError(f"action: want a contiguous int32[{B}] tensor on {device}")
     out = _empty_flagship_state(config, t.n_pieces, B, device)
     reward = torch.empty((B,), dtype=torch.float32, device=device)
     done = torch.empty((B,), dtype=torch.bool, device=device)
     lines = torch.empty((B,), dtype=torch.int32, device=device)
+    result = (out, reward, done, lines) + ((action, log_prob) if sample else ())
     if B == 0:
-        return out, reward, done, lines
+        return result
     params = _FlagshipParams(
         int(config.gravity_enabled), int(config.auto_reset), int(config.queue_kind == "uniform"),
         float(np.float32(rewards.alife)), float(np.float32(rewards.game_over)),
     )
     in_p, out_p = _flagship_ptrs(state), _flagship_ptrs(out)
+    smp = _SampleArgs(logits.data_ptr(), action.data_ptr(), log_prob.data_ptr(), int(key[0]),
+                      int(key[1]), int(env_offset)) if sample else None
     rc = _lib("flagship_step", defines).flagship_step_launch(
         ctypes.byref(in_p), ctypes.byref(out_p), action.data_ptr(), reward.data_ptr(),
         done.data_ptr(), lines.data_ptr(), packed.data_ptr(), box.data_ptr(),
         _ids_for(pieces, device).data_ptr(), B,
         flagship_step_lanes(B, config.padded_height) if lanes is None else lanes,
-        ctypes.byref(params), _stream(device),
+        ctypes.byref(params), None if smp is None else ctypes.byref(smp), _stream(device),
     )
     _check(rc, "flagship_step")
     LAUNCHES["flagship_step"] += 1
-    return out, reward, done, lines
+    if sample:
+        LAUNCHES["flagship_step_sample"] += 1
+    return result
 
 
 def flagship_init(keys: torch.Tensor, config: EngineConfig, pieces: PieceSet):
@@ -1645,12 +1694,21 @@ def flagship_observe_board(state, config: EngineConfig, pieces: PieceSet) -> tor
 
 
 def _shape_of(source: str, fn: str, keys: tuple, config: EngineConfig, pieces: PieceSet,
-              B: int) -> dict:
+              B: int, flagship: bool = True) -> dict:
     """``{keys[i]: out[i]}`` of the C function ``fn(B, out)`` of ``source``'s build at ``config``."""
-    defines = engine_defines(config, turbo.tables_for(pieces, "cpu")[0], flagship=True)
+    defines = engine_defines(config, turbo.tables_for(pieces, "cpu")[0], flagship=flagship)
     vals = (ctypes.c_int * len(keys))()
     _check(getattr(_lib(source, defines), fn)(B, ctypes.addressof(vals)), fn)
     return dict(zip(keys, list(vals)))
+
+
+def turbo_init_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:
+    """The shape of ``turbo_init``'s launch for a batch of B at ``config``:
+    envs a block (128, or where B gives the card's SMs fewer each, as many
+    as give every SM a block, rounded up to whole warps) and threads a
+    block, the warps past the envs' streaming the rows; needs a card."""
+    return _shape_of("turbo_step", "turbo_init_shape", ("envs_per_block", "threads_per_block"),
+                     config, pieces, B, flagship=False)
 
 
 def flagship_init_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:

@@ -13,11 +13,12 @@ work on the card without waiting for it:
   policy network (PyTorch operators), then on the turbo engine one
   ``turbo_step`` launch that samples the action and its log-prob from the
   logits, steps with auto-reset and writes the board observation
-  (:func:`turbo_sample_step`); on the flagship engine the ``ppo_sample``
-  kernel, then ``flagship_step`` and ``flagship_observe_board`` (or
-  ``render_rgb84`` for 84x84 frames; :func:`sample_step_fn` picks the
-  route); with ``frame_stack`` K > 1 then the ``framestack_push`` kernel
-  (the policy reads ``[B, K, H, W]`` windows);
+  (:func:`turbo_sample_step`); on the flagship engine one ``flagship_step``
+  launch that samples the action and steps, then ``flagship_observe_board``
+  (or ``render_rgb84`` for 84x84 frames; :func:`flagship_sample_step`;
+  :func:`sample_step_fn` picks the route); with ``frame_stack`` K > 1 then
+  the ``framestack_push`` kernel (the policy reads ``[B, K, H, W]``
+  windows);
 * GAE is the ``gae`` kernel, one launch per train step;
 * the update is ``update_epochs`` passes over block-shuffled minibatches:
   the loss, its backward pass and Adam are PyTorch operators, as the JAX
@@ -47,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
-from tetris_gymnasium_torch.core import turbo
+from tetris_gymnasium_torch.core import engine, turbo
 from tetris_gymnasium_torch.models.convert import from_flax_params
 from tetris_gymnasium_torch.models.init import init_actor_critic_
 from tetris_gymnasium_torch.models.networks import ActorCriticCNN, AtariActorCritic
@@ -335,10 +336,42 @@ def turbo_sample_step(state: turbo.TurboState, logits: torch.Tensor, act_key,
     return stepped, obs, reward, done, info, action, log_prob
 
 
+def flagship_sample_step(state: engine.EngineState, logits: torch.Tensor, act_key,
+                         config: EngineConfig, obs: str = "board",
+                         rewards: RewardsMapping = engine.REWARDS, env_offset: int = 0):
+    """The flagship engine's rollout step: sample each env's action from
+    ``logits`` ``f32[B, 8]`` with the step's ``uint32[2]`` key ``act_key``
+    (as :func:`sample_actions`, env ``b`` being global env ``env_offset +
+    b``), step with it and observe (``obs`` ``"board"``, or ``"rgb84"`` for
+    the 84x84 gray frame).
+
+    Returns what :func:`turbo_sample_step` returns.  On CUDA tensors it is
+    one ``flagship_step`` launch that samples and steps, then the
+    observation's launch (``flagship_observe_board`` or ``render_rgb84``);
+    on CPU tensors it is :func:`sample_actions_plain`, ``engine.step_plain``
+    and the observation's plain version in turn.
+    """
+    if state.board.is_cuda:
+        from tetris_gymnasium_torch import kernels
+
+        stepped, reward, done, lines, action, log_prob = kernels.flagship_step(
+            state, None, config, engine.PIECES, rewards, logits=logits, act_key=act_key,
+            env_offset=env_offset)
+    else:
+        action, log_prob = sample_actions_plain(logits, act_key, env_offset)
+        stepped, reward, done, lines = engine.step_plain(state, action, config, engine.PIECES,
+                                                         rewards)
+    raw = (engine.render_rgb84 if obs == "rgb84" else engine.observe_board)(stepped, config)
+    info = {"lines_cleared": lines, "score": stepped.score, "steps": stepped.steps}
+    return stepped, raw, reward, done, info, action, log_prob
+
+
 def composed_sample_step(env_step: Callable, observe: Callable, env_offset: int = 0) -> Callable:
     """A rollout step of :func:`sample_actions`, then ``env_step`` (from
     ``rl.engines.env_fns``), then ``observe`` where the step gave no
-    observation; it returns what :func:`turbo_sample_step` returns."""
+    observation, in a launch each; it returns what
+    :func:`turbo_sample_step` returns.  No route takes it: it is the
+    composition that the fused routes are held to."""
 
     def sample_step(state, logits, act_key):
         action, log_prob = sample_actions(logits, act_key, env_offset)
@@ -353,18 +386,19 @@ def sample_step_fn(env_config: EngineConfig, impl: str = "turbo",
                    rewards: Optional[RewardsMapping] = None, obs: str = "board",
                    env_offset: int = 0) -> Callable:
     """The rollout step ``sample_step(state, logits, act_key) -> (state,
-    obs, reward, done, info, action, log_prob)`` of an engine route: one
-    call of :func:`turbo_sample_step` on the turbo engine with the board
-    observation, :func:`composed_sample_step` on every other route.  It
+    obs, reward, done, info, action, log_prob)`` of an engine route:
+    :func:`turbo_sample_step` on the turbo engine (board observations),
+    :func:`flagship_sample_step` on the flagship engine (board or 84x84
+    frames); on the card each samples the action in its step's launch.  It
     runs where the state lies; ``env_offset`` is the global index of the
     batch's env 0 (a rank's first env), where the sampling counters start."""
+    env_fns(env_config, impl, rewards, obs=obs, device="cpu")  # refuses an unknown route
     rkw = {} if rewards is None else {"rewards": rewards}
-    if impl == "turbo" and obs == "board":
+    if impl == "turbo":
         return functools.partial(turbo_sample_step, config=env_config, env_offset=env_offset,
                                  **rkw)
-    # step and observe run where the state lies; the device only binds init
-    _, env_step, observe = env_fns(env_config, impl, rewards, obs=obs, device="cpu")
-    return composed_sample_step(env_step, observe, env_offset)
+    return functools.partial(flagship_sample_step, config=env_config, obs=obs,
+                             env_offset=env_offset, **rkw)
 
 
 # ---------------------------------------------------------------------------

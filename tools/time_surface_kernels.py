@@ -6,7 +6,7 @@ port found under ``--repo``:
 
     python tools/time_surface_kernels.py [--repo DIR] [--label NAME] [--ptxas]
                                          [--batches 512,2048,65536] [--ablate]
-                                         [--kernels surface|obs|init]
+                                         [--kernels surface|obs|init|sample]
 
 ``--kernels surface`` (the default): ``grouped_flagship`` features at B =
 4096 (``chip_smoke.py`` phase 30), ``grouped_placements`` features at B =
@@ -43,6 +43,17 @@ the state written once).  ``--ptxas`` builds ``flagship_step.cu`` at
 30x20 (``INIT_ABLATE_WIDE_B``) beside patched copies of the tree's source
 (``INIT_ABLATIONS``: one list for each design, taken by which the tree
 holds).
+
+``--kernels sample``: PPO's rollout step on the flagship engine at
+``SAMPLE_SHAPES`` (10x20 at B = 512, 2048 (pixel PPO's batch), 8192 and
+65536; 30x20 at 4096): ``flagship_step``'s sampling build (the action
+sampled from logits ``f32[B, 8]`` in the step's launch) as the wrapper
+takes it and each lanes build, beside the two launches it replaces
+(``ppo_sample``, then ``flagship_step``, in one graph), ``ppo_sample``
+alone and ``flagship_step`` without the sample (as the wrapper takes it and
+each lanes build), each beside its bound (the sample's 40 bytes an env more
+than the step's).  ``--ptxas`` builds ``flagship_step.cu`` at
+``OBS_PTXAS`` first.
 
 Each time is taken on mid-game states (40 random steps from a reset), as the
 median over 7 replays of a CUDA graph of 100 launches (10 at 65536).  What
@@ -229,6 +240,8 @@ INIT_ABLATIONS = {
                                           "  if (B > 0) return;\n  extern __shared__ int32_t tiles[];  // 32 * kRowInts words a warp\n")]),
     ],
 }
+# --kernels sample: the shapes (geometry, B)
+SAMPLE_SHAPES = [("10x20", 512), ("10x20", 2048), ("10x20", 8192), ("10x20", 65536), ("30x20", 4096)]
 # which kernels a patched source changes
 _ABLATED_KERNELS = {"observe_dict": ("observe_dict",),
                     "flagship_step": ("flagship_step", "flagship_observe_board", "flagship_init"),
@@ -350,6 +363,51 @@ def init_main(args, repo, kernels, geos, P, defines, smi, builds) -> None:
           flush=True)
 
 
+def sample_main(args, repo, kernels, geos, P, rw, smi, builds, states) -> None:
+    """``--kernels sample``: the flagship sampling step's device ms at
+    ``SAMPLE_SHAPES`` beside the pair it replaces, ``ppo_sample`` and the
+    step without the sample."""
+    import inspect
+
+    from chip_smoke import _flagship_actions, device_ms, nbytes
+    from tetris_gymnasium_torch.core import engine
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    sampled = "logits" in inspect.signature(kernels.flagship_step).parameters
+    lanes_builds = getattr(kernels, "FLAGSHIP_LANES", ())
+    key = prng_key(7)
+    out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
+    for name, B in SAMPLE_SHAPES:
+        c = geos[name]
+        n = 10 if B >= 65536 else 100
+        s = states(B, c)
+        a = _flagship_actions(B, g, dev)
+        x = torch.randn((B, 8), generator=g, device=dev) * 3
+        step_bytes = 2 * nbytes(*(getattr(s, k) for k in engine.FIELDS)) + nbytes(a) + B * (4 + 1 + 4)
+        tag = f"{name}@{B}"
+        out[f"ppo_sample@{tag}"] = device_ms(lambda: kernels.sample_actions(x, key), n)
+        out[f"ppo_sample_then_flagship_step@{tag}"] = device_ms(
+            lambda: kernels.flagship_step(s, kernels.sample_actions(x, key)[0], c, P, rw), n)
+        out[f"flagship_step@{tag}"] = device_ms(lambda: kernels.flagship_step(s, a, c, P, rw), n)
+        for L in lanes_builds:
+            out[f"flagship_step_lanes{L}@{tag}"] = device_ms(
+                lambda: kernels.flagship_step(s, a, c, P, rw, lanes=L), n)
+        if sampled:
+            out[f"sample_step@{tag}"] = device_ms(
+                lambda: kernels.flagship_step(s, None, c, P, rw, logits=x, act_key=key), n)
+            for L in lanes_builds:
+                out[f"sample_step_lanes{L}@{tag}"] = device_ms(
+                    lambda: kernels.flagship_step(s, None, c, P, rw, lanes=L, logits=x, act_key=key), n)
+        out[f"step_bound@{tag}"] = 1e3 * step_bytes / 3.35e12
+        out[f"sample_step_bound@{tag}"] = 1e3 * (step_bytes - nbytes(a) + nbytes(x) + 8 * B) / 3.35e12
+        del s, a, x
+    print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "flagship_lanes": list(lanes_builds),
+                      "builds": builds, "ms": out}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=HERE)
@@ -358,7 +416,7 @@ def main() -> None:
     ap.add_argument("--batches", default="512,2048,65536",
                     help="B of the two pixel kernels at 10x20")
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--kernels", choices=("surface", "obs", "init"), default="surface")
+    ap.add_argument("--kernels", choices=("surface", "obs", "init", "sample"), default="surface")
     args = ap.parse_args()
     pixel_b = tuple(int(x) for x in args.batches.split(","))
     if not torch.cuda.is_available():
@@ -389,14 +447,18 @@ def main() -> None:
     builds = {}
     if args.ptxas:
         names, sources = {"obs": (OBS_PTXAS, ("observe_dict", "flagship_step")),
-                          "init": (OBS_PTXAS, ("flagship_step",))}.get(
+                          "init": (OBS_PTXAS, ("flagship_step",)),
+                          "sample": (OBS_PTXAS, ("flagship_step",))}.get(
             args.kernels, (("10x20", "30x20", "61x12"), ("render_rgb84", "flagship_step")))
         builds = build_facts(kernels, [(n, src, defines(n)) for n in names for src in sources])
     if args.kernels == "init":
         build_facts(kernels, [(n, "flagship_step", defines(n)) for n in geos])
         init_main(args, repo, kernels, geos, P, defines, smi, builds)
         return
-    if args.kernels == "obs":
+    if args.kernels == "sample":
+        build_facts(kernels, [(n, "flagship_step", defines(n)) for n in ("10x20", "30x20")]
+                    + [("any", "ppo_sample", ())])
+    elif args.kernels == "obs":
         build_facts(kernels, [(n, src, defines(n)) for n in ("10x20", "30x20", "61x12")
                               for src in ("observe_dict", "flagship_step")])
     else:
@@ -414,6 +476,9 @@ def main() -> None:
             s = kernels.flagship_step(s, _flagship_actions(B, g, dev), c, P, rw)[0]
         return s
 
+    if args.kernels == "sample":
+        sample_main(args, repo, kernels, geos, P, rw, smi, builds, flagship_states)
+        return
     if args.kernels == "obs":
         def time_obs(case):
             kind, c, s = case
