@@ -216,8 +216,12 @@ Phases, each printing one JSON line:
 
 26. The Gymnasium surface's kernels against their plain versions, bit for
     bit: ``grouped_flagship`` (ids, boards, features under all 16 flag
-    sets), ``feature_vector``, ``observe_dict`` and ``compose_rgb`` (grouped
-    rgb with ids outside the palette too) on 300-step flagship trajectories
+    sets), ``feature_vector`` (the wrapper's build at every state, each
+    build forced, words and bytes, every 25th and on the stacks, and an
+    unpadded crop whose storage ends inside a word), ``observe_dict`` and
+    ``compose_rgb`` (grouped rgb, ``group`` 40, with ids outside the
+    palette too; each run length forced every 25th state and on the
+    stacks) on 300-step flagship trajectories
     (B = 4096, 1001, 1) and hand-built stacks with a full holder;
     ``render_rgb84`` still bit-equal; the flagship grouped engine at 4096
     envs equal to the turbo grouped engine through ``turbo.from_flagship``
@@ -227,8 +231,11 @@ Phases, each printing one JSON line:
     obs, reward, termination, ``lines_cleared``, ``render("rgb_array")`` and
     the ansi render equal at every step; ``GroupedActionsObservations`` over
     ``Tetris`` in the features, boards, rgb and host modes (and features
-    without termination), legal and illegal actions, card against CPU; exact
-    launch counts a step.
+    without termination), legal and illegal actions, and
+    ``RgbObservation`` and ``FeatureVectorObservation``, card against CPU;
+    exact launch counts a step, ``feature_vector``'s and ``compose_rgb``'s
+    by batch (B = 1 and the 40 candidates), each run a path of the kernels
+    line.
 28. The batched flagship grouped engine at 4096 envs, 32 steps of random
     legal placements in features and boards mode: placements/s, exact
     launch counts, the step's parts with CUDA events; ``grouped_flagship``
@@ -241,7 +248,9 @@ Phases, each printing one JSON line:
 30. The new kernels' device ms at B = 1, 4096 and 65536 (``grouped_flagship``
     in its three modes, held to its plain version on the timed state first,
     its operations counted from the launch's own lines) beside their bounds
-    and plain versions, and one shell step's host ms at B = 1.
+    and plain versions, ``feature_vector`` and ``compose_rgb`` at the
+    grouped wrapper's 40 candidates too, ``compose_rgb`` beside its
+    yardstick, and one shell step's host ms at B = 1.
 
 31. The engine kernels at other geometries (``wide_geometries``: 30x20 with
     and without gravity, 61x12 with a queue of 3, 28x14 with bit 31 of word
@@ -274,7 +283,8 @@ Phases, each printing one JSON line:
     longer than the queue (queue 1, holder 2), each built for it in phase
     2: ``observe_dict`` (and its strips), ``compose_rgb``, ``render_rgb84``
     (wherever JAX's resize takes the composite: at all of them) and
-    ``feature_vector`` bit-equal to their plain versions on 200-step
+    ``feature_vector`` (both builds under all 16 flag sets on the first
+    state) bit-equal to their plain versions on 200-step
     flagship trajectories at B = 1001 and 1, ``grouped_flagship`` (ids,
     boards, features) and ``grouped_placements`` (features, boards) on every
     25th state and on hand-built stacks with up to six full rows; every
@@ -295,7 +305,9 @@ Phases, each printing one JSON line:
 39. The six surface kernels' device ms at 30x20 and 61x12, B = 4096 and
     65536 (the board modes at 4096; ``grouped_flagship``'s ids mode at both),
     beside their bounds and plain versions, ``grouped_flagship`` held to its
-    plain version on each timed state first.
+    plain version on each timed state first; ``feature_vector`` and
+    ``compose_rgb`` at 30x20's B = 1 and 120 (the observation wrappers' own
+    batches there).
 
 40. ``grayscale_u8_exact`` bit-equal to its plain version over all 2**24
     RGB triples and on a random ``[512, 84, 84, 3]`` batch; the triples
@@ -423,7 +435,12 @@ with the observation, as the paths take it, with its sampling builds' and
 the first path that runs it: the pixel DQN, else the flagship board
 evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped DQN,
 else PPO, else pixel PPO, else the grouped engine, else
-the shell, else the compat rollout; times at the shape of that path;
+the shell, else each mode of its grouped wrapper, else each observation
+wrapper, else the compat rollout; times at the shape of that path, a
+wrapper path's ``feature_vector`` and ``compose_rgb`` by batch in its
+``on_paths`` entry (B = 1 and the 40 or 120 candidates, phases 30 and 39);
+``compose_rgb``'s library time the yardstick ``palette_ext[id_image]``
+given the composed id image;
 ``heights``, ``fn_observe``, ``grayscale_u8_exact`` and ``ppo_sample``,
 which no path calls (every PPO route samples in its step's launch), with
 0 launches and their times at 30x20 and B = 4096, at B = 65536, over 2**24
@@ -1475,12 +1492,15 @@ def main() -> None:
     # that runs it (the pixel DQN, else the flagship engine's board
     # evaluation, else the K = 4 DQN, else the K = 1 DQN, else the grouped
     # DQN, else PPO, else pixel PPO, else the batched flagship grouped
-    # engine, else the Gymnasium shell and its grouped wrapper), its time at
-    # that path's shapes: the pixel DQN's 512 envs (7056-byte frames, 512
-    # samples of the 262,144-entry buffer), the evaluation's 512, the board
-    # DQN's 1024 envs with gravity (512 samples), the grouped step's 1024 envs
-    # without gravity (256 samples), the PPO step's B = 8192, the pixel PPO
-    # step's 2048, the grouped engine's 4096 envs (features), the shell's B = 1.
+    # engine, else the Gymnasium shell, else each mode of its grouped
+    # wrapper, else its observation wrappers), its time at that path's
+    # shapes: the pixel DQN's 512 envs (7056-byte frames, 512 samples of the
+    # 262,144-entry buffer), the evaluation's 512, the board DQN's 1024 envs
+    # with gravity (512 samples), the grouped step's 1024 envs without
+    # gravity (256 samples), the PPO step's B = 8192, the pixel PPO step's
+    # 2048, the grouped engine's 4096 envs (features), the shell's B = 1; a
+    # wrapper path's feature_vector and compose_rgb also by batch (B = 1 and
+    # the 40 or 120 candidates, on_paths' by_batch).
     # TetrisVectorEnv's paths (8192 envs, 10x20 and 30x20) give their kernels'
     # times too, so that each entry's on_paths counts their launches.
     pix_at = {name: pix_times[name][PIX_ENVS] for name in
@@ -1511,13 +1531,16 @@ def main() -> None:
               {**pix_ppo_times, "flagship_step": pix_ppo_times["flagship_step_sample"]}),
              ("grouped_engine", grouped_engine["launches"], grouped_engine["steps"],
               {"grouped_flagship": surface_times["grouped_flagship"][f"features@{GROUPED_ENGINE_B}"]}),
-             ("shell", shell["launches"], shell["steps"],
-              {k: surface_times[k][1] for k in ("observe_dict", "compose_rgb", "feature_vector")}),
+             # the Gymnasium shell, each grouped wrapper mode and each
+             # observation wrapper a path of its own (phases 27 and 37)
+             *_wrapper_paths(shell["runs"], "", {k: surface_times[k] for k in ("observe_dict", "compose_rgb",
+                                                                                 "feature_vector")}),
              ("vector_env", vector["launches"], vector["steps"],
               {k: wide_times["default"][k][VECTOR_B] for k in VECTOR_ENV_KERNELS}),
              ("vector_env_wide", wide_vector["launches"], wide_vector["steps"],
               {k: wide_times["30x20"][k][VECTOR_B] for k in VECTOR_ENV_KERNELS}),
-             ("shell_wide", wide_shell["launches"], wide_shell["steps"], {}),
+             *_wrapper_paths(wide_shell["runs"], "_wide",
+                             {k: surface_wide_times["30x20"][k] for k in ("compose_rgb", "feature_vector")}),
              ("grouped_engines_wide", wide_grouped["launches"], wide_grouped["steps"], {}),
              ("fn_rollout", fn_path["launches"], fn_path["steps"],
               {k: fn_times[k][FN_PATH_B] for k in ("fn_reset", "fn_step")}),
@@ -1567,7 +1590,8 @@ def main() -> None:
             # each path that runs the kernel and timed it: its launches a step
             # (the vector env's steps are both engines' runs) and ms a launch
             "on_paths": {p[0]: {"launches_per_step": p[1][name] / p[2], "ms": p[3][name].get("ms"),
-                                "bound_ms": p[3][name].get("bound_ms")}
+                                "bound_ms": p[3][name].get("bound_ms"),
+                                **({"by_batch": p[3][name]["by_batch"]} if "by_batch" in p[3][name] else {})}
                          for p in paths if p[0] != "none" and p[1][name] and isinstance(p[3].get(name), dict)},
             "max_abs_err": MAX_ERR[name], "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"], "bound_by": at[name].get("bound_by", "bytes"),
@@ -1601,6 +1625,29 @@ def main() -> None:
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def _wrapper_paths(runs, suffix, times) -> list:
+    """The kernels line's paths of :func:`check_shell`'s runs: each run's
+    launches and steps, and for each kernel that ``times`` holds by batch
+    (``{kernel: {B: entry}}``) its entry at the run's smallest batch, with
+    ``by_batch``: the run's launches a step, ms and bound at each batch it
+    launched (``feature_vector`` and ``compose_rgb``: B = 1 and the
+    candidates); ``observe_dict`` at B = 1."""
+    out = []
+    for r in runs:
+        at = {}
+        for kernel, by_b in times.items():
+            counts = {int(k.split("@")[1]): v for k, v in r["batches"].items() if k.split("@")[0] == kernel and v}
+            if kernel == "observe_dict" and r["launches"][kernel]:
+                counts = {1: r["launches"][kernel]}
+            if not counts or any(B not in by_b for B in counts):
+                continue
+            at[kernel] = {**by_b[min(counts)], "by_batch": {
+                B: {"launches_per_step": n / r["steps"], "ms": by_b[B]["ms"], "bound_ms": by_b[B]["bound_ms"]}
+                for B, n in sorted(counts.items())}}
+        out.append((r["path"] + suffix, r["launches"], r["steps"], at))
+    return out
 
 
 def check_ppo_kernels(dev) -> None:
@@ -3640,6 +3687,7 @@ SURFACE_B = (4096, 1001, 1)
 SURFACE_STEPS = 300
 SURFACE_GROUPED_EVERY = 10  # grouped_flagship against its plain version every 10th state
 SURFACE_FLAGS_EVERY = 50  # and under all 16 flag sets every 50th
+SURFACE_FORCED_EVERY = 25  # feature_vector's and compose_rgb's forced builds every 25th
 SURFACE_TURBO_STEPS = 100  # flagship grouped against turbo grouped at B = 4096
 SHELL_EPISODES, SHELL_MAX_STEPS = 20, 300
 SHELL_ACTIONS = (-1, 8, 11) + tuple(range(8))  # out-of-range ids are no-ops with gravity
@@ -3653,6 +3701,7 @@ VECTOR_ENV_KERNELS = ("turbo_init", "turbo_step", "observe_board", "flagship_ini
 VECTOR_CHECK_STEPS = 16  # against the CPU; hard drops end episodes from step ~10, so final_obs is checked
 VECTOR_DROP_P = (0.02, 0.02, 0.02, 0.02, 0.02, 0.86, 0.02, 0.02)
 SURFACE_TIME_B = (1, 4096, 65536)
+SURFACE_CANDIDATES = 40  # the grouped wrapper's candidates at 10x20 (phase 30 times its kernels there)
 SURFACE_PLAIN_MAX_B = 4096  # the plain versions' batch; larger B scaled from it
 SHELL_TIMED_STEPS = 200
 # 32-bit operations the functions need (grouped_flagship's:
@@ -3681,6 +3730,88 @@ def _grouped_features_plain(boards, flags):
         .reshape(B, A, -1).to(torch.float32)
 
 
+def compose_library_ms(board, queue, holder, group, pieces, n) -> float:
+    """``compose_rgb``'s yardstick: one indexing call, ``palette_ext[ids]``,
+    given the composed int64 id image (the board, the strips widened with
+    bedrock, bedrock between) and the palette with black past its colours.
+    Timed only; the port never calls it."""
+    if group != 1:
+        queue, holder = queue.repeat_interleave(group, 0), holder.repeat_interleave(group, 0)
+    S, side = queue.shape[1], max(queue.shape[2], holder.shape[2])
+    N, H = board.shape[:2]
+    sidebar = torch.ones((N, H, side), dtype=torch.uint8, device=board.device)
+    sidebar[:, :S, : queue.shape[2]] = queue
+    sidebar[:, H - S:, : holder.shape[2]] = holder
+    ids = torch.cat([board, sidebar], dim=2).long()
+    pal = torch.zeros((256, 3), dtype=torch.uint8, device=board.device)
+    pal[: pieces.palette.shape[0]] = torch.as_tensor(pieces.palette, device=board.device)
+    return device_ms(lambda: pal[ids], n)
+
+
+def feature_builds_diff(crop, flags, want, what, forced=True) -> None:
+    """``feature_vector`` against ``want`` as the wrapper picks its build,
+    and with ``forced`` in each build: the words build where the rows'
+    words lie inside the storage, the bytes build."""
+    from tetris_gymnasium_torch import kernels
+
+    builds = ((True, False) if kernels._feature_words(crop) else (False,)) if forced else ()
+    for words in (None, *builds):
+        with kernels._forced("feature_vector", words):
+            got = kernels.feature_vector(crop, flags)
+        diff("feature_vector", got, want, f"{what} words={words}")
+
+
+def compose_builds_diff(board, queue, holder, pieces, group, want, what, forced=True) -> None:
+    """``compose_rgb`` against ``want`` as the wrapper picks its run
+    length, and with ``forced`` at each (16 pixels a lane, 1)."""
+    from tetris_gymnasium_torch import kernels
+
+    for run in (None, 16, 1) if forced else (None,):
+        with kernels._forced("compose_rgb", run):
+            got = kernels.compose_rgb(board, queue, holder, pieces, group)
+        diff("compose_rgb", got, want, f"{what} run={run}")
+
+
+def wrapper_kernel_times(dev, cfg, P, batches, seed) -> dict:
+    """``feature_vector`` and ``compose_rgb`` at the observation wrappers'
+    own batches: B = 1 (the env's board) and A (the grouped wrapper's
+    candidates: the host mode's boards, the rgb mode's composites with
+    ``group`` = A and one env's strips), on mid-game boards, beside their
+    plain versions, bounds and (``compose_rgb``) its yardstick."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.config import RewardsMapping
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags, compose_rgb_plain, feature_vector_plain
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    flags, pad = FeatureFlags(), cfg.padding
+    H, PW, W, h = cfg.padded_height, cfg.padded_width, cfg.width, cfg.height
+    out = {"feature_vector": {}, "compose_rgb": {}}
+    for B in batches:
+        s = kernels.flagship_init(batch_keys(prng_key(seed + B), B, device=dev), cfg, P)
+        for _ in range(40):
+            s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P, RewardsMapping())[0]
+        d = kernels.observe_dict(s, cfg, P)
+        group = 1 if B == 1 else B
+        q, hd = d["queue"][: B // group].contiguous(), d["holder"][: B // group].contiguous()
+        crop = s.board[:, :-pad, pad:-pad]
+        iw = PW + max(q.shape[2], hd.shape[2])
+        fv = timed_pair(lambda: kernels.feature_vector(crop, flags), lambda: feature_vector_plain(crop, flags),
+                        100, 10, B * (h * W + 4 * (W + 3)), B * (h * (3 * W + 15) + 6 * W))
+        fv.update(library_ms=None, launch=kernels.feature_vector_shape(h, W, B))
+        cr = timed_pair(lambda: kernels.compose_rgb(d["board"], q, hd, P, group),
+                        lambda: compose_rgb_plain(d["board"], q, hd, P, group), 100, 10,
+                        B * (H * PW + 3 * H * iw) + nbytes(q, hd), B * H * iw * COMPOSE_OPS_PER_PIXEL)
+        cr.update(library_ms=compose_library_ms(d["board"], q, hd, group, P, 100), group=group,
+                  library_call="palette_ext[id_image], given the composed int64 id image",
+                  launch=kernels.compose_rgb_shape(cfg, P, B))
+        out["feature_vector"][B], out["compose_rgb"][B] = fv, cr
+        del s, d, crop
+    return out
+
+
 def check_surface_kernels(dev) -> dict:
     """Phase 26: ``grouped_flagship`` (ids, boards, features), ``feature_vector``,
     ``observe_dict`` and ``compose_rgb`` against their plain versions, bit
@@ -3702,13 +3833,13 @@ def check_surface_kernels(dev) -> dict:
     checked = {"grouped_flagship": 0, "feature_vector": 0, "observe_dict": 0, "compose_rgb": 0,
                "render_rgb84": 0}
 
-    def check_state(s, what, grouped_too, all_flags):
+    def check_state(s, what, grouped_too, all_flags, forced):
         d = kernels.observe_dict(s, cfg, P)
         dp = engine.observe_dict_plain(s, cfg)
         for k in dp:
             diff("observe_dict", d[k], dp[k], f"{what} {k}")
-        diff("compose_rgb", kernels.compose_rgb(d["board"], d["queue"], d["holder"], P),
-             compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), f"{what} rgb")
+        compose_builds_diff(d["board"], d["queue"], d["holder"], P, 1,
+                            compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), f"{what} rgb", forced)
         diff("render_rgb84", kernels.render_rgb84(s, cfg, P), engine.render_rgb84_plain(s, cfg),
              f"{what} rgb84")
         strips = kernels.observe_dict(s, cfg, P, strips_only=True)
@@ -3718,8 +3849,8 @@ def check_surface_kernels(dev) -> dict:
             diff("observe_dict", strips[k], dp[k], f"{what} strips_only {k}")
         crop = s.board[:, :20, 4:14]
         for flags in (FLAG_SETS if all_flags else (tuple(FeatureFlags()),)):
-            diff("feature_vector", kernels.feature_vector(crop, FeatureFlags(*flags)),
-                 feature_vector_plain(crop, FeatureFlags(*flags)), f"{what} features {flags}")
+            feature_builds_diff(crop, FeatureFlags(*flags), feature_vector_plain(crop, FeatureFlags(*flags)),
+                                f"{what} features {flags}", forced)
         checked.update({k: checked[k] + 1 for k in ("observe_dict", "compose_rgb", "render_rgb84",
                                                     "feature_vector")})
         if not grouped_too:
@@ -3734,9 +3865,12 @@ def check_surface_kernels(dev) -> dict:
                  _grouped_features_plain(want[0], FeatureFlags(*flags)), f"{what} features {flags}")
         B, A = want[1].shape
         rgb = grouped.grouped_observation(s, cfg, mode="rgb")[0]  # ids, observe_dict, compose_rgb
-        diff("compose_rgb", rgb, compose_rgb_plain(want[0].view(torch.uint8).reshape(B * A, 24, 18),
-                                                   dp["queue"], dp["holder"], P, A).reshape(rgb.shape),
-             f"{what} grouped rgb")
+        grouped_rgb = compose_rgb_plain(want[0].view(torch.uint8).reshape(B * A, 24, 18), dp["queue"],
+                                        dp["holder"], P, A)
+        diff("compose_rgb", rgb, grouped_rgb.reshape(rgb.shape), f"{what} grouped rgb")
+        if forced:
+            compose_builds_diff(want[0].view(torch.uint8).reshape(B * A, 24, 18).contiguous(), d["queue"],
+                                d["holder"], P, A, grouped_rgb, f"{what} grouped rgb")
         checked["grouped_flagship"] += 1
         return want
 
@@ -3747,7 +3881,7 @@ def check_surface_kernels(dev) -> dict:
         n_done = 0
         for i in range(SURFACE_STEPS + 1):
             want = check_state(s, f"B={B} @ {i}", i % SURFACE_GROUPED_EVERY == 0,
-                               i % SURFACE_FLAGS_EVERY == 0)
+                               i % SURFACE_FLAGS_EVERY == 0, i % SURFACE_FORCED_EVERY == 0)
             if want is not None:
                 n_illegal += int((want[1] == 0).sum())
                 n_over += int(want[2].sum())
@@ -3767,7 +3901,12 @@ def check_surface_kernels(dev) -> dict:
     s = s.replace(board=board,
                   holder_count=torch.randint(0, 2, (4096,), generator=g, device=dev, dtype=torch.int32),
                   holder_piece=torch.randint(0, 7, (4096, 1), generator=g, device=dev, dtype=torch.int32))
-    want = check_state(s, "surgery", True, True)
+    want = check_state(s, "surgery", True, True, True)
+    play = s.board[:1001, :20, 4:14].contiguous()  # 1001 x 200 bytes end inside a 16-byte word
+    if kernels._feature_words(play):
+        raise AssertionError("an unpadded crop of 1001 envs took the words build")
+    diff("feature_vector", kernels.feature_vector(play, FeatureFlags()), feature_vector_plain(play),
+         "surgery unpadded crop")
     if int(want[3].max()) < 2 or not bool(want[2].any()) or not bool((want[1] == 0).any()):
         raise AssertionError("the hand-built stacks made no multi-line, game-over or illegal candidate")
     if n_illegal == 0 or n_over == 0:
@@ -3817,8 +3956,11 @@ def _eq_obs(a, b, what):
             raise AssertionError(f"{what}: {k} differs between card and CPU")
 
 
-def _wrapper_launches(mode, terminate, legal):
-    """Launches of one grouped wrapper step (``legal`` None: its reset)."""
+def _wrapper_launches(mode, terminate, legal, A):
+    """Launches of one grouped wrapper step (``legal`` None: its reset),
+    and of ``feature_vector`` and ``compose_rgb`` by batch (``"name@B"``):
+    the env's own observation at B = 1, the ``A`` candidates' at B = A (the
+    rgb mode's composites with ``group`` = A)."""
     out = {}
 
     def add(**kw):
@@ -3831,16 +3973,16 @@ def _wrapper_launches(mode, terminate, legal):
     else:
         add(flagship_step=1 if terminate else 2, grouped_flagship=1)
     if mode == "rgb":
-        add(observe_dict=1, compose_rgb=1)
+        add(observe_dict=1, compose_rgb=1, **{f"compose_rgb@{A}": 1})
     if legal is None or legal:
         if legal:
             add(observe_dict=1)
         if info_fn:
-            add(**{info_fn: 1})
+            add(**{info_fn: 1, f"{info_fn}@1": 1})
     if mode == "host" and (legal is None or legal or not terminate):
         if legal is False:
             add(observe_dict=1)
-        add(feature_vector=1)  # the 40 candidates' boards in one call
+        add(feature_vector=1, **{f"feature_vector@{A}": 1})  # the A candidates' boards in one call
     return out
 
 
@@ -3848,12 +3990,13 @@ def check_shell(dev, geometry=None) -> dict:
     """Phase 27 (the default board) and 37 (``geometry``, the keywords of
     ``Tetris``' width and height): ``Tetris(device="cuda")`` against
     ``Tetris(device="cpu")`` over 20 seeded episodes of random actions
-    (out-of-range ids included), and ``GroupedActionsObservations`` over
-    ``Tetris`` in the features, boards, rgb and host modes, card against
-    CPU, with exact launch counts a step.  With ``geometry``, also
-    ``RgbObservation`` and ``FeatureVectorObservation`` card against CPU
-    and one shell step's host ms.  Returns the launches of the card's runs
-    (the shell path)."""
+    (out-of-range ids included), ``GroupedActionsObservations`` over
+    ``Tetris`` in the features, boards, rgb and host modes, and
+    ``RgbObservation`` and ``FeatureVectorObservation``, card against CPU,
+    with exact launch counts a step, and one shell step's host ms.  Returns
+    the launches of the card's runs, all together and each run's
+    (``runs``: the shell, each wrapper mode, each observation wrapper,
+    with ``feature_vector``'s and ``compose_rgb``'s launches by batch)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.envs import Tetris
     from tetris_gymnasium_torch.wrappers import (FeatureVectorObservation, GroupedActionsObservations,
@@ -3887,18 +4030,21 @@ def check_shell(dev, geometry=None) -> dict:
                 ends += 1
                 break
     torch.cuda.synchronize()
-    shell_launches = dict(kernels.LAUNCHES)
+    shell_launches, shell_batches = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BY_BATCH)
     resets = SHELL_EPISODES
     want = {**{k: 0 for k in shell_launches}, "flagship_init": resets, "flagship_step": steps,
             "observe_dict": resets + 3 * steps, "compose_rgb": steps}
-    if shell_launches != want:
-        raise AssertionError(f"shell launch counts {shell_launches}, want {want}")
+    if shell_launches != want or shell_batches != {"compose_rgb@1": steps}:
+        raise AssertionError(f"shell launch counts {shell_launches} {shell_batches}, want {want} "
+                             f"and compose_rgb@1 {steps}")
     if ends == 0:
         raise AssertionError("no shell episode ended")
     shell_seconds = time.perf_counter() - t0
 
     # the grouped wrapper over the shell, every mode
     t1 = time.perf_counter()
+    A = card.config.width * 4  # the candidates of a grouped step
+    runs = [{"path": "shell", "steps": steps, "launches": shell_launches, "batches": shell_batches}]
     wrapper_runs = []
     total = {k: 0 for k in kernels.LAUNCHES}
     for mode, terminate in (("features", True), ("boards", True), ("rgb", True), ("host", True),
@@ -3913,12 +4059,17 @@ def check_shell(dev, geometry=None) -> dict:
         w, wp = stacks
         kernels.reset_launches()
         want = {k: 0 for k in kernels.LAUNCHES}
+        batches = {}
         n_steps = n_illegal = 0
+
+        def expect(legal):
+            for k, v in _wrapper_launches(mode, terminate, legal, A).items():
+                (batches if "@" in k else want)[k] = (batches if "@" in k else want).get(k, 0) + v
+
         for ep in range(WRAPPER_EPISODES):
             o, i = w.reset(seed=100 + ep)
             op, ip = wp.reset(seed=100 + ep)
-            for k, v in _wrapper_launches(mode, terminate, None).items():
-                want[k] += v
+            expect(None)
             for t in range(WRAPPER_MAX_STEPS):
                 _eq_obs(o, op, f"{mode} episode {ep} step {t} obs")
                 if i.keys() != ip.keys():
@@ -3930,8 +4081,7 @@ def check_shell(dev, geometry=None) -> dict:
                 pick = illegal if (u < 0.05 and len(illegal)) or not len(legal) else legal
                 a = int(rng.integers(0, n_actions)) if u > 0.95 else int(rng.choice(pick))
                 is_legal = bool(i["action_mask"][a])
-                for k, v in _wrapper_launches(mode, terminate, is_legal).items():
-                    want[k] += v
+                expect(is_legal)
                 o, r, d, tr, i = w.step(a)
                 op, rp, dp, trp, ip = wp.step(a)
                 if (r, d, tr) != (rp, dp, trp):
@@ -3941,56 +4091,66 @@ def check_shell(dev, geometry=None) -> dict:
                 if d:
                     break
         torch.cuda.synchronize()
-        got = dict(kernels.LAUNCHES)
-        if got != want:
-            raise AssertionError(f"grouped wrapper ({mode}, terminate={terminate}) launches {got}, want {want}")
+        got, got_batches = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BY_BATCH)
+        if got != want or got_batches != batches:
+            raise AssertionError(f"grouped wrapper ({mode}, terminate={terminate}) launches {got} "
+                                 f"{got_batches}, want {want} {batches}")
         if n_illegal == 0:
             raise AssertionError(f"grouped wrapper ({mode}) took no illegal action")
         for k in total:
             total[k] += got[k]
         wrapper_runs.append({"mode": mode, "terminate_on_illegal": terminate, "steps": n_steps,
-                             "illegal": n_illegal, "launches": {k: v for k, v in got.items() if v}})
+                             "illegal": n_illegal, "launches": {k: v for k, v in got.items() if v},
+                             "batches": got_batches})
+        runs.append({"path": f"wrapper_{mode}" + ("" if terminate else "_noterm"), "steps": n_steps,
+                     "launches": got, "batches": got_batches})
     launches = {k: shell_launches[k] + total[k] for k in total}
-    extra = {} if geometry is None else _observation_wrappers_card_cpu(dev, geo, rng)
+    extra = _observation_wrappers_card_cpu(dev, geo, rng)
+    for name in ("rgb", "features"):  # features_flags: checks of more flag sets, no path
+        run = extra["observation_wrappers"][name]
+        runs.append({"path": f"{name}_observation", "steps": run["steps"],
+                     "launches": {k: run["launches"].get(k, 0) for k in kernels.LAUNCHES},
+                     "batches": run["batches"]})
     emit({"phase": "shell" if geometry is None else "wide_shell", **geo, "equal_card_cpu": True,
           "episodes": SHELL_EPISODES, "steps": steps, "episodes_ended": ends, "lines": lines,
           "launches": {k: v for k, v in shell_launches.items() if v},
           "launches_per_step": {k: v / steps for k, v in shell_launches.items() if v},
           "shell_seconds": shell_seconds, "grouped_wrapper": wrapper_runs,
           "wrapper_seconds": time.perf_counter() - t1, **extra})
-    return {"launches": launches, "steps": steps + sum(r["steps"] for r in wrapper_runs), **extra}
+    return {"launches": launches, "steps": steps + sum(r["steps"] for r in wrapper_runs), "runs": runs, **extra}
 
 
 def _observation_wrappers_card_cpu(dev, geo, rng) -> dict:
-    """Phase 37's ``RgbObservation`` and ``FeatureVectorObservation`` (three
-    flag sets) over ``Tetris(**geo)``, card against CPU, with exact launch
-    counts a step, and one shell step's host ms on the card."""
+    """Phases 27 and 37's ``RgbObservation`` and ``FeatureVectorObservation``
+    over ``Tetris(**geo)``, card against CPU, each alone with exact launch
+    counts a step, those of its kernel by batch too (the path's run); then
+    ``FeatureVectorObservation`` under two more flag sets over the lead
+    wrapper's steps (a run of checks, not a path); and one shell step's
+    host ms on the card."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.envs import Tetris
     from tetris_gymnasium_torch.wrappers import FeatureVectorObservation, RgbObservation
 
     flag_sets = ((1, 1, 1, 1), (0, 1, 1, 0), (1, 0, 0, 1))
+    resets = WRAPPER_EPISODES
     runs = {}
-    for name in ("rgb", "features"):
+    for name in ("rgb", "features", "features_flags"):
         pair = []
         for where in (dev, "cpu"):
             env = Tetris(device=where, **geo)
-            pair.append(RgbObservation(env) if name == "rgb"
-                        else [FeatureVectorObservation(env, *f) for f in flag_sets])
-        w, wp = pair
-        lead, lead_p = (w, wp) if name == "rgb" else (w[0], wp[0])
+            pair.append([RgbObservation(env)] if name == "rgb"
+                        else [FeatureVectorObservation(env, *f) for f in flag_sets[: 1 if name == "features" else 3]])
+        (lead, *others), (lead_p, *others_p) = pair
         kernels.reset_launches()
         n = 0
         for ep in range(WRAPPER_EPISODES):
             o, _ = lead.reset(seed=200 + ep)
             op, _ = lead_p.reset(seed=200 + ep)
             for t in range(WRAPPER_MAX_STEPS):
-                if name == "rgb":
-                    _eq_obs(o, op, f"RgbObservation episode {ep} step {t}")
-                else:
-                    for f, fp in zip(w, wp):
-                        _eq_obs(f.observation(None), fp.observation(None),
-                                f"FeatureVectorObservation {f.flags} episode {ep} step {t}")
+                _eq_obs(o, op, f"{type(lead).__name__} episode {ep} step {t}")
+                for f, fp in zip(others, others_p):
+                    _eq_obs(f.observation(None), fp.observation(None),
+                            f"FeatureVectorObservation {f.flags} episode {ep} step {t}")
                 a = int(rng.choice(8, p=np.asarray(FLAGSHIP_ACTION_P)))
                 o, r, d, *_ = lead.step(a)
                 op, rp, dp, *_ = lead_p.step(a)
@@ -4001,18 +4161,16 @@ def _observation_wrappers_card_cpu(dev, geo, rng) -> dict:
                     break
         torch.cuda.synchronize()
         got = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        # a step: flagship_step, the env's observe_dict and the wrapper's kernel;
-        # the features checked by hand: one feature_vector for each flag set
-        resets = WRAPPER_EPISODES
-        if name == "rgb":
-            want = {"flagship_init": resets, "flagship_step": n, "observe_dict": resets + n,
-                    "compose_rgb": resets + n}
-        else:
-            want = {"flagship_init": resets, "flagship_step": n, "observe_dict": resets + n,
-                    "feature_vector": resets + n + len(flag_sets) * n}
-        if got != want:
-            raise AssertionError(f"{name} observation wrapper launches {got}, want {want}")
-        runs[name] = {"steps": n, "launches": got}
+        batches = dict(kernels.LAUNCHES_BY_BATCH)
+        # a step: flagship_step, the env's observe_dict and the wrapper's
+        # kernel at B = 1; the other flag sets checked by hand: one
+        # feature_vector each a step
+        kernel = "compose_rgb" if name == "rgb" else "feature_vector"
+        want = {"flagship_init": resets, "flagship_step": n, "observe_dict": resets + n,
+                kernel: resets + n + len(others) * n}
+        if got != want or batches != {f"{kernel}@1": want[kernel]}:
+            raise AssertionError(f"{name} observation wrapper launches {got} {batches}, want {want} at B = 1")
+        runs[name] = {"steps": n, "launches": got, "batches": batches}
     env = Tetris(device=dev, **geo)
     env.reset(seed=0)
     acts = rng.choice(8, SHELL_TIMED_STEPS, p=np.asarray(FLAGSHIP_ACTION_P))
@@ -4152,7 +4310,9 @@ def run_vector_env(dev, smi, geometry=None) -> dict:
 def time_surface_kernels(dev, smi) -> dict:
     """Phase 30: the four new kernels' device ms at B = 1, 4096 and 65536
     (the grouped boards mode at 4096) beside their bounds and their plain
-    versions (at most at B = 4096, scaled), and one shell step's host ms at B = 1."""
+    versions (at most at B = 4096, scaled), ``compose_rgb`` beside its
+    yardstick, ``feature_vector`` and ``compose_rgb`` at the grouped
+    wrapper's 40 candidates too, and one shell step's host ms at B = 1."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine, grouped
@@ -4208,11 +4368,18 @@ def time_surface_kernels(dev, smi) -> dict:
             entry = timed_pair(kernel_fn, plain_fn, 10 if big else 100, 1 if pb >= 4096 else 10, io, ops)
             entry.update(plain_ms=entry["plain_ms"] * scale, plain_B=pb, library_ms=None,
                          envs_per_s=B / (entry["ms"] * 1e-3))
+            if name == "compose_rgb":
+                entry.update(library_ms=compose_library_ms(d["board"], d["queue"], d["holder"], 1, P,
+                                                           10 if big else 100),
+                             library_call="palette_ext[id_image], given the composed int64 id image")
             if name == "grouped_flagship":
                 entry.update(held)
             out[name][f"{mode}@{B}" if mode else B] = entry
         del s, ps, d, dp
         torch.cuda.empty_cache()
+    # the grouped wrapper's 40 candidates: the host mode's boards, the rgb mode's composites
+    for k, by_b in wrapper_kernel_times(dev, cfg, P, (SURFACE_CANDIDATES,), 30).items():
+        out[k].update(by_b)
     # one shell step at B = 1, host clock
     env = Tetris(device=dev)
     env.reset(seed=0)
@@ -4809,8 +4976,7 @@ def check_surface_geometries(dev) -> dict:
                 crop = f_all.board[:, :-pad, pad:-pad]
                 for flags in FLAG_SETS:
                     flags = FeatureFlags(*flags)
-                    diff("feature_vector", kernels.feature_vector(crop, flags), feature_vector_plain(crop, flags),
-                         f"{what} features {tuple(flags)}")
+                    feature_builds_diff(crop, flags, feature_vector_plain(crop, flags), f"{what} features {tuple(flags)}")
             if i % SURF_GEO_GROUPED_EVERY == 0:
                 for s in fs:
                     grouped_stats.append(_check_grouped_surface(s, cfg, P, f"{what} B={s.board.shape[0]}"))
@@ -4831,8 +4997,8 @@ def check_surface_geometries(dev) -> dict:
         d, dp = kernels.observe_dict(s, cfg, P), engine.observe_dict_plain(s, cfg, P)
         for k in dp:
             diff("observe_dict", d[k], dp[k], f"{name} stacks {k}")
-        diff("compose_rgb", kernels.compose_rgb(d["board"], d["queue"], d["holder"], P),
-             compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), f"{name} stacks rgb")
+        compose_builds_diff(d["board"], d["queue"], d["holder"], P, 1,
+                            compose_rgb_plain(dp["board"], dp["queue"], dp["holder"], P), f"{name} stacks rgb")
         if rgb84:
             diff("render_rgb84", kernels.render_rgb84(s, cfg, P), engine.render_rgb84_plain(s, cfg, P),
                  f"{name} stacks rgb84")
@@ -5047,7 +5213,9 @@ def time_surface_wide(dev, smi) -> dict:
     """Phase 39: device ms of the six surface kernels at 30x20 and 61x12, B
     = 4096 and 65536 (the board modes at 4096), beside their bounds and
     their plain versions (at most at B = 1024 for the grouped ones and 4096
-    for the others, scaled), on mid-game states (40 random steps in)."""
+    for the others, scaled), on mid-game states (40 random steps in), and
+    ``feature_vector`` and ``compose_rgb`` at 30x20's B = 1 and 120 (the
+    observation wrappers' own batches)."""
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EngineConfig, RewardsMapping
     from tetris_gymnasium_torch.core import engine, grouped, turbo
@@ -5141,6 +5309,12 @@ def time_surface_wide(dev, smi) -> dict:
                               for k, v in out[name].items()}, "nvidia_smi": smi})
             del s, t, d, crop, sg, so, tgp, dp, cp, lines, tlines
             torch.cuda.empty_cache()
+        if name == "30x20":  # the observation wrappers' own batches there: 1 and the 120 candidates
+            for k, by_b in wrapper_kernel_times(dev, cfg, P, (1, A), 39).items():
+                out[name][k].update(by_b)
+            emit({"phase": "surface_wide_times", "geometry": name, "B": [1, A],
+                  "kernels": {k: {b: out[name][k][b] for b in (1, A)} for k in ("feature_vector", "compose_rgb")},
+                  "nvidia_smi": smi})
     return out
 
 

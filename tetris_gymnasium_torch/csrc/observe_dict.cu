@@ -52,7 +52,31 @@
 //     bytes are a whole number of, the slots' columns known at compile time
 //     (four columns of a slot at a time where S is a multiple of 4).
 // With null board and mask outputs it writes the strips alone.
-// compose_rgb takes one thread a pixel and writes its 3 bytes.
+// compose_rgb runs a lane a run of 16 consecutive pixels of an image, so
+// that its writes go out in whole words, with every id load in flight:
+//   - a lane finds its image, its run and its env (n / group) once, in 32
+//     bits (the run count a compile-time divisor), then loads the run's 16
+//     ids at once: board cells, the strips' cells, bedrock (id_image.cuh's
+//     sidebar layout; bedrock from a global byte, so that every id is an
+//     unconditional load);
+//   - the palette comes in the launch's parameters (a __grid_constant__
+//     struct), and while the ids are in flight each warp copies it into its
+//     own table in shared memory (the NPAL colours, then black for every
+//     id past them); a lookup then never waits on a global load, never
+//     reads the constant bank at different ids across a warp (which
+//     serialises: on an H100 a block's 256-entry copy behind a barrier
+//     took 3 us at 4096 images), and no block-wide barrier holds a warp;
+//   - it packs the 16 colours three bytes a pixel into 12 words
+//     (__byte_perm) and stores the run's 48 bytes as three 16-byte words
+//     (at every geometry whose image is a whole number of 16-byte words:
+//     10x20, 30x20, 61x12; else the widest word the image's bytes are a
+//     whole number of, 8 at 28x14), an image's last run its TAIL pixels;
+//   - a batch whose 16-pixel runs would give the SMs fewer than 256 lanes
+//     each (N = 1, the grouped rgb mode's 40 and 120 candidates) runs a
+//     pixel a lane instead: its time is the launch and one round trip,
+//     which a lane's chain of 16 pixels outlasted;
+//   - warps a block: 8, fewer only where the runs fill fewer
+//     (compose_rgb_shape).
 //
 // The geometry is fixed at compile time by the TETRIS_* defines
 // (kernels.py:engine_defines with flagship=True, one library per geometry;
@@ -65,7 +89,8 @@
 // fields an env and writes the board, the mask and the strips: 484 bytes in
 // and 944 out at 10x20 (~0.43 ns an env at 3.35 TB/s), ~0.96 KB and 1.9 KB
 // at 30x20; at B = 1 the launch floor is the bound.  compose_rgb reads H *
-// PW + the strips a board and writes 3 H * IW (2448 at 10x20, 3888 at 30x20).
+// PW + its share of the strips a board and writes 3 H * IW (2448 at 10x20,
+// 3888 at 30x20); at N = 1 and 40 the launch floor is the bound.
 
 #include <algorithm>
 #include <cstdint>
@@ -75,6 +100,19 @@
 #include "board_words.cuh"
 
 using namespace engine;
+
+// compose_rgb's palette as a launch parameter, colour i as r | g << 8 | b
+// << 16 (kernels.py:_compose_palette): the 32 pieces' and empty's and
+// bedrock's at most, the entries past NPAL unused; and the division of an
+// image's index by `group` as a multiply-high and a shift (shift -1:
+// group 1).
+constexpr int kMaxPalette = 34;
+struct ComposePalette {
+  uint32_t rgb[kMaxPalette];
+  uint32_t group_magic;
+  int group_shift;
+};
+static_assert(NPAL <= kMaxPalette, "compose_rgb: at most 32 pieces");
 
 namespace {
 
@@ -88,7 +126,6 @@ constexpr int NBW = BOARD / WB;        // words of a board: 27 by default
 constexpr int kRounds = (NBW + 31) / 32;  // board words a lane
 constexpr bool kHeld = kRounds <= 6;      // they stay in registers (every board of 16-byte words)
 constexpr int kWarps = 8;              // envs (warps) a block of observe_dict at most
-constexpr int kThreads = 256;          // threads a block of compose_rgb
 // the lanes of an env's warp by the field each loads: the queue slots, the
 // holder slots, the active piece, x, y, the holder count
 constexpr int L_HOLD = QS, L_ACTIVE = QS + HS, L_X = L_ACTIVE + 1, L_Y = L_X + 1, L_COUNT = L_Y + 1;
@@ -259,35 +296,130 @@ __global__ void __launch_bounds__(32 * kWarps) observe_dict_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) compose_rgb_kernel(
+// The composite's runs: a lane takes R consecutive pixels of an image in
+// row-major order, 3 R bytes of output (Run<16>: 48 bytes, three 16-byte
+// stores; Run<1> for a batch too small to fill the card, whose time is the
+// launch and one round trip: a sixteenth of the chain a lane); an image's
+// last run holds TAIL pixels.  A run's bytes
+// go out as SW-byte stores, the widest word that an image's bytes and a
+// run's are a whole number of (16 at 10x20, 30x20 and 61x12 for Run<16>).
+constexpr int IMG = H * IW;                  // pixels of an image: 816 by default
+constexpr int IMG_BYTES = 3 * IMG;
+template <int R>
+struct Run {
+  static constexpr int RUNS = (IMG + R - 1) / R;            // runs of an image: 51 by default
+  static constexpr int TAIL = IMG - R * (RUNS - 1);          // pixels of an image's last run
+  static constexpr int SW = word_bytes(IMG_BYTES) < word_bytes(3 * R) ? word_bytes(IMG_BYTES)
+                                                                      : word_bytes(3 * R);  // store word
+  static constexpr int SPAN = (IW + R - 2) / IW + 1;         // image rows a run touches at most
+};
+constexpr int kComposeWarps = 8;             // warps a block of compose_rgb at most
+constexpr int kSmallRunsPerSM = 8 * 32;      // Run<1> while Run<16> gives the SMs fewer lanes each
+constexpr int kPal = NPAL + 1;               // a warp's palette table: the colours, then black
+constexpr uint32_t kNpal = NPAL;
+
+// The bedrock id, read where a pixel is the sidebar's bedrock (or past an
+// image's last pixel), so that every id comes from a load.
+__device__ const uint8_t kBedrock = 1;
+
+template <int R>
+__global__ void __launch_bounds__(32 * kComposeWarps) compose_rgb_kernel(
     const uint8_t* __restrict__ board, const uint8_t* __restrict__ queue,
-    const uint8_t* __restrict__ holder, const uint8_t* __restrict__ palette, int group,
-    long long pixels, uint8_t* __restrict__ out) {
-  const long long px = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (px >= pixels) return;
-  const long long n = px / (H * IW);
-  const int cell = static_cast<int>(px % (H * IW));
-  const int r = cell / IW, c = cell % IW;
-  const long long m = n / group;
-  const int id = c < PW ? board[n * BOARD + r * PW + c]
-                        : sidebar_cell(
-                              r, c - PW,
-                              [&](int i, int j) { return queue[m * QSTRIP + i * QS * S + j]; },
-                              [&](int i, int j) { return holder[m * HSTRIP + i * HS * S + j]; });
-  uint8_t* o = out + px * 3;
-  if (id < NPAL) {
-    o[0] = __ldg(palette + 3 * id);
-    o[1] = __ldg(palette + 3 * id + 1);
-    o[2] = __ldg(palette + 3 * id + 2);
-  } else {
-    o[0] = o[1] = o[2] = 0;
+    const uint8_t* __restrict__ holder, const __grid_constant__ ComposePalette palette, int runs,
+    uint8_t* __restrict__ out) {
+  using RN = Run<R>;
+  const unsigned g = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = g < static_cast<unsigned>(runs);
+  const unsigned n = g / RN::RUNS, k = g - n * RN::RUNS;  // the image and its run
+  // its env, n / group by the launcher's multiplier (n < 2**31)
+  const unsigned m = palette.group_shift < 0 ? n : __umulhi(n, palette.group_magic) >> palette.group_shift;
+  const bool last = k + 1 == RN::RUNS;
+  const uint8_t* bd = board + static_cast<size_t>(n) * BOARD;
+  const uint8_t* qs = queue + static_cast<size_t>(m) * QSTRIP;
+  const uint8_t* hs = holder + static_cast<size_t>(m) * HSTRIP;
+  // the rows the run touches, each's board row, strip row and strip width
+  // (the queue's above, the holder's at the bottom, none between)
+  const int p0 = static_cast<int>(k) * R;
+  const int r0 = p0 / IW, c0 = p0 - r0 * IW;
+  const uint8_t* brow[RN::SPAN];
+  const uint8_t* srow[RN::SPAN];
+  int swidth[RN::SPAN];
+#pragma unroll
+  for (int j = 0; j < RN::SPAN; ++j) {
+    const int r = r0 + j;
+    brow[j] = bd + r * PW;
+    srow[j] = (r < S ? qs : hs) + (r < S ? r * QSW : max(r - (H - S), 0) * HSW);
+    swidth[j] = r < S ? QSW : (r >= H - S ? HSW : 0);
   }
+  // loads: the run's R ids in flight at once, each address a base and an
+  // index picked by selects (a branch a pixel held the loads behind the
+  // branches) and each load unconditional (one whose register a
+  // predicated move may also write waits for it before the next issues)
+  uint32_t id[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = c0 + i;  // the column, before the run wraps to the next row
+    const uint8_t* br = brow[0];
+    const uint8_t* sr = srow[0];
+    int width = swidth[0], c = t;
+#pragma unroll
+    for (int j = 1; j < RN::SPAN; ++j) {
+      const bool next = t >= j * IW;
+      br = next ? brow[j] : br;
+      sr = next ? srow[j] : sr;
+      width = next ? swidth[j] : width;
+      c = next ? t - j * IW : c;
+    }
+    const int sc = c - PW;
+    const bool on_board = c < PW, on_strip = !on_board && sc < width;
+    const bool valid = live && (!last || i < RN::TAIL);
+    const uint8_t* base = valid && on_board ? br : valid && on_strip ? sr : &kBedrock;
+    const int index = valid && on_board ? c : valid && on_strip ? sc : 0;
+    id[i] = __ldg(base + index);
+  }
+  // meanwhile the warp's own copy of the palette, entry NPAL black for
+  // every id past it: no block-wide barrier
+  __shared__ uint32_t tables[kComposeWarps][kPal];
+  uint32_t* table = tables[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  for (int t = lane; t < kPal; t += 32) table[t] = t < NPAL ? palette.rgb[t] : 0u;
+  __syncwarp();
+  if (!live) return;
+  // colours, packed three bytes a pixel into 3 R / 4 words (one word of
+  // three bytes for a 1-pixel run)
+  uint32_t w[(3 * R + 3) / 4];
+  if constexpr (R == 1) w[0] = table[min(id[0], kNpal)];
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    const uint32_t a = table[min(id[4 * q], kNpal)], b = table[min(id[4 * q + 1], kNpal)],
+                   c2 = table[min(id[4 * q + 2], kNpal)], d = table[min(id[4 * q + 3], kNpal)];
+    w[3 * q] = __byte_perm(a, b, 0x4210);
+    w[3 * q + 1] = __byte_perm(b, c2, 0x5421);
+    w[3 * q + 2] = __byte_perm(c2, d, 0x6542);
+  }
+  // stores: the run's 3 R bytes (the last run's 3 TAIL) in SW-byte words
+  uint8_t* dst = out + static_cast<size_t>(n) * IMG_BYTES + 3 * R * k;
+  const int words = last ? 3 * RN::TAIL / RN::SW : 3 * R / RN::SW;
+#pragma unroll
+  for (int q = 0; q < 3 * R / RN::SW; ++q)
+    if (q < words) store_word<RN::SW>(dst + q * RN::SW, word_at<RN::SW>(w, q));
 }
 
 // Envs (warps) a block for a batch of B: kWarps, or where B gives the
 // card's SMs fewer than kWarps each, ceil(B / SMs), so that every SM takes
 // a block.
 int envs_per_block(int B) { return std::min(kWarps, std::max(1, (B + sm_count() - 1) / sm_count())); }
+
+// The run length for N images: 16 pixels, or 1 where 16-pixel runs would
+// give the card's SMs fewer than kSmallRunsPerSM lanes each.
+int compose_run(int N) {
+  return static_cast<long long>(N) * Run<16>::RUNS < static_cast<long long>(kSmallRunsPerSM) * sm_count() ? 1 : 16;
+}
+
+// Warps a block of compose_rgb for `runs` runs: kComposeWarps, fewer only
+// where the runs fill fewer (on an H100, blocks of one warp spread over
+// more SMs took 0.06 us longer at N = 1).
+int compose_warps(int runs) { return std::min(kComposeWarps, (runs + 31) / 32); }
 
 }  // namespace
 
@@ -319,16 +451,29 @@ extern "C" int observe_dict_shape(int B, int* out) {
 }
 
 // board: uint8[N, H, PW]; queue: uint8[N / group, S, S * QS]; holder:
-// uint8[N / group, S, S * HS]; palette: uint8[NPAL, 3]; out: uint8[N, H, IW, 3].
+// uint8[N / group, S, S * HS]; palette: NPAL colours and the group's
+// multiplier; out: uint8[N, H, IW, 3], 16-byte aligned; N * IMG < 2**31
+// (the wrapper checks); run: 16 or 1 pixels a lane, or 0 (compose_run(N)).
 extern "C" int compose_rgb_launch(const void* board, const void* queue, const void* holder,
-                                  const void* palette, int group, long long N, void* out,
-                                  void* stream) {
-  const long long pixels = N * H * IW;
-  const long long blocks = (pixels + kThreads - 1) / kThreads;
-  compose_rgb_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+                                  const ComposePalette* palette, int N, int run, void* out, void* stream) {
+  if (run == 0) run = compose_run(N);
+  const int runs = N * (run == 16 ? Run<16>::RUNS : Run<1>::RUNS);
+  const int threads = 32 * compose_warps(runs);
+  auto kernel = run == 16 ? compose_rgb_kernel<16> : compose_rgb_kernel<1>;
+  kernel<<<(runs + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(board), static_cast<const uint8_t*>(queue),
-      static_cast<const uint8_t*>(holder), static_cast<const uint8_t*>(palette), group, pixels,
-      static_cast<uint8_t*>(out));
+      static_cast<const uint8_t*>(holder), *palette, runs, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's shape for N images: out = [pixels a run, warps a block,
+// bytes of a store word, runs an image, pixels of the last run].
+extern "C" int compose_rgb_shape(int N, int* out) {
+  const int run = out[0] = compose_run(N);
+  const int runs = run == 16 ? Run<16>::RUNS : Run<1>::RUNS;
+  out[1] = compose_warps(N * runs);
+  out[2] = run == 16 ? Run<16>::SW : Run<1>::SW;
+  out[3] = runs;
+  out[4] = run == 16 ? Run<16>::TAIL : Run<1>::TAIL;
+  return 0;
 }

@@ -84,12 +84,17 @@ Kernels, with the JAX function each replaces:
   boards built a row at a time in shared memory and streamed out
   (:func:`grouped_flagship_occupancy`);
 * ``feature_vector`` (``csrc/features.cu``):
-  ``ops/observations.py:feature_vector :57``;
+  ``ops/observations.py:feature_vector :57``, a warp an env, a crop row a
+  lane with every load in flight (its aligned 16-byte words, or its bytes:
+  :func:`_feature_words`), the row masks turned into column masks by a bit
+  transpose across the warp (:func:`feature_vector_shape`);
 * ``observe_dict`` and ``compose_rgb`` (``csrc/observe_dict.cu``):
   ``core/engine.py:observe_dict :257`` and ``ops/observations.py:compose_rgb
   :84`` (``render_rgb :529`` is the two in turn); ``observe_dict`` a warp an
   env, the env's piece work once, one vote on the collision, the board and
-  mask in whole words (:func:`observe_dict_shape`);
+  mask in whole words (:func:`observe_dict_shape`); ``compose_rgb`` a lane
+  a run of 16 pixels, the palette a launch parameter copied on chip while
+  the ids are in flight, whole-word stores (:func:`compose_rgb_shape`);
 * ``fn_reset``, ``fn_step`` and ``fn_observe`` (``csrc/fn_env.cu``): the
   compat engine's ``core/fn_env.py:reset :210``, ``step :189`` (with
   ``_update :124``, ``_lock_piece :80``, ``ops/board.py:clear_lines_compat
@@ -114,7 +119,8 @@ and ``flagship_step.cu``;
 image of the observation, shared by ``render_rgb84.cu`` and
 ``observe_dict.cu``; ``csrc/board_words.cuh`` the whole-word board helpers
 of ``observe_dict`` and ``flagship_observe_board``; ``csrc/features.cuh`` the
-feature vector, shared by ``features.cu`` and ``grouped_flagship.cu``.
+feature vector's flags and the grouped kernels' accumulator, shared by
+``features.cu``, ``grouped_flagship.cu`` and ``grouped_placements.cu``.
 
 Every kernel takes any geometry within the static limits that
 :func:`engine_defines` names (padded height <= 64, padded width <= 128,
@@ -129,8 +135,9 @@ take every geometry on the CPU.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
-synchronising, and adds one to ``LAUNCHES[name]`` per launch.  Wrappers
-take CUDA tensors only; the plain versions for CPU tensors are in
+synchronising, and adds one to ``LAUNCHES[name]`` per launch
+(``feature_vector`` and ``compose_rgb`` also to ``LAUNCHES_BY_BATCH``'s
+``"name@B"``).  Wrappers take CUDA tensors only; the plain versions for CPU tensors are in
 :mod:`tetris_gymnasium_torch.core.turbo`, :mod:`~tetris_gymnasium_torch.core.turbo_grouped`,
 :mod:`~tetris_gymnasium_torch.core.engine`,
 :mod:`~tetris_gymnasium_torch.rl.ppo`, :mod:`~tetris_gymnasium_torch.rl.grouped_dqn`,
@@ -140,6 +147,7 @@ and :mod:`~tetris_gymnasium_torch.ops.image`, which dispatch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -218,12 +226,40 @@ LAUNCHES = {
     "fn_observe": 0, "grayscale_u8_exact": 0,
 }
 
+# feature_vector's and compose_rgb's launches by batch, "name@B", added to
+# beside LAUNCHES[name]: the observation wrappers' paths launch each kernel
+# at B = 1 (the env's board) and at their candidates' batch.
+LAUNCHES_BY_BATCH: dict = {}
+
+# Builds forced in place of the wrapper's pick, for the checks that hold
+# each build against its plain version: "feature_vector" True (the words
+# build) or False (the bytes build), "compose_rgb" 16 or 1 (pixels a run).
+# Set only through _forced.
+_FORCE: dict = {}
+
 _LIBS: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_BATCH.clear()
+
+
+@contextlib.contextmanager
+def _forced(kernel: str, build):
+    """Launch ``kernel`` (``"feature_vector"`` or ``"compose_rgb"``) in
+    ``build`` inside the block (``None``: the wrapper's pick)."""
+    _FORCE[kernel] = build
+    try:
+        yield
+    finally:
+        del _FORCE[kernel]
+
+
+def _count_batch(name: str, B: int) -> None:
+    key = f"{name}@{B}"
+    LAUNCHES_BY_BATCH[key] = LAUNCHES_BY_BATCH.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -455,6 +491,14 @@ class _RenderPtrs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _RENDER_FIELDS]
 
 
+_MAX_PALETTE = 34  # csrc/observe_dict.cu:kMaxPalette: 32 pieces, empty and bedrock
+
+
+class _ComposePalette(ctypes.Structure):  # csrc/observe_dict.cu:ComposePalette
+    _fields_ = [("rgb", ctypes.c_uint32 * _MAX_PALETTE), ("group_magic", ctypes.c_uint32),
+                ("group_shift", ctypes.c_int)]
+
+
 class _FnPtrs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in fn_env.FIELDS]
 
@@ -530,11 +574,13 @@ _ENTRY_POINTS = {
         "grouped_flagship_occupancy": [_P],
     },
     "features": {
-        "feature_vector_launch": [_P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P, _P],
+        "feature_vector_launch": [_P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _P, _P],
+        "feature_vector_shape": [_I, _P],
     },
     "observe_dict": {
         "observe_dict_launch": [ctypes.POINTER(_RenderPtrs), _P, _P, _P, _P, _P, _P, _P, _I, _P],
-        "compose_rgb_launch": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P],
+        "compose_rgb_launch": [_P, _P, _P, ctypes.POINTER(_ComposePalette), _I, _I, _P, _P],
+        "compose_rgb_shape": [_I, _P],
         "observe_dict_shape": [_I, _P],
     },
     "fn_env": {
@@ -1874,12 +1920,26 @@ def grouped_flagship_occupancy(config: EngineConfig, pieces: PieceSet) -> dict:
     return dict(zip(keys, list(vals)))
 
 
+def _feature_words(playfield: torch.Tensor) -> bool:
+    """Whether every 16-byte word that holds a byte of the crop's rows lies
+    inside the tensor's storage, so that ``feature_vector`` may load whole
+    aligned words and crop them in registers (its words build)."""
+    storage = playfield.untyped_storage()
+    lo, hi = storage.data_ptr(), storage.data_ptr() + storage.nbytes()
+    first = playfield.data_ptr()
+    last = first + sum((n - 1) * st for n, st in zip(playfield.shape, playfield.stride())) + 1
+    return first // 16 * 16 >= lo and -(-last // 16) * 16 <= hi
+
+
 def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
     """Launch ``feature_vector``: ``int32[B, n]`` features of an ``int8[B,
     height, width]`` playfield, read in place at any batch and row stride
     (the crop ``board[:, :-pad, pad:-pad]`` of a padded board is a view).
     Built for each crop shape (:func:`feature_defines`: at most 64 rows and
-    128 columns)."""
+    128 columns); a warp an env, envs a block and blocks from B
+    (:func:`feature_vector_shape`).  Its rows are loaded as the aligned
+    16-byte words that hold them where those lie inside the tensor's
+    storage (:func:`_feature_words`), else byte by byte."""
     from tetris_gymnasium_torch.ops.observations import n_features
 
     if playfield.ndim != 3:
@@ -1894,13 +1954,31 @@ def feature_vector(playfield: torch.Tensor, flags) -> torch.Tensor:
     out = torch.empty((B, n), dtype=torch.int32, device=device)
     if B == 0 or n == 0:
         return out
+    inside = _feature_words(playfield)
+    words = _FORCE.get("feature_vector")
+    words = inside if words is None else words
+    if words and not inside:
+        raise ValueError("feature_vector: the words build would read past the tensor's storage")
     rc = _lib("features", defines).feature_vector_launch(
         playfield.data_ptr(), playfield.stride(0), playfield.stride(1), B, _feature_bits(flags),
-        out.data_ptr(), _stream(device),
+        int(words), out.data_ptr(), _stream(device),
     )
     _check(rc, "feature_vector")
     LAUNCHES["feature_vector"] += 1
+    _count_batch("feature_vector", B)
     return out
+
+
+def feature_vector_shape(height: int, width: int, B: int) -> dict:
+    """The shape of ``feature_vector``'s launch for a batch of B at a
+    ``height`` x ``width`` crop: envs (warps) a block, ``min(8, ceil(B /
+    SMs))``, blocks (every env's, at most 8 an SM: past that the warps
+    stride over the batch), the 16-byte words a row loads at most in the
+    words build and the rows a lane; needs a card."""
+    vals = (ctypes.c_int * 4)()
+    _check(_lib("features", feature_defines(height, width)).feature_vector_shape(
+        B, ctypes.addressof(vals)), "feature_vector_shape")
+    return dict(zip(("envs_per_block", "blocks", "words_per_row", "rows_per_lane"), list(vals)))
 
 
 def observe_dict(state, config: EngineConfig, pieces: PieceSet, strips_only: bool = False) -> dict:
@@ -1946,15 +2024,44 @@ def observe_dict_shape(config: EngineConfig, pieces: PieceSet, B: int) -> dict:
                      config, pieces, B)
 
 
+_PALETTES: dict = {}
+
+
+def group_divider(group: int) -> tuple:
+    """``(magic, shift)`` with ``n // group == (n * magic >> 32) >> shift``
+    for every ``0 <= n < 2**31`` (``magic = ceil(2**(31 + s) / group)``,
+    ``s = ceil(log2 group)``, ``shift = s - 1``); ``(0, -1)`` for group 1."""
+    if group == 1:
+        return 0, -1
+    s = (group - 1).bit_length()
+    return -(-(1 << (31 + s)) // group), s - 1
+
+
+def _compose_palette(pieces: PieceSet, group: int) -> _ComposePalette:
+    """``compose_rgb``'s palette parameter: colour i as ``r | g << 8 | b
+    << 16``, and :func:`group_divider`'s multiplier."""
+    pal = np.asarray(pieces.palette, np.uint32)
+    key = (pal.tobytes(), group)
+    hit = _PALETTES.get(key)
+    if hit is None:
+        if pal.shape[0] > _MAX_PALETTE:
+            raise NotImplementedError(f"compose_rgb: {pal.shape[0]} palette colours > {_MAX_PALETTE}")
+        hit = _PALETTES[key] = _ComposePalette()
+        for i, (r, g, b) in enumerate(pal):
+            hit.rgb[i] = int(r) | int(g) << 8 | int(b) << 16
+        hit.group_magic, hit.group_shift = group_divider(group)
+    return hit
+
+
 def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: torch.Tensor,
                 pieces: PieceSet, group: int = 1) -> torch.Tensor:
     """Launch ``compose_rgb``: ``uint8[N, H, W + S * max(QS, HS), 3]``
     composites of the id boards ``uint8[N, H, W]`` with the strips
     ``uint8[M, S, S * QS]`` and ``uint8[M, S, S * HS]`` of board ``n``'s env
     ``n // group`` (``N = M * group``).  The build follows the shapes and
-    the palette (:func:`compose_defines`)."""
-    from tetris_gymnasium_torch.utils.device import constant
-
+    the palette (:func:`compose_defines`); a lane a run of 16 pixels, 1 for
+    a batch too small to fill the card, the palette a launch parameter
+    (:func:`compose_rgb_shape`)."""
     device = board.device
     if board.ndim != 3 or queue_strip.ndim != 3 or holder_strip.ndim != 3:
         raise ValueError(f"compose_rgb: want [N, H, W] boards and [M, S, S * n] strips, got "
@@ -1970,17 +2077,34 @@ def compose_rgb(board: torch.Tensor, queue_strip: torch.Tensor, holder_strip: to
     _check_tensor(holder_strip, "holder_strip", torch.uint8, (M,) + tuple(holder_strip.shape[1:]),
                   device)
     side = max(queue_strip.shape[2], holder_strip.shape[2])
-    out = torch.empty((N, board.shape[1], board.shape[2] + side, 3), dtype=torch.uint8, device=device)
+    H, IW = board.shape[1], board.shape[2] + side
+    if N * H * IW >= 2 ** 31:
+        raise NotImplementedError(f"compose_rgb: {N} images of {H * IW} pixels pass the kernel's "
+                                  "32-bit count of runs")
+    out = torch.empty((N, H, IW, 3), dtype=torch.uint8, device=device)
     if N == 0:
         return out
-    palette = constant(pieces.palette, device)
+    run = {None: 0, 16: 16, 1: 1}[_FORCE.get("compose_rgb")]  # 0: the launch picks
     rc = _lib("observe_dict", defines).compose_rgb_launch(
-        board.data_ptr(), queue_strip.data_ptr(), holder_strip.data_ptr(), palette.data_ptr(),
-        int(group), N, out.data_ptr(), _stream(device),
+        board.data_ptr(), queue_strip.data_ptr(), holder_strip.data_ptr(),
+        ctypes.byref(_compose_palette(pieces, int(group))), N, run, out.data_ptr(), _stream(device),
     )
     _check(rc, "compose_rgb")
     LAUNCHES["compose_rgb"] += 1
+    _count_batch("compose_rgb", N)
     return out
+
+
+def compose_rgb_shape(config: EngineConfig, pieces: PieceSet, N: int) -> dict:
+    """The shape of ``compose_rgb``'s launch for N images at ``config``:
+    pixels a run (16, or 1 where 16-pixel runs would give the SMs fewer
+    than 256 lanes each), warps a block (8, fewer only where the runs fill
+    fewer), bytes of a store word (the widest of 16, 8, 4, 2 and 1 that an image's bytes and a run's
+    are a whole number of), runs an image and the pixels of its last run;
+    needs a card."""
+    return _shape_of("observe_dict", "compose_rgb_shape",
+                     ("run_pixels", "warps_per_block", "store_bytes", "runs_per_image", "tail_pixels"),
+                     config, pieces, N)
 
 
 # ---------------------------------------------------------------------------

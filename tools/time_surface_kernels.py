@@ -6,7 +6,7 @@ port found under ``--repo``:
 
     python tools/time_surface_kernels.py [--repo DIR] [--label NAME] [--ptxas]
                                          [--batches 512,2048,65536] [--ablate]
-                                         [--kernels surface|obs|init|sample]
+                                         [--kernels surface|obs|init|sample|wrappers]
 
 ``--kernels surface`` (the default): ``grouped_flagship`` features at B =
 4096 (``chip_smoke.py`` phase 30), ``grouped_placements`` features at B =
@@ -55,6 +55,26 @@ each lanes build), each beside its bound (the sample's 40 bytes an env more
 than the step's).  ``--ptxas`` builds ``flagship_step.cu`` at
 ``OBS_PTXAS`` first.
 
+``--kernels wrappers``: the two kernels of the Gymnasium observation
+wrappers at ``WRAPPER_SHAPES``: ``feature_vector`` on the wrapper's crop
+view of mid-game padded boards (10x20 at B = 1, ``FeatureVectorObservation``
+and the grouped wrapper's info, 40, the host mode's candidates, 4096 and
+65536; 30x20 at 1, 120, 4096 and 65536; 61x12 at 4096 and 65536) and
+``compose_rgb`` on ``observe_dict``'s outputs (the same N; at 40 and 120
+the grouped rgb mode's candidates, ``group`` = N, one env's strips), each
+beside its byte bound (``feature_vector``: FH * FW bytes read and 4 n
+written an env; ``compose_rgb``: H * PW and its share of the strips read,
+3 H * IW written an image) and the launch floor of the same call, which is
+the bound where it is larger; ``compose_rgb`` also beside its yardstick,
+``palette_ext[id_image]``, one indexing call given the composed int64 id
+image (``library_ms``).  ``--ptxas`` builds ``features.cu`` at the three
+crops and 28x14 and ``observe_dict.cu`` at ``OBS_PTXAS`` first;
+``--ablate`` times both at 10x20 (``WRAPPER_ABLATE_B``) beside patched
+copies of the tree's sources that skip one part each
+(``WRAPPER_ABLATIONS``: the loads, the transpose, the stores, the palette
+copy, and the launch alone) or take another shape (no striding warps; one
+run length at every N; one-warp blocks).
+
 Each time is taken on mid-game states (40 random steps from a reset), as the
 median over 7 replays of a CUDA graph of 100 launches (10 at 65536).  What
 the other tree lacks is skipped.  Patched copies are built under
@@ -67,6 +87,7 @@ B, B, A.  Needs a card; builds the kernels of ``DIR`` into its own
 """
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import shutil
@@ -242,8 +263,49 @@ INIT_ABLATIONS = {
 }
 # --kernels sample: the shapes (geometry, B)
 SAMPLE_SHAPES = [("10x20", 512), ("10x20", 2048), ("10x20", 8192), ("10x20", 65536), ("30x20", 4096)]
+# --kernels wrappers: the shapes (kernel, geometry, B) and --ablate's B and
+# patched copies (features.cu's and observe_dict.cu's compose_rgb), as above
+WRAPPER_SHAPES = [(k, "10x20", B) for k in ("feature_vector", "compose_rgb") for B in (1, 40, 4096, 65536)] \
+    + [(k, "30x20", B) for k in ("feature_vector", "compose_rgb") for B in (1, 120, 4096, 65536)] \
+    + [(k, "61x12", B) for k in ("feature_vector", "compose_rgb") for B in (4096, 65536)]
+WRAPPER_ABLATE_B = (1, 40, 4096, 65536)
+WRAPPER_ABLATIONS = {
+    "features": [
+        ("features", "no_loads", [("  for (int q = 0; q < NWW; ++q) w[q] = live && 16 * q < off + FW ? __ldg(a + q) : make_uint4(0u, 0u, 0u, 0u);",
+                                   "  for (int q = 0; q < NWW; ++q) w[q] = make_uint4(static_cast<uint32_t>(p) + q, 0u, 0u, 0u);")]),
+        ("features", "no_transpose", [("    for (int k = 0; k < NWF; ++k) col[j][k] = transpose32(m[j][k], lane);",
+                                       "    for (int k = 0; k < NWF; ++k) col[j][k] = m[j][k];")]),
+        ("features", "no_stores", [("      if (lane + 32 * k < FW) o[lane + 32 * k] = h[k];",
+                                    "      if (lane + 32 * k < FW && h[k] < 0) o[lane + 32 * k] = h[k];"),
+                                   ("  if (lane == 0 && (flags & kMaxHeight)) o[i_max] = max_h;",
+                                    "  if (lane == 0 && (flags & kMaxHeight) && max_h < 0) o[i_max] = max_h;"),
+                                   ("  if (lane == 1 && (flags & kHoles)) o[i_holes] = holes;",
+                                    "  if (lane == 1 && (flags & kHoles) && holes < 0) o[i_holes] = holes;"),
+                                   ("  if (lane == 2 && (flags & kBumpiness)) o[i_bump] = bump;",
+                                    "  if (lane == 2 && (flags & kBumpiness) && bump < 0) o[i_bump] = bump;")]),
+        ("features", "empty", [("(threadIdx.x >> 5); b < B; b += gridDim.x * warps)", "(threadIdx.x >> 5); b < 0; b += gridDim.x * warps)")]),
+        # another shape (its vectors are right): a block for every 8 envs, no striding
+        ("features", "no_stride", [("constexpr int kBlocksPerSM = 8;", "constexpr int kBlocksPerSM = 1 << 20;")]),
+    ],
+    "compose": [
+        ("observe_dict", "no_loads", [("    id[i] = __ldg(base + index);", "    id[i] = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(base + index) & 15);")]),
+        ("observe_dict", "no_palette_copy", [("  for (int t = lane; t < kPal; t += 32) table[t]", "  for (int t = lane; t < 0; t += 32) table[t]")]),
+        ("observe_dict", "no_stores", [("    if (q < words) store_word<RN::SW>(", "    if (q < words && w[0] == 0x5A5A5A5Au) store_word<RN::SW>(")]),
+        ("observe_dict", "empty", [("  const unsigned g = blockIdx.x * blockDim.x + threadIdx.x;\n  const bool live",
+                                    "  if (runs > 0) return;\n  const unsigned g = blockIdx.x * blockDim.x + threadIdx.x;\n  const bool live")]),
+        # other shapes (their images are right): 16-pixel runs at every N, a
+        # pixel a lane at every N, blocks of one warp spread over the SMs
+        ("observe_dict", "runs16", [("Run<16>::RUNS < static_cast<long long>(kSmallRunsPerSM) * sm_count() ? 1 : 16;",
+                                     "Run<16>::RUNS < 0 ? 1 : 16;")]),
+        ("observe_dict", "runs1", [("Run<16>::RUNS < static_cast<long long>(kSmallRunsPerSM) * sm_count() ? 1 : 16;",
+                                    "Run<16>::RUNS < 0 ? 16 : 1;")]),
+        ("observe_dict", "spread_warps", [("int compose_warps(int runs) { return std::min(kComposeWarps, (runs + 31) / 32); }",
+                                           "int compose_warps(int runs) { return std::min(kComposeWarps, std::max(1, ((runs + 31) / 32 + sm_count() - 1) / sm_count())); }")]),
+    ],
+}
 # which kernels a patched source changes
-_ABLATED_KERNELS = {"observe_dict": ("observe_dict",),
+_ABLATED_KERNELS = {"features": ("feature_vector",), "compose": ("compose_rgb",),
+                    "observe_dict": ("observe_dict",),
                     "flagship_step": ("flagship_step", "flagship_observe_board", "flagship_init"),
                     "render_rgb84": ("render_rgb84",)}
 
@@ -258,7 +320,7 @@ def _patched(csrc, source, patches):
     return text
 
 
-def ablate(repo, kernels, defines, cases, time_fn, ablations) -> dict:
+def ablate(repo, kernels, defines, cases, time_fn, ablations, ablated=None) -> dict:
     """Device ms of each copy of ``ablations`` and of the unpatched build
     ("full") on each ``label: case`` of ``cases``, made beforehand by the
     unpatched build; ``time_fn(case)`` gives ``{kernel: ms}`` as the loaded
@@ -297,7 +359,7 @@ def ablate(repo, kernels, defines, cases, time_fn, ablations) -> dict:
         kernels._LIBS[(source, defines)] = lib
         for label, case in cases.items():
             out.update({f"{k}_{variant}@{label}": v for k, v in time_fn(case).items()
-                        if k.startswith(_ABLATED_KERNELS[source])})
+                        if k.startswith(ablated or _ABLATED_KERNELS[source])})
         kernels._LIBS.pop((source, defines))  # back to the unpatched build
     return out
 
@@ -408,6 +470,97 @@ def sample_main(args, repo, kernels, geos, P, rw, smi, builds, states) -> None:
                       "builds": builds, "ms": out}), flush=True)
 
 
+def wrappers_main(args, repo, kernels, geos, P, rw, defines, smi) -> None:
+    """``--kernels wrappers``: ``feature_vector`` and ``compose_rgb`` at
+    ``WRAPPER_SHAPES`` beside their bounds, the floor and, for
+    ``compose_rgb``, ``palette_ext[id_image]``; or with ``--ablate`` their
+    patched copies' times at 10x20."""
+    from chip_smoke import _flagship_actions, device_ms
+    from tetris_gymnasium_torch.ops.observations import FeatureFlags
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    flags = FeatureFlags()
+    crops = {"10x20": (20, 10), "30x20": (20, 30), "61x12": (12, 61), "28x14": (14, 28)}
+    builds = {}
+    if args.ptxas:
+        builds = build_facts(kernels, [(n, "features", kernels.feature_defines(*crops[n])) for n in crops]
+                             + [(n, "observe_dict", defines(n)) for n in OBS_PTXAS])
+    build_facts(kernels, [(n, "features", kernels.feature_defines(*crops[n])) for n in ("10x20", "30x20", "61x12")]
+                + [(n, src, defines(n)) for n in ("10x20", "30x20", "61x12") for src in ("observe_dict", "flagship_step")])
+
+    def case(name, B):
+        """The kernels' inputs at ``name`` for B envs (N images): mid-game
+        boards' crop view, and observe_dict's outputs, one env's strips
+        where B is the candidates' count (the grouped rgb mode)."""
+        cfg = geos[name]
+        s = kernels.flagship_init(batch_keys(prng_key(22 + B), B, device=dev), cfg, P)
+        for _ in range(40):
+            s = kernels.flagship_step(s, _flagship_actions(B, g, dev), cfg, P, rw)[0]
+        d = kernels.observe_dict(s, cfg, P)
+        group = B if B in (40, 120) else 1
+        pad = cfg.padding
+        return {"cfg": cfg, "crop": s.board[:, :-pad, pad:-pad], "board": d["board"], "group": group,
+                "queue": d["queue"][: B // group].contiguous(), "holder": d["holder"][: B // group].contiguous()}
+
+    def time_case(kernel, c):
+        n = 10 if c["board"].shape[0] >= 65536 else 100
+        if kernel == "feature_vector":
+            return {kernel: device_ms(lambda: kernels.feature_vector(c["crop"], flags), n)}
+        return {kernel: device_ms(lambda: kernels.compose_rgb(c["board"], c["queue"], c["holder"], P, c["group"]), n)}
+
+    if args.ablate:
+        design = "warp" if "transpose32" in open(os.path.join(repo, "tetris_gymnasium_torch", "csrc",
+                                                             "features.cu")).read() else "thread"
+        if design != "warp":
+            raise SystemExit("time_surface_kernels: --kernels wrappers --ablate patches this PR's design only")
+        cases = {f"10x20@{B}": case("10x20", B) for B in WRAPPER_ABLATE_B}
+        out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
+        for kernel, key, defs in (("feature_vector", "features", kernels.feature_defines(20, 10)),
+                                  ("compose_rgb", "compose", defines("10x20"))):
+            jobs = [(src, variant, patches) for src, variant, patches in WRAPPER_ABLATIONS[key]]
+            res = ablate(repo, kernels, defs, cases, lambda c, k=kernel: time_case(k, c),
+                         [(src, v, p) for src, v, p in jobs], ablated=_ABLATED_KERNELS[key])
+            out.update({k: v for k, v in res.items() if k.startswith(kernel)})
+        print(json.dumps({"label": args.label, "repo": repo, "design": design, "nvidia_smi": smi,
+                          "ablate_ms": out}), flush=True)
+        return
+    out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
+    for kernel, name, B in WRAPPER_SHAPES:
+        c = case(name, B)
+        cfg = c["cfg"]
+        FH, FW = c["crop"].shape[1:]
+        tag = f"{kernel}@{name}@{B}"
+        out[tag] = time_case(kernel, c)[kernel]
+        if kernel == "feature_vector":
+            io = B * (FH * FW + 4 * (FW + 3))
+        else:
+            H, PW = c["board"].shape[1:]
+            iw = PW + max(c["queue"].shape[2], c["holder"].shape[2])
+            io = B * (H * PW + 3 * H * iw) + c["queue"].numel() + c["holder"].numel()
+            # the yardstick: one indexing call given the composed int64 id image
+            out[f"library@{name}@{B}"] = _compose_library_ms()(c["board"], c["queue"], c["holder"], c["group"], P,
+                                                               10 if B >= 65536 else 100)
+        out[f"bound_bytes@{tag}"] = 1e3 * io / 3.35e12
+        out[f"bound@{tag}"] = max(out[f"bound_bytes@{tag}"], out["floor"])
+        del c
+        torch.cuda.empty_cache()
+    print(json.dumps({"label": args.label, "repo": repo, "nvidia_smi": smi, "builds": builds, "ms": out}),
+          flush=True)
+
+
+def _compose_library_ms():
+    """``compose_rgb``'s yardstick, ``compose_library_ms`` of this tree's
+    ``chip_smoke.py``: the tree that ``--repo`` names may predate it."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_yardstick", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.compose_library_ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=HERE)
@@ -416,7 +569,7 @@ def main() -> None:
     ap.add_argument("--batches", default="512,2048,65536",
                     help="B of the two pixel kernels at 10x20")
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--kernels", choices=("surface", "obs", "init", "sample"), default="surface")
+    ap.add_argument("--kernels", choices=("surface", "obs", "init", "sample", "wrappers"), default="surface")
     args = ap.parse_args()
     pixel_b = tuple(int(x) for x in args.batches.split(","))
     if not torch.cuda.is_available():
@@ -445,6 +598,9 @@ def main() -> None:
         return kernels.engine_defines(geos[name], bb.turbo_tables(P), flagship=True)
 
     builds = {}
+    if args.kernels == "wrappers":
+        wrappers_main(args, repo, kernels, geos, P, rw, defines, smi)
+        return
     if args.ptxas:
         names, sources = {"obs": (OBS_PTXAS, ("observe_dict", "flagship_step")),
                           "init": (OBS_PTXAS, ("flagship_step",)),
