@@ -152,7 +152,12 @@ Phases, each printing one JSON line:
     B = 65536, and the DQN path's replay kernels at its shapes
     (``replay_add`` beside the obs field's ``copy_``); ``dqn_act``'s
     greedy launch (the evaluations' argmax) beside ``torch.argmax(q, -1)``
-    (also at B = 512 in phase 25).
+    (also at B = 512 in phase 25), its ``call_ms`` with keys (a Python
+    call's host time: the key's split is made on the card); before the
+    times, every ``dqn_act`` build (A = 8, and the build for any other A at
+    A = 5 and 40) bit-equal to ``act_plain`` on rows with NaNs, ties and
+    +-inf, with keys (and its draws) at global counter offsets 0, B and 3B
+    and greedy (:func:`dqn_act_builds_diff`; also in phases 25 and 48).
 
 21. The flagship engine: ``flagship_init`` against ``core.engine.init_plain``
     at B = 512, 1 and 1001 (bag and uniform) and at the edges of its blocks
@@ -323,6 +328,9 @@ Phases, each printing one JSON line:
     then hand-built stacks (1-4 full rows, a non-empty row 0, queues at their
     refill boundary, games over), each taking every action 0-7, where a line
     clear's copy of row 0, a refill and a frozen game must each show.
+    First, ``fn_reset`` bit-equal to ``reset_plain`` in every field and
+    the observation at B = 1, 2, 3, 17, 4096 and 65536
+    (:func:`fn_reset_diff`).
 42. The slice's path: ``examples/play_random_functional.py``'s game from
     ``prng_key(42)`` on the card equal to the plain versions on the CPU
     (steps, score, last observation; steps/s; exact launch counts), then
@@ -453,7 +461,9 @@ kernel with a rank's launches on the sharded paths at W = 2 and on the
 utilities' paths (phases 52-54), and
 ``ppo_sample``, ``turbo_step`` and ``flagship_step`` (their sampling
 builds) and ``dqn_act`` with their times at global counter offsets 0 and
-3B) and, last, the device line.
+3B; ``dqn_act`` with its ``call_ms`` with keys, ``fn_reset`` with its
+times at each batch of phase 43 (``ms_by_batch``: B = 1 is the example's
+game)) and, last, the device line.
 Any failed check raises, so the exit code is not 0.  The script imports
 nothing of JAX.
 """
@@ -1598,6 +1608,10 @@ def main() -> None:
             "library_ms": at[name].get("library_ms"), "launch_floor_ms": floor_ms,
             **({"builds_ms_on_path": at[name]["builds_ms"]} if "builds_ms" in at[name] else {}),
             **({"greedy_ms": at[name]["greedy_ms"]} if "greedy_ms" in at[name] else {}),
+            # dqn_act: a Python call's host time with keys (the split made on the card)
+            **({"call_ms": at[name]["call_ms"]} if name == "dqn_act" else {}),
+            # fn_reset: its time at each batch of phase 43 (B = 1 is the example's game)
+            **({"ms_by_batch": {B: fn_times[name][B]["ms"] for B in FN_TIME_B}} if name == "fn_reset" else {}),
             "builds": builds_of[os.path.splitext(os.path.basename(src))[0]],
             **({"wide": wide_at[name]} if name in wide_at else {}),
             **({"variants_ms_at_8192": variants[name]} if name in variants else {}),
@@ -2994,6 +3008,56 @@ def greedy_times(q) -> dict:
             "greedy_bound_ms": greedy["bound_ms"], "greedy_bound_by": greedy["bound_by"]}
 
 
+DQN_ACT_OTHER_A = (5, 40)  # the generic dqn_act build's action counts held beside A = 8
+
+
+def _act_edge_rows(q):
+    """``q`` with the argmax's edge cases written into some rows: NaNs
+    (first, last, every other, all), ties, +-inf, all-equal rows."""
+    q = q.clone()
+    A = q.shape[1]
+    q[::7] = torch.round(q[::7])
+    q[1::11, 0] = float("nan")
+    q[2::11, A - 1] = float("nan")
+    q[3::11, ::2] = float("nan")
+    q[4::11, A // 2] = float("inf")
+    q[5::11] = float("-inf")
+    q[6::11, 1 % A] = float("inf")
+    q[6::11, A - 1] = float("inf")
+    q[7::11] = 0.25
+    q[9::11] = float("nan")
+    return q
+
+
+def dqn_act_builds_diff(q, act_key, eps_key, what, offsets=None) -> int:
+    """Every ``dqn_act`` build bit-equal to ``act_plain`` on ``q``'s rows with
+    the argmax's edge cases written in (:func:`_act_edge_rows`): the A = 8
+    build from ``q`` (B x 8) and the build for any other A from its first 5
+    columns and from ``q`` tiled to 40, each greedy and with keys at the
+    global counter offsets ``offsets`` (0, B and 3B by default), its randint
+    draws and uniforms against the host twins'.  Returns the comparisons."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.ops import threefry
+    from tetris_gymnasium_torch.rl import dqn
+
+    B, dev = q.shape[0], q.device
+    offsets = (0, B, 3 * B) if offsets is None else offsets
+    n = 0
+    for qa in (q, q[:, :DQN_ACT_OTHER_A[0]], q.repeat(1, DQN_ACT_OTHER_A[1] // q.shape[1])):
+        qa = _act_edge_rows(qa.contiguous())
+        A = qa.shape[1]
+        diff("dqn_act", kernels.dqn_act(qa), dqn.act_plain(qa), f"{what} A={A} greedy")
+        for off in offsets:
+            a, ra, u = kernels.dqn_act(qa, act_key, eps_key, 0.5, return_draws=True, env_offset=off)
+            tag = f"{what} A={A} offset={off}"
+            diff("dqn_act", a, dqn.act_plain(qa, act_key, eps_key, 0.5, env_offset=off), f"{tag} actions")
+            diff("dqn_act", ra, threefry.randint_lanes(act_key, B, A, dev, start=off).to(torch.int32),
+                 f"{tag} randint")
+            diff("dqn_act", u, threefry.uniform_lanes(eps_key, B, dev, start=off), f"{tag} uniforms")
+        n += 1 + len(offsets)
+    return n
+
+
 def time_dqn_kernels(dev, smi) -> dict:
     """Phase 20: the DQN path's new kernels, and its replay kernels, beside their bounds."""
     from tetris_gymnasium_torch import kernels
@@ -3018,6 +3082,7 @@ def time_dqn_kernels(dev, smi) -> dict:
     for B in (DQN_ENVS, 65536):
         q = torch.randn((B, 8), generator=g, device=dev)
         act_key, eps_key = threefry.split(threefry.prng_key(B))
+        dqn_act_builds_diff(q, act_key, eps_key, f"phase 20 B={B}")
         out["dqn_act"][B] = timed_pair(
             lambda: kernels.dqn_act(q, act_key, eps_key, 0.3),
             lambda: dqn.act_plain(q, act_key, eps_key, 0.3), 100, 10,
@@ -3637,6 +3702,7 @@ def time_pixel_kernels(dev, smi) -> dict:
         del stack, obs
     q = torch.randn((PIX_ENVS, 8), generator=g, device=dev)
     act_key, eps_key = threefry.split(threefry.prng_key(PIX_ENVS))
+    dqn_act_builds_diff(q, act_key, eps_key, f"phase 25 B={PIX_ENVS}")
     out["dqn_act"][PIX_ENVS] = timed_pair(
         lambda: kernels.dqn_act(q, act_key, eps_key, 0.3),
         lambda: dqn.act_plain(q, act_key, eps_key, 0.3), 100, 10, nbytes(q) + PIX_ENVS * 4,
@@ -5447,6 +5513,26 @@ def _fn_stacks(cfg, kind, n, dev, seed):
     return st, (torch.arange(8 * n, device=dev) % 8).to(torch.int32)
 
 
+FN_RESET_B = (1, 2, 3, 17, 4096, 65536)
+
+
+def fn_reset_diff(dev, cfg, kind, seed, what) -> None:
+    """``fn_reset`` bit-equal to ``reset_plain`` in every field and the
+    observation at ``FN_RESET_B``."""
+    from tetris_gymnasium_torch import kernels
+    from tetris_gymnasium_torch.core import fn_env
+    from tetris_gymnasium_torch.ops.threefry import prng_key
+    from tetris_gymnasium_torch.parallel.mesh import batch_keys
+    from tetris_gymnasium_torch.pieces import PIECES
+
+    for i, B in enumerate(FN_RESET_B):
+        keys = batch_keys(prng_key(seed + i), B, device=dev)
+        want = fn_env.reset_plain(keys, cfg, PIECES, _fn_queue(kind))
+        got = kernels.fn_reset(keys, cfg, PIECES, kind)
+        for part, w, field in zip(got, want, ("keys", "state", "obs")):
+            _fn_diff("fn_reset", part, w, f"{what} B={B} {field}")
+
+
 def check_fn_kernels(dev) -> dict:
     """Phase 41: ``fn_reset``, ``fn_step`` and ``fn_observe`` bit-equal to
     their plain versions at every geometry of :func:`fn_geometries`, in every
@@ -5472,6 +5558,7 @@ def check_fn_kernels(dev) -> dict:
     summary = {}
     for gi, (name, cfg, kind) in enumerate(fn_geometries()):
         qf = _fn_queue(kind)
+        fn_reset_diff(dev, cfg, kind, 1000 + 100 * gi, name)
 
         def keys_at(seed):
             return torch.cat([batch_keys(prng_key(seed + j), B, device=dev) for j, B in enumerate(FN_B)])
@@ -5533,7 +5620,8 @@ def check_fn_kernels(dev) -> dict:
         if min(shown["row0_copies"], shown["refills"], shown["frozen"]) == 0:
             raise AssertionError(f"{name}: the hand-built states did not show every case: {shown}")
         summary[name] = {"steps": FN_STEPS, "B": list(FN_B), "live_env_steps": live, "games_ended": ended,
-                         "lines": lines, "stacks": shown, "fn_step_builds": builds}
+                         "lines": lines, "stacks": shown, "fn_step_builds": builds,
+                         "fn_reset_B": list(FN_RESET_B)}
     torch.cuda.synchronize()
     out = {"phase": "fn_kernels", "bit_equal": True, "geometries": summary,
            "max_abs_err": {k: MAX_ERR[k] for k in ("fn_reset", "fn_step", "fn_observe")},
@@ -6173,6 +6261,7 @@ def check_offset_kernels(dev, smi) -> dict:
                                          ("log_prob", klp, plp, fwlp)):
                     diff("flagship_step", a1, a2, f"{tag} {name} vs plain")
                     diff("flagship_step", a1, a3[off:off + B], f"{tag} {name} vs the full launch")
+            checked += dqn_act_builds_diff(qx, key, eps_key, f"phase 48 {what}", offsets=(off,))
             got = kernels.dqn_act(qx, key, eps_key, 0.5, return_draws=True, env_offset=off)
             diff("dqn_act", got[0], dqn.act_plain(qx, key, eps_key, 0.5, env_offset=off),
                  f"dqn_act {what} vs plain")

@@ -3,9 +3,9 @@
 // id board int8[H, PW] read and written in words of up to 16 bytes, each
 // word's cells found as bits (bit t: cell i0 + t of the word at cell i0),
 // and four cells at a time handled as the bytes of a 32-bit lane of the
-// word (__vcmpgts4, __vadd4, __vsub4); the piece tables held across a warp
-// (LaneTable); and the card's SM count, which sets both kernels' envs a
-// block.
+// word (__vcmpgts4, __vadd4, __vsub4); and the piece tables held across a
+// warp (LaneTable).  Both kernels' envs a block follow the card's SM count
+// (sm_count.cuh).
 //
 // The geometry is engine_common.cuh's (the TETRIS_* defines).  A row of the
 // board is PW bytes, so a word may straddle rows; a piece's or a box's
@@ -18,6 +18,7 @@
 #include <cuda_runtime.h>
 
 #include "engine_common.cuh"
+#include "sm_count.cuh"
 
 namespace engine {
 
@@ -143,19 +144,6 @@ __device__ __forceinline__ PieceWord piece_word_lanes(const Table& packed, int p
 #pragma unroll
   for (int t = 0; t < TW; ++t) w.w[t] = packed.get(ok ? idx + t : -1);
   return w;
-}
-
-// The card's streaming multiprocessors (1 where it cannot be read): the two
-// kernels take fewer envs a block where a batch would leave SMs idle.
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
-      sms = 1;
-  }
-  return sms;
 }
 
 // Four bits as the low bits of four bytes: 0b1011 -> 0x01000101.

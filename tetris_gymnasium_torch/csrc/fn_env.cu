@@ -31,9 +31,26 @@
 // first lane, which hands the new piece and key to the others by shuffles.
 // The boards go back with one bulk store (or the words), and the block
 // writes the observation int8[B, HEIGHT, WIDTH] in 4-byte words from the
-// boards in shared memory and each env's active window.  fn_reset and
-// fn_observe keep their first design: a block of 256 threads takes kEnvs
-// envs (64 at 10x20), thread e an env.
+// boards in shared memory and each env's active window.  fn_observe keeps
+// its first design: a block of 256 threads takes kEnvs envs (64 at 10x20),
+// thread e an env.
+//
+// fn_reset (a block of 256 threads for E envs, E = min(128, ceil(B / SMs))
+// rounded up so that a block's boards and observations are whole 16-byte
+// words, at most 64 at 30x20; no block-wide barrier): the board tensor is B
+// copies of one pattern known at compile time, and the observation is zeros
+// but for the spawned piece's cells in rows 0 .. S - 1, which are -1.  Warps
+// stream the board as 16-byte words, each computed from its byte offset
+// where it is stored (one word throughout where a thread's stride is a
+// multiple of the pattern's period), and the observation's words that no
+// piece can touch as zeros, while the env warps run one short RNG chain an
+// env (the key one 8-byte load, split once; the bag's sort keys placed by
+// their ranks, no insertion sort), put the queues through a warp's tile and
+// write the observation words their pieces touch.  What held the first design back: every board filled in shared memory a
+// byte at a time and copied out, 192 of 256 threads waiting at a barrier
+// for 64 serial chains with an insertion sort each, and the observation
+// computed a byte at a time from the staged boards; B = 8192 gave 128
+// blocks for the 132 SMs.
 //
 // What held the step's first design back (one thread an env in that
 // layout): at B = 65536 its 1024 blocks ran in 1.11 waves (7 blocks an SM
@@ -78,8 +95,9 @@
 //
 // Geometry is fixed at compile time by the TETRIS_* defines
 // (kernels.py:fn_defines), one library per geometry and piece set: the
-// boards of a block live in kEnvs * CELLS bytes of shared memory, which
-// with their windows stay within 48 KB (CELLS <= 3056 at 16 envs a block),
+// step's boards of a block live in shared memory, which with their windows
+// stay within 48 KB (CELLS <= 3056 at 16 envs a block; the reset stages no
+// board, so the limit binds only the step and fn_observe's envs a block),
 // a piece's S x S matrix is one 64-bit mask (S <= 8), and the step's bit
 // rows and maps of window starts are 64-bit words (H <= 64, PW <= 64).
 
@@ -87,6 +105,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk.cuh"
+#include "sm_count.cuh"
 #include "threefry.cuh"
 
 #ifndef TETRIS_HEIGHT
@@ -144,17 +163,16 @@ constexpr int NP = TETRIS_NP;
 constexpr int S = TETRIS_S;
 constexpr int SPAWN_X = PW / 2 - 2;  // spawn_xy_fn: the padded matrix width 4, whatever S
 constexpr int8_t BEDROCK = 1;
-// Envs a block: 64, 32 or 16, as many as fit their boards and windows
-// (16 bytes each, struct Active) in the 48 KB of shared memory a block has
-// without opting in.
+// Envs a block of fn_observe: 64, 32 or 16, as many as fit the boards and
+// windows (16 bytes each, struct Active) that the first design of the
+// reset staged in the 48 KB of shared memory a block has without opting in.
 constexpr int kSharedBytes = 48 * 1024;
 constexpr int kEnvs = 64 * (CELLS + 16) <= kSharedBytes ? 64 : 32 * (CELLS + 16) <= kSharedBytes ? 32 : 16;
-constexpr int kSmem = kEnvs * CELLS;
 static_assert(PAD >= 1 && HEIGHT >= 1 && WIDTH >= 1 && S <= 8 && S <= H && S <= PW,
               "kernels.py:fn_defines limits");
 static_assert(kEnvs * (CELLS + 16) <= kSharedBytes, "a block's boards fit 48 KB of shared memory");
-// Threads a block: threads 0 .. kEnvs - 1 each play one env, and all of them
-// move the boards and write the observations.
+// Threads a block of fn_observe: threads 0 .. kEnvs - 1 each take one env,
+// and all of them write the observations.
 constexpr int kThreads = 256;
 static_assert(QS >= 1 && QS <= 32 && QS <= NP, "the queue lives in registers and draws pieces");
 constexpr int kRounds = QS > 1 ? 1 : 0;  // jax.random.permutation's rounds, up to 1625 items
@@ -699,45 +717,248 @@ __global__ void __launch_bounds__(kStepThreads) fn_step_kernel(FnPtrs in, FnPtrs
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fn_reset_kernel(const uint32_t* __restrict__ keys,
-                                                         uint32_t* __restrict__ keys_out, FnPtrs out,
-                                                         int8_t* __restrict__ obs,
-                                                         const uint64_t* __restrict__ masks, int B,
-                                                         int uniform) {
-  extern __shared__ __align__(16) int8_t boards[];
-  __shared__ Active act[kEnvs];
-  const int e0 = blockIdx.x * kEnvs, nb = min(kEnvs, B - e0), t = threadIdx.x;
-  // create_board: zeros inside, bedrock on the left, right and bottom
-  for (int i = t; i < nb * CELLS; i += blockDim.x) {
-    const int r = (i % CELLS) / PW, c = i % PW;
-    boards[i] = (r >= HEIGHT || c < PAD || c >= PAD + WIDTH) ? BEDROCK : 0;
+// ---------------------------------------------------------------------------
+// fn_reset: word streams of the constant board and observation beside one
+// short RNG chain an env
+// ---------------------------------------------------------------------------
+
+constexpr int gcd_of(int a, int b) { return b == 0 ? a : gcd_of(b, a % b); }
+// _clamp_start at compile time.
+constexpr int clamp_const(int v, int limit, int dim) {
+  return (v < 0 ? v + dim : v) < 0 ? 0 : (v < 0 ? v + dim : v) > limit ? limit : (v < 0 ? v + dim : v);
+}
+
+constexpr int kResetThreads = 256;
+constexpr int kResetWarps = kResetThreads / 32;
+// Envs a block at most: 128, or the largest power of two whose boards and
+// observations take at most 128 KB (64 at 30x20: a block of 128 envs there
+// took 39% longer at B = 65536), at least kEnvAlign.
+constexpr int pow2_floor(int v) { return v >= 2 ? 2 * pow2_floor(v / 2) : 1; }
+constexpr int kResetMaxEnvs = pow2_floor(131072 / (CELLS + OBS)) < 128 ? pow2_floor(131072 / (CELLS + OBS)) : 128;
+static_assert(kResetMaxEnvs >= 16, "a block of the reset holds a multiple of kEnvAlign envs");
+// Envs whose observations, and whose boards, are whole 16-byte words (powers
+// of two: the larger is their lcm); a block's envs are a multiple of it,
+// so that no word of either tensor spans two blocks.
+constexpr int kObsAlign = 16 / gcd_of(OBS, 16);
+constexpr int kBoardAlign = 16 / gcd_of(CELLS, 16);
+constexpr int kEnvAlign = kObsAlign > kBoardAlign ? kObsAlign : kBoardAlign;
+constexpr int kBoardPeriod = kBoardAlign * CELLS / 16;  // words of the board stream's period
+constexpr int kWordRows = 15 / PW + 2;                  // board rows a 16-byte word touches at most
+// The spawned piece's window (rotation 0 at (SPAWN_X, 0), clamped) in an
+// env's observation: rows 0 .. kWinRows - 1, columns kWinC0 .. kWinC1 - 1;
+// its bytes lie in [kWinLo, kWinHi), kWinWords 16-byte words at most.
+constexpr int kSpawnXc = clamp_const(SPAWN_X, PW - S, PW);
+constexpr int kWinRows = S < HEIGHT ? S : HEIGHT;
+constexpr int kWinC0 = kSpawnXc - PAD > 0 ? kSpawnXc - PAD : 0;
+constexpr int kWinC1 = kSpawnXc - PAD + S < WIDTH ? kSpawnXc - PAD + S : WIDTH;
+constexpr bool kHasWin = kWinC0 < kWinC1;
+constexpr int kWinLo = kWinC0;
+constexpr int kWinHi = (kWinRows - 1) * WIDTH + kWinC1;
+constexpr int kWinWords = kHasWin ? (kWinHi - kWinLo + 14) / 16 + 1 : 0;
+
+// create_board's cell c of a board (0 <= c < CELLS): 1 on the bedrock (the
+// pad columns and the rows below the playfield), 0 inside.
+__device__ __forceinline__ int8_t reset_cell(int c) {
+  const int r = c / PW, w = c - r * PW;
+  return (r >= HEIGHT || w < PAD || w >= PAD + WIDTH) ? BEDROCK : 0;
+}
+
+// The 16 bytes of create_board's boards laid end to end from byte o of a
+// board (0 <= o < CELLS): byte i is cell (o + i) mod CELLS.  The word's
+// playfield cells are bits, an interval of each playfield row that it
+// touches (row r / PW of the stream is row r mod H of a board), and each 4
+// bits become a 32-bit lane of bytes.
+__device__ __forceinline__ uint4 reset_board_word(int o) {
+  const int r0 = o / PW;
+  uint32_t play = 0u;
+#pragma unroll
+  for (int k = 0; k < kWordRows; ++k) {
+    const int r = r0 + k, at = r * PW + PAD - o;  // the row's first playfield cell, from o
+    const int lo = max(at, 0), hi = min(at + WIDTH, 16);
+    if (r % H < HEIGHT && lo < hi) play |= (0xFFFFu >> (16 - hi)) & ~((1u << lo) - 1u);
   }
-  if (t < nb) {
-    const int e = e0 + t;
-    // the key splits once: the first half draws the queue and comes back,
-    // the second becomes the state's stream
-    const uint2 first = tf::block(keys[2 * e], keys[2 * e + 1], 0u, 0u);
-    const uint2 second = tf::block(keys[2 * e], keys[2 * e + 1], 0u, 1u);
-    int32_t q[QS];
-    fresh_queue(first.x, first.y, uniform != 0, q);
-    keys_out[2 * e] = first.x;
-    keys_out[2 * e + 1] = first.y;
-    out.rng_key[2 * e] = second.x;
-    out.rng_key[2 * e + 1] = second.y;
+  const uint32_t rock = ~play;
+  return make_uint4(spread4(rock & 15u), spread4((rock >> 4) & 15u), spread4((rock >> 8) & 15u),
+                    spread4((rock >> 12) & 15u));
+}
+
+// Whether the 16-byte word at byte g of observations laid end to end from
+// an env's first byte holds a byte that an env's spawned piece can cover.
+__device__ __forceinline__ bool piece_word(int g) {
+  if constexpr (!kHasWin) return false;
+  for (int k = g / OBS; k * OBS < g + 16; ++k)
+    if (k * OBS + kWinHi > g && k * OBS + kWinLo < g + 16) return true;
+  return false;
+}
+
+// The spawned piece (mask m, rotation 0) in its window of the observation:
+// byte r is row r's cells from column kWinC0 (S <= 8 bits).
+__device__ __forceinline__ uint64_t window_rows(uint64_t m) {
+  uint64_t rows = 0ull;
+#pragma unroll
+  for (int r = 0; r < kWinRows; ++r) rows |= ((act_row(m, kSpawnXc, 0, r) >> kWinC0) & 0xFFull) << (8 * r);
+  return rows;
+}
+
+// Envs whose observations a 16-byte word can touch.
+constexpr int kSpanEnvs = (15 + OBS - 1) / OBS + 1;
+
+// Bit i: byte g + i of the observations of envs 0 .. n - 1 laid end to end
+// is a cell of its env's spawned piece, so -1; rows[k] is env k's
+// window_rows, and no env before e has a window in the word.
+__device__ __forceinline__ uint32_t piece_bits(int g, int e, const uint64_t* rows, int n) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int j = 0; j < kSpanEnvs; ++j) {
+    if (e + j >= n) break;
+    const uint64_t w = rows[e + j];
+    const int base = (e + j) * OBS + kWinC0 - g;  // the word's byte where window row 0 starts
+#pragma unroll
+    for (int r = 0; r < kWinRows; ++r) {
+      const int at = base + r * WIDTH;
+      const uint32_t row = static_cast<uint32_t>(w >> (8 * r)) & 0xFFu;
+      if (at > -8 && at < 16) bits |= at >= 0 ? row << at : row >> -at;
+    }
+  }
+  return bits & 0xFFFFu;
+}
+
+// A block's streams from thread si of S: the board words of its n envs
+// (one word throughout where S is a multiple of the period; the tensor's
+// ragged end byte by byte), and the observation words that no piece can
+// touch, zeros.  The block's boards and observations start on 16 bytes.
+__device__ __forceinline__ void stream_reset(int8_t* board, int8_t* obs, int n, int si, int S) {
+  const int bwords = n * CELLS / 16;
+  const int SB = S >= kBoardPeriod ? S / kBoardPeriod * kBoardPeriod : S;
+  if (si < SB) {
+    const bool fixed = SB % kBoardPeriod == 0;
+    const int step = (16 * SB) % CELLS;
+    int o = (16 * si) % CELLS;
+    const uint4 w0 = reset_board_word(o);
+    for (int i = si; i < bwords; i += SB) {
+      reinterpret_cast<uint4*>(board)[i] = fixed ? w0 : reset_board_word(o);
+      o += step;
+      if (o >= CELLS) o -= CELLS;
+    }
+  }
+  for (int i = 16 * bwords + si; i < n * CELLS; i += S) board[i] = reset_cell(i % CELLS);
+  const int owords = n * OBS / 16;
+  for (int i = si; i < owords; i += S)
+    if (!piece_word(16 * i)) reinterpret_cast<uint4*>(obs)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// count ints from a warp's tile to dst, as 16-byte words where dst lies on
+// a 16-byte boundary and count is a multiple of 4.
+__device__ __forceinline__ void store_ints(int32_t* dst, const int32_t* tile, int count, int lane) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0 && (count & 3) == 0) {
+    for (int f = lane; f < count / 4; f += 32)
+      reinterpret_cast<uint4*>(dst)[f] = reinterpret_cast<const uint4*>(tile)[f];
+  } else {
+    for (int f = lane; f < count; f += 32) dst[f] = tile[f];
+  }
+}
+
+// create_bag's permutation from key k (one round: the subkey's 32-bit sort
+// keys, a stable sort of iota) as ranks: entry i goes to place rank_i, the
+// count of j with (sk[j], j) < (sk[i], i); or create_uniform's draws.
+__device__ __forceinline__ void ranked_queue(uint2 k, bool uniform, int32_t (&q)[QS]) {
+  if (uniform || kRounds == 0) {
+    fresh_queue(k.x, k.y, uniform, q);
+    return;
+  }
+  const uint2 sub = tf::block(k.x, k.y, 0u, 1u);
+  uint32_t sk[QS];
+#pragma unroll
+  for (int i = 0; i < QS; ++i) {
+    sk[i] = tf::bits(sub.x, sub.y, 0u, i);
+    q[i] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < QS; ++i) {
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < QS; ++j) rank += sk[j] < sk[i] || (sk[j] == sk[i] && j < i);
+#pragma unroll
+    for (int p = 0; p < QS; ++p) q[p] = rank == p ? i : q[p];
+  }
+}
+
+// A warp's m envs from env b0, a lane an env.  The key is one 8-byte load,
+// split once: the first half draws the queue and comes back, the second is
+// the state's stream.  The queues go out through the warp's tile, the
+// scalar fields a store an env; then the warp writes the observation words
+// its envs' pieces touch (the others are the streams' zeros), and the
+// tensor's ragged end byte by byte.  The warp's envs' observations start on
+// 16 bytes and are whole words but at the tensor's end.
+__device__ __forceinline__ void reset_warp(const uint32_t* keys, uint32_t* keys_out, const FnPtrs& out,
+                                           int8_t* obs, const uint64_t* masks, long long b0, int m,
+                                           int lane, bool uniform, int32_t* tile, uint64_t* wm) {
+  const bool live = lane < m;
+  uint2 key = make_uint2(0u, 0u);
+  if (live) key = __ldg(reinterpret_cast<const uint2*>(keys) + b0 + lane);
+  const uint2 first = tf::block(key.x, key.y, 0u, 0u), second = tf::block(key.x, key.y, 0u, 1u);
+  int32_t q[QS];
+  ranked_queue(first, uniform, q);
+  if (live) {
+    const long long e = b0 + lane;
+#pragma unroll
+    for (int j = 0; j < QS; ++j) tile[lane * QS + j] = q[j];
+    reinterpret_cast<uint2*>(keys_out)[e] = first;
+    reinterpret_cast<uint2*>(out.rng_key)[e] = second;
     out.piece[e] = q[0];
     out.rotation[e] = 0;
     out.x[e] = SPAWN_X;
     out.y[e] = 0;
-#pragma unroll
-    for (int i = 0; i < QS; ++i) out.queue[static_cast<long long>(e) * QS + i] = q[i];
     out.queue_index[e] = 1;
     out.game_over[e] = 0;
     out.score[e] = 0.0f;
-    act[t] = active(masks, q[0], 0, SPAWN_X, 0, false);
+    wm[lane] = window_rows(piece_mask(masks, q[0], 0));
   }
-  __syncthreads();
-  block_copy(out.board + static_cast<long long>(e0) * CELLS, boards, nb * CELLS);
-  write_obs(obs + static_cast<long long>(e0) * OBS, boards, act, nb);
+  __syncwarp();
+  store_ints(out.queue + b0 * QS, tile, m * QS, lane);
+  int8_t* wobs = obs + b0 * OBS;
+  const int full = m * OBS / 16;
+  for (int j = lane; j < m * kWinWords; j += 32) {
+    const int e = j / kWinWords;
+    const int w = (e * OBS + kWinLo) / 16 + j % kWinWords;
+    if (w > (e * OBS + kWinHi - 1) / 16 || w >= full) continue;
+    if (e > 0 && w <= ((e - 1) * OBS + kWinHi - 1) / 16) continue;  // the env before writes it
+    const uint32_t bits = piece_bits(16 * w, e, wm, m);
+    reinterpret_cast<uint4*>(wobs)[w] = make_uint4(spread4(bits & 15u) * 0xFFu, spread4((bits >> 4) & 15u) * 0xFFu,
+                                                  spread4((bits >> 8) & 15u) * 0xFFu, spread4(bits >> 12) * 0xFFu);
+  }
+  for (int g = 16 * full + lane; g < m * OBS; g += 32) {
+    const int e = g / OBS, c = g - e * OBS, r = c / WIDTH, col = c - r * WIDTH - kWinC0;
+    const bool on = r < kWinRows && col >= 0 && col < 8 && ((wm[e] >> (8 * r + col)) & 1u);
+    wobs[g] = on ? static_cast<int8_t>(-1) : static_cast<int8_t>(0);
+  }
+}
+
+// reset for a block of up to E envs (kernels.py:fn_reset_shape: E =
+// min(kResetMaxEnvs, ceil(B / SMs)) rounded up to kEnvAlign), kResetThreads
+// threads, no block-wide barrier.  The board tensor is B copies of one
+// pattern known at compile time and the observation is zeros but for the
+// spawned pieces' cells: the warps of the block's envs (at most four) each
+// reset their envs (reset_warp) while the other warps stream their share of
+// both tensors as 16-byte words (stream_reset).  (Every thread streaming
+// first, then the chains, was 10-27% slower at B = 8192 and 65536.)
+__global__ void __launch_bounds__(kResetThreads) fn_reset_kernel(const uint32_t* __restrict__ keys,
+                                                              uint32_t* __restrict__ keys_out, FnPtrs out,
+                                                              int8_t* __restrict__ obs,
+                                                              const uint64_t* __restrict__ masks, int B,
+                                                              int E, int uniform) {
+  __shared__ __align__(16) int32_t tiles[kResetWarps][32 * QS];
+  __shared__ uint64_t wmasks[kResetWarps][32];
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const long long base = static_cast<long long>(blockIdx.x) * E;
+  const int n = static_cast<int>(min(static_cast<long long>(E), B - base));
+  const int env_warps = (n + 31) / 32;  // at most kResetMaxEnvs / 32 = 4
+  const int first = 32 * env_warps;     // the first streaming thread
+  if (warp < env_warps)
+    reset_warp(keys, keys_out, out, obs, masks, base + 32 * warp, min(32, n - 32 * warp), lane, uniform != 0,
+               tiles[warp], wmasks[warp]);
+  else
+    stream_reset(out.board + base * CELLS, obs + base * OBS, n, t - first, kResetThreads - first);
 }
 
 __global__ void __launch_bounds__(kThreads) fn_observe_kernel(
@@ -757,6 +978,15 @@ __global__ void __launch_bounds__(kThreads) fn_observe_kernel(
 }
 
 int blocks_for(int B) { return (B + kEnvs - 1) / kEnvs; }
+
+// Envs a block of the reset for a batch of B: as many as give every SM a
+// block where B gives the SMs fewer than kResetMaxEnvs each, rounded up to
+// whole words of both tensors.
+int reset_envs(int B) {
+  const int per_sm = (B + sm_count() - 1) / sm_count();
+  const int E = per_sm < kResetMaxEnvs ? per_sm : kResetMaxEnvs;
+  return (E + kEnvAlign - 1) / kEnvAlign * kEnvAlign;
+}
 
 // The step's two builds: params->bulk picks the bulk copies of the boards
 // (kernels.py:fn_step_build).  Shared memory past 48 KB is opted into once.
@@ -798,12 +1028,29 @@ extern "C" int fn_step_occupancy(int bulk, int* blocks, int* envs, int* threads,
   return static_cast<int>(rc);
 }
 
+// keys, keys_out and out->rng_key: uint32[B, 2] on 8 bytes; out->board and
+// obs on 16 bytes (else cudaErrorMisalignedAddress).
 extern "C" int fn_reset_launch(const void* keys, void* keys_out, const FnPtrs* out, void* obs,
                                const void* masks, int B, int uniform, void* stream) {
-  fn_reset_kernel<<<blocks_for(B), kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  if (((reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(keys_out) |
+        reinterpret_cast<uintptr_t>(out->rng_key)) & 7u) ||
+      ((reinterpret_cast<uintptr_t>(out->board) | reinterpret_cast<uintptr_t>(obs)) & 15u))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int E = reset_envs(B);
+  fn_reset_kernel<<<(B + E - 1) / E, kResetThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<uint32_t*>(keys_out), *out,
-      static_cast<int8_t*>(obs), static_cast<const uint64_t*>(masks), B, uniform);
+      static_cast<int8_t*>(obs), static_cast<const uint64_t*>(masks), B, E, uniform);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The reset's shape for a batch of B: out = [envs a block, threads a block,
+// blocks, the multiple of envs a block that makes both tensors whole words].
+extern "C" int fn_reset_shape(int B, int* out) {
+  out[0] = reset_envs(B);
+  out[1] = kResetThreads;
+  out[2] = (B + out[0] - 1) / out[0];
+  out[3] = kEnvAlign;
+  return 0;
 }
 
 extern "C" int fn_observe_launch(const void* board, const void* piece, const void* rotation,

@@ -99,6 +99,7 @@
 
 #include "engine_common.cuh"
 #include "features.cuh"
+#include "sm_count.cuh"
 
 using namespace engine;
 
@@ -547,16 +548,7 @@ cudaError_t allow_smem(int bytes) {
 
 // Envs a block for a batch of B: kEnvs, or where B gives the card's SMs
 // fewer than kEnvs each, ceil(B / SMs), so that every SM takes a block.
-int envs_per_block(int B) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
-      sms = 1;
-  }
-  return std::min(kEnvs, std::max(1, (B + sms - 1) / sms));
-}
+int envs_per_block(int B) { return std::min(kEnvs, std::max(1, (B + sm_count() - 1) / sm_count())); }
 
 }  // namespace
 

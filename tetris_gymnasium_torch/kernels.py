@@ -61,7 +61,10 @@ Kernels, with the JAX function each replaces:
   copies for frames that are not whole 16-byte words;
 * ``framestack_push`` (``csrc/framestack.cu``): ``ops/framestack.py:push :37``;
 * ``dqn_act`` (``csrc/dqn_act.cu``): the epsilon-greedy of
-  ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``;
+  ``rl/dqn.py:train_step :143-147`` and ``rl/evaluate.py:greedy_q :124``,
+  a thread an env, its row's loads in flight before the draws, randint's
+  split of the action key made on the card (a build for A = 8 and one for
+  any A; :func:`dqn_act_shape`);
 * ``flagship_step``, ``flagship_init`` and ``flagship_observe_board``
   (``csrc/flagship_step.cu``): the flagship engine's ``core/engine.py:step
   :451`` (with ``_commit :289`` over ``ops/bitboard.py:58-230`` or
@@ -101,7 +104,9 @@ Kernels, with the JAX function each replaces:
   :203`` and the queues of ``ops/queue.py``) and ``observe :64``, built for
   each geometry (:func:`fn_defines`); the step a group of 8 lanes an env
   over bit rows of occupancy, its boards staged by bulk asynchronous copies
-  or word copies (:func:`fn_step_build`);
+  or word copies (:func:`fn_step_build`); the reset its board and
+  observation as streams of 16-byte words beside one short RNG chain an env
+  (:func:`fn_reset_shape`);
 * ``grayscale_u8_exact`` (``csrc/gray_exact.cu``):
   ``ops/image.py:grayscale_u8_exact :176`` with ``_gray_tables :125``.
 
@@ -120,7 +125,10 @@ image of the observation, shared by ``render_rgb84.cu`` and
 ``observe_dict.cu``; ``csrc/board_words.cuh`` the whole-word board helpers
 of ``observe_dict`` and ``flagship_observe_board``; ``csrc/features.cuh`` the
 feature vector's flags and the grouped kernels' accumulator, shared by
-``features.cu``, ``grouped_flagship.cu`` and ``grouped_placements.cu``.
+``features.cu``, ``grouped_flagship.cu`` and ``grouped_placements.cu``;
+``csrc/sm_count.cuh`` the card's SM count, read by the launchers of
+``dqn_act.cu``, ``fn_env.cu``, ``grouped_placements.cu`` and the sources
+that include ``board_words.cuh``.
 
 Every kernel takes any geometry within the static limits that
 :func:`engine_defines` names (padded height <= 64, padded width <= 128,
@@ -459,13 +467,11 @@ class _StackParams(ctypes.Structure):
                 ("bulk", ctypes.c_int)]
 
 
-class _DqnActParams(ctypes.Structure):
+class _DqnActParams(ctypes.Structure):  # csrc/dqn_act.cu:DqnActParams
     _fields_ = [
-        ("A", ctypes.c_int), ("explore", ctypes.c_int),
-        ("hi_k0", ctypes.c_uint32), ("hi_k1", ctypes.c_uint32),
-        ("lo_k0", ctypes.c_uint32), ("lo_k1", ctypes.c_uint32), ("multiplier", ctypes.c_uint32),
+        ("A", ctypes.c_int), ("act_k0", ctypes.c_uint32), ("act_k1", ctypes.c_uint32),
         ("eps_k0", ctypes.c_uint32), ("eps_k1", ctypes.c_uint32), ("epsilon", ctypes.c_float),
-        ("env_offset", ctypes.c_uint32),
+        ("env_offset", ctypes.c_uint32), ("vec", ctypes.c_int), ("multiplier", ctypes.c_uint32),
     ]
 
 
@@ -554,7 +560,8 @@ _ENTRY_POINTS = {
         "framestack_push_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P],
     },
     "dqn_act": {
-        "dqn_act_launch": [_P, _P, _P, _P, _I, ctypes.POINTER(_DqnActParams), _P],
+        "dqn_act_launch": [_P, _P, _P, _P, _I, _I, ctypes.POINTER(_DqnActParams), _P],
+        "dqn_act_shape": [_I, _I, _P],
     },
     "flagship_step": {
         "flagship_step_launch": [ctypes.POINTER(_FlagshipPtrs), ctypes.POINTER(_FlagshipPtrs),
@@ -588,6 +595,7 @@ _ENTRY_POINTS = {
                            _P, _P, _I, ctypes.POINTER(_FnParams), _P],
         "fn_step_occupancy": [_I, _P, _P, _P, _P],
         "fn_reset_launch": [_P, _P, ctypes.POINTER(_FnPtrs), _P, _P, _I, _I, _P],
+        "fn_reset_shape": [_I, _P],
         "fn_observe_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "gray_exact": {
@@ -1507,12 +1515,12 @@ def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
     ``randint(act_key, (B,), 0, A)`` where ``uniform(eps_key, (B,))`` is
     below ``epsilon`` (a float32 value), and the argmax of its row
     otherwise; without them the action is the argmax.  Both draws of row
-    ``b`` are at counter ``env_offset + b``, the global env index.  With
-    ``return_draws`` the randint draws ``int32[B]`` and the uniforms
-    ``f32[B]`` come back too.
+    ``b`` are at counter ``env_offset + b``, the global env index; the
+    kernel splits ``act_key`` itself, as ``randint`` does, so the host makes
+    no draw.  With ``return_draws`` the randint draws ``int32[B]`` and the
+    uniforms ``f32[B]`` come back too.  A build for A = 8 and one for any
+    other A; a thread an env (:func:`dqn_act_shape`).
     """
-    from tetris_gymnasium_torch.ops import threefry
-
     device = q.device
     if q.ndim != 2 or q.shape[1] < 1:
         raise ValueError(f"q: want [B, A] with A >= 1, got {tuple(q.shape)}")
@@ -1524,25 +1532,35 @@ def dqn_act(q: torch.Tensor, act_key=None, eps_key=None, epsilon: float = 0.0,
     if return_draws and not explore:
         raise ValueError("return_draws needs the random keys")
     _check_counters(env_offset, B, 1)
-    k_hi, k_lo = threefry.split(np.asarray(act_key if explore else (0, 0), dtype=np.uint32))
+    ak = np.asarray(act_key if explore else (0, 0), dtype=np.uint32)
     ek = np.asarray(eps_key if explore else (0, 0), dtype=np.uint32)
-    _, multiplier = threefry.randint_span(A)
     action = torch.empty((B,), dtype=torch.int32, device=device)
     random_a = torch.empty((B,), dtype=torch.int32, device=device) if return_draws else None
     eps_u = torch.empty((B,), dtype=torch.float32, device=device) if return_draws else None
     out = (action, random_a, eps_u) if return_draws else action
     if B == 0:
         return out
-    params = _DqnActParams(A, int(explore), int(k_hi[0]), int(k_hi[1]), int(k_lo[0]),
-                           int(k_lo[1]), multiplier, int(ek[0]), int(ek[1]),
+    params = _DqnActParams(A, int(ak[0]), int(ak[1]), int(ek[0]), int(ek[1]),
                            float(np.float32(epsilon)), int(env_offset))
     rc = _lib("dqn_act").dqn_act_launch(
         q.data_ptr(), action.data_ptr(), random_a.data_ptr() if return_draws else None,
-        eps_u.data_ptr() if return_draws else None, B, ctypes.byref(params), _stream(device),
+        eps_u.data_ptr() if return_draws else None, B, int(explore), ctypes.byref(params),
+        _stream(device),
     )
     _check(rc, "dqn_act")
     LAUNCHES["dqn_act"] += 1
     return out
+
+
+def dqn_act_shape(B: int, A: int = 8) -> dict:
+    """The shape of ``dqn_act``'s launch for a batch of B rows of A values:
+    threads (envs) a block, 32 to 128 (128, or where B gives the card's SMs
+    fewer each, as many whole warps as give every SM a block), blocks, and
+    the build's action count (8, or 0 for the build that takes any A);
+    needs a card."""
+    vals = (ctypes.c_int * 3)()
+    _check(_lib("dqn_act").dqn_act_shape(B, A, ctypes.addressof(vals)), "dqn_act_shape")
+    return dict(zip(("threads_per_block", "blocks", "build_actions"), list(vals)))
 
 
 # ---------------------------------------------------------------------------
@@ -2257,7 +2275,9 @@ def fn_step(state, action: torch.Tensor, config: EnvConfig, pieces: PieceSet, qu
 
 def fn_reset(keys: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind: str = "bag"):
     """Launch ``fn_reset``: ``(keys uint32[B, 2], state, obs int8[B, height,
-    width])``, fresh episodes from per-env keys ``uint32[B, 2]``."""
+    width])``, fresh episodes from per-env keys ``uint32[B, 2]``.  The board
+    and the observation go out as streams of 16-byte words beside one short
+    RNG chain an env (:func:`fn_reset_shape`)."""
     device = keys.device
     defines = fn_defines(config, pieces)
     uniform = _queue_uniform(queue_kind)
@@ -2266,6 +2286,8 @@ def fn_reset(keys: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind
     keys = keys.contiguous()
     B = keys.shape[0]
     _check_tensor(keys, "keys", torch.uint32, (B, 2), device)
+    if keys.data_ptr() % 8:
+        keys = keys.clone()
     keys_out = torch.empty_like(keys)
     out = _empty(fn_env.FnState, _fn_shapes(config, B), _FN_DTYPES, device)
     obs = torch.empty((B, config.height, config.width), dtype=torch.int8, device=device)
@@ -2279,6 +2301,18 @@ def fn_reset(keys: torch.Tensor, config: EnvConfig, pieces: PieceSet, queue_kind
     _check(rc, "fn_reset")
     LAUNCHES["fn_reset"] += 1
     return keys_out, out, obs
+
+
+def fn_reset_shape(config: EnvConfig, pieces: PieceSet, B: int) -> dict:
+    """The shape of ``fn_reset``'s launch for a batch of B at ``config``:
+    envs a block (``min(E, ceil(B / SMs))``, E the largest power of two up
+    to 128 whose boards and observations take at most 128 KB, 64 at 30x20,
+    rounded up to ``env_align``, the envs whose boards and observations are
+    whole 16-byte words), threads and blocks; needs a card."""
+    vals = (ctypes.c_int * 4)()
+    _check(_lib("fn_env", fn_defines(config, pieces)).fn_reset_shape(B, ctypes.addressof(vals)),
+           "fn_reset_shape")
+    return dict(zip(("envs_per_block", "threads_per_block", "blocks", "env_align"), list(vals)))
 
 
 def fn_observe(state, config: EnvConfig, pieces: PieceSet) -> torch.Tensor:

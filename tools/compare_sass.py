@@ -5,7 +5,9 @@
                                  [--geometries 10x20,30x20,61x12]
 
 Builds each source of ``--sources`` at each geometry in this tree and in the
-tree under ``DIR`` (each into its own ``build/``), dumps every kernel's SASS
+tree under ``DIR`` (each into its own ``build/``; ``fn_env`` at the compat
+``EnvConfig`` of the geometry: ``10x20``, ``30x20`` and ``8x12-pad2``, 8x12
+with padding 2), dumps every kernel's SASS
 with ``cuobjdump -sass`` and compares each kernel of the other tree with
 this tree's kernel of the same name and template arguments, where a
 template argument this tree added (a trailing ``bool``, such as a sampling
@@ -26,6 +28,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRIES = {"10x20": {}, "30x20": dict(width=30, height=20), "61x12": dict(width=61, height=12, queue_size=3)}
+FN_GEOMETRIES = {"10x20": {}, "30x20": dict(width=30), "8x12-pad2": dict(width=8, height=12, padding=2)}
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.MULTILINE)
 # a kernel's base name and its template's int and bool arguments (Itanium
@@ -44,9 +47,13 @@ def _kernels_of(repo, source, kw):
         from tetris_gymnasium_torch.ops import bitboard as bb
         from tetris_gymnasium_torch.pieces import PIECES
 
-        cfg = EngineConfig(**kw)
-        defines = kernels.engine_defines(cfg, bb.turbo_tables(PIECES),
-                                         flagship=source in kernels.FLAGSHIP_SOURCES)
+        if source == "fn_env":
+            from tetris_gymnasium_torch.config import EnvConfig
+
+            defines = kernels.fn_defines(EnvConfig(**kw), PIECES)
+        else:
+            defines = kernels.engine_defines(EngineConfig(**kw), bb.turbo_tables(PIECES),
+                                             flagship=source in kernels.FLAGSHIP_SOURCES)
         kernels._compile(source, defines)
         lib = str(kernels._lib_path(kernels.SOURCES[source], defines))
     finally:
@@ -80,8 +87,9 @@ def main() -> None:
     result = {}
     for source in args.sources.split(","):
         for geo in args.geometries.split(","):
-            mine = _kernels_of(HERE, source, GEOMETRIES[geo])
-            theirs = _kernels_of(other, source, GEOMETRIES[geo])
+            kw = (FN_GEOMETRIES if source == "fn_env" else GEOMETRIES)[geo]
+            mine = _kernels_of(HERE, source, kw)
+            theirs = _kernels_of(other, source, kw)
             pairs = {}
             for (base, targs), lines in theirs.items():
                 match = [k for k in mine if k[0] == base and k[1][:len(targs)] == targs

@@ -4,7 +4,7 @@
 shapes the earlier slices time them, for the port found under ``--repo``:
 
     python tools/time_fn_replay_kernels.py [--repo DIR] [--label NAME] [--ptxas] [--ablate]
-        [--kernels fn,stacked,add,sample]
+        [--kernels fn,stacked,add,sample,act,reset]
 
 ``fn_step`` at 10x20 on live states (8 steps into a fresh rollout, as
 ``chip_smoke.py`` phase 43) and on frozen ones, ``fn_reset`` and
@@ -33,10 +33,24 @@ their successors from its full 131,072-entry buffer of 2249-byte entries
 grouped buffer's 256 without successors (``buffers.sample``), each beside
 its byte bound (every entry and successor read once and written once);
 as a yardstick, one ``torch.index_select`` of the obs field's rows given
-their indices.  Each
+their indices.  ``act``: ``dqn_act`` at A = 8 with keys at ``ACT_B`` (the
+DQN paths' 512 and 1024, ``--train dqn``'s 32768 a rank at W = 2, and
+65536), its greedy launch at ``ACT_GREEDY_B`` beside ``torch.argmax(q,
+-1)``, its ``call_ms`` with keys at 512 and 1024 (the host time of a
+Python call: CUDA events around 200 calls on an idle card), A = 5 and 40
+at 1024, each beside its byte bound (4 A read and 4 written an env), and
+the DQN steps' ``act`` part (the split of the step's key, the Q forward
+and ``dqn.act``, between ``make_train_step``'s marks, before learning) of
+the board DQN (K = 4, 1024 envs) and the pixel DQN (512 envs).
+``reset``: ``fn_reset`` at ``RESET_CASES`` (10x20 at B = 1, 8192 and
+65536; 30x20 and 8x12 with padding 2 at 8192 and 65536; the uniform queue
+of 5 at 8192) beside its byte bound (the key read; the returned key, the
+state and the observation written).  Each
 the median over 7 replays of a CUDA graph of 100 launches (10 at 65536, 5
 for the pixel replay at 65536).  ``--kernels`` times only the kernels it
-names (all four by default).  What the other tree lacks is skipped.
+names (fn, stacked, add and sample by default).  What the other tree lacks
+is skipped; the launch floor (``torch.cuda._sleep(0)``) is timed in every
+run.
 
 With ``--ptxas`` it first builds ``fn_env.cu`` at 10x20, 30x20 and 8x12
 with padding 2 (where ``--kernels`` names fn) and ``replay.cu``, and
@@ -44,10 +58,11 @@ prints each kernel's registers, spills and shared memory, and each
 ``fn_step`` build's blocks an SM
 (``kernels.fn_step_occupancy``).  With ``--ablate`` it times, in place of
 all that, ``fn_step`` at 10x20 (B = 1, 8192, 65536), the pixel replay (n =
-512, 65536), ``replay_add`` at its four shapes and ``replay_sample`` at
-``SAMPLE_CASES`` beside patched copies of
-their sources that each skip one part (``ABLATIONS``, by kernel: the
-variants whose patches the tree at ``--repo`` holds; built under
+512, 65536), ``replay_add`` at its four shapes, ``replay_sample`` at
+``SAMPLE_CASES``, ``dqn_act`` at 512, 1024 and 65536 (keys and greedy; A = 5 and 40 at
+1024) and ``fn_reset`` at ``RESET_ABLATE_CASES`` beside patched copies of
+their sources that each skip one part (``ABLATIONS``, by kernel; the tool
+stops where the tree at ``--repo`` does not hold a patch's text; built under
 ``DIR/build/ablate/``): their games and frames are wrong by design, only
 their times mean anything.  Prints one JSON line
 with the card's name and power limit.  To compare two trees on one card,
@@ -78,14 +93,19 @@ ADD_CASES = (("pixel", 512), ("grouped", 1024), ("board", 1024), ("pixel", 65536
 # replay_sample: (buffer, samples, with successors)
 SAMPLE_CASES = (("grouped", 256, True), ("board", 512, True), ("grouped", 65536, True),
                 ("board", 65536, True), ("grouped", 256, False))
+ACT_B = (512, 1024, 32768, 65536)
+ACT_GREEDY_B = (512, 1024, 65536)
+ACT_CALL_B = (512, 1024)
+ACT_OTHER_A = (5, 40)  # at 1024
+ACT_ABLATE_B = (512, 1024, 65536)
+RESET_CASES = (("10x20", 1), ("10x20", 8192), ("10x20", 65536), ("30x20", 8192), ("30x20", 65536),
+               ("8x12-pad2", 8192), ("8x12-pad2", 65536), ("uniform5", 8192))
+RESET_ABLATE_CASES = (("10x20", 1), ("10x20", 8192), ("10x20", 65536), ("30x20", 8192), ("30x20", 65536),
+                      ("8x12-pad2", 65536))
 
 # --ablate's patched copies: (kernel, source, variant, [(text, replacement), ...]);
-# a variant runs where the tree's source holds each of its texts once.
+# the tree's source must hold each text once.
 _NO_LOGIC = ("    if (!over_in) {\n      uint64_t m = ", "    if (false) {\n      uint64_t m = ")
-_SAMPLE_NO_DRAW = ("    const long long idx = s < p.n ? draw_anchor(p, s, offsets) : 0;",
-                   "    const long long idx = s < p.n ? s % p.capacity : 0;")
-_SAMPLE_OBS_ONLY = ("  for (int j = 0; j < fields.n; ++j) gather_field(fields.f[j], rows, first, n_rows, p.n);",
-                    "  for (int j = 0; j < 1; ++j) gather_field(fields.f[j], rows, first, n_rows, p.n);")
 # replay_sample, units of a sample's words: the draw, the loads (the stores
 # write what the address was), the stores or everything (the launch alone)
 # left out; and other shapes (not ablations: their samples are right): a
@@ -135,30 +155,79 @@ ABLATIONS = [
     ("stacked", "replay", "no_staging", [
         ("    bulk::arrive_expect(&bar, m.slots * row);\n    for (int i = 0; i < m.slots; ++i)",
          "    bulk::arrive_expect(&bar, 0);\n    for (int i = 0; i < 0; ++i)")]),
-    # replay_add with a (blocks, fields) grid: the blocks of every field but
-    # the first return at once
-    ("add", "replay", "obs_only", [("  const ReplayField& f = fields.f[blockIdx.y];\n",
-                                    "  if (blockIdx.y != 0) return;\n  const ReplayField& f = fields.f[blockIdx.y];\n")]),
     # replay_add on the flat grid: at most 2048 and 131072 blocks a field of words
     ("add", "replay", "runs2048", [("constexpr int kAddMaxRuns = 32768;", "constexpr int kAddMaxRuns = 2048;")]),
     ("add", "replay", "runs131072", [("constexpr int kAddMaxRuns = 32768;", "constexpr int kAddMaxRuns = 131072;")]),
-    # replay_sample, a block of 4 samples: no threefry draw (entry s), then
-    # every field but obs left out, then both
-    ("sample", "replay", "no_draw", [_SAMPLE_NO_DRAW]),
-    ("sample", "replay", "obs_only", [_SAMPLE_OBS_ONLY]),
-    ("sample", "replay", "no_draw_obs_only", [_SAMPLE_NO_DRAW, _SAMPLE_OBS_ONLY]),
-] + _SAMPLE_GROUP_ABLATIONS
+] + _SAMPLE_GROUP_ABLATIONS + [
+    # dqn_act's A = 8 build: the row's loads (values from the env index),
+    # the draws (the split, the randint bits and the uniform from the
+    # counter), the split alone (the action key used as the low half),
+    # everything (the launch alone)
+    ("act", "dqn_act", "act_no_loads",
+     [("    if (p.vec) {  // the row's two 16-byte words, both in flight", "    if (false) {"),
+      ("      for (int a = 0; a < 8; ++a) v[a] = __ldg(qb + a);",
+       "      for (int a = 0; a < 8; ++a) v[a] = static_cast<float>((b * 7 + a * 13) & 15);")]),
+    ("act", "dqn_act", "act_no_draws",
+     [("      const uint2 k_lo = tf::block(p.act_k0, p.act_k1, 0u, 1u);  // split(act_key)[1]\n"
+       "      random_a = static_cast<int>(tf::bits(k_lo.x, k_lo.y, 0u, c) % kA);",
+       "      random_a = static_cast<int>((c * 2654435761u) % kA);"),
+      ("    const float u = tf::uniform(tf::bits(p.eps_k0, p.eps_k1, 0u, c), 0.0f, 1.0f);",
+       "    const float u = tf::uniform(c * 40503u, 0.0f, 1.0f);")]),
+    ("act", "dqn_act", "act_no_split",
+     [("      const uint2 k_lo = tf::block(p.act_k0, p.act_k1, 0u, 1u);  // split(act_key)[1]",
+       "      const uint2 k_lo = make_uint2(p.act_k0, p.act_k1);")]),
+    ("act", "dqn_act", "act_empty",
+     [("  const int b = blockIdx.x * blockDim.x + threadIdx.x;\n  if (b >= B) return;",
+       "  const int b = blockIdx.x * blockDim.x + threadIdx.x;\n  if (B > 0) return;")]),
+    # fn_reset: the board stream, the observation's zero words, the words
+    # the pieces touch, the chain (the key's halves and queue from the key
+    # as it is), the queue tile's store, the first design's insertion sort
+    # in place of the ranks, everything (the launch alone)
+    ("reset", "fn_env", "reset_no_board", [("  if (si < SB) {", "  if (false) {")]),
+    ("reset", "fn_env", "reset_no_obs_stream",
+     [("    if (!piece_word(16 * i)) reinterpret_cast<uint4*>(obs)[i]",
+       "    if (false) reinterpret_cast<uint4*>(obs)[i]")]),
+    ("reset", "fn_env", "reset_no_piece_words",
+     [("    if (w > (e * OBS + kWinHi - 1) / 16 || w >= full) continue;",
+       "    if (w > (e * OBS + kWinHi - 1) / 16 || w >= full || w >= 0) continue;")]),
+    ("reset", "fn_env", "reset_no_chain",
+     [("  const uint2 first = tf::block(key.x, key.y, 0u, 0u), second = tf::block(key.x, key.y, 0u, 1u);",
+       "  const uint2 first = key, second = make_uint2(key.y, key.x);"),
+      ("  ranked_queue(first, uniform, q);",
+       "#pragma unroll\n  for (int j = 0; j < QS; ++j) q[j] = (first.x >> j) & 3;")]),
+    ("reset", "fn_env", "reset_no_queue_tile",
+     [("  store_ints(out.queue + b0 * QS, tile, m * QS, lane);",
+       "  if (m < 0) store_ints(out.queue + b0 * QS, tile, m * QS, lane);")]),
+    ("reset", "fn_env", "reset_insertion_sort",
+     [("  ranked_queue(first, uniform, q);", "  fresh_queue(first.x, first.y, uniform, q);")]),
+    # fn_reset at most 64 or 128 envs a block at every geometry (shapes, not ablations)
+    ("reset", "fn_env", "reset_envs64", [("constexpr int kResetMaxEnvs = pow2_floor(131072 / (CELLS + OBS)) < 128 ? pow2_floor(131072 / (CELLS + OBS)) : 128;", "constexpr int kResetMaxEnvs = 64;")]),
+    ("reset", "fn_env", "reset_envs128", [("constexpr int kResetMaxEnvs = pow2_floor(131072 / (CELLS + OBS)) < 128 ? pow2_floor(131072 / (CELLS + OBS)) : 128;", "constexpr int kResetMaxEnvs = 128;")]),
+    # fn_reset: the env warps stream their share too, after their chains (a shape)
+    ("reset", "fn_env", "reset_env_warps_stream",
+     [("  else\n    stream_reset(out.board + base * CELLS, obs + base * OBS, n, t - first, kResetThreads - first);",
+       "  stream_reset(out.board + base * CELLS, obs + base * OBS, n, t, kResetThreads + 0 * first);")]),
+    ("reset", "fn_env", "reset_empty",
+     [("  const int t = threadIdx.x, warp = t / 32, lane = t % 32;\n  const long long base",
+       "  if (B > 0) return;\n  const int t = threadIdx.x, warp = t / 32, lane = t % 32;\n  const long long base")]),
+]
 
 
 def _ablations(repo, chosen):
-    """The variants of ``ABLATIONS`` for the kernels in ``chosen`` whose
-    patches the tree at ``repo`` holds."""
-    out = []
+    """The variants of ``ABLATIONS`` for the kernels in ``chosen``; stops
+    where the tree at ``repo`` does not hold each patch's text once."""
+    out, missing = [], []
     for kernel, source, variant, patches in ABLATIONS:
+        if kernel not in chosen:
+            continue
         with open(os.path.join(repo, "tetris_gymnasium_torch", "csrc", f"{source}.cu")) as f:
             text = f.read()
-        if kernel in chosen and all(text.count(old) == 1 for old, _ in patches):
+        if all(text.count(old) == 1 for old, _ in patches):
             out.append((kernel, source, variant, patches))
+        else:
+            missing.append(variant)
+    if missing:
+        raise SystemExit(f"time_fn_replay_kernels: ablations {missing} do not match the sources")
     return out
 
 
@@ -175,7 +244,8 @@ def _patched_libs(repo, kernels, jobs):
             if text.count(old) != 1:
                 raise SystemExit(f"time_fn_replay_kernels: {source}.cu does not hold {old!r} once")
             text = text.replace(old, new)
-        d = os.path.join(repo, "build", "ablate", f"{source}_{variant}")
+        tag = "_".join(str(v) for _, v in defines)
+        d = os.path.join(repo, "build", "ablate", f"{source}_{variant}" + (f"_{tag}" if tag else ""))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d)
         path, so = os.path.join(d, f"{source}.cu"), os.path.join(d, f"{source}.so")
@@ -187,7 +257,7 @@ def _patched_libs(repo, kernels, jobs):
             raise RuntimeError(f"nvcc failed for {source} {variant}:\n{r.stderr[-3000:]}")
         return so
 
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+    with ThreadPoolExecutor(max_workers=min(16, len(jobs))) as pool:  # more nvcc at once have crashed
         return list(pool.map(build, jobs))
 
 
@@ -210,11 +280,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("time_fn_replay_kernels: needs a CUDA card")
     chosen = set(args.kernels.split(","))
-    if not chosen <= {"fn", "stacked", "add", "sample"}:
-        raise SystemExit("time_fn_replay_kernels: --kernels takes fn, stacked, add and sample")
+    if not chosen <= {"fn", "stacked", "add", "sample", "act", "reset"}:
+        raise SystemExit("time_fn_replay_kernels: --kernels takes fn, stacked, add, sample, act and reset")
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
-    from chip_smoke import device_ms
+    from chip_smoke import call_ms, device_ms
     from tetris_gymnasium_torch import kernels
     from tetris_gymnasium_torch.config import EnvConfig
     from tetris_gymnasium_torch.core import fn_env
@@ -222,7 +292,7 @@ def main() -> None:
     from tetris_gymnasium_torch.ops.threefry import prng_key
     from tetris_gymnasium_torch.parallel.mesh import batch_keys
     from tetris_gymnasium_torch.pieces import PIECES
-    from tetris_gymnasium_torch.rl import buffers
+    from tetris_gymnasium_torch.rl import buffers, dqn
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -231,19 +301,25 @@ def main() -> None:
     g.manual_seed(43)
     geos = {"10x20": EnvConfig(), "30x20": EnvConfig(width=30),
             "8x12-pad2": EnvConfig(width=8, height=12, padding=2)}
+    reset_geos = {**geos, "uniform5": EnvConfig(queue_size=5)}
     fn_builds = getattr(kernels, "FN_STEP_BUILDS", ())
     replay_builds = getattr(kernels, "REPLAY_STACKED_BUILDS", ())
     builds = {}
     if args.ptxas:
-        jobs = [("fn_env", kernels.fn_defines(c, PIECES)) for c in geos.values()] if "fn" in chosen else []
+        fn_geos = geos if chosen & {"fn", "reset"} else {}
+        jobs = [("fn_env", kernels.fn_defines(c, PIECES)) for c in fn_geos.values()]
         jobs.append(("replay", ()))
+        names = [*fn_geos, "replay"]
+        if "act" in chosen:
+            jobs.append(("dqn_act", ()))
+            names.append("dqn_act")
         for job in jobs:  # ptxas speaks only when it compiles
             path = kernels._lib_path(kernels.SOURCES[job[0]], job[1])
             if path.exists():
                 path.unlink()
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             facts = list(pool.map(lambda job: kernels._compile(*job), jobs))
-        for name, f in zip([*(geos if "fn" in chosen else ()), "replay"], facts):
+        for name, f in zip(names, facts):
             builds[name] = {"ptxas": [l.strip() for l in f["ptxas"].splitlines()
                                       if "registers" in l or "spill" in l or "Compiling" in l
                                       or "smem" in l]}
@@ -355,6 +431,67 @@ def main() -> None:
             out[f"obs_copy{tag}"] = device_ms(lambda: dst.copy_(blk["obs"]), reps)
         return out
 
+    def act_case(B, A=8):
+        q = torch.randn((B, A), generator=g, device=dev)
+        act_key, eps_key = threefry.split(threefry.prng_key(B + A))
+        return q, act_key, eps_key
+
+    def act_times(B, A, tag, reps, greedy=True, host=False, yardstick=True):
+        q, act_key, eps_key = act_case(B, A)
+        out = {f"dqn_act{tag}": device_ms(lambda: kernels.dqn_act(q, act_key, eps_key, 0.3), reps)}
+        if greedy:
+            out[f"dqn_act_greedy{tag}"] = device_ms(lambda: kernels.dqn_act(q), reps)
+        if host:  # a Python call's host time, the wrapper's work included
+            out[f"dqn_act_call{tag}"] = call_ms(lambda: kernels.dqn_act(q, act_key, eps_key, 0.3), 200)
+        if yardstick:
+            out[f"dqn_act_bound{tag}"] = 1e3 * B * (4 * A + 4) / 3.35e12
+            if greedy:
+                out[f"argmax{tag}"] = device_ms(lambda: torch.argmax(q, -1), reps)
+        return out
+
+    def act_part(obs_kind, B):
+        """Mean ms of the DQN step's act part (before learning) on this tree."""
+        from tetris_gymnasium_torch.config import EngineConfig
+
+        cfg = dqn.DQNConfig(buffer_size=16 * B, learning_starts=10**9, exploration_steps=1000,
+                            frame_stack=4)
+        impl = "flagship" if obs_kind == "rgb84" else "turbo"
+        env_config = EngineConfig(auto_reset=True)
+        ts = dqn.init_dqn_state(prng_key(7), B, env_config, cfg, impl=impl, obs=obs_kind, device=dev)
+        events = []
+
+        def mark(name):
+            if name in ("start", "act"):
+                if name == "start":
+                    events.append({})
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events[-1][name] = ev
+
+        step = dqn.make_train_step(env_config, cfg, impl=impl, obs=obs_kind, marks=mark)
+        for _ in range(60):
+            ts, _ = step(ts)
+        torch.cuda.synchronize()
+        ms = [e["start"].elapsed_time(e["act"]) for e in events[10:]]
+        del ts
+        torch.cuda.empty_cache()
+        return sum(ms) / len(ms)
+
+    def reset_bytes(cfg, B):
+        state = 8 + cfg.padded_height * cfg.padded_width + 4 * 5 + 4 * cfg.queue_size + 1 + 4
+        return B * (8 + 8 + state + cfg.height * cfg.width)
+
+    def reset_times(name, B, tag, reps, yardstick=True):
+        cfg = reset_geos[name]
+        kind = "uniform" if name == "uniform5" else "bag"
+        keys = batch_keys(prng_key(43), B, device=dev)
+        out = {f"fn_reset{tag}": device_ms(lambda: kernels.fn_reset(keys, cfg, PIECES, kind), reps)}
+        if yardstick and hasattr(kernels, "fn_reset_shape"):
+            out[f"fn_reset_shape{tag}"] = kernels.fn_reset_shape(cfg, PIECES, B)
+        if yardstick:
+            out[f"fn_reset_bound{tag}"] = 1e3 * reset_bytes(cfg, B) / 3.35e12
+        return out
+
     out = {"floor": device_ms(lambda: torch.cuda._sleep(0), 200)}
     if args.ablate:
         cfg = geos["10x20"]
@@ -375,6 +512,17 @@ def main() -> None:
                     res.update({f"replay_sample_{variant}@{kind}@{n}{'' if with_next else '@nonext'}": v
                                 for v in sample_times(samples[kind], n, with_next, "", 10 if n >= 65536 else 100,
                                                       yardstick=False).values()})
+            elif kernel == "act":
+                for B in ACT_ABLATE_B:
+                    res.update({f"{k}_{variant}": v for k, v in act_times(
+                        B, 8, f"@{B}", 100, yardstick=False).items()})
+                for A in ACT_OTHER_A:
+                    res.update({f"{k}_{variant}": v for k, v in act_times(
+                        1024, A, f"@A{A}@1024", 100, yardstick=False).items()})
+            elif kernel == "reset":
+                for name, B in RESET_ABLATE_CASES:
+                    res.update({f"{k}_{variant}": v for k, v in reset_times(
+                        name, B, f"@{name}@{B}", 100, yardstick=False).items()})
             elif kernel == "stacked":
                 for n in REPLAY_N:
                     res.update({f"{k}_{variant}": v for k, v in replay_times(
@@ -386,16 +534,23 @@ def main() -> None:
                         buf, blk, "", 10 if B >= 65536 else 100, yardstick=False).values()})
             return res
 
-        for kernel in ("fn", "stacked", "add", "sample"):
+        for kernel in ("fn", "stacked", "add", "sample", "act", "reset"):
             if kernel in chosen:
                 out.update(time_all("full", kernel))
-        jobs = [(kernel, src, variant, patches, fn_def if src == "fn_env" else ())
+        # a variant's builds: fn_env at 10x20, and for reset at each geometry it times
+        reset_defs = list(dict.fromkeys(kernels.fn_defines(reset_geos[name], PIECES)
+                                        for name, _ in RESET_ABLATE_CASES))
+        jobs = [(kernel, src, variant, patches,
+                 (reset_defs if kernel == "reset" else [fn_def]) if src == "fn_env" else [()])
                 for kernel, src, variant, patches in _ablations(repo, chosen)]
-        libs = _patched_libs(repo, kernels, [j[1:] for j in jobs]) if jobs else []
-        for (kernel, src, variant, _, defines), so in zip(jobs, libs):
-            _load(kernels, so, src, defines)
+        flat = [(src, variant, patches, d) for _, src, variant, patches, defs in jobs for d in defs]
+        libs = iter(_patched_libs(repo, kernels, flat)) if flat else iter(())
+        for kernel, src, variant, _, defs in jobs:
+            for d in defs:
+                _load(kernels, next(libs), src, d)
             out.update(time_all(variant, kernel))
-            kernels._LIBS.pop((src, defines))  # back to the unpatched build
+            for d in defs:
+                kernels._LIBS.pop((src, d))  # back to the unpatched build
         print(json.dumps({"label": args.label, "nvidia_smi": smi, "ablate_ms": out}), flush=True)
         return
 
@@ -415,6 +570,17 @@ def main() -> None:
                 s, a = live(geos[name], B)
                 out.update(fn_times(geos[name], s, a, f"@{name}@{B}", 10 if B >= 65536 else 100, frozen=False))
                 del s, a
+        torch.cuda.empty_cache()
+    if "act" in chosen:
+        for B in ACT_B:
+            out.update(act_times(B, 8, f"@{B}", 100, greedy=B in ACT_GREEDY_B, host=B in ACT_CALL_B))
+        for A in ACT_OTHER_A:
+            out.update(act_times(1024, A, f"@A{A}@1024", 100, greedy=False))
+        out["act_part@board_k4@1024"] = act_part("board", 1024)
+        out["act_part@rgb84_k4@512"] = act_part("rgb84", 512)
+    if "reset" in chosen:
+        for name, B in RESET_CASES:
+            out.update(reset_times(name, B, f"@{name}@{B}", 100))
         torch.cuda.empty_cache()
     if "stacked" in chosen:
         for kind, frame, dtype, B in (("pixel", (84, 84), torch.uint8, 512), ("board", (20, 10), torch.int8, 1024)):
